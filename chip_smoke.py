@@ -11,17 +11,29 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
 1. the card and toolchain; build every CUDA kernel from ``csrc/`` (nvcc
    version and ``-Xptxas -v`` printed);
 2. each kernel against its plain PyTorch version on the card, at the
-   shapes of the LLaMA2-7B serving path;
-3. the engine's kernel path against its plain path: 7B width, 2 layers,
-   f32 compute, int8 KV, B=4 — logits within the f32 tolerance and equal
-   greedy tokens;
-4. the serving path at full width: ``BatchedEngine`` over 7B / INT8 /
-   fused QKV and gate|up / int8 KV / B=48 / S=512, 32 layers, synthetic
-   weights made on the card; 48 requests of a 43-token prompt and 128 new
-   tokens, greedy, decode chunk 64.  Launch counters are zeroed just
-   before and read just after; every kernel must have run.  Then one
-   16-step decode chunk is traced with ``torch.profiler`` (device time by
-   kernel, the device's idle share);
+   shapes of the LLaMA2-7B serving paths: the batched path's kernels, then
+   K1f (the matmul with the rmsnorm prologue / residual epilogue) at the
+   single-stream decode shapes and K2's non-fresh mode at B=1 through its
+   three wrappers;
+3. the engines' kernel paths against their plain paths at 7B width, 2
+   layers, f32 compute: the ``BatchedEngine`` (int8 KV, B=4) and the
+   single-stream ``Engine`` (f32 scales and KV: logits, 40 greedy tokens
+   with a tail chunk, a two-turn ``ChatSession``);
+4. the batched serving path at full width: ``BatchedEngine`` over 7B /
+   INT8 / fused QKV and gate|up / int8 KV / B=48 / S=512, 32 layers,
+   synthetic weights made on the card; 48 requests of a 43-token prompt
+   and 128 new tokens, greedy, decode chunk 64.  Launch counters are
+   zeroed just before and read just after; every kernel of the path must
+   have run.  Then one 16-step decode chunk is traced with
+   ``torch.profiler`` (device time by kernel, the device's idle share);
+4b. the single-stream serving path at full width (bench.py's
+   ``bench_single`` shape): ``Engine`` over 7B / INT8 / QKV and gate|up
+   fused once / bf16 scales ("auto") / bf16 KV / S=512, the 43-token
+   prompt, 128 new tokens, greedy, decode chunk 64, one warm-up and one
+   measured run with the counters zeroed just before; one decode chunk
+   traced.  Then the ``flash_attention=False`` engine and a ``forward``
+   with the one-layer attention hook, each with the counters zeroed, so
+   that every wrapper of K2's non-fresh mode runs on a path;
 5. each kernel timed with CUDA events at the path's shapes, beside its
    bound, its plain version and a library call.
 
@@ -33,6 +45,7 @@ without printing a result when no CUDA device is available.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -86,12 +99,25 @@ def compare(name, got, want, tol):
 
 
 def time_ms(fn, iters=20, warmup=3) -> float:
+    """Device ms per call.  A short kernel finishes before Python has
+    queued the next one, so events around back-to-back calls would time
+    the host.  The device is first held in a sleep kernel longer than the
+    host takes to queue all the calls (measured on a dry pass), so the
+    timed calls run back to back on the device."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    h0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_s = time.perf_counter() - h0
+    torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
+    # cycles at 2 GHz, above the H100's top SM clock: the sleep lasts at
+    # least this long
+    torch.cuda._sleep(int((2 * host_s + 2e-3) * 2e9))
     t0.record()
     for _ in range(iters):
         fn()
@@ -144,9 +170,7 @@ def phase_kernels(dev, rec):
     from fastllama_tpu_torch.ops.kernels import qmm
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
-    errs = {"qmatmul_pallas": 0.0, "qmatmul_pallas_indexed": 0.0,
-            "flash_decode_batched": 0.0, "decode_write": 0.0,
-            "prefill_write": 0.0}
+    errs = {name: 0.0 for name in KERNELS}
 
     log("phase 2a: K1 group-dequant matmul vs plain")
     for name, (I, O) in PROJ_7B.items():
@@ -290,7 +314,88 @@ def phase_kernels(dev, rec):
                 f"(duplicate slots) bit-equal")
         del a, b, base
     torch.cuda.empty_cache()
+    check_fused(dev, gen, errs)
+    check_non_fresh(dev, gen, errs)
     rec["max_abs_err"] = errs
+
+
+def check_fused(dev, gen, errs):
+    """K1f at the single-stream 7B decode shapes (T=1), layer 1 of a
+    stacked (2, I, O) weight: bf16 compute with bf16 scales (the measured
+    path) and f32 compute with f32 scales (phase 3's path); then a
+    mid-sequence block (T=64) with both the norm and the residual."""
+    import torch
+    from fastllama_tpu_torch.config import QuantType
+    from fastllama_tpu_torch.ops.kernels import qmm
+    log("phase 2d: K1f fused-glue matmul vs plain (7B decode shapes)")
+    cases = [("wqkv", 1, True, False), ("wo", 1, False, True),
+             ("w13", 1, True, False), ("w2", 1, False, True),
+             ("wqkv", 64, True, True)]
+    for name, T, norm, res in cases:
+        I, O = PROJ_7B[name]
+        for cdt, tol in ((torch.bfloat16, TOL_BF16),
+                         (torch.float32, TOL_F32)):
+            w = rand_qarray(gen, (2, I, O), QuantType.INT8, dev,
+                            torch.bfloat16 if cdt == torch.bfloat16
+                            else None)
+            x = torch.randn((T, I), generator=gen, device=dev).to(cdt)
+            g = torch.rand((I,), generator=gen, device=dev) + 0.5
+            r = torch.randn((T, O), generator=gen, device=dev).to(cdt)
+            kw = dict(norm_gain=g if norm else None, eps=1e-5,
+                      residual=r if res else None)
+            got = qmm.qmatmul_pallas_indexed(x, w, 1, cdt, **kw)
+            want = qmm.qmm_fused_plain(x, w[1], cdt, **kw)
+            glue = "+".join(k for k, on in (("norm", norm), ("residual", res))
+                            if on)
+            e = compare(f"qmm_fused {name}[1] {glue} T={T} "
+                        f"{str(cdt)[6:]}", got, want, tol)
+            errs["qmatmul_pallas_indexed_fused"] = max(
+                errs["qmatmul_pallas_indexed_fused"], e)
+            del w
+    torch.cuda.empty_cache()
+
+
+def check_non_fresh(dev, gen, errs):
+    """K2 without fresh rows (rows [0, pos] of a cache that already holds
+    the current row) through each of its wrappers, 7B heads, B=1, S=512,
+    f32 and bf16 caches, at pos 0, 1, 107 and S-1; and the batched form
+    over per-slot positions."""
+    import torch
+    from fastllama_tpu_torch.ops.kernels import attention as at
+    from fastllama_tpu_torch.ops.kernels import flash_decode as fd
+    log("phase 2e: K2 non-fresh flash decode vs plain (B=1)")
+    S, L, H, n_kv, hs = 512, 2, 32, 32, 128
+    for cdt, tol in ((torch.bfloat16, TOL_BF16), (torch.float32, TOL_F32)):
+        ck = torch.randn((L, n_kv, S, hs), generator=gen, device=dev).to(cdt)
+        cv = torch.randn((L, n_kv, S, hs), generator=gen, device=dev).to(cdt)
+        q = torch.randn((H, 1, hs), generator=gen, device=dev).to(cdt)
+        for p in (0, 1, 107, S - 1):
+            pos = torch.full((1,), p, dtype=torch.int32, device=dev)
+            for name, fn, args, plain, pargs in (
+                    ("flash_decode_single", fd.flash_decode_single,
+                     (q, ck, cv, pos, 1), fd.flash_decode_single_plain,
+                     (q, ck, cv, pos, 1)),
+                    ("decode_attention_pallas_indexed",
+                     at.decode_attention_pallas_indexed, (q, ck, cv, pos, 1),
+                     fd.flash_decode_single_plain, (q, ck, cv, pos, 1)),
+                    ("decode_attention_pallas", at.decode_attention_pallas,
+                     (q, ck[1], cv[1], p), at.decode_attention_plain,
+                     (q, ck[1], cv[1], p))):
+                e = compare(f"{name} cache={str(cdt)[6:]} pos={p}",
+                            fn(*args), plain(*pargs), tol)
+                errs[name] = max(errs[name], e)
+        B = 4
+        ckb = ck[:, None].expand(L, B, n_kv, S, hs).contiguous()
+        cvb = cv[:, None].expand(L, B, n_kv, S, hs).contiguous()
+        qb = torch.randn((B, H, 1, hs), generator=gen, device=dev).to(cdt)
+        pos = torch.tensor([0, 1, 107, S - 1], dtype=torch.int32, device=dev)
+        e = compare(f"flash_decode_batched non-fresh B={B} "
+                    f"cache={str(cdt)[6:]}",
+                    fd.flash_decode_batched(qb, ckb, cvb, pos, 1),
+                    fd.flash_decode_plain(qb, ckb, cvb, pos, 1), tol)
+        errs["flash_decode_single"] = max(errs["flash_decode_single"], e)
+        del ck, cv, ckb, cvb
+    torch.cuda.empty_cache()
 
 
 # -- phase 3: engine, kernel path against plain path ------------------------
@@ -394,21 +499,131 @@ def phase_engine_parity(dev, rec):
     torch.cuda.empty_cache()
 
 
+def phase_single_parity(dev, rec):
+    """The single-stream engine's kernel path (K1f, K2 non-fresh, K1)
+    against its plain path: 7B width, 2 layers, f32 compute, f32 scales,
+    f32 KV.  Logits of a prefill, a mid-sequence block and a decode step
+    within the f32 tolerance; equal greedy tokens over 40 new tokens in
+    chunks of 16 (a tail chunk of 7 runs); one two-turn ChatSession."""
+    import torch
+    from fastllama_tpu_torch.config import EngineConfig
+    from fastllama_tpu_torch.loaders.tokenizer import \
+        build_byte_fallback_vocab
+    from fastllama_tpu_torch.models.llama import (KVCache, forward,
+                                                  random_params_int)
+    from fastllama_tpu_torch.runtime.engine import ChatSession, Engine
+    log("phase 3b: single-stream Engine kernel path vs plain path (7B "
+        "width, 2 layers, f32 compute, f32 scales, f32 KV)")
+    cfg = cfg_7b(n_layers=2)
+    params = random_params_int(cfg, seed=SEED + 3, device=dev)
+    vocab = build_byte_fallback_vocab(
+        [f"w{i}" for i in range(cfg.vocab_size - 259)])
+    engs = {use: Engine(cfg, params, vocab, EngineConfig(
+        compute_dtype="float32", scale_dtype="float32", kv_dtype="float32",
+        use_pallas=use), device=dev) for use in (True, False)}
+    del params
+    rng = torch.Generator(device="cpu")
+    rng.manual_seed(SEED + 3)
+    prompt = torch.randint(3, cfg.vocab_size, (59,), generator=rng).tolist()
+
+    # model level: a 43-token prefill, a 16-token block at pos 43 (K1f at
+    # T=16, masked attention over the cache) and one decode step at 59
+    out, caches = {}, {}
+    for use, eng in engs.items():
+        kb = eng.kernels
+        hooks = dict(mm=kb.mm, attn=kb.attn, mm_idx=kb.mm_idx,
+                     attn_idx=kb.attn_idx, compute_dtype=torch.float32)
+        c = KVCache.create(cfg, dtype=torch.float32, device=dev)
+        toks = torch.tensor(prompt, device=dev)
+        a, _ = forward(cfg, eng.params, toks[:43], 0, c, **hooks)
+        b, _ = forward(cfg, eng.params, toks[43:], 43, c, **hooks)
+        d, _ = forward(cfg, eng.params, torch.tensor([7], device=dev), 59, c,
+                       **hooks)
+        out[use], caches[use] = (a, b, d), c
+    errs = [compare(f"single-stream logits {label}", got, want, TOL_F32)
+            for label, got, want in zip(("prefill T=43", "block T=16 at 43",
+                                         "decode at 59"), out[True],
+                                        out[False])]
+    for name in ("k", "v"):
+        compare(f"single-stream cache {name}", getattr(caches[True], name),
+                getattr(caches[False], name), TOL_F32)
+    del caches
+
+    # engine level: greedy tokens over 40 new tokens, chunks of 16
+    toks = {}
+    for use, eng in engs.items():
+        toks[use], st = eng.generate(prompt[:43], max_new_tokens=40,
+                                     temperature=0.0, stop_tokens=(),
+                                     decode_chunk=16)
+        check(len(toks[use]) == 40, "short single-stream output")
+    check(toks[True] == toks[False],
+          f"single-stream greedy tokens differ: {toks[True]} vs "
+          f"{toks[False]}")
+    log("  ok single-stream greedy tokens equal over 40 new tokens "
+        "(chunks 16, 16 and a tail of 7)")
+
+    # a two-turn chat session: the history stays in the cache
+    replies = {}
+    for use, eng in engs.items():
+        sess = ChatSession(eng, "w5 w9 w17")
+        replies[use] = [(sess.generate(turn, max_new_tokens=12,
+                                       temperature=0.0), sess.pos)
+                        for turn in ("w3w17 w40 w1", "w100w2w77")]
+    check(replies[True] == replies[False],
+          f"chat replies differ: {replies[True]} vs {replies[False]}")
+    log(f"  ok two-turn ChatSession equal (positions "
+        f"{[p for _, p in replies[True]]})")
+    rec["single_parity"] = {"max_logit_err": max(errs),
+                            "tokens_equal": True, "chat_equal": True}
+    del engs
+    torch.cuda.empty_cache()
+
+
 # -- phase 4: the serving path at full width ---------------------------------
 
+# one entry per Pallas function the port replaces; the kernels of each path
+BATCHED_PATH = ("qmatmul_pallas", "qmatmul_pallas_indexed",
+                "flash_decode_batched", "decode_write", "prefill_write")
+SINGLE_PATH = ("qmatmul_pallas", "qmatmul_pallas_indexed",
+               "qmatmul_pallas_indexed_fused", "flash_decode_single")
 KERNELS = ("qmatmul_pallas", "qmatmul_pallas_indexed",
-           "flash_decode_batched", "decode_write", "prefill_write")
+           "qmatmul_pallas_indexed_fused", "flash_decode_batched",
+           "flash_decode_single", "decode_attention_pallas_indexed",
+           "decode_attention_pallas", "decode_write", "prefill_write")
 
 
 def wrappers():
+    from fastllama_tpu_torch.ops.kernels import attention as at
     from fastllama_tpu_torch.ops.kernels import flash_decode as fd
     from fastllama_tpu_torch.ops.kernels import kv_write as kw
     from fastllama_tpu_torch.ops.kernels import qmm
     return {"qmatmul_pallas": qmm.qmatmul_pallas,
             "qmatmul_pallas_indexed": qmm.qmatmul_pallas_indexed,
+            "qmatmul_pallas_indexed_fused": qmm.qmatmul_pallas_indexed_fused,
             "flash_decode_batched": fd.flash_decode_batched,
+            "flash_decode_single": fd.flash_decode_single,
+            "decode_attention_pallas_indexed":
+                at.decode_attention_pallas_indexed,
+            "decode_attention_pallas": at.decode_attention_pallas,
             "decode_write": kw.decode_write,
             "prefill_write": kw.prefill_write}
+
+
+def zero_launches():
+    """Every wrapper's count to 0, just before a path is driven."""
+    for fn in wrappers().values():
+        fn.launches = 0
+    torch_sync()
+
+
+def read_launches():
+    torch_sync()
+    return {k: fn.launches for k, fn in wrappers().items()}
+
+
+def torch_sync():
+    import torch
+    torch.cuda.synchronize()
 
 
 def profile_decode(eng, prompt, step_ms, n_steps=16):
@@ -418,7 +633,6 @@ def profile_decode(eng, prompt, step_ms, n_steps=16):
     time of one decode step (tracing slows the host, not the device).
     Admission (prefill) runs before the traced window."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     B = eng.B
     for _ in range(B):
@@ -433,13 +647,7 @@ def profile_decode(eng, prompt, step_ms, n_steps=16):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     eng.run()
-    # device-side rows only (kernels, copies): an operator's row repeats
-    # the time of the kernels it launched
-    rows = [(ev.self_device_time_total, ev.count, ev.key)
-            for ev in prof.key_averages()
-            if ev.device_type == DeviceType.CUDA
-            and ev.self_device_time_total > 0]
-    rows.sort(reverse=True)
+    rows = device_rows(prof)
     busy_s = sum(r[0] for r in rows) / 1e6
     busy_step_ms = busy_s * 1e3 / n_steps
     out = {"steps": n_steps, "wall_ms": wall * 1e3,
@@ -484,20 +692,18 @@ def phase_serving(dev, rec):
                      stop_tokens=())
     eng.stats = type(eng.stats)()
 
-    ws = wrappers()
-    for fn in ws.values():
-        fn.launches = 0
-    torch.cuda.synchronize()
+    zero_launches()
     t0 = time.perf_counter()
     reqs = eng.generate_all([prompt] * B, max_new_tokens=n_new,
                             temperature=0.0, stop_tokens=())
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in ws.items()}
+    launches = read_launches()
     check(all(len(r.output_tokens) == n_new and r.done for r in reqs),
           "a request did not get all its tokens")
-    for k, n in launches.items():
-        check(n > 0, f"kernel {k} was not launched on the main path")
+    for k in BATCHED_PATH:
+        check(launches[k] > 0, f"kernel {k} was not launched on the main "
+                               f"path")
     steps = launches["decode_write"]
     st = eng.stats
     out = {
@@ -509,7 +715,8 @@ def phase_serving(dev, rec):
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
         "launches": launches,
         "launches_per_decode_step": {
-            k: launches[k] / steps for k in KERNELS if k != "prefill_write"},
+            k: launches[k] / steps for k in BATCHED_PATH
+            if k != "prefill_write"},
         "card": smi_line(),
     }
     first = reqs[0].output_tokens
@@ -525,6 +732,165 @@ def phase_serving(dev, rec):
     del eng
     torch.cuda.empty_cache()
     return launches
+
+
+def device_rows(prof):
+    """(self device us, count, name) of the device-side rows (kernels,
+    copies), largest first: an operator's row repeats the time of the
+    kernels it launched."""
+    from torch.autograd import DeviceType
+    rows = [(ev.self_device_time_total, ev.count, ev.key)
+            for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA
+            and ev.self_device_time_total > 0]
+    return sorted(rows, reverse=True)
+
+
+def profile_single(eng, prompt, step_ms, n_steps=16):
+    """One single-stream decode chunk of ``n_steps`` steps under
+    ``torch.profiler``, after an untraced prefill: device time by kernel
+    and the device's idle share against ``step_ms``, the untraced wall
+    time of one decode step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    cache = eng.new_cache()
+    logits = eng._prefill(prompt, eng._bucket(len(prompt)), cache, 0)
+    tok = torch.argmax(logits)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng._decode_chunk(cache, tok, len(prompt), n_steps, 0.0, 0.9, None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = device_rows(prof)
+    busy_s = sum(r[0] for r in rows) / 1e6
+    busy_step_ms = busy_s * 1e3 / n_steps
+    out = {"steps": n_steps, "wall_ms": wall * 1e3,
+           "device_busy_ms": busy_s * 1e3,
+           "device_idle_share_traced": 1.0 - busy_s / wall,
+           "device_busy_ms_per_step": busy_step_ms,
+           "device_idle_share": 1.0 - busy_step_ms / step_ms,
+           "top_kernels": [{"name": k[:120], "count": c, "device_ms":
+                            us / 1e3} for us, c, k in rows[:15]]}
+    log(f"  profile: {n_steps} decode steps in {wall * 1e3:.3f} ms wall, "
+        f"device busy {busy_s * 1e3:.3f} ms (idle share traced "
+        f"{out['device_idle_share_traced']:.3f}); {busy_step_ms:.3f} ms "
+        f"device per step against {step_ms:.3f} ms untraced (idle share "
+        f"{out['device_idle_share']:.3f})")
+    for r in out["top_kernels"][:8]:
+        log(f"    {r['device_ms']:10.3f} ms  x{r['count']:<6} {r['name']}")
+    return out
+
+
+def phase_single_serving(dev, rec):
+    """bench.py's single-stream shape on the port: the measured run with
+    every launch counter zeroed just before it; then the two other
+    wrappers of K2's non-fresh mode, each on a path of its own."""
+    import torch
+    from fastllama_tpu_torch.config import EngineConfig
+    from fastllama_tpu_torch.loaders.tokenizer import Tokenizer
+    from fastllama_tpu_torch.models.llama import (KVCache, forward,
+                                                  fuse_params,
+                                                  random_params_int)
+    from fastllama_tpu_torch.ops.kernels import attention as at
+    from fastllama_tpu_torch.runtime.engine import Engine
+    log("phase 4b: single-stream 7B INT8 fused once, bf16 scales (auto), "
+        "bf16 KV, S=512, 32 layers")
+    cfg = cfg_7b()
+    n_new, chunk = 128, 64
+    t0 = time.perf_counter()
+    params = fuse_params(cfg, random_params_int(cfg, seed=SEED, device=dev))
+    ec = EngineConfig(max_seq_len=512, kv_dtype="bfloat16",
+                      fuse_weights=False, scale_dtype="auto")
+    eng = Engine(cfg, params, Tokenizer().finalize(), ec, device=dev)
+    check(eng.params.wq.scales.dtype == torch.bfloat16,
+          "scale_dtype='auto' did not narrow the scales on the kernel path")
+    torch.cuda.synchronize()
+    log(f"  weights + engine ready in {time.perf_counter() - t0:.2f} s")
+    prompt = list(range(1, 44))
+    kw = dict(max_new_tokens=n_new, temperature=0.0, stop_tokens=(),
+              decode_chunk=chunk)
+    t0 = time.perf_counter()
+    warm, _ = eng.generate(prompt, **kw)
+    log(f"  warm-up run {time.perf_counter() - t0:.2f} s")
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.perf_counter()
+    toks, st = eng.generate(prompt, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    check(len(toks) == n_new, f"{len(toks)} tokens, not {n_new}")
+    check(toks == warm, "two greedy runs gave different tokens")
+    for k in SINGLE_PATH:
+        check(launches[k] > 0, f"kernel {k} was not launched on the "
+                               f"single-stream path")
+    steps = launches["flash_decode_single"] // cfg.n_layers
+    out = {
+        "prompt_tokens": st.prompt_tokens, "new_tokens": st.output_tokens,
+        "decode_tok_s": st.decode_tps, "decode_s": st.decode_s,
+        "prefill_s": st.prefill_s, "prefill_tok_s": st.prefill_tps,
+        "decode_steps": steps, "wall_s": wall,
+        "ms_per_decode_step": st.decode_s / steps * 1e3,
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": launches,
+        "launches_per_decode_step": {
+            k: launches[k] / steps for k in
+            ("qmatmul_pallas_indexed_fused", "flash_decode_single")},
+        "card": smi_line(),
+    }
+    log(f"  decode {st.decode_tps:.2f} tok/s ({out['ms_per_decode_step']:.3f}"
+        f" ms/step over {steps} steps), prefill {st.prefill_s:.4f} s for "
+        f"{st.prompt_tokens} tokens, max memory "
+        f"{out['max_memory_allocated_gb']:.2f} GB on {out['card']}")
+    log(f"  launches {launches}")
+    out["profile"] = profile_single(eng, prompt, out["ms_per_decode_step"])
+    del eng
+    torch.cuda.empty_cache()
+
+    # flash_attention=False: decode_attention_pallas_indexed on the same
+    # CUDA kernel, so the tokens are the flash run's, bit for bit
+    eng = Engine(cfg, params, Tokenizer().finalize(),
+                 dataclasses.replace(ec, flash_attention=False), device=dev)
+    zero_launches()
+    got, _ = eng.generate(prompt, **dict(kw, max_new_tokens=16))
+    more = read_launches()
+    check(more["decode_attention_pallas_indexed"] > 0,
+          "decode_attention_pallas_indexed was not launched")
+    check(got == toks[:16], f"flash_attention=False tokens {got} differ "
+                            f"from {toks[:16]}")
+    log(f"  ok flash_attention=False: 16 tokens equal, launches "
+        f"{more['decode_attention_pallas_indexed']}")
+    launches["decode_attention_pallas_indexed"] = \
+        more["decode_attention_pallas_indexed"]
+
+    # models.llama.forward with the one-layer attention hook (per-layer
+    # weight views through K1, decode_attention_pallas on cache[l])
+    kb = eng.kernels
+    cache = KVCache.create(cfg, dtype=torch.bfloat16, device=dev)
+    zero_launches()
+    lg, _ = forward(cfg, eng.params, torch.tensor(prompt, device=dev), 0,
+                    cache, mm=kb.mm, attn=at.make_attn(),
+                    compute_dtype=torch.bfloat16)
+    tok = torch.argmax(lg[-1]).reshape(1)
+    for p in range(len(prompt), len(prompt) + 8):
+        lg, _ = forward(cfg, eng.params, tok, p, cache, mm=kb.mm,
+                        attn=at.make_attn(), compute_dtype=torch.bfloat16)
+        check(bool(torch.isfinite(lg).all()), "non-finite logits")
+        tok = torch.argmax(lg[0]).reshape(1)
+    more = read_launches()
+    check(more["decode_attention_pallas"] > 0,
+          "decode_attention_pallas was not launched")
+    log(f"  ok forward with the one-layer attention hook: 8 decode steps, "
+        f"launches {more['decode_attention_pallas']}")
+    launches["decode_attention_pallas"] = more["decode_attention_pallas"]
+    rec["single_serving"] = out
+    del eng, cache, params
+    torch.cuda.empty_cache()
+    return launches
+
 
 
 # -- phase 5: timing ---------------------------------------------------------
@@ -713,6 +1079,7 @@ def phase_timing(dev, rec):
                                         f"hs={hs}")
     del cache
     torch.cuda.empty_cache()
+    time_single(dev, gen, res)
     for k, v in res.items():
         log(f"  {k}: {v['ms']:.4f} ms (plain {v['plain_ms']:.4f}, library "
             f"{v['library_ms']:.4f}, bound {v['bound_ms']:.4f} by "
@@ -720,13 +1087,149 @@ def phase_timing(dev, rec):
     rec["timing"] = res
 
 
+def time_single(dev, gen, res):
+    """The single-stream path's kernels at its 7B decode shapes (T=1, B=1,
+    bf16 scales, bf16 KV at pos 107): K1f over one layer's four
+    projections, K1 on the classifier, K2 non-fresh through each of its
+    three wrappers.  Layers rotate so that every launch finds its weights
+    and cache rows cold in L2, as it does between two layers."""
+    import torch
+    import torch.nn.functional as F
+    from fastllama_tpu_torch.config import QuantType
+    from fastllama_tpu_torch.ops.kernels import attention as at
+    from fastllama_tpu_torch.ops.kernels import flash_decode as fd
+    from fastllama_tpu_torch.ops.kernels import qmm
+    from fastllama_tpu_torch.quant.groupquant import dequantize
+    bf16, nl = torch.bfloat16, 4
+    names = ("wqkv", "wo", "w13", "w2")
+    norm = {"wqkv": True, "wo": False, "w13": True, "w2": False}
+    ws = {n: rand_qarray(gen, (nl, *PROJ_7B[n]), QuantType.INT8, dev, bf16)
+          for n in names}
+    wds = {n: dequantize(ws[n], bf16) for n in names}
+    xs = {n: torch.randn((1, PROJ_7B[n][0]), generator=gen,
+                         device=dev).to(bf16) for n in names}
+    kws = {n: (dict(norm_gain=torch.rand((PROJ_7B[n][0],), generator=gen,
+                                         device=dev) + 0.5) if norm[n] else
+               dict(residual=torch.randn((1, PROJ_7B[n][1]), generator=gen,
+                                         device=dev).to(bf16)))
+           for n in names}
+    layer = [0]
+
+    def rot(n=nl):
+        layer[0] = (layer[0] + 1) % n
+        return layer[0]
+
+    def k_one(n, lyr):
+        return qmm.qmatmul_pallas_indexed(xs[n], ws[n], lyr, bf16, **kws[n])
+
+    def p_one(n, lyr):
+        return qmm.qmm_fused_plain(xs[n], ws[n][lyr], bf16, **kws[n])
+
+    def l_one(n, lyr):
+        if norm[n]:
+            g = kws[n]["norm_gain"].to(bf16)
+            return torch.matmul(F.rms_norm(xs[n], g.shape, g, 1e-5),
+                                wds[n][lyr])
+        return torch.addmm(kws[n]["residual"], xs[n], wds[n][lyr])
+
+    def per_layer(one):
+        def run():
+            lyr = rot()
+            for n in names:
+                one(n, lyr)
+        return run
+    nbytes, flops = 0, 0
+    for n in names:
+        I, O = PROJ_7B[n]
+        nbytes += (I * 2 + I * O + I // 64 * O * 2 + O * 2
+                   + (I * 4 if norm[n] else O * 2))
+        flops += 2 * I * O
+    bm, by = bound_ms(nbytes, flops, BF16_FLOP_S)
+    res["qmatmul_pallas_indexed_fused"] = dict(
+        ms=time_ms(per_layer(k_one)), plain_ms=time_ms(per_layer(p_one)),
+        library_ms=time_ms(per_layer(l_one)),
+        library_call="torch rms_norm then torch.matmul (norm projections) "
+                     "or torch.addmm (residual projections) on "
+                     "pre-dequantized bf16 weights",
+        bound_ms=bm, bound_by=by, bytes=nbytes,
+        per_projection_ms={n: time_ms(lambda n=n: k_one(n, rot()))
+                           for n in names},
+        shape="T=1 bf16 scales, one layer: wqkv 4096x12288 +norm, wo "
+              "4096x4096 +residual, w13 4096x22016 +norm, w2 11008x4096 "
+              "+residual")
+    del ws, wds
+
+    # K1 on the classifier at T=1 with bf16 scales
+    I, O = PROJ_7B["classifier"]
+    w = rand_qarray(gen, (I, O), QuantType.INT8, dev, bf16)
+    wd = dequantize(w, bf16)
+    x = torch.randn((1, I), generator=gen, device=dev).to(bf16)
+    nbytes = I * 2 + I * O + I // 64 * O * 2 + O * 2
+    bm, by = bound_ms(nbytes, 2 * I * O, BF16_FLOP_S)
+    res["qmatmul_pallas"]["single_stream"] = dict(
+        ms=time_ms(lambda: qmm.qmatmul_pallas(x, w)),
+        plain_ms=time_ms(lambda: qmm.qmm_plain(x, w)),
+        library_ms=time_ms(lambda: torch.matmul(x, wd)),
+        bound_ms=bm, bound_by=by, shape=f"T=1 I={I} O={O} bf16 scales")
+    v = res["qmatmul_pallas"]["single_stream"]
+    log(f"  qmatmul_pallas single-stream: {v['ms']:.4f} ms (plain "
+        f"{v['plain_ms']:.4f}, library {v['library_ms']:.4f}, bound "
+        f"{v['bound_ms']:.4f} by {v['bound_by']}) {v['shape']}")
+    del w, wd
+
+    # K2 non-fresh: 7B heads, B=1, bf16 cache of 32 layers, pos 107
+    L, H, n_kv, hs, S, p = 32, 32, 32, 128, 512, 107
+    ck = torch.randn((L, n_kv, S, hs), generator=gen, device=dev).to(bf16)
+    cv = torch.randn((L, n_kv, S, hs), generator=gen, device=dev).to(bf16)
+    q = torch.randn((H, 1, hs), generator=gen, device=dev).to(bf16)
+    pos = torch.full((1,), p, dtype=torch.int32, device=dev)
+    nbytes = 2 * H * hs * 2 + 2 * (p + 1) * n_kv * hs * 2
+    bm, by = bound_ms(nbytes, 4 * (p + 1) * H * hs, F32_FLOP_S)
+
+    def sdpa():
+        lyr = rot(L)
+        return F.scaled_dot_product_attention(
+            q[None], ck[lyr][None, :, :p + 1], cv[lyr][None, :, :p + 1])
+    lib = time_ms(sdpa)
+    for name, run, plain in (
+            ("flash_decode_single",
+             lambda: fd.flash_decode_single(q, ck, cv, pos, rot(L)),
+             lambda: fd.flash_decode_single_plain(q, ck, cv, pos, rot(L))),
+            ("decode_attention_pallas_indexed",
+             lambda: at.decode_attention_pallas_indexed(q, ck, cv, pos,
+                                                        rot(L)),
+             lambda: fd.flash_decode_single_plain(q, ck, cv, pos, rot(L))),
+            ("decode_attention_pallas",
+             lambda: at.decode_attention_pallas(q, ck[rot(L)], cv[layer[0]],
+                                                pos),
+             lambda: at.decode_attention_plain(q, ck[rot(L)], cv[layer[0]],
+                                               pos))):
+        res[name] = dict(
+            ms=time_ms(run), plain_ms=time_ms(plain), library_ms=lib,
+            library_call="SDPA over the bf16 rows [0, pos] of one layer",
+            bound_ms=bm, bound_by=by, bytes=nbytes,
+            shape=f"B=1 H={H} n_kv={n_kv} hs={hs} S={S} bf16 cache, "
+                  f"pos={p}")
+    del ck, cv
+    torch.cuda.empty_cache()
+
+
 SOURCES = {
     "qmatmul_pallas": ("fastllama_tpu_torch/csrc/qmm.cu",
                        "fastllama_tpu/ops/pallas/qmm.py:251"),
     "qmatmul_pallas_indexed": ("fastllama_tpu_torch/csrc/qmm.cu",
                                "fastllama_tpu/ops/pallas/qmm.py:551"),
+    "qmatmul_pallas_indexed_fused": ("fastllama_tpu_torch/csrc/qmm.cu",
+                                     "fastllama_tpu/ops/pallas/qmm.py:470"),
     "flash_decode_batched": ("fastllama_tpu_torch/csrc/flash_decode.cu",
                              "fastllama_tpu/ops/pallas/flash_decode.py:203"),
+    "flash_decode_single": ("fastllama_tpu_torch/csrc/flash_decode.cu",
+                            "fastllama_tpu/ops/pallas/flash_decode.py:299"),
+    "decode_attention_pallas_indexed": (
+        "fastllama_tpu_torch/csrc/flash_decode.cu",
+        "fastllama_tpu/ops/pallas/attention.py:110"),
+    "decode_attention_pallas": ("fastllama_tpu_torch/csrc/flash_decode.cu",
+                                "fastllama_tpu/ops/pallas/attention.py:48"),
     "decode_write": ("fastllama_tpu_torch/csrc/kv_write.cu",
                      "fastllama_tpu/ops/pallas/kv_write.py:119"),
     "prefill_write": ("fastllama_tpu_torch/csrc/kv_write.cu",
@@ -736,10 +1239,10 @@ SOURCES = {
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5",
+    ap.add_argument("--phases", default="1,2,3,4,4b,5",
                     help="comma-separated phases to run (default: all)")
     args = ap.parse_args()
-    phases = {int(p) for p in args.phases.split(",")}
+    phases = set(args.phases.split(","))
 
     import torch
     if not torch.cuda.is_available():
@@ -772,15 +1275,31 @@ def main() -> int:
     log(_build.build_log())
 
     t_start = time.perf_counter()
+    # each kernel's launches on the path it serves: the batched path's from
+    # phase 4, the single-stream path's from phase 4b
     launches = {}
-    if 2 in phases:
-        phase_kernels(dev, rec)
-    if 3 in phases:
-        phase_engine_parity(dev, rec)
-    if 4 in phases:
-        launches = phase_serving(dev, rec)
-    if 5 in phases:
-        phase_timing(dev, rec)
+    rec["phase_s"] = {}
+
+    def run(label, fn):
+        t0 = time.perf_counter()
+        out = fn(dev, rec)
+        rec["phase_s"][label] = time.perf_counter() - t0
+        log(f"  phase {label} took {rec['phase_s'][label]:.1f} s")
+        return out
+    if "2" in phases:
+        run("2", phase_kernels)
+    if "3" in phases:
+        run("3", phase_engine_parity)
+        run("3b", phase_single_parity)
+    if "4" in phases:
+        got = run("4", phase_serving)
+        launches.update({k: got[k] for k in BATCHED_PATH})
+    if "4b" in phases:
+        got = run("4b", phase_single_serving)
+        launches.update({k: v for k, v in got.items()
+                         if k not in BATCHED_PATH or k not in launches})
+    if "5" in phases:
+        run("5", phase_timing)
     rec["phases_s"] = time.perf_counter() - t_start
 
     os.makedirs("build", exist_ok=True)

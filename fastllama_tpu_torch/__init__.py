@@ -10,5 +10,7 @@ a card they raise unless the caller passes ``device="cpu"``, where every
 kernel wrapper runs its plain PyTorch version.
 """
 from fastllama_tpu_torch.config import EngineConfig, ModelConfig, QuantType
+from fastllama_tpu_torch.runtime.engine import ChatSession, Engine
 
-__all__ = ["EngineConfig", "ModelConfig", "QuantType"]
+__all__ = ["ChatSession", "Engine", "EngineConfig", "ModelConfig",
+           "QuantType"]

@@ -115,7 +115,9 @@ class EngineConfig:
     # CPU).  False: the plain PyTorch versions on any device — the
     # reference path chip_smoke.py holds the kernels against.
     use_pallas: bool = True
-    flash_attention: bool = True        # the port has only the flash kernel
+    # False: the always-streaming decode attention (single stream) and the
+    # plain per-slot attention (batched), as in the JAX package
+    flash_attention: bool = True
     fuse_weights: bool = True
     parity_mode: bool = False
     donate_cache: bool = True           # the port updates the cache in place

@@ -1,27 +1,38 @@
-// K2: bounded flash-decode attention with a fresh row, over the stacked
-// batched KV cache.
+// K2: bounded flash-decode attention over the stacked batched KV cache,
+// with a fresh row (deferred writes) or without one.
 //
 // Replaces the Pallas kernel of fastllama_tpu/ops/pallas/flash_decode.py:
-// flash_decode_batched (flash_decode.py:203, body _flash_kernel :67) on its
-// deferred-write ("fresh") path, as make_attn_batched_flash calls it from
-// models/batched.decode_step.
+// flash_decode_batched (flash_decode.py:203, body _flash_kernel :67) in
+// both of its modes:
+//   * fresh (k_new/v_new given): the deferred-write path that
+//     make_attn_batched_flash drives from models/batched.decode_step;
+//     rows [0, pos[b]) plus the fresh row;
+//   * non-fresh (k_new == null): rows [0, pos[b]] of a cache that already
+//     holds the current token's row, the mask col <= pos of
+//     flash_decode.py:144.  It serves flash_decode_single
+//     (flash_decode.py:299) and, on the same function, the always-streaming
+//     decode_attention_pallas (ops/pallas/attention.py:48) and
+//     decode_attention_pallas_indexed (attention.py:110), which read all S
+//     rows and mask; this kernel reads only the rows the mask keeps.
 //
 // One block per (slot b, kv head h).  The block reads pos[b] itself and
-// loops over cache rows [0, pos[b]) of layer `layer` only, in tiles of
-// TS rows; the TPU kernel's host-bucketed s_bound window has no
-// counterpart.  The math is _flash_kernel's (flash_decode.py:123-200), all
-// in f32:
+// loops over the rows it needs of layer `layer` only, in tiles of TS rows;
+// the TPU kernel's host-bucketed s_bound window has no counterpart.  The
+// math is _flash_kernel's (flash_decode.py:123-200), all in f32:
 //   score = (q . k) * (1/sqrt(hs)), then times the K row scale (int8 cache);
-//   strict mask (rows >= pos[b] are never read);
+//   fresh: strict mask (rows >= pos[b] are never read); non-fresh: rows
+//   > pos[b] are never read;
 //   online max and sum per query row;
 //   exp(score - max) times the V row scale before P.V;
-//   the fresh K/V row scored and merged last, un-quantized;
+//   fresh: the fresh K/V row scored and merged last, un-quantized;
 //   output = acc / sum, cast to q's dtype.
 // GQA: the hgs = n_heads / n_kv query rows of head group h share every
 // cache row the block reads (template HGS in {1, 2, 4, 8}).
 // pos[b] = 0 (idle slots park there) reads no cache row, and the result is
 // exactly v_new: the running max starts at -1e30 as in the TPU kernel, so
-// the empty softmax contributes exp(-1e30 - s_new) = 0 and no NaN.
+// the empty softmax contributes exp(-1e30 - s_new) = 0 and no NaN.  The
+// non-fresh mode always reads at least row 0.  At B = 1 (the single-stream
+// engine) the grid is only n_kv blocks: 32 of 132 SMs at 7B.
 //
 // What bounds it on an H100: memory bytes.  Each step reads
 // pos[b] * hs * 2 cache bytes (+ 8 bytes of row scales) per (slot, head)
@@ -69,7 +80,7 @@ flash_decode_kernel(const QT* __restrict__ q,       // (B, n_kv, HGS, hs)
                     const CT* __restrict__ vc,
                     const float* __restrict__ ks,   // (L, Bc, n_kv, S) or null
                     const float* __restrict__ vs,
-                    const QT* __restrict__ k_new,   // (B, n_kv, hs)
+                    const QT* __restrict__ k_new,   // (B, n_kv, hs) or null
                     const QT* __restrict__ v_new,
                     const int* __restrict__ pos,    // (B,)
                     QT* __restrict__ out,           // (B, n_kv, HGS, hs)
@@ -82,7 +93,9 @@ flash_decode_kernel(const QT* __restrict__ q,       // (B, n_kv, HGS, hs)
   const int lane = tid % 32, warp = tid / 32;
   const int b = blockIdx.x / n_kv;
   const int h = blockIdx.x % n_kv;
-  const int p = min(max(pos[b], 0), S);
+  const bool fresh = k_new != nullptr;
+  // cache rows to read: [0, pos) with a fresh row, else [0, pos]
+  const int p = min(max(pos[b], 0) + (fresh ? 0 : 1), S);
   const size_t row0 = ((size_t)(layer * Bc + b) * n_kv + h) * S;  // cache row index
   const size_t qoff = ((size_t)b * n_kv + h) * HGS * hs;
   const size_t foff = ((size_t)b * n_kv + h) * hs;
@@ -154,6 +167,18 @@ flash_decode_kernel(const QT* __restrict__ q,       // (B, n_kv, HGS, hs)
       }
     }
     __syncthreads();
+  }
+
+  if (!fresh) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int d = tid + j * THREADS;
+      if (d >= hs) continue;
+#pragma unroll
+      for (int g = 0; g < HGS; ++g)
+        out[qoff + (size_t)g * hs + d] = from_f<QT>(acc[g][j] / l_s[g]);
+    }
+    return;
   }
 
   // the fresh row: always attended, full precision

@@ -19,6 +19,18 @@
 //     f32 dot (CUDA-core FMA), like Precision.HIGHEST.
 // The result is accumulated in f32 and written in x's dtype.
 //
+// K1f, the fused form (_qmm_kernel_idx_fused, qmm.py:470-527), is the same
+// kernel with two optional operands:
+//   * gain (I,) f32: an rmsnorm prologue.  Each block first computes the
+//     inverse RMS of its rows over the WHOLE row of x (every block of a
+//     split K needs it, so each reads the full rows: 22 KB of bf16 at
+//     T=1, I=11008), then normalizes x as it stages it:
+//     xn = to_x_dtype(x * (1/sqrt(mean(x^2) + eps)) * gain), one rounding,
+//     as the Pallas prologue does (not ops/norms.rmsnorm's two roundings).
+//   * res (T, O) in x's dtype: a residual epilogue, out = to_x_dtype(res +
+//     x @ W) with one rounding at the end.  It is added exactly once: in
+//     the split-K reduce pass when K is split, else in the main pass.
+//
 // What bounds it on an H100: decode (T <= 48) streams every weight byte
 // once for few rows, so it is bound by memory bytes (1 B/param + scales);
 // prefill waves (T up to 2048) are bound by tensor-core operations.  The
@@ -56,6 +68,62 @@ template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// K1f prologue: rinv[r] = 1 / sqrt(mean(x[m0 + r, :]^2) + eps) for the
+// block's valid rows, over the whole row.  Every thread of the block calls
+// it.  Deterministic: per-warp partial sums, summed in warp order.
+template <typename XT, int NT>
+__device__ void row_inv_rms(const XT* __restrict__ x, int T, int I, int m0,
+                            float eps, float* rinv) {
+  __shared__ float wsum[NT / 32][BM];
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int nrows = min(BM, T - m0);
+  constexpr int V = 16 / sizeof(XT);
+  const bool vec = I % V == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  for (int r = 0; r < nrows; ++r) {
+    const XT* row = x + (size_t)(m0 + r) * I;
+    float acc = 0.0f;
+    if (vec) {
+      for (int c = tid * V; c < I; c += NT * V) {
+        const uint4 v = *reinterpret_cast<const uint4*>(row + c);
+        const XT* e = reinterpret_cast<const XT*>(&v);
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          const float f = to_f(e[j]);
+          acc = fmaf(f, f, acc);
+        }
+      }
+    } else {
+      for (int c = tid; c < I; c += NT) {
+        const float f = to_f(row[c]);
+        acc = fmaf(f, f, acc);
+      }
+    }
+    acc = warp_sum(acc);
+    if (lane == 0) wsum[warp][r] = acc;
+  }
+  __syncthreads();
+  for (int r = tid; r < nrows; r += NT) {
+    float ss = 0.0f;
+#pragma unroll
+    for (int w = 0; w < NT / 32; ++w) ss += wsum[w][r];
+    rinv[r] = 1.0f / sqrtf(ss / (float)I + eps);
+  }
+  __syncthreads();
+}
+
+// one normalized activation value, rounded to x's dtype (the prologue's
+// single rounding), returned as f32
+template <typename XT>
+__device__ __forceinline__ float norm_x(float v, float rinv, float g) {
+  return to_f(from_f<XT>(v * rinv * g));
 }
 
 // INT8 x bf16 path: WMMA 16x16x16 bf16 fragments, 4 warps, each warp owns
@@ -119,13 +187,28 @@ __device__ __forceinline__ void store_x(__nv_bfloat16* dst, const uint4& v,
   *reinterpret_cast<uint2*>(dst) = packed;
 }
 
+// K1f: an x chunk normalized (rinv, gain) and rounded to x's dtype, then
+// to bf16 for the tensor cores
+template <typename XT>
+__device__ __forceinline__ void store_x_norm(__nv_bfloat16* dst,
+                                             const uint4& v, float rinv,
+                                             const float* __restrict__ g) {
+  constexpr int XV = 16 / sizeof(XT);
+  const XT* e = reinterpret_cast<const XT*>(&v);
+#pragma unroll
+  for (int j = 0; j < XV; ++j)
+    dst[j] = __float2bfloat16_rn(norm_x<XT>(to_f(e[j]), rinv, __ldg(g + j)));
+}
+
 template <typename XT, typename ST, bool VEC>
 __global__ void __launch_bounds__(QT)
 qmm_bf16_kernel(const XT* __restrict__ x, const int8_t* __restrict__ w,
-                const ST* __restrict__ s, XT* __restrict__ out,
+                const ST* __restrict__ s, const float* __restrict__ gain,
+                const XT* __restrict__ res, XT* __restrict__ out,
                 float* __restrict__ partial, int T, int I, int O, int gs,
-                int k_per_split) {
+                int k_per_split, float eps) {
   __shared__ __align__(128) unsigned char smem[SMEM_Q];
+  __shared__ float rinv[BM];
   __nv_bfloat16 (*As)[LDA] = reinterpret_cast<__nv_bfloat16 (*)[LDA]>(smem);
   __nv_bfloat16 (*Bs)[LDB] =
       reinterpret_cast<__nv_bfloat16 (*)[LDB]>(smem + BM * LDA * 2);
@@ -142,6 +225,7 @@ qmm_bf16_kernel(const XT* __restrict__ x, const int8_t* __restrict__ w,
   using S = Stage<XT>;
   const int wr = tid / 4;                  // weight rows wr and wr + 32
   const int wc = (tid % 4) * 16;           // weight columns wc .. wc + 15
+  if (gain != nullptr) row_inv_rms<XT, QT>(x, T, I, m0, eps, rinv);
 
   // vector path: registers <- global for the stage starting at k0
   auto load = [&](S& st, int k0) {
@@ -168,8 +252,9 @@ qmm_bf16_kernel(const XT* __restrict__ x, const int8_t* __restrict__ w,
     }
   };
   // vector path: shared memory <- registers, the weight dequantized to
-  // bf16(bf16(w) * bf16(s)): the product rounded to bf16
-  auto store = [&](const S& st) {
+  // bf16(bf16(w) * bf16(s)): the product rounded to bf16; x normalized
+  // first under the K1f prologue
+  auto store = [&](const S& st, int k0) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int8_t* q = reinterpret_cast<const int8_t*>(&st.w[h]);
@@ -189,7 +274,10 @@ qmm_bf16_kernel(const XT* __restrict__ x, const int8_t* __restrict__ w,
     for (int i = 0; i < S::XN; ++i) {
       const int q = tid + QT * i;
       const int r = q / (BK / S::XV), c = (q % (BK / S::XV)) * S::XV;
-      store_x(&As[r][c], st.x[i], x);
+      if (gain != nullptr && m0 + r < T && k0 + c < kend)
+        store_x_norm<XT>(&As[r][c], st.x[i], rinv[r], gain + k0 + c);
+      else
+        store_x(&As[r][c], st.x[i], x);
     }
   };
   // scalar path: shared memory <- global, element by element
@@ -198,7 +286,10 @@ qmm_bf16_kernel(const XT* __restrict__ x, const int8_t* __restrict__ w,
       const int r = idx / BK, c = idx % BK;
       const int gr = m0 + r, gk = k0 + c;
       float v = 0.0f;
-      if (gr < T && gk < kend) v = to_f(x[(size_t)gr * I + gk]);
+      if (gr < T && gk < kend) {
+        v = to_f(x[(size_t)gr * I + gk]);
+        if (gain != nullptr) v = norm_x<XT>(v, rinv[r], gain[gk]);
+      }
       As[r][c] = __float2bfloat16_rn(v);
     }
     for (int idx = tid; idx < BK * BN; idx += QT) {
@@ -227,7 +318,7 @@ qmm_bf16_kernel(const XT* __restrict__ x, const int8_t* __restrict__ w,
   }
   for (int k0 = kbeg; k0 < kend; k0 += BK) {
     if constexpr (VEC)
-      store(st);
+      store(st, k0);
     else
       stage_scalar(k0);
     __syncthreads();
@@ -266,10 +357,12 @@ qmm_bf16_kernel(const XT* __restrict__ x, const int8_t* __restrict__ w,
     const int r = idx / BN, c = idx % BN;
     const int gr = m0 + r, gn = n0 + c;
     if (gr >= T || gn >= O) continue;
+    const size_t o = (size_t)gr * O + gn;
     if (partial != nullptr)
-      partial[((size_t)blockIdx.z * T + gr) * O + gn] = Cs[r][c];
+      partial[(size_t)blockIdx.z * T * O + o] = Cs[r][c];
     else
-      out[(size_t)gr * O + gn] = from_f<XT>(Cs[r][c]);
+      out[o] = from_f<XT>(res != nullptr ? to_f(res[o]) + Cs[r][c]
+                                         : Cs[r][c]);
   }
 }
 
@@ -278,11 +371,13 @@ qmm_bf16_kernel(const XT* __restrict__ x, const int8_t* __restrict__ w,
 template <typename XT, typename WT, typename ST>
 __global__ void __launch_bounds__(256)
 qmm_f32_kernel(const XT* __restrict__ x, const WT* __restrict__ w,
-               const ST* __restrict__ s, XT* __restrict__ out,
+               const ST* __restrict__ s, const float* __restrict__ gain,
+               const XT* __restrict__ res, XT* __restrict__ out,
                float* __restrict__ partial, int T, int I, int O, int gs,
-               int k_per_split) {
+               int k_per_split, float eps) {
   __shared__ float As[BKW][BM + 4];
   __shared__ float Bs[BKW][BN + 4];
+  __shared__ float rinv[BM];
 
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
@@ -290,6 +385,7 @@ qmm_f32_kernel(const XT* __restrict__ x, const WT* __restrict__ w,
   const int m0 = blockIdx.y * BM;
   const int kbeg = blockIdx.z * k_per_split;
   const int kend = min(I, kbeg + k_per_split);
+  if (gain != nullptr) row_inv_rms<XT, 256>(x, T, I, m0, eps, rinv);
 
   float acc[4][4];
 #pragma unroll
@@ -301,7 +397,12 @@ qmm_f32_kernel(const XT* __restrict__ x, const WT* __restrict__ w,
     for (int idx = tid; idx < BM * BKW; idx += blockDim.x) {
       const int r = idx / BKW, c = idx % BKW;
       const int gr = m0 + r, gk = k0 + c;
-      As[c][r] = (gr < T && gk < kend) ? to_f(x[(size_t)gr * I + gk]) : 0.0f;
+      float v = 0.0f;
+      if (gr < T && gk < kend) {
+        v = to_f(x[(size_t)gr * I + gk]);
+        if (gain != nullptr) v = norm_x<XT>(v, rinv[r], gain[gk]);
+      }
+      As[c][r] = v;
     }
     for (int idx = tid; idx < BKW * BN; idx += blockDim.x) {
       const int r = idx / BN, c = idx % BN;
@@ -335,22 +436,26 @@ qmm_f32_kernel(const XT* __restrict__ x, const WT* __restrict__ w,
     for (int j = 0; j < 4; ++j) {
       const int gn = n0 + tx + 16 * j;
       if (gn >= O) continue;
+      const size_t o = (size_t)gr * O + gn;
       if (partial != nullptr)
-        partial[((size_t)blockIdx.z * T + gr) * O + gn] = acc[i][j];
+        partial[(size_t)blockIdx.z * T * O + o] = acc[i][j];
       else
-        out[(size_t)gr * O + gn] = from_f<XT>(acc[i][j]);
+        out[o] = from_f<XT>(res != nullptr ? to_f(res[o]) + acc[i][j]
+                                           : acc[i][j]);
     }
   }
 }
 
-// Sum of the split-K partials, written in x's dtype.
+// Sum of the split-K partials (after the K1f residual, when given),
+// written in x's dtype.
 template <typename XT>
 __global__ void splitk_reduce_kernel(const float* __restrict__ partial,
+                                     const XT* __restrict__ res,
                                      XT* __restrict__ out, size_t n,
                                      int splits) {
   for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += (size_t)gridDim.x * blockDim.x) {
-    float acc = 0.0f;
+    float acc = res != nullptr ? to_f(res[i]) : 0.0f;
     for (int p = 0; p < splits; ++p) acc += partial[(size_t)p * n + i];
     out[i] = from_f<XT>(acc);
   }
@@ -360,20 +465,25 @@ __global__ void splitk_reduce_kernel(const float* __restrict__ partial,
 enum { DT_F32 = 0, DT_BF16 = 1, DT_I8 = 2, DT_I16 = 3 };
 
 template <typename XT>
-int launch_typed(const void* x, const void* w, const void* s, void* out,
+int launch_typed(const void* x, const void* w, const void* s,
+                 const float* gain, const void* res, float eps, void* out,
                  float* partial, int T, int I, int O, int gs, int splits,
                  int k_per_split, int w_dt, int s_dt, int wide, int vec,
                  cudaStream_t st) {
   const dim3 grid((O + BN - 1) / BN, (T + BM - 1) / BM, splits);
   float* part = splits > 1 ? partial : nullptr;
   const XT* xp = static_cast<const XT*>(x);
+  const XT* rp = static_cast<const XT*>(res);
   XT* op = static_cast<XT*>(out);
+  // the residual is added once: by the reduce pass when K is split
+  const XT* rmain = splits > 1 ? nullptr : rp;
   if (!wide) {
     if (w_dt != DT_I8) return (int)cudaErrorInvalidValue;
     const int8_t* wp = static_cast<const int8_t*>(w);
 #define QMM_BF16(ST, V)                                                      \
   qmm_bf16_kernel<XT, ST, V><<<grid, QT, 0, st>>>(                           \
-      xp, wp, static_cast<const ST*>(s), op, part, T, I, O, gs, k_per_split)
+      xp, wp, static_cast<const ST*>(s), gain, rmain, op, part, T, I, O, gs,  \
+      k_per_split, eps)
     if (s_dt == DT_F32) {
       if (vec) QMM_BF16(float, true); else QMM_BF16(float, false);
     } else {
@@ -383,30 +493,31 @@ int launch_typed(const void* x, const void* w, const void* s, void* out,
   } else if (w_dt == DT_I8) {
     if (s_dt == DT_F32)
       qmm_f32_kernel<XT, int8_t, float><<<grid, 256, 0, st>>>(
-          xp, static_cast<const int8_t*>(w), static_cast<const float*>(s), op,
-          part, T, I, O, gs, k_per_split);
+          xp, static_cast<const int8_t*>(w), static_cast<const float*>(s),
+          gain, rmain, op, part, T, I, O, gs, k_per_split, eps);
     else
       qmm_f32_kernel<XT, int8_t, __nv_bfloat16><<<grid, 256, 0, st>>>(
           xp, static_cast<const int8_t*>(w),
-          static_cast<const __nv_bfloat16*>(s), op, part, T, I, O, gs,
-          k_per_split);
+          static_cast<const __nv_bfloat16*>(s), gain, rmain, op, part, T, I,
+          O, gs, k_per_split, eps);
   } else {
     if (s_dt == DT_F32)
       qmm_f32_kernel<XT, int16_t, float><<<grid, 256, 0, st>>>(
           xp, static_cast<const int16_t*>(w), static_cast<const float*>(s),
-          op, part, T, I, O, gs, k_per_split);
+          gain, rmain, op, part, T, I, O, gs, k_per_split, eps);
     else
       qmm_f32_kernel<XT, int16_t, __nv_bfloat16><<<grid, 256, 0, st>>>(
           xp, static_cast<const int16_t*>(w),
-          static_cast<const __nv_bfloat16*>(s), op, part, T, I, O, gs,
-          k_per_split);
+          static_cast<const __nv_bfloat16*>(s), gain, rmain, op, part, T, I,
+          O, gs, k_per_split, eps);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   if (splits > 1) {
     const size_t n = (size_t)T * O;
     const int blocks = (int)std::min<size_t>((n + 255) / 256, 4096);
-    splitk_reduce_kernel<XT><<<blocks, 256, 0, st>>>(partial, op, n, splits);
+    splitk_reduce_kernel<XT><<<blocks, 256, 0, st>>>(partial, rp, op, n,
+                                                     splits);
   }
   return (int)cudaGetLastError();
 }
@@ -415,19 +526,24 @@ int launch_typed(const void* x, const void* w, const void* s, void* out,
 
 // out (T, O) in x's dtype; partial: splits*T*O f32 scratch when splits > 1;
 // vec: 16-byte aligned rows (O % 16 == 0, I % 8 == 0, aligned pointers).
+// K1f: gain (I,) f32 or null (rmsnorm prologue with eps), res (T, O) in
+// x's dtype or null (residual epilogue).
 extern "C" int qmm_launch(const void* x, const void* w, const void* s,
+                          const void* gain, const void* res, float eps,
                           void* out, void* partial, int T, int I, int O,
                           int gs, int splits, int k_per_split, int x_dt,
                           int w_dt, int s_dt, int wide, int vec,
                           void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* part = static_cast<float*>(partial);
+  const float* g = static_cast<const float*>(gain);
   if (x_dt == DT_F32)
-    return launch_typed<float>(x, w, s, out, part, T, I, O, gs, splits,
-                               k_per_split, w_dt, s_dt, wide, vec, st);
+    return launch_typed<float>(x, w, s, g, res, eps, out, part, T, I, O, gs,
+                               splits, k_per_split, w_dt, s_dt, wide, vec,
+                               st);
   if (x_dt == DT_BF16)
-    return launch_typed<__nv_bfloat16>(x, w, s, out, part, T, I, O, gs,
-                                       splits, k_per_split, w_dt, s_dt, wide,
-                                       vec, st);
+    return launch_typed<__nv_bfloat16>(x, w, s, g, res, eps, out, part, T, I,
+                                       O, gs, splits, k_per_split, w_dt, s_dt,
+                                       wide, vec, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -7,6 +7,8 @@
   stores rows int8 with per-row f32 scales ``(L, B, n_kv, S)``.
 * :func:`prefill_many` — N prompts into N slots in one pass; attention is
   block-diagonal (each prompt over its own fresh K/V).
+* :func:`prefill_into_slot` — one prompt into one slot at positions
+  [0, T): the single-stream engine's fresh prefill at ``pos == 0``.
 * :func:`decode_step` — one token for every slot at per-slot positions.
 
 Cache writes are deferred out of the layer loop, as in the JAX package:
@@ -210,6 +212,25 @@ def prefill_many(cfg: ModelConfig, params: LlamaParams,
     rows = x[torch.arange(N, device=dev), lengths.to(dev, torch.long) - 1]
     logits = mm(rows, params.classifier)                   # (N, V)
     return logits.to(torch.float32), cache
+
+
+def prefill_into_slot(cfg: ModelConfig, params: LlamaParams,
+                      tokens: torch.Tensor, length: int, slot: int,
+                      cache: BatchedKVCache, *, mm: Callable = qmatmul,
+                      mm_idx: Optional[Callable] = None,
+                      compute_dtype=torch.float32
+                      ) -> Tuple[torch.Tensor, BatchedKVCache]:
+    """Prefill ``tokens`` (T,) into cache slot ``slot`` at positions
+    [0, T): attention over the prompt's own K/V only, the rows written
+    after the layer loop (``prefill_many`` with N = 1 and no writer
+    kernel, as the JAX ``prefill_into_slot`` writes with a plain slice
+    update).  Rows >= ``length`` are padding, written and masked later.
+    Returns (last-valid-token logits (vocab,) f32, cache)."""
+    logits, cache = prefill_many(
+        cfg, params, tokens[None], torch.tensor([int(length)]),
+        torch.tensor([int(slot)], dtype=torch.int32), cache, mm=mm,
+        mm_idx=mm_idx, compute_dtype=compute_dtype)
+    return logits[0], cache
 
 
 def decode_step(cfg: ModelConfig, params: LlamaParams, tokens: torch.Tensor,

@@ -1,24 +1,28 @@
-"""LLaMA parameters for the port (part of ``fastllama_tpu/models/llama.py``:
-``LlamaParams``, ``embed_tokens``, ``fuse_params``, ``random_params_int``)
-plus ``params_from_numpy``, the bridge that builds the port's parameters
-from the JAX package's arrays handed over as numpy.
+"""LLaMA forward pass and parameters for the port (part of
+``fastllama_tpu/models/llama.py``: ``LlamaParams``, ``KVCache``,
+``embed_tokens``, ``fuse_params``, ``forward``, ``logits_at``,
+``random_params_int``) plus ``params_from_numpy``, the bridge that builds
+the port's parameters from the JAX package's arrays handed over as numpy.
 
 Projection matrices live in the transposed ``(in, out)`` layout with quant
 groups along ``in`` (QArray.group_axis = -2), stacked over layers:
 ``(L, in, out)``.  ``w[l]`` of a contiguous stack is a view, which is how
-the layer-indexed matmul reads a layer in place.  The single-stream
-``forward`` is not ported yet.
+the layer-indexed matmul reads a layer in place.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Mapping, Optional
+from typing import Any, Callable, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from fastllama_tpu_torch.config import ModelConfig, QuantType
-from fastllama_tpu_torch.device import resolve_device
+from fastllama_tpu_torch.device import resolve_device, torch_dtype
+from fastllama_tpu_torch.ops.attention import gqa_attention, update_kv_cache
+from fastllama_tpu_torch.ops.norms import rmsnorm, swiglu
+from fastllama_tpu_torch.ops.qmatmul import qmatmul
+from fastllama_tpu_torch.ops.rope import apply_rope_half, rope_tables
 from fastllama_tpu_torch.quant.groupquant import QDTYPE, QArray, dequantize
 
 
@@ -54,6 +58,30 @@ class LlamaParams:
                 if isinstance(getattr(self, f.name), QArray)}
 
 
+@dataclasses.dataclass
+class KVCache:
+    """The single-stream cache, ``(L, n_kv_heads, max_seq, head_size)`` per
+    tensor, f32 or bf16.  An int8 cache (per-row scales) is a
+    ``BatchedKVCache`` feature: ``create`` refuses it, as the JAX package
+    does.  ``forward`` writes rows in place."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+
+    @staticmethod
+    def create(cfg: ModelConfig, max_seq_len: Optional[int] = None,
+               dtype=torch.float32, device=None) -> "KVCache":
+        dev = resolve_device(device)
+        dtype = torch_dtype(dtype)
+        if dtype == torch.int8:
+            raise ValueError("int8 KV is a BatchedKVCache feature "
+                             "(models/batched.py)")
+        S = max_seq_len or cfg.max_seq_len
+        shape = (cfg.n_layers, cfg.n_kv_heads, S, cfg.head_size)
+        return KVCache(torch.zeros(shape, dtype=dtype, device=dev),
+                       torch.zeros(shape, dtype=dtype, device=dev))
+
+
 def embed_tokens(emb, tokens: torch.Tensor, dtype=torch.float32
                  ) -> torch.Tensor:
     """Gather + dequantize embedding rows."""
@@ -87,6 +115,111 @@ def fuse_params(cfg: ModelConfig, params: LlamaParams) -> LlamaParams:
         params,
         wq=cat([params.wq, params.wk, params.wv]), wk=None, wv=None,
         w1=cat([params.w1, params.w3]), w3=None)
+
+
+def forward(cfg: ModelConfig, params: LlamaParams, tokens: torch.Tensor,
+            pos: int, cache: KVCache, *, mm: Callable = qmatmul,
+            attn: Callable = gqa_attention, unroll: bool = False,
+            mm_idx: Optional[Callable] = None,
+            attn_idx: Optional[Callable] = None,
+            last_index: Optional[int] = None,
+            compute_dtype=torch.float32,
+            positions: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, KVCache]:
+    """One transformer step over T tokens at absolute positions
+    [pos, pos+T): prefill (T = a prompt block) or decode (T = 1).  Returns
+    per-token logits (T, vocab) f32 and the cache, whose rows
+    [pos, pos+T) of every layer are written in place before attention
+    reads them.
+
+    One Python loop over layers (JAX's four scan/unroll modes collapse into
+    it; ``unroll`` is accepted and has no meaning here).  The hooks:
+    ``mm_idx(h, w_stacked, layer, ...)`` reads a layer of the stacked
+    weights in place, else ``mm(h, w[layer])``; ``attn_idx(q, ck, cv,
+    pos, layer)`` reads the stacked cache in place, else ``attn(q, ck[l],
+    cv[l], pos)``.  When ``mm_idx.supports_fusion`` is set, the two
+    residual adds of each layer run inside the matmul (K1f), and so do the
+    two rmsnorms when QKV and gate|up are fused, as ``layer_fn`` does
+    (llama.py:175-233).
+
+    ``pos`` is a host int (it places the cache rows).  ``positions`` is the
+    (T,) int32 device tensor ``pos + arange(T)``, made here when None; the
+    decode chunk passes a slice of one it made per chunk, so a step copies
+    nothing from the host.  The attention hooks get ``positions[:1]``.
+    ``last_index`` keeps one row for the classifier (a padded prefill)."""
+    T = tokens.shape[0]
+    hs, n_heads, n_kv = cfg.head_size, cfg.n_heads, cfg.n_kv_heads
+    S = cache.k.shape[2]
+    if not 0 <= pos <= S - T:
+        raise ValueError(f"positions [{pos}, {pos + T}) do not fit a cache "
+                         f"of {S} rows")
+    if positions is None:
+        positions = torch.arange(pos, pos + T, dtype=torch.int32,
+                                 device=tokens.device)
+    pos_t = positions[:1]
+
+    x = embed_tokens(params.embedding, tokens, compute_dtype)       # (T, dim)
+    cos, sin = rope_tables(cfg, positions, compute_dtype)
+
+    fused = params.wk is None
+    # the residual adds fold into the matmul whenever the hook can; the
+    # norms only when QKV and gate|up are fused (llama.py:186-232)
+    fuse_res = getattr(mm_idx, "supports_fusion", False)
+    fuse_norm = fused and fuse_res
+    qdim, kvdim, hdim = n_heads * hs, cfg.kv_dim, cfg.hidden_dim
+
+    for l in range(cfg.n_layers):
+        if mm_idx is not None:
+            def proj(h, w, l=l, **kw):
+                return mm_idx(h, w, l, **kw)
+        else:
+            def proj(h, w, l=l):
+                return mm(h, w[l])
+
+        if fuse_norm:
+            qkv = proj(x, params.wq, norm_gain=params.attn_norm[l],
+                       eps=cfg.norm_eps)
+        else:
+            h = rmsnorm(x, params.attn_norm[l], cfg.norm_eps)
+            qkv = (proj(h, params.wq) if fused else
+                   torch.cat([proj(h, params.wq), proj(h, params.wk),
+                              proj(h, params.wv)], dim=-1))
+        q = qkv[:, :qdim].reshape(T, n_heads, hs).transpose(0, 1)
+        k = qkv[:, qdim:qdim + kvdim].reshape(T, n_kv, hs).transpose(0, 1)
+        v = qkv[:, qdim + kvdim:].reshape(T, n_kv, hs).transpose(0, 1)
+        q = apply_rope_half(q, cos[None], sin[None])
+        k = apply_rope_half(k, cos[None], sin[None])
+
+        update_kv_cache(cache.k[l], cache.v[l], k, v, pos)
+        if attn_idx is not None:
+            o = attn_idx(q, cache.k, cache.v, pos_t, l)           # (H, T, hs)
+        else:
+            o = attn(q, cache.k[l], cache.v[l], pos_t)
+        o = o.transpose(0, 1).reshape(T, n_heads * hs).contiguous()
+        x = proj(o, params.wo, residual=x) if fuse_res \
+            else x + proj(o, params.wo)
+        if fuse_norm:
+            g13 = proj(x, params.w1, norm_gain=params.ffn_norm[l],
+                       eps=cfg.norm_eps)
+        else:
+            h = rmsnorm(x, params.ffn_norm[l], cfg.norm_eps)
+            g13 = (proj(h, params.w1) if fused else
+                   torch.cat([proj(h, params.w1), proj(h, params.w3)],
+                             dim=-1))
+        hd = swiglu(g13[:, :hdim], g13[:, hdim:])
+        x = proj(hd, params.w2, residual=x) if fuse_res \
+            else x + proj(hd, params.w2)
+
+    if last_index is not None:
+        x = x[last_index:last_index + 1]
+    x = rmsnorm(x, params.out_norm, cfg.norm_eps)
+    logits = mm(x, params.classifier)                            # (T, vocab)
+    return logits.to(torch.float32), cache
+
+
+def logits_at(logits: torch.Tensor, length: int) -> torch.Tensor:
+    """Logits of the last valid token of a padded prefill."""
+    return logits[length - 1]
 
 
 def _shapes(cfg: ModelConfig):

@@ -1,6 +1,7 @@
 """GQA attention, plain PyTorch (port of
-``fastllama_tpu/ops/attention.py:37-108``).
+``fastllama_tpu/ops/attention.py:26-108``).
 
+``update_kv_cache`` writes new rows into one layer's cache in place.
 ``gqa_attention`` is the prefill attention, which the JAX package also
 computes outside Pallas.  ``gqa_attention_decode_batched`` is the
 reference form of decode attention with deferred cache writes (strict mask
@@ -14,6 +15,21 @@ import math
 import torch
 
 NEG_INF = -1e30
+
+
+def update_kv_cache(k_cache: torch.Tensor, v_cache: torch.Tensor,
+                    k_new: torch.Tensor, v_new: torch.Tensor, pos: int):
+    """Write T new rows at [pos, pos+T), in place.  k_cache (n_kv, S, hs);
+    k_new (n_kv, T, hs); ``pos`` a host int.  Raises when the rows do not
+    fit (JAX's ``dynamic_update_slice`` clamps the start instead, which
+    would overwrite valid history).  Returns the same two tensors."""
+    T, S = k_new.shape[-2], k_cache.shape[-2]
+    if not 0 <= pos <= S - T:
+        raise ValueError(f"KV rows [{pos}, {pos + T}) do not fit a cache "
+                         f"of {S} rows")
+    k_cache[..., pos:pos + T, :] = k_new.to(k_cache.dtype)
+    v_cache[..., pos:pos + T, :] = v_new.to(v_cache.dtype)
+    return k_cache, v_cache
 
 
 def gqa_attention(q: torch.Tensor, k_cache: torch.Tensor,

@@ -2,15 +2,23 @@
 plain version.
 
 Replaces ``flash_decode_batched`` (fastllama_tpu/ops/pallas/
-flash_decode.py:203) on the deferred-write path that
-``make_attn_batched_flash`` drives from ``models/batched.decode_step``:
-one query row per slot over that slot's cache rows [0, pos[b]) of layer
-``layer`` (strict), plus the fresh K/V row merged last in f32.  The
-``stats`` outputs (deferred staged KV) and the non-fresh form are not
-ported yet.
+flash_decode.py:203) in its two modes:
+
+* fresh — the deferred-write path that ``make_attn_batched_flash`` drives
+  from ``models/batched.decode_step``: one query row per slot over that
+  slot's cache rows [0, pos[b]) of layer ``layer`` (strict), plus the
+  fresh K/V row merged last in f32;
+* non-fresh — rows [0, pos[b]] (the mask ``col <= pos``), the form that
+  ``flash_decode_single`` (flash_decode.py:299) gives the single-stream
+  ``models/llama.forward`` through ``make_attn_indexed_flash`` (:561).
+
+The same kernel serves ``ops/kernels/attention.py``.  The TPU's host
+``s_bound`` window (``round_bound``) has no counterpart: the kernel reads
+``pos`` from the device and only the rows the mask keeps.  The ``stats``
+outputs (deferred staged KV) are not ported yet.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
-kernel or raises.  The wrapper counts its launches in ``.launches``.
+kernel or raises.  Each wrapper counts its launches in ``.launches``.
 """
 from __future__ import annotations
 
@@ -31,31 +39,38 @@ def flash_decode_plain(q, ck, cv, pos, layer: int, k_scale=None,
                        v_scale=None, k_new=None, v_new=None):
     """The kernel's math in plain PyTorch, all in f32 (``_flash_kernel``,
     flash_decode.py:123-200): scores (q.k)/sqrt(hs) times the K row scale,
-    strict mask, softmax jointly with the fresh row's score, probabilities
+    the mask (strict ``col < pos`` with fresh rows, ``col <= pos``
+    without), softmax jointly with the fresh row's score, probabilities
     times the V row scale before P.V.  Not the jnp fallback, which rounds
     dequantized K/V to the compute dtype first."""
     B, H, _, hs = q.shape
     n_kv, S = ck.shape[2], ck.shape[3]
     hgs = H // n_kv
     scale = 1.0 / math.sqrt(hs)
+    fresh = k_new is not None
     qf = q.reshape(B, n_kv, hgs, hs).to(torch.float32)
     s = torch.einsum("bkgh,bksh->bkgs", qf,
                      ck[layer, :B].to(torch.float32)) * scale
     if k_scale is not None:
         s = s * k_scale[layer, :B][:, :, None, :]
-    mask = (torch.arange(S, device=q.device)[None, :]
-            < pos.to(q.device)[:, None])[:, None, None, :]
+    col = torch.arange(S, device=q.device)[None, :]
+    p = pos.to(q.device)[:, None]
+    mask = (col < p if fresh else col <= p)[:, None, None, :]
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
-    s_new = torch.einsum("bkgh,bkh->bkg", qf,
-                         k_new.to(torch.float32)) * scale
-    m = torch.maximum(s.amax(dim=-1), s_new)
+    m = s.amax(dim=-1)
+    if fresh:
+        s_new = torch.einsum("bkgh,bkh->bkg", qf,
+                             k_new.to(torch.float32)) * scale
+        m = torch.maximum(m, s_new)
+        e_new = torch.exp(s_new - m)
     e = torch.where(mask, torch.exp(s - m[..., None]), torch.zeros_like(s))
-    e_new = torch.exp(s_new - m)
-    den = e.sum(dim=-1) + e_new
+    den = e.sum(dim=-1)
     if v_scale is not None:
         e = e * v_scale[layer, :B][:, :, None, :]
     acc = torch.einsum("bkgs,bksh->bkgh", e, cv[layer, :B].to(torch.float32))
-    acc = acc + e_new[..., None] * v_new.to(torch.float32)[:, :, None, :]
+    if fresh:
+        den = den + e_new
+        acc = acc + e_new[..., None] * v_new.to(torch.float32)[:, :, None, :]
     return (acc / den[..., None]).reshape(B, H, 1, hs).to(q.dtype)
 
 
@@ -69,18 +84,22 @@ def _validate(q, ck, cv, pos, layer, k_scale, v_scale, k_new, v_new):
     if B > Bc or not 0 <= layer < L:
         raise ValueError(f"flash_decode kernel: B={B} Bc={Bc} layer={layer}")
     quant = k_scale is not None
+    fresh = k_new is not None
     if (ck.dtype == torch.int8) != quant or cv.dtype != ck.dtype:
         raise ValueError("an int8 cache needs its row scales (and only it)")
-    if q.dtype not in (torch.float32, torch.bfloat16) \
-            or ck.dtype not in _DT \
-            or k_new.dtype != q.dtype or v_new.dtype != q.dtype:
+    if q.dtype not in (torch.float32, torch.bfloat16) or ck.dtype not in _DT:
         raise ValueError(f"flash_decode kernel: dtypes q {q.dtype} cache "
-                         f"{ck.dtype} fresh {k_new.dtype}")
-    if k_new.shape != (B, n_kv, hs) or v_new.shape != (B, n_kv, hs):
-        raise ValueError("fresh rows must be (B, n_kv, hs)")
+                         f"{ck.dtype}")
+    if fresh != (v_new is not None):
+        raise ValueError("fresh rows come as a pair (k_new, v_new)")
+    if fresh and (k_new.dtype != q.dtype or v_new.dtype != q.dtype
+                  or k_new.shape != (B, n_kv, hs)
+                  or v_new.shape != (B, n_kv, hs)):
+        raise ValueError("fresh rows must be (B, n_kv, hs) in q's dtype")
     if pos.dtype != torch.int32 or pos.shape != (B,):
         raise ValueError("pos must be (B,) int32")
-    ts = [q, ck, cv, k_new, v_new, pos] + ([k_scale, v_scale] if quant else [])
+    ts = [q, ck, cv, pos] + ([k_new, v_new] if fresh else []) \
+        + ([k_scale, v_scale] if quant else [])
     for t in ts:
         if t.device != q.device or not t.is_contiguous():
             raise ValueError("flash_decode operands must be contiguous on "
@@ -108,30 +127,64 @@ def _launch(q, ck, cv, pos, layer, k_scale, v_scale, k_new, v_new):
     return out
 
 
+def attend(wrapper, q, ck, cv, pos, layer: int, k_scale=None, v_scale=None,
+           k_new=None, v_new=None):
+    """Check the operands, then run the plain version (CPU tensors) or
+    launch K2 (CUDA tensors) and add one to ``wrapper.launches``."""
+    _validate(q, ck, cv, pos, layer, k_scale, v_scale, k_new, v_new)
+    if q.device.type == "cpu":
+        return flash_decode_plain(q, ck, cv, pos, layer, k_scale, v_scale,
+                                  k_new, v_new)
+    if q.device.type != "cuda":
+        raise ValueError(f"{wrapper.__name__}: unsupported device "
+                         f"{q.device}")
+    out = _launch(q, ck, cv, pos, layer, k_scale, v_scale, k_new, v_new)
+    wrapper.launches += 1
+    return out
+
+
 def flash_decode_batched(q, ck, cv, pos, layer: int, k_scale=None,
                          v_scale=None, k_new=None, v_new=None):
     """Per-slot decode attention over the stacked cache.
 
     q (B, n_heads, 1, hs); caches (L, B, n_kv, S, hs) int8/bf16/f32; pos
     (B,) int32; ``k_scale``/``v_scale`` (L, B, n_kv, S) f32 mark an int8
-    cache; ``k_new``/``v_new`` (B, n_kv, hs) the current token's rows.
-    Returns (B, n_heads, 1, hs) in q.dtype."""
-    if k_new is None or v_new is None:
-        raise NotImplementedError("flash_decode_batched without fresh rows "
-                                  "is not ported yet")
-    _validate(q, ck, cv, pos, layer, k_scale, v_scale, k_new, v_new)
-    if q.device.type == "cpu":
-        return flash_decode_plain(q, ck, cv, pos, layer, k_scale, v_scale,
-                                  k_new, v_new)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_decode_batched: unsupported device "
-                         f"{q.device}")
-    out = _launch(q, ck, cv, pos, layer, k_scale, v_scale, k_new, v_new)
-    flash_decode_batched.launches += 1
-    return out
+    cache; ``k_new``/``v_new`` (B, n_kv, hs) the current token's rows
+    (rows [0, pos) are read), or None (rows [0, pos] are read).  Returns
+    (B, n_heads, 1, hs) in q.dtype."""
+    return attend(flash_decode_batched, q, ck, cv, pos, layer, k_scale,
+                  v_scale, k_new, v_new)
+
+
+def pos_tensor(pos, device) -> torch.Tensor:
+    """pos as the (1,) int32 device tensor the kernel reads: a device
+    tensor passes through as a view; a Python int is filled on the device
+    (no host-to-device copy)."""
+    if isinstance(pos, torch.Tensor):
+        return pos.reshape(1).to(torch.int32)
+    return torch.full((1,), int(pos), dtype=torch.int32, device=device)
+
+
+def flash_decode_single(q, ck, cv, pos, layer: int):
+    """Single-stream non-fresh decode attention: q (n_heads, 1, hs), caches
+    (L, n_kv, S, hs) viewed as a B=1 batched cache (the same memory), rows
+    [0, pos] of layer ``layer``.  Returns (n_heads, 1, hs)."""
+    L, n_kv, S, hs = ck.shape
+    return attend(flash_decode_single, q[None], ck.view(L, 1, n_kv, S, hs),
+                  cv.view(L, 1, n_kv, S, hs), pos_tensor(pos, q.device),
+                  layer)[0]
+
+
+def flash_decode_single_plain(q, ck, cv, pos, layer: int):
+    """The plain version of :func:`flash_decode_single` on any device."""
+    L, n_kv, S, hs = ck.shape
+    return flash_decode_plain(q[None], ck.view(L, 1, n_kv, S, hs),
+                              cv.view(L, 1, n_kv, S, hs),
+                              pos_tensor(pos, q.device), layer)[0]
 
 
 flash_decode_batched.launches = 0
+flash_decode_single.launches = 0
 
 
 def make_attn_batched_flash():
@@ -155,3 +208,31 @@ def make_attn_batched_plain():
             k_new=k_new, v_new=v_new)[:, :, 0]
 
     return attn_bidx
+
+
+def make_attn_indexed_flash():
+    """attn_idx(q, ck_full, cv_full, pos, layer) for
+    ``models.llama.forward``: K2 non-fresh for one query row (T = 1), the
+    plain masked attention on the layer's cache for a block of rows (the
+    JAX package's jnp fallback for prefill, flash_decode.py:572-574)."""
+    from fastllama_tpu_torch.ops.attention import gqa_attention
+
+    def attn_idx(q, ck, cv, pos, layer):
+        if q.shape[1] == 1:
+            return flash_decode_single(q, ck, cv, pos, layer)
+        return gqa_attention(q, ck[layer], cv[layer], pos)
+
+    return attn_idx
+
+
+def make_attn_indexed_plain():
+    """The plain versions behind :func:`make_attn_indexed_flash`'s
+    interface (rows [0, pos] for T = 1, masked attention otherwise)."""
+    from fastllama_tpu_torch.ops.attention import gqa_attention
+
+    def attn_idx(q, ck, cv, pos, layer):
+        if q.shape[1] == 1:
+            return flash_decode_single_plain(q, ck, cv, pos, layer)
+        return gqa_attention(q, ck[layer], cv[layer], pos)
+
+    return attn_idx

@@ -1,11 +1,16 @@
-"""Kernel selection for the serving engine (port of
-``fastllama_tpu/runtime/kernels.py``).
+"""Kernel selection for the serving engines (port of
+``fastllama_tpu/runtime/kernels.py`` and the hook choice of
+``fastllama_tpu/runtime/engine.py:116-169``).
 
 One place decides which compute path an engine runs.  With
 ``EngineConfig.use_pallas`` (the default) it is the kernel wrappers: on a
 CUDA device they launch the hand-written kernels or raise, on the CPU they
 run their plain versions.  ``use_pallas=False`` asks for the plain PyTorch
 versions on any device, the reference path the kernels are held against.
+``flash_attention=False`` takes the always-streaming attention functions of
+``ops/kernels/attention.py`` for the single-stream ``attn_idx`` and, as the
+JAX package does, the plain per-slot attention for the batched
+``attn_bidx``.
 """
 from __future__ import annotations
 
@@ -19,11 +24,15 @@ from fastllama_tpu_torch.config import EngineConfig
 
 @dataclasses.dataclass
 class KernelBundle:
-    """The engine compute path: matmul, layer-indexed matmul, batched
-    decode attention and the cache writers."""
+    """The engine compute path: matmul, layer-indexed matmul, the
+    single-stream attention on one layer's cache (``attn``) and on the
+    stacked cache (``attn_idx``), batched decode attention and the cache
+    writers."""
 
     mm: Callable
     mm_idx: Optional[Callable] = None
+    attn: Optional[Callable] = None
+    attn_idx: Optional[Callable] = None
     attn_bidx: Optional[Callable] = None
     kv_writer: Optional[Callable] = None
     slot_writer: Optional[Callable] = None
@@ -31,24 +40,30 @@ class KernelBundle:
 
 def select_kernels(device, ec: EngineConfig, compute_dtype) -> KernelBundle:
     """Pick the compute path for ``device`` and an engine config."""
-    from fastllama_tpu_torch.ops.kernels import flash_decode, kv_write, qmm
+    from fastllama_tpu_torch.ops.kernels import (attention, flash_decode,
+                                                 kv_write, qmm)
     dev = torch.device(device)
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
-    if not ec.flash_attention:
-        raise NotImplementedError("flash_attention=False needs the "
-                                  "always-streaming decode attention kernels,"
-                                  " not ported yet")
     if ec.use_pallas:
         return KernelBundle(
             mm=qmm.make_mm(compute_dtype),
             mm_idx=qmm.make_mm_indexed(compute_dtype),
-            attn_bidx=flash_decode.make_attn_batched_flash(),
+            attn=attention.make_attn(),
+            attn_idx=(flash_decode.make_attn_indexed_flash()
+                      if ec.flash_attention
+                      else attention.make_attn_indexed()),
+            attn_bidx=(flash_decode.make_attn_batched_flash()
+                       if ec.flash_attention
+                       else attention.make_attn_batched()),
             kv_writer=kv_write.make_kv_writer(),
             slot_writer=kv_write.make_prefill_writer())
     return KernelBundle(
         mm=qmm.make_mm_plain(compute_dtype),
         mm_idx=qmm.make_mm_indexed_plain(compute_dtype),
-        attn_bidx=flash_decode.make_attn_batched_plain(),
+        attn=attention.make_attn_plain(),
+        attn_idx=flash_decode.make_attn_indexed_plain(),
+        attn_bidx=(flash_decode.make_attn_batched_plain()
+                   if ec.flash_attention else attention.make_attn_batched()),
         kv_writer=kv_write.decode_write_plain,
         slot_writer=kv_write.prefill_write_plain)

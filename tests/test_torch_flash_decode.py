@@ -61,8 +61,8 @@ def test_flash_plain_vs_pallas(quant, n_kv, hgs):
 def test_flash_rejects_bad_operands():
     q, ck, cv, kn, vn = map(_t, _inputs(0, 2, 1, 2, 2, 16, 8))
     pos = torch.tensor([3, 4], dtype=torch.int32)
-    with pytest.raises(NotImplementedError):
-        tfd.flash_decode_batched(q, ck, cv, pos, 0)           # no fresh rows
+    with pytest.raises(ValueError):                           # half a pair
+        tfd.flash_decode_batched(q, ck, cv, pos, 0, k_new=kn)
     with pytest.raises(ValueError):
         tfd.flash_decode_batched(q, ck, cv, pos.long(), 0, k_new=kn,
                                  v_new=vn)                    # pos not int32

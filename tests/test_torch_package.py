@@ -14,6 +14,7 @@ from fastllama_tpu_torch.models import batched as tb
 from fastllama_tpu_torch.models import llama as tl
 from fastllama_tpu_torch.ops.kernels import qmm
 from fastllama_tpu_torch.runtime.batching import BatchedEngine
+from fastllama_tpu_torch.runtime.engine import Engine
 
 ROOT = Path(__file__).resolve().parents[1]
 CFG = tcfg.ModelConfig(dim=128, hidden_dim=256, n_layers=2, n_heads=4,
@@ -26,15 +27,23 @@ def test_port_imports_no_jax():
     code = (
         "import importlib, pkgutil, sys\n"
         "import fastllama_tpu_torch as p\n"
-        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "names = [m.name for m in\n"
+        "         pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'fastllama_tpu'))\n"
+        "print(' '.join(names))\n"
         "print(len(sys.modules), bad)\n"
         "sys.exit(1 if bad else 0)\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
+    walked = r.stdout.split("\n")[0].split()
+    for mod in ("runtime.engine", "runtime.sampler", "runtime.kernels",
+                "ops.kernels.attention", "ops.kernels.flash_decode",
+                "ops.kernels.qmm", "models.llama", "ops.sampling"):
+        assert "fastllama_tpu_torch." + mod in walked
 
 
 def test_chip_smoke_imports_no_jax():
@@ -58,6 +67,8 @@ def test_entry_points_need_a_card_or_cpu():
         lambda: tl.params_from_numpy(CFG, {}, {}),
         lambda: BatchedEngine(CFG, params, Tokenizer().finalize(),
                               tcfg.EngineConfig(max_batch_size=2)),
+        lambda: tl.KVCache.create(CFG),
+        lambda: Engine(CFG, params, Tokenizer().finalize()),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -66,6 +77,10 @@ def test_entry_points_need_a_card_or_cpu():
                         tcfg.EngineConfig(max_batch_size=2), device="cpu")
     req = eng.generate_all([[5, 6, 7]], max_new_tokens=3, stop_tokens=())[0]
     assert req.done and len(req.output_tokens) == 3
+    toks, _ = Engine(CFG, params, Tokenizer().finalize(),
+                     device="cpu").generate([5, 6, 7], max_new_tokens=3,
+                                            stop_tokens=())
+    assert len(toks) == 3
 
 
 def test_wrappers_take_the_plain_version_only_on_the_cpu():
@@ -80,8 +95,7 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu():
 
 @pytest.mark.parametrize("option", [
     dict(prefix_cache=True), dict(deferred_kv=True), dict(mesh="model=2"),
-    dict(spmd_kernels=True), dict(pallas_interpret=True),
-    dict(flash_attention=False)])
+    dict(spmd_kernels=True), dict(pallas_interpret=True)])
 def test_unported_options_raise(option):
     params = tl.random_params_int(CFG, seed=0, device="cpu")
     with pytest.raises(NotImplementedError):
