@@ -13,12 +13,17 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
 2. each kernel against its plain PyTorch version on the card, at the
    shapes of the LLaMA2-7B serving paths: the batched path's kernels, then
    K1f (the matmul with the rmsnorm prologue / residual epilogue) at the
-   single-stream decode shapes and K2's non-fresh mode at B=1 through its
-   three wrappers;
+   single-stream decode shapes, K2's non-fresh mode at B=1 through its
+   three wrappers and per slot through ``flash_decode_batched`` and
+   ``decode_attention_pallas_batched`` (2e), K2s, the speculative-verify
+   attention, at B=32 and T in {2, 4, 8} (2f) and ``spec_write`` (2g);
 3. the engines' kernel paths against their plain paths at 7B width, 2
-   layers, f32 compute: the ``BatchedEngine`` (int8 KV, B=4) and the
+   layers, f32 compute: the ``BatchedEngine`` (int8 KV, B=4), the
    single-stream ``Engine`` (f32 scales and KV: logits, 40 greedy tokens
-   with a tail chunk, a two-turn ``ChatSession``);
+   with a tail chunk, a two-turn ``ChatSession``) and (3c) the batched
+   speculative verify and ``SpecBatchedEngine`` (int8 KV, B=4: logits,
+   caches, greedy tokens equal to plain serving with the tuner off and
+   on);
 4. the batched serving path at full width: ``BatchedEngine`` over 7B /
    INT8 / fused QKV and gate|up / int8 KV / B=48 / S=512, 32 layers,
    synthetic weights made on the card; 48 requests of a 43-token prompt
@@ -34,6 +39,13 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    traced.  Then the ``flash_attention=False`` engine and a ``forward``
    with the one-layer attention hook, each with the counters zeroed, so
    that every wrapper of K2's non-fresh mode runs on a path;
+4c. speculative serving at full width (bench.py's ``bench_spec_serving``
+   shape): ``SpecBatchedEngine`` over 7B / INT8 unfused / scale_dtype
+   "auto" (f32) / int8 KV / B=32 / S=512, width 4, 32 rounds a chunk, decode
+   chunk 64, the tuner on; 32 requests of the repetitive 43-token prompt,
+   129 new tokens, greedy; a warm-up and a measured pass with the counters
+   zeroed just before it; the plain ``BatchedEngine`` on the same traffic
+   for scale; one spec chunk of 8 rounds traced;
 5. each kernel timed with CUDA events at the path's shapes, beside its
    bound, its plain version and a library call.
 
@@ -316,6 +328,8 @@ def phase_kernels(dev, rec):
     torch.cuda.empty_cache()
     check_fused(dev, gen, errs)
     check_non_fresh(dev, gen, errs)
+    check_spec(dev, gen, errs)
+    check_spec_write(dev, gen, errs)
     rec["max_abs_err"] = errs
 
 
@@ -359,7 +373,8 @@ def check_non_fresh(dev, gen, errs):
     """K2 without fresh rows (rows [0, pos] of a cache that already holds
     the current row) through each of its wrappers, 7B heads, B=1, S=512,
     f32 and bf16 caches, at pos 0, 1, 107 and S-1; and the batched form
-    over per-slot positions."""
+    over per-slot positions, through ``flash_decode_batched`` and
+    ``decode_attention_pallas_batched``."""
     import torch
     from fastllama_tpu_torch.ops.kernels import attention as at
     from fastllama_tpu_torch.ops.kernels import flash_decode as fd
@@ -394,7 +409,116 @@ def check_non_fresh(dev, gen, errs):
                     fd.flash_decode_batched(qb, ckb, cvb, pos, 1),
                     fd.flash_decode_plain(qb, ckb, cvb, pos, 1), tol)
         errs["flash_decode_single"] = max(errs["flash_decode_single"], e)
+        e = compare(f"decode_attention_pallas_batched B={B} "
+                    f"cache={str(cdt)[6:]}",
+                    at.decode_attention_pallas_batched(qb, ckb, cvb, pos, 1),
+                    at.decode_attention_batched_plain(qb, ckb, cvb, pos, 1),
+                    tol)
+        errs["decode_attention_pallas_batched"] = max(
+            errs["decode_attention_pallas_batched"], e)
         del ck, cv, ckb, cvb
+    torch.cuda.empty_cache()
+
+
+def check_spec(dev, gen, errs):
+    """K2s at the 7B verify shapes: B=32, 32 heads of 128, S=512, T in
+    {2, 4, 8}; an int8 cache with the exact diagonal (k_self/v_self) and a
+    bf16 cache without; positions 0, across a 64-row tile and S - T; f32
+    and bf16 q."""
+    import torch
+    from fastllama_tpu_torch.ops.kernels import flash_decode as fd
+    from fastllama_tpu_torch.quant.groupquant import (dequantize_rows,
+                                                      quantize_rows)
+    log("phase 2f: K2s speculative-verify attention vs plain (7B, B=32)")
+    B, L, H, n_kv, hs, S = 32, 2, 32, 32, 128, 512
+    shape = (L, B, n_kv, S, hs)
+    for cache_dt in (torch.int8, torch.bfloat16):
+        if cache_dt == torch.int8:
+            ck = torch.empty(shape, dtype=torch.int8, device=dev)
+            cv = torch.empty(shape, dtype=torch.int8, device=dev)
+            ck.random_(-127, 128, generator=gen)
+            cv.random_(-127, 128, generator=gen)
+            ks = torch.rand(shape[:-1], generator=gen, device=dev) * 0.05
+            vs = torch.rand(shape[:-1], generator=gen, device=dev) * 0.05
+        else:
+            ck = torch.randn(shape, generator=gen, device=dev).to(cache_dt)
+            cv = torch.randn(shape, generator=gen, device=dev).to(cache_dt)
+            ks = vs = None
+        for T in (2, 4, 8):
+            pos = torch.randint(0, S - T + 1, (B,), generator=gen,
+                                device=dev, dtype=torch.int32)
+            pos[:6] = torch.tensor([0, 1, 63, 64, 130, S - T],
+                                   dtype=torch.int32, device=dev)
+            for qdt, tol in ((torch.bfloat16, TOL_BF16),
+                             (torch.float32, TOL_F32)):
+                q = torch.randn((B, H, T, hs), generator=gen,
+                                device=dev).to(qdt)
+                ke = torch.randn((B, n_kv, T, hs), generator=gen,
+                                 device=dev).to(qdt)
+                ve = torch.randn((B, n_kv, T, hs), generator=gen,
+                                 device=dev).to(qdt)
+                if cache_dt == torch.int8:
+                    # the verify's fresh rows: the exact rows round-tripped
+                    # through the cache quantizer
+                    kn = dequantize_rows(*quantize_rows(ke), qdt)
+                    vn = dequantize_rows(*quantize_rows(ve), qdt)
+                    kw = dict(k_self=ke, v_self=ve)
+                else:
+                    kn, vn, kw = ke, ve, {}
+                got = fd.flash_spec_batched(q, ck, cv, pos, 1, ks, vs, kn,
+                                            vn, **kw)
+                want = fd.flash_spec_plain(q, ck, cv, pos, 1, ks, vs, kn, vn,
+                                           **kw)
+                e = compare(f"flash_spec cache={str(cache_dt)[6:]} T={T} "
+                            f"q={str(qdt)[6:]}"
+                            + (" exact_diag" if kw else ""), got, want, tol)
+                errs["flash_spec_batched"] = max(errs["flash_spec_batched"],
+                                                 e)
+        del ck, cv
+    torch.cuda.empty_cache()
+
+
+def check_spec_write(dev, gen, errs):
+    """spec_write (K3 with slots = arange(B), starts = pos, T = D) against
+    its plain version on the 7B cache of 32 layers at B=32, bit-equal:
+    int8 with scales and bf16; D in {2, 4, 8}; positions across a 32-row
+    boundary and at S - D."""
+    import torch
+    from fastllama_tpu_torch.models.batched import BatchedKVCache
+    from fastllama_tpu_torch.ops.kernels import kv_write as kw
+    log("phase 2g: spec_write vs plain (bit-equal, 7B cache, B=32)")
+    cfg = cfg_7b()
+    L, B, n_kv, hs, S = (cfg.n_layers, 32, cfg.n_kv_heads, cfg.head_size,
+                         cfg.max_seq_len)
+    for kv_dt in (torch.int8, torch.bfloat16):
+        a = BatchedKVCache.create(cfg, B, dtype=kv_dt, device=dev)
+        b = BatchedKVCache.create(cfg, B, dtype=kv_dt, device=dev)
+        for D in (2, 4, 8):
+            if kv_dt == torch.int8:
+                kq = torch.empty((L, B, n_kv, D, hs), dtype=torch.int8,
+                                 device=dev).random_(-127, 128, generator=gen)
+                vq = torch.empty_like(kq).random_(-127, 128, generator=gen)
+                ks = torch.rand((L, B, n_kv, D), generator=gen, device=dev)
+                vs = torch.rand((L, B, n_kv, D), generator=gen, device=dev)
+            else:
+                kq = torch.randn((L, B, n_kv, D, hs), generator=gen,
+                                 device=dev).to(kv_dt)
+                vq = torch.randn((L, B, n_kv, D, hs), generator=gen,
+                                 device=dev).to(kv_dt)
+                ks = vs = None
+            pos = torch.randint(0, S - D + 1, (B,), generator=gen,
+                                device=dev, dtype=torch.int32)
+            pos[:4] = torch.tensor([0, 31, 32 - D // 2, S - D],
+                                   dtype=torch.int32, device=dev)
+            kw.spec_write(a, kq, vq, ks, vs, pos)
+            kw.spec_write_plain(b, kq, vq, ks, vs, pos)
+            torch.cuda.synchronize()
+            for x, y in zip((a.k, a.v, a.k_scale, a.v_scale),
+                            (b.k, b.v, b.k_scale, b.v_scale)):
+                check(x is None or torch.equal(x, y),
+                      f"spec_write {kv_dt} D={D}: caches differ")
+            log(f"  ok spec_write cache={str(kv_dt)[6:]} D={D} bit-equal")
+        del a, b
     torch.cuda.empty_cache()
 
 
@@ -499,6 +623,112 @@ def phase_engine_parity(dev, rec):
     torch.cuda.empty_cache()
 
 
+def phase_spec_parity(dev, rec):
+    """The batched speculative path's kernels against its plain path: 7B
+    width, 2 layers, f32 compute, int8 KV, B=4.  ``spec_decode_step`` with
+    K2s and spec_write against the plain verify (logits, caches within one
+    int8 quantum); then ``SpecBatchedEngine`` greedy tokens (width 4, the
+    tuner off and on) against the plain ``BatchedEngine``'s, with drafts
+    accepted on a repetitive prompt."""
+    import torch
+    from fastllama_tpu_torch.config import EngineConfig
+    from fastllama_tpu_torch.loaders.tokenizer import Tokenizer
+    from fastllama_tpu_torch.models.batched import (BatchedKVCache,
+                                                    prefill_many,
+                                                    spec_decode_step)
+    from fastllama_tpu_torch.models.llama import (fuse_params,
+                                                  random_params_int)
+    from fastllama_tpu_torch.runtime.batching import BatchedEngine
+    from fastllama_tpu_torch.runtime.kernels import select_kernels
+    from fastllama_tpu_torch.runtime.spec_batching import SpecBatchedEngine
+    log("phase 3c: speculative verify and SpecBatchedEngine, kernel path vs "
+        "plain path (7B width, 2 layers, f32 compute, int8 KV, B=4)")
+    cfg = cfg_7b(n_layers=2)
+    params = random_params_int(cfg, seed=SEED + 7, device=dev)
+    fused = fuse_params(cfg, params)
+    B, D, T = 4, 4, 64
+    rng = torch.Generator(device="cpu")
+    rng.manual_seed(SEED + 7)
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=rng).tolist()
+               for n in (43, 17, 60, 5)]
+    kbs = {use: select_kernels(dev, EngineConfig(
+        use_pallas=use, compute_dtype="float32", kv_dtype="int8"),
+        torch.float32) for use in (True, False)}
+    check(kbs[False].attn_sbidx is None, "the plain path took a kernel")
+    caches = {use: BatchedKVCache.create(cfg, B, dtype=torch.int8,
+                                         device=dev) for use in kbs}
+    toks = torch.zeros((B, T), dtype=torch.long)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = torch.tensor(p)
+    lens = torch.tensor([len(p) for p in prompts])
+    for cache in caches.values():              # one plain prefill each
+        prefill_many(cfg, fused, toks.to(dev), lens.to(dev),
+                     torch.arange(B, dtype=torch.int32, device=dev), cache,
+                     mm=kbs[False].mm, slot_writer=kbs[False].slot_writer,
+                     compute_dtype=torch.float32)
+    pos = lens.to(dev, torch.int32)
+    pos[3] = 0                                    # a parked slot
+    batch = torch.randint(1, cfg.vocab_size, (B, D), generator=rng,
+                          dtype=torch.int32).to(dev)
+    errs = []
+    for rnd in range(2):
+        out = {}
+        for use, kb in kbs.items():
+            out[use], _ = spec_decode_step(
+                cfg, fused, batch, pos, caches[use], mm=kb.mm,
+                mm_idx=kb.mm_idx, attn_sbidx=kb.attn_sbidx,
+                spec_writer=kb.spec_writer, compute_dtype=torch.float32)
+        errs.append(compare(f"spec_decode_step logits round {rnd}",
+                            out[True], out[False], TOL_F32))
+        ck, cp = caches[True], caches[False]
+        for name in ("k", "v"):
+            d = (getattr(ck, name).int() - getattr(cp, name).int()).abs()
+            check(int(d.max()) <= 1 and float((d > 0).float().mean()) < 1e-3,
+                  f"spec round {rnd}: cache {name} differs by more than one "
+                  f"quantum")
+            compare(f"spec round {rnd} cache {name}_scale",
+                    getattr(ck, name + "_scale"),
+                    getattr(cp, name + "_scale"), TOL_F32)
+            getattr(ck, name).copy_(getattr(cp, name))
+            getattr(ck, name + "_scale").copy_(getattr(cp, name + "_scale"))
+        pos = pos + torch.tensor([1, 4, 2, 1], dtype=torch.int32, device=dev)
+        batch = (batch * 31 + 5) % cfg.vocab_size
+    del caches, fused
+
+    # engine level: greedy tokens of the spec engine equal plain serving
+    ec = EngineConfig(max_batch_size=B, kv_dtype="int8",
+                      compute_dtype="float32")
+    rep = ([7, 121, 3088, 59] * 11)[:43]
+    traffic = prompts + prompts[:2] + [rep]
+    base = BatchedEngine(cfg, params, Tokenizer().finalize(), ec,
+                         decode_chunk=8, device=dev)
+    want = [r.output_tokens for r in base.generate_all(
+        traffic, max_new_tokens=24, temperature=0.0, stop_tokens=())]
+    del base
+    accepted = {}
+    for auto in (False, True):
+        spec = SpecBatchedEngine(cfg, params, Tokenizer().finalize(), ec,
+                                 decode_chunk=8, width=4, rounds_per_chunk=8,
+                                 spec_auto=auto, device=dev)
+        got = [r.output_tokens for r in spec.generate_all(
+            traffic, max_new_tokens=24, temperature=0.0, stop_tokens=())]
+        check(got == want, f"spec engine (tuner {auto}) tokens differ from "
+                           f"plain serving: {got} vs {want}")
+        accepted[auto] = (spec.spec_accepted, spec.spec_drafted,
+                          dict(spec.arm_chunks))
+        log(f"  ok SpecBatchedEngine tuner={auto}: greedy tokens equal "
+            f"plain serving over {len(traffic)} requests; accepted "
+            f"{spec.spec_accepted} of {spec.spec_drafted} drafts; chunks by "
+            f"arm {dict(spec.arm_chunks)}")
+        del spec
+    check(accepted[False][0] > 0, "no draft accepted on a repetitive prompt")
+    rec["spec_parity"] = {"max_logit_err": max(errs), "tokens_equal": True,
+                          "accepted_drafted_arms": {
+                              str(k): v for k, v in accepted.items()}}
+    del params
+    torch.cuda.empty_cache()
+
+
 def phase_single_parity(dev, rec):
     """The single-stream engine's kernel path (K1f, K2 non-fresh, K1)
     against its plain path: 7B width, 2 layers, f32 compute, f32 scales,
@@ -584,12 +814,16 @@ def phase_single_parity(dev, rec):
 # one entry per Pallas function the port replaces; the kernels of each path
 BATCHED_PATH = ("qmatmul_pallas", "qmatmul_pallas_indexed",
                 "flash_decode_batched", "decode_write", "prefill_write")
+SPEC_PATH = ("qmatmul_pallas", "qmatmul_pallas_indexed",
+             "flash_spec_batched", "spec_write", "prefill_write")
 SINGLE_PATH = ("qmatmul_pallas", "qmatmul_pallas_indexed",
                "qmatmul_pallas_indexed_fused", "flash_decode_single")
 KERNELS = ("qmatmul_pallas", "qmatmul_pallas_indexed",
            "qmatmul_pallas_indexed_fused", "flash_decode_batched",
            "flash_decode_single", "decode_attention_pallas_indexed",
-           "decode_attention_pallas", "decode_write", "prefill_write")
+           "decode_attention_pallas", "decode_write", "prefill_write",
+           "flash_spec_batched", "spec_write",
+           "decode_attention_pallas_batched")
 
 
 def wrappers():
@@ -606,7 +840,11 @@ def wrappers():
                 at.decode_attention_pallas_indexed,
             "decode_attention_pallas": at.decode_attention_pallas,
             "decode_write": kw.decode_write,
-            "prefill_write": kw.prefill_write}
+            "prefill_write": kw.prefill_write,
+            "flash_spec_batched": fd.flash_spec_batched,
+            "spec_write": kw.spec_write,
+            "decode_attention_pallas_batched":
+                at.decode_attention_pallas_batched}
 
 
 def zero_launches():
@@ -893,6 +1131,183 @@ def phase_single_serving(dev, rec):
 
 
 
+def profile_spec(eng, prompt, rounds=8):
+    """Speculative chunks of ``rounds`` rounds for every slot, the tuner set
+    aside so that each is a spec chunk at the engine's width: one admits
+    the requests, the next is timed untraced, the third is traced with
+    ``torch.profiler`` (fewer rounds than a serving chunk keep the trace
+    short; a round's work does not depend on the chunk's length).  Device
+    time by kernel per round, and the device's idle share of the traced
+    chunk and against the untraced one.  The requests ask for more tokens
+    than three chunks can give, so every slot stays live throughout; the
+    engine is discarded afterwards."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    eng._tuner, eng.R = None, rounds
+    for _ in range(eng.B):
+        eng.submit(prompt, max_new_tokens=eng.S - len(prompt) - 8,
+                   temperature=0.0, stop_tokens=())
+    eng.step()
+    torch.cuda.synchronize()
+    n0 = eng.arm_chunks[eng.width]
+    t0 = time.perf_counter()
+    eng.step()
+    torch.cuda.synchronize()
+    untraced = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    check(eng.arm_chunks[eng.width] == n0 + 2
+          and len(eng._live_slots()) == eng.B,
+          "the profiled chunks were not full speculative chunks")
+    rows = device_rows(prof)
+    R = rounds
+    busy_s = sum(r[0] for r in rows) / 1e6
+    out = {"rounds": R, "width": eng.width, "wall_ms": wall * 1e3,
+           "untraced_wall_ms": untraced * 1e3,
+           "device_busy_ms": busy_s * 1e3,
+           "device_busy_ms_per_round": busy_s * 1e3 / R,
+           "device_idle_share_traced": 1.0 - busy_s / wall,
+           "device_idle_share": 1.0 - busy_s / untraced,
+           "top_kernels_per_round": [
+               {"name": k[:120], "count_per_round": c / R,
+                "device_ms_per_round": us / 1e3 / R}
+               for us, c, k in rows[:15]]}
+    log(f"  profile: a spec chunk of {R} rounds at width {eng.width}: "
+        f"{wall * 1e3:.3f} ms wall traced, {untraced * 1e3:.3f} ms untraced;"
+        f" device busy {busy_s * 1e3:.3f} ms "
+        f"({out['device_busy_ms_per_round']:.4f} ms a round), idle share "
+        f"{out['device_idle_share']:.3f} untraced, "
+        f"{out['device_idle_share_traced']:.3f} traced")
+    for r in out["top_kernels_per_round"][:10]:
+        log(f"    {r['device_ms_per_round']:9.4f} ms/round  "
+            f"x{r['count_per_round']:<7.1f} {r['name']}")
+    return out
+
+
+def phase_spec_serving(dev, rec):
+    """bench.py's ``bench_spec_serving`` shape (bench.py:139-182, :309-312),
+    nothing cut: SpecBatchedEngine over 7B INT8 unfused weights,
+    scale_dtype "auto" (f32 scales: the batched rule), int8 KV, B=32,
+    S=512, width 4, 32 rounds a chunk,
+    decode chunk 64, the tuner on; 32 requests of the repetitive 43-token
+    prompt, 129 new tokens each, greedy.  One warm-up pass, then the
+    measured pass with every launch counter zeroed just before; then the
+    same traffic through the plain BatchedEngine (unfused, B=32) for
+    scale; then one spec chunk traced."""
+    import torch
+    from fastllama_tpu_torch.config import EngineConfig
+    from fastllama_tpu_torch.loaders.tokenizer import Tokenizer
+    from fastllama_tpu_torch.models.llama import random_params_int
+    from fastllama_tpu_torch.runtime.batching import BatchedEngine
+    from fastllama_tpu_torch.runtime.spec_batching import SpecBatchedEngine
+    log("phase 4c: speculative serving 7B INT8 unfused, scale_dtype auto "
+        "(f32 for a batched engine), int8 KV, B=32, S=512, width 4, 32 "
+        "rounds a chunk, tuner on")
+    cfg = cfg_7b()
+    B, n_new = 32, 129
+    prompt = ([7, 121, 3088, 59] * 11)[:43]
+    ec = EngineConfig(max_seq_len=512, kv_dtype="int8", max_batch_size=B,
+                      fuse_weights=False, scale_dtype="auto")
+    t0 = time.perf_counter()
+    params = random_params_int(cfg, seed=SEED, device=dev)
+    eng = SpecBatchedEngine(cfg, params, Tokenizer().finalize(), ec,
+                            decode_chunk=64, width=4, rounds_per_chunk=32,
+                            device=dev)
+    check(eng.params.wk is not None, "the weights were fused")
+    torch.cuda.synchronize()
+    # the peak of serving, not of making the weights
+    torch.cuda.reset_peak_memory_stats()
+    log(f"  weights + engine ready in {time.perf_counter() - t0:.2f} s")
+
+    def serve(e):
+        reqs = e.generate_all([prompt] * B, max_new_tokens=n_new,
+                              temperature=0.0, stop_tokens=())
+        torch.cuda.synchronize()
+        check(all(len(r.output_tokens) == n_new and r.done for r in reqs),
+              "a request did not get all its tokens")
+        return reqs
+
+    t0 = time.perf_counter()
+    serve(eng)
+    log(f"  warm-up pass {time.perf_counter() - t0:.2f} s, chunks by arm "
+        f"{dict(eng.arm_chunks)}")
+    eng.stats = type(eng.stats)()
+    eng.spec_drafted = eng.spec_accepted = 0
+    eng.arm_chunks.clear()
+
+    zero_launches()
+    t0 = time.perf_counter()
+    reqs = serve(eng)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    for k in SPEC_PATH:
+        check(launches[k] > 0, f"kernel {k} was not launched on the "
+                               f"speculative path")
+    # bf16 compute: tokens are compared within one pass only (the passes
+    # mix chunk kinds as the tuner measures, and bf16 argmax ties flip
+    # between the verify and the decode step; phase 3c compares at f32)
+    check(all(r.output_tokens == reqs[0].output_tokens for r in reqs),
+          "identical greedy requests produced different tokens")
+    st = eng.stats
+    rounds = launches["spec_write"]
+    out = {
+        "requests": B, "new_tokens_each": n_new,
+        "aggregate_decode_tok_s": st.aggregate_tps,
+        "acceptance": eng.acceptance, "spec_drafted": eng.spec_drafted,
+        "spec_accepted": eng.spec_accepted,
+        "chunks_by_arm": {str(k): v for k, v in eng.arm_chunks.items()},
+        "tuner_ema_tok_s": {str(k): v for k, v in eng._tuner.ema.items()},
+        "spec_rounds": rounds, "decode_s": st.decode_s,
+        "prefill_s": st.prefill_s, "wall_s": wall,
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": launches,
+        "launches_per_spec_round": {
+            k: launches[k] / rounds for k in ("flash_spec_batched",
+                                              "spec_write")},
+        "card": smi_line(),
+    }
+    log(f"  aggregate decode {st.aggregate_tps:.2f} tok/s over {B} streams, "
+        f"acceptance {eng.acceptance:.4f} ({eng.spec_accepted} of "
+        f"{eng.spec_drafted}), chunks by arm {dict(eng.arm_chunks)}, "
+        f"{rounds} spec rounds, prefill {st.prefill_s:.3f} s, max memory "
+        f"{out['max_memory_allocated_gb']:.2f} GB on {out['card']}")
+    log(f"  tuner EMA tok/s by arm {out['tuner_ema_tok_s']}")
+    log(f"  launches {launches}")
+    log(f"  measured pass {wall:.2f} s")
+
+    # the same traffic through the plain engine, for scale, before any
+    # trace
+    t0 = time.perf_counter()
+    plain = BatchedEngine(cfg, params, Tokenizer().finalize(), ec,
+                          decode_chunk=64, device=dev)
+    plain.generate_all([prompt] * B, max_new_tokens=3, temperature=0.0,
+                       stop_tokens=())
+    plain.stats = type(plain.stats)()
+    serve(plain)
+    steps = n_new - 1
+    out["plain_engine"] = {"aggregate_decode_tok_s":
+                           plain.stats.aggregate_tps,
+                           "decode_s": plain.stats.decode_s,
+                           "ms_per_decode_step":
+                               plain.stats.decode_s / steps * 1e3}
+    log(f"  plain BatchedEngine on the same traffic: "
+        f"{plain.stats.aggregate_tps:.2f} tok/s "
+        f"({out['plain_engine']['ms_per_decode_step']:.3f} ms a step), "
+        f"{time.perf_counter() - t0:.2f} s")
+    del plain
+    t0 = time.perf_counter()
+    out["profile"] = profile_spec(eng, prompt)
+    log(f"  profile {time.perf_counter() - t0:.2f} s")
+    rec["spec_serving"] = out
+    del eng, params
+    torch.cuda.empty_cache()
+    return launches
+
+
 # -- phase 5: timing ---------------------------------------------------------
 
 def phase_timing(dev, rec):
@@ -1080,6 +1495,7 @@ def phase_timing(dev, rec):
     del cache
     torch.cuda.empty_cache()
     time_single(dev, gen, res)
+    time_spec(dev, gen, res)
     for k, v in res.items():
         log(f"  {k}: {v['ms']:.4f} ms (plain {v['plain_ms']:.4f}, library "
             f"{v['library_ms']:.4f}, bound {v['bound_ms']:.4f} by "
@@ -1214,6 +1630,126 @@ def time_single(dev, gen, res):
     torch.cuda.empty_cache()
 
 
+def time_spec(dev, gen, res):
+    """The speculative path's kernels at phase 4c's shapes: K2s at B=32,
+    T=4, 7B heads, pos 107 in every slot, int8 cache with the exact
+    diagonal, one layer of two (layers rotate); spec_write of D=4 rows for
+    32 slots into the 7B int8 cache, all 32 layers.  Also
+    ``decode_attention_pallas_batched`` (on K2 non-fresh; no engine path
+    reaches it) at B=32, bf16 cache, pos 107."""
+    import torch
+    import torch.nn.functional as F
+    from fastllama_tpu_torch.models.batched import BatchedKVCache
+    from fastllama_tpu_torch.ops.kernels import attention as at
+    from fastllama_tpu_torch.ops.kernels import flash_decode as fd
+    from fastllama_tpu_torch.ops.kernels import kv_write as kw
+    from fastllama_tpu_torch.quant.groupquant import (dequantize_rows,
+                                                      quantize_rows)
+    bf16 = torch.bfloat16
+    B, T, H, n_kv, hs, S, L, p = 32, 4, 32, 32, 128, 512, 2, 107
+    shape = (L, B, n_kv, S, hs)
+    ck = torch.empty(shape, dtype=torch.int8, device=dev).random_(
+        -127, 128, generator=gen)
+    cv = torch.empty(shape, dtype=torch.int8, device=dev).random_(
+        -127, 128, generator=gen)
+    ksc = torch.rand(shape[:-1], generator=gen, device=dev) * 0.02
+    vsc = torch.rand(shape[:-1], generator=gen, device=dev) * 0.02
+    pos = torch.full((B,), p, dtype=torch.int32, device=dev)
+    q = torch.randn((B, H, T, hs), generator=gen, device=dev).to(bf16)
+    ke = torch.randn((B, n_kv, T, hs), generator=gen, device=dev).to(bf16)
+    ve = torch.randn((B, n_kv, T, hs), generator=gen, device=dev).to(bf16)
+    kn = dequantize_rows(*quantize_rows(ke), bf16)
+    vn = dequantize_rows(*quantize_rows(ve), bf16)
+    layer = [0]
+
+    def rot():
+        layer[0] = (layer[0] + 1) % L
+        return layer[0]
+    # library: SDPA over pre-dequantized bf16 rows [0, S) of the layer and
+    # the fresh block, masked to rows [0, pos) and the causal block (the
+    # exact diagonal has no counterpart there)
+    kd = [torch.cat([(ck[i].float() * ksc[i][..., None]).to(bf16), kn], 2)
+          for i in range(L)]
+    vd = [torch.cat([(cv[i].float() * vsc[i][..., None]).to(bf16), vn], 2)
+          for i in range(L)]
+    col = torch.arange(S + T, device=dev)
+    t_i = torch.arange(T, device=dev)[:, None]
+    mask = ((col[None, :] < p) | ((col[None, :] >= S)
+                                  & (col[None, :] - S <= t_i)))[None, None]
+    rows = B * p
+    nbytes = (q.numel() * 2 * 2 + rows * n_kv * (2 * hs + 8)
+              + 4 * kn.numel() * 2)
+    flops = 4 * rows * H * T * hs + 4 * B * H * T * T * hs
+    bm, by = bound_ms(nbytes, flops, F32_FLOP_S)
+    res["flash_spec_batched"] = dict(
+        ms=time_ms(lambda: fd.flash_spec_batched(
+            q, ck, cv, pos, rot(), ksc, vsc, kn, vn, ke, ve)),
+        plain_ms=time_ms(lambda: fd.flash_spec_plain(
+            q, ck, cv, pos, rot(), ksc, vsc, kn, vn, ke, ve)),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            q, kd[rot()], vd[layer[0]], attn_mask=mask)),
+        library_call="SDPA with an explicit mask over pre-dequantized bf16 "
+                     "K/V rows and the fresh block (no exact diagonal)",
+        bound_ms=bm, bound_by=by, bytes=nbytes,
+        shape=f"B={B} T={T} H={H} n_kv={n_kv} hs={hs} S={S} int8 cache, "
+              f"exact diagonal, pos={p} every slot")
+    del ck, cv, kd, vd
+
+    # decode_attention_pallas_batched: B=32, bf16 cache, rows [0, pos]
+    ckb = torch.randn(shape, generator=gen, device=dev).to(bf16)
+    cvb = torch.randn(shape, generator=gen, device=dev).to(bf16)
+    q1 = torch.randn((B, H, 1, hs), generator=gen, device=dev).to(bf16)
+    mask1 = (torch.arange(S, device=dev)[None, :] <= pos[:, None])[:, None,
+                                                                   None, :]
+    nbytes = 2 * q1.numel() * 2 + 2 * B * (p + 1) * n_kv * hs * 2
+    bm, by = bound_ms(nbytes, 4 * B * (p + 1) * H * hs, F32_FLOP_S)
+    res["decode_attention_pallas_batched"] = dict(
+        ms=time_ms(lambda: at.decode_attention_pallas_batched(
+            q1, ckb, cvb, pos, rot())),
+        plain_ms=time_ms(lambda: at.decode_attention_batched_plain(
+            q1, ckb, cvb, pos, rot())),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            q1, ckb[rot()], cvb[layer[0]], attn_mask=mask1)),
+        library_call="SDPA over the bf16 layer, masked to rows [0, pos]",
+        bound_ms=bm, bound_by=by, bytes=nbytes,
+        shape=f"B={B} H={H} n_kv={n_kv} hs={hs} S={S} bf16 cache, pos={p}")
+    del ckb, cvb
+
+    # spec_write: D=4 rows for 32 slots, the 7B int8 cache of 32 layers
+    cfg = cfg_7b()
+    Lc, D, n_kv, hs = cfg.n_layers, 4, cfg.n_kv_heads, cfg.head_size
+    cache = BatchedKVCache.create(cfg, B, dtype=torch.int8, device=dev)
+    kq = torch.empty((Lc, B, n_kv, D, hs), dtype=torch.int8,
+                     device=dev).random_(-127, 128, generator=gen)
+    vq = torch.empty_like(kq).random_(-127, 128, generator=gen)
+    ks = torch.rand((Lc, B, n_kv, D), generator=gen, device=dev)
+    vs = torch.rand((Lc, B, n_kv, D), generator=gen, device=dev)
+    b_idx = torch.arange(B, device=dev)[:, None]
+    r_idx = pos.long()[:, None] + torch.arange(D, device=dev)[None, :]
+    # (B, D, L, n_kv[, hs]): the layout indexed assignment takes
+    kq_t, vq_t = kq.permute(1, 3, 0, 2, 4), vq.permute(1, 3, 0, 2, 4)
+    ks_t, vs_t = ks.permute(1, 3, 0, 2), vs.permute(1, 3, 0, 2)
+
+    def lib_spec():
+        cache.k[:, b_idx, :, r_idx] = kq_t
+        cache.v[:, b_idx, :, r_idx] = vq_t
+        cache.k_scale[:, b_idx, :, r_idx] = ks_t
+        cache.v_scale[:, b_idx, :, r_idx] = vs_t
+    nbytes = 2 * (2 * kq.numel() + 2 * ks.numel() * 4)
+    bm, by = bound_ms(nbytes, 0, BF16_FLOP_S)
+    res["spec_write"] = dict(
+        ms=time_ms(lambda: kw.spec_write(cache, kq, vq, ks, vs, pos)),
+        plain_ms=time_ms(lambda: kw.spec_write_plain(cache, kq, vq, ks, vs,
+                                                     pos)),
+        library_ms=time_ms(lib_spec),
+        library_call="indexed assignment (index_put_) on the cache tensors "
+                     "(K, V, 2 scales)",
+        bound_ms=bm, bound_by=by, bytes=nbytes,
+        shape=f"L={Lc} B={B} D={D} n_kv={n_kv} hs={hs} int8, pos={p}")
+    del cache
+    torch.cuda.empty_cache()
+
+
 SOURCES = {
     "qmatmul_pallas": ("fastllama_tpu_torch/csrc/qmm.cu",
                        "fastllama_tpu/ops/pallas/qmm.py:251"),
@@ -1234,12 +1770,19 @@ SOURCES = {
                      "fastllama_tpu/ops/pallas/kv_write.py:119"),
     "prefill_write": ("fastllama_tpu_torch/csrc/kv_write.cu",
                       "fastllama_tpu/ops/pallas/kv_write.py:244"),
+    "flash_spec_batched": ("fastllama_tpu_torch/csrc/flash_decode.cu",
+                           "fastllama_tpu/ops/pallas/flash_decode.py:700"),
+    "spec_write": ("fastllama_tpu_torch/csrc/kv_write.cu",
+                   "fastllama_tpu/ops/pallas/kv_write.py:392"),
+    "decode_attention_pallas_batched": (
+        "fastllama_tpu_torch/csrc/flash_decode.cu",
+        "fastllama_tpu/ops/pallas/attention.py:178"),
 }
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,4b,5",
+    ap.add_argument("--phases", default="1,2,3,4,4b,4c,5",
                     help="comma-separated phases to run (default: all)")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -1276,7 +1819,8 @@ def main() -> int:
 
     t_start = time.perf_counter()
     # each kernel's launches on the path it serves: the batched path's from
-    # phase 4, the single-stream path's from phase 4b
+    # phase 4, the single-stream path's from phase 4b, the speculative
+    # path's own kernels from phase 4c
     launches = {}
     rec["phase_s"] = {}
 
@@ -1291,6 +1835,7 @@ def main() -> int:
     if "3" in phases:
         run("3", phase_engine_parity)
         run("3b", phase_single_parity)
+        run("3c", phase_spec_parity)
     if "4" in phases:
         got = run("4", phase_serving)
         launches.update({k: got[k] for k in BATCHED_PATH})
@@ -1298,6 +1843,10 @@ def main() -> int:
         got = run("4b", phase_single_serving)
         launches.update({k: v for k, v in got.items()
                          if k not in BATCHED_PATH or k not in launches})
+    if "4c" in phases:
+        got = run("4c", phase_spec_serving)
+        launches.update({k: got[k] for k in ("flash_spec_batched",
+                                             "spec_write")})
     if "5" in phases:
         run("5", phase_timing)
     rec["phases_s"] = time.perf_counter() - t_start

@@ -1,5 +1,6 @@
 // K2: bounded flash-decode attention over the stacked batched KV cache,
-// with a fresh row (deferred writes) or without one.
+// with a fresh row (deferred writes) or without one; and K2s, its
+// speculative-verify mode with T query rows per slot (below).
 //
 // Replaces the Pallas kernel of fastllama_tpu/ops/pallas/flash_decode.py:
 // flash_decode_batched (flash_decode.py:203, body _flash_kernel :67) in
@@ -209,8 +210,235 @@ flash_decode_kernel(const QT* __restrict__ q,       // (B, n_kv, HGS, hs)
   }
 }
 
+// K2s: speculative-verify attention, T query rows per slot.
+//
+// Replaces _flash_spec_kernel / flash_spec_batched (flash_decode.py:579,
+// :700).  Slot b's T rows sit at positions pos[b] .. pos[b]+T-1.  Each
+// attends cache rows [0, pos[b]) of layer `layer` strictly (row pos[b] and
+// later are stale and never read), then the fresh T x T block causally:
+// query t sees fresh rows j <= t.  With k_self/v_self (exact_diag) the
+// diagonal j == t scores and values use those rows instead of k_new/v_new.
+// Cache, off-diagonal fresh rows and diagonal feed one online softmax in
+// f32; the int8 rules are K2's (K scale on the score column, V scale on the
+// probability before P.V); fresh rows carry no scale.  Output acc / sum in
+// q's dtype.
+//
+// One block per (slot b, kv head h) holds R = hgs * T query rows, row
+// r = g * T + t, which share every cache row the block reads.  Dynamic
+// shared memory: the R query rows and R accumulator rows (f32, hs each),
+// one tile of R x TS scores, and the running max / sum / correction per
+// row.  The wrapper keeps R <= 64 and R * hs <= 8192.  Scores: one warp per
+// cache row, the row held in registers, lanes split hs.  P.V: each thread
+// owns head dims tid and tid + THREADS and walks the query rows 8 at a time
+// in registers, so V is read once per 8 query rows.
+//
+// What bounds it on an H100: memory bytes, pos[b] * hs * 2 cache bytes (+8
+// bytes of scales) per (slot, head), read once for all R rows; ~4 * R flops
+// per cache byte.
+constexpr int SPEC_RB = 8;    // query rows per register pass of P.V
+
+__device__ void spec_online_update(float* sc, float* m_s, float* l_s,
+                                   float* corr_s, int R, int nrows,
+                                   const float* vsrow, int lane, int warp) {
+  for (int r = warp; r < R; r += NWARPS) {
+    float* row = sc + r * TS;
+    float mx = NEG_INF;
+    for (int j = lane; j < nrows; j += 32) mx = fmaxf(mx, row[j]);
+    mx = warp_max(mx);
+    const float m_old = m_s[r];
+    const float m2 = fmaxf(m_old, mx);
+    float sum = 0.0f;
+    for (int j = lane; j < nrows; j += 32) {
+      const float e = expf(row[j] - m2);
+      sum += e;
+      row[j] = vsrow != nullptr ? e * vsrow[j] : e;
+    }
+    sum = warp_sum(sum);
+    if (lane == 0) {
+      const float c = expf(m_old - m2);
+      corr_s[r] = c;
+      m_s[r] = m2;
+      l_s[r] = l_s[r] * c + sum;
+    }
+  }
+}
+
+template <typename QT, typename CT>
+__global__ void __launch_bounds__(THREADS)
+flash_spec_kernel(const QT* __restrict__ q,        // (B, n_kv, R, hs)
+                  const CT* __restrict__ kc,       // (L, Bc, n_kv, S, hs)
+                  const CT* __restrict__ vc,
+                  const float* __restrict__ ks,    // (L, Bc, n_kv, S) or null
+                  const float* __restrict__ vs,
+                  const QT* __restrict__ k_new,    // (B, n_kv, T, hs)
+                  const QT* __restrict__ v_new,
+                  const QT* __restrict__ k_self,   // (B, n_kv, T, hs) or null
+                  const QT* __restrict__ v_self,
+                  const int* __restrict__ pos,     // (B,)
+                  QT* __restrict__ out,            // (B, n_kv, R, hs)
+                  int layer, int Bc, int n_kv, int S, int hs, int T, int R,
+                  float scale) {
+  extern __shared__ float smem[];
+  float* qs = smem;                 // R * hs
+  float* acc = qs + R * hs;         // R * hs
+  float* sc = acc + R * hs;         // R * TS
+  float* m_s = sc + R * TS;         // R
+  float* l_s = m_s + R;             // R
+  float* corr_s = l_s + R;          // R
+
+  const int tid = threadIdx.x;
+  const int lane = tid % 32, warp = tid / 32;
+  const int b = blockIdx.x / n_kv;
+  const int h = blockIdx.x % n_kv;
+  const int p = min(max(pos[b], 0), S);           // cache rows [0, p)
+  const size_t row0 = ((size_t)(layer * Bc + b) * n_kv + h) * S;
+  const size_t qoff = ((size_t)b * n_kv + h) * R * hs;
+  const size_t foff = ((size_t)b * n_kv + h) * T * hs;
+
+  for (int i = tid; i < R * hs; i += THREADS) {
+    qs[i] = to_f(q[qoff + i]);
+    acc[i] = 0.0f;
+  }
+  for (int r = tid; r < R; r += THREADS) {
+    m_s[r] = NEG_INF;
+    l_s[r] = 0.0f;
+  }
+  __syncthreads();
+
+  for (int r0 = 0; r0 < p; r0 += TS) {
+    const int nrows = min(TS, p - r0);
+    // scores: one warp per cache row, the row in registers
+    for (int j = warp; j < nrows; j += NWARPS) {
+      const CT* krow = kc + (row0 + r0 + j) * hs;
+      float kr[HS_MAX / 32];
+#pragma unroll
+      for (int i = 0; i < HS_MAX / 32; ++i) {
+        const int d = lane + 32 * i;
+        kr[i] = d < hs ? to_f(krow[d]) : 0.0f;
+      }
+      const float f = ks != nullptr ? ks[row0 + r0 + j] : 1.0f;
+#pragma unroll 4
+      for (int r = 0; r < R; ++r) {
+        const float* qr = qs + r * hs;
+        float part = 0.0f;
+#pragma unroll
+        for (int i = 0; i < HS_MAX / 32; ++i) {
+          const int d = lane + 32 * i;
+          if (d < hs) part += qr[d] * kr[i];
+        }
+        const float dot = warp_sum(part);
+        if (lane == 0) sc[r * TS + j] = dot * scale * f;
+      }
+    }
+    __syncthreads();
+    spec_online_update(sc, m_s, l_s, corr_s, R, nrows,
+                       vs != nullptr ? vs + row0 + r0 : nullptr, lane, warp);
+    __syncthreads();
+    // P.V, SPEC_RB query rows at a time in registers
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) {
+      const int d = tid + jj * THREADS;
+      if (d >= hs) continue;
+      for (int rb = 0; rb < R; rb += SPEC_RB) {
+        float a[SPEC_RB];
+#pragma unroll
+        for (int u = 0; u < SPEC_RB; ++u)
+          a[u] = rb + u < R ? acc[(rb + u) * hs + d] * corr_s[rb + u] : 0.0f;
+        for (int j = 0; j < nrows; ++j) {
+          const float vv = to_f(vc[(row0 + r0 + j) * hs + d]);
+#pragma unroll
+          for (int u = 0; u < SPEC_RB; ++u)
+            if (rb + u < R) a[u] += sc[(rb + u) * TS + j] * vv;
+        }
+#pragma unroll
+        for (int u = 0; u < SPEC_RB; ++u)
+          if (rb + u < R) acc[(rb + u) * hs + d] = a[u];
+      }
+    }
+    __syncthreads();
+  }
+
+  // the fresh block: one warp per (query row, fresh row) pair, causal
+  for (int pr = warp; pr < R * T; pr += NWARPS) {
+    const int r = pr / T, j = pr % T, t = r % T;
+    if (j > t) {
+      if (lane == 0) sc[r * TS + j] = NEG_INF;
+      continue;
+    }
+    const QT* krow = (k_self != nullptr && j == t ? k_self : k_new) + foff
+                     + (size_t)j * hs;
+    float part = 0.0f;
+    for (int d = lane; d < hs; d += 32) part += qs[r * hs + d] * to_f(krow[d]);
+    const float dot = warp_sum(part);
+    if (lane == 0) sc[r * TS + j] = dot * scale;
+  }
+  __syncthreads();
+  spec_online_update(sc, m_s, l_s, corr_s, R, T, nullptr, lane, warp);
+  __syncthreads();
+#pragma unroll
+  for (int jj = 0; jj < 2; ++jj) {
+    const int d = tid + jj * THREADS;
+    if (d >= hs) continue;
+    for (int r = 0; r < R; ++r) {
+      const int t = r % T;
+      float a = acc[r * hs + d] * corr_s[r];
+      for (int j = 0; j <= t; ++j) {
+        const QT* src = v_self != nullptr && j == t ? v_self : v_new;
+        a += sc[r * TS + j] * to_f(src[foff + (size_t)j * hs + d]);
+      }
+      out[qoff + (size_t)r * hs + d] = from_f<QT>(a / l_s[r]);
+    }
+  }
+}
+
 // dtype codes shared with ops/kernels/flash_decode.py
 enum { DT_F32 = 0, DT_BF16 = 1, DT_I8 = 2 };
+
+template <typename QT, typename CT>
+int launch_spec(const void* q, const void* kc, const void* vc,
+                const float* ks, const float* vs, const void* kn,
+                const void* vn, const void* ke, const void* ve,
+                const int* pos, void* out, int B, int layer, int Bc, int n_kv,
+                int S, int hs, int T, int R, float scale, cudaStream_t st) {
+  const size_t smem = (size_t)(2 * R * hs + R * TS + 3 * R) * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_spec_kernel<QT, CT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  flash_spec_kernel<QT, CT><<<dim3(B * n_kv), THREADS, smem, st>>>(
+      static_cast<const QT*>(q), static_cast<const CT*>(kc),
+      static_cast<const CT*>(vc), ks, vs, static_cast<const QT*>(kn),
+      static_cast<const QT*>(vn), static_cast<const QT*>(ke),
+      static_cast<const QT*>(ve), pos, static_cast<QT*>(out), layer, Bc, n_kv,
+      S, hs, T, R, scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename QT>
+int launch_spec_q(const void* q, const void* kc, const void* vc,
+                  const float* ks, const float* vs, const void* kn,
+                  const void* vn, const void* ke, const void* ve,
+                  const int* pos, void* out, int B, int layer, int Bc,
+                  int n_kv, int S, int hs, int T, int R, float scale, int c_dt,
+                  cudaStream_t st) {
+  switch (c_dt) {
+    case DT_I8:
+      return launch_spec<QT, int8_t>(q, kc, vc, ks, vs, kn, vn, ke, ve, pos,
+                                     out, B, layer, Bc, n_kv, S, hs, T, R,
+                                     scale, st);
+    case DT_BF16:
+      return launch_spec<QT, __nv_bfloat16>(q, kc, vc, ks, vs, kn, vn, ke, ve,
+                                            pos, out, B, layer, Bc, n_kv, S,
+                                            hs, T, R, scale, st);
+    case DT_F32:
+      return launch_spec<QT, float>(q, kc, vc, ks, vs, kn, vn, ke, ve, pos,
+                                    out, B, layer, Bc, n_kv, S, hs, T, R,
+                                    scale, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
 
 template <typename QT, typename CT>
 int launch_cache(const void* q, const void* kc, const void* vc,
@@ -278,5 +506,34 @@ extern "C" int flash_decode_launch(const void* q, const void* kc,
     return launch_q<__nv_bfloat16>(q, kc, vc, ksp, vsp, k_new, v_new, pp, out,
                                    B, layer, Bc, n_kv, S, hs, hgs, scale,
                                    c_dt, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K2s.  q (B, n_kv, hgs, T, hs) = R = hgs * T rows per (slot, kv head);
+// fresh rows (B, n_kv, T, hs) in q's dtype; k_self/v_self null without
+// exact_diag; caches and scales as flash_decode_launch.
+extern "C" int flash_spec_launch(const void* q, const void* kc,
+                                 const void* vc, const void* ks,
+                                 const void* vs, const void* k_new,
+                                 const void* v_new, const void* k_self,
+                                 const void* v_self, const void* pos,
+                                 void* out, int B, int layer, int Bc,
+                                 int n_kv, int S, int hs, int T, int R,
+                                 float scale, int q_dt, int c_dt,
+                                 void* stream) {
+  if (hs > HS_MAX || T < 1 || T > TS || R < T || R > 64 || R * hs > 8192)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* ksp = static_cast<const float*>(ks);
+  const float* vsp = static_cast<const float*>(vs);
+  const int* pp = static_cast<const int*>(pos);
+  if (q_dt == DT_F32)
+    return launch_spec_q<float>(q, kc, vc, ksp, vsp, k_new, v_new, k_self,
+                                v_self, pp, out, B, layer, Bc, n_kv, S, hs, T,
+                                R, scale, c_dt, st);
+  if (q_dt == DT_BF16)
+    return launch_spec_q<__nv_bfloat16>(q, kc, vc, ksp, vsp, k_new, v_new,
+                                        k_self, v_self, pp, out, B, layer, Bc,
+                                        n_kv, S, hs, T, R, scale, c_dt, st);
   return (int)cudaErrorInvalidValue;
 }

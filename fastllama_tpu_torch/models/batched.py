@@ -1,6 +1,7 @@
 """Slot-batched LLaMA forward, the continuous-batching substrate (part of
-``fastllama_tpu/models/batched.py``: the cache, ``prefill_many`` and
-``decode_step`` with their shared layer halves).
+``fastllama_tpu/models/batched.py``: the cache, ``prefill_many``,
+``decode_step`` with their shared layer halves, and the speculative
+verify ``spec_decode_step``).
 
 * :class:`BatchedKVCache` — one preallocated ``(L, B, n_kv, S, hs)`` buffer
   per K and V; slot ``b`` is an independent sequence.  ``dtype=int8``
@@ -10,6 +11,8 @@
 * :func:`prefill_into_slot` — one prompt into one slot at positions
   [0, T): the single-stream engine's fresh prefill at ``pos == 0``.
 * :func:`decode_step` — one token for every slot at per-slot positions.
+* :func:`spec_decode_step` — D tokens for every slot (pending + drafts)
+  in one forward, the batched speculative verify.
 
 Cache writes are deferred out of the layer loop, as in the JAX package:
 attention reads cache rows [0, pos[b]) strictly plus the fresh row, and
@@ -293,3 +296,92 @@ def decode_step(cfg: ModelConfig, params: LlamaParams, tokens: torch.Tensor,
     x = rmsnorm(x, params.out_norm, cfg.norm_eps)
     logits = mm(x, params.classifier)                               # (B, V)
     return logits.to(torch.float32), cache
+
+
+def spec_decode_step(cfg: ModelConfig, params: LlamaParams,
+                     tokens: torch.Tensor, pos: torch.Tensor,
+                     cache: BatchedKVCache, *,
+                     mm: Callable = qmatmul,
+                     mm_idx: Optional[Callable] = None,
+                     attn_sbidx: Optional[Callable] = None,
+                     spec_writer: Optional[Callable] = None,
+                     compute_dtype=torch.float32
+                     ) -> Tuple[torch.Tensor, BatchedKVCache]:
+    """Batched speculative verify: D tokens for every slot in one forward
+    (``batched.py:429-538``).
+
+    tokens (B, D): slot b's rows sit at positions pos[b]..pos[b]+D-1 (row
+    0 its pending token, rows 1.. its drafts); pos (B,) int32.  The
+    matmuls see a (B*D, dim) activation.  Returns (logits (B, D, vocab)
+    f32, cache) with the D fresh K/V rows of every layer written per slot
+    after the layer loop (rows past the accepted prefix are stale and
+    masked by position next round).
+
+    With an int8 cache the fresh K/V round-trip through ``quantize_rows``
+    before attention: row d attends row d' < d as the sequential decode
+    steps would read it back from the cache, while the diagonal keeps the
+    exact row (``k_self``/``v_self``).  The quantized bytes and scales are
+    kept, so that the cache write is that same quantization.
+    ``attn_sbidx(q, cache, pos, l, k, v, k_self=, v_self=)`` is the verify
+    attention over the stacked cache; without it the plain
+    ``gqa_attention_spec_batched`` reads the dequantized layer slices.
+    Without ``spec_writer`` the rows land through the plain scatter."""
+    from fastllama_tpu_torch.ops.attention import gqa_attention_spec_batched
+    from fastllama_tpu_torch.ops.kernels.kv_write import spec_write_plain
+    B, D = tokens.shape
+    hs, n_heads, n_kv = cfg.head_size, cfg.n_heads, cfg.n_kv_heads
+    proj = _make_proj(mm, mm_idx)
+    dev = tokens.device
+
+    x = embed_tokens(params.embedding, tokens.reshape(B * D), compute_dtype)
+    positions = pos[:, None] + torch.arange(D, dtype=pos.dtype, device=dev)
+    cos, sin = rope_tables(cfg, positions.reshape(-1), compute_dtype)
+    cos = cos.reshape(B, 1, D, -1)
+    sin = sin.reshape(B, 1, D, -1)
+
+    outs = []
+    for l in range(cfg.n_layers):
+        h = rmsnorm(x, params.attn_norm[l], cfg.norm_eps)
+        q, k, v = _split_qkv(cfg, params, proj, h, l)
+        q = apply_rope_half(q.reshape(B, D, n_heads, hs).transpose(1, 2),
+                            cos, sin)
+        k = apply_rope_half(k.reshape(B, D, n_kv, hs).transpose(1, 2),
+                            cos, sin)
+        v = v.reshape(B, D, n_kv, hs).transpose(1, 2)
+
+        k_self = v_self = None
+        if cache.quantized:
+            k_self, v_self = k, v
+            kq_, ksc_ = quantize_rows(k)
+            vq_, vsc_ = quantize_rows(v)
+            k = dequantize_rows(kq_, ksc_, compute_dtype)
+            v = dequantize_rows(vq_, vsc_, compute_dtype)
+            outs.append((kq_, vq_, ksc_[..., 0], vsc_[..., 0]))
+        else:
+            outs.append((k, v))
+
+        if attn_sbidx is not None:
+            o = attn_sbidx(q, cache, pos, l, k, v, k_self=k_self,
+                           v_self=v_self)
+        else:
+            ck_l, cv_l = _layer_slices(cache, l, compute_dtype)
+            o = gqa_attention_spec_batched(q, ck_l[:B], cv_l[:B], k, v, pos,
+                                           k_self=k_self, v_self=v_self)
+        o = o.transpose(1, 2).reshape(B * D, n_heads * hs)
+        x = x + proj(o, params.wo, l)
+
+        h = rmsnorm(x, params.ffn_norm[l], cfg.norm_eps)
+        x = x + _ffn(cfg, params, proj, h, l)
+
+    stacked = [torch.stack(t).contiguous()
+               for t in zip(*outs)]             # (L, B, n_kv, D, ...)
+    if cache.quantized:
+        kq, vq, ks2, vs2 = stacked
+    else:
+        kq, vq = (t.to(cache.k.dtype) for t in stacked)
+        ks2 = vs2 = None
+    (spec_writer or spec_write_plain)(cache, kq, vq, ks2, vs2, pos)
+
+    x = rmsnorm(x, params.out_norm, cfg.norm_eps)
+    logits = mm(x, params.classifier)                      # (B*D, V)
+    return logits.reshape(B, D, -1).to(torch.float32), cache

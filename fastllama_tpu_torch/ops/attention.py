@@ -1,12 +1,14 @@
 """GQA attention, plain PyTorch (port of
-``fastllama_tpu/ops/attention.py:26-108``).
+``fastllama_tpu/ops/attention.py:26-176``).
 
 ``update_kv_cache`` writes new rows into one layer's cache in place.
 ``gqa_attention`` is the prefill attention, which the JAX package also
 computes outside Pallas.  ``gqa_attention_decode_batched`` is the
 reference form of decode attention with deferred cache writes (strict mask
-plus the fresh row); the bounded flash-decode kernel and its plain version
-live in ``ops/kernels/flash_decode.py``.
+plus the fresh row), ``gqa_attention_spec_batched`` that of the batched
+speculative verify (T rows per slot, a causal fresh block); the
+flash-decode kernels and their plain versions live in
+``ops/kernels/flash_decode.py``.
 """
 from __future__ import annotations
 
@@ -77,3 +79,46 @@ def gqa_attention_decode_batched(q: torch.Tensor, k_cache: torch.Tensor,
     out = torch.einsum("bkgs,bksh->bkgh", probs[..., :S], vf)
     out = out + probs[..., -1:] * v_new.to(torch.float32)[:, :, None]
     return out.reshape(B, n_heads, hs).to(q.dtype)
+
+
+def gqa_attention_spec_batched(q: torch.Tensor, k_cache: torch.Tensor,
+                               v_cache: torch.Tensor, k_new: torch.Tensor,
+                               v_new: torch.Tensor, pos: torch.Tensor,
+                               k_self=None, v_self=None) -> torch.Tensor:
+    """T-row per-slot attention with deferred cache writes, the batched
+    speculative-verify reference (attention.py:111-176): slot b's T query
+    rows at positions pos[b]..pos[b]+T-1 attend cache rows [0, pos[b])
+    strictly plus the causal prefix of the fresh K/V block.
+
+    q (B, n_heads, T, hs); caches (B, n_kv, S, hs) already in float;
+    k_new/v_new (B, n_kv, T, hs); pos (B,).  With a quantized cache
+    ``k_new``/``v_new`` are the quantize-roundtripped rows and
+    ``k_self``/``v_self`` the exact rows, used only on the diagonal.
+    Returns (B, n_heads, T, hs)."""
+    B, n_heads, T, hs = q.shape
+    n_kv, S = k_cache.shape[1], k_cache.shape[2]
+    hgs = n_heads // n_kv
+    f32 = torch.float32
+    scale = 1.0 / math.sqrt(hs)
+    qf = q.reshape(B, n_kv, hgs, T, hs).to(f32)
+    scores = torch.einsum("bkgth,bksh->bkgts", qf, k_cache.to(f32)) * scale
+    mask = torch.arange(S, device=q.device)[None, :] < pos[:, None]
+    scores = torch.where(mask[:, None, None, None], scores,
+                         torch.full_like(scores, NEG_INF))
+    s_new = torch.einsum("bkgth,bkjh->bkgtj", qf, k_new.to(f32)) * scale
+    j_idx = torch.arange(T, device=q.device)[None, :]
+    t_idx = torch.arange(T, device=q.device)[:, None]
+    eye = j_idx == t_idx
+    if k_self is not None:
+        s_diag = torch.einsum("bkgth,bkth->bkgt", qf, k_self.to(f32)) * scale
+        s_new = torch.where(eye, s_diag[..., None], s_new)
+    s_new = torch.where(j_idx <= t_idx, s_new, torch.full_like(s_new, NEG_INF))
+    probs = torch.softmax(torch.cat([scores, s_new], dim=-1), dim=-1)
+    out = torch.einsum("bkgts,bksh->bkgth", probs[..., :S], v_cache.to(f32))
+    pn = probs[..., S:]
+    if v_self is not None:
+        diag_p = torch.where(eye, pn, torch.zeros_like(pn)).sum(dim=-1)
+        pn = torch.where(eye, torch.zeros_like(pn), pn)
+        out = out + diag_p[..., None] * v_self.to(f32)[:, :, None]
+    out = out + torch.einsum("bkgtj,bkjh->bkgth", pn, v_new.to(f32))
+    return out.reshape(B, n_heads, T, hs).to(q.dtype)

@@ -1,9 +1,11 @@
 """Single-token decode attention over the whole cache (port of
 ``fastllama_tpu/ops/pallas/attention.py``).
 
-``decode_attention_pallas`` (attention.py:48, one layer's cache) and
+``decode_attention_pallas`` (attention.py:48, one layer's cache),
 ``decode_attention_pallas_indexed`` (attention.py:110, the layer-stacked
-cache) compute softmax over cache rows [0, pos] in f32.  The Pallas kernels
+cache) and ``decode_attention_pallas_batched`` (attention.py:178, the
+stacked batched cache, one row per slot) compute softmax over cache rows
+[0, pos] (per slot: [0, pos[b]]) in f32.  The Pallas kernels
 stream all S rows and mask; the port runs them on K2's non-fresh mode
 (``csrc/flash_decode.cu``), which reads only the rows the mask keeps — the
 same function.  A one-layer cache is viewed as ``(1, 1, n_kv, S, hs)`` and
@@ -50,14 +52,27 @@ def decode_attention_pallas_indexed(q, ck, cv, pos, layer: int):
                   pos_tensor(pos, q.device), layer)[0]
 
 
+def decode_attention_pallas_batched(q, ck, cv, pos, layer: int):
+    """Per-slot form: q (B, n_heads, 1, hs); caches (L, B, n_kv, S, hs)
+    f32/bf16, read in place at layer ``layer``; slot b attends its rows
+    [0, pos[b]] (pos (B,) int32).  Returns (B, n_heads, 1, hs)."""
+    return attend(decode_attention_pallas_batched, q, ck, cv, pos, layer)
+
+
 decode_attention_pallas.launches = 0
 decode_attention_pallas_indexed.launches = 0
+decode_attention_pallas_batched.launches = 0
 
 
 def decode_attention_plain(q, k_cache, v_cache, pos):
     """The plain version of :func:`decode_attention_pallas`."""
     qb, kb, vb = _one_layer(q, k_cache, v_cache)
     return flash_decode_plain(qb, kb, vb, pos_tensor(pos, q.device), 0)[0]
+
+
+def decode_attention_batched_plain(q, ck, cv, pos, layer: int):
+    """The plain version of :func:`decode_attention_pallas_batched`."""
+    return flash_decode_plain(q, ck, cv, pos, layer)
 
 
 def make_attn():

@@ -12,7 +12,10 @@ flash_decode.py:203) in its two modes:
   ``flash_decode_single`` (flash_decode.py:299) gives the single-stream
   ``models/llama.forward`` through ``make_attn_indexed_flash`` (:561).
 
-The same kernel serves ``ops/kernels/attention.py``.  The TPU's host
+The same kernel serves ``ops/kernels/attention.py``.  K2s
+(:func:`flash_spec_batched`, replacing flash_decode.py:700) is its
+speculative-verify mode: T query rows per slot over rows [0, pos[b]) plus
+a causal fresh block, in the same source.  The TPU's host
 ``s_bound`` window (``round_bound``) has no counterpart: the kernel reads
 ``pos`` from the device and only the rows the mask keeps.  The ``stats``
 outputs (deferred staged KV) are not ported yet.
@@ -74,40 +77,48 @@ def flash_decode_plain(q, ck, cv, pos, layer: int, k_scale=None,
     return (acc / den[..., None]).reshape(B, H, 1, hs).to(q.dtype)
 
 
-def _validate(q, ck, cv, pos, layer, k_scale, v_scale, k_new, v_new):
-    B, H, T, hs = q.shape
+def _check_operands(name, q, ck, cv, pos, layer, k_scale, v_scale,
+                    fresh, fresh_shape):
+    """The checks K2 and K2s share: slots and layer in range, row scales
+    exactly for an int8 cache, dtypes, fresh rows of ``fresh_shape`` in
+    q's dtype, pos (B,) int32, every operand contiguous on one device."""
+    B = q.shape[0]
     L, Bc, n_kv, S, _ = ck.shape
-    hgs = H // n_kv
-    if T != 1 or H % n_kv or hgs not in HGS_SUPPORTED or hs > HS_MAX:
-        raise ValueError(f"flash_decode kernel: unsupported shape q "
-                         f"{tuple(q.shape)} cache {tuple(ck.shape)}")
     if B > Bc or not 0 <= layer < L:
-        raise ValueError(f"flash_decode kernel: B={B} Bc={Bc} layer={layer}")
+        raise ValueError(f"{name} kernel: B={B} Bc={Bc} layer={layer}")
     quant = k_scale is not None
-    fresh = k_new is not None
     if (ck.dtype == torch.int8) != quant or cv.dtype != ck.dtype:
         raise ValueError("an int8 cache needs its row scales (and only it)")
     if q.dtype not in (torch.float32, torch.bfloat16) or ck.dtype not in _DT:
-        raise ValueError(f"flash_decode kernel: dtypes q {q.dtype} cache "
+        raise ValueError(f"{name} kernel: dtypes q {q.dtype} cache "
                          f"{ck.dtype}")
-    if fresh != (v_new is not None):
-        raise ValueError("fresh rows come as a pair (k_new, v_new)")
-    if fresh and (k_new.dtype != q.dtype or v_new.dtype != q.dtype
-                  or k_new.shape != (B, n_kv, hs)
-                  or v_new.shape != (B, n_kv, hs)):
-        raise ValueError("fresh rows must be (B, n_kv, hs) in q's dtype")
+    for t in fresh:
+        if t.dtype != q.dtype or t.shape != fresh_shape:
+            raise ValueError(f"fresh rows must be {fresh_shape} in q's "
+                             f"dtype")
     if pos.dtype != torch.int32 or pos.shape != (B,):
         raise ValueError("pos must be (B,) int32")
-    ts = [q, ck, cv, pos] + ([k_new, v_new] if fresh else []) \
-        + ([k_scale, v_scale] if quant else [])
-    for t in ts:
+    for t in [q, ck, cv, pos] + fresh + ([k_scale, v_scale] if quant else []):
         if t.device != q.device or not t.is_contiguous():
-            raise ValueError("flash_decode operands must be contiguous on "
-                             "one device")
+            raise ValueError(f"{name} operands must be contiguous on one "
+                             f"device")
     if quant and (k_scale.dtype != torch.float32
                   or k_scale.shape != (L, Bc, n_kv, S)
                   or v_scale.shape != k_scale.shape):
         raise ValueError("row scales must be (L, B, n_kv, S) f32")
+
+
+def _validate(q, ck, cv, pos, layer, k_scale, v_scale, k_new, v_new):
+    B, H, T, hs = q.shape
+    n_kv = ck.shape[2]
+    if T != 1 or H % n_kv or H // n_kv not in HGS_SUPPORTED or hs > HS_MAX:
+        raise ValueError(f"flash_decode kernel: unsupported shape q "
+                         f"{tuple(q.shape)} cache {tuple(ck.shape)}")
+    if (k_new is None) != (v_new is None):
+        raise ValueError("fresh rows come as a pair (k_new, v_new)")
+    fresh = [] if k_new is None else [k_new, v_new]
+    _check_operands("flash_decode", q, ck, cv, pos, layer, k_scale, v_scale,
+                    fresh, (B, n_kv, hs))
 
 
 def _launch(q, ck, cv, pos, layer, k_scale, v_scale, k_new, v_new):
@@ -208,6 +219,135 @@ def make_attn_batched_plain():
             k_new=k_new, v_new=v_new)[:, :, 0]
 
     return attn_bidx
+
+
+# -- K2s: speculative-verify attention --------------------------------------
+
+SPEC_ROWS_MAX = 64         # hgs * T query rows per (slot, kv head) block
+SPEC_SMEM_FLOATS = 8192    # hgs * T * hs: the block's query rows in f32
+SPEC_T_MAX = 64            # the cache tile, which the fresh block reuses
+
+
+def flash_spec_plain(q, ck, cv, pos, layer: int, k_scale=None, v_scale=None,
+                     k_new=None, v_new=None, k_self=None, v_self=None):
+    """The K2s arithmetic in plain PyTorch, all in f32
+    (``_flash_spec_kernel``, flash_decode.py:579-697): cache scores
+    (q.k)/sqrt(hs) times the K row scale over rows [0, pos[b]) strictly;
+    the causal fresh block (query t sees fresh rows j <= t) with the
+    diagonal from ``k_self`` when given; one softmax over both;
+    probabilities times the V row scale before P.V; the diagonal's value
+    from ``v_self`` when given.  Not the jnp path
+    ``gqa_attention_spec_batched``, which attends a dequantized copy of
+    the cache."""
+    B, H, T, hs = q.shape
+    n_kv, S = ck.shape[2], ck.shape[3]
+    hgs = H // n_kv
+    scale = 1.0 / math.sqrt(hs)
+    f32 = torch.float32
+    qf = q.reshape(B, n_kv, hgs, T, hs).to(f32)
+    s = torch.einsum("bkgth,bksh->bkgts", qf, ck[layer, :B].to(f32)) * scale
+    if k_scale is not None:
+        s = s * k_scale[layer, :B][:, :, None, None, :]
+    mask = (torch.arange(S, device=q.device)[None, :]
+            < pos.to(q.device)[:, None])[:, None, None, None, :]
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    s_new = torch.einsum("bkgth,bkjh->bkgtj", qf, k_new.to(f32)) * scale
+    t_idx = torch.arange(T, device=q.device)[:, None]
+    j_idx = torch.arange(T, device=q.device)[None, :]
+    eye = j_idx == t_idx
+    if k_self is not None:
+        s_diag = torch.einsum("bkgth,bkth->bkgt", qf, k_self.to(f32)) * scale
+        s_new = torch.where(eye, s_diag[..., None], s_new)
+    s_new = torch.where(j_idx <= t_idx, s_new, torch.full_like(s_new, NEG_INF))
+    m = torch.maximum(s.amax(dim=-1), s_new.amax(dim=-1))[..., None]
+    e = torch.where(mask, torch.exp(s - m), torch.zeros_like(s))
+    e_new = torch.exp(s_new - m)
+    den = e.sum(dim=-1) + e_new.sum(dim=-1)
+    if v_scale is not None:
+        e = e * v_scale[layer, :B][:, :, None, None, :]
+    acc = torch.einsum("bkgts,bksh->bkgth", e, cv[layer, :B].to(f32))
+    if v_self is not None:
+        diag = torch.where(eye, e_new, torch.zeros_like(e_new)).sum(dim=-1)
+        e_new = torch.where(eye, torch.zeros_like(e_new), e_new)
+        acc = acc + diag[..., None] * v_self.to(f32)[:, :, None]
+    acc = acc + torch.einsum("bkgtj,bkjh->bkgth", e_new, v_new.to(f32))
+    return (acc / den[..., None]).reshape(B, H, T, hs).to(q.dtype)
+
+
+def _validate_spec(q, ck, cv, pos, layer, k_scale, v_scale, k_new, v_new,
+                   k_self, v_self):
+    B, H, T, hs = q.shape
+    n_kv = ck.shape[2]
+    R = (H // n_kv) * T
+    if (H % n_kv or hs > HS_MAX or not 1 <= T <= SPEC_T_MAX
+            or R > SPEC_ROWS_MAX or R * hs > SPEC_SMEM_FLOATS):
+        raise ValueError(f"flash_spec kernel: unsupported shape q "
+                         f"{tuple(q.shape)} cache {tuple(ck.shape)}")
+    exact = k_self is not None
+    if k_new is None or v_new is None or exact != (v_self is not None):
+        raise ValueError("fresh rows (k_new, v_new) are required; exact "
+                         "diagonal rows come as a pair (k_self, v_self)")
+    fresh = [k_new, v_new] + ([k_self, v_self] if exact else [])
+    _check_operands("flash_spec", q, ck, cv, pos, layer, k_scale, v_scale,
+                    fresh, (B, n_kv, T, hs))
+
+
+def flash_spec_batched(q, ck, cv, pos, layer: int, k_scale=None,
+                       v_scale=None, k_new=None, v_new=None, k_self=None,
+                       v_self=None):
+    """K2s, batched speculative-verify attention over the stacked cache.
+
+    q (B, n_heads, T, hs): slot b's T query rows at positions
+    pos[b] .. pos[b]+T-1; caches (L, B, n_kv, S, hs) int8/bf16/f32, read
+    in place at layer ``layer``, rows [0, pos[b]) only; ``k_scale``/
+    ``v_scale`` (L, B, n_kv, S) f32 mark an int8 cache; ``k_new``/``v_new``
+    (B, n_kv, T, hs) the fresh block (quantize-roundtripped with an int8
+    cache), attended causally; ``k_self``/``v_self`` the exact rows for the
+    diagonal, or None.  pos (B,) int32 on the device: a chunk of rounds
+    needs no host value.  Returns (B, n_heads, T, hs) in q.dtype.  A CPU
+    tensor takes :func:`flash_spec_plain`; a CUDA tensor launches K2s or
+    raises."""
+    _validate_spec(q, ck, cv, pos, layer, k_scale, v_scale, k_new, v_new,
+                   k_self, v_self)
+    if q.device.type == "cpu":
+        return flash_spec_plain(q, ck, cv, pos, layer, k_scale, v_scale,
+                                k_new, v_new, k_self, v_self)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_spec_batched: unsupported device {q.device}")
+    B, H, T, hs = q.shape
+    _, Bc, n_kv, S, _ = ck.shape
+    out = torch.empty_like(q)
+    fn = _build.load("flash_decode").flash_spec_launch
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 \
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rc = fn(_build.ptr(q), _build.ptr(ck), _build.ptr(cv),
+            _build.ptr(k_scale), _build.ptr(v_scale), _build.ptr(k_new),
+            _build.ptr(v_new), _build.ptr(k_self), _build.ptr(v_self),
+            _build.ptr(pos), _build.ptr(out), B, layer, Bc, n_kv, S, hs, T,
+            (H // n_kv) * T, 1.0 / math.sqrt(hs), _DT[q.dtype],
+            _DT[ck.dtype], _build.stream_of(q))
+    _build.check(rc, "flash_spec_launch")
+    flash_spec_batched.launches += 1
+    return out
+
+
+flash_spec_batched.launches = 0
+
+
+def make_attn_spec_batched():
+    """attn_sbidx(q, cache, pos, layer, k_new, v_new, k_self=, v_self=) for
+    ``models.batched.spec_decode_step``: K2s on the stacked cache."""
+    def attn_sbidx(q, cache, pos, layer, k_new, v_new, k_self=None,
+                   v_self=None):
+        def c(t):
+            return None if t is None else t.contiguous()
+        return flash_spec_batched(
+            q.contiguous(), cache.k, cache.v, pos, layer,
+            k_scale=cache.k_scale, v_scale=cache.v_scale, k_new=c(k_new),
+            v_new=c(v_new), k_self=c(k_self), v_self=c(v_self))
+
+    return attn_sbidx
 
 
 def make_attn_indexed_flash():

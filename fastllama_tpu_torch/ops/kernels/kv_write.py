@@ -1,8 +1,9 @@
 """K3: in-place KV row scatter (``csrc/kv_write.cu``) and its plain
 versions.
 
-Replaces ``decode_write`` (fastllama_tpu/ops/pallas/kv_write.py:119) and
-``prefill_write`` (kv_write.py:244).  Both call one kernel that writes
+Replaces ``decode_write`` (fastllama_tpu/ops/pallas/kv_write.py:119),
+``prefill_write`` (kv_write.py:244) and ``spec_write`` (kv_write.py:392).
+All three call one kernel that writes
 fresh rows ``(L, N, n_kv, T, hs)`` into slot ``slots[n]`` at rows
 ``start[n] + t`` of the ``(L, B, n_kv, S, hs)`` cache, with the f32 row
 scales of an int8 cache, for all layers in one launch.  The JAX writers
@@ -23,19 +24,24 @@ from fastllama_tpu_torch.ops.kernels import _build
 
 def kv_scatter_plain(cache, kq, vq, ks, vs, slots, starts):
     """cache.k[l, slots[n], h, starts[n] + t] = kq[l, n, h, t] (and V, and
-    the row scales when ``ks`` is given) by indexed assignment.  Duplicate
+    the row scales when ``ks`` is given) by indexed assignment.  Rows that
+    would land outside [0, S) are dropped, as the kernel drops them (the
+    selection of the rows that land syncs with the device).  Duplicate
     slots carry identical rows, so which write lands last is immaterial."""
     L, N, n_kv, T, hs = kq.shape
     dev = cache.k.device
-    s_idx = slots.to(dev, torch.long)[:, None, None]
-    h_idx = torch.arange(n_kv, device=dev)[None, :, None]
-    r_idx = (starts.to(dev, torch.long)[:, None]
-             + torch.arange(T, device=dev)[None, :])[:, None, :]
-    cache.k[:, s_idx, h_idx, r_idx] = kq
-    cache.v[:, s_idx, h_idx, r_idx] = vq
+    rows = (starts.to(dev, torch.long)[:, None]
+            + torch.arange(T, device=dev)[None, :])          # (N, T)
+    n_i, t_i = ((rows >= 0) & (rows < cache.k.shape[3])).nonzero(
+        as_tuple=True)
+    s_i, r_i = slots.to(dev, torch.long)[n_i], rows[n_i, t_i]
+    # advanced indices around a slice: the selected rows come first,
+    # (M, L, n_kv[, hs]) on both sides
+    cache.k[:, s_i, :, r_i] = kq[:, n_i, :, t_i]
+    cache.v[:, s_i, :, r_i] = vq[:, n_i, :, t_i]
     if ks is not None:
-        cache.k_scale[:, s_idx, h_idx, r_idx] = ks
-        cache.v_scale[:, s_idx, h_idx, r_idx] = vs
+        cache.k_scale[:, s_i, :, r_i] = ks[:, n_i, :, t_i]
+        cache.v_scale[:, s_i, :, r_i] = vs[:, n_i, :, t_i]
     return cache
 
 
@@ -92,13 +98,18 @@ def _launch(cache, kq, vq, ks, vs, slots, starts):
     _build.check(rc, "kv_scatter_launch")
 
 
-def _decode_args(cache, kq, vq, ks, vs, pos):
-    """decode_write's operands in the scatter's (L, N, n_kv, T, hs) form:
-    N = B slots, slot b at row pos[b], T = 1."""
+def _spec_args(cache, kq, vq, ks, vs, pos):
+    """spec_write's operands in the scatter's (L, N, n_kv, T, hs) form:
+    N = B slots, slot b's D rows at pos[b]."""
     slots = torch.arange(kq.shape[1], dtype=torch.int32, device=kq.device)
-    return (cache, kq.unsqueeze(3), vq.unsqueeze(3),
-            None if ks is None else ks.unsqueeze(-1),
-            None if vs is None else vs.unsqueeze(-1), slots, pos)
+    return cache, kq, vq, ks, vs, slots, pos
+
+
+def _decode_args(cache, kq, vq, ks, vs, pos):
+    """decode_write's operands: spec_write's with D = 1."""
+    return _spec_args(cache, kq.unsqueeze(3), vq.unsqueeze(3),
+                      None if ks is None else ks.unsqueeze(-1),
+                      None if vs is None else vs.unsqueeze(-1), pos)
 
 
 def _prefill_args(cache, kq, vq, ks, vs, slots):
@@ -139,13 +150,43 @@ def prefill_write(cache, kq, vq, ks, vs, slots):
     return cache
 
 
+def spec_write(cache, kq, vq, ks, vs, pos):
+    """Write every slot's D speculative-verify rows in one launch (replaces
+    ``spec_write``, kv_write.py:392): kq/vq (L, B, n_kv, D, hs) in the
+    cache dtype land at rows [pos[b], pos[b]+D) of slot b, all layers;
+    ks/vs (L, B, n_kv, D) f32 row scales, or None for an unquantized
+    cache; pos (B,) int32 on the device.  It is the K3 scatter with
+    slots = arange(B), starts = pos, T = D, so it needs no kernel of its
+    own.  The JAX writer straddles two sublane slabs and gates on
+    ``D <= sublanes``: TPU tiling with no counterpart here, so any D is
+    written.  Rows past S-1 are dropped, never clamped onto earlier rows;
+    the engine keeps pos + R*D <= S (``plan_R``), so none is dropped in
+    practice.  In place; returns ``cache``."""
+    args = _spec_args(cache, kq, vq, ks, vs, pos)
+    _validate(*args)
+    if kq.device.type == "cpu":
+        return kv_scatter_plain(*args)
+    if kq.device.type != "cuda":
+        raise ValueError(f"spec_write: unsupported device {kq.device}")
+    _launch(*args)
+    spec_write.launches += 1
+    return cache
+
+
 decode_write.launches = 0
 prefill_write.launches = 0
+spec_write.launches = 0
 
 
 def make_kv_writer():
     """writer(cache, kq, vq, ks, vs, pos) for models.batched.decode_step."""
     return decode_write
+
+
+def make_spec_writer():
+    """writer(cache, kq, vq, ks, vs, pos) for
+    models.batched.spec_decode_step."""
+    return spec_write
 
 
 def make_prefill_writer():
@@ -161,3 +202,8 @@ def decode_write_plain(cache, kq, vq, ks, vs, pos):
 def prefill_write_plain(cache, kq, vq, ks, vs, slots):
     """The plain version of :func:`prefill_write` on any device."""
     return kv_scatter_plain(*_prefill_args(cache, kq, vq, ks, vs, slots))
+
+
+def spec_write_plain(cache, kq, vq, ks, vs, pos):
+    """The plain version of :func:`spec_write` on any device."""
+    return kv_scatter_plain(*_spec_args(cache, kq, vq, ks, vs, pos))

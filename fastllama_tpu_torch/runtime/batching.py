@@ -107,7 +107,7 @@ class BatchStats:
 def _refuse_unported(ec: EngineConfig) -> None:
     unported = {
         "prefix_cache": "needs flash_block_attend",
-        "deferred_kv": "needs the stats flash kernel and spec_write",
+        "deferred_kv": "needs the stats flash kernel",
         "mesh": "multi-device serving",
         "spmd_kernels": "multi-device serving",
         "pallas_interpret": "TPU interpret mode has no counterpart",
@@ -426,12 +426,20 @@ class BatchedEngine:
         live = self._live_slots()
         if not live:
             return bool(self.queue)
+        self._plain_chunk(live)
+        return bool(self.queue) or bool(self._live_slots())
+
+    def _plain_chunk(self, live) -> float:
+        """Plan, run and apply one decode chunk; returns its seconds (from
+        the first launch to the chunk's one fetch), which are also added
+        to ``stats.decode_s``."""
         K, greedy_only = self._plan_chunk(live)
         t0 = time.perf_counter()
         toks_np = self._dispatch_chunk(K, greedy_only).cpu().numpy()
-        self.stats.decode_s += time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        self.stats.decode_s += dt
         self._apply_chunk(toks_np, K, live)
-        return bool(self.queue) or bool(self._live_slots())
+        return dt
 
     def run(self) -> BatchStats:
         """Drain the queue to completion."""

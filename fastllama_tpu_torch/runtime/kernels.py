@@ -10,7 +10,11 @@ versions on any device, the reference path the kernels are held against.
 ``flash_attention=False`` takes the always-streaming attention functions of
 ``ops/kernels/attention.py`` for the single-stream ``attn_idx`` and, as the
 JAX package does, the plain per-slot attention for the batched
-``attn_bidx``.
+``attn_bidx``.  The speculative verify takes K2s (``attn_sbidx``) and the
+K3 scatter (``spec_writer``) whenever the kernels are on, as the JAX
+``SpecBatchedEngine`` does; ``use_pallas=False`` leaves ``attn_sbidx``
+None, so ``spec_decode_step`` takes the plain ``gqa_attention_spec_batched``,
+the JAX package's jnp path.
 """
 from __future__ import annotations
 
@@ -26,8 +30,8 @@ from fastllama_tpu_torch.config import EngineConfig
 class KernelBundle:
     """The engine compute path: matmul, layer-indexed matmul, the
     single-stream attention on one layer's cache (``attn``) and on the
-    stacked cache (``attn_idx``), batched decode attention and the cache
-    writers."""
+    stacked cache (``attn_idx``), batched decode attention, the batched
+    speculative-verify attention (``attn_sbidx``) and the cache writers."""
 
     mm: Callable
     mm_idx: Optional[Callable] = None
@@ -36,6 +40,8 @@ class KernelBundle:
     attn_bidx: Optional[Callable] = None
     kv_writer: Optional[Callable] = None
     slot_writer: Optional[Callable] = None
+    attn_sbidx: Optional[Callable] = None
+    spec_writer: Optional[Callable] = None
 
 
 def select_kernels(device, ec: EngineConfig, compute_dtype) -> KernelBundle:
@@ -57,7 +63,9 @@ def select_kernels(device, ec: EngineConfig, compute_dtype) -> KernelBundle:
                        if ec.flash_attention
                        else attention.make_attn_batched()),
             kv_writer=kv_write.make_kv_writer(),
-            slot_writer=kv_write.make_prefill_writer())
+            slot_writer=kv_write.make_prefill_writer(),
+            attn_sbidx=flash_decode.make_attn_spec_batched(),
+            spec_writer=kv_write.make_spec_writer())
     return KernelBundle(
         mm=qmm.make_mm_plain(compute_dtype),
         mm_idx=qmm.make_mm_indexed_plain(compute_dtype),
@@ -66,4 +74,5 @@ def select_kernels(device, ec: EngineConfig, compute_dtype) -> KernelBundle:
         attn_bidx=(flash_decode.make_attn_batched_plain()
                    if ec.flash_attention else attention.make_attn_batched()),
         kv_writer=kv_write.decode_write_plain,
-        slot_writer=kv_write.prefill_write_plain)
+        slot_writer=kv_write.prefill_write_plain,
+        spec_writer=kv_write.spec_write_plain)

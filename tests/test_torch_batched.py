@@ -147,17 +147,17 @@ def _sync_caches(jcache, tcache):
 _COMMON = dict(max_batch_size=3, compute_dtype="float32")
 
 
-def _jax_engine(models, kv_dtype):
+def _jax_engine(models, kv_dtype, **ec_kw):
     jc, jp, _, _ = models
     return JEngine(jc, jp, JTokenizer().finalize(),
                    jcfg.EngineConfig(pallas_interpret=True, kv_dtype=kv_dtype,
-                                     **_COMMON), decode_chunk=4)
+                                     **_COMMON, **ec_kw), decode_chunk=4)
 
 
-def _port_engine(models, kv_dtype):
+def _port_engine(models, kv_dtype, **ec_kw):
     _, _, tc, tp = models
     return TEngine(tc, tp, TTokenizer().finalize(),
-                   tcfg.EngineConfig(kv_dtype=kv_dtype, **_COMMON),
+                   tcfg.EngineConfig(kv_dtype=kv_dtype, **_COMMON, **ec_kw),
                    decode_chunk=4, device="cpu")
 
 
@@ -186,3 +186,24 @@ def test_engine_greedy_tokens_match(models, kv_dtype):
         out[side] = [r.output_tokens for r in reqs]
     assert out["port"] == out["jax"]
     assert out["port"][1][-1] == stop and len(out["port"][1]) == 4
+
+
+@pytest.mark.parametrize("kv_dtype", ["int8", "float32"])
+def test_engine_unfused_greedy_tokens_match(models, kv_dtype):
+    """``fuse_weights=False``, the weights ``bench.py`` serves its
+    speculative and long-context metrics with (separate Q, K, V, gate and
+    up projections): staggered requests through three slots, token for
+    token against the JAX engine."""
+    prompts = _prompts(3, (9, 30, 4, 17))
+    budgets = (10, 6, 12, 8)
+    out = {}
+    for side, make in (("jax", _jax_engine), ("port", _port_engine)):
+        eng = make(models, kv_dtype, fuse_weights=False)
+        assert eng.params.wk is not None and eng.params.w3 is not None
+        reqs = [eng.submit(p, max_new_tokens=n, temperature=0.0,
+                           stop_tokens=())
+                for p, n in zip(prompts, budgets)]
+        eng.run()
+        out[side] = [r.output_tokens for r in reqs]
+    assert out["port"] == out["jax"]
+    assert [len(t) for t in out["port"]] == list(budgets)

@@ -15,6 +15,7 @@ from fastllama_tpu_torch.models import llama as tl
 from fastllama_tpu_torch.ops.kernels import qmm
 from fastllama_tpu_torch.runtime.batching import BatchedEngine
 from fastllama_tpu_torch.runtime.engine import Engine
+from fastllama_tpu_torch.runtime.spec_batching import SpecBatchedEngine
 
 ROOT = Path(__file__).resolve().parents[1]
 CFG = tcfg.ModelConfig(dim=128, hidden_dim=256, n_layers=2, n_heads=4,
@@ -41,8 +42,10 @@ def test_port_imports_no_jax():
     assert r.returncode == 0, r.stdout + r.stderr
     walked = r.stdout.split("\n")[0].split()
     for mod in ("runtime.engine", "runtime.sampler", "runtime.kernels",
-                "ops.kernels.attention", "ops.kernels.flash_decode",
-                "ops.kernels.qmm", "models.llama", "ops.sampling"):
+                "runtime.spec_batching", "ops.kernels.attention",
+                "ops.kernels.flash_decode", "ops.kernels.kv_write",
+                "ops.kernels.qmm", "models.llama", "models.batched",
+                "ops.sampling"):
         assert "fastllama_tpu_torch." + mod in walked
 
 
@@ -69,6 +72,8 @@ def test_entry_points_need_a_card_or_cpu():
                               tcfg.EngineConfig(max_batch_size=2)),
         lambda: tl.KVCache.create(CFG),
         lambda: Engine(CFG, params, Tokenizer().finalize()),
+        lambda: SpecBatchedEngine(CFG, params, Tokenizer().finalize(),
+                                  tcfg.EngineConfig(max_batch_size=2)),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -81,6 +86,12 @@ def test_entry_points_need_a_card_or_cpu():
                      device="cpu").generate([5, 6, 7], max_new_tokens=3,
                                             stop_tokens=())
     assert len(toks) == 3
+    spec = SpecBatchedEngine(CFG, params, Tokenizer().finalize(),
+                             tcfg.EngineConfig(max_batch_size=2),
+                             device="cpu")
+    req = spec.generate_all([[5, 6, 7]], max_new_tokens=3,
+                            stop_tokens=())[0]
+    assert req.done and len(req.output_tokens) == 3
 
 
 def test_wrappers_take_the_plain_version_only_on_the_cpu():
@@ -98,16 +109,19 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu():
     dict(spmd_kernels=True), dict(pallas_interpret=True)])
 def test_unported_options_raise(option):
     params = tl.random_params_int(CFG, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError):
-        BatchedEngine(CFG, params, Tokenizer().finalize(),
-                      tcfg.EngineConfig(max_batch_size=2, **option),
-                      device="cpu")
+    for engine in (BatchedEngine, SpecBatchedEngine):
+        with pytest.raises(NotImplementedError):
+            engine(CFG, params, Tokenizer().finalize(),
+                   tcfg.EngineConfig(max_batch_size=2, **option),
+                   device="cpu")
 
 
 def test_unported_entry_points_raise(monkeypatch):
     params = tl.random_params_int(CFG, seed=0, device="cpu")
     with pytest.raises(NotImplementedError):
         BatchedEngine.load("ckpt", "tok")
+    with pytest.raises(NotImplementedError):
+        SpecBatchedEngine.load_spec("ckpt", "tok")
     with pytest.raises(NotImplementedError):
         tl.random_params_int(CFG, seed=0, qtype=tcfg.QuantType.INT4,
                              device="cpu")
