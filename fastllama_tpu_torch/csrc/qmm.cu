@@ -43,12 +43,40 @@
 // partials (deterministic).  Shapes whose rows are not 16-byte aligned
 // (O % 16, I % 8) stage element by element instead.  No cp.async/TMA and
 // no wgmma yet: those are later work.
+//
+// K1p, the packed INT4 mode, replaces the packed branches of
+// qmatmul_pallas (qmm.py:266-296, body _qmm_kernel_p4 :368-402) and of
+// qmatmul_pallas_indexed (qmm.py:571-612, body _qmm_kernel_p4_idx
+// :418-440).  W is (I/2, O) int8 bytes in split-half order: byte row r
+// holds logical K row r in its low nibble and row r + I/2 in its high
+// nibble; the scales stay (I/gs, O).  A stage takes 32 packed rows, so one
+// 16-byte load a thread gives 16 output columns of two logical rows, r and
+// r + I/2.  The planes are not interleaved: the stage's weight tile holds
+// the low plane in rows 0-31 and the high plane in rows 32-63, and the x
+// tile holds x's columns [k0, k0 + 32) and [I/2 + k0, I/2 + k0 + 32) to
+// match, so the tensor-core loop is K1's, unchanged.  Each nibble is
+// sign-extended in registers and dequantized with ONE rounding,
+// bf16(f32(nibble) * f32(scale)) (a bf16 scale enters as its exact f32
+// value; the INT8 path rounds the scale first), and x is rounded to bf16,
+// at any compute dtype: the packed kernel has no wide path, as in JAX.
+// The K1f operands work as above; the residual is always added (the JAX
+// indexed form never reads it, qmm.py:571-612).
+//
+// K1p's bound on an H100 is bytes at decode: a fused 7B layer at T = 48
+// (wqkv 4096x12288, wo 4096x4096, w13 4096x22528, w2 11264x4096) moves
+// 115.6 MB, 102.8 MB of nibbles and 12.8 MB of f32 scales: ~0.0345 ms at
+// 3.35 TB/s; the classifier (4096x32000) at T = 1 moves 73.7 MB, ~0.022
+// ms.  Against it the design streams half of K1's bytes per logical row
+// with K1's register double-buffering and split-K, so it keeps half as
+// many bytes in flight per stage; a deeper pipeline (cp.async/TMA stages,
+// more packed rows a stage) is what would bring it nearer the bound.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
 #include <stdint.h>
 
 #include <algorithm>
+#include <type_traits>
 
 using namespace nvcuda;
 
@@ -149,6 +177,49 @@ struct Stage {
   uint4 x[XN];
 };
 
+// K1p's stage: 16 packed bytes (columns 16*(t%4).. of packed row t/4),
+// the f32 scales of those columns for the low plane's logical row and the
+// high plane's, and XN 16-byte chunks of the x tile.
+template <typename XT>
+struct StageP4 {
+  static constexpr int XV = 16 / sizeof(XT);
+  static constexpr int XN = BM * BK / XV / QT;
+  uint4 w;
+  float s[2][16];
+  uint4 x[XN];
+};
+
+__device__ __forceinline__ void load_scales_f32(float* dst, const float* src) {
+  const float4* p = reinterpret_cast<const float4*>(src);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float4 v = p[i];
+    dst[4 * i] = v.x;
+    dst[4 * i + 1] = v.y;
+    dst[4 * i + 2] = v.z;
+    dst[4 * i + 3] = v.w;
+  }
+}
+__device__ __forceinline__ void load_scales_f32(float* dst,
+                                                const __nv_bfloat16* src) {
+  const uint4* p = reinterpret_cast<const uint4*>(src);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const uint4 v = p[i];
+    const __nv_bfloat16* b = reinterpret_cast<const __nv_bfloat16*>(&v);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) dst[8 * i + j] = __bfloat162float(b[j]);
+  }
+}
+
+// The sign-extended nibble of a packed byte: plane 0 the low nibble
+// (logical row r), plane 1 the high (row r + I/2), both in [-8, 7].  The
+// low one moves to the top of a byte first; >> on a signed integer is an
+// arithmetic shift on nvcc, so both shifts sign-extend.
+__device__ __forceinline__ int nibble(int8_t b, int plane) {
+  return plane == 0 ? (int)(int8_t)((uint8_t)b << 4) >> 4 : (int)b >> 4;
+}
+
 __device__ __forceinline__ void load_scales(__nv_bfloat162* dst,
                                             const float* src) {
   const float4* p = reinterpret_cast<const float4*>(src);
@@ -200,7 +271,9 @@ __device__ __forceinline__ void store_x_norm(__nv_bfloat16* dst,
     dst[j] = __float2bfloat16_rn(norm_x<XT>(to_f(e[j]), rinv, __ldg(g + j)));
 }
 
-template <typename XT, typename ST, bool VEC>
+// P4: K1p, W the (I/2, O) packed bytes; k_per_split then counts packed
+// rows.
+template <typename XT, typename ST, bool VEC, bool P4>
 __global__ void __launch_bounds__(QT)
 qmm_bf16_kernel(const XT* __restrict__ x, const int8_t* __restrict__ w,
                 const ST* __restrict__ s, const float* __restrict__ gain,
@@ -218,53 +291,89 @@ qmm_bf16_kernel(const XT* __restrict__ x, const int8_t* __restrict__ w,
   const int warp = tid / 32;
   const int n0 = blockIdx.x * BN;
   const int m0 = blockIdx.y * BM;
+  const int Ih = I / 2;
+  // rows of W walked (K1p: packed rows) and taken a stage
+  constexpr int KS = P4 ? BK / 2 : BK;
   const int kbeg = blockIdx.z * k_per_split;
-  const int kend = min(I, kbeg + k_per_split);
+  const int kend = min(P4 ? Ih : I, kbeg + k_per_split);
   const int wm = (warp / 2) * 32;
   const int wn = (warp % 2) * 32;
-  using S = Stage<XT>;
+  using S = std::conditional_t<P4, StageP4<XT>, Stage<XT>>;
   const int wr = tid / 4;                  // weight rows wr and wr + 32
   const int wc = (tid % 4) * 16;           // weight columns wc .. wc + 15
   if (gain != nullptr) row_inv_rms<XT, QT>(x, T, I, m0, eps, rinv);
+  // column c of the stage's x tile: x's column k0 + c; under K1p the low
+  // plane's columns k0 + c for c < 32, the high plane's I/2 + k0 + c - 32
+  // after.  in_k: its W row lies in this block's range.
+  auto xcol = [&](int k0, int c) {
+    return P4 && c >= KS ? Ih + k0 + c - KS : k0 + c;
+  };
+  auto in_k = [&](int k0, int c) { return k0 + c % KS < kend; };
 
   // vector path: registers <- global for the stage starting at k0
   auto load = [&](S& st, int k0) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int gk = k0 + wr + 32 * h, gn = n0 + wc;
+    if constexpr (P4) {
+      const int gk = k0 + wr, gn = n0 + wc;
       if (gk < kend && gn < O) {
-        st.w[h] = *reinterpret_cast<const uint4*>(w + (size_t)gk * O + gn);
-        load_scales(st.s[h], s + (size_t)(gk / gs) * O + gn);
+        st.w = *reinterpret_cast<const uint4*>(w + (size_t)gk * O + gn);
+        load_scales_f32(st.s[0], s + (size_t)(gk / gs) * O + gn);
+        load_scales_f32(st.s[1], s + (size_t)((gk + Ih) / gs) * O + gn);
       } else {                 // zero weight and scale: no NaN from 0 * junk
-        st.w[h] = make_uint4(0, 0, 0, 0);
+        st.w = make_uint4(0, 0, 0, 0);
 #pragma unroll
-        for (int j = 0; j < 8; ++j) st.s[h][j] = __floats2bfloat162_rn(0.0f, 0.0f);
+        for (int j = 0; j < 16; ++j) st.s[0][j] = st.s[1][j] = 0.0f;
+      }
+    } else {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int gk = k0 + wr + 32 * h, gn = n0 + wc;
+        if (gk < kend && gn < O) {
+          st.w[h] = *reinterpret_cast<const uint4*>(w + (size_t)gk * O + gn);
+          load_scales(st.s[h], s + (size_t)(gk / gs) * O + gn);
+        } else {               // zero weight and scale: no NaN from 0 * junk
+          st.w[h] = make_uint4(0, 0, 0, 0);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) st.s[h][j] = __floats2bfloat162_rn(0.0f, 0.0f);
+        }
       }
     }
 #pragma unroll
     for (int i = 0; i < S::XN; ++i) {
       const int q = tid + QT * i;
       const int r = q / (BK / S::XV), c = (q % (BK / S::XV)) * S::XV;
-      const int gr = m0 + r, gk = k0 + c;
-      st.x[i] = (gr < T && gk < kend)
-                    ? *reinterpret_cast<const uint4*>(x + (size_t)gr * I + gk)
+      const int gr = m0 + r;
+      st.x[i] = (gr < T && in_k(k0, c))
+                    ? *reinterpret_cast<const uint4*>(x + (size_t)gr * I +
+                                                      xcol(k0, c))
                     : make_uint4(0, 0, 0, 0);
     }
   };
   // vector path: shared memory <- registers, the weight dequantized to
-  // bf16(bf16(w) * bf16(s)): the product rounded to bf16; x normalized
-  // first under the K1f prologue
+  // bf16(bf16(w) * bf16(s)): the product rounded to bf16 (K1p: the low
+  // plane to tile rows 0-31, the high plane to rows 32-63, each element
+  // bf16(f32(nibble) * f32(scale)), rounded once); x normalized first
+  // under the K1f prologue
   auto store = [&](const S& st, int k0) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int8_t* q = reinterpret_cast<const int8_t*>(&st.w[h]);
+      const int8_t* q;
+      if constexpr (P4)
+        q = reinterpret_cast<const int8_t*>(&st.w);
+      else
+        q = reinterpret_cast<const int8_t*>(&st.w[h]);
       uint4 packed[2];
       __nv_bfloat162* v = reinterpret_cast<__nv_bfloat162*>(packed);
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        const float2 sc = __bfloat1622float2(st.s[h][j]);
-        v[j] = __floats2bfloat162_rn((float)q[2 * j] * sc.x,
-                                     (float)q[2 * j + 1] * sc.y);
+        if constexpr (P4) {
+          v[j] = __floats2bfloat162_rn(
+              (float)nibble(q[2 * j], h) * st.s[h][2 * j],
+              (float)nibble(q[2 * j + 1], h) * st.s[h][2 * j + 1]);
+        } else {
+          const float2 sc = __bfloat1622float2(st.s[h][j]);
+          v[j] = __floats2bfloat162_rn((float)q[2 * j] * sc.x,
+                                       (float)q[2 * j + 1] * sc.y);
+        }
       }
       uint4* dst = reinterpret_cast<uint4*>(&Bs[wr + 32 * h][wc]);
       dst[0] = packed[0];
@@ -274,8 +383,8 @@ qmm_bf16_kernel(const XT* __restrict__ x, const int8_t* __restrict__ w,
     for (int i = 0; i < S::XN; ++i) {
       const int q = tid + QT * i;
       const int r = q / (BK / S::XV), c = (q % (BK / S::XV)) * S::XV;
-      if (gain != nullptr && m0 + r < T && k0 + c < kend)
-        store_x_norm<XT>(&As[r][c], st.x[i], rinv[r], gain + k0 + c);
+      if (gain != nullptr && m0 + r < T && in_k(k0, c))
+        store_x_norm<XT>(&As[r][c], st.x[i], rinv[r], gain + xcol(k0, c));
       else
         store_x(&As[r][c], st.x[i], x);
     }
@@ -284,23 +393,30 @@ qmm_bf16_kernel(const XT* __restrict__ x, const int8_t* __restrict__ w,
   auto stage_scalar = [&](int k0) {
     for (int idx = tid; idx < BM * BK; idx += QT) {
       const int r = idx / BK, c = idx % BK;
-      const int gr = m0 + r, gk = k0 + c;
+      const int gr = m0 + r, gc = xcol(k0, c);
       float v = 0.0f;
-      if (gr < T && gk < kend) {
-        v = to_f(x[(size_t)gr * I + gk]);
-        if (gain != nullptr) v = norm_x<XT>(v, rinv[r], gain[gk]);
+      if (gr < T && in_k(k0, c)) {
+        v = to_f(x[(size_t)gr * I + gc]);
+        if (gain != nullptr) v = norm_x<XT>(v, rinv[r], gain[gc]);
       }
       As[r][c] = __float2bfloat16_rn(v);
     }
     for (int idx = tid; idx < BK * BN; idx += QT) {
       const int r = idx / BN, c = idx % BN;
-      const int gk = k0 + r, gn = n0 + c;
+      const int gk = k0 + r % KS, gn = n0 + c;
       __nv_bfloat16 v = __float2bfloat16_rn(0.0f);
       if (gk < kend && gn < O) {
-        const float wv = (float)w[(size_t)gk * O + gn];
-        const float sv = __bfloat162float(
-            __float2bfloat16_rn(to_f(s[(size_t)(gk / gs) * O + gn])));
-        v = __float2bfloat16_rn(wv * sv);
+        if constexpr (P4) {
+          const int plane = r / KS, lk = gk + plane * Ih;
+          v = __float2bfloat16_rn(
+              (float)nibble(w[(size_t)gk * O + gn], plane) *
+              to_f(s[(size_t)(lk / gs) * O + gn]));
+        } else {
+          const float wv = (float)w[(size_t)gk * O + gn];
+          const float sv = __bfloat162float(
+              __float2bfloat16_rn(to_f(s[(size_t)(gk / gs) * O + gn])));
+          v = __float2bfloat16_rn(wv * sv);
+        }
       }
       Bs[r][c] = v;
     }
@@ -316,7 +432,7 @@ qmm_bf16_kernel(const XT* __restrict__ x, const int8_t* __restrict__ w,
   if constexpr (VEC) {
     if (kbeg < kend) load(st, kbeg);
   }
-  for (int k0 = kbeg; k0 < kend; k0 += BK) {
+  for (int k0 = kbeg; k0 < kend; k0 += KS) {
     if constexpr (VEC)
       store(st, k0);
     else
@@ -324,7 +440,7 @@ qmm_bf16_kernel(const XT* __restrict__ x, const int8_t* __restrict__ w,
     __syncthreads();
     // the next stage's loads are in flight while this one is multiplied
     if constexpr (VEC) {
-      if (k0 + BK < kend) load(st, k0 + BK);
+      if (k0 + KS < kend) load(st, k0 + KS);
     }
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
@@ -469,7 +585,7 @@ int launch_typed(const void* x, const void* w, const void* s,
                  const float* gain, const void* res, float eps, void* out,
                  float* partial, int T, int I, int O, int gs, int splits,
                  int k_per_split, int w_dt, int s_dt, int wide, int vec,
-                 cudaStream_t st) {
+                 int packed, cudaStream_t st) {
   const dim3 grid((O + BN - 1) / BN, (T + BM - 1) / BM, splits);
   float* part = splits > 1 ? partial : nullptr;
   const XT* xp = static_cast<const XT*>(x);
@@ -477,18 +593,24 @@ int launch_typed(const void* x, const void* w, const void* s,
   XT* op = static_cast<XT*>(out);
   // the residual is added once: by the reduce pass when K is split
   const XT* rmain = splits > 1 ? nullptr : rp;
+  if (packed && (wide || w_dt != DT_I8 || I % 2))
+    return (int)cudaErrorInvalidValue;
   if (!wide) {
     if (w_dt != DT_I8) return (int)cudaErrorInvalidValue;
     const int8_t* wp = static_cast<const int8_t*>(w);
-#define QMM_BF16(ST, V)                                                      \
-  qmm_bf16_kernel<XT, ST, V><<<grid, QT, 0, st>>>(                           \
+#define QMM_BF16(ST, V, P)                                                   \
+  qmm_bf16_kernel<XT, ST, V, P><<<grid, QT, 0, st>>>(                        \
       xp, wp, static_cast<const ST*>(s), gain, rmain, op, part, T, I, O, gs,  \
       k_per_split, eps)
+#define QMM_BF16_S(ST, P)                                                    \
+  if (vec) QMM_BF16(ST, true, P); else QMM_BF16(ST, false, P)
     if (s_dt == DT_F32) {
-      if (vec) QMM_BF16(float, true); else QMM_BF16(float, false);
+      if (packed) { QMM_BF16_S(float, true); } else { QMM_BF16_S(float, false); }
     } else {
-      if (vec) QMM_BF16(__nv_bfloat16, true); else QMM_BF16(__nv_bfloat16, false);
+      if (packed) { QMM_BF16_S(__nv_bfloat16, true); }
+      else { QMM_BF16_S(__nv_bfloat16, false); }
     }
+#undef QMM_BF16_S
 #undef QMM_BF16
   } else if (w_dt == DT_I8) {
     if (s_dt == DT_F32)
@@ -525,14 +647,15 @@ int launch_typed(const void* x, const void* w, const void* s,
 }  // namespace
 
 // out (T, O) in x's dtype; partial: splits*T*O f32 scratch when splits > 1;
-// vec: 16-byte aligned rows (O % 16 == 0, I % 8 == 0, aligned pointers).
-// K1f: gain (I,) f32 or null (rmsnorm prologue with eps), res (T, O) in
-// x's dtype or null (residual epilogue).
+// vec: 16-byte aligned rows (O % 16 == 0, I % 8 == 0, aligned pointers;
+// K1p: I % 16 == 0).  K1f: gain (I,) f32 or null (rmsnorm prologue with
+// eps), res (T, O) in x's dtype or null (residual epilogue).  packed: K1p,
+// w the (I/2, O) split-half bytes, k_per_split in packed rows, wide 0.
 extern "C" int qmm_launch(const void* x, const void* w, const void* s,
                           const void* gain, const void* res, float eps,
                           void* out, void* partial, int T, int I, int O,
                           int gs, int splits, int k_per_split, int x_dt,
-                          int w_dt, int s_dt, int wide, int vec,
+                          int w_dt, int s_dt, int wide, int vec, int packed,
                           void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* part = static_cast<float*>(partial);
@@ -540,10 +663,10 @@ extern "C" int qmm_launch(const void* x, const void* w, const void* s,
   if (x_dt == DT_F32)
     return launch_typed<float>(x, w, s, g, res, eps, out, part, T, I, O, gs,
                                splits, k_per_split, w_dt, s_dt, wide, vec,
-                               st);
+                               packed, st);
   if (x_dt == DT_BF16)
     return launch_typed<__nv_bfloat16>(x, w, s, g, res, eps, out, part, T, I,
                                        O, gs, splits, k_per_split, w_dt, s_dt,
-                                       wide, vec, st);
+                                       wide, vec, packed, st);
   return (int)cudaErrorInvalidValue;
 }

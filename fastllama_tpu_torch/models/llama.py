@@ -23,7 +23,9 @@ from fastllama_tpu_torch.ops.attention import gqa_attention, update_kv_cache
 from fastllama_tpu_torch.ops.norms import rmsnorm, swiglu
 from fastllama_tpu_torch.ops.qmatmul import qmatmul
 from fastllama_tpu_torch.ops.rope import apply_rope_half, rope_tables
-from fastllama_tpu_torch.quant.groupquant import QDTYPE, QArray, dequantize
+from fastllama_tpu_torch.quant.groupquant import (QDTYPE, QArray, dequantize,
+                                                  pack_int4_rows,
+                                                  pack_supported)
 
 
 @dataclasses.dataclass
@@ -237,10 +239,12 @@ def random_params_int(cfg: ModelConfig, seed: int = 0,
     """Random quantized parameters made directly as integers on the device
     from a ``torch.Generator`` (no f32 intermediate, so 7B-size weights
     are made in place): values uniform in [-QF, QF], every group scale
-    ``scale / QF``, norms one.  Same recipe as the JAX package's
-    ``random_params_int``; the values differ (another generator)."""
+    ``scale / QF``, norms one.  INT4 projections are split-half packed on
+    the device where :func:`pack_supported` says, the rest stay int8-held.
+    Same recipe as the JAX package's ``random_params_int``; the values
+    differ (another generator)."""
     qtype = qtype if qtype is not None else cfg.quant_type
-    if qtype not in (QuantType.INT8, QuantType.INT16):
+    if qtype not in (QuantType.INT8, QuantType.INT16, QuantType.INT4):
         raise NotImplementedError(f"random_params_int: {qtype} not ported")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
@@ -255,12 +259,18 @@ def random_params_int(cfg: ModelConfig, seed: int = 0,
     for name, shape in _shapes(cfg).items():
         data = torch.empty(shape, dtype=QDTYPE[qtype], device=dev)
         data.random_(-qmax, qmax + 1, generator=gen)
+        packed = False
         if name == "embedding":
             sshape, ga = (*shape[:-1], shape[-1] // gs), -1
         else:
             sshape, ga = (*shape[:-2], shape[-2] // gs, shape[-1]), -2
+            packed = (qtype == QuantType.INT4
+                      and pack_supported(shape[-2], shape[-1], gs))
+            if packed:
+                data = pack_int4_rows(data)
         out[name] = QArray(data, torch.full(sshape, sval, dtype=torch.float32,
-                                            device=dev), qtype, gs, ga)
+                                            device=dev), qtype, gs, ga,
+                           packed)
     return LlamaParams(**out)
 
 

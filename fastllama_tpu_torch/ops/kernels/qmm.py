@@ -10,9 +10,19 @@ per-layer glue of ``models/llama.forward``.  The JAX package applies the
 norm outside its kernel when its TPU tiling splits K (qmm.py:618-623) or
 the shape is unsupported (:714-719); the port always fuses.
 
+K1p, the packed mode of the same kernel, replaces the packed INT4 branches
+(``_qmm_kernel_p4``, qmm.py:266-296 and :368-402; ``_qmm_kernel_p4_idx``,
+:571-612 and :418-440): split-half nibble-packed (I/2, O) weights,
+``bf16(f32(nibble) * f32(scale))`` with one rounding, bf16 x, f32 sums, at
+any compute dtype (the packed kernel has no wide path).  The JAX indexed
+form applies the norm outside and never reads ``residual`` (:571-612);
+the port fuses both, so ``out = to_x_dtype(residual + norm(x) @ W)`` for
+every layout.  An INT4 weight that does not pack stays int8-held and takes
+K1's non-wide path, exactly like INT8.
+
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
-kernel or raises.  Each wrapper counts its launches in ``.launches``.
-Packed INT4 weights are not ported yet and raise.
+kernel or raises.  Each wrapper counts its launches in ``.launches``, and
+those on a packed weight (K1p) in ``.launches_p4``.
 """
 from __future__ import annotations
 
@@ -30,12 +40,20 @@ BM, BN = 64, 64            # output tile of both kernel paths
 
 def is_wide(w: QArray, compute_dtype) -> bool:
     """INT16 values overflow bf16's mantissa, and an f32 compute dtype asks
-    for full precision: both take the f32 dequant + f32 dot path."""
+    for full precision: both take the f32 dequant + f32 dot path.  A packed
+    INT4 weight has no wide path (the JAX kernel's contract)."""
+    if w.packed:
+        return False
     return w.qtype == QuantType.INT16 or compute_dtype == torch.float32
 
 
 def _dot_f32(x: torch.Tensor, w: QArray, compute_dtype) -> torch.Tensor:
-    """x @ dequant(w) in f32, rounded as the kernel rounds (see qmm_plain)."""
+    """x @ dequant(w) in f32, rounded as the kernel rounds (see qmm_plain
+    and qmm_p4_plain)."""
+    if w.packed:
+        wf = dequantize(w, torch.float32).to(torch.bfloat16)
+        return torch.matmul(x.to(torch.bfloat16).to(torch.float32),
+                            wf.to(torch.float32))
     if is_wide(w, compute_dtype):
         return torch.matmul(x.to(torch.float32), dequantize(w, torch.float32))
     wf = dequantize(w, torch.bfloat16).to(torch.float32)
@@ -47,7 +65,8 @@ def qmm_plain(x: torch.Tensor, w: QArray,
     """The kernel's arithmetic in plain PyTorch: INT8 non-wide dequantizes
     to bf16(bf16(w) * bf16(s)) and multiplies bf16-rounded x in f32 (bf16
     products are exact in f32); the wide path dequantizes and multiplies in
-    f32.  Returns x.dtype."""
+    f32; a packed weight takes :func:`qmm_p4_plain`'s arithmetic.  Returns
+    x.dtype."""
     return _dot_f32(x, w, compute_dtype).to(x.dtype)
 
 
@@ -71,6 +90,20 @@ def qmm_fused_plain(x: torch.Tensor, w: QArray, compute_dtype=torch.bfloat16,
     return out.to(x.dtype)
 
 
+def qmm_p4_plain(x: torch.Tensor, w: QArray, compute_dtype=torch.bfloat16,
+                 norm_gain=None, eps: float = 1e-5,
+                 residual=None) -> torch.Tensor:
+    """K1p's arithmetic (``_qmm_kernel_p4``, qmm.py:368-402) on a packed
+    (I/2, O) QArray: each nibble sign-extended to [-8, 7], dequantized as
+    ``bf16(f32(nibble) * f32(scale))`` (one rounding; a bf16 scale enters
+    as its exact f32 value), times bf16-rounded x, summed in f32, at any
+    ``compute_dtype``.  The glue is K1f's (:func:`qmm_fused_plain`), and
+    the residual is always added."""
+    if not w.packed:
+        raise ValueError("qmm_p4_plain takes a packed INT4 QArray")
+    return qmm_fused_plain(x, w, compute_dtype, norm_gain, eps, residual)
+
+
 def _split_k(T: int, I: int, O: int, kstep: int, n_sm: int):
     """(splits, k_per_split): split the contraction over blocks when the
     output tiles alone give fewer than four blocks per SM (decode shapes),
@@ -86,24 +119,26 @@ def _split_k(T: int, I: int, O: int, kstep: int, n_sm: int):
 
 
 def _vec_ok(x: torch.Tensor, w: QArray) -> bool:
-    """The INT8 path's 16-byte loads need 16-byte aligned rows of x, W and
-    the scales."""
+    """The vector path's 16-byte loads need 16-byte aligned rows of x, W
+    and the scales; K1p reads x's high half at column I/2 too."""
     T, I = x.shape
     O = w.data.shape[1]
-    return (O % 16 == 0 and I % 8 == 0
+    return (O % 16 == 0 and I % (16 if w.packed else 8) == 0
             and all(t.data_ptr() % 16 == 0 for t in (x, w.data, w.scales)))
 
 
 def _check_args(x: torch.Tensor, w: QArray) -> None:
-    if w.packed or w.qtype == QuantType.INT4:
-        raise NotImplementedError("packed INT4 weights are not ported yet")
     if w.group_axis != -2 or w.data.ndim != 2 or x.ndim != 2:
         raise ValueError("qmm kernel takes x (T, I) and a (I, O) QArray "
                          "with groups along I")
     T, I = x.shape
-    if w.data.shape[0] != I or I % w.group_size:
+    rows = 2 * w.data.shape[0] if w.packed else w.data.shape[0]
+    if rows != I or I % w.group_size:
         raise ValueError(f"shapes x {tuple(x.shape)} w {tuple(w.data.shape)}"
-                         f" gs {w.group_size} do not match")
+                         f" gs {w.group_size} packed {w.packed} do not match")
+    if w.packed and (w.qtype != QuantType.INT4 or (I // 2) % w.group_size):
+        raise ValueError(f"a packed weight is INT4 with (I/2) % gs == 0: "
+                         f"{w.qtype} I {I} gs {w.group_size}")
     if w.scales.shape != (I // w.group_size, w.data.shape[1]):
         raise ValueError(f"scales {tuple(w.scales.shape)} do not match")
     for t in (x, w.data, w.scales):
@@ -113,6 +148,7 @@ def _check_args(x: torch.Tensor, w: QArray) -> None:
             raise ValueError("qmm operands must be contiguous")
     if x.dtype not in (torch.float32, torch.bfloat16) \
             or w.data.dtype not in (torch.int8, torch.int16) \
+            or (w.packed and w.data.dtype != torch.int8) \
             or w.scales.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"unsupported dtypes x {x.dtype} w {w.data.dtype} "
                          f"s {w.scales.dtype}")
@@ -124,73 +160,51 @@ def _launch(x: torch.Tensor, w: QArray, compute_dtype, gain=None,
     O = w.data.shape[1]
     wide = is_wide(w, compute_dtype)
     n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
-    splits, kps = _split_k(T, I, O, 16 if wide else 64, n_sm)
+    # K1p walks the I/2 packed rows, 32 a stage (64 logical rows)
+    k_rows, kstep = ((I // 2, 32) if w.packed else (I, 16 if wide else 64))
+    splits, kps = _split_k(T, k_rows, O, kstep, n_sm)
     out = torch.empty((T, O), dtype=x.dtype, device=x.device)
     partial = (torch.empty((splits, T, O), dtype=torch.float32,
                            device=x.device) if splits > 1 else None)
     lib = _build.load("qmm")
     fn = lib.qmm_launch
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_float] \
-        + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+        + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     rc = fn(_build.ptr(x), _build.ptr(w.data), _build.ptr(w.scales),
             _build.ptr(gain), _build.ptr(residual), eps,
             _build.ptr(out), _build.ptr(partial), T, I, O, w.group_size,
             splits, kps, _DT[x.dtype], _DT[w.data.dtype], _DT[w.scales.dtype],
-            int(wide), int(not wide and _vec_ok(x, w)), _build.stream_of(x))
+            int(wide), int(not wide and _vec_ok(x, w)), int(w.packed),
+            _build.stream_of(x))
     _build.check(rc, "qmm_launch")
     return out
 
 
-def qmatmul_pallas(x: torch.Tensor, w: QArray,
-                   compute_dtype=torch.bfloat16) -> torch.Tensor:
-    """``x @ w``: x (T, I) f32/bf16, w a (I, O) QArray with scales
-    (I/gs, O).  Returns (T, O) in x.dtype."""
-    _check_args(x, w)
+def _run(wrapper, x: torch.Tensor, w: QArray, compute_dtype, gain=None,
+         eps: float = 1e-5, residual=None) -> torch.Tensor:
+    """The plain version for a CPU tensor; else the kernel, counted on
+    ``wrapper.launches`` (K1, K1f) or ``wrapper.launches_p4`` (K1p)."""
     if x.device.type == "cpu":
-        return qmm_plain(x, w, compute_dtype)
+        return qmm_fused_plain(x, w, compute_dtype, gain, eps, residual)
     if x.device.type != "cuda":
-        raise ValueError(f"qmatmul_pallas: unsupported device {x.device}")
-    out = _launch(x, w, compute_dtype)
-    qmatmul_pallas.launches += 1
+        raise ValueError(f"{wrapper.__name__}: unsupported device {x.device}")
+    out = _launch(x, w, compute_dtype, gain, residual, eps)
+    if w.packed:
+        wrapper.launches_p4 += 1
+    else:
+        wrapper.launches += 1
     return out
 
 
-def qmatmul_pallas_indexed(x: torch.Tensor, w: QArray, layer: int,
-                           compute_dtype=torch.bfloat16, norm_gain=None,
-                           eps: float = 1e-5,
-                           residual=None) -> torch.Tensor:
-    """``x @ w[layer]`` on the layer-stacked (L, I, O) QArray, read in
-    place (``w[layer]`` is a view).  ``norm_gain`` (I,) and/or
-    ``residual`` (T, O) select K1f (:func:`qmatmul_pallas_indexed_fused`)."""
-    if norm_gain is not None or residual is not None:
-        return qmatmul_pallas_indexed_fused(x, w, layer, compute_dtype,
-                                            norm_gain, eps, residual)
+def _layer(w: QArray, layer: int) -> QArray:
     if not 0 <= layer < w.data.shape[0]:
         raise IndexError(f"layer {layer} out of range")
-    _check_args(x, w[layer])
-    if x.device.type == "cpu":
-        return qmm_plain(x, w[layer], compute_dtype)
-    if x.device.type != "cuda":
-        raise ValueError(
-            f"qmatmul_pallas_indexed: unsupported device {x.device}")
-    out = _launch(x, w[layer], compute_dtype)
-    qmatmul_pallas_indexed.launches += 1
-    return out
+    return w[layer]
 
 
-def qmatmul_pallas_indexed_fused(x: torch.Tensor, w: QArray, layer: int,
-                                 compute_dtype=torch.bfloat16,
-                                 norm_gain=None, eps: float = 1e-5,
-                                 residual=None) -> torch.Tensor:
-    """K1f: ``to_x_dtype(residual + norm(x) @ w[layer])`` with the rmsnorm
-    prologue when ``norm_gain`` (I,) is given and the residual epilogue
-    when ``residual`` (T, O) in x's dtype is given (see
-    :func:`qmm_fused_plain`)."""
-    if not 0 <= layer < w.data.shape[0]:
-        raise IndexError(f"layer {layer} out of range")
-    wl = w[layer]
-    _check_args(x, wl)
+def _glue(x: torch.Tensor, wl: QArray, norm_gain, residual):
+    """Checks the K1f operands; returns the gain as contiguous f32."""
     T, I = x.shape
     gain = None
     if norm_gain is not None:
@@ -205,19 +219,55 @@ def qmatmul_pallas_indexed_fused(x: torch.Tensor, w: QArray, layer: int,
         raise ValueError(f"residual {tuple(residual.shape)} "
                          f"{residual.dtype} must be a contiguous "
                          f"({T}, {wl.data.shape[1]}) {x.dtype} on x's device")
-    if x.device.type == "cpu":
-        return qmm_fused_plain(x, wl, compute_dtype, gain, eps, residual)
-    if x.device.type != "cuda":
-        raise ValueError(
-            f"qmatmul_pallas_indexed_fused: unsupported device {x.device}")
-    out = _launch(x, wl, compute_dtype, gain, residual, eps)
-    qmatmul_pallas_indexed_fused.launches += 1
-    return out
+    return gain
 
 
-qmatmul_pallas.launches = 0
-qmatmul_pallas_indexed.launches = 0
+def qmatmul_pallas(x: torch.Tensor, w: QArray,
+                   compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """``x @ w``: x (T, I) f32/bf16, w a (I, O) QArray with scales
+    (I/gs, O), or a packed (I/2, O) INT4 one (K1p, see
+    :func:`qmm_p4_plain`).  Returns (T, O) in x.dtype."""
+    _check_args(x, w)
+    return _run(qmatmul_pallas, x, w, compute_dtype)
+
+
+def qmatmul_pallas_indexed(x: torch.Tensor, w: QArray, layer: int,
+                           compute_dtype=torch.bfloat16, norm_gain=None,
+                           eps: float = 1e-5,
+                           residual=None) -> torch.Tensor:
+    """``x @ w[layer]`` on the layer-stacked (L, I, O) QArray (or packed
+    (L, I/2, O)), read in place (``w[layer]`` is a view).  ``norm_gain``
+    (I,) and/or ``residual`` (T, O) select K1f
+    (:func:`qmatmul_pallas_indexed_fused`)."""
+    if norm_gain is not None or residual is not None:
+        return qmatmul_pallas_indexed_fused(x, w, layer, compute_dtype,
+                                            norm_gain, eps, residual)
+    wl = _layer(w, layer)
+    _check_args(x, wl)
+    return _run(qmatmul_pallas_indexed, x, wl, compute_dtype)
+
+
+def qmatmul_pallas_indexed_fused(x: torch.Tensor, w: QArray, layer: int,
+                                 compute_dtype=torch.bfloat16,
+                                 norm_gain=None, eps: float = 1e-5,
+                                 residual=None) -> torch.Tensor:
+    """K1f: ``to_x_dtype(residual + norm(x) @ w[layer])`` with the rmsnorm
+    prologue when ``norm_gain`` (I,) is given and the residual epilogue
+    when ``residual`` (T, O) in x's dtype is given (see
+    :func:`qmm_fused_plain`).  On a packed weight this is K1p with the same
+    glue; the JAX packed branch drops ``residual`` (qmm.py:571-612), this
+    one adds it."""
+    wl = _layer(w, layer)
+    _check_args(x, wl)
+    gain = _glue(x, wl, norm_gain, residual)
+    return _run(qmatmul_pallas_indexed_fused, x, wl, compute_dtype, gain,
+                eps, residual)
+
+
+qmatmul_pallas.launches = qmatmul_pallas.launches_p4 = 0
+qmatmul_pallas_indexed.launches = qmatmul_pallas_indexed.launches_p4 = 0
 qmatmul_pallas_indexed_fused.launches = 0
+qmatmul_pallas_indexed_fused.launches_p4 = 0
 
 
 def _unfused_glue(x, w, layer, compute_dtype, norm_gain, eps, residual):
@@ -233,8 +283,9 @@ def _unfused_glue(x, w, layer, compute_dtype, norm_gain, eps, residual):
 
 
 def make_mm(compute_dtype=torch.bfloat16):
-    """mm(x, w) for the engines: the kernel wrapper for QArrays, the plain
-    ``qmatmul`` for unquantized weights (no kernel exists for those)."""
+    """mm(x, w) for the engines: the kernel wrapper for QArrays (K1, or K1p
+    for a packed one), the plain ``qmatmul`` for unquantized weights (no
+    kernel exists for those)."""
     from fastllama_tpu_torch.ops.qmatmul import qmatmul
 
     def mm(x, w):
@@ -248,7 +299,8 @@ def make_mm(compute_dtype=torch.bfloat16):
 def make_mm_indexed(compute_dtype=torch.bfloat16):
     """mm_idx(x, w_stacked, layer, norm_gain=None, eps=1e-5,
     residual=None) for the engines.  ``mm_idx.supports_fusion`` tells
-    ``models.llama.forward`` to fold the layer glue into K1f."""
+    ``models.llama.forward`` to fold the layer glue into K1f (K1p for a
+    packed weight, which adds the residual too)."""
     def mm_idx(x, w, layer, norm_gain=None, eps: float = 1e-5,
                residual=None):
         if isinstance(w, QArray):

@@ -18,7 +18,8 @@ from fastllama_tpu_torch.quant.groupquant import QArray, dequantize, quantize
 
 def qmatmul(x: torch.Tensor, w, compute_dtype=torch.float32) -> torch.Tensor:
     """``x @ w`` with ``w`` a QArray in the transposed (I, O) layout
-    (group_axis=-2) or a plain (I, O) tensor.  x: (..., I).  Returns
+    (group_axis=-2; a packed INT4 one is unpacked, then dequantized in
+    ``compute_dtype``) or a plain (I, O) tensor.  x: (..., I).  Returns
     (..., O) in x.dtype.  The product runs in f32 on operands rounded to
     ``compute_dtype`` (f32 accumulation, as ``preferred_element_type``)."""
     if isinstance(w, QArray):
@@ -33,11 +34,10 @@ def qmatmul(x: torch.Tensor, w, compute_dtype=torch.float32) -> torch.Tensor:
 def qmatmul_parity(x: torch.Tensor, w: QArray) -> torch.Tensor:
     """Bit-faithful reference math: quantize the activation per group, an
     integer dot per group, f32 accumulation of ``int_dot * ws * xs``.
-    x (..., I) f32; w a (I, O) QArray with groups along I.  The integer
-    dot runs in f64, where every product sum of a group is exact (CUDA has
-    no integer matmul)."""
-    if w.packed:
-        raise NotImplementedError("packed INT4 weights are not ported yet")
+    x (..., I) f32; w a (I, O) QArray with groups along I (a packed one
+    is unpacked first).  The integer dot runs in f64, where every product
+    sum of a group is exact (CUDA has no integer matmul)."""
+    w = w.unpacked()
     gs = w.group_size
     I, O = w.data.shape
     G = I // gs

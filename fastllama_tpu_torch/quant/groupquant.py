@@ -11,7 +11,9 @@
   ``jnp.round`` does).
 
 A :class:`QArray` is two tensors (integer ``data``, per-group ``scales``)
-plus the static layout flags the JAX dataclass carries.
+plus the static layout flags the JAX dataclass carries.  INT4 projection
+weights ship nibble-packed in split-half order (``pack_int4_rows``) where
+``pack_supported`` says, as the JAX package lays them out.
 """
 from __future__ import annotations
 
@@ -37,8 +39,10 @@ class QArray:
     ``(V, D)``, scales ``(V, D/gs)``).  -2: groups along the contraction
     axis of a transposed ``(in, out)`` projection, scales ``(in/gs, out)``,
     so neighbouring output columns sit next to each other in memory.
-    ``packed``: split-half INT4 nibble packing along axis -2 (not served
-    by this port yet)."""
+    ``packed``: split-half INT4 nibble packing along axis -2: ``data`` is
+    int8 of half height, byte row ``r`` holding logical row ``r`` in its
+    low nibble and row ``r + I/2`` in its high nibble; the scales stay
+    ``(I/gs, O)``."""
 
     data: torch.Tensor
     scales: torch.Tensor
@@ -69,6 +73,13 @@ class QArray:
         return QArray(self.data.to(device), self.scales.to(device),
                       self.qtype, self.group_size, self.group_axis,
                       self.packed)
+
+    def unpacked(self) -> "QArray":
+        """The int8-held values of a nibble-packed INT4 QArray."""
+        if not self.packed:
+            return self
+        return QArray(unpack_int4_rows(self.data), self.scales, self.qtype,
+                      self.group_size, self.group_axis, packed=False)
 
 
 def compress_scales(params, dtype=torch.bfloat16):
@@ -107,9 +118,9 @@ def quantize(x: torch.Tensor, qtype: QuantType, group_size: int = 64
 
 
 def dequantize(q: QArray, dtype=torch.float32) -> torch.Tensor:
-    """Inverse of :func:`quantize`: ``data * scale`` computed in ``dtype``."""
-    if q.packed:
-        raise NotImplementedError("packed INT4 weights are not ported yet")
+    """Inverse of :func:`quantize`: ``data * scale`` computed in ``dtype``
+    (a packed QArray is unpacked first)."""
+    q = q.unpacked()
     gs = q.group_size
     shape = q.data.shape
     if q.group_axis == -1:
@@ -140,3 +151,63 @@ def dequantize_rows(q: torch.Tensor, scales: torch.Tensor,
                     dtype=torch.float32) -> torch.Tensor:
     """Inverse of :func:`quantize_rows`."""
     return (q.to(torch.float32) * scales).to(dtype)
+
+
+# -- split-half INT4 nibble packing (the projection weights' layout) --------
+
+def pack_int4_rows(q: torch.Tensor) -> torch.Tensor:
+    """Nibble-pack int8-held int4 values along axis -2 in split-half order:
+    (…, I, O) int8 -> (…, I/2, O) int8, byte row ``i`` = row ``i`` in the
+    low nibble, row ``i + I/2`` in the high nibble (``pack_int4_rows_np``
+    of the JAX package).  On the tensor's device, in byte-wide temporaries
+    (a 7B gate|up stack is 1.5 G values)."""
+    if q.shape[-2] % 2:
+        raise ValueError(f"odd contraction extent {q.shape[-2]}")
+    half = q.shape[-2] // 2
+    u = q.view(torch.uint8)
+    lo = u[..., :half, :] & 0x0F
+    hi = (u[..., half:, :] & 0x0F) << 4
+    return (lo | hi).view(torch.int8)
+
+
+def unpack_int4_rows(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`pack_int4_rows`: two sign-extending int32 shifts
+    and a half-concat, as ``groupquant.unpack_int4_rows`` of the JAX
+    package."""
+    p = packed.to(torch.int32)
+    lo = ((p << 28) >> 28).to(torch.int8)
+    hi = ((p << 24) >> 28).to(torch.int8)
+    return torch.cat([lo, hi], dim=-2)
+
+
+# The JAX package packs a projection only where its TPU kernel can tile it
+# (``_pick_tiles_packed`` and ``_pick_to`` in its ops/pallas/qmm.py, at
+# their default caps).  That choice is part of the parameters' layout, so
+# the port copies the arithmetic; its own kernel needs only (I/2) % gs == 0.
+_PACK_TK = (4096, 2048, 1024, 512)
+_PACK_MAX_TO = 512
+_PACK_TILE_ELEMS = 512 * 1024
+
+
+def _pick_to(O: int, cap: int) -> int:
+    """Largest multiple of 128 <= cap that divides O (0 if none)."""
+    to = min(cap, O) // 128 * 128
+    while to >= 128 and O % to != 0:
+        to -= 128
+    return to
+
+
+def pack_supported(I: int, O: int, gs: int) -> bool:
+    """True if an (I, O) INT4 weight with group size ``gs`` ships packed.
+    For gs = 64 this is ``I % 1024 == 0 and O % 128 == 0``."""
+    if I % 2 or (I // 2) % gs or O % 128:
+        return False
+    Ih = I // 2
+    for tk in _PACK_TK:
+        if Ih % tk == 0 and tk % gs == 0 and (tk // gs) % 8 == 0:
+            to = _pick_to(O, _PACK_MAX_TO)
+            while to > 128 and tk * to > _PACK_TILE_ELEMS:
+                to = _pick_to(O, to - 128)
+            if to and tk * to <= _PACK_TILE_ELEMS:
+                return True
+    return False

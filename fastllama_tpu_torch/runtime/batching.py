@@ -19,10 +19,11 @@ Slot-state invariants (host mirrors device exactly):
   slots park at 0.
 
 The KV cache is updated in place (the JAX engine donates its buffers to
-the same effect).  Not ported yet, and refused with NotImplementedError
-when asked for: ``prefix_cache``, ``deferred_kv``, ``mesh`` /
-``spmd_kernels``, ``FASTLLAMA_PIPELINE=1``, :meth:`BatchedEngine.load` and
-INT4 weights.
+the same effect).  Weights are INT8, INT16 or INT4 (split-half packed
+where it packs, through K1p; int8-held otherwise; mixed layouts stay
+unfused).  Not ported yet, and refused with NotImplementedError when asked
+for: ``prefix_cache``, ``deferred_kv``, ``mesh`` / ``spmd_kernels``,
+``FASTLLAMA_PIPELINE=1`` and :meth:`BatchedEngine.load`.
 """
 from __future__ import annotations
 
@@ -36,7 +37,7 @@ import numpy as np
 import torch
 
 from fastllama_tpu_torch.config import (EngineConfig, ModelConfig,
-                                        QuantType, resolve_scale_dtype)
+                                        resolve_scale_dtype)
 from fastllama_tpu_torch.device import resolve_device, torch_dtype
 from fastllama_tpu_torch.loaders.tokenizer import StreamDecoder, Tokenizer
 from fastllama_tpu_torch.models.batched import (BatchedKVCache, decode_step,
@@ -141,10 +142,6 @@ class BatchedEngine:
                                                     ec.max_seq_len))
         config.validate()
         self.device = resolve_device(device)
-        for name, w in params.quantized().items():
-            if w.packed or w.qtype == QuantType.INT4:
-                raise NotImplementedError(
-                    f"INT4 weights ({name}) are not ported yet")
         params = params.to(self.device)
         if ec.fuse_weights and not ec.parity_mode:
             try:

@@ -18,8 +18,10 @@ only then does the host wait on chunk k's event.  Without the event, a
 plain ``.cpu()`` of chunk k's tokens would wait for chunk k+1 too.
 
 The cache is updated in place (JAX donates its buffers to the same effect).
-``mesh``, ``spmd_kernels`` and ``pallas_interpret`` are not ported and raise;
-so do ``Engine.load`` (it needs the checkpoint loaders) and INT4 weights.
+Weights are INT8, INT16 or INT4 (split-half packed where it packs, through
+K1p; int8-held otherwise; mixed layouts stay unfused).  ``mesh``,
+``spmd_kernels`` and ``pallas_interpret`` are not ported and raise; so does
+``Engine.load`` (it needs the checkpoint loaders).
 """
 from __future__ import annotations
 
@@ -32,7 +34,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from fastllama_tpu_torch.config import (EngineConfig, ModelConfig, QuantType,
+from fastllama_tpu_torch.config import (EngineConfig, ModelConfig,
                                         resolve_scale_dtype)
 from fastllama_tpu_torch.device import resolve_device, torch_dtype
 from fastllama_tpu_torch.loaders.tokenizer import StreamDecoder, Tokenizer
@@ -77,8 +79,8 @@ def _pipe_depth() -> int:
 
 
 class Engine:
-    """Single-stream generation over INT8/INT16 LLaMA weights and an f32 or
-    bf16 KV cache.  ``device=None`` means ``"cuda"``; without a card it
+    """Single-stream generation over INT8/INT16/INT4 LLaMA weights and an
+    f32 or bf16 KV cache.  ``device=None`` means ``"cuda"``; without a card it
     raises unless ``device="cpu"`` is passed."""
 
     def __init__(self, config: ModelConfig, params: LlamaParams,
@@ -95,10 +97,6 @@ class Engine:
                                                     ec.max_seq_len))
         config.validate()
         self.device = resolve_device(device)
-        for name, w in params.quantized().items():
-            if w.packed or w.qtype == QuantType.INT4:
-                raise NotImplementedError(
-                    f"INT4 weights ({name}) are not ported yet")
         params = params.to(self.device)
         if ec.fuse_weights and not ec.parity_mode:
             try:

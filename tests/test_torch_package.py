@@ -122,9 +122,6 @@ def test_unported_entry_points_raise(monkeypatch):
         BatchedEngine.load("ckpt", "tok")
     with pytest.raises(NotImplementedError):
         SpecBatchedEngine.load_spec("ckpt", "tok")
-    with pytest.raises(NotImplementedError):
-        tl.random_params_int(CFG, seed=0, qtype=tcfg.QuantType.INT4,
-                             device="cpu")
     eng = BatchedEngine(CFG, params, Tokenizer().finalize(),
                         tcfg.EngineConfig(max_batch_size=2), device="cpu")
     eng.submit([5, 6], max_new_tokens=2)

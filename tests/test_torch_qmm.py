@@ -109,10 +109,14 @@ def test_qmm_rejects_bad_operands():
         tqmm.qmatmul_pallas(torch.zeros(4, 128), tw)          # I mismatch
     with pytest.raises(ValueError):
         tqmm.qmatmul_pallas(torch.zeros(256, 4).t(), tw)      # not contiguous
-    packed = tq.QArray(tw.data, tw.scales, tcfg.QuantType.INT4, 64, -2,
-                       packed=True)
-    with pytest.raises(NotImplementedError):
-        tqmm.qmatmul_pallas(torch.zeros(4, 256), packed)
+    # a packed INT4 weight of the same bytes now computes: (128, 128)
+    # packed rows are 256 logical ones
+    w4 = tq.QArray(tw.data[:128], tw.scales[:4], tcfg.QuantType.INT4, 64,
+                   -2, packed=True)
+    out = tqmm.qmatmul_pallas(torch.ones(4, 256), w4)
+    assert out.shape == (4, 128) and bool(torch.isfinite(out).all())
+    with pytest.raises(ValueError):
+        tqmm.qmatmul_pallas(torch.zeros(4, 128), w4)          # I mismatch
 
 
 def test_split_k_covers_the_contraction():
