@@ -16,8 +16,10 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    single-stream decode shapes, K2's non-fresh mode at B=1 through its
    three wrappers and per slot through ``flash_decode_batched`` and
    ``decode_attention_pallas_batched`` (2e), K2s, the speculative-verify
-   attention, at B=32 and T in {2, 4, 8} (2f), ``spec_write`` (2g) and
-   K1p, the packed INT4 matmul, at the 7B INT4 shapes (2h);
+   attention, at B=32 and T in {2, 4, 8} (2f), ``spec_write`` (2g),
+   K1p, the packed INT4 matmul, at the 7B INT4 shapes (2h), K2b, the
+   prefix cache's block-attend, at T up to 496 over a B=48 cache and at
+   GQA hgs = 8 (2i), and K2 with its softmax stats (o, m, l) at B=48 (2j);
 3. the engines' kernel paths against their plain paths at 7B width, 2
    layers, f32 compute: the ``BatchedEngine`` (int8 KV, B=4), the
    single-stream ``Engine`` (f32 scales and KV: logits, 40 greedy tokens
@@ -27,6 +29,10 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    on);
 3d. the same three comparisons at packed INT4 (bench.py's INT4 shape:
    hidden_dim 11264, every projection packed, through K1p);
+3e. the prefix cache and deferred KV, kernel path against plain path (7B
+   width, 2 layers, f32, int8 KV, B=4): a tail prefill and deferred steps
+   in lockstep, then the BatchedEngine and SpecBatchedEngine on
+   donor-then-hits traffic and the deferred BatchedEngine;
 4. the batched serving path at full width: ``BatchedEngine`` over 7B /
    INT8 / fused QKV and gate|up / int8 KV / B=48 / S=512, 32 layers,
    synthetic weights made on the card; 48 requests of a 43-token prompt
@@ -56,6 +62,13 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
 4e. INT4 single stream on the same parameter set (the batched engine
    freed first): phase 4b's measurement with f32 scales ("auto" at INT4),
    K1p's fused form carrying the layer glue;
+4f. prefix-cache serving on phase 4's engine: a donor with a 256-token
+   system prompt, then 47 hits with distinct 8-40-token tails, 128 new
+   tokens each; 47 hits reusing 256 rows each and K2b launched 32 times a
+   hit are required; TTFT, prefill seconds, tok/s and memory beside the
+   same traffic without the prefix cache;
+4g. deferred KV on phase 4's engine and traffic at decode chunk 16
+   (every chunk deferred) against plain chunks, in turns;
 5. each kernel timed with CUDA events at the path's shapes, beside its
    bound, its plain version and a library call.
 
@@ -109,8 +122,9 @@ def check(cond: bool, msg: str):
         raise Failed(msg)
 
 
-def compare(name, got, want, tol):
-    """max|got - want| <= tol * max|want|; returns the error."""
+def compare(name, got, want, tol, quiet=False):
+    """max|got - want| <= tol * max|want|; returns the error.  ``quiet``
+    logs nothing when the check passes (a sweep logs its own summary)."""
     import torch
     g, w = got.float(), want.float()
     check(bool(torch.isfinite(g).all()), f"{name}: non-finite output")
@@ -118,7 +132,8 @@ def compare(name, got, want, tol):
     ref = float(w.abs().max())
     check(err <= tol * max(ref, 1e-30),
           f"{name}: max abs err {err:.3e} > {tol} x max|ref| {ref:.3e}")
-    log(f"  ok {name}: max_abs_err {err:.3e} (max|ref| {ref:.3e})")
+    if not quiet:
+        log(f"  ok {name}: max_abs_err {err:.3e} (max|ref| {ref:.3e})")
     return err
 
 
@@ -372,6 +387,8 @@ def phase_kernels(dev, rec):
     check_spec(dev, gen, errs)
     check_spec_write(dev, gen, errs)
     check_p4(dev, gen, errs)
+    check_block(dev, gen, errs)
+    check_stats(dev, gen, errs)
     rec["max_abs_err"] = errs
 
 
@@ -637,6 +654,127 @@ def check_p4(dev, gen, errs):
                   "the int8-held INT4 weight did not go through K1")
             errs["qmatmul_pallas"] = max(errs["qmatmul_pallas"], e)
     del w
+    torch.cuda.empty_cache()
+
+
+def rand_cache(gen, shape, cache_dt, dev):
+    """K and V caches of ``shape`` (L, B, n_kv, S, hs) in ``cache_dt`` with
+    random rows, and random f32 row scales for an int8 cache."""
+    import torch
+    if cache_dt == torch.int8:
+        ck = torch.empty(shape, dtype=torch.int8, device=dev).random_(
+            -127, 128, generator=gen)
+        cv = torch.empty(shape, dtype=torch.int8, device=dev).random_(
+            -127, 128, generator=gen)
+        ks = torch.rand(shape[:-1], generator=gen, device=dev) * 0.05
+        vs = torch.rand(shape[:-1], generator=gen, device=dev) * 0.05
+        return ck, cv, ks, vs
+    return (torch.randn(shape, generator=gen, device=dev).to(cache_dt),
+            torch.randn(shape, generator=gen, device=dev).to(cache_dt),
+            None, None)
+
+
+def check_block(dev, gen, errs):
+    """K2b against ``flash_block_plain`` at the 7B prefix-cache shapes:
+    32 heads of 128 over a B=48, S=512 cache (int8, bf16, f32), layer 1;
+    T in {1, 16, 32, 64, 100, 256, 496} and start in {0, 16, 256} wherever
+    start + T <= S, slots 0 and 47, f32 and bf16 q.  Then GQA at hgs = 8
+    (LLaMA-2-70B's 64 heads over 8 kv heads, one layer), since 7B has
+    hgs = 1."""
+    import torch
+    from fastllama_tpu_torch.ops.kernels import flash_decode as fd
+    log("phase 2i: K2b block-attend vs plain (7B heads, B=48, S=512)")
+    B, S = 48, 512
+    cases = [(32, 32, 2, (1, 16, 32, 64, 100, 256, 496), (0, 16, 256),
+              (0, 47), (torch.int8, torch.bfloat16, torch.float32)),
+             (64, 8, 1, (1, 32, 100, 256), (0, 256), (47,),
+              (torch.int8, torch.bfloat16))]
+    n = 0
+    for H, n_kv, L, Ts, starts, slots, cache_dts in cases:
+        for cache_dt in cache_dts:
+            ck, cv, ks, vs = rand_cache(gen, (L, B, n_kv, S, 128), cache_dt,
+                                        dev)
+            worst = {}
+            for T in Ts:
+                for start in starts:
+                    if start + T > S:
+                        continue
+                    for slot in slots:
+                        for qdt, tol in ((torch.bfloat16, TOL_BF16),
+                                         (torch.float32, TOL_F32)):
+                            q = torch.randn((H, T, 128), generator=gen,
+                                            device=dev).to(qdt)
+                            kn = torch.randn((n_kv, T, 128), generator=gen,
+                                             device=dev).to(qdt)
+                            vn = torch.randn((n_kv, T, 128), generator=gen,
+                                             device=dev).to(qdt)
+                            got = fd.flash_block_attend(q, ck, cv, slot,
+                                                        L - 1, start, ks, vs,
+                                                        kn, vn)
+                            want = fd.flash_block_plain(q, ck, cv, slot,
+                                                        L - 1, start, ks, vs,
+                                                        kn, vn)
+                            e = compare(f"flash_block H={H} n_kv={n_kv} "
+                                        f"cache={str(cache_dt)[6:]} T={T} "
+                                        f"start={start} slot={slot} "
+                                        f"q={str(qdt)[6:]}", got, want, tol,
+                                        quiet=True)
+                            k = str(qdt)[6:]
+                            worst[k] = max(worst.get(k, 0.0), e)
+                            errs["flash_block_attend"] = max(
+                                errs["flash_block_attend"], e)
+                            n += 1
+            log(f"  ok flash_block H={H} n_kv={n_kv} "
+                f"cache={str(cache_dt)[6:]}: T {Ts} x start {starts} x "
+                f"slots {slots}; max_abs_err by q dtype {worst}")
+            del ck, cv, ks, vs
+    log(f"  {n} K2b comparisons passed")
+    torch.cuda.empty_cache()
+
+
+def check_stats(dev, gen, errs):
+    """K2 with its softmax stats (the deferred-KV path) against the plain
+    version at the 7B decode shape, B=48, S=512, int8 and bf16 caches, f32
+    and bf16 q: o, m and l with every slot at pos 0, 107 and 511, and with
+    mixed positions.  m and l are f32 in both dtypes, so TOL_F32 holds
+    them."""
+    import torch
+    from fastllama_tpu_torch.ops.kernels import flash_decode as fd
+    log("phase 2j: K2 with softmax stats vs plain (7B, B=48, S=512)")
+    B, L, H, n_kv, hs, S = 48, 2, 32, 32, 128, 512
+    mixed = torch.randint(0, S, (B,), generator=gen, device=dev,
+                          dtype=torch.int32)
+    mixed[:4] = torch.tensor([0, 1, 64, S - 1], dtype=torch.int32,
+                             device=dev)
+    for cache_dt in (torch.int8, torch.bfloat16):
+        ck, cv, ks, vs = rand_cache(gen, (L, B, n_kv, S, hs), cache_dt, dev)
+        for label, pos in (
+                ("pos 0", torch.zeros(B, dtype=torch.int32, device=dev)),
+                ("pos 107", torch.full((B,), 107, dtype=torch.int32,
+                                       device=dev)),
+                ("pos 511", torch.full((B,), S - 1, dtype=torch.int32,
+                                       device=dev)),
+                ("mixed pos", mixed)):
+            for qdt, tol in ((torch.bfloat16, TOL_BF16),
+                             (torch.float32, TOL_F32)):
+                q = torch.randn((B, H, 1, hs), generator=gen,
+                                device=dev).to(qdt)
+                kn = torch.randn((B, n_kv, hs), generator=gen,
+                                 device=dev).to(qdt)
+                vn = torch.randn((B, n_kv, hs), generator=gen,
+                                 device=dev).to(qdt)
+                got = fd.flash_decode_batched(q, ck, cv, pos, 1, ks, vs, kn,
+                                              vn, stats=True)
+                want = fd.flash_decode_plain(q, ck, cv, pos, 1, ks, vs, kn,
+                                             vn, stats=True)
+                for name, g, w, t in zip("oml", got, want,
+                                         (tol, TOL_F32, TOL_F32)):
+                    e = compare(f"flash stats {name} cache="
+                                f"{str(cache_dt)[6:]} {label} "
+                                f"q={str(qdt)[6:]}", g, w, t)
+                    errs["flash_decode_batched_stats"] = max(
+                        errs["flash_decode_batched_stats"], e)
+        del ck, cv, ks, vs
     torch.cuda.empty_cache()
 
 
@@ -1024,6 +1162,208 @@ def phase_int4_parity(dev, rec):
                       "int4_spec_parity", tie_tol=TOL_BF16)
 
 
+def within_quantum(label, a, b, flip_cap=1e-3):
+    """Two int8 tensors within one quantum, in fewer than ``flip_cap`` of
+    their elements (an f32 row whose last bits differ between the paths
+    may round one element the other way)."""
+    d = (a.int() - b.int()).abs()
+    flips = float((d > 0).float().mean())
+    check(int(d.max()) <= 1 and flips < flip_cap,
+          f"{label}: differ by more than one quantum (max {int(d.max())}, "
+          f"share {flips:.2e})")
+    return flips
+
+
+def phase_prefix_deferred_parity(dev, rec):
+    """Phase 3e: the prefix cache and deferred KV, kernel path (K2b, K2
+    with stats, K3) against the plain path (``use_pallas=False``: the
+    copy-and-mask tail, plain chunks) at 7B width, 2 layers, f32 compute,
+    int8 KV, B=4.  Model level in lockstep: a tail prefill at start 48
+    over a copied donor prefix, then 4 teacher-forced deferred steps and
+    their landing against 4 plain decode steps, the caches held within one
+    quantum and the plain path's bytes copied over after each check, as
+    phase 3 does.  Engine level: greedy tokens and prefix stats of the
+    BatchedEngine and the SpecBatchedEngine on donor-then-hits traffic
+    (and, at an f32 cache, equal to the engine without the prefix cache),
+    and of the deferred BatchedEngine (decode chunk 16) against plain
+    chunks."""
+    import torch
+    from fastllama_tpu_torch.config import EngineConfig
+    from fastllama_tpu_torch.loaders.tokenizer import Tokenizer
+    from fastllama_tpu_torch.models.batched import (
+        BatchedKVCache, copy_slot_prefix, decode_step, decode_step_deferred,
+        land_staged, make_staged, prefill_into_slot_at, prefill_many)
+    from fastllama_tpu_torch.models.llama import (fuse_params,
+                                                  random_params_int)
+    from fastllama_tpu_torch.ops.kernels import flash_decode as fd
+    from fastllama_tpu_torch.runtime.batching import BatchedEngine
+    from fastllama_tpu_torch.runtime.kernels import select_kernels
+    from fastllama_tpu_torch.runtime.spec_batching import SpecBatchedEngine
+    cfg = cfg_7b(n_layers=2)
+    log("phase 3e: prefix cache and deferred KV, kernel path vs plain path "
+        "(7B width, 2 layers, f32 compute, int8 KV, B=4)")
+    params = random_params_int(cfg, seed=SEED + 11, device=dev)
+    fused = fuse_params(cfg, params)
+    f32 = torch.float32
+    kbs = {use: select_kernels(dev, EngineConfig(
+        use_pallas=use, compute_dtype="float32", kv_dtype="int8"), f32)
+        for use in (True, False)}
+    check(kbs[True].attn_tail is not None and kbs[True].attn_stats
+          is not None, "the kernel path lacks K2b or K2 with stats")
+    check(kbs[False].attn_tail is None and kbs[False].attn_stats is None,
+          "the plain path took a kernel")
+    rng = torch.Generator(device="cpu")
+    rng.manual_seed(SEED + 11)
+    B = 4
+    caches = {use: BatchedKVCache.create(cfg, B, dtype=torch.int8,
+                                         device=dev) for use in kbs}
+
+    def sync(label, flip_cap=1e-3):
+        ck, cp = caches[True], caches[False]
+        for name in ("k", "v"):
+            within_quantum(f"{label} cache {name}", getattr(ck, name),
+                           getattr(cp, name), flip_cap)
+            compare(f"{label} cache {name}_scale",
+                    getattr(ck, name + "_scale"),
+                    getattr(cp, name + "_scale"), TOL_F32, quiet=True)
+            for t in (name, name + "_scale"):
+                getattr(ck, t).copy_(getattr(cp, t))
+        log(f"  ok {label}: caches within one int8 quantum")
+
+    # a donor prompt of 60 tokens in slot 1 (the plain prefill on both)
+    donor = torch.randint(1, cfg.vocab_size, (1, 64), generator=rng)
+    for c in caches.values():
+        prefill_many(cfg, fused, donor.to(dev), torch.tensor([60], device=dev),
+                     torch.tensor([1], dtype=torch.int32, device=dev), c,
+                     mm=kbs[False].mm, slot_writer=kbs[False].slot_writer,
+                     compute_dtype=f32)
+    # slot 2: the donor's first 48 rows, then a 32-row tail (27 valid)
+    tail = torch.randint(1, cfg.vocab_size, (32,), generator=rng).to(dev)
+    lg = {}
+    for use, kb in kbs.items():
+        copy_slot_prefix(caches[use], 1, 2, 48)
+        lg[use], _ = prefill_into_slot_at(
+            cfg, fused, tail, 27, 2, 48, caches[use], mm=kb.mm,
+            mm_idx=kb.mm_idx, attn_tail=kb.attn_tail,
+            slot_writer=kb.slot_writer, compute_dtype=f32)
+    errs = [compare("tail prefill logits (K2b vs copy-and-mask)", lg[True],
+                    lg[False], TOL_F32)]
+    sync("tail prefill")
+
+    # 4 deferred steps (kernel path) against 4 plain decode steps
+    K = 4
+    pos0 = torch.tensor([0, 60, 75, 0], dtype=torch.int32, device=dev)
+    toks = torch.randint(1, cfg.vocab_size, (K, B), generator=rng).to(dev)
+    kb = kbs[True]
+    staged = make_staged(cfg, caches[True], B, K)
+    n0 = fd.flash_decode_batched.launches_stats
+    pos = pos0.clone()
+    for s in range(K):
+        got, staged = decode_step_deferred(
+            cfg, fused, toks[s], pos0, s, staged, caches[True], mm=kb.mm,
+            mm_idx=kb.mm_idx, attn_stats=kb.attn_stats, compute_dtype=f32)
+        kp = kbs[False]
+        want, _ = decode_step(cfg, fused, toks[s], pos, caches[False],
+                              mm=kp.mm, mm_idx=kp.mm_idx,
+                              attn_bidx=kp.attn_bidx, kv_writer=kp.kv_writer,
+                              compute_dtype=f32)
+        errs.append(compare(f"deferred step {s} logits", got, want,
+                            TOL_F32))
+        # the staged row against the row the plain step wrote, then the
+        # plain bytes into the staging buffers
+        b_i = torch.arange(B, device=dev)
+        p_i = (pos0 + s).long()
+        for i, name in enumerate(("k", "v")):
+            plain_rows = getattr(caches[False], name)[:, b_i, :, p_i]
+            within_quantum(f"deferred step {s} staged {name}",
+                           staged[i][:, :, s], plain_rows.transpose(0, 1))
+            staged[i][:, :, s] = plain_rows.transpose(0, 1)
+            staged[2 + i][:, :, s] = getattr(
+                caches[False], name + "_scale")[:, b_i, :, p_i].transpose(
+                    0, 1)
+        pos = pos + 1
+    check(fd.flash_decode_batched.launches_stats - n0 == K * cfg.n_layers,
+          "the deferred steps did not launch K2 with stats once a layer")
+    land_staged(caches[True], staged, pos0, kb.spec_writer)
+    sync("deferred landing")
+    del caches, fused
+
+    # engine level
+    tok = Tokenizer().finalize()
+    system = torch.randint(1, cfg.vocab_size, (48,), generator=rng).tolist()
+    tails = [torch.randint(1, cfg.vocab_size, (n,), generator=rng).tolist()
+             for n in (5, 3, 11, 20)]
+    out = {}
+
+    def hits_run(eng):
+        first = eng.submit(system + tails[0], max_new_tokens=30,
+                           temperature=0.0, stop_tokens=())
+        eng.step()
+        rest = [eng.submit(system + t, max_new_tokens=16, temperature=0.0,
+                           stop_tokens=()) for t in tails[1:]]
+        eng.run()
+        return ([r.output_tokens for r in [first] + rest],
+                (eng.stats.prefix_hits, eng.stats.prefix_rows_reused))
+
+    def ec(use, kv="int8", **kw):
+        return EngineConfig(max_batch_size=B, kv_dtype=kv,
+                            compute_dtype="float32", use_pallas=use, **kw)
+    n0 = fd.flash_block_attend.launches
+    for use in (True, False):
+        out["batched", use] = hits_run(BatchedEngine(
+            cfg, params, tok, ec(use, prefix_cache=True), decode_chunk=8,
+            device=dev))
+        out["spec", use] = hits_run(SpecBatchedEngine(
+            cfg, params, tok, ec(use, prefix_cache=True), decode_chunk=8,
+            width=4, rounds_per_chunk=4, spec_auto=False, device=dev))
+    launched = fd.flash_block_attend.launches - n0
+    # against whole prefills only at an f32 cache: at int8 a hit's tail
+    # attends the prefix rows as quantized in the cache, where a whole
+    # prefill attends its own exact rows
+    by_pc = {pc: hits_run(BatchedEngine(
+        cfg, params, tok, ec(True, "float32", prefix_cache=pc),
+        decode_chunk=8, device=dev)) for pc in (True, False)}
+    want_stats = (3, 3 * 48)
+    for kind in ("batched", "spec"):
+        check(out[kind, True] == out[kind, False],
+              f"{kind} prefix cache: kernel and plain paths differ: "
+              f"{out[kind, True]} vs {out[kind, False]}")
+        check(out[kind, True][1] == want_stats,
+              f"{kind} prefix stats {out[kind, True][1]}, not {want_stats}")
+    check(by_pc[True][0] == by_pc[False][0],
+          "f32 KV: prefix-cache tokens differ from the engine without it")
+    check(by_pc[True][1] == want_stats, "f32 KV: prefix stats differ")
+    check(launched == 2 * 3 * cfg.n_layers,
+          f"K2b launched {launched} times, not once a layer a hit")
+    log(f"  ok prefix cache: BatchedEngine and SpecBatchedEngine tokens "
+        f"equal on both paths (int8 KV), and to the engine without the "
+        f"cache at f32 KV; {want_stats[0]} hits, {want_stats[1]} rows "
+        f"reused each; K2b {launched} launches on the int8 kernel paths")
+
+    deferred = {}
+    prompts = [system + t for t in tails] + [tails[2]]
+    n0 = fd.flash_decode_batched.launches_stats
+    for d in (True, False):
+        eng = BatchedEngine(cfg, params, tok, ec(True, deferred_kv=d),
+                            decode_chunk=16, device=dev)
+        deferred[d] = [r.output_tokens for r in eng.generate_all(
+            prompts, max_new_tokens=40, temperature=0.0, stop_tokens=())]
+        check((eng.deferred_chunks > 0) == d, "deferred chunks: wrong gate")
+    n_stats = fd.flash_decode_batched.launches_stats - n0
+    check(deferred[True] == deferred[False],
+          "deferred tokens differ from plain chunks")
+    check(n_stats > 0, "K2 with stats was not launched")
+    log(f"  ok deferred KV (decode chunk 16): greedy tokens equal plain "
+        f"chunks over {len(prompts)} requests; K2 with stats launched "
+        f"{n_stats} times")
+    rec["prefix_deferred_parity"] = {
+        "max_logit_err": max(errs), "prefix_stats": want_stats,
+        "k2b_launches": launched, "stats_launches": n_stats,
+        "tokens_equal": True}
+    del params
+    torch.cuda.empty_cache()
+
+
 # -- phase 4: the serving path at full width ---------------------------------
 
 # one entry per Pallas function the port replaces; the kernels of each path
@@ -1043,12 +1383,14 @@ KERNELS = ("qmatmul_pallas", "qmatmul_pallas_indexed",
            "decode_attention_pallas", "decode_write", "prefill_write",
            "flash_spec_batched", "spec_write",
            "decode_attention_pallas_batched", "qmatmul_pallas_p4",
-           "qmatmul_pallas_indexed_p4", "qmatmul_pallas_indexed_fused_p4")
+           "qmatmul_pallas_indexed_p4", "qmatmul_pallas_indexed_fused_p4",
+           "flash_block_attend", "flash_decode_batched_stats")
 
 
 def counters():
     """(wrapper, count attribute) of each entry of KERNELS: K1p's launches
-    are counted on the K1/K1f wrappers' ``launches_p4``."""
+    are counted on the K1/K1f wrappers' ``launches_p4``, K2's with stats on
+    ``flash_decode_batched.launches_stats``."""
     from fastllama_tpu_torch.ops.kernels import attention as at
     from fastllama_tpu_torch.ops.kernels import flash_decode as fd
     from fastllama_tpu_torch.ops.kernels import kv_write as kw
@@ -1066,9 +1408,12 @@ def counters():
             "flash_spec_batched": fd.flash_spec_batched,
             "spec_write": kw.spec_write,
             "decode_attention_pallas_batched":
-                at.decode_attention_pallas_batched}
+                at.decode_attention_pallas_batched,
+            "flash_block_attend": fd.flash_block_attend}
     out = {k: (fn, "launches") for k, fn in {**k1, **rest}.items()}
     out.update({k + "_p4": (fn, "launches_p4") for k, fn in k1.items()})
+    out["flash_decode_batched_stats"] = (fd.flash_decode_batched,
+                                         "launches_stats")
     return out
 
 
@@ -1117,6 +1462,7 @@ def profile_decode(eng, prompt, step_ms, n_steps=16):
            "device_busy_ms": busy_s * 1e3,
            "device_idle_share_traced": 1.0 - busy_s / wall,
            "device_busy_ms_per_step": busy_step_ms,
+           "device_ops_per_step": sum(r[1] for r in rows) / n_steps,
            "device_idle_share": 1.0 - busy_step_ms / step_ms,
            "top_kernels": [{"name": k[:120], "count": c, "device_ms":
                             us / 1e3} for us, c, k in rows[:15]]}
@@ -1124,7 +1470,8 @@ def profile_decode(eng, prompt, step_ms, n_steps=16):
         f"device busy {busy_s * 1e3:.3f} ms (idle share traced "
         f"{out['device_idle_share_traced']:.3f}); {busy_step_ms:.3f} ms "
         f"device per step against {step_ms:.3f} ms untraced (idle share "
-        f"{out['device_idle_share']:.3f})")
+        f"{out['device_idle_share']:.3f}); "
+        f"{out['device_ops_per_step']:.1f} device ops per step")
     for r in out["top_kernels"][:8]:
         log(f"    {r['device_ms']:10.3f} ms  x{r['count']:<6} {r['name']}")
     return out
@@ -1241,6 +1588,7 @@ def profile_single(eng, prompt, step_ms, n_steps=16):
            "device_busy_ms": busy_s * 1e3,
            "device_idle_share_traced": 1.0 - busy_s / wall,
            "device_busy_ms_per_step": busy_step_ms,
+           "device_ops_per_step": sum(r[1] for r in rows) / n_steps,
            "device_idle_share": 1.0 - busy_step_ms / step_ms,
            "top_kernels": [{"name": k[:120], "count": c, "device_ms":
                             us / 1e3} for us, c, k in rows[:15]]}
@@ -1248,7 +1596,8 @@ def profile_single(eng, prompt, step_ms, n_steps=16):
         f"device busy {busy_s * 1e3:.3f} ms (idle share traced "
         f"{out['device_idle_share_traced']:.3f}); {busy_step_ms:.3f} ms "
         f"device per step against {step_ms:.3f} ms untraced (idle share "
-        f"{out['device_idle_share']:.3f})")
+        f"{out['device_idle_share']:.3f}); "
+        f"{out['device_ops_per_step']:.1f} device ops per step")
     for r in out["top_kernels"][:8]:
         log(f"    {r['device_ms']:10.3f} ms  x{r['count']:<6} {r['name']}")
     return out
@@ -1621,6 +1970,208 @@ def phase_spec_serving(dev, rec):
     return launches
 
 
+PREFIX_PATH = BATCHED_PATH + ("flash_block_attend",)
+DEFERRED_PATH = ("qmatmul_pallas", "qmatmul_pallas_indexed",
+                 "flash_decode_batched_stats", "spec_write", "prefill_write")
+
+
+def phase_prefix_serving(dev, rec):
+    """Phase 4f: prefix-cache serving at full width — phase 4's engine
+    (7B INT8, QKV and gate|up fused, int8 KV, B=48, S=512, 32 layers) with
+    ``prefix_cache``.  Traffic: a donor request of a 256-token system
+    prompt and a 24-token tail, one ``step()``; then 47 requests of the
+    same system prompt and distinct 8-40-token tails (buckets 32 and 64)
+    drawn from SEED; 128 new tokens each, greedy, decode chunk 64.  The
+    counters are zeroed just before the donor is submitted; every request
+    after the donor must be a hit reusing 256 rows, with K2b launched once
+    a layer a hit.  Then the same traffic without the prefix cache, for
+    scale.  TTFT is each hit's (submit to first token; the 47 are
+    submitted together and admitted one tail call after another)."""
+    import torch
+    from fastllama_tpu_torch.config import EngineConfig
+    from fastllama_tpu_torch.loaders.tokenizer import Tokenizer
+    from fastllama_tpu_torch.models.llama import random_params_int
+    from fastllama_tpu_torch.runtime.batching import BatchedEngine
+    log("phase 4f: prefix-cache serving 7B INT8 fused, int8 KV, B=48, "
+        "S=512, 32 layers: a 256-token system prompt shared by 48 requests")
+    cfg = cfg_7b()
+    B, n_new, plen = 48, 128, 256
+    rng = torch.Generator(device="cpu")
+    rng.manual_seed(SEED + 13)
+    system = torch.randint(1, cfg.vocab_size, (plen,), generator=rng).tolist()
+    donor = system + torch.randint(1, cfg.vocab_size, (24,),
+                                   generator=rng).tolist()
+    lens = torch.randint(8, 41, (B - 1,), generator=rng).tolist()
+    tails = [torch.randint(1, cfg.vocab_size, (n,), generator=rng).tolist()
+             for n in lens]
+    check(len({tuple(t[:8]) for t in tails}) == B - 1, "tails not distinct")
+    t0 = time.perf_counter()
+    params = random_params_int(cfg, seed=SEED, device=dev)
+    log(f"  weights ready in {time.perf_counter() - t0:.2f} s")
+    out, launches = {}, None
+    for pc in (True, False):
+        eng = BatchedEngine(cfg, params, Tokenizer().finalize(),
+                            EngineConfig(max_seq_len=512, max_batch_size=B,
+                                         kv_dtype="int8", prefix_cache=pc),
+                            decode_chunk=64, device=dev)
+        # warm-up: a donor and two hits, a few tokens each
+        eng.submit(donor, max_new_tokens=70, temperature=0.0, stop_tokens=())
+        eng.step()
+        eng.generate_all([system + t for t in tails[:2]], max_new_tokens=3,
+                         temperature=0.0, stop_tokens=())
+        eng.stats = type(eng.stats)()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+        zero_launches()
+        t0 = time.perf_counter()
+        first = eng.submit(donor, max_new_tokens=n_new, temperature=0.0,
+                           stop_tokens=())
+        eng.step()
+        hits = [eng.submit(system + t, max_new_tokens=n_new,
+                           temperature=0.0, stop_tokens=()) for t in tails]
+        eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = read_launches()
+        check(all(len(r.output_tokens) == n_new and r.done
+                  for r in [first] + hits),
+              "a request did not get all its tokens")
+        st = eng.stats
+        ttft = [r.ttft for r in hits]
+        res = {
+            "aggregate_decode_tok_s": st.aggregate_tps,
+            "ttft_mean_s": sum(ttft) / len(ttft), "ttft_max_s": max(ttft),
+            "prefill_s": st.prefill_s, "decode_s": st.decode_s,
+            "wall_s": wall, "prefix_hits": st.prefix_hits,
+            "prefix_rows_reused": st.prefix_rows_reused,
+            "max_memory_allocated_gb":
+                torch.cuda.max_memory_allocated() / 1e9,
+            "launches": got, "card": smi_line()}
+        if pc:
+            check(st.prefix_hits == B - 1
+                  and st.prefix_rows_reused == (B - 1) * plen,
+                  f"prefix stats {st.prefix_hits} hits, "
+                  f"{st.prefix_rows_reused} rows; want {B - 1} and "
+                  f"{(B - 1) * plen}")
+            check(got["flash_block_attend"] == (B - 1) * cfg.n_layers,
+                  f"K2b launched {got['flash_block_attend']} times, not "
+                  f"{cfg.n_layers} a hit")
+            for k in PREFIX_PATH:
+                check(got[k] > 0, f"kernel {k} was not launched on the "
+                                  f"prefix-cache path")
+            launches = got
+            tokens_pc = [r.output_tokens for r in hits]
+        else:
+            check(st.prefix_hits == 0, "hits without the prefix cache")
+            # int8 KV at bf16: a hit's tail attends the prefix rows as
+            # quantized in the cache, a whole prefill its own rows, so the
+            # tokens part; how soon is recorded (phase 3e compares at f32)
+            common = [next((i for i, (x, y) in enumerate(
+                zip(a, r.output_tokens)) if x != y), n_new)
+                for a, r in zip(tokens_pc, hits)]
+            res["hit_first_token_equal_share"] = sum(
+                c > 0 for c in common) / (B - 1)
+            res["hit_common_prefix_mean"] = sum(common) / (B - 1)
+        out["prefix_cache" if pc else "no_prefix_cache"] = res
+        log(f"  prefix_cache={pc}: {st.prefix_hits} hits "
+            f"({st.prefix_rows_reused} rows reused), TTFT of the 47 mean "
+            f"{res['ttft_mean_s'] * 1e3:.3f} ms max "
+            f"{res['ttft_max_s'] * 1e3:.3f} ms, prefill {st.prefill_s:.3f} "
+            f"s, aggregate decode {st.aggregate_tps:.2f} tok/s, max memory "
+            f"{res['max_memory_allocated_gb']:.2f} GB, wall {wall:.2f} s on "
+            f"{res['card']}")
+        del eng
+        torch.cuda.empty_cache()
+    log(f"  launches with the prefix cache {launches}")
+    nc = out["no_prefix_cache"]
+    log(f"  hits against whole prefills: first token equal in "
+        f"{nc['hit_first_token_equal_share']:.3f} of 47, tokens equal for "
+        f"{nc['hit_common_prefix_mean']:.2f} steps on average")
+    rec["prefix_serving"] = out
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_deferred_serving(dev, rec):
+    """Phase 4g: deferred KV at full width — phase 4's engine and traffic
+    (48 requests of ``list(range(1, 44))``, 128 new tokens, greedy) at
+    decode chunk 16, where every chunk runs deferred (2 <= K <= 32), and
+    the same engine with plain chunks, in turns plain, deferred, deferred,
+    plain.  The counters are zeroed just before each measured pass."""
+    import torch
+    from fastllama_tpu_torch.config import EngineConfig
+    from fastllama_tpu_torch.loaders.tokenizer import Tokenizer
+    from fastllama_tpu_torch.models.llama import random_params_int
+    from fastllama_tpu_torch.runtime.batching import BatchedEngine
+    log("phase 4g: deferred KV serving 7B INT8 fused, int8 KV, B=48, S=512, "
+        "32 layers, decode chunk 16, against plain chunks")
+    cfg = cfg_7b()
+    B, n_new = 48, 128
+    prompt = list(range(1, 44))
+    params = random_params_int(cfg, seed=SEED, device=dev)
+    engs = {d: BatchedEngine(cfg, params, Tokenizer().finalize(),
+                             EngineConfig(max_seq_len=512, max_batch_size=B,
+                                          kv_dtype="int8", deferred_kv=d),
+                             decode_chunk=16, device=dev)
+            for d in (False, True)}
+    del params
+    for eng in engs.values():           # warm-up
+        eng.generate_all([prompt] * B, max_new_tokens=20, temperature=0.0,
+                         stop_tokens=())
+    runs, launches, tokens = [], None, {}
+    for d in (False, True, True, False):
+        eng = engs[d]
+        eng.stats = type(eng.stats)()
+        eng.deferred_chunks = 0
+        zero_launches()
+        reqs = eng.generate_all([prompt] * B, max_new_tokens=n_new,
+                                temperature=0.0, stop_tokens=())
+        got = read_launches()
+        check(all(len(r.output_tokens) == n_new for r in reqs),
+              "a request did not get all its tokens")
+        check(all(r.output_tokens == reqs[0].output_tokens for r in reqs),
+              "identical greedy requests produced different tokens")
+        st = eng.stats
+        steps = (got["flash_decode_batched_stats"] if d
+                 else got["flash_decode_batched"]) // cfg.n_layers
+        if d:
+            check(eng.deferred_chunks > 0 and got["decode_write"] == 0,
+                  "a chunk of the deferred pass ran plain")
+            for k in DEFERRED_PATH:
+                check(got[k] > 0, f"kernel {k} was not launched on the "
+                                  f"deferred path")
+            launches = got
+        tokens[d] = reqs[0].output_tokens
+        runs.append({"deferred": d, "aggregate_decode_tok_s":
+                     st.aggregate_tps, "decode_s": st.decode_s,
+                     "decode_steps": steps,
+                     "ms_per_decode_step": st.decode_s / steps * 1e3,
+                     "deferred_chunks": eng.deferred_chunks})
+        log(f"  deferred={d}: {st.aggregate_tps:.2f} tok/s, "
+            f"{runs[-1]['ms_per_decode_step']:.3f} ms a step over {steps} "
+            f"steps ({eng.deferred_chunks} deferred chunks)")
+    same = sum(a == b for a, b in zip(tokens[True], tokens[False]))
+    log(f"  launches of a deferred pass {launches}")
+    log(f"  tokens of deferred and plain chunks agree at {same} of {n_new} "
+        f"positions (bf16 compute; phase 3e compares at f32)")
+    # then one 16-step chunk of each traced: device time and device ops a
+    # step (after the timed passes: a trace slows the host after it)
+    profiles = {}
+    for d in (False, True):
+        step_ms = [r["ms_per_decode_step"] for r in runs if r["deferred"] == d]
+        log(f"  deferred={d}:")
+        profiles[str(d)] = profile_decode(engs[d], prompt,
+                                          sum(step_ms) / len(step_ms))
+    rec["deferred_serving"] = {"runs": runs, "launches": launches,
+                               "token_agreement": same / n_new,
+                               "profiles": profiles, "card": smi_line()}
+    del engs
+    torch.cuda.empty_cache()
+    return launches
+
+
 # -- phase 5: timing ---------------------------------------------------------
 
 def phase_timing(dev, rec):
@@ -1810,6 +2361,7 @@ def phase_timing(dev, rec):
     time_single(dev, gen, res)
     time_spec(dev, gen, res)
     time_p4(dev, gen, res)
+    time_block(dev, gen, res)
     for k, v in res.items():
         log(f"  {k}: {v['ms']:.4f} ms (plain {v['plain_ms']:.4f}, library "
             f"{v['library_ms']:.4f}, bound {v['bound_ms']:.4f} by "
@@ -2208,6 +2760,91 @@ def time_p4(dev, gen, res):
     torch.cuda.empty_cache()
 
 
+def time_block(dev, gen, res):
+    """K2b at the prefix-cache tail shapes (7B heads, int8 cache of B=48,
+    S=512, start 256, bf16 q and fresh block) at T=32 and T=256, layers
+    rotating; K2 with its softmax stats against K2 without them at phase
+    4's decode shape (B=48, pos 107, int8)."""
+    import torch
+    import torch.nn.functional as F
+    from fastllama_tpu_torch.ops.kernels import flash_decode as fd
+    bf16 = torch.bfloat16
+    B, L, H, n_kv, hs, S, start, slot = 48, 4, 32, 32, 128, 512, 256, 5
+    ck, cv, ksc, vsc = rand_cache(gen, (L, B, n_kv, S, hs), torch.int8, dev)
+    layer = [0]
+
+    def rot():
+        layer[0] = (layer[0] + 1) % L
+        return layer[0]
+    for T in (32, 256):
+        q = torch.randn((H, T, hs), generator=gen, device=dev).to(bf16)
+        kn = torch.randn((n_kv, T, hs), generator=gen, device=dev).to(bf16)
+        vn = torch.randn((n_kv, T, hs), generator=gen, device=dev).to(bf16)
+        # library: SDPA with an explicit mask over the pre-dequantized bf16
+        # cache rows [0, start) of the slot and the fresh block
+        kd = [torch.cat([(ck[i, slot, :, :start].float()
+                          * ksc[i, slot, :, :start, None]).to(bf16), kn], 1)
+              for i in range(L)]
+        vd = [torch.cat([(cv[i, slot, :, :start].float()
+                          * vsc[i, slot, :, :start, None]).to(bf16), vn], 1)
+              for i in range(L)]
+        col = torch.arange(start + T, device=dev)[None, :]
+        t_i = torch.arange(T, device=dev)[:, None]
+        mask = (col < start) | (col - start <= t_i)
+        nbytes = (2 * q.numel() * 2 + start * n_kv * (2 * hs + 8)
+                  + 2 * kn.numel() * 2)
+        flops = 4 * H * T * start * hs + 4 * H * hs * T * (T + 1) // 2
+        bm, by = bound_ms(nbytes, flops, F32_FLOP_S)
+        r = dict(
+            ms=time_ms(lambda: fd.flash_block_attend(
+                q, ck, cv, slot, rot(), start, ksc, vsc, kn, vn)),
+            plain_ms=time_ms(lambda: fd.flash_block_plain(
+                q, ck, cv, slot, rot(), start, ksc, vsc, kn, vn)),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                q, kd[rot()], vd[layer[0]], attn_mask=mask)),
+            library_call="SDPA with an explicit mask over pre-dequantized "
+                         "bf16 cache rows [0, start) and the fresh block",
+            bound_ms=bm, bound_by=by, bytes=nbytes, flops=flops,
+            block_rows=fd.block_rows(T, H // n_kv, n_kv),
+            shape=f"T={T} start={start} H={H} n_kv={n_kv} hs={hs} int8 "
+                  f"cache B={B} S={S}, bf16 q")
+        if T == 32:
+            res["flash_block_attend"] = r
+        else:
+            res["flash_block_attend"]["T256"] = r
+        del kd, vd
+
+    # K2 with stats against K2 without, B=48 at pos 107, int8 cache
+    q = torch.randn((B, H, 1, hs), generator=gen, device=dev).to(bf16)
+    kn = torch.randn((B, n_kv, hs), generator=gen, device=dev).to(bf16)
+    vn = torch.randn((B, n_kv, hs), generator=gen, device=dev).to(bf16)
+    pos = torch.full((B,), 107, dtype=torch.int32, device=dev)
+    kdq = [(ck[i].float() * ksc[i][..., None]).to(bf16) for i in range(L)]
+    vdq = [(cv[i].float() * vsc[i][..., None]).to(bf16) for i in range(L)]
+    mask = (torch.arange(S, device=dev)[None, :] < pos[:, None])[:, None,
+                                                                 None, :]
+    rows = int(pos.sum())
+    nbytes = (2 * q.numel() * 2 + rows * n_kv * (2 * hs + 8)
+              + 2 * kn.numel() * 2 + 2 * B * H * 4)
+    bm, by = bound_ms(nbytes, 4 * rows * H * hs, F32_FLOP_S)
+    res["flash_decode_batched_stats"] = dict(
+        ms=time_ms(lambda: fd.flash_decode_batched(
+            q, ck, cv, pos, rot(), ksc, vsc, kn, vn, stats=True)),
+        ms_without_stats=time_ms(lambda: fd.flash_decode_batched(
+            q, ck, cv, pos, rot(), ksc, vsc, kn, vn)),
+        plain_ms=time_ms(lambda: fd.flash_decode_plain(
+            q, ck, cv, pos, rot(), ksc, vsc, kn, vn, stats=True)),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            q, kdq[rot()], vdq[layer[0]], attn_mask=mask)),
+        library_call="SDPA over pre-dequantized bf16 K/V, masked to pos (no "
+                     "fresh row, no stats)",
+        bound_ms=bm, bound_by=by, bytes=nbytes,
+        shape=f"B={B} H={H} n_kv={n_kv} hs={hs} S={S} int8 cache, pos=107 "
+              f"every slot, layers rotating over {L}")
+    del ck, cv, kdq, vdq
+    torch.cuda.empty_cache()
+
+
 SOURCES = {
     "qmatmul_pallas": ("fastllama_tpu_torch/csrc/qmm.cu",
                        "fastllama_tpu/ops/pallas/qmm.py:251"),
@@ -2241,12 +2878,18 @@ SOURCES = {
                                   "fastllama_tpu/ops/pallas/qmm.py:601"),
     "qmatmul_pallas_indexed_fused_p4": ("fastllama_tpu_torch/csrc/qmm.cu",
                                         "fastllama_tpu/ops/pallas/qmm.py:601"),
+    "flash_block_attend": ("fastllama_tpu_torch/csrc/flash_decode.cu",
+                           "fastllama_tpu/ops/pallas/flash_decode.py:426"),
+    "flash_decode_batched_stats": (
+        "fastllama_tpu_torch/csrc/flash_decode.cu",
+        "fastllama_tpu/ops/pallas/flash_decode.py:203"),
 }
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,3d,4,4b,4c,4d,4e,5",
+    ap.add_argument("--phases",
+                    default="1,2,3,3d,3e,4,4b,4c,4d,4e,4f,4g,5",
                     help="comma-separated phases to run (default: all)")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -2303,6 +2946,8 @@ def main() -> int:
         run("3c", phase_spec_parity)
     if "3d" in phases:
         run("3d", phase_int4_parity)
+    if "3e" in phases:
+        run("3e", phase_prefix_deferred_parity)
     if "4" in phases:
         got = run("4", phase_serving)
         launches.update({k: got[k] for k in BATCHED_PATH})
@@ -2326,6 +2971,13 @@ def main() -> int:
             got["qmatmul_pallas_indexed_fused_p4"]
         for k in ("qmatmul_pallas_p4", "qmatmul_pallas_indexed_p4"):
             launches.setdefault(k, got[k])
+    if "4f" in phases:
+        got = run("4f", phase_prefix_serving)
+        launches["flash_block_attend"] = got["flash_block_attend"]
+    if "4g" in phases:
+        got = run("4g", phase_deferred_serving)
+        launches["flash_decode_batched_stats"] = \
+            got["flash_decode_batched_stats"]
     if "5" in phases:
         run("5", phase_timing)
     rec["phases_s"] = time.perf_counter() - t_start

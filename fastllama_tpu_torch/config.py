@@ -107,7 +107,7 @@ class EngineConfig:
     max_seq_len: Optional[int] = None
     max_batch_size: int = 1
     prefill_buckets: tuple = (32, 64, 128, 256, 512, 1024)
-    prefix_cache: bool = False          # not ported yet: raises
+    prefix_cache: bool = False
     prefill_chunk: int = 0              # single-stream engine only
     kv_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
@@ -124,7 +124,7 @@ class EngineConfig:
     # group-scale storage dtype for non-wide weights; "auto" resolves per
     # engine (resolve_scale_dtype)
     scale_dtype: str = "auto"
-    deferred_kv: bool = False           # not ported yet: raises
+    deferred_kv: bool = False
     qos_chunk: int = 0
     mesh: str = ""                      # not ported yet: raises
     spmd_kernels: bool = False          # not ported yet: raises

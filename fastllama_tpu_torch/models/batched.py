@@ -1,7 +1,5 @@
-"""Slot-batched LLaMA forward, the continuous-batching substrate (part of
-``fastllama_tpu/models/batched.py``: the cache, ``prefill_many``,
-``decode_step`` with their shared layer halves, and the speculative
-verify ``spec_decode_step``).
+"""Slot-batched LLaMA forward, the continuous-batching substrate (port of
+``fastllama_tpu/models/batched.py``).
 
 * :class:`BatchedKVCache` — one preallocated ``(L, B, n_kv, S, hs)`` buffer
   per K and V; slot ``b`` is an independent sequence.  ``dtype=int8``
@@ -10,7 +8,13 @@ verify ``spec_decode_step``).
   block-diagonal (each prompt over its own fresh K/V).
 * :func:`prefill_into_slot` — one prompt into one slot at positions
   [0, T): the single-stream engine's fresh prefill at ``pos == 0``.
+* :func:`prefill_into_slot_at` / :func:`copy_slot_prefix` — the
+  prefix cache: a donor slot's rows copied, then only the prompt's tail
+  prefilled at positions [start, start+T).
 * :func:`decode_step` — one token for every slot at per-slot positions.
+* :func:`decode_step_deferred` with :func:`make_staged` /
+  :func:`land_staged` — the same step with the chunk's fresh rows staged
+  outside the cache and landed once at the chunk's end.
 * :func:`spec_decode_step` — D tokens for every slot (pending + drafts)
   in one forward, the batched speculative verify.
 
@@ -144,15 +148,18 @@ def _write_slot(cache: BatchedKVCache, ks: torch.Tensor, vs: torch.Tensor,
     return cache
 
 
-def _layer_slices(cache: BatchedKVCache, l: int, compute_dtype):
-    """Dequantized (B, n_kv, S, hs) K/V of layer ``l``: the attention
-    fallback's read path (a copy; the kernel reads in place)."""
+def _layer_slices(cache: BatchedKVCache, l: int, compute_dtype,
+                  slot: Optional[int] = None):
+    """Dequantized (B, n_kv, S, hs) K/V of layer ``l``, or slot ``slot``'s
+    (n_kv, S, hs): the attention fallbacks' read path (the kernels read in
+    place)."""
+    idx = (l,) if slot is None else (l, slot)
     if cache.quantized:
-        return (dequantize_rows(cache.k[l], cache.k_scale[l][..., None],
+        return (dequantize_rows(cache.k[idx], cache.k_scale[idx][..., None],
                                 compute_dtype),
-                dequantize_rows(cache.v[l], cache.v_scale[l][..., None],
+                dequantize_rows(cache.v[idx], cache.v_scale[idx][..., None],
                                 compute_dtype))
-    return cache.k[l], cache.v[l]
+    return cache.k[idx], cache.v[idx]
 
 
 def prefill_many(cfg: ModelConfig, params: LlamaParams,
@@ -236,6 +243,92 @@ def prefill_into_slot(cfg: ModelConfig, params: LlamaParams,
     return logits[0], cache
 
 
+def prefill_into_slot_at(cfg: ModelConfig, params: LlamaParams,
+                         tokens: torch.Tensor, length: int, slot: int,
+                         start: int, cache: BatchedKVCache, *,
+                         mm: Callable = qmatmul,
+                         mm_idx: Optional[Callable] = None,
+                         attn_tail: Optional[Callable] = None,
+                         slot_writer: Optional[Callable] = None,
+                         compute_dtype=torch.float32
+                         ) -> Tuple[torch.Tensor, BatchedKVCache]:
+    """Mid-sequence slot prefill (``batched.py:241-324``): ``tokens`` (T,)
+    at positions [start, start+T) of slot ``slot``, attending the slot's
+    existing rows [0, start) plus the block's own causal K/V — the tail
+    prefill behind the prefix cache.
+
+    ``attn_tail(q, cache, slot, l, start, k, v)`` (K2b) reads the cache
+    rows in place and takes the block's raw K/V; without it the fallback
+    places the block into a dequantized copy of the slot's layer rows and
+    runs the masked attention at ``pos = start``.  length/slot/start are
+    host ints.  Rows >= length are padding, written and masked later.
+    The rows land at [start, start+T) after the layer loop, through
+    ``slot_writer(cache, kq, vq, ks, vs, slots, starts)`` (K3) or the plain
+    scatter; the caller keeps start + T <= S.  Returns (last-valid-token
+    logits (vocab,) f32, cache)."""
+    from fastllama_tpu_torch.ops.kernels.kv_write import prefill_write_plain
+    T = tokens.shape[0]
+    hs, n_heads, n_kv = cfg.head_size, cfg.n_heads, cfg.n_kv_heads
+    proj = _make_proj(mm, mm_idx)
+    dev = tokens.device
+
+    x = embed_tokens(params.embedding, tokens, compute_dtype)       # (T, dim)
+    cos, sin = rope_tables(cfg, start + torch.arange(T, device=dev),
+                           compute_dtype)
+    ks, vs = [], []
+    for l in range(cfg.n_layers):
+        h = rmsnorm(x, params.attn_norm[l], cfg.norm_eps)
+        q, k, v = _split_qkv(cfg, params, proj, h, l)
+        q = apply_rope_half(q.reshape(T, n_heads, hs).transpose(0, 1), cos,
+                            sin)
+        k = apply_rope_half(k.reshape(T, n_kv, hs).transpose(0, 1), cos, sin)
+        v = v.reshape(T, n_kv, hs).transpose(0, 1)
+        if attn_tail is not None:
+            o = attn_tail(q, cache, slot, l, start, k, v)
+        else:
+            kk, vv = (t.to(compute_dtype, copy=True) for t in
+                      _layer_slices(cache, l, compute_dtype, slot))
+            kk[:, start:start + T] = k
+            vv[:, start:start + T] = v
+            o = gqa_attention(q, kk, vv, start)
+        x = x + proj(o.transpose(0, 1).reshape(T, n_heads * hs), params.wo,
+                     l)
+        h = rmsnorm(x, params.ffn_norm[l], cfg.norm_eps)
+        x = x + _ffn(cfg, params, proj, h, l)
+        ks.append(k)
+        vs.append(v)
+    ks = torch.stack(ks)[:, None]                 # (L, 1, n_kv, T, hs)
+    vs = torch.stack(vs)[:, None]
+
+    if cache.quantized:
+        kq, ksc = quantize_rows(ks)
+        vq, vsc = quantize_rows(vs)
+        ksc, vsc = ksc[..., 0], vsc[..., 0]
+    else:
+        kq, vq = ks.to(cache.k.dtype), vs.to(cache.v.dtype)
+        ksc = vsc = None
+    slots = torch.full((1,), slot, dtype=torch.int32, device=dev)
+    starts = torch.full((1,), start, dtype=torch.int32, device=dev)
+    (slot_writer or prefill_write_plain)(cache, kq, vq, ksc, vsc, slots,
+                                         starts)
+
+    x = rmsnorm(x, params.out_norm, cfg.norm_eps)
+    logits = mm(x[length - 1:length], params.classifier)
+    return logits[0].to(torch.float32), cache
+
+
+def copy_slot_prefix(cache: BatchedKVCache, src: int, dst: int,
+                     n_rows: int) -> BatchedKVCache:
+    """Slot ``dst`` rows [0, n_rows) := slot ``src`` rows [0, n_rows), all
+    layers and heads, scales included (``batched.py:327-349``; JAX
+    computes it in jnp, outside any kernel).  Plain indexed copies, in
+    place; returns ``cache``."""
+    for t in (cache.k, cache.v, cache.k_scale, cache.v_scale):
+        if t is not None:
+            t[:, dst, :, :n_rows] = t[:, src, :, :n_rows]
+    return cache
+
+
 def decode_step(cfg: ModelConfig, params: LlamaParams, tokens: torch.Tensor,
                 pos: torch.Tensor, cache: BatchedKVCache, *,
                 mm: Callable = qmatmul,
@@ -296,6 +389,117 @@ def decode_step(cfg: ModelConfig, params: LlamaParams, tokens: torch.Tensor,
     x = rmsnorm(x, params.out_norm, cfg.norm_eps)
     logits = mm(x, params.classifier)                               # (B, V)
     return logits.to(torch.float32), cache
+
+
+def make_staged(cfg: ModelConfig, cache: BatchedKVCache, B: int, K: int):
+    """Zeroed staging buffers for a K-step deferred decode chunk, in JAX's
+    (L, B, K, n_kv, hs) layout (``batched.py:629-647``): K and V in the
+    cache dtype, plus (L, B, K, n_kv) f32 row scales for an int8 cache."""
+    L, hs, n_kv = cfg.n_layers, cfg.head_size, cfg.n_kv_heads
+    dev = cache.k.device
+    sk = torch.zeros((L, B, K, n_kv, hs), dtype=cache.k.dtype, device=dev)
+    sv = torch.zeros_like(sk)
+    if cache.quantized:
+        return (sk, sv,
+                torch.zeros((L, B, K, n_kv), dtype=torch.float32, device=dev),
+                torch.zeros((L, B, K, n_kv), dtype=torch.float32, device=dev))
+    return (sk, sv)
+
+
+def land_staged(cache: BatchedKVCache, staged, pos0: torch.Tensor,
+                spec_writer: Callable) -> BatchedKVCache:
+    """Land a chunk's staged rows: slot b's K rows go to cache rows
+    [pos0[b], pos0[b]+K) (``batched.py:650-678``).  The JAX package lands
+    them in spec_write launches of at most 8 rows, a TPU VMEM limit; here
+    one ``spec_writer`` call of D = K lands them all."""
+    sk, sv = staged[0], staged[1]
+    ks = vs = None
+    if cache.quantized:
+        ks = staged[2].transpose(2, 3).contiguous()      # (L, B, n_kv, K)
+        vs = staged[3].transpose(2, 3).contiguous()
+    spec_writer(cache, sk.transpose(2, 3).contiguous(),
+                sv.transpose(2, 3).contiguous(), ks, vs, pos0)
+    return cache
+
+
+def decode_step_deferred(cfg: ModelConfig, params: LlamaParams,
+                         tokens: torch.Tensor, pos0: torch.Tensor,
+                         step_s: int, staged, cache: BatchedKVCache, *,
+                         mm: Callable = qmatmul,
+                         mm_idx: Optional[Callable] = None,
+                         attn_stats: Optional[Callable] = None,
+                         compute_dtype=torch.float32):
+    """One decode token for every slot with chunk-deferred cache writes
+    (``batched.py:681-804``).
+
+    ``pos0`` (B,) are the chunk's start positions, fixed for its K steps,
+    and ``step_s`` is the step's index in the chunk (a host int: the chunk
+    needs no host sync).  Attention composes three parts as the sequential
+    steps would see them: cache rows [0, pos0[b]) and the current fresh
+    row through ``attn_stats`` (K2 with its softmax stats); the chunk's
+    earlier rows [0, step_s) from ``staged``, attended in plain torch in
+    their cache dtype (int8 values, K scales after the dot, V scales on
+    the probabilities); and the exact two-partial merge of the online
+    softmax.  This step's rows are staged at index ``step_s`` (quantized
+    for an int8 cache); the cache is not touched, and the engine lands the
+    chunk with :func:`land_staged`.  Returns (logits (B, vocab) f32,
+    staged), the staging buffers updated in place."""
+    from fastllama_tpu_torch.ops.attention import NEG_INF
+    B = tokens.shape[0]
+    hs, n_heads, n_kv = cfg.head_size, cfg.n_heads, cfg.n_kv_heads
+    hgs = n_heads // n_kv
+    proj = _make_proj(mm, mm_idx)
+    quant = cache.quantized
+    sk, sv = staged[0], staged[1]
+    Kp = sk.shape[2]
+    f32 = torch.float32
+    scale = 1.0 / float(hs) ** 0.5
+    dev = tokens.device
+    tmask = (torch.arange(Kp, device=dev) < step_s)[None, None, None]
+
+    x = embed_tokens(params.embedding, tokens, compute_dtype)       # (B, dim)
+    cos, sin = rope_tables(cfg, pos0 + step_s, compute_dtype)
+    for l in range(cfg.n_layers):
+        q, k, v = _decode_layer_qkv(cfg, params, proj, x, l,
+                                    params.attn_norm[l], cos, sin)
+        o1, m1, l1 = attn_stats(q, cache, pos0, l, k, v)
+        o1 = o1.reshape(B, n_kv, hgs, hs).to(f32)
+
+        qf = q.reshape(B, n_kv, hgs, hs).to(f32)
+        s2 = torch.einsum("bngh,bknh->bngk", qf, sk[l].to(f32)) * scale
+        if quant:
+            s2 = s2 * staged[2][l].transpose(1, 2)[:, :, None, :]
+        s2 = torch.where(tmask, s2, torch.full_like(s2, NEG_INF))
+        m2 = s2.amax(dim=-1, keepdim=True)                  # (B, n_kv, hgs, 1)
+        e = torch.where(tmask, torch.exp(s2 - m2), torch.zeros_like(s2))
+        l2 = e.sum(dim=-1, keepdim=True)
+        if quant:
+            e = e * staged[3][l].transpose(1, 2)[:, :, None, :]
+        acc2 = torch.einsum("bngk,bknh->bngh", e, sv[l].to(f32))
+
+        m1e = m1[..., None]
+        mx = torch.maximum(m1e, m2)
+        w1 = l1[..., None] * torch.exp(m1e - mx)
+        w2 = torch.exp(m2 - mx)                 # 0 when no row is staged
+        o = (o1 * w1 + acc2 * w2) / (w1 + l2 * w2)
+        x = _decode_layer_tail(cfg, params, proj, x,
+                               o.reshape(B, n_heads * hs).to(compute_dtype),
+                               l, params.ffn_norm[l])
+
+        if quant:
+            kq, ksc = quantize_rows(k)
+            vq, vsc = quantize_rows(v)
+            sk[l, :, step_s] = kq
+            sv[l, :, step_s] = vq
+            staged[2][l, :, step_s] = ksc[..., 0]
+            staged[3][l, :, step_s] = vsc[..., 0]
+        else:
+            sk[l, :, step_s] = k.to(sk.dtype)
+            sv[l, :, step_s] = v.to(sv.dtype)
+
+    x = rmsnorm(x, params.out_norm, cfg.norm_eps)
+    logits = mm(x, params.classifier)                               # (B, V)
+    return logits.to(torch.float32), staged
 
 
 def spec_decode_step(cfg: ModelConfig, params: LlamaParams,

@@ -1,5 +1,6 @@
-"""K2: bounded flash-decode attention (``csrc/flash_decode.cu``) and its
-plain version.
+"""K2: bounded flash-decode attention (``csrc/flash_decode.cu``), its
+speculative-verify (K2s) and block-attend (K2b) modes, and their plain
+versions.
 
 Replaces ``flash_decode_batched`` (fastllama_tpu/ops/pallas/
 flash_decode.py:203) in its two modes:
@@ -7,7 +8,9 @@ flash_decode.py:203) in its two modes:
 * fresh — the deferred-write path that ``make_attn_batched_flash`` drives
   from ``models/batched.decode_step``: one query row per slot over that
   slot's cache rows [0, pos[b]) of layer ``layer`` (strict), plus the
-  fresh K/V row merged last in f32;
+  fresh K/V row merged last in f32; with ``stats=True`` (the deferred
+  staged-KV path, ``decode_step_deferred``) it also returns each query
+  row's final running max and sum, counted in ``.launches_stats``;
 * non-fresh — rows [0, pos[b]] (the mask ``col <= pos``), the form that
   ``flash_decode_single`` (flash_decode.py:299) gives the single-stream
   ``models/llama.forward`` through ``make_attn_indexed_flash`` (:561).
@@ -15,10 +18,12 @@ flash_decode.py:203) in its two modes:
 The same kernel serves ``ops/kernels/attention.py``.  K2s
 (:func:`flash_spec_batched`, replacing flash_decode.py:700) is its
 speculative-verify mode: T query rows per slot over rows [0, pos[b]) plus
-a causal fresh block, in the same source.  The TPU's host
-``s_bound`` window (``round_bound``) has no counterpart: the kernel reads
-``pos`` from the device and only the rows the mask keeps.  The ``stats``
-outputs (deferred staged KV) are not ported yet.
+a causal fresh block, in the same source.  K2b
+(:func:`flash_block_attend`, replacing flash_decode.py:426) attends one
+slot's prefill tail: T query rows over that slot's rows [0, start) and
+the causal block, for the prefix cache.  The TPU's host ``s_bound``
+window (``round_bound``) has no counterpart: the kernel reads ``pos``
+from the device and only the rows the mask keeps.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel or raises.  Each wrapper counts its launches in ``.launches``.
@@ -39,13 +44,15 @@ HS_MAX = 256
 
 
 def flash_decode_plain(q, ck, cv, pos, layer: int, k_scale=None,
-                       v_scale=None, k_new=None, v_new=None):
+                       v_scale=None, k_new=None, v_new=None,
+                       stats: bool = False):
     """The kernel's math in plain PyTorch, all in f32 (``_flash_kernel``,
     flash_decode.py:123-200): scores (q.k)/sqrt(hs) times the K row scale,
     the mask (strict ``col < pos`` with fresh rows, ``col <= pos``
     without), softmax jointly with the fresh row's score, probabilities
     times the V row scale before P.V.  Not the jnp fallback, which rounds
-    dequantized K/V to the compute dtype first."""
+    dequantized K/V to the compute dtype first.  With ``stats`` also the
+    softmax's max and sum of every query row, (B, n_kv, hgs) f32."""
     B, H, _, hs = q.shape
     n_kv, S = ck.shape[2], ck.shape[3]
     hgs = H // n_kv
@@ -74,15 +81,17 @@ def flash_decode_plain(q, ck, cv, pos, layer: int, k_scale=None,
     if fresh:
         den = den + e_new
         acc = acc + e_new[..., None] * v_new.to(torch.float32)[:, :, None, :]
-    return (acc / den[..., None]).reshape(B, H, 1, hs).to(q.dtype)
+    out = (acc / den[..., None]).reshape(B, H, 1, hs).to(q.dtype)
+    return (out, m, den) if stats else out
 
 
 def _check_operands(name, q, ck, cv, pos, layer, k_scale, v_scale,
-                    fresh, fresh_shape):
-    """The checks K2 and K2s share: slots and layer in range, row scales
-    exactly for an int8 cache, dtypes, fresh rows of ``fresh_shape`` in
-    q's dtype, pos (B,) int32, every operand contiguous on one device."""
-    B = q.shape[0]
+                    fresh, fresh_shape, B=None):
+    """The checks K2, K2s and K2b share: slots and layer in range, row
+    scales exactly for an int8 cache, dtypes, fresh rows of
+    ``fresh_shape`` in q's dtype, pos (B,) int32 (K2b has none and names
+    its slot count ``B``), every operand contiguous on one device."""
+    B = q.shape[0] if B is None else B
     L, Bc, n_kv, S, _ = ck.shape
     if B > Bc or not 0 <= layer < L:
         raise ValueError(f"{name} kernel: B={B} Bc={Bc} layer={layer}")
@@ -96,9 +105,10 @@ def _check_operands(name, q, ck, cv, pos, layer, k_scale, v_scale,
         if t.dtype != q.dtype or t.shape != fresh_shape:
             raise ValueError(f"fresh rows must be {fresh_shape} in q's "
                              f"dtype")
-    if pos.dtype != torch.int32 or pos.shape != (B,):
+    if pos is not None and (pos.dtype != torch.int32 or pos.shape != (B,)):
         raise ValueError("pos must be (B,) int32")
-    for t in [q, ck, cv, pos] + fresh + ([k_scale, v_scale] if quant else []):
+    for t in ([q, ck, cv] + ([] if pos is None else [pos]) + fresh
+              + ([k_scale, v_scale] if quant else [])):
         if t.device != q.device or not t.is_contiguous():
             raise ValueError(f"{name} operands must be contiguous on one "
                              f"device")
@@ -121,50 +131,64 @@ def _validate(q, ck, cv, pos, layer, k_scale, v_scale, k_new, v_new):
                     fresh, (B, n_kv, hs))
 
 
-def _launch(q, ck, cv, pos, layer, k_scale, v_scale, k_new, v_new):
+def _launch(q, ck, cv, pos, layer, k_scale, v_scale, k_new, v_new, stats):
     B, H, _, hs = q.shape
     _, Bc, n_kv, S, _ = ck.shape
     out = torch.empty_like(q)
+    m = l = None
+    if stats:
+        m = torch.empty((B, n_kv, H // n_kv), dtype=torch.float32,
+                        device=q.device)
+        l = torch.empty_like(m)
     fn = _build.load("flash_decode").flash_decode_launch
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 \
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 \
         + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     rc = fn(_build.ptr(q), _build.ptr(ck), _build.ptr(cv),
             _build.ptr(k_scale), _build.ptr(v_scale), _build.ptr(k_new),
-            _build.ptr(v_new), _build.ptr(pos), _build.ptr(out), B, layer,
-            Bc, n_kv, S, hs, H // n_kv, 1.0 / math.sqrt(hs), _DT[q.dtype],
-            _DT[ck.dtype], _build.stream_of(q))
+            _build.ptr(v_new), _build.ptr(pos), _build.ptr(out),
+            _build.ptr(m), _build.ptr(l), B, layer, Bc, n_kv, S, hs,
+            H // n_kv, 1.0 / math.sqrt(hs), _DT[q.dtype], _DT[ck.dtype],
+            _build.stream_of(q))
     _build.check(rc, "flash_decode_launch")
-    return out
+    return (out, m, l) if stats else out
 
 
 def attend(wrapper, q, ck, cv, pos, layer: int, k_scale=None, v_scale=None,
-           k_new=None, v_new=None):
+           k_new=None, v_new=None, stats: bool = False):
     """Check the operands, then run the plain version (CPU tensors) or
-    launch K2 (CUDA tensors) and add one to ``wrapper.launches``."""
+    launch K2 (CUDA tensors) and add one to ``wrapper.launches`` (to
+    ``wrapper.launches_stats`` with ``stats``)."""
     _validate(q, ck, cv, pos, layer, k_scale, v_scale, k_new, v_new)
     if q.device.type == "cpu":
         return flash_decode_plain(q, ck, cv, pos, layer, k_scale, v_scale,
-                                  k_new, v_new)
+                                  k_new, v_new, stats)
     if q.device.type != "cuda":
         raise ValueError(f"{wrapper.__name__}: unsupported device "
                          f"{q.device}")
-    out = _launch(q, ck, cv, pos, layer, k_scale, v_scale, k_new, v_new)
-    wrapper.launches += 1
+    out = _launch(q, ck, cv, pos, layer, k_scale, v_scale, k_new, v_new,
+                  stats)
+    if stats:
+        wrapper.launches_stats += 1
+    else:
+        wrapper.launches += 1
     return out
 
 
 def flash_decode_batched(q, ck, cv, pos, layer: int, k_scale=None,
-                         v_scale=None, k_new=None, v_new=None):
+                         v_scale=None, k_new=None, v_new=None,
+                         stats: bool = False):
     """Per-slot decode attention over the stacked cache.
 
     q (B, n_heads, 1, hs); caches (L, B, n_kv, S, hs) int8/bf16/f32; pos
     (B,) int32; ``k_scale``/``v_scale`` (L, B, n_kv, S) f32 mark an int8
     cache; ``k_new``/``v_new`` (B, n_kv, hs) the current token's rows
     (rows [0, pos) are read), or None (rows [0, pos] are read).  Returns
-    (B, n_heads, 1, hs) in q.dtype."""
+    (B, n_heads, 1, hs) in q.dtype; with ``stats`` also the final running
+    max and sum of every query row (after the fresh row), two (B, n_kv,
+    hgs) f32 tensors, and the launch counts in ``.launches_stats``."""
     return attend(flash_decode_batched, q, ck, cv, pos, layer, k_scale,
-                  v_scale, k_new, v_new)
+                  v_scale, k_new, v_new, stats)
 
 
 def pos_tensor(pos, device) -> torch.Tensor:
@@ -195,6 +219,7 @@ def flash_decode_single_plain(q, ck, cv, pos, layer: int):
 
 
 flash_decode_batched.launches = 0
+flash_decode_batched.launches_stats = 0
 flash_decode_single.launches = 0
 
 
@@ -219,6 +244,23 @@ def make_attn_batched_plain():
             k_new=k_new, v_new=v_new)[:, :, 0]
 
     return attn_bidx
+
+
+def make_attn_batched_flash_stats():
+    """attn_stats(q, cache, pos0, layer, k_new, v_new) for
+    ``models.batched.decode_step_deferred`` (flash_decode.py:538-558): K2
+    over cache rows [0, pos0) plus the current token's fresh row, also
+    returning the softmax stats, so that the caller merges the staged rows
+    of the chunk outside the kernel.  q (B, n_heads, hs); k_new/v_new
+    (B, n_kv, hs).  Returns (o (B, n_heads, hs), m, l (B, n_kv, hgs))."""
+    def attn_stats(q, cache, pos0, layer, k_new, v_new):
+        o, m, l = flash_decode_batched(
+            q[:, :, None].contiguous(), cache.k, cache.v, pos0, layer,
+            k_scale=cache.k_scale, v_scale=cache.v_scale,
+            k_new=k_new.contiguous(), v_new=v_new.contiguous(), stats=True)
+        return o[:, :, 0], m, l
+
+    return attn_stats
 
 
 # -- K2s: speculative-verify attention --------------------------------------
@@ -348,6 +390,126 @@ def make_attn_spec_batched():
             v_new=c(v_new), k_self=c(k_self), v_self=c(v_self))
 
     return attn_sbidx
+
+
+# -- K2b: block-attend for one slot's prefill tail ---------------------------
+
+BLOCK_ROWS_MAX = 64        # hgs * TQ query rows per (kv head, query tile)
+BLOCK_GRID_MIN = 132       # blocks wanted in flight: one per H100 SM
+
+
+def flash_block_plain(q, ck, cv, slot: int, layer: int, start: int,
+                      k_scale=None, v_scale=None, k_new=None, v_new=None):
+    """The K2b arithmetic in plain PyTorch, all in f32
+    (``_flash_block_kernel``, flash_decode.py:331-423): scores
+    (q.k)/sqrt(hs) over slot ``slot``'s cache rows [0, start) of layer
+    ``layer``, times the K row scale; the causal fresh block (query t sees
+    fresh rows j <= t), un-quantized; one softmax over both; the cache
+    part's probabilities times the V row scale before P.V."""
+    n_heads, T, hs = q.shape
+    n_kv = ck.shape[2]
+    hgs = n_heads // n_kv
+    scale = 1.0 / math.sqrt(hs)
+    f32 = torch.float32
+    qf = q.reshape(n_kv, hgs, T, hs).to(f32)
+    s = torch.einsum("kgth,ksh->kgts", qf,
+                     ck[layer, slot, :, :start].to(f32)) * scale
+    if k_scale is not None:
+        s = s * k_scale[layer, slot, :, :start][:, None, None, :]
+    s_new = torch.einsum("kgth,kjh->kgtj", qf, k_new.to(f32)) * scale
+    causal = (torch.arange(T, device=q.device)[None, :]
+              <= torch.arange(T, device=q.device)[:, None])
+    s_new = torch.where(causal, s_new, torch.full_like(s_new, NEG_INF))
+    e = torch.cat([s, s_new], dim=-1)
+    e = torch.exp(e - e.amax(dim=-1, keepdim=True))
+    den = e.sum(dim=-1, keepdim=True)
+    e_c, e_n = e[..., :start], e[..., start:]
+    if v_scale is not None:
+        e_c = e_c * v_scale[layer, slot, :, :start][:, None, None, :]
+    acc = (torch.einsum("kgts,ksh->kgth", e_c,
+                        cv[layer, slot, :, :start].to(f32))
+           + torch.einsum("kgtj,kjh->kgth", e_n, v_new.to(f32)))
+    return (acc / den).reshape(n_heads, T, hs).to(q.dtype)
+
+
+def _validate_block(q, ck, cv, slot, layer, start, k_scale, v_scale, k_new,
+                    v_new):
+    n_heads, T, hs = q.shape
+    _, Bc, n_kv, S, _ = ck.shape
+    if (n_heads % n_kv or n_heads // n_kv > BLOCK_ROWS_MAX or hs > HS_MAX
+            or T < 1):
+        raise ValueError(f"flash_block kernel: unsupported shape q "
+                         f"{tuple(q.shape)} cache {tuple(ck.shape)}")
+    if not (0 <= slot < Bc and 0 <= start <= S):
+        raise ValueError(f"flash_block kernel: slot={slot} start={start} "
+                         f"for a cache of {Bc} slots and {S} rows")
+    if k_new is None or v_new is None:
+        raise ValueError("the fresh block (k_new, v_new) is required")
+    _check_operands("flash_block", q, ck, cv, None, layer, k_scale, v_scale,
+                    [k_new, v_new], (n_kv, T, hs), B=1)
+
+
+def block_rows(T: int, hgs: int, n_kv: int) -> int:
+    """TQ, the query positions a block takes: at most 64 // hgs rows (and
+    no more than T needs), halved down to 8 while the grid of n_kv x
+    ceil(T / TQ) blocks would leave SMs idle."""
+    tq = min(BLOCK_ROWS_MAX // hgs, 1 << max(T - 1, 0).bit_length())
+    while tq > 8 and n_kv * -(-T // tq) < BLOCK_GRID_MIN:
+        tq //= 2
+    return max(tq, 1)
+
+
+def flash_block_attend(q, ck, cv, slot: int, layer: int, start: int,
+                       k_scale=None, v_scale=None, k_new=None, v_new=None):
+    """K2b, T-row attention for one slot of the stacked cache: rows
+    [0, start) of slot ``slot`` / layer ``layer`` plus the causal fresh
+    block.  q (n_heads, T, hs) at positions start .. start+T-1; caches
+    (L, B, n_kv, S, hs) int8/bf16/f32, read in place; ``k_scale``/
+    ``v_scale`` (L, B, n_kv, S) f32 mark an int8 cache; ``k_new``/``v_new``
+    (n_kv, T, hs) the block's own K/V in q's dtype; slot, layer and start
+    host ints.  Any T <= S is taken (the TPU kernel's T * n_heads <= 4096
+    limit is Mosaic's).  Returns (n_heads, T, hs) in q.dtype.  A CPU
+    tensor takes :func:`flash_block_plain`; a CUDA tensor launches K2b or
+    raises."""
+    _validate_block(q, ck, cv, slot, layer, start, k_scale, v_scale, k_new,
+                    v_new)
+    if q.device.type == "cpu":
+        return flash_block_plain(q, ck, cv, slot, layer, start, k_scale,
+                                 v_scale, k_new, v_new)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_block_attend: unsupported device {q.device}")
+    n_heads, T, hs = q.shape
+    _, Bc, n_kv, S, _ = ck.shape
+    hgs = n_heads // n_kv
+    out = torch.empty_like(q)
+    fn = _build.load("flash_decode").flash_block_launch
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 \
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rc = fn(_build.ptr(q), _build.ptr(ck), _build.ptr(cv),
+            _build.ptr(k_scale), _build.ptr(v_scale), _build.ptr(k_new),
+            _build.ptr(v_new), _build.ptr(out), layer, slot, start, Bc, n_kv,
+            S, hs, T, hgs, block_rows(T, hgs, n_kv), 1.0 / math.sqrt(hs),
+            _DT[q.dtype], _DT[ck.dtype], _build.stream_of(q))
+    _build.check(rc, "flash_block_launch")
+    flash_block_attend.launches += 1
+    return out
+
+
+flash_block_attend.launches = 0
+
+
+def make_attn_tail():
+    """attn_tail(q, cache, slot, layer, start, k_new, v_new) for
+    ``models.batched.prefill_into_slot_at`` (flash_decode.py:495-509): K2b
+    on the stacked cache.  q (n_heads, T, hs); k_new/v_new (n_kv, T, hs)."""
+    def attn_tail(q, cache, slot, layer, start, k_new, v_new):
+        return flash_block_attend(
+            q.contiguous(), cache.k, cache.v, slot, layer, start,
+            k_scale=cache.k_scale, v_scale=cache.v_scale,
+            k_new=k_new.contiguous(), v_new=v_new.contiguous())
+
+    return attn_tail
 
 
 def make_attn_indexed_flash():

@@ -112,9 +112,12 @@ def _decode_args(cache, kq, vq, ks, vs, pos):
                       None if vs is None else vs.unsqueeze(-1), pos)
 
 
-def _prefill_args(cache, kq, vq, ks, vs, slots):
-    """prefill_write's operands: every prompt lands at row 0."""
-    starts = torch.zeros(kq.shape[1], dtype=torch.int32, device=kq.device)
+def _prefill_args(cache, kq, vq, ks, vs, slots, starts=None):
+    """prefill_write's operands: every prompt lands at row 0 unless
+    ``starts`` says otherwise."""
+    if starts is None:
+        starts = torch.zeros(kq.shape[1], dtype=torch.int32,
+                             device=kq.device)
     return cache, kq, vq, ks, vs, slots, starts
 
 
@@ -134,12 +137,14 @@ def decode_write(cache, kq, vq, ks, vs, pos):
     return cache
 
 
-def prefill_write(cache, kq, vq, ks, vs, slots):
+def prefill_write(cache, kq, vq, ks, vs, slots, starts=None):
     """Write N prefilled prompts in one launch: kq/vq (L, N, n_kv, T, hs)
-    land at rows [0, T) of slot ``slots[n]``; ks/vs (L, N, n_kv, T) f32 or
+    land at rows [0, T) of slot ``slots[n]``, or at rows [starts[n],
+    starts[n]+T) with ``starts`` (N,) int32 (a prefix-cache tail,
+    ``models.batched.prefill_into_slot_at``); ks/vs (L, N, n_kv, T) f32 or
     None.  Duplicate slot ids carry identical rows.  In place; returns
     ``cache``."""
-    args = _prefill_args(cache, kq, vq, ks, vs, slots)
+    args = _prefill_args(cache, kq, vq, ks, vs, slots, starts)
     _validate(*args)
     if kq.device.type == "cpu":
         return kv_scatter_plain(*args)
@@ -190,7 +195,8 @@ def make_spec_writer():
 
 
 def make_prefill_writer():
-    """writer(cache, kq, vq, ks, vs, slots) for models.batched.prefill_many."""
+    """writer(cache, kq, vq, ks, vs, slots, starts=None) for
+    models.batched.prefill_many and prefill_into_slot_at."""
     return prefill_write
 
 
@@ -199,9 +205,10 @@ def decode_write_plain(cache, kq, vq, ks, vs, pos):
     return kv_scatter_plain(*_decode_args(cache, kq, vq, ks, vs, pos))
 
 
-def prefill_write_plain(cache, kq, vq, ks, vs, slots):
+def prefill_write_plain(cache, kq, vq, ks, vs, slots, starts=None):
     """The plain version of :func:`prefill_write` on any device."""
-    return kv_scatter_plain(*_prefill_args(cache, kq, vq, ks, vs, slots))
+    return kv_scatter_plain(*_prefill_args(cache, kq, vq, ks, vs, slots,
+                                           starts))
 
 
 def spec_write_plain(cache, kq, vq, ks, vs, pos):

@@ -10,6 +10,12 @@
   stay on the device and the host fetches them once per chunk.  Requests
   join and leave at chunk boundaries; idle slots decode garbage that is
   discarded on the host.
+* ``EngineConfig.prefix_cache``: an admission whose prompt shares a
+  16-token-aligned prefix with a live slot copies that donor's K/V rows
+  and prefills only its tail (K2b), one call a hit, hits first.
+* ``EngineConfig.deferred_kv``: a chunk of 2 <= K <= 32 steps stages its
+  fresh rows outside the cache (``decode_step_deferred``, K2 with softmax
+  stats) and lands them with one ``spec_write`` at its end.
 
 Slot-state invariants (host mirrors device exactly):
   ``pos[b]``  = number of K/V rows valid in slot b's cache,
@@ -22,8 +28,8 @@ The KV cache is updated in place (the JAX engine donates its buffers to
 the same effect).  Weights are INT8, INT16 or INT4 (split-half packed
 where it packs, through K1p; int8-held otherwise; mixed layouts stay
 unfused).  Not ported yet, and refused with NotImplementedError when asked
-for: ``prefix_cache``, ``deferred_kv``, ``mesh`` / ``spmd_kernels``,
-``FASTLLAMA_PIPELINE=1`` and :meth:`BatchedEngine.load`.
+for: ``mesh`` / ``spmd_kernels``, ``FASTLLAMA_PIPELINE=1`` and
+:meth:`BatchedEngine.load`.
 """
 from __future__ import annotations
 
@@ -40,7 +46,11 @@ from fastllama_tpu_torch.config import (EngineConfig, ModelConfig,
                                         resolve_scale_dtype)
 from fastllama_tpu_torch.device import resolve_device, torch_dtype
 from fastllama_tpu_torch.loaders.tokenizer import StreamDecoder, Tokenizer
-from fastllama_tpu_torch.models.batched import (BatchedKVCache, decode_step,
+from fastllama_tpu_torch.models.batched import (BatchedKVCache,
+                                                copy_slot_prefix, decode_step,
+                                                decode_step_deferred,
+                                                land_staged, make_staged,
+                                                prefill_into_slot_at,
                                                 prefill_many)
 from fastllama_tpu_torch.models.llama import LlamaParams, fuse_params
 from fastllama_tpu_torch.ops import sampling
@@ -96,6 +106,8 @@ class BatchStats:
     decode_tokens: int = 0          # tokens produced by decode chunks only
     decode_s: float = 0.0
     prefill_s: float = 0.0
+    prefix_hits: int = 0            # admissions served from the prefix cache
+    prefix_rows_reused: int = 0     # K/V rows copied instead of prefilled
     rejected: int = 0
 
     @property
@@ -107,8 +119,6 @@ class BatchStats:
 
 def _refuse_unported(ec: EngineConfig) -> None:
     unported = {
-        "prefix_cache": "needs flash_block_attend",
-        "deferred_kv": "needs the stats flash kernel",
         "mesh": "multi-device serving",
         "spmd_kernels": "multi-device serving",
         "pallas_interpret": "TPU interpret mode has no counterpart",
@@ -184,6 +194,20 @@ class BatchedEngine:
         self.stats = BatchStats()
         self._next_id = 0
 
+        # prefix cache: (plen, hash of the prefix) -> donor slot.  A donor's
+        # rows [0, plen) stay fixed while it is live (decode writes at
+        # pos >= plen); its entries go when the slot is freed (an idle
+        # slot's decode writes row 0)
+        self._prefix_block = 16
+        self._prefix_index = {}
+        self._slot_prefix_keys = [[] for _ in range(self.B)]
+        self._prefix_enabled = bool(ec.prefix_cache)
+        # deferred staged-KV chunks: K2 with stats on (flash attention and
+        # the kernels), as JAX gates them (batching.py:193-209)
+        self._deferred_ok = bool(ec.deferred_kv
+                                 and self.kernels.attn_stats is not None)
+        self.deferred_chunks = 0
+
     @staticmethod
     def load(*args, **kwargs) -> "BatchedEngine":
         raise NotImplementedError("BatchedEngine.load needs the checkpoint "
@@ -225,7 +249,13 @@ class BatchedEngine:
 
     def _dispatch_chunk(self, K: int, greedy_only: bool) -> torch.Tensor:
         """K decode steps for every slot; returns the (K, B) token tensor
-        on the device (no host sync inside the chunk)."""
+        on the device (no host sync inside the chunk).  With
+        ``deferred_kv`` a chunk of 2 <= K <= 32 steps (``batching.py:794``;
+        past 32 the staged re-reads outgrow the one landing, and 1 step
+        has nothing to amortize) stages its rows at the fixed chunk-start
+        positions and lands them once at its end; the host keeps
+        max(pos) + K <= S - 1 (``_plan_chunk``).  Both kinds draw from
+        ``_gens`` in the same order."""
         kb = self.kernels
         dev = self.device
         tok = torch.as_tensor(self.pending, device=dev)
@@ -233,18 +263,30 @@ class BatchedEngine:
         temps = torch.as_tensor(self.temps, device=dev)
         topps = torch.as_tensor(self.topps, device=dev)
         toks = torch.empty((K, self.B), dtype=torch.long, device=dev)
+        deferred = self._deferred_ok and 2 <= K <= 32
+        if deferred:
+            staged = make_staged(self.config, self.cache, self.B, K)
         for k in range(K):
-            logits, self.cache = decode_step(
-                self.config, self.params, tok, pos, self.cache,
-                mm=kb.mm, mm_idx=kb.mm_idx, attn_bidx=kb.attn_bidx,
-                kv_writer=kb.kv_writer, compute_dtype=self._cdt)
+            if deferred:
+                logits, staged = decode_step_deferred(
+                    self.config, self.params, tok, pos, k, staged,
+                    self.cache, mm=kb.mm, mm_idx=kb.mm_idx,
+                    attn_stats=kb.attn_stats, compute_dtype=self._cdt)
+            else:
+                logits, self.cache = decode_step(
+                    self.config, self.params, tok, pos, self.cache,
+                    mm=kb.mm, mm_idx=kb.mm_idx, attn_bidx=kb.attn_bidx,
+                    kv_writer=kb.kv_writer, compute_dtype=self._cdt)
+                pos = torch.clamp(pos + 1, max=self.S - 1)
             if greedy_only:
                 tok = sampling.greedy(logits)
             else:
                 tok = sampling.sample_batched(logits, self._gens, temps,
                                               topps)
             toks[k] = tok
-            pos = torch.clamp(pos + 1, max=self.S - 1)
+        if deferred:
+            land_staged(self.cache, staged, pos, kb.spec_writer)
+            self.deferred_chunks += 1
         return toks
 
     # -- scheduling ------------------------------------------------------------
@@ -327,7 +369,9 @@ class BatchedEngine:
             req.finish_s = time.perf_counter()
             self.slot_req[slot] = None
             # park the idle slot at position 0: the flash-decode kernel
-            # then reads no cache row for it
+            # then reads no cache row for it.  An idle slot's decode writes
+            # its row 0, so its prefix-cache entries go
+            self._prefix_release(slot)
             self.pos[slot] = 0
             self.pending[slot] = 0
             self.stats.completed += 1
@@ -342,6 +386,17 @@ class BatchedEngine:
         if take == 0:
             return
         items = [(self.queue.popleft(), slot) for slot in free[:take]]
+
+        # prefix-cache hits first: one tail call each
+        if self._prefix_enabled:
+            rest = []
+            for req, slot in items:
+                donor, plen = self._prefix_lookup(req.prompt_tokens)
+                if donor is not None:
+                    self._admit_prefix_hit(req, slot, donor, plen)
+                else:
+                    rest.append((req, slot))
+            items = rest
 
         groups = {}
         for req, slot in items:
@@ -385,7 +440,101 @@ class BatchedEngine:
                 self.pending[slot] = int(firsts[i])
                 req._prev_token = req.prompt_tokens[-1]
                 self.stats.total_prompt_tokens += int(lens[i])
+                if self._prefix_enabled:
+                    self._prefix_register(slot, req.prompt_tokens)
                 self._emit(slot, int(firsts[i]), from_decode=False)
+
+    def _admit_prefix_hit(self, req: Request, slot: int, donor: int,
+                          plen: int) -> None:
+        """Admission through the prefix cache (``batching.py:718-752``):
+        the donor's rows [0, plen) copied into ``slot``, only the prompt's
+        tail prefilled at ``plen`` (padded to its bucket), its first token
+        sampled."""
+        kb = self.kernels
+        dev = self.device
+        t0 = time.perf_counter()
+        tail = req.prompt_tokens[plen:]
+        padded = np.zeros(self._bucket(len(tail)), np.int64)
+        padded[:len(tail)] = tail
+        copy_slot_prefix(self.cache, donor, slot, plen)
+        logits, self.cache = prefill_into_slot_at(
+            self.config, self.params, torch.as_tensor(padded, device=dev),
+            len(tail), slot, plen, self.cache, mm=kb.mm, mm_idx=kb.mm_idx,
+            attn_tail=kb.attn_tail, slot_writer=kb.slot_writer,
+            compute_dtype=self._cdt)
+        # the first draw uses the request's own seed, as a prefill's does
+        gens = []
+        if req.temperature > 0.0:
+            g = torch.Generator(device=dev)
+            g.manual_seed(int(req.seed))
+            gens.append(g)
+        first = int(self._sample(logits[None], gens,
+                                 np.array([req.temperature], np.float32),
+                                 np.array([req.topp], np.float32))[0])
+        self._gens[slot].manual_seed(_fold_seed(req.seed, req.id))
+        self.stats.prefill_s += time.perf_counter() - t0
+        self.stats.prefix_hits += 1
+        self.stats.prefix_rows_reused += plen
+        self.slot_req[slot] = req
+        self.pos[slot] = len(req.prompt_tokens)
+        self.temps[slot] = req.temperature
+        self.topps[slot] = req.topp
+        self.pending[slot] = first
+        req._prev_token = req.prompt_tokens[-1]
+        self.stats.total_prompt_tokens += len(req.prompt_tokens)
+        self._prefix_register(slot, req.prompt_tokens)
+        self._emit(slot, first, from_decode=False)
+
+    # -- prefix cache ----------------------------------------------------------
+
+    @staticmethod
+    def _prefix_hashes(prompt: List[int], BL: int) -> List[int]:
+        """A rolling hash for each BL-token prefix level.  Python's hash of
+        a tuple of ints does not depend on PYTHONHASHSEED; a collision
+        costs a wasted compare, never a wrong admission (hits are checked
+        token by token)."""
+        hashes, h = [], 0
+        for l in range(BL, len(prompt) + 1, BL):
+            h = hash((h, tuple(prompt[l - BL:l])))
+            hashes.append(h)
+        return hashes
+
+    def _prefix_register(self, slot: int, prompt: List[int]) -> None:
+        BL = self._prefix_block
+        for i, h in enumerate(self._prefix_hashes(prompt, BL)):
+            key = ((i + 1) * BL, h)
+            # the first registration wins: a shared prefix stays with the
+            # donor that holds it longest
+            if key not in self._prefix_index:
+                self._prefix_index[key] = slot
+                self._slot_prefix_keys[slot].append(key)
+
+    def _prefix_release(self, slot: int) -> None:
+        for key in self._slot_prefix_keys[slot]:
+            if self._prefix_index.get(key) == slot:
+                del self._prefix_index[key]
+        self._slot_prefix_keys[slot] = []
+
+    def _prefix_lookup(self, prompt: List[int]):
+        """(donor slot, plen): the longest block-aligned live prefix
+        strictly shorter than the prompt (a tail token must remain to give
+        the first logits), confirmed token by token against the donor's
+        request; (None, 0) without one.  A candidate counts only if
+        plen + bucket(tail) <= S: the tail writes a whole bucket of rows
+        from plen (``batching.py:398-415``)."""
+        BL = self._prefix_block
+        hashes = self._prefix_hashes(prompt, BL)
+        top = (len(prompt) - 1) // BL
+        for i in range(min(top, len(hashes)) - 1, -1, -1):
+            l = (i + 1) * BL
+            slot = self._prefix_index.get((l, hashes[i]))
+            if slot is not None:
+                donor = self.slot_req[slot]
+                if donor is not None and \
+                        donor.prompt_tokens[:l] == prompt[:l] and \
+                        l + self._bucket(len(prompt) - l) <= self.S:
+                    return slot, l
+        return None, 0
 
     def _plan_chunk(self, live):
         """(K, greedy_only): the exact chunk length — no longer than the

@@ -14,7 +14,12 @@ JAX package does, the plain per-slot attention for the batched
 K3 scatter (``spec_writer``) whenever the kernels are on, as the JAX
 ``SpecBatchedEngine`` does; ``use_pallas=False`` leaves ``attn_sbidx``
 None, so ``spec_decode_step`` takes the plain ``gqa_attention_spec_batched``,
-the JAX package's jnp path.
+the JAX package's jnp path.  The same gate holds for the prefix cache's
+tail attention K2b (``attn_tail``, on whenever the kernels are, as JAX's
+``_get_tail_prefill`` takes it with any Pallas attention) and for K2 with
+softmax stats (``attn_stats``, only with ``flash_attention``, JAX's
+deferred-KV gate, ``runtime/batching.py:196-209``).  With both None the
+engines take the plain copy-and-mask tail and never run a deferred chunk.
 """
 from __future__ import annotations
 
@@ -31,7 +36,9 @@ class KernelBundle:
     """The engine compute path: matmul, layer-indexed matmul, the
     single-stream attention on one layer's cache (``attn``) and on the
     stacked cache (``attn_idx``), batched decode attention, the batched
-    speculative-verify attention (``attn_sbidx``) and the cache writers."""
+    speculative-verify attention (``attn_sbidx``), the prefix-cache tail
+    attention (``attn_tail``), decode attention with softmax stats for
+    deferred KV (``attn_stats``) and the cache writers."""
 
     mm: Callable
     mm_idx: Optional[Callable] = None
@@ -42,6 +49,8 @@ class KernelBundle:
     slot_writer: Optional[Callable] = None
     attn_sbidx: Optional[Callable] = None
     spec_writer: Optional[Callable] = None
+    attn_tail: Optional[Callable] = None
+    attn_stats: Optional[Callable] = None
 
 
 def select_kernels(device, ec: EngineConfig, compute_dtype) -> KernelBundle:
@@ -65,7 +74,10 @@ def select_kernels(device, ec: EngineConfig, compute_dtype) -> KernelBundle:
             kv_writer=kv_write.make_kv_writer(),
             slot_writer=kv_write.make_prefill_writer(),
             attn_sbidx=flash_decode.make_attn_spec_batched(),
-            spec_writer=kv_write.make_spec_writer())
+            spec_writer=kv_write.make_spec_writer(),
+            attn_tail=flash_decode.make_attn_tail(),
+            attn_stats=(flash_decode.make_attn_batched_flash_stats()
+                        if ec.flash_attention else None))
     return KernelBundle(
         mm=qmm.make_mm_plain(compute_dtype),
         mm_idx=qmm.make_mm_indexed_plain(compute_dtype),

@@ -15,7 +15,10 @@ ends the chunk.  Near the context limit (no full D-row block fits) and
 whenever the :class:`SpecAutoTuner` measures plain chunks as faster, the
 engine runs the parent's plain chunks.  The kernels are K2s
 (``flash_spec_batched``) and K3 as ``spec_write``; ``mesh`` and
-``spmd_kernels`` stay refused by the parent.
+``spmd_kernels`` stay refused by the parent.  The prefix cache and
+deferred KV come from the parent: a slot admitted by a prefix hit gets its
+history like any other newly admitted slot, and the plain chunks take the
+deferred path under the parent's gate (as JAX's ``spec_batching.py:452``).
 """
 from __future__ import annotations
 

@@ -105,8 +105,8 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu():
 
 
 @pytest.mark.parametrize("option", [
-    dict(prefix_cache=True), dict(deferred_kv=True), dict(mesh="model=2"),
-    dict(spmd_kernels=True), dict(pallas_interpret=True)])
+    dict(mesh="model=2"), dict(spmd_kernels=True),
+    dict(pallas_interpret=True)])
 def test_unported_options_raise(option):
     params = tl.random_params_int(CFG, seed=0, device="cpu")
     for engine in (BatchedEngine, SpecBatchedEngine):
