@@ -19,7 +19,10 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    attention, at B=32 and T in {2, 4, 8} (2f), ``spec_write`` (2g),
    K1p, the packed INT4 matmul, at the 7B INT4 shapes (2h), K2b, the
    prefix cache's block-attend, at T up to 496 over a B=48 cache and at
-   GQA hgs = 8 (2i), and K2 with its softmax stats (o, m, l) at B=48 (2j);
+   GQA hgs = 8 (2i), K2 with its softmax stats (o, m, l) at B=48 (2j),
+   and the groupdot (scale-after-dot) mode of K1 and K1p at the 7B
+   shapes, T in {1, 48, 128}, auto and one split, O = 1000 and gs = 128,
+   the wide cases equal to K1 bit for bit, gs = 8 refused (2k);
 3. the engines' kernel paths against their plain paths at 7B width, 2
    layers, f32 compute: the ``BatchedEngine`` (int8 KV, B=4), the
    single-stream ``Engine`` (f32 scales and KV: logits, 40 greedy tokens
@@ -33,6 +36,10 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    width, 2 layers, f32, int8 KV, B=4): a tail prefill and deferred steps
    in lockstep, then the BatchedEngine and SpecBatchedEngine on
    donor-then-hits traffic and the deferred BatchedEngine;
+3f. unquantized f32 weights (``random_params``) at phase 3's
+   configuration: the BatchedEngine with plain and deferred chunks and
+   the single-stream Engine, kernel path against plain path (equal greedy
+   tokens; K1 must not launch, K2 and K3 must);
 4. the batched serving path at full width: ``BatchedEngine`` over 7B /
    INT8 / fused QKV and gate|up / int8 KV / B=48 / S=512, 32 layers,
    synthetic weights made on the card; 48 requests of a 43-token prompt
@@ -69,8 +76,13 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    same traffic without the prefix cache;
 4g. deferred KV on phase 4's engine and traffic at decode chunk 16
    (every chunk deferred) against plain chunks, in turns;
+4h. the measurement path through the port's tools: the bandwidth probe
+   (``tools/hbm_peak.py``, 128/512/1024 MB), then ``tools/qmm_sweep.py``
+   at the 7B decode shapes, T=1 and 48, INT8 and INT4, auto split,
+   standard and groupdot (the groupdot mode's launches come from here);
 5. each kernel timed with CUDA events at the path's shapes, beside its
-   bound, its plain version and a library call.
+   bound (bytes over the card's 3.35 TB/s, or operations over peak), its
+   plain version and a library call.
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Details go to
@@ -137,34 +149,6 @@ def compare(name, got, want, tol, quiet=False):
     return err
 
 
-def time_ms(fn, iters=20, warmup=3) -> float:
-    """Device ms per call.  A short kernel finishes before Python has
-    queued the next one, so events around back-to-back calls would time
-    the host.  The device is first held in a sleep kernel longer than the
-    host takes to queue all the calls (measured on a dry pass), so the
-    timed calls run back to back on the device."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    h0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    host_s = time.perf_counter() - h0
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    # cycles at 2 GHz, above the H100's top SM clock: the sleep lasts at
-    # least this long
-    torch.cuda._sleep(int((2 * host_s + 2e-3) * 2e9))
-    t0.record()
-    for _ in range(iters):
-        fn()
-    t1.record()
-    t1.synchronize()
-    return t0.elapsed_time(t1) / iters
-
-
 def bound_ms(nbytes: float, flops: float, peak_flops: float):
     tb, tf = nbytes / HBM_BYTES_S * 1e3, flops / peak_flops * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
@@ -196,36 +180,37 @@ def cfg_7b_int4(n_layers=32):
 PROJ_7B_INT4 = dict(PROJ_7B, w13=(4096, 22528), w2=(11264, 4096))
 
 
-def rand_packed(gen, shape, dev, scale_dtype=None):
+def rand_packed(gen, shape, dev, scale_dtype=None, gs=64):
     """A split-half packed INT4 (…, I/2, O) weight of random nibbles over
     the whole range [-8, 7] (the sign extension's edge) and random
-    positive group scales."""
+    positive group scales, ``gs`` rows a group."""
     import torch
     from fastllama_tpu_torch.config import QuantType
     from fastllama_tpu_torch.quant.groupquant import QArray, pack_int4_rows
     data = torch.empty(shape, dtype=torch.int8, device=dev).random_(
         -8, 8, generator=gen)
-    sshape = (*shape[:-2], shape[-2] // 64, shape[-1])
+    sshape = (*shape[:-2], shape[-2] // gs, shape[-1])
     s = (torch.rand(sshape, generator=gen, device=dev) + 0.5) * (0.02 / 7)
     if scale_dtype is not None:
         s = s.to(scale_dtype)
-    return QArray(pack_int4_rows(data), s, QuantType.INT4, 64, group_axis=-2,
+    return QArray(pack_int4_rows(data), s, QuantType.INT4, gs, group_axis=-2,
                   packed=True)
 
 
-def rand_qarray(gen, shape, qtype, dev, scale_dtype=None):
+def rand_qarray(gen, shape, qtype, dev, scale_dtype=None, gs=64):
     """(…, I, O) weight with random values AND random positive group
-    scales (constant scales would hide a scale-indexing fault)."""
+    scales (constant scales would hide a scale-indexing fault), ``gs``
+    rows a group."""
     import torch
     from fastllama_tpu_torch.quant.groupquant import QDTYPE, QArray
     qmax = qtype.factor
     data = torch.empty(shape, dtype=QDTYPE[qtype], device=dev)
     data.random_(-qmax, qmax + 1, generator=gen)
-    sshape = (*shape[:-2], shape[-2] // 64, shape[-1])
+    sshape = (*shape[:-2], shape[-2] // gs, shape[-1])
     s = (torch.rand(sshape, generator=gen, device=dev) + 0.5) * (0.02 / qmax)
     if scale_dtype is not None:
         s = s.to(scale_dtype)
-    return QArray(data, s, qtype, 64, group_axis=-2)
+    return QArray(data, s, qtype, gs, group_axis=-2)
 
 
 # -- phase 2: kernels against plain versions --------------------------------
@@ -389,6 +374,7 @@ def phase_kernels(dev, rec):
     check_p4(dev, gen, errs)
     check_block(dev, gen, errs)
     check_stats(dev, gen, errs)
+    check_groupdot(dev, gen, errs)
     rec["max_abs_err"] = errs
 
 
@@ -775,6 +761,93 @@ def check_stats(dev, gen, errs):
                     errs["flash_decode_batched_stats"] = max(
                         errs["flash_decode_batched_stats"], e)
         del ck, cv, ks, vs
+    torch.cuda.empty_cache()
+
+
+def gd_counts():
+    from fastllama_tpu_torch.ops.kernels import qmm
+    f = qmm.qmatmul_pallas
+    return (f.launches, f.launches_p4, f.launches_groupdot,
+            f.launches_groupdot_p4)
+
+
+def check_groupdot(dev, gen, errs):
+    """Phase 2k: the groupdot mode of K1 and K1p against
+    ``qmm_groupdot_plain`` at the four fused-layer shapes and the
+    classifier (INT8 with f32 and with bf16 scales; packed INT4, hidden
+    11264, f32 scales), T in {1, 48, 128}, bf16 and f32 x, the auto split
+    and one split; then O = 1000 (the element path, not a multiple of 16)
+    and gs = 128; the wide cases (INT16, INT8 at f32 compute) equal to the
+    standard K1 path bit for bit and counted as K1; gs = 8 raises."""
+    import torch
+    from fastllama_tpu_torch.config import QuantType
+    from fastllama_tpu_torch.ops.kernels import qmm
+    log("phase 2k: groupdot mode of K1 and K1p vs plain (7B shapes)")
+    bf16, f32 = torch.bfloat16, torch.float32
+    f = qmm.qmatmul_pallas
+
+    def run(label, w, Ts, splits_list=(None, 1)):
+        key = "qmatmul_pallas_groupdot" + ("_p4" if w.packed else "")
+        slot = 3 if w.packed else 2
+        I = w.scales.shape[0] * w.group_size
+        worst, n = 0.0, 0
+        for T in Ts:
+            for xdt, tol in ((bf16, TOL_BF16), (f32, TOL_F32)):
+                x = torch.randn((T, I), generator=gen, device=dev).to(xdt)
+                want = qmm.qmm_groupdot_plain(x, w)
+                for splits in splits_list:
+                    before = list(gd_counts())
+                    got = f(x, w, groupdot=True, splits=splits)
+                    before[slot] += 1
+                    check(list(gd_counts()) == before,
+                          f"groupdot {label}: not one groupdot launch")
+                    e = compare(f"groupdot {label} T={T} x={str(xdt)[6:]} "
+                                f"splits={splits}", got, want, tol,
+                                quiet=True)
+                    worst, n = max(worst, e / max(
+                        float(want.float().abs().max()), 1e-30)), n + 1
+                    errs[key] = max(errs[key], e)
+        log(f"  ok groupdot {label}: {n} comparisons, largest error "
+            f"{worst:.3e} of max|plain|")
+
+    for name, (I, O) in PROJ_7B.items():
+        for sdt in (None, bf16):
+            w = rand_qarray(gen, (I, O), QuantType.INT8, dev, sdt)
+            run(f"int8 {name} s={str(sdt or f32)[6:]}", w, (1, 48, 128))
+            del w
+    for name, (I, O) in PROJ_7B_INT4.items():
+        w = rand_packed(gen, (I, O), dev)
+        run(f"int4 {name}", w, (1, 48, 128))
+        del w
+    for gs, O in ((64, 1000), (128, 4096)):
+        run(f"int8 4096x{O} gs={gs}",
+            rand_qarray(gen, (4096, O), QuantType.INT8, dev, gs=gs), (1, 48))
+        run(f"int4 4096x{O} gs={gs}",
+            rand_packed(gen, (4096, O), dev, gs=gs), (1, 48))
+    # the wide cases take the standard path: equal bit for bit, K1 counts
+    x = torch.randn((48, 4096), generator=gen, device=dev)
+    for label, w, cdt in (
+            ("int16", rand_qarray(gen, (4096, 4096), QuantType.INT16, dev),
+             bf16),
+            ("int8 f32 compute",
+             rand_qarray(gen, (4096, 4096), QuantType.INT8, dev), f32)):
+        for xdt in (bf16, f32):
+            before = list(gd_counts())
+            got = f(x.to(xdt), w, cdt, groupdot=True)
+            before[0] += 1
+            check(list(gd_counts()) == before,
+                  f"groupdot {label}: not counted as one K1 launch")
+            check(torch.equal(got, f(x.to(xdt), w, cdt)),
+                  f"groupdot {label} x={str(xdt)[6:]}: differs from the "
+                  f"standard path")
+        log(f"  ok groupdot {label}: the standard path bit for bit")
+    w8 = rand_qarray(gen, (256, 256), QuantType.INT8, dev, gs=8)
+    try:
+        f(x[:, :256].to(bf16), w8, groupdot=True)
+    except ValueError as e:
+        log(f"  ok groupdot gs=8 raises: {e}")
+    else:
+        raise Failed("groupdot at gs=8 did not raise")
     torch.cuda.empty_cache()
 
 
@@ -1364,6 +1437,99 @@ def phase_prefix_deferred_parity(dev, rec):
     torch.cuda.empty_cache()
 
 
+def phase_f32_parity(dev, rec):
+    """Phase 3f: unquantized f32 weights (``QuantType.NONE``, from
+    ``random_params``) at phase 3's configuration (7B width, 2 layers, f32
+    compute): the ``BatchedEngine`` (int8 KV, B=4) with plain chunks and
+    with deferred chunks, and the single-stream ``Engine`` (f32 KV), each
+    kernel path against the plain path, equal greedy tokens.  Both
+    packages route an unquantized matmul to the plain product, so K1 must
+    not launch; K2 and K3 must."""
+    import torch
+    from fastllama_tpu_torch.config import EngineConfig, QuantType
+    from fastllama_tpu_torch.loaders.tokenizer import (
+        Tokenizer, build_byte_fallback_vocab)
+    from fastllama_tpu_torch.models.llama import random_params_int
+    from fastllama_tpu_torch.runtime.batching import BatchedEngine
+    from fastllama_tpu_torch.runtime.engine import Engine
+    log("phase 3f: f32 weights (QuantType.NONE), kernel path vs plain path "
+        "(7B width, 2 layers, f32 compute): BatchedEngine plain and "
+        "deferred chunks, Engine")
+    cfg = cfg_7b(n_layers=2).replace(quant_type=QuantType.NONE)
+    params = random_params_int(cfg, seed=SEED + 6, device=dev)
+    check(all(isinstance(getattr(params, n), torch.Tensor)
+              and getattr(params, n).dtype == torch.float32
+              for n in ("embedding", "wq", "w1", "w2", "classifier")),
+          "random_params_int(NONE) did not give f32 tensors")
+    rng = torch.Generator(device="cpu")
+    rng.manual_seed(SEED + 6)
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=rng).tolist()
+               for n in (43, 17, 60, 5)]
+    k1 = ("qmatmul_pallas", "qmatmul_pallas_indexed",
+          "qmatmul_pallas_indexed_fused")
+    toks, out = {}, {}
+    for label, use, deferred in (("plain", False, False),
+                                 ("kernel", True, False),
+                                 ("deferred", True, True)):
+        eng = BatchedEngine(cfg, params, Tokenizer().finalize(),
+                            EngineConfig(max_batch_size=4, kv_dtype="int8",
+                                         compute_dtype="float32",
+                                         use_pallas=use,
+                                         deferred_kv=deferred),
+                            decode_chunk=8, device=dev)
+        zero_launches()
+        reqs = eng.generate_all(prompts + prompts[:2], max_new_tokens=20,
+                                temperature=0.0, stop_tokens=())
+        got = read_launches()
+        toks[label] = [r.output_tokens for r in reqs]
+        check(all(len(t) == 20 for t in toks[label]), "short output")
+        check(all(got[k] == 0 and got[k + "_p4"] == 0 for k in k1),
+              f"3f {label}: K1 launched on f32 weights: {got}")
+        if use:
+            stats = got["flash_decode_batched_stats"]
+            check(got["prefill_write"] > 0
+                  and (stats > 0 and got["spec_write"] > 0 if deferred
+                       else got["flash_decode_batched"] > 0
+                       and got["decode_write"] > 0),
+                  f"3f {label}: a kernel of the path did not run: {got}")
+            check((eng.deferred_chunks > 0) == deferred,
+                  f"3f {label}: deferred chunks {eng.deferred_chunks}")
+        out[label] = {k: v for k, v in got.items() if v}
+        del eng
+    for label in ("kernel", "deferred"):
+        check(toks[label] == toks["plain"],
+              f"3f BatchedEngine {label}: tokens differ from the plain path")
+    log(f"  ok BatchedEngine greedy tokens equal, plain / kernel / deferred "
+        f"chunks over 6 requests through 4 slots; launches {out}")
+
+    vocab = build_byte_fallback_vocab(
+        [f"w{i}" for i in range(cfg.vocab_size - 259)])
+    single = {}
+    for use in (False, True):
+        eng = Engine(cfg, params, vocab, EngineConfig(
+            compute_dtype="float32", kv_dtype="float32", use_pallas=use),
+            device=dev)
+        zero_launches()
+        single[use], _ = eng.generate(prompts[0], max_new_tokens=40,
+                                      temperature=0.0, stop_tokens=(),
+                                      decode_chunk=16)
+        got = read_launches()
+        check(len(single[use]) == 40, "short single-stream output")
+        check(all(got[k] == 0 for k in k1), f"3f Engine: K1 launched {got}")
+        if use:
+            check(got["flash_decode_single"] > 0,
+                  f"3f Engine: K2 non-fresh did not run: {got}")
+            out["engine"] = {k: v for k, v in got.items() if v}
+        del eng
+    check(single[True] == single[False],
+          "3f Engine: tokens differ from the plain path")
+    log(f"  ok Engine greedy tokens equal over 40 new tokens (chunks of "
+        f"16); launches {out['engine']}")
+    rec["f32_parity"] = {"tokens_equal": True, "launches": out}
+    del params
+    torch.cuda.empty_cache()
+
+
 # -- phase 4: the serving path at full width ---------------------------------
 
 # one entry per Pallas function the port replaces; the kernels of each path
@@ -1384,13 +1550,16 @@ KERNELS = ("qmatmul_pallas", "qmatmul_pallas_indexed",
            "flash_spec_batched", "spec_write",
            "decode_attention_pallas_batched", "qmatmul_pallas_p4",
            "qmatmul_pallas_indexed_p4", "qmatmul_pallas_indexed_fused_p4",
-           "flash_block_attend", "flash_decode_batched_stats")
+           "flash_block_attend", "flash_decode_batched_stats",
+           "qmatmul_pallas_groupdot", "qmatmul_pallas_groupdot_p4")
 
 
 def counters():
     """(wrapper, count attribute) of each entry of KERNELS: K1p's launches
     are counted on the K1/K1f wrappers' ``launches_p4``, K2's with stats on
-    ``flash_decode_batched.launches_stats``."""
+    ``flash_decode_batched.launches_stats``, the groupdot mode's on
+    ``qmatmul_pallas.launches_groupdot`` (K1) and ``_groupdot_p4``
+    (K1p)."""
     from fastllama_tpu_torch.ops.kernels import attention as at
     from fastllama_tpu_torch.ops.kernels import flash_decode as fd
     from fastllama_tpu_torch.ops.kernels import kv_write as kw
@@ -1414,6 +1583,10 @@ def counters():
     out.update({k + "_p4": (fn, "launches_p4") for k, fn in k1.items()})
     out["flash_decode_batched_stats"] = (fd.flash_decode_batched,
                                          "launches_stats")
+    out["qmatmul_pallas_groupdot"] = (qmm.qmatmul_pallas,
+                                      "launches_groupdot")
+    out["qmatmul_pallas_groupdot_p4"] = (qmm.qmatmul_pallas,
+                                         "launches_groupdot_p4")
     return out
 
 
@@ -2172,10 +2345,65 @@ def phase_deferred_serving(dev, rec):
     return launches
 
 
+SWEEP_ITERS = 50
+
+
+def phase_sweep(dev, rec):
+    """Phase 4h: the measurement path at full width, through the port's
+    two tools.  The bandwidth probe (128, 512 and 1024 MB buffers), then
+    ``qmm_sweep`` at the 7B decode shapes (4096x4096, 4096x12288,
+    4096x22016, and 11008x4096 at INT8 / 11264x4096 at INT4), T=1 and
+    T=48, INT8 and packed INT4 with f32 scales, the auto split, standard
+    and groupdot; weights rotating so every launch finds its weight cold
+    in L2.  Counters zeroed just before the sweep, read just after; every
+    variant must run and none may read above the measured peak."""
+    from fastllama_tpu_torch.tools import hbm_peak, qmm_sweep
+    log("phase 4h: bandwidth probe and qmm sweep (7B decode shapes, T=1 "
+        "and 48, INT8 and INT4, auto split, standard and groupdot)")
+    bufs = hbm_peak.measure((128, 512, 1024), iters=16, device=dev,
+                            log=lambda line: log("  " + line))
+    peak = max(g for _, g in bufs)
+    rec["hbm_peak"] = {"buffers_gbs": {str(mb): g for mb, g in bufs},
+                       "best_gbs": peak,
+                       "share_of_card": peak * 1e9 / HBM_BYTES_S}
+    log(f"  probe read rate {peak:.1f} GB/s, "
+        f"{100 * peak * 1e9 / HBM_BYTES_S:.1f} % of the card's 3350")
+    zero_launches()
+    rows = {}
+    for quant in ("int8", "int4"):
+        shapes = qmm_sweep.default_shapes(quant)
+        for T in (1, 48):
+            lines = []
+            got = qmm_sweep.sweep(
+                shapes, T, quant, "float32", SWEEP_ITERS, peak, dev,
+                explicit=False, log=lambda line: (
+                    print(line, file=sys.stderr, flush=True),
+                    lines.append(line)))
+            check(len(got) == 2 * len(shapes),
+                  f"sweep {quant} T={T}: {len(got)} of {2 * len(shapes)} "
+                  f"variants ran: {lines}")
+            over = [r for r in got if r["eff"] > 1.0]
+            check(not over, f"sweep {quant} T={T} above the measured peak "
+                            f"(L2 not cold?): {over}")
+            rows[f"{quant}_T{T}"] = got
+    launches = read_launches()
+    # each variant: 3 warm-up calls, a dry pass and the timed pass
+    per = 2 * 4 * (3 + 2 * SWEEP_ITERS)
+    for k in ("qmatmul_pallas", "qmatmul_pallas_p4",
+              "qmatmul_pallas_groupdot", "qmatmul_pallas_groupdot_p4"):
+        check(launches[k] == per,
+              f"sweep: {k} launched {launches[k]} times, not {per}")
+    log(f"  ok sweep: {sum(len(v) for v in rows.values())} variants, each "
+        f"mode {per} launches a quant type")
+    rec["sweep"] = rows
+    return launches
+
+
 # -- phase 5: timing ---------------------------------------------------------
 
 def phase_timing(dev, rec):
     import torch
+    from fastllama_tpu_torch.tools.timing import time_ms
     import torch.nn.functional as F
     from fastllama_tpu_torch.config import QuantType
     from fastllama_tpu_torch.models.batched import BatchedKVCache
@@ -2202,7 +2430,8 @@ def phase_timing(dev, rec):
         plain_ms=time_ms(lambda: qmm.qmm_plain(x, w)),
         library_ms=time_ms(lambda: torch.matmul(x, wd)),
         library_call="torch.matmul(x, w) on a pre-dequantized bf16 weight",
-        bound_ms=bm, bound_by=by, shape=f"T={B} I={I} O={O}")
+        bound_ms=bm, bound_by=by,
+        shape=f"T={B} I={I} O={O}")
     del w, wd
 
     # qmatmul_pallas_indexed: one layer's four projections, T = B
@@ -2245,7 +2474,8 @@ def phase_timing(dev, rec):
         library_ms=time_ms(l_layer),
         library_call="torch.matmul per projection on pre-dequantized bf16 "
                      "weights",
-        bound_ms=bm, bound_by=by, per_projection_ms=per,
+        bound_ms=bm, bound_by=by,
+        per_projection_ms=per,
         shape=f"T={B}, one layer: wqkv 4096x12288, wo 4096x4096, "
               f"w13 4096x22016, w2 11008x4096")
     # prefill-wave shape, T = 2048
@@ -2332,7 +2562,8 @@ def phase_timing(dev, rec):
         library_ms=time_ms(lib_decode),
         library_call="indexed assignment (index_put_) on the cache "
                      "tensors (K, V, 2 scales)",
-        bound_ms=bm, bound_by=by, shape=f"L={Lc} B={B} n_kv={n_kv} hs={hs}")
+        bound_ms=bm, bound_by=by,
+        shape=f"L={Lc} B={B} n_kv={n_kv} hs={hs}")
     N, T = 32, 64
     slots = torch.arange(N, dtype=torch.int32, device=dev)
     kq, vq = fresh(Lc, N, n_kv, T, hs), fresh(Lc, N, n_kv, T, hs)
@@ -2354,14 +2585,15 @@ def phase_timing(dev, rec):
         library_ms=time_ms(lib_prefill),
         library_call="indexed assignment (index_put_) on the cache "
                      "tensors (K, V, 2 scales)",
-        bound_ms=bm, bound_by=by, shape=f"L={Lc} N={N} T={T} n_kv={n_kv} "
-                                        f"hs={hs}")
+        bound_ms=bm, bound_by=by,
+        shape=f"L={Lc} N={N} T={T} n_kv={n_kv} hs={hs}")
     del cache
     torch.cuda.empty_cache()
     time_single(dev, gen, res)
     time_spec(dev, gen, res)
     time_p4(dev, gen, res)
     time_block(dev, gen, res)
+    time_groupdot(dev, gen, res)
     for k, v in res.items():
         log(f"  {k}: {v['ms']:.4f} ms (plain {v['plain_ms']:.4f}, library "
             f"{v['library_ms']:.4f}, bound {v['bound_ms']:.4f} by "
@@ -2376,6 +2608,7 @@ def time_single(dev, gen, res):
     three wrappers.  Layers rotate so that every launch finds its weights
     and cache rows cold in L2, as it does between two layers."""
     import torch
+    from fastllama_tpu_torch.tools.timing import time_ms
     import torch.nn.functional as F
     from fastllama_tpu_torch.config import QuantType
     from fastllama_tpu_torch.ops.kernels import attention as at
@@ -2452,7 +2685,8 @@ def time_single(dev, gen, res):
         ms=time_ms(lambda: qmm.qmatmul_pallas(x, w)),
         plain_ms=time_ms(lambda: qmm.qmm_plain(x, w)),
         library_ms=time_ms(lambda: torch.matmul(x, wd)),
-        bound_ms=bm, bound_by=by, shape=f"T=1 I={I} O={O} bf16 scales")
+        bound_ms=bm, bound_by=by,
+        shape=f"T=1 I={I} O={O} bf16 scales")
     v = res["qmatmul_pallas"]["single_stream"]
     log(f"  qmatmul_pallas single-stream: {v['ms']:.4f} ms (plain "
         f"{v['plain_ms']:.4f}, library {v['library_ms']:.4f}, bound "
@@ -2504,6 +2738,7 @@ def time_spec(dev, gen, res):
     ``decode_attention_pallas_batched`` (on K2 non-fresh; no engine path
     reaches it) at B=32, bf16 cache, pos 107."""
     import torch
+    from fastllama_tpu_torch.tools.timing import time_ms
     import torch.nn.functional as F
     from fastllama_tpu_torch.models.batched import BatchedKVCache
     from fastllama_tpu_torch.ops.kernels import attention as at
@@ -2626,6 +2861,7 @@ def time_p4(dev, gen, res):
     scale only) and K1 on the same shapes at INT8.  Layers rotate so that
     every launch finds its weights cold in L2."""
     import torch
+    from fastllama_tpu_torch.tools.timing import time_ms
     import torch.nn.functional as F
     from fastllama_tpu_torch.config import QuantType
     from fastllama_tpu_torch.ops.kernels import qmm
@@ -2653,7 +2889,8 @@ def time_p4(dev, gen, res):
                  plain_ms=time_ms(lambda: qmm.qmm_p4_plain(x, w)),
                  library_ms=time_ms(lambda: torch.matmul(x, wd)),
                  k1_int8_ms=time_ms(lambda: qmm.qmatmul_pallas(x, w8)),
-                 bound_ms=bm, bound_by=by, bytes=nbytes_of(T, I, O),
+                 bound_ms=bm, bound_by=by,
+                 bytes=nbytes_of(T, I, O),
                  shape=f"T={T} I={I} O={O} packed, f32 scales")
         if T == 48:
             d["library_call"] = ("torch.matmul(x, w) on a pre-dequantized "
@@ -2766,6 +3003,7 @@ def time_block(dev, gen, res):
     rotating; K2 with its softmax stats against K2 without them at phase
     4's decode shape (B=48, pos 107, int8)."""
     import torch
+    from fastllama_tpu_torch.tools.timing import time_ms
     import torch.nn.functional as F
     from fastllama_tpu_torch.ops.kernels import flash_decode as fd
     bf16 = torch.bfloat16
@@ -2804,7 +3042,8 @@ def time_block(dev, gen, res):
                 q, kd[rot()], vd[layer[0]], attn_mask=mask)),
             library_call="SDPA with an explicit mask over pre-dequantized "
                          "bf16 cache rows [0, start) and the fresh block",
-            bound_ms=bm, bound_by=by, bytes=nbytes, flops=flops,
+            bound_ms=bm, bound_by=by,
+            bytes=nbytes, flops=flops,
             block_rows=fd.block_rows(T, H // n_kv, n_kv),
             shape=f"T={T} start={start} H={H} n_kv={n_kv} hs={hs} int8 "
                   f"cache B={B} S={S}, bf16 q")
@@ -2842,6 +3081,99 @@ def time_block(dev, gen, res):
         shape=f"B={B} H={H} n_kv={n_kv} hs={hs} S={S} int8 cache, pos=107 "
               f"every slot, layers rotating over {L}")
     del ck, cv, kdq, vdq
+    torch.cuda.empty_cache()
+
+
+def time_groupdot(dev, gen, res):
+    """The groupdot mode of K1 (INT8, f32 scales) and K1p (packed INT4,
+    hidden 11264, f32 scales), the plain form: the classifier at T=48 and
+    T=1, and one fused layer's four projections at T=48 and T=1 with the
+    layers rotating over 4 copies so every launch finds its weight cold in
+    L2.  Beside each: its bound, its plain version, ``torch.matmul`` on a
+    pre-dequantized bf16 weight, and the standard mode on the same
+    inputs."""
+    import torch
+    from fastllama_tpu_torch.tools.timing import time_ms
+    from fastllama_tpu_torch.config import QuantType
+    from fastllama_tpu_torch.ops.kernels import qmm
+    from fastllama_tpu_torch.quant.groupquant import dequantize
+    bf16, nl = torch.bfloat16, 4
+    names = ("wqkv", "wo", "w13", "w2")
+    layer = [0]
+
+    def rot():
+        layer[0] = (layer[0] + 1) % nl
+        return layer[0]
+
+    for kind, proj in (("int8", PROJ_7B), ("int4", PROJ_7B_INT4)):
+        def make(shape):
+            if kind == "int4":
+                return rand_packed(gen, shape, dev)
+            return rand_qarray(gen, shape, QuantType.INT8, dev)
+
+        def nbytes_of(T, I, O):
+            wb = I * O // 2 if kind == "int4" else I * O
+            return T * I * 2 + wb + I // 64 * O * 4 + T * O * 2
+        key = "qmatmul_pallas_groupdot" + ("_p4" if kind == "int4" else "")
+        I, O = proj["classifier"]
+        w = make((I, O))
+        wd = dequantize(w, bf16)
+        rows = {}
+        for T in (48, 1):
+            x = torch.randn((T, I), generator=gen, device=dev).to(bf16)
+            nb = nbytes_of(T, I, O)
+            bm, by = bound_ms(nb, 2 * T * I * O, BF16_FLOP_S)
+            rows[T] = dict(
+                ms=time_ms(lambda: qmm.qmatmul_pallas(x, w, groupdot=True)),
+                plain_ms=time_ms(lambda: qmm.qmm_groupdot_plain(x, w)),
+                library_ms=time_ms(lambda: torch.matmul(x, wd)),
+                standard_ms=time_ms(lambda: qmm.qmatmul_pallas(x, w)),
+                bound_ms=bm, bound_by=by, bytes=nb,
+                shape=f"T={T} I={I} O={O} {kind}"
+                      f"{' packed' if kind == 'int4' else ''}, f32 scales")
+        del w, wd
+        ws = {n: make((nl, *proj[n])) for n in names}
+        wds = {n: dequantize(ws[n], bf16) for n in names}
+        for T in (48, 1):
+            xs = {n: torch.randn((T, proj[n][0]), generator=gen,
+                                 device=dev).to(bf16) for n in names}
+
+            def per_layer(one):
+                def run():
+                    lyr = rot()
+                    for n in names:
+                        one(n, lyr)
+                return run
+            nb = sum(nbytes_of(T, *proj[n]) for n in names)
+            fl = sum(2 * T * proj[n][0] * proj[n][1] for n in names)
+            bm, by = bound_ms(nb, fl, BF16_FLOP_S)
+            rows[f"layer_T{T}"] = dict(
+                ms=time_ms(per_layer(lambda n, lyr: qmm.qmatmul_pallas(
+                    xs[n], ws[n][lyr], groupdot=True))),
+                plain_ms=time_ms(per_layer(lambda n, lyr:
+                                           qmm.qmm_groupdot_plain(
+                                               xs[n], ws[n][lyr]))),
+                library_ms=time_ms(per_layer(lambda n, lyr: torch.matmul(
+                    xs[n], wds[n][lyr]))),
+                standard_ms=time_ms(per_layer(lambda n, lyr:
+                                              qmm.qmatmul_pallas(
+                                                  xs[n], ws[n][lyr]))),
+                bound_ms=bm, bound_by=by, bytes=nb,
+                shape=f"T={T}, one layer: " + ", ".join(
+                    f"{n} {proj[n][0]}x{proj[n][1]}" for n in names))
+        del ws, wds
+        res[key] = dict(rows[48], single_stream=rows[1],
+                        layer_T48=rows["layer_T48"],
+                        layer_T1=rows["layer_T1"],
+                        library_call="torch.matmul(x, w) on a "
+                                     "pre-dequantized bf16 weight")
+        for label, v in (("T=1", rows[1]), ("layer T=48", rows["layer_T48"]),
+                         ("layer T=1", rows["layer_T1"])):
+            log(f"  {key} {label}: {v['ms']:.4f} ms (standard "
+                f"{v['standard_ms']:.4f}, plain {v['plain_ms']:.4f}, library "
+                f"{v['library_ms']:.4f}, bound {v['bound_ms']:.4f} by "
+                f"{v['bound_by']}) "
+                f"{v['shape']}")
     torch.cuda.empty_cache()
 
 
@@ -2883,13 +3215,17 @@ SOURCES = {
     "flash_decode_batched_stats": (
         "fastllama_tpu_torch/csrc/flash_decode.cu",
         "fastllama_tpu/ops/pallas/flash_decode.py:203"),
+    "qmatmul_pallas_groupdot": ("fastllama_tpu_torch/csrc/qmm.cu",
+                                "fastllama_tpu/ops/pallas/qmm.py:89"),
+    "qmatmul_pallas_groupdot_p4": ("fastllama_tpu_torch/csrc/qmm.cu",
+                                   "fastllama_tpu/ops/pallas/qmm.py:405"),
 }
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="1,2,3,3d,3e,4,4b,4c,4d,4e,4f,4g,5",
+                    default="1,2,3,3d,3e,3f,4,4b,4c,4d,4e,4f,4g,4h,5",
                     help="comma-separated phases to run (default: all)")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -2928,7 +3264,8 @@ def main() -> int:
     # each kernel's launches on the path it serves: the batched path's from
     # phase 4, the single-stream path's from phase 4b, the speculative
     # path's own kernels from phase 4c, K1p's plain and indexed forms from
-    # phase 4d and its fused form from 4e
+    # phase 4d and its fused form from 4e, the groupdot mode's from the
+    # sweep (4h)
     launches = {}
     rec["phase_s"] = {}
 
@@ -2948,6 +3285,8 @@ def main() -> int:
         run("3d", phase_int4_parity)
     if "3e" in phases:
         run("3e", phase_prefix_deferred_parity)
+    if "3f" in phases:
+        run("3f", phase_f32_parity)
     if "4" in phases:
         got = run("4", phase_serving)
         launches.update({k: got[k] for k in BATCHED_PATH})
@@ -2978,6 +3317,10 @@ def main() -> int:
         got = run("4g", phase_deferred_serving)
         launches["flash_decode_batched_stats"] = \
             got["flash_decode_batched_stats"]
+    if "4h" in phases:
+        got = run("4h", phase_sweep)
+        for k in ("qmatmul_pallas_groupdot", "qmatmul_pallas_groupdot_p4"):
+            launches[k] = got[k]
     if "5" in phases:
         run("5", phase_timing)
     rec["phases_s"] = time.perf_counter() - t_start

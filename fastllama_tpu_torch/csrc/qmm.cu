@@ -70,6 +70,29 @@
 // with K1's register double-buffering and split-K, so it keeps half as
 // many bytes in flight per stage; a deeper pipeline (cp.async/TMA stages,
 // more packed rows a stage) is what would bring it nearer the bound.
+//
+// The groupdot mode of K1 and K1p (template flag GD) replaces the
+// scale-after-dot variant of the Pallas kernels: _qmm_chunk_groupdot
+// (qmm.py:89-106, run by _qmm_kernel at :109-119) and _groupdot_p4
+// (:405-416, run by _qmm_kernel_p4 at :368-402).  The int8 values (or the
+// sign-extended nibbles) are staged as bf16 with no scale, x as bf16, and
+// each k = 16 tensor-core step goes into a fresh f32 partial; at the end of
+// a group the partial is multiplied by the group's scale per output column
+// (an exact f32 value: a bf16 scale is promoted, the product is not
+// rounded) and added to the block's f32 accumulator.  WMMA's accumulator
+// layout is opaque, so this mode runs mma.sync.m16n8k16 instead, whose
+// register layout is documented: each thread knows the output columns it
+// holds and scales its partial in registers, with no trip through shared
+// memory.  The stage's group scales (one row of BN a k = 16 step) are
+// prefetched into registers with the stage and staged in shared memory.
+// A partial is flushed at the end of its group, at the end of each plane's
+// half of a stage (K1p's stage holds 32 packed rows: half a 64-row group of
+// each plane) and at the end of a split, so a group cut by a stage or a
+// split is scaled in parts (linear: only the f32 sum order changes).  The
+// group size must be a multiple of 16 so that no k = 16 step straddles two
+// groups.  Its bound is K1's: bytes at decode.  It saves the per-element
+// scale multiply of the dequant and adds a scale-and-add of the partials a
+// group; a simple mode first, its speed is later work.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
@@ -175,6 +198,7 @@ struct Stage {
   uint4 w[2];
   __nv_bfloat162 s[2][8];
   uint4 x[XN];
+  float gsc[2];              // groupdot: two of the stage's group scales
 };
 
 // K1p's stage: 16 packed bytes (columns 16*(t%4).. of packed row t/4),
@@ -187,6 +211,7 @@ struct StageP4 {
   uint4 w;
   float s[2][16];
   uint4 x[XN];
+  float gsc[2];
 };
 
 __device__ __forceinline__ void load_scales_f32(float* dst, const float* src) {
@@ -242,6 +267,24 @@ __device__ __forceinline__ void load_scales(__nv_bfloat162* dst,
   }
 }
 
+// two bf16 as one 32-bit register of an mma.sync fragment, lo in the low
+// half
+__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
+                                              __nv_bfloat16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo) |
+         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+
+// d += a (16x16, row major) * b (16x8, column major), bf16 in, f32 out
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
+                                          const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
 // x chunk -> bf16 in shared memory (round to nearest even, as
 // astype(bfloat16)).
 __device__ __forceinline__ void store_x(__nv_bfloat16* dst, const uint4& v,
@@ -272,8 +315,8 @@ __device__ __forceinline__ void store_x_norm(__nv_bfloat16* dst,
 }
 
 // P4: K1p, W the (I/2, O) packed bytes; k_per_split then counts packed
-// rows.
-template <typename XT, typename ST, bool VEC, bool P4>
+// rows.  GD: the groupdot mode (gs % 16 == 0).
+template <typename XT, typename ST, bool VEC, bool P4, bool GD>
 __global__ void __launch_bounds__(QT)
 qmm_bf16_kernel(const XT* __restrict__ x, const int8_t* __restrict__ w,
                 const ST* __restrict__ s, const float* __restrict__ gain,
@@ -282,6 +325,8 @@ qmm_bf16_kernel(const XT* __restrict__ x, const int8_t* __restrict__ w,
                 int k_per_split, float eps) {
   __shared__ __align__(128) unsigned char smem[SMEM_Q];
   __shared__ float rinv[BM];
+  // groupdot: the group scale of each k = 16 step of the stage, by column
+  __shared__ float Ss[BK / 16][BN];
   __nv_bfloat16 (*As)[LDA] = reinterpret_cast<__nv_bfloat16 (*)[LDA]>(smem);
   __nv_bfloat16 (*Bs)[LDB] =
       reinterpret_cast<__nv_bfloat16 (*)[LDB]>(smem + BM * LDA * 2);
@@ -309,6 +354,13 @@ qmm_bf16_kernel(const XT* __restrict__ x, const int8_t* __restrict__ w,
     return P4 && c >= KS ? Ih + k0 + c - KS : k0 + c;
   };
   auto in_k = [&](int k0, int c) { return k0 + c % KS < kend; };
+  // groupdot: the scale of the group holding the stage's k = 16 step j
+  // for the block's column c (0 past the edges: their partials are 0)
+  auto group_scale = [&](int k0, int j, int c) {
+    return in_k(k0, 16 * j) && n0 + c < O
+               ? to_f(s[(size_t)(xcol(k0, 16 * j) / gs) * O + n0 + c])
+               : 0.0f;
+  };
 
   // vector path: registers <- global for the stage starting at k0
   auto load = [&](S& st, int k0) {
@@ -316,8 +368,10 @@ qmm_bf16_kernel(const XT* __restrict__ x, const int8_t* __restrict__ w,
       const int gk = k0 + wr, gn = n0 + wc;
       if (gk < kend && gn < O) {
         st.w = *reinterpret_cast<const uint4*>(w + (size_t)gk * O + gn);
-        load_scales_f32(st.s[0], s + (size_t)(gk / gs) * O + gn);
-        load_scales_f32(st.s[1], s + (size_t)((gk + Ih) / gs) * O + gn);
+        if constexpr (!GD) {
+          load_scales_f32(st.s[0], s + (size_t)(gk / gs) * O + gn);
+          load_scales_f32(st.s[1], s + (size_t)((gk + Ih) / gs) * O + gn);
+        }
       } else {                 // zero weight and scale: no NaN from 0 * junk
         st.w = make_uint4(0, 0, 0, 0);
 #pragma unroll
@@ -329,7 +383,8 @@ qmm_bf16_kernel(const XT* __restrict__ x, const int8_t* __restrict__ w,
         const int gk = k0 + wr + 32 * h, gn = n0 + wc;
         if (gk < kend && gn < O) {
           st.w[h] = *reinterpret_cast<const uint4*>(w + (size_t)gk * O + gn);
-          load_scales(st.s[h], s + (size_t)(gk / gs) * O + gn);
+          if constexpr (!GD)
+            load_scales(st.s[h], s + (size_t)(gk / gs) * O + gn);
         } else {               // zero weight and scale: no NaN from 0 * junk
           st.w[h] = make_uint4(0, 0, 0, 0);
 #pragma unroll
@@ -346,6 +401,13 @@ qmm_bf16_kernel(const XT* __restrict__ x, const int8_t* __restrict__ w,
                     ? *reinterpret_cast<const uint4*>(x + (size_t)gr * I +
                                                       xcol(k0, c))
                     : make_uint4(0, 0, 0, 0);
+    }
+    if constexpr (GD) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int e = tid + QT * h;
+        st.gsc[h] = group_scale(k0, e / BN, e % BN);
+      }
     }
   };
   // vector path: shared memory <- registers, the weight dequantized to
@@ -365,7 +427,13 @@ qmm_bf16_kernel(const XT* __restrict__ x, const int8_t* __restrict__ w,
       __nv_bfloat162* v = reinterpret_cast<__nv_bfloat162*>(packed);
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        if constexpr (P4) {
+        if constexpr (GD) {          // unscaled: exact in bf16
+          if constexpr (P4)
+            v[j] = __floats2bfloat162_rn((float)nibble(q[2 * j], h),
+                                         (float)nibble(q[2 * j + 1], h));
+          else
+            v[j] = __floats2bfloat162_rn((float)q[2 * j], (float)q[2 * j + 1]);
+        } else if constexpr (P4) {
           v[j] = __floats2bfloat162_rn(
               (float)nibble(q[2 * j], h) * st.s[h][2 * j],
               (float)nibble(q[2 * j + 1], h) * st.s[h][2 * j + 1]);
@@ -388,6 +456,13 @@ qmm_bf16_kernel(const XT* __restrict__ x, const int8_t* __restrict__ w,
       else
         store_x(&As[r][c], st.x[i], x);
     }
+    if constexpr (GD) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int e = tid + QT * h;
+        Ss[e / BN][e % BN] = st.gsc[h];
+      }
+    }
   };
   // scalar path: shared memory <- global, element by element
   auto stage_scalar = [&](int k0) {
@@ -406,7 +481,11 @@ qmm_bf16_kernel(const XT* __restrict__ x, const int8_t* __restrict__ w,
       const int gk = k0 + r % KS, gn = n0 + c;
       __nv_bfloat16 v = __float2bfloat16_rn(0.0f);
       if (gk < kend && gn < O) {
-        if constexpr (P4) {
+        if constexpr (GD) {
+          v = __float2bfloat16_rn(
+              P4 ? (float)nibble(w[(size_t)gk * O + gn], r / KS)
+                 : (float)w[(size_t)gk * O + gn]);
+        } else if constexpr (P4) {
           const int plane = r / KS, lk = gk + plane * Ih;
           v = __float2bfloat16_rn(
               (float)nibble(w[(size_t)gk * O + gn], plane) *
@@ -420,7 +499,101 @@ qmm_bf16_kernel(const XT* __restrict__ x, const int8_t* __restrict__ w,
       }
       Bs[r][c] = v;
     }
+    if constexpr (GD) {
+      for (int e = tid; e < BK / 16 * BN; e += QT)
+        Ss[e / BN][e % BN] = group_scale(k0, e / BN, e % BN);
+    }
   };
+
+  S st;
+  if constexpr (GD) {
+    // mma.sync m16n8k16: warp quadrant (wm, wn) as 2 x 4 tiles of 16 x 8;
+    // lane (g, t4) holds rows g and g + 8, columns 2 * t4 and 2 * t4 + 1
+    // of each tile
+    constexpr int P = KS / 16;           // k = 16 steps of a plane a stage
+    const int lane = tid % 32, g = lane >> 2, t4 = lane & 3;
+    float part[2][4][4], acc[2][4][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[i][j][e] = acc[i][j][e] = 0.0f;
+    if constexpr (VEC) {
+      if (kbeg < kend) load(st, kbeg);
+    }
+    for (int k0 = kbeg; k0 < kend; k0 += KS) {
+      if constexpr (VEC)
+        store(st, k0);
+      else
+        stage_scalar(k0);
+      __syncthreads();
+      if constexpr (VEC) {
+        if (k0 + KS < kend) load(st, k0 + KS);
+      }
+#pragma unroll
+      for (int ks = 0; ks < BK / 16; ++ks) {
+        const int kk = 16 * ks;
+        if (!in_k(k0, kk)) continue;     // the same for the whole block
+        uint32_t a[2][4], b[4][2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int r = wm + 16 * i + g;
+          a[i][0] = *reinterpret_cast<const uint32_t*>(&As[r][kk + 2 * t4]);
+          a[i][1] = *reinterpret_cast<const uint32_t*>(&As[r + 8][kk + 2 * t4]);
+          a[i][2] = *reinterpret_cast<const uint32_t*>(&As[r][kk + 2 * t4 + 8]);
+          a[i][3] =
+              *reinterpret_cast<const uint32_t*>(&As[r + 8][kk + 2 * t4 + 8]);
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = wn + 8 * j + g;
+          b[j][0] = pack_bf16(Bs[kk + 2 * t4][c], Bs[kk + 2 * t4 + 1][c]);
+          b[j][1] = pack_bf16(Bs[kk + 2 * t4 + 8][c], Bs[kk + 2 * t4 + 9][c]);
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) mma_16816(part[i][j], a[i], b[j]);
+        // flush at the end of the group, of the plane's half of the
+        // stage, or of the split
+        if ((xcol(k0, kk) + 16) % gs == 0 || ks % P == P - 1 ||
+            !in_k(k0, kk + 16)) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float s0 = Ss[ks][wn + 8 * j + 2 * t4];
+            const float s1 = Ss[ks][wn + 8 * j + 2 * t4 + 1];
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                acc[i][j][e] += part[i][j][e] * (e & 1 ? s1 : s0);
+                part[i][j][e] = 0.0f;
+              }
+            }
+          }
+        }
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int gr = m0 + wm + 16 * i + g + (e >= 2 ? 8 : 0);
+          const int gn = n0 + wn + 8 * j + 2 * t4 + (e & 1);
+          if (gr >= T || gn >= O) continue;
+          const size_t o = (size_t)gr * O + gn;
+          const float v = acc[i][j][e];
+          if (partial != nullptr)
+            partial[(size_t)blockIdx.z * T * O + o] = v;
+          else
+            out[o] = from_f<XT>(res != nullptr ? to_f(res[o]) + v : v);
+        }
+    return;
+  }
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
 #pragma unroll
@@ -428,7 +601,6 @@ qmm_bf16_kernel(const XT* __restrict__ x, const int8_t* __restrict__ w,
 #pragma unroll
     for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
 
-  S st;
   if constexpr (VEC) {
     if (kbeg < kend) load(st, kbeg);
   }
@@ -585,7 +757,7 @@ int launch_typed(const void* x, const void* w, const void* s,
                  const float* gain, const void* res, float eps, void* out,
                  float* partial, int T, int I, int O, int gs, int splits,
                  int k_per_split, int w_dt, int s_dt, int wide, int vec,
-                 int packed, cudaStream_t st) {
+                 int packed, int groupdot, cudaStream_t st) {
   const dim3 grid((O + BN - 1) / BN, (T + BM - 1) / BM, splits);
   float* part = splits > 1 ? partial : nullptr;
   const XT* xp = static_cast<const XT*>(x);
@@ -595,15 +767,18 @@ int launch_typed(const void* x, const void* w, const void* s,
   const XT* rmain = splits > 1 ? nullptr : rp;
   if (packed && (wide || w_dt != DT_I8 || I % 2))
     return (int)cudaErrorInvalidValue;
+  if (groupdot && (wide || gs % 16)) return (int)cudaErrorInvalidValue;
   if (!wide) {
     if (w_dt != DT_I8) return (int)cudaErrorInvalidValue;
     const int8_t* wp = static_cast<const int8_t*>(w);
-#define QMM_BF16(ST, V, P)                                                   \
-  qmm_bf16_kernel<XT, ST, V, P><<<grid, QT, 0, st>>>(                        \
+#define QMM_BF16(ST, V, P, G)                                                \
+  qmm_bf16_kernel<XT, ST, V, P, G><<<grid, QT, 0, st>>>(                     \
       xp, wp, static_cast<const ST*>(s), gain, rmain, op, part, T, I, O, gs,  \
       k_per_split, eps)
+#define QMM_BF16_G(ST, V, P)                                                 \
+  if (groupdot) QMM_BF16(ST, V, P, true); else QMM_BF16(ST, V, P, false)
 #define QMM_BF16_S(ST, P)                                                    \
-  if (vec) QMM_BF16(ST, true, P); else QMM_BF16(ST, false, P)
+  if (vec) { QMM_BF16_G(ST, true, P); } else { QMM_BF16_G(ST, false, P); }
     if (s_dt == DT_F32) {
       if (packed) { QMM_BF16_S(float, true); } else { QMM_BF16_S(float, false); }
     } else {
@@ -611,6 +786,7 @@ int launch_typed(const void* x, const void* w, const void* s,
       else { QMM_BF16_S(__nv_bfloat16, false); }
     }
 #undef QMM_BF16_S
+#undef QMM_BF16_G
 #undef QMM_BF16
   } else if (w_dt == DT_I8) {
     if (s_dt == DT_F32)
@@ -651,22 +827,23 @@ int launch_typed(const void* x, const void* w, const void* s,
 // K1p: I % 16 == 0).  K1f: gain (I,) f32 or null (rmsnorm prologue with
 // eps), res (T, O) in x's dtype or null (residual epilogue).  packed: K1p,
 // w the (I/2, O) split-half bytes, k_per_split in packed rows, wide 0.
+// groupdot: the scale-after-dot mode (not wide, gs % 16 == 0).
 extern "C" int qmm_launch(const void* x, const void* w, const void* s,
                           const void* gain, const void* res, float eps,
                           void* out, void* partial, int T, int I, int O,
                           int gs, int splits, int k_per_split, int x_dt,
                           int w_dt, int s_dt, int wide, int vec, int packed,
-                          void* stream) {
+                          int groupdot, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* part = static_cast<float*>(partial);
   const float* g = static_cast<const float*>(gain);
   if (x_dt == DT_F32)
     return launch_typed<float>(x, w, s, g, res, eps, out, part, T, I, O, gs,
                                splits, k_per_split, w_dt, s_dt, wide, vec,
-                               packed, st);
+                               packed, groupdot, st);
   if (x_dt == DT_BF16)
     return launch_typed<__nv_bfloat16>(x, w, s, g, res, eps, out, part, T, I,
                                        O, gs, splits, k_per_split, w_dt, s_dt,
-                                       wide, vec, packed, st);
+                                       wide, vec, packed, groupdot, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,8 +1,9 @@
 """LLaMA forward pass and parameters for the port (part of
 ``fastllama_tpu/models/llama.py``: ``LlamaParams``, ``KVCache``,
 ``embed_tokens``, ``fuse_params``, ``forward``, ``logits_at``,
-``random_params_int``) plus ``params_from_numpy``, the bridge that builds
-the port's parameters from the JAX package's arrays handed over as numpy.
+``random_params``, ``random_params_int``) plus ``params_from_numpy``, the
+bridge that builds the port's parameters from the JAX package's arrays
+handed over as numpy.
 
 Projection matrices live in the transposed ``(in, out)`` layout with quant
 groups along ``in`` (QArray.group_axis = -2), stacked over layers:
@@ -25,7 +26,7 @@ from fastllama_tpu_torch.ops.qmatmul import qmatmul
 from fastllama_tpu_torch.ops.rope import apply_rope_half, rope_tables
 from fastllama_tpu_torch.quant.groupquant import (QDTYPE, QArray, dequantize,
                                                   pack_int4_rows,
-                                                  pack_supported)
+                                                  pack_supported, quantize)
 
 
 @dataclasses.dataclass
@@ -233,6 +234,44 @@ def _shapes(cfg: ModelConfig):
         classifier=(D, V))
 
 
+def _norms(cfg: ModelConfig, dev: torch.device):
+    L, D = cfg.n_layers, cfg.dim
+    return dict(
+        attn_norm=torch.ones((L, D), dtype=torch.float32, device=dev),
+        ffn_norm=torch.ones((L, D), dtype=torch.float32, device=dev),
+        out_norm=torch.ones((D,), dtype=torch.float32, device=dev))
+
+
+def random_params(cfg: ModelConfig, seed: int = 0,
+                  qtype: Optional[QuantType] = None,
+                  scale: float = 0.02, device=None) -> LlamaParams:
+    """Random parameters, made on the device from a ``torch.Generator``:
+    every weight normal x ``scale`` in f32, norms one.  At
+    ``QuantType.NONE`` the weights stay plain f32 tensors; otherwise each
+    is quantized with :func:`quantize`, the embedding along its last axis
+    and the projections along their contraction axis (group_axis -2,
+    unpacked, as the JAX package's ``random_params`` leaves INT4).  Same
+    recipe as the JAX package's; the values differ (another generator)."""
+    qtype = qtype if qtype is not None else cfg.quant_type
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    gs = cfg.group_size
+    out = _norms(cfg, dev)
+    for name, shape in _shapes(cfg).items():
+        w = torch.randn(shape, generator=gen, device=dev) * scale
+        if qtype == QuantType.NONE:
+            out[name] = w
+        elif name == "embedding":
+            out[name] = quantize(w, qtype, gs)
+        else:
+            q = quantize(w.transpose(-1, -2), qtype, gs)
+            out[name] = QArray(q.data.transpose(-1, -2).contiguous(),
+                               q.scales.transpose(-1, -2).contiguous(),
+                               qtype, gs, group_axis=-2)
+    return LlamaParams(**out)
+
+
 def random_params_int(cfg: ModelConfig, seed: int = 0,
                       qtype: Optional[QuantType] = None,
                       scale: float = 0.02, device=None) -> LlamaParams:
@@ -241,20 +280,17 @@ def random_params_int(cfg: ModelConfig, seed: int = 0,
     are made in place): values uniform in [-QF, QF], every group scale
     ``scale / QF``, norms one.  INT4 projections are split-half packed on
     the device where :func:`pack_supported` says, the rest stay int8-held.
-    Same recipe as the JAX package's ``random_params_int``; the values
-    differ (another generator)."""
+    ``QuantType.NONE`` is handed to :func:`random_params`.  Same recipe as
+    the JAX package's ``random_params_int``; the values differ (another
+    generator)."""
     qtype = qtype if qtype is not None else cfg.quant_type
-    if qtype not in (QuantType.INT8, QuantType.INT16, QuantType.INT4):
-        raise NotImplementedError(f"random_params_int: {qtype} not ported")
+    if qtype == QuantType.NONE:
+        return random_params(cfg, seed, qtype, scale, device)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     qmax, gs = qtype.factor, cfg.group_size
-    L, D = cfg.n_layers, cfg.dim
-    out = dict(
-        attn_norm=torch.ones((L, D), dtype=torch.float32, device=dev),
-        ffn_norm=torch.ones((L, D), dtype=torch.float32, device=dev),
-        out_norm=torch.ones((D,), dtype=torch.float32, device=dev))
+    out = _norms(cfg, dev)
     sval = scale / qmax
     for name, shape in _shapes(cfg).items():
         data = torch.empty(shape, dtype=QDTYPE[qtype], device=dev)

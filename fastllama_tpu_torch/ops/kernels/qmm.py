@@ -20,9 +20,28 @@ the port fuses both, so ``out = to_x_dtype(residual + norm(x) @ W)`` for
 every layout.  An INT4 weight that does not pack stays int8-held and takes
 K1's non-wide path, exactly like INT8.
 
+The groupdot (scale-after-dot) mode of K1 and K1p replaces
+``_qmm_chunk_groupdot`` (qmm.py:89-106, run by ``_qmm_kernel`` at
+:109-119) and ``_groupdot_p4`` (:405-416, run by ``_qmm_kernel_p4``):
+``qmatmul_pallas(..., groupdot=True)``, the plain form only, as in JAX.
+The int8 values (or sign-extended nibbles) go to bf16 with no scale, x to
+bf16, each gs-row group is contracted in f32 and its partial multiplied by
+the group's scale as an exact f32 value (:func:`qmm_groupdot_plain`).  An
+INT8 weight takes it when not wide; INT16 or f32 compute keep the
+standard wide path (qmm.py:111) and count as ordinary K1 launches; a packed
+weight takes it at any compute dtype.  The kernel takes group sizes that
+are a multiple of 16 (a k = 16 tensor-core step never straddles two
+groups); any other raises on a CUDA tensor.
+
+``splits`` fixes the split-K count (the port's counterpart of the Pallas
+``tiles``/``k_inner`` sweep overrides, qmm.py:251-262); a count that
+leaves a split empty raises, as JAX raises on non-dividing tiles.
+
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel or raises.  Each wrapper counts its launches in ``.launches``, and
-those on a packed weight (K1p) in ``.launches_p4``.
+those on a packed weight (K1p) in ``.launches_p4``; ``qmatmul_pallas``
+counts its groupdot launches in ``.launches_groupdot`` (K1) and
+``.launches_groupdot_p4`` (K1p).
 """
 from __future__ import annotations
 
@@ -104,6 +123,29 @@ def qmm_p4_plain(x: torch.Tensor, w: QArray, compute_dtype=torch.bfloat16,
     return qmm_fused_plain(x, w, compute_dtype, norm_gain, eps, residual)
 
 
+def qmm_groupdot_plain(x: torch.Tensor, w: QArray,
+                       compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """The groupdot mode's arithmetic (``_qmm_chunk_groupdot``,
+    qmm.py:89-106; ``_groupdot_p4``, :405-416): the int8 values, or the
+    sign-extended nibbles of a packed weight, to bf16 unscaled; x to bf16;
+    each gs-row group contracted in f32 (bf16 products are exact in f32);
+    each group's partial times the group scale as an exact f32 value (a
+    bf16-stored scale promoted, the product not rounded); the groups
+    summed in f32; x's dtype out.  A wide unpacked weight (INT16, or f32
+    compute) takes :func:`qmm_plain`, as the JAX kernel takes its standard
+    wide path."""
+    if not w.packed and is_wide(w, compute_dtype):
+        return qmm_plain(x, w, compute_dtype)
+    u = w.unpacked()
+    I, O = u.data.shape
+    G = I // w.group_size
+    wb = u.data.to(torch.bfloat16).to(torch.float32).reshape(G, -1, O)
+    xb = x.to(torch.bfloat16).to(torch.float32).reshape(x.shape[0], G, -1)
+    part = torch.bmm(xb.transpose(0, 1), wb)          # (G, T, O)
+    out = (part * w.scales.to(torch.float32)[:, None, :]).sum(dim=0)
+    return out.to(x.dtype)
+
+
 def _split_k(T: int, I: int, O: int, kstep: int, n_sm: int):
     """(splits, k_per_split): split the contraction over blocks when the
     output tiles alone give fewer than four blocks per SM (decode shapes),
@@ -116,6 +158,25 @@ def _split_k(T: int, I: int, O: int, kstep: int, n_sm: int):
     per_split = -(-I // splits)
     kps = -(-per_split // kstep) * kstep
     return -(-I // kps), kps
+
+
+def split_plan(T: int, I: int, O: int, w: QArray, compute_dtype,
+               splits=None, n_sm: int = 132):
+    """(splits, k_per_split) of a launch: ``splits=None`` takes the
+    :func:`_split_k` rule for ``n_sm`` SMs; an explicit count must be a
+    positive int that leaves no split empty, else ValueError.
+    k_per_split counts the rows of W the kernel walks (K1p: the I/2 packed
+    rows, 32 a stage; K1: 64, or 16 on the wide path), whole stages."""
+    k_rows, kstep = ((I // 2, 32) if w.packed else
+                     (I, 16 if is_wide(w, compute_dtype) else 64))
+    if splits is None:
+        return _split_k(T, k_rows, O, kstep, n_sm)
+    if isinstance(splits, int) and splits >= 1:
+        kps = -(-(-(-k_rows // splits)) // kstep) * kstep
+        if -(-k_rows // kps) == splits:
+            return splits, kps
+    raise ValueError(f"splits {splits!r} does not fit {k_rows} rows in "
+                     f"stages of {kstep}: each split needs a stage")
 
 
 def _vec_ok(x: torch.Tensor, w: QArray) -> bool:
@@ -155,45 +216,54 @@ def _check_args(x: torch.Tensor, w: QArray) -> None:
 
 
 def _launch(x: torch.Tensor, w: QArray, compute_dtype, gain=None,
-            residual=None, eps: float = 1e-5) -> torch.Tensor:
+            residual=None, eps: float = 1e-5, gd: bool = False,
+            splits=None) -> torch.Tensor:
     T, I = x.shape
     O = w.data.shape[1]
     wide = is_wide(w, compute_dtype)
+    if gd and w.group_size % 16:
+        raise ValueError(f"the groupdot kernel takes group sizes that are a "
+                         f"multiple of 16, not {w.group_size}")
     n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
-    # K1p walks the I/2 packed rows, 32 a stage (64 logical rows)
-    k_rows, kstep = ((I // 2, 32) if w.packed else (I, 16 if wide else 64))
-    splits, kps = _split_k(T, k_rows, O, kstep, n_sm)
+    splits, kps = split_plan(T, I, O, w, compute_dtype, splits, n_sm)
     out = torch.empty((T, O), dtype=x.dtype, device=x.device)
     partial = (torch.empty((splits, T, O), dtype=torch.float32,
                            device=x.device) if splits > 1 else None)
     lib = _build.load("qmm")
     fn = lib.qmm_launch
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_float] \
-        + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+        + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     rc = fn(_build.ptr(x), _build.ptr(w.data), _build.ptr(w.scales),
             _build.ptr(gain), _build.ptr(residual), eps,
             _build.ptr(out), _build.ptr(partial), T, I, O, w.group_size,
             splits, kps, _DT[x.dtype], _DT[w.data.dtype], _DT[w.scales.dtype],
             int(wide), int(not wide and _vec_ok(x, w)), int(w.packed),
-            _build.stream_of(x))
+            int(gd), _build.stream_of(x))
     _build.check(rc, "qmm_launch")
     return out
 
 
 def _run(wrapper, x: torch.Tensor, w: QArray, compute_dtype, gain=None,
-         eps: float = 1e-5, residual=None) -> torch.Tensor:
+         eps: float = 1e-5, residual=None, groupdot: bool = False,
+         splits=None) -> torch.Tensor:
     """The plain version for a CPU tensor; else the kernel, counted on
-    ``wrapper.launches`` (K1, K1f) or ``wrapper.launches_p4`` (K1p)."""
+    ``wrapper.launches`` (K1, K1f) or ``wrapper.launches_p4`` (K1p), or
+    for the groupdot mode ``.launches_groupdot`` / ``_groupdot_p4``."""
+    # the wide path has no groupdot body (qmm.py:111); K1p's has one
+    gd = groupdot and (w.packed or not is_wide(w, compute_dtype))
     if x.device.type == "cpu":
+        if splits is not None:          # refused as the kernel refuses it
+            split_plan(*x.shape, w.data.shape[1], w, compute_dtype, splits)
+        if gd:
+            return qmm_groupdot_plain(x, w, compute_dtype)
         return qmm_fused_plain(x, w, compute_dtype, gain, eps, residual)
     if x.device.type != "cuda":
         raise ValueError(f"{wrapper.__name__}: unsupported device {x.device}")
-    out = _launch(x, w, compute_dtype, gain, residual, eps)
-    if w.packed:
-        wrapper.launches_p4 += 1
-    else:
-        wrapper.launches += 1
+    out = _launch(x, w, compute_dtype, gain, residual, eps, gd, splits)
+    attr = "launches" + ("_groupdot" if gd else "") + \
+        ("_p4" if w.packed else "")
+    setattr(wrapper, attr, getattr(wrapper, attr) + 1)
     return out
 
 
@@ -223,12 +293,16 @@ def _glue(x: torch.Tensor, wl: QArray, norm_gain, residual):
 
 
 def qmatmul_pallas(x: torch.Tensor, w: QArray,
-                   compute_dtype=torch.bfloat16) -> torch.Tensor:
+                   compute_dtype=torch.bfloat16, groupdot: bool = False,
+                   splits=None) -> torch.Tensor:
     """``x @ w``: x (T, I) f32/bf16, w a (I, O) QArray with scales
     (I/gs, O), or a packed (I/2, O) INT4 one (K1p, see
-    :func:`qmm_p4_plain`).  Returns (T, O) in x.dtype."""
+    :func:`qmm_p4_plain`).  Returns (T, O) in x.dtype.  ``groupdot``:
+    the scale-after-dot mode (:func:`qmm_groupdot_plain`) where it applies;
+    ``splits``: a fixed split-K count (:func:`split_plan`)."""
     _check_args(x, w)
-    return _run(qmatmul_pallas, x, w, compute_dtype)
+    return _run(qmatmul_pallas, x, w, compute_dtype, groupdot=groupdot,
+                splits=splits)
 
 
 def qmatmul_pallas_indexed(x: torch.Tensor, w: QArray, layer: int,
@@ -265,6 +339,7 @@ def qmatmul_pallas_indexed_fused(x: torch.Tensor, w: QArray, layer: int,
 
 
 qmatmul_pallas.launches = qmatmul_pallas.launches_p4 = 0
+qmatmul_pallas.launches_groupdot = qmatmul_pallas.launches_groupdot_p4 = 0
 qmatmul_pallas_indexed.launches = qmatmul_pallas_indexed.launches_p4 = 0
 qmatmul_pallas_indexed_fused.launches = 0
 qmatmul_pallas_indexed_fused.launches_p4 = 0

@@ -1,0 +1,5 @@
+"""The port's measurement tools, each run as
+``python3 -m fastllama_tpu_torch.tools.<name>``: ``hbm_peak`` (sustained
+device-memory read bandwidth, the sweep's denominator) and
+``qmm_sweep`` (the dequant-matmul's steady-state bandwidth at the 7B
+decode shapes), with ``timing``, the port's one device timer."""

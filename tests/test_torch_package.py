@@ -45,7 +45,8 @@ def test_port_imports_no_jax():
                 "runtime.spec_batching", "ops.kernels.attention",
                 "ops.kernels.flash_decode", "ops.kernels.kv_write",
                 "ops.kernels.qmm", "models.llama", "models.batched",
-                "ops.sampling"):
+                "ops.sampling", "tools.timing", "tools.hbm_peak",
+                "tools.qmm_sweep"):
         assert "fastllama_tpu_torch." + mod in walked
 
 
@@ -64,8 +65,15 @@ def test_entry_points_need_a_card_or_cpu():
     if torch.cuda.is_available():
         pytest.skip("a card is present: device=None is valid here")
     params = tl.random_params_int(CFG, seed=0, device="cpu")
+    from fastllama_tpu_torch.tools import hbm_peak, qmm_sweep
     calls = [
         lambda: tl.random_params_int(CFG, seed=0),
+        lambda: tl.random_params(CFG, seed=0),
+        lambda: tl.random_params_int(CFG, seed=0,
+                                     qtype=tcfg.QuantType.NONE),
+        lambda: hbm_peak.read_gbs(1),
+        lambda: qmm_sweep.make_weights(128, 128, "int8", torch.float32, 1,
+                                       None),
         lambda: tb.BatchedKVCache.create(CFG, 2),
         lambda: tl.params_from_numpy(CFG, {}, {}),
         lambda: BatchedEngine(CFG, params, Tokenizer().finalize(),
