@@ -18,8 +18,9 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    ``decode_attention_pallas_batched`` (2e), K2s, the speculative-verify
    attention, at B=32 and T in {2, 4, 8} (2f), ``spec_write`` (2g),
    K1p, the packed INT4 matmul, at the 7B INT4 shapes (2h), K2b, the
-   prefix cache's block-attend, at T up to 496 over a B=48 cache and at
-   GQA hgs = 8 (2i), K2 with its softmax stats (o, m, l) at B=48 (2j),
+   prefix cache's block-attend, at T up to 496 over a B=48 cache, at
+   GQA hgs = 8 and at ragged T and start, in its tensor-core mode (bf16 q
+   over an int8 or bf16 cache) and its f32 mode (2i), K2 with its softmax stats (o, m, l) at B=48 (2j),
    and the groupdot (scale-after-dot) mode of K1 and K1p at the 7B
    shapes, T in {1, 48, 128}, auto and one split, O = 1000 and gs = 128,
    the wide cases equal to K1 bit for bit, gs = 8 refused (2k);
@@ -72,7 +73,7 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
 4f. prefix-cache serving on phase 4's engine: a donor with a 256-token
    system prompt, then 47 hits with distinct 8-40-token tails, 128 new
    tokens each; 47 hits reusing 256 rows each and K2b launched 32 times a
-   hit are required; TTFT, prefill seconds, tok/s and memory beside the
+   hit, every launch in its tensor-core mode, are required; TTFT, prefill seconds, tok/s and memory beside the
    same traffic without the prefix cache;
 4g. deferred KV on phase 4's engine and traffic at decode chunk 16
    (every chunk deferred) against plain chunks, in turns;
@@ -82,7 +83,8 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    standard and groupdot (the groupdot mode's launches come from here);
 5. each kernel timed with CUDA events at the path's shapes, beside its
    bound (bytes over the card's 3.35 TB/s, or operations over peak), its
-   plain version and a library call.
+   plain version and a library call (K2b: the tensor-core mode at T in
+   {32, 64, 128, 256} and against start, the f32 mode at T=32 and 256).
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Details go to
@@ -666,16 +668,23 @@ def check_block(dev, gen, errs):
     T in {1, 16, 32, 64, 100, 256, 496} and start in {0, 16, 256} wherever
     start + T <= S, slots 0 and 47, f32 and bf16 q.  Then GQA at hgs = 8
     (LLaMA-2-70B's 64 heads over 8 kv heads, one layer), since 7B has
-    hgs = 1."""
+    hgs = 1.  Then ragged T in {1, 15, 17, 63, 65, 150} at start in
+    {0, 1, 100, S - T}, hgs 1 and 8, int8 and bf16 caches.  bf16 q over an
+    int8 or bf16 cache runs the TC mode (``launches_tc`` must advance),
+    every other case the f32 mode (it must not); errors are logged by
+    mode."""
     import torch
     from fastllama_tpu_torch.ops.kernels import flash_decode as fd
     log("phase 2i: K2b block-attend vs plain (7B heads, B=48, S=512)")
     B, S = 48, 512
+    i8, b16, f32 = torch.int8, torch.bfloat16, torch.float32
+    ragged = (1, 15, 17, 63, 65, 150)
     cases = [(32, 32, 2, (1, 16, 32, 64, 100, 256, 496), (0, 16, 256),
-              (0, 47), (torch.int8, torch.bfloat16, torch.float32)),
-             (64, 8, 1, (1, 32, 100, 256), (0, 256), (47,),
-              (torch.int8, torch.bfloat16))]
-    n = 0
+              (0, 47), (i8, b16, f32)),
+             (64, 8, 1, (1, 32, 100, 256), (0, 256), (47,), (i8, b16)),
+             (32, 32, 2, ragged, (0, 1, 100, None), (47,), (i8, b16)),
+             (64, 8, 1, ragged, (0, 1, 100, None), (0,), (i8, b16))]
+    n, by_mode = 0, {}
     for H, n_kv, L, Ts, starts, slots, cache_dts in cases:
         for cache_dt in cache_dts:
             ck, cv, ks, vs = rand_cache(gen, (L, B, n_kv, S, 128), cache_dt,
@@ -683,38 +692,52 @@ def check_block(dev, gen, errs):
             worst = {}
             for T in Ts:
                 for start in starts:
+                    start = S - T if start is None else start
                     if start + T > S:
                         continue
                     for slot in slots:
-                        for qdt, tol in ((torch.bfloat16, TOL_BF16),
-                                         (torch.float32, TOL_F32)):
+                        for qdt, tol in ((b16, TOL_BF16), (f32, TOL_F32)):
                             q = torch.randn((H, T, 128), generator=gen,
                                             device=dev).to(qdt)
                             kn = torch.randn((n_kv, T, 128), generator=gen,
                                              device=dev).to(qdt)
                             vn = torch.randn((n_kv, T, 128), generator=gen,
                                              device=dev).to(qdt)
+                            mode = fd.block_mode(q, ck)
+                            check(mode == ("tc" if qdt == b16 and cache_dt
+                                           != f32 else "f32"),
+                                  f"K2b mode {mode} for q {qdt} cache "
+                                  f"{cache_dt}")
+                            n_tc = fd.flash_block_attend.launches_tc
                             got = fd.flash_block_attend(q, ck, cv, slot,
                                                         L - 1, start, ks, vs,
                                                         kn, vn)
+                            check(fd.flash_block_attend.launches_tc - n_tc
+                                  == (mode == "tc"),
+                                  f"K2b launches_tc wrong in the {mode} "
+                                  f"mode")
                             want = fd.flash_block_plain(q, ck, cv, slot,
                                                         L - 1, start, ks, vs,
                                                         kn, vn)
                             e = compare(f"flash_block H={H} n_kv={n_kv} "
                                         f"cache={str(cache_dt)[6:]} T={T} "
                                         f"start={start} slot={slot} "
-                                        f"q={str(qdt)[6:]}", got, want, tol,
-                                        quiet=True)
-                            k = str(qdt)[6:]
+                                        f"q={str(qdt)[6:]} mode={mode}",
+                                        got, want, tol, quiet=True)
+                            rel = e / max(float(want.float().abs().max()),
+                                          1e-30)
+                            k = f"{mode} q={str(qdt)[6:]}"
                             worst[k] = max(worst.get(k, 0.0), e)
+                            by_mode[mode] = max(by_mode.get(mode, 0.0), rel)
                             errs["flash_block_attend"] = max(
                                 errs["flash_block_attend"], e)
                             n += 1
             log(f"  ok flash_block H={H} n_kv={n_kv} "
                 f"cache={str(cache_dt)[6:]}: T {Ts} x start {starts} x "
-                f"slots {slots}; max_abs_err by q dtype {worst}")
+                f"slots {slots}; max_abs_err by mode {worst}")
             del ck, cv, ks, vs
-    log(f"  {n} K2b comparisons passed")
+    log(f"  {n} K2b comparisons passed; largest error / max|ref| by mode "
+        f"{by_mode}")
     torch.cuda.empty_cache()
 
 
@@ -1583,6 +1606,7 @@ def counters():
     out.update({k + "_p4": (fn, "launches_p4") for k, fn in k1.items()})
     out["flash_decode_batched_stats"] = (fd.flash_decode_batched,
                                          "launches_stats")
+    out["flash_block_attend_tc"] = (fd.flash_block_attend, "launches_tc")
     out["qmatmul_pallas_groupdot"] = (qmm.qmatmul_pallas,
                                       "launches_groupdot")
     out["qmatmul_pallas_groupdot_p4"] = (qmm.qmatmul_pallas,
@@ -2230,6 +2254,9 @@ def phase_prefix_serving(dev, rec):
             check(got["flash_block_attend"] == (B - 1) * cfg.n_layers,
                   f"K2b launched {got['flash_block_attend']} times, not "
                   f"{cfg.n_layers} a hit")
+            check(got["flash_block_attend_tc"] == got["flash_block_attend"],
+                  f"K2b launched {got['flash_block_attend_tc']} times in "
+                  f"the TC mode, not all {got['flash_block_attend']}")
             for k in PREFIX_PATH:
                 check(got[k] > 0, f"kernel {k} was not launched on the "
                                   f"prefix-cache path")
@@ -2999,9 +3026,12 @@ def time_p4(dev, gen, res):
 
 def time_block(dev, gen, res):
     """K2b at the prefix-cache tail shapes (7B heads, int8 cache of B=48,
-    S=512, start 256, bf16 q and fresh block) at T=32 and T=256, layers
-    rotating; K2 with its softmax stats against K2 without them at phase
-    4's decode shape (B=48, pos 107, int8)."""
+    S=512, start 256, bf16 q and fresh block), layers rotating: the TC
+    mode at T in {32, 64, 128, 256}, bounded at the bf16 tensor-core peak;
+    the f32 mode (``flash_block_kernel``) on the same inputs at T=32 and
+    T=256, bounded at the f32 peak, as its own record.  Then K2 with its
+    softmax stats against K2 without them at phase 4's decode shape (B=48,
+    pos 107, int8)."""
     import torch
     from fastllama_tpu_torch.tools.timing import time_ms
     import torch.nn.functional as F
@@ -3014,7 +3044,8 @@ def time_block(dev, gen, res):
     def rot():
         layer[0] = (layer[0] + 1) % L
         return layer[0]
-    for T in (32, 256):
+    rows, f32_rows = {}, {}
+    for T in (32, 64, 128, 256):
         q = torch.randn((H, T, hs), generator=gen, device=dev).to(bf16)
         kn = torch.randn((n_kv, T, hs), generator=gen, device=dev).to(bf16)
         vn = torch.randn((n_kv, T, hs), generator=gen, device=dev).to(bf16)
@@ -3032,8 +3063,9 @@ def time_block(dev, gen, res):
         nbytes = (2 * q.numel() * 2 + start * n_kv * (2 * hs + 8)
                   + 2 * kn.numel() * 2)
         flops = 4 * H * T * start * hs + 4 * H * hs * T * (T + 1) // 2
-        bm, by = bound_ms(nbytes, flops, F32_FLOP_S)
-        r = dict(
+        check(fd.block_mode(q, ck) == "tc", "K2b phase 5: not the TC mode")
+        bm, by = bound_ms(nbytes, flops, BF16_FLOP_S)
+        rows[T] = dict(
             ms=time_ms(lambda: fd.flash_block_attend(
                 q, ck, cv, slot, rot(), start, ksc, vsc, kn, vn)),
             plain_ms=time_ms(lambda: fd.flash_block_plain(
@@ -3042,16 +3074,41 @@ def time_block(dev, gen, res):
                 q, kd[rot()], vd[layer[0]], attn_mask=mask)),
             library_call="SDPA with an explicit mask over pre-dequantized "
                          "bf16 cache rows [0, start) and the fresh block",
-            bound_ms=bm, bound_by=by,
-            bytes=nbytes, flops=flops,
-            block_rows=fd.block_rows(T, H // n_kv, n_kv),
+            bound_ms=bm, bound_by=by, bytes=nbytes, flops=flops,
+            block_rows=fd.block_rows(T, H // n_kv, n_kv, "tc"),
             shape=f"T={T} start={start} H={H} n_kv={n_kv} hs={hs} int8 "
-                  f"cache B={B} S={S}, bf16 q")
-        if T == 32:
-            res["flash_block_attend"] = r
-        else:
-            res["flash_block_attend"]["T256"] = r
+                  f"cache B={B} S={S}, bf16 q, TC mode")
+        if T in (32, 256):
+            bm, by = bound_ms(nbytes, flops, F32_FLOP_S)
+            f32_rows[f"T{T}"] = dict(
+                ms=time_ms(lambda: fd._block_launch(
+                    "f32", q, ck, cv, slot, rot(), start, ksc, vsc, kn,
+                    vn)),
+                bound_ms=bm, bound_by=by,
+                block_rows=fd.block_rows(T, H // n_kv, n_kv, "f32"),
+                shape=f"T={T}, the same inputs, f32 mode")
+        r = rows[T]
+        log(f"  flash_block_attend T={T}: TC {r['ms']:.4f} ms (bound "
+            f"{r['bound_ms']:.5f} by {r['bound_by']}, plain "
+            f"{r['plain_ms']:.4f}, SDPA {r['library_ms']:.4f}, TQ "
+            f"{r['block_rows']})"
+            + (f"; f32 mode {f32_rows[f'T{T}']['ms']:.4f} ms (bound "
+               f"{f32_rows[f'T{T}']['bound_ms']:.5f})"
+               if f"T{T}" in f32_rows else ""))
         del kd, vd
+    # the TC mode's time against the cache rows it reads: T=32, start
+    # 0 .. 448 (0 .. 7 cache tiles of 64 rows)
+    T = 32
+    q = torch.randn((H, T, hs), generator=gen, device=dev).to(bf16)
+    kn = torch.randn((n_kv, T, hs), generator=gen, device=dev).to(bf16)
+    vn = torch.randn((n_kv, T, hs), generator=gen, device=dev).to(bf16)
+    by_start = {st: time_ms(lambda: fd.flash_block_attend(
+        q, ck, cv, slot, rot(), st, ksc, vsc, kn, vn))
+        for st in (0, 128, 256, 448)}
+    log(f"  flash_block_attend TC T=32 by start (ms): {by_start}")
+    res["flash_block_attend"] = dict(
+        rows[32], T64=rows[64], T128=rows[128], T256=rows[256],
+        f32_mode=f32_rows, tc_T32_ms_by_start=by_start)
 
     # K2 with stats against K2 without, B=48 at pos 107, int8 cache
     q = torch.randn((B, H, 1, hs), generator=gen, device=dev).to(bf16)

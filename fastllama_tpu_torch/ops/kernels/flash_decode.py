@@ -21,7 +21,9 @@ speculative-verify mode: T query rows per slot over rows [0, pos[b]) plus
 a causal fresh block, in the same source.  K2b
 (:func:`flash_block_attend`, replacing flash_decode.py:426) attends one
 slot's prefill tail: T query rows over that slot's rows [0, start) and
-the causal block, for the prefix cache.  The TPU's host ``s_bound``
+the causal block, for the prefix cache; bf16 q over an int8 or bf16
+cache takes its tensor-core mode (``block_mode``), counted also in
+``.launches_tc``.  The TPU's host ``s_bound``
 window (``round_bound``) has no counterpart: the kernel reads ``pos``
 from the device and only the rows the mask keeps.
 
@@ -449,14 +451,42 @@ def _validate_block(q, ck, cv, slot, layer, start, k_scale, v_scale, k_new,
                     [k_new, v_new], (n_kv, T, hs), B=1)
 
 
-def block_rows(T: int, hgs: int, n_kv: int) -> int:
+def block_mode(q, ck) -> str:
+    """K2b's mode, a function of dtypes and shapes only: ``"tc"`` (the
+    tensor-core kernel) for bf16 q over an int8 or bf16 cache with hs a
+    multiple of 16 up to 256 (and, past hs 128, where a block holds at
+    most 32 query rows, hgs <= 32); ``"f32"`` (the f32 CUDA-core kernel)
+    for every other call."""
+    hs = q.shape[-1]
+    hgs = q.shape[0] // ck.shape[2]
+    return ("tc" if q.dtype == torch.bfloat16
+            and ck.dtype in (torch.int8, torch.bfloat16)
+            and hs % 16 == 0 and hs <= HS_MAX
+            and (hs <= 128 or hgs <= 32) else "f32")
+
+
+def block_rows(T: int, hgs: int, n_kv: int, mode: str = "f32",
+               hs: int = 128) -> int:
     """TQ, the query positions a block takes: at most 64 // hgs rows (and
-    no more than T needs), halved down to 8 while the grid of n_kv x
-    ceil(T / TQ) blocks would leave SMs idle."""
-    tq = min(BLOCK_ROWS_MAX // hgs, 1 << max(T - 1, 0).bit_length())
-    while tq > 8 and n_kv * -(-T // tq) < BLOCK_GRID_MIN:
+    no more than T needs), halved while the grid of n_kv x ceil(T / TQ)
+    blocks would leave SMs idle -- down to 8 in the f32 mode; in the TC
+    mode (at most 32 rows past hs 128) down to the least TQ that keeps
+    hgs * TQ a multiple of 16 (a warp's 16 rows), where the row limit
+    allows one (else the kernel pads its rows to 16)."""
+    if mode == "f32":
+        tq = min(BLOCK_ROWS_MAX // hgs, 1 << max(T - 1, 0).bit_length())
+        while tq > 8 and n_kv * -(-T // tq) < BLOCK_GRID_MIN:
+            tq //= 2
+        return max(tq, 1)
+    rows = BLOCK_ROWS_MAX if hs <= 128 else BLOCK_ROWS_MAX // 2
+    unit = 16 // math.gcd(hgs, 16)
+    if hgs * unit > rows:
+        unit = 1
+    tq = min(rows // hgs // unit,
+             1 << max(-(-T // unit) - 1, 0).bit_length()) * unit
+    while tq % (2 * unit) == 0 and n_kv * -(-T // tq) < BLOCK_GRID_MIN:
         tq //= 2
-    return max(tq, 1)
+    return tq
 
 
 def flash_block_attend(q, ck, cv, slot: int, layer: int, start: int,
@@ -469,8 +499,9 @@ def flash_block_attend(q, ck, cv, slot: int, layer: int, start: int,
     (n_kv, T, hs) the block's own K/V in q's dtype; slot, layer and start
     host ints.  Any T <= S is taken (the TPU kernel's T * n_heads <= 4096
     limit is Mosaic's).  Returns (n_heads, T, hs) in q.dtype.  A CPU
-    tensor takes :func:`flash_block_plain`; a CUDA tensor launches K2b or
-    raises."""
+    tensor takes :func:`flash_block_plain`; a CUDA tensor launches K2b in
+    the mode :func:`block_mode` picks, or raises.  Both modes count in
+    ``.launches``, the TC mode also in ``.launches_tc``."""
     _validate_block(q, ck, cv, slot, layer, start, k_scale, v_scale, k_new,
                     v_new)
     if q.device.type == "cpu":
@@ -478,25 +509,41 @@ def flash_block_attend(q, ck, cv, slot: int, layer: int, start: int,
                                  v_scale, k_new, v_new)
     if q.device.type != "cuda":
         raise ValueError(f"flash_block_attend: unsupported device {q.device}")
+    return _block_launch(block_mode(q, ck), q, ck, cv, slot, layer, start,
+                         k_scale, v_scale, k_new, v_new)
+
+
+def _block_launch(mode, q, ck, cv, slot, layer, start, k_scale, v_scale,
+                  k_new, v_new):
+    """Launch K2b in ``mode`` on validated CUDA operands and count it.  The
+    f32 mode takes any operands :func:`flash_block_attend` takes (phase 5
+    of ``chip_smoke.py`` times it on the TC mode's inputs too)."""
     n_heads, T, hs = q.shape
     _, Bc, n_kv, S, _ = ck.shape
     hgs = n_heads // n_kv
     out = torch.empty_like(q)
-    fn = _build.load("flash_decode").flash_block_launch
+    lib = _build.load("flash_decode")
+    if mode == "tc":        # bf16 q: the cache's dtype code only
+        fn, dts = lib.flash_block_tc_launch, [_DT[ck.dtype]]
+    else:
+        fn, dts = lib.flash_block_launch, [_DT[q.dtype], _DT[ck.dtype]]
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 \
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        + [ctypes.c_float] + [ctypes.c_int] * len(dts) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     rc = fn(_build.ptr(q), _build.ptr(ck), _build.ptr(cv),
             _build.ptr(k_scale), _build.ptr(v_scale), _build.ptr(k_new),
             _build.ptr(v_new), _build.ptr(out), layer, slot, start, Bc, n_kv,
-            S, hs, T, hgs, block_rows(T, hgs, n_kv), 1.0 / math.sqrt(hs),
-            _DT[q.dtype], _DT[ck.dtype], _build.stream_of(q))
-    _build.check(rc, "flash_block_launch")
+            S, hs, T, hgs, block_rows(T, hgs, n_kv, mode, hs),
+            1.0 / math.sqrt(hs), *dts, _build.stream_of(q))
+    _build.check(rc, f"flash_block_launch ({mode} mode)")
     flash_block_attend.launches += 1
+    if mode == "tc":
+        flash_block_attend.launches_tc += 1
     return out
 
 
 flash_block_attend.launches = 0
+flash_block_attend.launches_tc = 0
 
 
 def make_attn_tail():
