@@ -15,7 +15,10 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    K1f (the matmul with the rmsnorm prologue / residual epilogue) at the
    single-stream decode shapes, K2's non-fresh mode at B=1 through its
    three wrappers and per slot through ``flash_decode_batched`` and
-   ``decode_attention_pallas_batched`` (2e), K2s, the speculative-verify
+   ``decode_attention_pallas_batched``, then its split-row mode across
+   cache dtypes, hgs 1/2/4/8, hs 64/128, B 1/4/32 and pos 0, 1, 107,
+   S-1 and 2047 at S=2048, each call advancing ``launches_split`` (2e),
+   K2s, the speculative-verify
    attention, at B=32 and T in {2, 4, 8} (2f), ``spec_write`` (2g),
    K1p, the packed INT4 matmul, at the 7B INT4 shapes (2h), K2b, the
    prefix cache's block-attend, at T up to 496 over a B=48 cache, at
@@ -53,9 +56,11 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    fused once / bf16 scales ("auto") / bf16 KV / S=512, the 43-token
    prompt, 128 new tokens, greedy, decode chunk 64, one warm-up and one
    measured run with the counters zeroed just before; one decode chunk
-   traced.  Then the ``flash_attention=False`` engine and a ``forward``
-   with the one-layer attention hook, each with the counters zeroed, so
-   that every wrapper of K2's non-fresh mode runs on a path;
+   traced (K2 non-fresh's device ms a step by mode).  Then the
+   ``flash_attention=False`` engine and a ``forward`` with the one-layer
+   attention hook, each with the counters zeroed, so that every wrapper
+   of K2's non-fresh mode runs on a path; every non-fresh launch of the
+   three must be in the split-row mode;
 4c. speculative serving at full width (bench.py's ``bench_spec_serving``
    shape): ``SpecBatchedEngine`` over 7B / INT8 unfused / scale_dtype
    "auto" (f32) / int8 KV / B=32 / S=512, width 4, 32 rounds a chunk, decode
@@ -84,7 +89,11 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
 5. each kernel timed with CUDA events at the path's shapes, beside its
    bound (bytes over the card's 3.35 TB/s, or operations over peak), its
    plain version and a library call (K2b: the tensor-core mode at T in
-   {32, 64, 128, 256} and against start, the f32 mode at T=32 and 256).
+   {32, 64, 128, 256} and against start, the f32 mode at T=32 and 256;
+   K2 non-fresh: the split-row mode and the tiled kernel at B=1 against
+   pos, 0 to 511 at S=512 and 2047 at S=2048, and at B=32, the split
+   mode at other split counts, least chunks and warps a block at pos 107,
+   255, 511 and 2047, and other warps a block at pos 0 and 107).
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Details go to
@@ -371,6 +380,7 @@ def phase_kernels(dev, rec):
     torch.cuda.empty_cache()
     check_fused(dev, gen, errs)
     check_non_fresh(dev, gen, errs)
+    check_split(dev, gen, errs)
     check_spec(dev, gen, errs)
     check_spec_write(dev, gen, errs)
     check_p4(dev, gen, errs)
@@ -445,7 +455,8 @@ def check_non_fresh(dev, gen, errs):
                      (q, ck[1], cv[1], p))):
                 e = compare(f"{name} cache={str(cdt)[6:]} pos={p}",
                             fn(*args), plain(*pargs), tol)
-                errs[name] = max(errs[name], e)
+                for k in (name, name + "_split"):
+                    errs[k] = max(errs[k], e)
         B = 4
         ckb = ck[:, None].expand(L, B, n_kv, S, hs).contiguous()
         cvb = cv[:, None].expand(L, B, n_kv, S, hs).contiguous()
@@ -455,16 +466,113 @@ def check_non_fresh(dev, gen, errs):
                     f"cache={str(cdt)[6:]}",
                     fd.flash_decode_batched(qb, ckb, cvb, pos, 1),
                     fd.flash_decode_plain(qb, ckb, cvb, pos, 1), tol)
-        errs["flash_decode_single"] = max(errs["flash_decode_single"], e)
+        for k in ("flash_decode_single", "flash_decode_batched_split"):
+            errs[k] = max(errs[k], e)
         e = compare(f"decode_attention_pallas_batched B={B} "
                     f"cache={str(cdt)[6:]}",
                     at.decode_attention_pallas_batched(qb, ckb, cvb, pos, 1),
                     at.decode_attention_batched_plain(qb, ckb, cvb, pos, 1),
                     tol)
-        errs["decode_attention_pallas_batched"] = max(
-            errs["decode_attention_pallas_batched"], e)
+        for k in ("decode_attention_pallas_batched",
+                  "decode_attention_pallas_batched_split"):
+            errs[k] = max(errs[k], e)
         del ck, cv, ckb, cvb
     torch.cuda.empty_cache()
+
+
+def check_split(dev, gen, errs):
+    """K2's split-row mode (non-fresh, no stats, hs a multiple of 16) at
+    7B heads (H=32, n_kv = 32 / hgs): bf16 q over a bf16 or int8 cache,
+    f32 q over an f32 or int8 cache (int8 with ``quantize_rows`` scales),
+    hgs 1, 2, 4 and 8, hs 64 and 128; B=1 at pos 0, 1, 107 and S-1 over
+    slot 0 of a 32-slot cache (S=512) and at 0 and 2047 over a one-slot
+    cache (S=2048); B=4 and B=32 at per-slot positions.  Every call must
+    advance the wrapper's ``launches_split``."""
+    import torch
+    from fastllama_tpu_torch.ops.kernels import attention as at
+    from fastllama_tpu_torch.ops.kernels import flash_decode as fd
+    from fastllama_tpu_torch.quant.groupquant import quantize_rows
+    log("phase 2e: K2 split-row mode vs plain (7B heads, hgs 1-8, hs 64 "
+        "and 128, B 1/4/32, S 512 and 2048)")
+    f32, bf16, i8 = torch.float32, torch.bfloat16, torch.int8
+    H, L = 32, 2
+    n = 0
+
+    def cache(shape, cdt):
+        ck, cv = (torch.randn(shape, generator=gen, device=dev)
+                  for _ in range(2))
+        if cdt != i8:
+            return ck.to(cdt), cv.to(cdt), None, None
+        (ck, ks), (cv, vs) = quantize_rows(ck), quantize_rows(cv)
+        return ck, cv, ks[..., 0].contiguous(), vs[..., 0].contiguous()
+
+    def run(label, key, fn, args, plain, tol):
+        nonlocal n
+        s0 = fn.launches_split
+        e = compare(label, fn(*args), plain(*args), tol, quiet=True)
+        check(fn.launches_split == s0 + 1,
+              f"{label}: launches_split did not advance")
+        errs[key] = max(errs[key], e)
+        n += 1
+    for qdt, cdt in ((bf16, bf16), (f32, f32), (bf16, i8), (f32, i8)):
+        tol = TOL_F32 if qdt == f32 else TOL_BF16
+        for hs in (64, 128):
+            for hgs in (1, 2, 4, 8):
+                n_kv = H // hgs
+                tag = (f"q={str(qdt)[6:]} cache={str(cdt)[6:]} hs={hs} "
+                       f"hgs={hgs}")
+                S = 512
+                ck, cv, ks, vs = cache((L, 32, n_kv, S, hs), cdt)
+                q = torch.randn((32, H, 1, hs), generator=gen,
+                                device=dev).to(qdt)
+                for B, pos in ((1, [0]), (1, [1]), (1, [107]), (1, [S - 1]),
+                               (4, [S - 1, 0, 107, 1]),
+                               (32, torch.randint(0, S, (32,), generator=gen,
+                                                  device=dev).tolist())):
+                    p = torch.tensor(pos, dtype=torch.int32, device=dev)
+                    args = (q[:B].contiguous(), ck, cv, p, 1, ks, vs)
+                    run(f"flash_decode_batched split {tag} B={B} "
+                        f"pos={pos[:4]}", "flash_decode_batched_split",
+                        fd.flash_decode_batched, args, fd.flash_decode_plain,
+                        tol)
+                    if B == 4:
+                        # 8 splits of at least 16 rows: several merge
+                        e = compare(f"split mode 8 splits {tag} B={B}",
+                                    fd._split_launch(*args, 8, 16),
+                                    fd.flash_decode_plain(*args), tol,
+                                    quiet=True)
+                        errs["flash_decode_batched_split"] = max(
+                            errs["flash_decode_batched_split"], e)
+                        n += 1
+                    if B == 32 and ks is None:
+                        run(f"decode_attention_pallas_batched split {tag}",
+                            "decode_attention_pallas_batched_split",
+                            at.decode_attention_pallas_batched, args[:5],
+                            at.decode_attention_batched_plain, tol)
+                del ck, cv, ks, vs
+                S = 2048
+                ck, cv, ks, vs = cache((L, 1, n_kv, S, hs), cdt)
+                for p in (0, S - 1):
+                    pos = torch.full((1,), p, dtype=torch.int32, device=dev)
+                    if ks is None:
+                        run(f"flash_decode_single split {tag} S={S} pos={p}",
+                            "flash_decode_single_split",
+                            fd.flash_decode_single,
+                            (q[0], ck[:, 0], cv[:, 0], pos, 1),
+                            fd.flash_decode_single_plain, tol)
+                    else:
+                        run(f"flash_decode_batched split {tag} S={S} "
+                            f"pos={p}", "flash_decode_batched_split",
+                            fd.flash_decode_batched,
+                            (q[:1].contiguous(), ck, cv, pos, 1, ks, vs),
+                            fd.flash_decode_plain, tol)
+                del ck, cv, ks, vs
+    torch.cuda.empty_cache()
+    log(f"  ok {n} split-mode comparisons; largest errors "
+        + ", ".join(f"{k} {errs[k]:.3e}" for k in
+                    ("flash_decode_batched_split",
+                     "decode_attention_pallas_batched_split",
+                     "flash_decode_single_split")))
 
 
 def check_spec(dev, gen, errs):
@@ -1574,15 +1682,23 @@ KERNELS = ("qmatmul_pallas", "qmatmul_pallas_indexed",
            "decode_attention_pallas_batched", "qmatmul_pallas_p4",
            "qmatmul_pallas_indexed_p4", "qmatmul_pallas_indexed_fused_p4",
            "flash_block_attend", "flash_decode_batched_stats",
-           "qmatmul_pallas_groupdot", "qmatmul_pallas_groupdot_p4")
+           "qmatmul_pallas_groupdot", "qmatmul_pallas_groupdot_p4",
+           "flash_decode_single_split", "decode_attention_pallas_indexed_split",
+           "decode_attention_pallas_split", "flash_decode_batched_split",
+           "decode_attention_pallas_batched_split")
+# the wrappers of K2's non-fresh mode: each counts its split-row launches
+SPLIT_WRAPPERS = ("flash_decode_single", "decode_attention_pallas_indexed",
+                  "decode_attention_pallas", "flash_decode_batched",
+                  "decode_attention_pallas_batched")
 
 
 def counters():
     """(wrapper, count attribute) of each entry of KERNELS: K1p's launches
     are counted on the K1/K1f wrappers' ``launches_p4``, K2's with stats on
     ``flash_decode_batched.launches_stats``, the groupdot mode's on
-    ``qmatmul_pallas.launches_groupdot`` (K1) and ``_groupdot_p4``
-    (K1p)."""
+    ``qmatmul_pallas.launches_groupdot`` (K1) and ``_groupdot_p4`` (K1p),
+    K2's split-row mode on each non-fresh wrapper's ``launches_split``
+    (``<wrapper>_split``)."""
     from fastllama_tpu_torch.ops.kernels import attention as at
     from fastllama_tpu_torch.ops.kernels import flash_decode as fd
     from fastllama_tpu_torch.ops.kernels import kv_write as kw
@@ -1607,6 +1723,8 @@ def counters():
     out["flash_decode_batched_stats"] = (fd.flash_decode_batched,
                                          "launches_stats")
     out["flash_block_attend_tc"] = (fd.flash_block_attend, "launches_tc")
+    out.update({k + "_split": (rest[k], "launches_split")
+                for k in SPLIT_WRAPPERS})
     out["qmatmul_pallas_groupdot"] = (qmm.qmatmul_pallas,
                                       "launches_groupdot")
     out["qmatmul_pallas_groupdot_p4"] = (qmm.qmatmul_pallas,
@@ -1781,12 +1899,18 @@ def profile_single(eng, prompt, step_ms, n_steps=16):
     rows = device_rows(prof)
     busy_s = sum(r[0] for r in rows) / 1e6
     busy_step_ms = busy_s * 1e3 / n_steps
+    # K2 non-fresh by mode: the split-row kernel and the tiled one
+    k2 = {mode: [sum(us for us, _, k in rows if name in k) / 1e3 / n_steps,
+                 sum(c for _, c, k in rows if name in k) / n_steps]
+          for mode, name in (("split", "flash_decode_split_kernel"),
+                             ("tiled", "flash_decode_kernel"))}
     out = {"steps": n_steps, "wall_ms": wall * 1e3,
            "device_busy_ms": busy_s * 1e3,
            "device_idle_share_traced": 1.0 - busy_s / wall,
            "device_busy_ms_per_step": busy_step_ms,
            "device_ops_per_step": sum(r[1] for r in rows) / n_steps,
            "device_idle_share": 1.0 - busy_step_ms / step_ms,
+           "k2_non_fresh_ms_per_step": k2,
            "top_kernels": [{"name": k[:120], "count": c, "device_ms":
                             us / 1e3} for us, c, k in rows[:15]]}
     log(f"  profile: {n_steps} decode steps in {wall * 1e3:.3f} ms wall, "
@@ -1795,9 +1919,21 @@ def profile_single(eng, prompt, step_ms, n_steps=16):
         f"device per step against {step_ms:.3f} ms untraced (idle share "
         f"{out['device_idle_share']:.3f}); "
         f"{out['device_ops_per_step']:.1f} device ops per step")
+    log(f"  K2 non-fresh device ms per step: split mode "
+        f"{k2['split'][0]:.4f} ({k2['split'][1]:.1f} launches), tiled "
+        f"{k2['tiled'][0]:.4f} ({k2['tiled'][1]:.1f})")
     for r in out["top_kernels"][:8]:
         log(f"    {r['device_ms']:10.3f} ms  x{r['count']:<6} {r['name']}")
     return out
+
+
+def check_all_split(launches, names):
+    """Every non-fresh K2 launch of a single-stream run in the split-row
+    mode: ``<name>_split`` equal to ``<name>`` for each wrapper."""
+    for k in names:
+        check(launches[k + "_split"] == launches[k],
+              f"{k}: {launches[k + '_split']} of {launches[k]} launches in "
+              f"the split-row mode")
 
 
 def phase_single_serving(dev, rec):
@@ -1839,10 +1975,12 @@ def phase_single_serving(dev, rec):
           "decode_attention_pallas_indexed was not launched")
     check(got == toks[:16], f"flash_attention=False tokens {got} differ "
                             f"from {toks[:16]}")
+    check_all_split(more, ("decode_attention_pallas_indexed",))
     log(f"  ok flash_attention=False: 16 tokens equal, launches "
-        f"{more['decode_attention_pallas_indexed']}")
-    launches["decode_attention_pallas_indexed"] = \
-        more["decode_attention_pallas_indexed"]
+        f"{more['decode_attention_pallas_indexed']}, all in the split mode")
+    for k in ("decode_attention_pallas_indexed",
+              "decode_attention_pallas_indexed_split"):
+        launches[k] = more[k]
 
     # models.llama.forward with the one-layer attention hook (per-layer
     # weight views through K1, decode_attention_pallas on cache[l])
@@ -1861,9 +1999,12 @@ def phase_single_serving(dev, rec):
     more = read_launches()
     check(more["decode_attention_pallas"] > 0,
           "decode_attention_pallas was not launched")
+    check_all_split(more, ("decode_attention_pallas",))
     log(f"  ok forward with the one-layer attention hook: 8 decode steps, "
-        f"launches {more['decode_attention_pallas']}")
-    launches["decode_attention_pallas"] = more["decode_attention_pallas"]
+        f"launches {more['decode_attention_pallas']}, all in the split "
+        f"mode")
+    for k in ("decode_attention_pallas", "decode_attention_pallas_split"):
+        launches[k] = more[k]
     rec["single_serving"] = out
     del eng, cache, params
     torch.cuda.empty_cache()
@@ -1898,6 +2039,7 @@ def serve_single(eng, path, t0, n_new=128, chunk=64):
     for k in path:
         check(launches[k] > 0, f"kernel {k} was not launched on the "
                                f"single-stream path")
+    check_all_split(launches, ("flash_decode_single",))
     steps = launches["flash_decode_single"] // eng.config.n_layers
     out = {
         "prompt_tokens": st.prompt_tokens, "new_tokens": st.output_tokens,
@@ -1914,7 +2056,8 @@ def serve_single(eng, path, t0, n_new=128, chunk=64):
         f" ms/step over {steps} steps), prefill {st.prefill_s:.4f} s for "
         f"{st.prompt_tokens} tokens, max memory "
         f"{out['max_memory_allocated_gb']:.2f} GB on {out['card']}")
-    log(f"  launches {launches}")
+    log(f"  launches {launches}; all {launches['flash_decode_single']} "
+        f"flash_decode_single launches in the split-row mode")
     out["profile"] = profile_single(eng, prompt, out["ms_per_decode_step"])
     return out, launches, toks
 
@@ -2617,6 +2760,7 @@ def phase_timing(dev, rec):
     del cache
     torch.cuda.empty_cache()
     time_single(dev, gen, res)
+    time_decode_by_pos(dev, gen, res)
     time_spec(dev, gen, res)
     time_p4(dev, gen, res)
     time_block(dev, gen, res)
@@ -2734,6 +2878,10 @@ def time_single(dev, gen, res):
         return F.scaled_dot_product_attention(
             q[None], ck[lyr][None, :, :p + 1], cv[lyr][None, :, :p + 1])
     lib = time_ms(sdpa)
+    ckb = ck.view(L, 1, n_kv, S, hs)
+    cvb = cv.view(L, 1, n_kv, S, hs)
+    tile = time_ms(lambda: fd._launch(q[None], ckb, cvb, pos, rot(L), None,
+                                      None, None, None, False))
     for name, run, plain in (
             ("flash_decode_single",
              lambda: fd.flash_decode_single(q, ck, cv, pos, rot(L)),
@@ -2750,11 +2898,97 @@ def time_single(dev, gen, res):
         res[name] = dict(
             ms=time_ms(run), plain_ms=time_ms(plain), library_ms=lib,
             library_call="SDPA over the bf16 rows [0, pos] of one layer",
-            bound_ms=bm, bound_by=by, bytes=nbytes,
+            bound_ms=bm, bound_by=by, bytes=nbytes, tile_ms=tile,
             shape=f"B=1 H={H} n_kv={n_kv} hs={hs} S={S} bf16 cache, "
-                  f"pos={p}")
-    del ck, cv
+                  f"pos={p}, split-row mode (tile_ms: the tiled kernel)")
+        res[name + "_split"] = dict(res[name])
+    del ck, cv, ckb, cvb
     torch.cuda.empty_cache()
+
+
+def time_decode_by_pos(dev, gen, res):
+    """K2 non-fresh against the rows it reads: 7B heads, bf16 cache of 32
+    layers (layers rotating), B=1 at pos 0, 63, 64, 107, 255, 511 (S=512)
+    and 2047 (S=2048), and B=32 at pos 107 (S=512, 2 layers): the split-row
+    mode (what the wrappers run) and the tiled kernel
+    (``flash_decode_kernel``) on each, SDPA over the same rows and the
+    bytes bound beside them; at B=1 pos 107, 255, 511 and 2047 also the
+    split mode at other split counts than ``split_count``'s, other least
+    chunks than ``SPLIT_MIN_CHUNK`` and other warps a block (also at pos
+    0)."""
+    import torch
+    from fastllama_tpu_torch.tools.timing import time_ms
+    import torch.nn.functional as F
+    from fastllama_tpu_torch.ops.kernels import flash_decode as fd
+    bf16 = torch.bfloat16
+    H, n_kv, hs = 32, 32, 128
+    rows = {}
+    for B, L, S, positions in ((1, 32, 512, (0, 63, 64, 107, 255, 511)),
+                               (1, 32, 2048, (2047,)), (32, 2, 512, (107,))):
+        ck = torch.randn((L, B, n_kv, S, hs), generator=gen,
+                         device=dev).to(bf16)
+        cv = torch.randn((L, B, n_kv, S, hs), generator=gen,
+                         device=dev).to(bf16)
+        q = torch.randn((B, H, 1, hs), generator=gen, device=dev).to(bf16)
+        layer = [0]
+
+        def rot():
+            layer[0] = (layer[0] + 1) % L
+            return layer[0]
+        for p in positions:
+            pos = torch.full((B,), p, dtype=torch.int32, device=dev)
+            nbytes = 2 * q.numel() * 2 + 2 * B * (p + 1) * n_kv * hs * 2
+            bm, by = bound_ms(nbytes, 4 * B * (p + 1) * H * hs, F32_FLOP_S)
+
+            def sdpa():
+                lyr = rot()
+                return F.scaled_dot_product_attention(
+                    q, ck[lyr][:, :, :p + 1], cv[lyr][:, :, :p + 1])
+            r = dict(
+                ms=time_ms(lambda: fd._split_launch(q, ck, cv, pos, rot(),
+                                                    None, None)),
+                tile_ms=time_ms(lambda: fd._launch(
+                    q, ck, cv, pos, rot(), None, None, None, None, False)),
+                library_ms=time_ms(sdpa),
+                library_call="SDPA over the bf16 rows [0, pos] of one layer",
+                bound_ms=bm, bound_by=by, bytes=nbytes,
+                nsplit=fd.split_count(B, n_kv, S, H // n_kv),
+                shape=f"B={B} H={H} n_kv={n_kv} hs={hs} S={S} bf16 cache, "
+                      f"pos={p}")
+            if B == 1 and p in (107, 255, 511, 2047):
+                r["ms_by_nsplit"] = {n: time_ms(lambda: fd._split_launch(
+                    q, ck, cv, pos, rot(), None, None, n))
+                    for n in (1, 2, 4, 8, 16)}
+                r["ms_by_min_chunk"] = {c: time_ms(lambda: fd._split_launch(
+                    q, ck, cv, pos, rot(), None, None, None, c))
+                    for c in (64, 128, 256, 512)}
+                r["ms_by_nsplit_warps"] = {
+                    f"{n}x{w}": time_ms(lambda: fd._split_launch(
+                        q, ck, cv, pos, rot(), None, None, n,
+                        fd.SPLIT_MIN_CHUNK, w))
+                    for n, w in ((4, 8), (8, 8), (16, 4), (8, 16))}
+            if B == 1 and p in (0, 107):
+                r["ms_by_warps"] = {w: time_ms(lambda: fd._split_launch(
+                    q, ck, cv, pos, rot(), None, None, None,
+                    fd.SPLIT_MIN_CHUNK, w)) for w in (4, 8, 16)}
+            if B > 1:
+                r["plain_ms"] = time_ms(lambda: fd.flash_decode_plain(
+                    q, ck, cv, pos, rot()))
+            key = f"B{B}_S{S}_pos{p}"
+            rows[key] = r
+            log(f"  K2 non-fresh {key}: split {r['ms']:.4f} ms (nsplit "
+                f"{r['nsplit']}), tiled {r['tile_ms']:.4f}, SDPA "
+                f"{r['library_ms']:.4f}, bound {bm:.5f} by {by}"
+                + (f"; by nsplit {r['ms_by_nsplit']}; by least chunk "
+                   f"{r['ms_by_min_chunk']}; by nsplit x warps "
+                   f"{r['ms_by_nsplit_warps']}" if "ms_by_nsplit" in r
+                   else "")
+                + (f"; by warps a block {r['ms_by_warps']}"
+                   if "ms_by_warps" in r else ""))
+        del ck, cv
+        torch.cuda.empty_cache()
+    res["flash_decode_single"]["by_pos"] = rows
+    res["flash_decode_batched_split"] = dict(rows["B32_S512_pos107"])
 
 
 def time_spec(dev, gen, res):
@@ -2834,13 +3068,18 @@ def time_spec(dev, gen, res):
     res["decode_attention_pallas_batched"] = dict(
         ms=time_ms(lambda: at.decode_attention_pallas_batched(
             q1, ckb, cvb, pos, rot())),
+        tile_ms=time_ms(lambda: fd._launch(q1, ckb, cvb, pos, rot(), None,
+                                           None, None, None, False)),
         plain_ms=time_ms(lambda: at.decode_attention_batched_plain(
             q1, ckb, cvb, pos, rot())),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             q1, ckb[rot()], cvb[layer[0]], attn_mask=mask1)),
         library_call="SDPA over the bf16 layer, masked to rows [0, pos]",
         bound_ms=bm, bound_by=by, bytes=nbytes,
-        shape=f"B={B} H={H} n_kv={n_kv} hs={hs} S={S} bf16 cache, pos={p}")
+        shape=f"B={B} H={H} n_kv={n_kv} hs={hs} S={S} bf16 cache, pos={p}, "
+              f"split-row mode (tile_ms: the tiled kernel)")
+    res["decode_attention_pallas_batched_split"] = dict(
+        res["decode_attention_pallas_batched"])
     del ckb, cvb
 
     # spec_write: D=4 rows for 32 slots, the 7B int8 cache of 32 layers
@@ -3277,6 +3516,8 @@ SOURCES = {
     "qmatmul_pallas_groupdot_p4": ("fastllama_tpu_torch/csrc/qmm.cu",
                                    "fastllama_tpu/ops/pallas/qmm.py:405"),
 }
+# K2's split-row mode: the same source and TPU function as its wrapper's
+SOURCES.update({k + "_split": SOURCES[k] for k in SPLIT_WRAPPERS})
 
 
 def main() -> int:

@@ -41,13 +41,15 @@
 // exactly v_new: the running max starts at -1e30 as in the TPU kernel, so
 // the empty softmax contributes exp(-1e30 - s_new) = 0 and no NaN.  The
 // non-fresh mode always reads at least row 0.  At B = 1 (the single-stream
-// engine) the grid is only n_kv blocks: 32 of 132 SMs at 7B.
+// engine) the grid is only n_kv blocks: 32 of 132 SMs at 7B, which is why
+// the wrapper sends the non-fresh calls without stats (hs a multiple of 16)
+// to the split-row mode below (flash_decode_split_kernel); this kernel
+// keeps the fresh and stats modes and the other head sizes.
 //
 // What bounds it on an H100: memory bytes.  Each step reads
 // pos[b] * hs * 2 cache bytes (+ 8 bytes of row scales) per (slot, head)
 // and does ~4 * hgs flops per byte.  The design reads only the live rows;
-// loads are coalesced along hs within a warp.  Later work: vector loads,
-// cp.async double buffering, and splitting long rows across blocks.
+// loads are coalesced along hs within a warp.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -228,6 +230,419 @@ flash_decode_kernel(const QT* __restrict__ q,       // (B, n_kv, HGS, hs)
       out[qoff + (size_t)g * hs + d] = from_f<QT>(o);
     }
   }
+}
+
+// K2, split-row mode: non-fresh decode attention without stats.
+//
+// Replaces, like flash_decode_kernel's non-fresh exit, the Pallas
+// flash_decode_single (fastllama_tpu/ops/pallas/flash_decode.py:299; body
+// _flash_kernel :67, mask col <= pos :144) and decode_attention_pallas
+// (ops/pallas/attention.py:48), decode_attention_pallas_indexed (:110) and
+// decode_attention_pallas_batched (:178), and flash_decode_batched
+// (flash_decode.py:203) called without fresh rows.  The wrapper sends
+// every non-fresh call without stats here when hs is a multiple of 16 (up
+// to 256); flash_decode_kernel keeps the fresh and stats modes and the
+// other head sizes.
+//
+// What bounds it on an H100: memory bytes.  A (slot, kv head) reads
+// p = pos[b] + 1 cache rows of K and V, p * hs * 2 elements (+ 8 bytes of
+// row scales a row at int8), and does ~4 * hgs flops per element: at
+// hgs <= 8 a GEMV, far below the f32 or tensor-core rates, so the design
+// is about keeping loads in flight, not about the arithmetic.
+//
+// What held the tiled kernel back, and what this design does about it:
+//   * grid: one block per (slot, kv head), 32 blocks at B=1 on 132 SMs.
+//     Here the grid is (B * n_kv, nsplit), with nsplit (ops/kernels/
+//     flash_decode.py: split_count) from host ints only, about one wave of
+//     16 warps an SM, and blocks of up to 16 warps at hgs 1, fewer at a
+//     large B (split_warps, split_block_warps).  Each
+//     block reads p from the device and takes rows [r0, r1) of [0, p):
+//     chunks of max(ceil(p / nsplit), min_chunk) rows rounded up to
+//     SPLIT_UNIT, so the work follows pos with no host sync; a split past
+//     p returns at once;
+//   * a serial chain of row loads (one warp a row, 4 scalar 2-byte loads a
+//     lane, a 5-shuffle sum, a shared store, 16 round trips a tile): here
+//     each lane loads 16 bytes of a row (8 bf16, 4 f32, or 16 int8; 8 int8
+//     at hgs 8, where q and the accumulators would not fit in registers),
+//     LPR lanes a row, so a warp load covers 32 / LPR rows, and a lane
+//     issues U rows' K and V loads (4 of each) before it uses the first;
+//     the partial dots are summed over the row's lanes with log2(LPR)
+//     shuffles.  At hgs 1 a block takes 128 bf16 rows in one round trip;
+//   * three barriers a 64-row tile and one warp a query row for the
+//     softmax: here each warp owns its rows and keeps scores, running max
+//     and sum and its dims' accumulators in registers; the warps merge
+//     their (m, l, acc) through shared memory once, at the end;
+//   * 2-byte P.V loads a thread: V comes in with K, 16 bytes a lane, and
+//     each lane accumulates its own dims of its own rows;
+//   * runtime loop bounds: the padded head size HSP (64/128/256, dims past
+//     hs read as zeros), hgs, the cache type and the rows a warp step
+//     takes are template constants; only the row loop follows p;
+//   * long contexts: the time now grows with p / nsplit, not p.
+// The merge of the splits, in the same launch: a merge across blocks
+// costs ~2-3 us, a block's round trip ~1 (chip_smoke.py phase 5), so a
+// split takes at least min_chunk rows (the wrapper's SPLIT_MIN_CHUNK: two
+// round trips of a block at hgs 1), a short p uses fewer blocks than
+// nsplit, and a cache of fewer than 1024 rows is not split at all; with
+// one split holding rows its block writes the output.
+// Otherwise each of the n_eff blocks with rows writes its (m, l, acc) to a
+// workspace and takes a ticket; the last to finish merges them in split
+// order, writes the output and puts its ticket back to 0 for the next
+// call (and a later CUDA-graph capture).  The workspace and tickets belong
+// to the wrapper and are shared by every launch: safe on one stream,
+// which is all the port uses.  Tried and dropped (phase 5): a thread
+// block cluster merging through distributed shared memory (no faster, and
+// slower in clusters of 8 or 16 blocks); split 0 loading its first rows
+// before pos arrives, and a second register stage prefetching the next
+// step (slower: the rows past p cost load bandwidth of the few busy SMs,
+// and the registers went to 128).
+// Math as _flash_kernel's, all in f32: score = (q . k) * (1/sqrt(hs)) *
+// k_scale; the running max starts at -1e30; e * v_scale before P.V;
+// output acc / l in q's dtype.  Only the f32 sum order differs, across
+// lanes, warps and splits.
+constexpr int SPLIT_UNIT = 16;   // a split's rows: a multiple of this
+constexpr int SPLIT_LOADS = 4;   // K (and V) loads a lane issues a step
+constexpr int SPLIT_MAX = 16;    // splits a (slot, kv head)
+
+// the most warps a block: 16 at hgs 1 (8 over int8), 8 at hgs 2, 4 from
+// hgs 4 on, where q and the accumulators take more registers; the launch
+// takes 4 to this many (ops/kernels/flash_decode.py: split_warps)
+template <typename CT, int HGS>
+__host__ __device__ constexpr int split_warps() {
+  return HGS >= 4 ? 4 : HGS == 2 ? 8 : sizeof(CT) == 1 ? 8 : 16;
+}
+
+template <int BYTES> struct RawVec;
+template <> struct RawVec<16> { using type = uint4; };
+template <> struct RawVec<8> { using type = uint2; };
+
+__device__ __forceinline__ float neg_infinity() { return __int_as_float(0xff800000); }
+__device__ __forceinline__ float bf_lo(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
+
+// DPL cache elements of a row as one 16-byte (8-byte for int8 at hgs 8)
+// load, and their f32 values
+template <typename CT, int HGS> struct SplitIO;
+template <int HGS> struct SplitIO<float, HGS> {
+  static constexpr int DPL = 4;
+  using Raw = uint4;
+  __device__ static void unpack(const Raw& r, float (&f)[DPL]) {
+    f[0] = __uint_as_float(r.x);
+    f[1] = __uint_as_float(r.y);
+    f[2] = __uint_as_float(r.z);
+    f[3] = __uint_as_float(r.w);
+  }
+};
+template <int HGS> struct SplitIO<__nv_bfloat16, HGS> {
+  static constexpr int DPL = 8;
+  using Raw = uint4;
+  __device__ static void unpack(const Raw& r, float (&f)[DPL]) {
+    const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f[2 * i] = bf_lo(w[i]);
+      f[2 * i + 1] = bf_hi(w[i]);
+    }
+  }
+};
+template <int HGS> struct SplitIO<int8_t, HGS> {
+  static constexpr int DPL = HGS >= 8 ? 8 : 16;
+  using Raw = typename RawVec<DPL>::type;
+  __device__ static void unpack(const uint4& r, float (&f)[16]) {
+    const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int i = 0; i < 16; ++i) f[i] = (float)(int8_t)(w[i / 4] >> (8 * (i % 4)));
+  }
+  __device__ static void unpack(const uint2& r, float (&f)[8]) {
+    const uint32_t w[2] = {r.x, r.y};
+#pragma unroll
+    for (int i = 0; i < 8; ++i) f[i] = (float)(int8_t)(w[i / 4] >> (8 * (i % 4)));
+  }
+};
+
+template <typename Raw> __device__ __forceinline__ Raw ld_raw(const void* p) {
+  return __ldg(reinterpret_cast<const Raw*>(p));
+}
+
+// (m, l, acc) of another lane merged into this one's: both rescaled to the
+// larger max.  Two empty states (m = -1e30, l = 0, acc = 0) stay empty.
+__device__ __forceinline__ void merge_weights(float m_a, float m_b, float& w_a,
+                                              float& w_b, float& m) {
+  m = fmaxf(m_a, m_b);
+  w_a = expf(m_a - m);
+  w_b = expf(m_b - m);
+}
+
+// q, out: f32 (q_bf16 = 0) or bf16; caches CT; row scales f32 or null;
+// part_acc (B*n_kv, nsplit, HGS, hs), part_ml (B*n_kv, nsplit, HGS, 2)
+// and ticket (B*n_kv) only used when more than one split has rows.
+template <typename CT, int HSP, int HGS>
+__global__ void __launch_bounds__(split_warps<CT, HGS>() * 32)
+flash_decode_split_kernel(const void* __restrict__ q,      // (B, n_kv, HGS, hs)
+                          const CT* __restrict__ kc,       // (L, Bc, n_kv, S, hs)
+                          const CT* __restrict__ vc,
+                          const float* __restrict__ ks,    // (L, Bc, n_kv, S) or null
+                          const float* __restrict__ vs,
+                          const int* __restrict__ pos,     // (B,)
+                          void* __restrict__ out,          // (B, n_kv, HGS, hs)
+                          float* __restrict__ part_acc,
+                          float* __restrict__ part_ml,
+                          int* __restrict__ ticket,
+                          int layer, int Bc, int n_kv, int S, int hs,
+                          int nsplit, int min_chunk, float scale, int q_bf16) {
+  using IO = SplitIO<CT, HGS>;
+  using Raw = typename IO::Raw;
+  constexpr int W = split_warps<CT, HGS>();           // warps a block, most
+  constexpr int DPL = IO::DPL;                        // elements a load
+  constexpr int CHUNKS = HSP / DPL;                   // loads a row
+  constexpr int LPR = CHUNKS < 32 ? CHUNKS : 32;      // lanes a row
+  constexpr int CPL = CHUNKS / LPR;                   // loads a lane a row
+  constexpr int RPI = 32 / LPR;                       // rows a warp load
+  constexpr int U = SPLIT_LOADS / CPL;                // rows a lane a step
+  constexpr int RS = RPI * U;                         // rows a warp step
+  constexpr int DL = CPL * DPL;                       // dims a lane holds
+  static_assert(U >= 1 && LPR * RPI == 32, "split tiling");
+  __shared__ float sm_acc[W][HGS][HSP];
+  __shared__ float sm_m[W][HGS], sm_l[W][HGS];
+  __shared__ float pm[SPLIT_MAX][HGS], pl[SPLIT_MAX][HGS];
+  __shared__ int last;
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int nw = blockDim.x / 32, nthreads = blockDim.x;  // warps: 4 .. W
+  const int rg = lane / LPR, li = lane % LPR;         // row group, lane in row
+  const int bh = blockIdx.x, split = blockIdx.y;
+  const int b = bh / n_kv, h = bh % n_kv;
+  const size_t row0 = ((size_t)(layer * Bc + b) * n_kv + h) * S;
+  const CT* kb = kc + row0 * hs;
+  const CT* vb = vc + row0 * hs;
+  const size_t qoff = (size_t)bh * HGS * hs;
+
+  const int p = min(max(pos[b], 0) + 1, S);
+  const int per = max((p + nsplit - 1) / nsplit, min_chunk);
+  const int chunk = (per + SPLIT_UNIT - 1) / SPLIT_UNIT * SPLIT_UNIT;
+  // the splits with rows; the others have nothing to do
+  const int n_eff = (p + chunk - 1) / chunk;
+  if (split >= n_eff) return;
+  const int r0 = min(split * chunk, p), r1 = min(r0 + chunk, p);
+
+  // this lane's dims: load c covers dims (c * LPR + li) * DPL + [0, DPL);
+  // a load past hs reads the row's first elements instead, against q = 0
+  int col[CPL];
+  float qf[HGS][DL];
+#pragma unroll
+  for (int c = 0; c < CPL; ++c) {
+    const int d0 = (c * LPR + li) * DPL;
+    const bool ok = d0 < hs;
+    col[c] = ok ? d0 : 0;
+#pragma unroll
+    for (int g = 0; g < HGS; ++g)
+#pragma unroll
+      for (int i = 0; i < DPL; ++i) {
+        const size_t at = qoff + (size_t)g * hs + d0 + i;
+        float v = 0.0f;
+        if (ok)
+          v = q_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(q)[at])
+                     : static_cast<const float*>(q)[at];
+        qf[g][c * DPL + i] = v;
+      }
+  }
+  float m[HGS], l[HGS], acc[HGS][DL];
+#pragma unroll
+  for (int g = 0; g < HGS; ++g) {
+    m[g] = NEG_INF;
+    l[g] = 0.0f;
+#pragma unroll
+    for (int d = 0; d < DL; ++d) acc[g][d] = 0.0f;
+  }
+
+  for (int base = r0 + warp * RS; base < r1; base += nw * RS) {
+    // every K and V load of the step first; rows past r1 re-read row
+    // r1 - 1 (just loaded, so cached) and are masked below
+    Raw kr[U][CPL], vr[U][CPL];
+    float ksc[U], vsc[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int r = min(base + u * RPI + rg, r1 - 1);
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) {
+        kr[u][c] = ld_raw<Raw>(kb + (size_t)r * hs + col[c]);
+        vr[u][c] = ld_raw<Raw>(vb + (size_t)r * hs + col[c]);
+      }
+      if (ks != nullptr) {
+        ksc[u] = __ldg(ks + row0 + r);
+        vsc[u] = __ldg(vs + row0 + r);
+      }
+    }
+    // scores: this lane's partial dots, summed over the row's LPR lanes
+    float s[U][HGS];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+#pragma unroll
+      for (int g = 0; g < HGS; ++g) s[u][g] = 0.0f;
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) {
+        float kf[DPL];
+        IO::unpack(kr[u][c], kf);
+#pragma unroll
+        for (int g = 0; g < HGS; ++g)
+#pragma unroll
+          for (int i = 0; i < DPL; ++i) s[u][g] += qf[g][c * DPL + i] * kf[i];
+      }
+#pragma unroll
+      for (int g = 0; g < HGS; ++g)
+#pragma unroll
+        for (int o = LPR / 2; o > 0; o >>= 1)
+          s[u][g] += __shfl_xor_sync(0xffffffffu, s[u][g], o);
+    }
+    // online softmax over the step's rows, then P.V into this lane's dims
+    float pe[U][HGS];
+#pragma unroll
+    for (int g = 0; g < HGS; ++g) {
+      float mx = m[g];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        float v = s[u][g] * scale;
+        if (ks != nullptr) v *= ksc[u];
+        s[u][g] = base + u * RPI + rg < r1 ? v : NEG_INF;
+        mx = fmaxf(mx, s[u][g]);
+      }
+      const float corr = expf(m[g] - mx);
+      m[g] = mx;
+      float sum = 0.0f;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        // a masked row takes exp(-inf) = 0, with no branch
+        const float x = s[u][g] - mx;
+        const float e = expf(base + u * RPI + rg < r1 ? x : neg_infinity());
+        sum += e;
+        pe[u][g] = vs != nullptr ? e * vsc[u] : e;
+      }
+      l[g] = l[g] * corr + sum;
+#pragma unroll
+      for (int d = 0; d < DL; ++d) acc[g][d] *= corr;
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) {
+        float vf[DPL];
+        IO::unpack(vr[u][c], vf);
+#pragma unroll
+        for (int g = 0; g < HGS; ++g)
+#pragma unroll
+          for (int i = 0; i < DPL; ++i) acc[g][c * DPL + i] += pe[u][g] * vf[i];
+      }
+  }
+
+  // the warp's row groups merged into lanes 0 .. LPR-1, then to shared
+#pragma unroll
+  for (int o = LPR; o < 32; o <<= 1)
+#pragma unroll
+    for (int g = 0; g < HGS; ++g) {
+      const float mo = __shfl_xor_sync(0xffffffffu, m[g], o);
+      const float lo = __shfl_xor_sync(0xffffffffu, l[g], o);
+      float wa, wb, mm;
+      merge_weights(m[g], mo, wa, wb, mm);
+      m[g] = mm;
+      l[g] = l[g] * wa + lo * wb;
+#pragma unroll
+      for (int d = 0; d < DL; ++d)
+        acc[g][d] = acc[g][d] * wa +
+                    __shfl_xor_sync(0xffffffffu, acc[g][d], o) * wb;
+    }
+  if (rg == 0) {
+#pragma unroll
+    for (int g = 0; g < HGS; ++g) {
+#pragma unroll
+      for (int c = 0; c < CPL; ++c)
+#pragma unroll
+        for (int i = 0; i < DPL; ++i)
+          sm_acc[warp][g][(c * LPR + li) * DPL + i] = acc[g][c * DPL + i];
+      if (li == 0) {
+        sm_m[warp][g] = m[g];
+        sm_l[warp][g] = l[g];
+      }
+    }
+  }
+  __syncthreads();
+
+  // the block's (m, l, acc): the warps merged in order; with one split
+  // holding rows, the output
+  for (int i = tid; i < HGS * hs; i += nthreads) {
+    const int g = i / hs, d = i % hs;
+    // every slot is read (no branch, so the loads go out together); the
+    // slots of warps past nw are selected away
+    float mb = NEG_INF;
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      const float mw = sm_m[w][g];
+      mb = fmaxf(mb, w < nw ? mw : NEG_INF);
+    }
+    float lb = 0.0f, ab = 0.0f;
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      const float mw = sm_m[w][g], lw = sm_l[w][g], aw = sm_acc[w][g][d];
+      const float f = expf(mw - mb);
+      lb += w < nw ? lw * f : 0.0f;
+      ab += w < nw ? aw * f : 0.0f;
+    }
+    if (n_eff == 1) {
+      if (q_bf16)
+        static_cast<__nv_bfloat16*>(out)[qoff + i] = __float2bfloat16_rn(ab / lb);
+      else
+        static_cast<float*>(out)[qoff + i] = ab / lb;
+    } else {
+      const size_t pidx = ((size_t)bh * nsplit + split) * HGS + g;
+      part_acc[pidx * hs + d] = ab;
+      if (d == 0) {
+        part_ml[2 * pidx] = mb;
+        part_ml[2 * pidx + 1] = lb;
+      }
+    }
+  }
+  if (n_eff == 1) return;
+
+  // the last of the n_eff blocks to finish merges them in split order and
+  // puts the ticket back to 0.  The barrier orders the block's writes
+  // before thread 0's release fence (fences are cumulative), so one
+  // acq_rel fence a side does what a __threadfence in every thread would.
+  __syncthreads();
+  if (tid == 0) {
+    asm volatile("fence.acq_rel.gpu;" ::: "memory");
+    last = atomicAdd(ticket + bh, 1) == n_eff - 1;
+    if (last) asm volatile("fence.acq_rel.gpu;" ::: "memory");
+  }
+  __syncthreads();
+  if (!last) return;
+  if (tid < n_eff * HGS) {
+    const size_t pidx = (size_t)bh * nsplit * HGS + tid;
+    pm[tid / HGS][tid % HGS] = __ldcg(part_ml + 2 * pidx);
+    pl[tid / HGS][tid % HGS] = __ldcg(part_ml + 2 * pidx + 1);
+  }
+  __syncthreads();
+  for (int i = tid; i < HGS * hs; i += nthreads) {
+    const int g = i / hs, d = i % hs;
+    float ar[SPLIT_MAX];
+#pragma unroll
+    for (int r = 0; r < SPLIT_MAX; ++r)
+      ar[r] = r < n_eff ? __ldcg(part_acc + (((size_t)bh * nsplit + r) * HGS + g) * hs + d)
+                        : 0.0f;
+    float mt = NEG_INF;
+    for (int r = 0; r < n_eff; ++r) mt = fmaxf(mt, pm[r][g]);
+    float lt = 0.0f, at = 0.0f;
+#pragma unroll
+    for (int r = 0; r < SPLIT_MAX; ++r) {
+      if (r < n_eff) {
+        const float f = expf(pm[r][g] - mt);
+        lt += pl[r][g] * f;
+        at += ar[r] * f;
+      }
+    }
+    if (q_bf16)
+      static_cast<__nv_bfloat16*>(out)[qoff + i] = __float2bfloat16_rn(at / lt);
+    else
+      static_cast<float*>(out)[qoff + i] = at / lt;
+  }
+  if (tid == 0) ticket[bh] = 0;
 }
 
 // K2s: speculative-verify attention, T query rows per slot.
@@ -1168,6 +1583,68 @@ int launch_q(const void* q, const void* kc, const void* vc, const float* ks,
   return (int)cudaErrorInvalidValue;
 }
 
+// K2's split-row mode: the padded head size and hgs as template constants
+template <typename CT, int HSP, int HGS>
+int launch_split_h(const void* q, const void* kc, const void* vc,
+                   const float* ks, const float* vs, const int* pos,
+                   void* out, float* part_acc, float* part_ml, int* ticket,
+                   int B, int layer, int Bc, int n_kv, int S, int hs,
+                   int nsplit, int min_chunk, int nw, float scale, int q_bf16,
+                   cudaStream_t st) {
+  if (nw < 4 || nw > split_warps<CT, HGS>()) return (int)cudaErrorInvalidValue;
+  flash_decode_split_kernel<CT, HSP, HGS>
+      <<<dim3(B * n_kv, nsplit), nw * 32, 0, st>>>(
+          q, static_cast<const CT*>(kc), static_cast<const CT*>(vc), ks, vs,
+          pos, out, part_acc, part_ml, ticket, layer, Bc, n_kv, S, hs, nsplit,
+          min_chunk, scale, q_bf16);
+  return (int)cudaGetLastError();
+}
+
+template <typename CT, int HSP>
+int launch_split_g(const void* q, const void* kc, const void* vc,
+                   const float* ks, const float* vs, const int* pos,
+                   void* out, float* part_acc, float* part_ml, int* ticket,
+                   int B, int layer, int Bc, int n_kv, int S, int hs, int hgs,
+                   int nsplit, int min_chunk, int nw, float scale, int q_bf16,
+                   cudaStream_t st) {
+#define SPLIT_LAUNCH(G)                                                      \
+  return launch_split_h<CT, HSP, G>(q, kc, vc, ks, vs, pos, out, part_acc,   \
+                                    part_ml, ticket, B, layer, Bc, n_kv, S,  \
+                                    hs, nsplit, min_chunk, nw, scale,        \
+                                    q_bf16, st)
+  switch (hgs) {
+    case 1: SPLIT_LAUNCH(1);
+    case 2: SPLIT_LAUNCH(2);
+    case 4: SPLIT_LAUNCH(4);
+    case 8: SPLIT_LAUNCH(8);
+  }
+#undef SPLIT_LAUNCH
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename CT>
+int launch_split(const void* q, const void* kc, const void* vc,
+                 const float* ks, const float* vs, const int* pos, void* out,
+                 float* part_acc, float* part_ml, int* ticket, int B,
+                 int layer, int Bc, int n_kv, int S, int hs, int hgs,
+                 int nsplit, int min_chunk, int nw, float scale, int q_bf16,
+                 cudaStream_t st) {
+  if (hs <= 64)
+    return launch_split_g<CT, 64>(q, kc, vc, ks, vs, pos, out, part_acc,
+                                  part_ml, ticket, B, layer, Bc, n_kv, S, hs,
+                                  hgs, nsplit, min_chunk, nw, scale, q_bf16,
+                                  st);
+  if (hs <= 128)
+    return launch_split_g<CT, 128>(q, kc, vc, ks, vs, pos, out, part_acc,
+                                   part_ml, ticket, B, layer, Bc, n_kv, S, hs,
+                                   hgs, nsplit, min_chunk, nw, scale, q_bf16,
+                                   st);
+  return launch_split_g<CT, 256>(q, kc, vc, ks, vs, pos, out, part_acc,
+                                 part_ml, ticket, B, layer, Bc, n_kv, S, hs,
+                                 hgs, nsplit, min_chunk, nw, scale, q_bf16,
+                                 st);
+}
+
 template <typename QT, typename CT>
 int launch_block(const void* q, const void* kc, const void* vc,
                  const float* ks, const float* vs, const void* kn,
@@ -1297,6 +1774,59 @@ extern "C" int flash_decode_launch(const void* q, const void* kc,
     return launch_q<__nv_bfloat16>(q, kc, vc, ksp, vsp, k_new, v_new, pp, out,
                                    mp, lp, B, layer, Bc, n_kv, S, hs, hgs,
                                    scale, c_dt, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K2, split-row mode: non-fresh, no stats.  q and out (B, n_kv, hgs, hs)
+// f32 or bf16 (q_dt); caches and scales as flash_decode_launch, the
+// caches 16-byte aligned; hs a multiple of 16 up to 256; nsplit in
+// [1, 16] blocks of nw warps (4 to 16, by hgs and the cache type) share a
+// (slot, kv head)'s rows, each at least min_chunk (>= 1) of them; with
+// nsplit > 1 the workspace part_acc (B * n_kv *
+// nsplit * hgs * hs f32), part_ml (B * n_kv * nsplit * hgs * 2 f32) and
+// ticket (B * n_kv int32, all 0 between launches: the merging block puts
+// its ticket back).
+extern "C" int flash_decode_split_launch(const void* q, const void* kc,
+                                         const void* vc, const void* ks,
+                                         const void* vs, const void* pos,
+                                         void* out, void* part_acc,
+                                         void* part_ml, void* ticket, int B,
+                                         int layer, int Bc, int n_kv, int S,
+                                         int hs, int hgs, int nsplit,
+                                         int min_chunk, int nw, float scale,
+                                         int q_dt, int c_dt, void* stream) {
+  const uintptr_t align = (uintptr_t)kc | (uintptr_t)vc;
+  if (hs < 16 || hs % 16 != 0 || hs > HS_MAX || nsplit < 1 ||
+      nsplit > SPLIT_MAX || min_chunk < 1 ||
+      (ks == nullptr) != (vs == nullptr) ||
+      (ks != nullptr) != (c_dt == DT_I8) || (align & 15) != 0 ||
+      (q_dt != DT_F32 && q_dt != DT_BF16) ||
+      (nsplit > 1 &&
+       (part_acc == nullptr || part_ml == nullptr || ticket == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* ksp = static_cast<const float*>(ks);
+  const float* vsp = static_cast<const float*>(vs);
+  const int* pp = static_cast<const int*>(pos);
+  float* pa = static_cast<float*>(part_acc);
+  float* pml = static_cast<float*>(part_ml);
+  int* tk = static_cast<int*>(ticket);
+  const int qb = q_dt == DT_BF16;
+  switch (c_dt) {
+    case DT_I8:
+      return launch_split<int8_t>(q, kc, vc, ksp, vsp, pp, out, pa, pml, tk,
+                                  B, layer, Bc, n_kv, S, hs, hgs, nsplit,
+                                  min_chunk, nw, scale, qb, st);
+    case DT_BF16:
+      return launch_split<__nv_bfloat16>(q, kc, vc, ksp, vsp, pp, out, pa,
+                                         pml, tk, B, layer, Bc, n_kv, S, hs,
+                                         hgs, nsplit, min_chunk, nw, scale,
+                                         qb, st);
+    case DT_F32:
+      return launch_split<float>(q, kc, vc, ksp, vsp, pp, out, pa, pml, tk,
+                                 B, layer, Bc, n_kv, S, hs, hgs, nsplit,
+                                 min_chunk, nw, scale, qb, st);
+  }
   return (int)cudaErrorInvalidValue;
 }
 

@@ -62,6 +62,9 @@ def decode_attention_pallas_batched(q, ck, cv, pos, layer: int):
 decode_attention_pallas.launches = 0
 decode_attention_pallas_indexed.launches = 0
 decode_attention_pallas_batched.launches = 0
+decode_attention_pallas.launches_split = 0
+decode_attention_pallas_indexed.launches_split = 0
+decode_attention_pallas_batched.launches_split = 0
 
 
 def decode_attention_plain(q, k_cache, v_cache, pos):

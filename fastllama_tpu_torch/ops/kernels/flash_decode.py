@@ -14,6 +14,10 @@ flash_decode.py:203) in its two modes:
 * non-fresh — rows [0, pos[b]] (the mask ``col <= pos``), the form that
   ``flash_decode_single`` (flash_decode.py:299) gives the single-stream
   ``models/llama.forward`` through ``make_attn_indexed_flash`` (:561).
+  Without stats and with hs a multiple of 16 it runs K2's split-row mode
+  (``decode_mode``): the rows of a (slot, kv head) shared by up to
+  ``split_count`` blocks, merged in the same launch, counted also in
+  ``.launches_split``.
 
 The same kernel serves ``ops/kernels/attention.py``.  K2s
 (:func:`flash_spec_batched`, replacing flash_decode.py:700) is its
@@ -156,11 +160,129 @@ def _launch(q, ck, cv, pos, layer, k_scale, v_scale, k_new, v_new, stats):
     return (out, m, l) if stats else out
 
 
+# -- K2's split-row mode: non-fresh calls without stats ---------------------
+
+SPLIT_MAX = 16             # splits a (slot, kv head) (csrc)
+SPLIT_UNIT = 16            # a split's rows are a multiple of this (csrc)
+SPLIT_MIN_CHUNK = 256      # rows a split takes at the least
+SPLIT_WAVE_WARPS = 16 * 132  # one wave of 16 warps on each H100 SM
+SPLIT_MIN_ROWS = 512       # cache rows a split at the least, in a full cache
+
+
+def decode_mode(q, ck, fresh: bool = False, stats: bool = False) -> str:
+    """K2's mode, a function of shapes, dtypes and flags only: ``"split"``
+    (``flash_decode_split_kernel``) for a non-fresh call without stats,
+    f32 or bf16 q over an f32, bf16 or int8 cache, hgs in {1, 2, 4, 8} and
+    hs a multiple of 16 up to 256; ``"tiled"`` (``flash_decode_kernel``)
+    for every other call: fresh rows, stats, other head sizes."""
+    hs = q.shape[-1]
+    n_kv = ck.shape[2]
+    return ("split" if not fresh and not stats
+            and q.dtype in (torch.float32, torch.bfloat16) and ck.dtype in _DT
+            and q.shape[1] % n_kv == 0
+            and q.shape[1] // n_kv in HGS_SUPPORTED
+            and hs % 16 == 0 and 16 <= hs <= HS_MAX else "tiled")
+
+
+def split_warps(hgs: int, int8: bool = False) -> int:
+    """The most warps a block of the split mode takes (csrc
+    ``split_warps``): 16 at hgs 1 (8 over an int8 cache), 8 at hgs 2, 4
+    from hgs 4 on, where q and the accumulators take more registers."""
+    return 4 if hgs >= 4 else 8 if hgs == 2 or int8 else 16
+
+
+def split_count(B: int, n_kv: int, S: int, hgs: int = 1,
+                int8: bool = False) -> int:
+    """NSPLIT, the blocks that may share a (slot, kv head)'s rows, from
+    host ints only (the engines keep pos on the device): about one wave of
+    ``SPLIT_WAVE_WARPS`` warps in all, at most ``S // SPLIT_MIN_ROWS`` and
+    ``SPLIT_MAX``, 1 once B * n_kv blocks fill the wave.  A short pos
+    uses fewer of them (:func:`split_bounds`)."""
+    want = SPLIT_WAVE_WARPS // (B * n_kv * split_warps(hgs, int8))
+    return max(1, min(want, S // SPLIT_MIN_ROWS, SPLIT_MAX))
+
+
+def split_block_warps(B: int, n_kv: int, nsplit: int, hgs: int = 1,
+                      int8: bool = False) -> int:
+    """Warps a block of the launch: the most :func:`split_warps` allows
+    while the (B * n_kv, nsplit) grid fits one wave of
+    ``SPLIT_WAVE_WARPS``, fewer (down to 4, a power of two) as it grows,
+    so that a large batch keeps several blocks on an SM."""
+    nw = split_warps(hgs, int8)
+    while nw > 4 and B * n_kv * nsplit * nw > SPLIT_WAVE_WARPS:
+        nw //= 2
+    return nw
+
+
+def split_bounds(p: int, nsplit: int, min_chunk: int = SPLIT_MIN_CHUNK):
+    """The cache rows [r0, r1) each split takes of [0, p), as the kernel
+    divides them on the device: ceil(p / nsplit) rows, at least
+    ``min_chunk``, rounded up to ``SPLIT_UNIT``, in order; the splits past
+    p take none and stay out of the merge."""
+    chunk = max(-(-p // nsplit), min_chunk)
+    chunk = -(-chunk // SPLIT_UNIT) * SPLIT_UNIT
+    return [(min(s * chunk, p), min(s * chunk + chunk, p))
+            for s in range(nsplit)]
+
+
+# The split mode's workspace, one per device: the splits' partial
+# (m, l, acc) and a ticket per (slot, kv head), which the merging block
+# puts back to 0.  Shared by every launch, so safe on one stream (the port
+# uses one); it grows to the largest call and is kept.
+_SPLIT_WS = {}
+
+
+def _split_workspace(device, n_bh: int, n_part: int, hs: int):
+    ws = list(_SPLIT_WS.get(device, (None, None, None)))
+    for i, (n, dt) in enumerate(((n_part * hs, torch.float32),
+                                 (2 * n_part, torch.float32),
+                                 (n_bh, torch.int32))):
+        if ws[i] is None or ws[i].numel() < n:
+            ws[i] = torch.zeros(n, dtype=dt, device=device)
+    _SPLIT_WS[device] = ws
+    return ws
+
+
+def _split_launch(q, ck, cv, pos, layer, k_scale, v_scale, nsplit=None,
+                  min_chunk=SPLIT_MIN_CHUNK, nw=None):
+    """Launch K2's split-row mode on validated CUDA operands; ``nsplit``
+    and ``nw`` default to :func:`split_count` and
+    :func:`split_block_warps` (phase 5 of ``chip_smoke.py`` and the card
+    tests try others, and other ``min_chunk``)."""
+    B, H, _, hs = q.shape
+    _, Bc, n_kv, S, _ = ck.shape
+    hgs = H // n_kv
+    int8 = ck.dtype == torch.int8
+    if nsplit is None:
+        nsplit = split_count(B, n_kv, S, hgs, int8)
+    if nw is None:
+        nw = split_block_warps(B, n_kv, nsplit, hgs, int8)
+    out = torch.empty_like(q)
+    acc = ml = ticket = None
+    if nsplit > 1:
+        acc, ml, ticket = _split_workspace(q.device, B * n_kv,
+                                           B * n_kv * nsplit * hgs, hs)
+    fn = _build.load("flash_decode").flash_decode_split_launch
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 \
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rc = fn(_build.ptr(q), _build.ptr(ck), _build.ptr(cv),
+            _build.ptr(k_scale), _build.ptr(v_scale), _build.ptr(pos),
+            _build.ptr(out), _build.ptr(acc), _build.ptr(ml),
+            _build.ptr(ticket), B, layer, Bc, n_kv, S, hs, hgs, nsplit,
+            min_chunk, nw, 1.0 / math.sqrt(hs), _DT[q.dtype], _DT[ck.dtype],
+            _build.stream_of(q))
+    _build.check(rc, "flash_decode_split_launch")
+    return out
+
+
 def attend(wrapper, q, ck, cv, pos, layer: int, k_scale=None, v_scale=None,
            k_new=None, v_new=None, stats: bool = False):
     """Check the operands, then run the plain version (CPU tensors) or
-    launch K2 (CUDA tensors) and add one to ``wrapper.launches`` (to
-    ``wrapper.launches_stats`` with ``stats``)."""
+    launch K2 (CUDA tensors) in the mode :func:`decode_mode` picks, and add
+    one to ``wrapper.launches`` (to ``wrapper.launches_stats`` with
+    ``stats``) and, in the split mode, also to
+    ``wrapper.launches_split``."""
     _validate(q, ck, cv, pos, layer, k_scale, v_scale, k_new, v_new)
     if q.device.type == "cpu":
         return flash_decode_plain(q, ck, cv, pos, layer, k_scale, v_scale,
@@ -168,8 +290,12 @@ def attend(wrapper, q, ck, cv, pos, layer: int, k_scale=None, v_scale=None,
     if q.device.type != "cuda":
         raise ValueError(f"{wrapper.__name__}: unsupported device "
                          f"{q.device}")
-    out = _launch(q, ck, cv, pos, layer, k_scale, v_scale, k_new, v_new,
-                  stats)
+    if decode_mode(q, ck, k_new is not None, stats) == "split":
+        out = _split_launch(q, ck, cv, pos, layer, k_scale, v_scale)
+        wrapper.launches_split += 1
+    else:
+        out = _launch(q, ck, cv, pos, layer, k_scale, v_scale, k_new,
+                      v_new, stats)
     if stats:
         wrapper.launches_stats += 1
     else:
@@ -222,7 +348,9 @@ def flash_decode_single_plain(q, ck, cv, pos, layer: int):
 
 flash_decode_batched.launches = 0
 flash_decode_batched.launches_stats = 0
+flash_decode_batched.launches_split = 0
 flash_decode_single.launches = 0
+flash_decode_single.launches_split = 0
 
 
 def make_attn_batched_flash():
