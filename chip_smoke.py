@@ -26,7 +26,11 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    over an int8 or bf16 cache) and its f32 mode (2i), K2 with its softmax stats (o, m, l) at B=48 (2j),
    and the groupdot (scale-after-dot) mode of K1 and K1p at the 7B
    shapes, T in {1, 48, 128}, auto and one split, O = 1000 and gs = 128,
-   the wide cases equal to K1 bit for bit, gs = 8 refused (2k);
+   the wide cases equal to K1 bit for bit, gs = 8 refused (2k), and the
+   pipelined mode of K1 and K1p (``qmm_pipe_kernel``) at the 7B shapes,
+   INT8 with f32 and bf16 scales and packed INT4, T in {1, 48, 128},
+   bare and with the norm gain and residual, each call one launch on its
+   wrapper's ``launches_pipe`` (2l);
 3. the engines' kernel paths against their plain paths at 7B width, 2
    layers, f32 compute: the ``BatchedEngine`` (int8 KV, B=4), the
    single-stream ``Engine`` (f32 scales and KV: logits, 40 greedy tokens
@@ -49,8 +53,11 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    synthetic weights made on the card; 48 requests of a 43-token prompt
    and 128 new tokens, greedy, decode chunk 64.  Launch counters are
    zeroed just before and read just after; every kernel of the path must
-   have run.  Then one 16-step decode chunk is traced with
-   ``torch.profiler`` (device time by kernel, the device's idle share);
+   have run, and every K1/K1p launch with T <= 128 must have taken the
+   pipelined mode (a tally of ``qmm.qmm_mode`` by mode and T, held to
+   the wrappers' ``launches_pipe``; so in 4b-4e too).  Then one 16-step
+   decode chunk is traced with ``torch.profiler`` (device time by kernel,
+   the K1 family's share of it, the device's idle share);
 4b. the single-stream serving path at full width (bench.py's
    ``bench_single`` shape): ``Engine`` over 7B / INT8 / QKV and gate|up
    fused once / bf16 scales ("auto") / bf16 KV / S=512, the 43-token
@@ -88,7 +95,10 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    standard and groupdot (the groupdot mode's launches come from here);
 5. each kernel timed with CUDA events at the path's shapes, beside its
    bound (bytes over the card's 3.35 TB/s, or operations over peak), its
-   plain version and a library call (K2b: the tensor-core mode at T in
+   plain version and a library call (K1 and K1p: the pipelined mode, the
+   loop on the same calls, ``torch.matmul`` and the plain version timed
+   in turns, and a verify round's unfused INT8 layer at T = 128; K2b:
+   the tensor-core mode at T in
    {32, 64, 128, 256} and against start, the f32 mode at T=32 and 256;
    K2 non-fresh: the split-row mode and the tiled kernel at B=1 against
    pos, 0 to 511 at S=512 and 2047 at S=2048, and at B=32, the split
@@ -387,6 +397,7 @@ def phase_kernels(dev, rec):
     check_block(dev, gen, errs)
     check_stats(dev, gen, errs)
     check_groupdot(dev, gen, errs)
+    check_pipe(dev, gen, errs)
     rec["max_abs_err"] = errs
 
 
@@ -979,6 +990,80 @@ def check_groupdot(dev, gen, errs):
         log(f"  ok groupdot gs=8 raises: {e}")
     else:
         raise Failed("groupdot at gs=8 did not raise")
+    torch.cuda.empty_cache()
+
+
+def check_pipe(dev, gen, errs):
+    """Phase 2l: the pipelined mode of K1 and K1p against the plain
+    versions at the 7B shapes (the four fused-layer projections and the
+    classifier): INT8 with f32 and with bf16 scales, packed INT4 (hidden
+    11264) with f32 scales and bf16 or f32 x, T in {1, 48, 128}; the plain
+    wrapper, then layer 1 of a stacked weight with the norm gain, the
+    residual and both.  Every call must be one launch on its wrapper's
+    ``launches_pipe``.  Limits as phase 2: bf16 x 1e-2, f32 x 1e-4 of
+    max|plain|, 1e-3 (TOL_P4_NORM) for f32 x through the norm prologue."""
+    import torch
+    from fastllama_tpu_torch.config import QuantType
+    from fastllama_tpu_torch.ops.kernels import qmm
+    log("phase 2l: the pipelined mode of K1 and K1p vs plain (7B shapes, "
+        "T in {1, 48, 128}, with and without the glue)")
+    bf16, f32 = torch.bfloat16, torch.float32
+    glue = (("bare", False, False), ("norm", True, False),
+            ("residual", False, True), ("norm+residual", True, True))
+    kinds = (("int8 s=f32", PROJ_7B, None, (bf16,)),
+             ("int8 s=bf16", PROJ_7B, bf16, (bf16,)),
+             ("int4 s=f32", PROJ_7B_INT4, None, (bf16, f32)))
+    for label, proj, sdt, xdts in kinds:
+        worst, n = 0.0, 0
+        for name, (I, O) in proj.items():
+            shape = (2, I, O)
+            w = (rand_packed(gen, shape, dev, sdt) if label.startswith("int4")
+                 else rand_qarray(gen, shape, QuantType.INT8, dev, sdt))
+            g = torch.rand((I,), generator=gen, device=dev) + 0.5
+            for T in (1, 48, 128):
+                for xdt in xdts:
+                    x = torch.randn((T, I), generator=gen, device=dev).to(xdt)
+                    r = torch.randn((T, O), generator=gen, device=dev).to(xdt)
+                    for gl, norm, res in glue:
+                        kw = dict(norm_gain=g if norm else None,
+                                  residual=r if res else None)
+                        fn = (qmm.qmatmul_pallas if gl == "bare"
+                              else qmm.qmatmul_pallas_indexed_fused)
+                        n0 = fn.launches_pipe
+                        got = (qmm.qmatmul_pallas(x, w[1]) if gl == "bare"
+                               else qmm.qmatmul_pallas_indexed(x, w, 1, bf16,
+                                                               **kw))
+                        check(fn.launches_pipe == n0 + 1,
+                              f"pipe {label} {name} T={T} {gl}: not one "
+                              f"pipelined launch")
+                        want = qmm.qmm_fused_plain(x, w[1], bf16, **kw)
+                        tol = (TOL_BF16 if xdt == bf16 else
+                               TOL_P4_NORM if norm else TOL_F32)
+                        e = compare(f"pipe {label} {name} T={T} "
+                                    f"x={str(xdt)[6:]} {gl}", got, want, tol,
+                                    quiet=True)
+                        key = ("qmatmul_pallas_pipe" if gl == "bare" else
+                               "qmatmul_pallas_indexed_fused_pipe")
+                        errs[key] = max(errs[key], e)
+                        worst = max(worst, e / max(float(
+                            want.float().abs().max()), 1e-30))
+                        n += 1
+            del w
+        log(f"  ok pipe {label}: {n} comparisons, largest error "
+            f"{worst:.3e} of max|plain|")
+    # the indexed wrapper without glue takes the mode too
+    w = rand_qarray(gen, (2, *PROJ_7B["wo"]), QuantType.INT8, dev)
+    f = qmm.qmatmul_pallas_indexed
+    for T in (1, 48, 128):
+        x = torch.randn((T, 4096), generator=gen, device=dev).to(bf16)
+        n0 = f.launches_pipe
+        e = compare(f"pipe qmatmul_pallas_indexed wo[1] T={T}",
+                    f(x, w, 1), qmm.qmm_plain(x, w[1]), TOL_BF16, quiet=True)
+        check(f.launches_pipe == n0 + 1, "indexed: not a pipelined launch")
+        errs["qmatmul_pallas_indexed_pipe"] = max(
+            errs["qmatmul_pallas_indexed_pipe"], e)
+    log("  ok pipe qmatmul_pallas_indexed wo[1] T in {1, 48, 128}")
+    del w
     torch.cuda.empty_cache()
 
 
@@ -1665,15 +1750,20 @@ def phase_f32_parity(dev, rec):
 
 # one entry per Pallas function the port replaces; the kernels of each path
 BATCHED_PATH = ("qmatmul_pallas", "qmatmul_pallas_indexed",
-                "flash_decode_batched", "decode_write", "prefill_write")
+                "flash_decode_batched", "decode_write", "prefill_write",
+                "qmatmul_pallas_pipe", "qmatmul_pallas_indexed_pipe")
 SPEC_PATH = ("qmatmul_pallas", "qmatmul_pallas_indexed",
-             "flash_spec_batched", "spec_write", "prefill_write")
+             "flash_spec_batched", "spec_write", "prefill_write",
+             "qmatmul_pallas_pipe", "qmatmul_pallas_indexed_pipe")
 SINGLE_PATH = ("qmatmul_pallas", "qmatmul_pallas_indexed",
-               "qmatmul_pallas_indexed_fused", "flash_decode_single")
+               "qmatmul_pallas_indexed_fused", "flash_decode_single",
+               "qmatmul_pallas_pipe", "qmatmul_pallas_indexed_fused_pipe")
 INT4_BATCHED_PATH = ("qmatmul_pallas_p4", "qmatmul_pallas_indexed_p4",
-                     "flash_decode_batched", "decode_write", "prefill_write")
+                     "flash_decode_batched", "decode_write", "prefill_write",
+                     "qmatmul_pallas_pipe", "qmatmul_pallas_indexed_pipe")
 INT4_SINGLE_PATH = ("qmatmul_pallas_p4", "qmatmul_pallas_indexed_p4",
-                    "qmatmul_pallas_indexed_fused_p4", "flash_decode_single")
+                    "qmatmul_pallas_indexed_fused_p4", "flash_decode_single",
+                    "qmatmul_pallas_pipe", "qmatmul_pallas_indexed_fused_pipe")
 KERNELS = ("qmatmul_pallas", "qmatmul_pallas_indexed",
            "qmatmul_pallas_indexed_fused", "flash_decode_batched",
            "flash_decode_single", "decode_attention_pallas_indexed",
@@ -1685,7 +1775,9 @@ KERNELS = ("qmatmul_pallas", "qmatmul_pallas_indexed",
            "qmatmul_pallas_groupdot", "qmatmul_pallas_groupdot_p4",
            "flash_decode_single_split", "decode_attention_pallas_indexed_split",
            "decode_attention_pallas_split", "flash_decode_batched_split",
-           "decode_attention_pallas_batched_split")
+           "decode_attention_pallas_batched_split", "qmatmul_pallas_pipe",
+           "qmatmul_pallas_indexed_pipe",
+           "qmatmul_pallas_indexed_fused_pipe")
 # the wrappers of K2's non-fresh mode: each counts its split-row launches
 SPLIT_WRAPPERS = ("flash_decode_single", "decode_attention_pallas_indexed",
                   "decode_attention_pallas", "flash_decode_batched",
@@ -1698,7 +1790,8 @@ def counters():
     ``flash_decode_batched.launches_stats``, the groupdot mode's on
     ``qmatmul_pallas.launches_groupdot`` (K1) and ``_groupdot_p4`` (K1p),
     K2's split-row mode on each non-fresh wrapper's ``launches_split``
-    (``<wrapper>_split``)."""
+    (``<wrapper>_split``), the pipelined mode of K1 and K1p on each K1
+    wrapper's ``launches_pipe`` (``<wrapper>_pipe``)."""
     from fastllama_tpu_torch.ops.kernels import attention as at
     from fastllama_tpu_torch.ops.kernels import flash_decode as fd
     from fastllama_tpu_torch.ops.kernels import kv_write as kw
@@ -1720,6 +1813,7 @@ def counters():
             "flash_block_attend": fd.flash_block_attend}
     out = {k: (fn, "launches") for k, fn in {**k1, **rest}.items()}
     out.update({k + "_p4": (fn, "launches_p4") for k, fn in k1.items()})
+    out.update({k + "_pipe": (fn, "launches_pipe") for k, fn in k1.items()})
     out["flash_decode_batched_stats"] = (fd.flash_decode_batched,
                                          "launches_stats")
     out["flash_block_attend_tc"] = (fd.flash_block_attend, "launches_tc")
@@ -1779,8 +1873,11 @@ def profile_decode(eng, prompt, step_ms, n_steps=16):
            "device_busy_ms_per_step": busy_step_ms,
            "device_ops_per_step": sum(r[1] for r in rows) / n_steps,
            "device_idle_share": 1.0 - busy_step_ms / step_ms,
+           "k1_ms_per_step": k1_rows(rows, n_steps),
            "top_kernels": [{"name": k[:120], "count": c, "device_ms":
                             us / 1e3} for us, c, k in rows[:15]]}
+    log(f"  K1 family device ms per step {out['k1_ms_per_step']} of "
+        f"{busy_step_ms:.3f}")
     log(f"  profile: {n_steps} decode steps in {wall * 1e3:.3f} ms wall, "
         f"device busy {busy_s * 1e3:.3f} ms (idle share traced "
         f"{out['device_idle_share_traced']:.3f}); {busy_step_ms:.3f} ms "
@@ -1831,11 +1928,13 @@ def serve_batched(eng, path, t0, n_new=128):
 
     zero_launches()
     t0 = time.perf_counter()
-    reqs = eng.generate_all([prompt] * B, max_new_tokens=n_new,
-                            temperature=0.0, stop_tokens=())
-    torch.cuda.synchronize()
+    with ModeTally() as tally:
+        reqs = eng.generate_all([prompt] * B, max_new_tokens=n_new,
+                                temperature=0.0, stop_tokens=())
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches()
+    check_all_pipe(launches, tally, "batched serving")
     check(all(len(r.output_tokens) == n_new and r.done for r in reqs),
           "a request did not get all its tokens")
     for k in path:
@@ -1850,7 +1949,7 @@ def serve_batched(eng, path, t0, n_new=128):
         "decode_steps": steps, "wall_s": wall,
         "ms_per_decode_step": st.decode_s / steps * 1e3,
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "launches": launches,
+        "launches": launches, "k1_modes": tally.record(),
         "launches_per_decode_step": {
             k: launches[k] / steps for k in path if k != "prefill_write"},
         "card": smi_line(),
@@ -1911,6 +2010,7 @@ def profile_single(eng, prompt, step_ms, n_steps=16):
            "device_ops_per_step": sum(r[1] for r in rows) / n_steps,
            "device_idle_share": 1.0 - busy_step_ms / step_ms,
            "k2_non_fresh_ms_per_step": k2,
+           "k1_ms_per_step": k1_rows(rows, n_steps),
            "top_kernels": [{"name": k[:120], "count": c, "device_ms":
                             us / 1e3} for us, c, k in rows[:15]]}
     log(f"  profile: {n_steps} decode steps in {wall * 1e3:.3f} ms wall, "
@@ -1919,6 +2019,8 @@ def profile_single(eng, prompt, step_ms, n_steps=16):
         f"device per step against {step_ms:.3f} ms untraced (idle share "
         f"{out['device_idle_share']:.3f}); "
         f"{out['device_ops_per_step']:.1f} device ops per step")
+    log(f"  K1 family device ms per step {out['k1_ms_per_step']} of "
+        f"{busy_step_ms:.3f}")
     log(f"  K2 non-fresh device ms per step: split mode "
         f"{k2['split'][0]:.4f} ({k2['split'][1]:.1f} launches), tiled "
         f"{k2['tiled'][0]:.4f} ({k2['tiled'][1]:.1f})")
@@ -1934,6 +2036,60 @@ def check_all_split(launches, names):
         check(launches[k + "_split"] == launches[k],
               f"{k}: {launches[k + '_split']} of {launches[k]} launches in "
               f"the split-row mode")
+
+
+class ModeTally:
+    """Counts each K1/K1p launch of a run by (mode, T <= 128) while it is
+    entered, by wrapping ``qmm.qmm_mode`` (which the wrappers consult once
+    a launch, on a CUDA tensor only); the wrapped function returns what
+    the original returns, so the path is unchanged."""
+
+    def __enter__(self):
+        import collections
+        from fastllama_tpu_torch.ops.kernels import qmm
+        self.qmm, self.orig = qmm, qmm.qmm_mode
+        self.counts = collections.Counter()
+
+        def tally(x, w, compute_dtype=None, groupdot=False, residual=None):
+            mode = self.orig(x, w, compute_dtype, groupdot, residual)
+            self.counts[(mode, x.shape[0] <= qmm.PIPE_MAX_T)] += 1
+            return mode
+        qmm.qmm_mode = tally
+        return self
+
+    def __exit__(self, *exc):
+        self.qmm.qmm_mode = self.orig
+
+    def record(self):
+        return {f"{m} {'T<=128' if small else 'T>128'}": n
+                for (m, small), n in sorted(self.counts.items())}
+
+
+def check_all_pipe(launches, tally, label):
+    """Every K1/K1p launch with T <= 128 of a run in the pipelined mode:
+    no other mode at T <= 128 in the tally, and the tally's pipelined
+    launches equal to the three wrappers' ``launches_pipe``."""
+    small = {m: n for (m, s), n in tally.counts.items() if s}
+    pipe = sum(launches[k + "_pipe"] for k in (
+        "qmatmul_pallas", "qmatmul_pallas_indexed",
+        "qmatmul_pallas_indexed_fused"))
+    check(set(small) <= {"pipe"}, f"{label}: K1/K1p launches with T <= 128 "
+                                  f"outside the pipelined mode: {small}")
+    check(small.get("pipe", 0) == pipe > 0,
+          f"{label}: {small.get('pipe', 0)} pipelined launches in the tally, "
+          f"{pipe} on the wrappers' launches_pipe")
+    log(f"  ok {label}: all {pipe} K1/K1p launches with T <= 128 in the "
+        f"pipelined mode; by mode {tally.record()}")
+
+
+def k1_rows(rows, per):
+    """Device ms of the K1 family in a profile's rows, divided by ``per``
+    (steps or rounds): the pipelined kernel, the loop and the split-K
+    reduce pass."""
+    return {mode: sum(us for us, _, k in rows if name in k) / 1e3 / per
+            for mode, name in (("pipe", "qmm_pipe_kernel"),
+                               ("loop", "qmm_bf16_kernel"),
+                               ("reduce", "splitk_reduce_kernel"))}
 
 
 def phase_single_serving(dev, rec):
@@ -2030,10 +2186,12 @@ def serve_single(eng, path, t0, n_new=128, chunk=64):
     torch.cuda.reset_peak_memory_stats()
     zero_launches()
     t0 = time.perf_counter()
-    toks, st = eng.generate(prompt, **kw)
-    torch.cuda.synchronize()
+    with ModeTally() as tally:
+        toks, st = eng.generate(prompt, **kw)
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches()
+    check_all_pipe(launches, tally, "single-stream serving")
     check(len(toks) == n_new, f"{len(toks)} tokens, not {n_new}")
     check(toks == warm, "two greedy runs gave different tokens")
     for k in path:
@@ -2048,7 +2206,7 @@ def serve_single(eng, path, t0, n_new=128, chunk=64):
         "decode_steps": steps, "wall_s": wall,
         "ms_per_decode_step": st.decode_s / steps * 1e3,
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "launches": launches,
+        "launches": launches, "k1_modes": tally.record(),
         "launches_per_decode_step": {k: launches[k] / steps for k in path},
         "card": smi_line(),
     }
@@ -2174,6 +2332,7 @@ def profile_spec(eng, prompt, rounds=8):
            "device_busy_ms_per_round": busy_s * 1e3 / R,
            "device_idle_share_traced": 1.0 - busy_s / wall,
            "device_idle_share": 1.0 - busy_s / untraced,
+           "k1_ms_per_round": k1_rows(rows, R),
            "top_kernels_per_round": [
                {"name": k[:120], "count_per_round": c / R,
                 "device_ms_per_round": us / 1e3 / R}
@@ -2184,6 +2343,8 @@ def profile_spec(eng, prompt, rounds=8):
         f"({out['device_busy_ms_per_round']:.4f} ms a round), idle share "
         f"{out['device_idle_share']:.3f} untraced, "
         f"{out['device_idle_share_traced']:.3f} traced")
+    log(f"  K1 family device ms a round {out['k1_ms_per_round']} of "
+        f"{out['device_busy_ms_per_round']:.4f}")
     for r in out["top_kernels_per_round"][:10]:
         log(f"    {r['device_ms_per_round']:9.4f} ms/round  "
             f"x{r['count_per_round']:<7.1f} {r['name']}")
@@ -2243,9 +2404,11 @@ def phase_spec_serving(dev, rec):
 
     zero_launches()
     t0 = time.perf_counter()
-    reqs = serve(eng)
+    with ModeTally() as tally:
+        reqs = serve(eng)
     wall = time.perf_counter() - t0
     launches = read_launches()
+    check_all_pipe(launches, tally, "speculative serving")
     for k in SPEC_PATH:
         check(launches[k] > 0, f"kernel {k} was not launched on the "
                                f"speculative path")
@@ -2266,7 +2429,7 @@ def phase_spec_serving(dev, rec):
         "spec_rounds": rounds, "decode_s": st.decode_s,
         "prefill_s": st.prefill_s, "wall_s": wall,
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "launches": launches,
+        "launches": launches, "k1_modes": tally.record(),
         "launches_per_spec_round": {
             k: launches[k] / rounds for k in ("flash_spec_batched",
                                               "spec_write")},
@@ -2571,6 +2734,18 @@ def phase_sweep(dev, rec):
 
 # -- phase 5: timing ---------------------------------------------------------
 
+def in_turns(fns, iters=20):
+    """Device ms of each of ``fns`` (key -> callable), timed in turns: each
+    in order, then each in the reverse order, the two readings averaged, so
+    that a drift of the card's clock falls on every version alike."""
+    from fastllama_tpu_torch.tools.timing import time_ms
+    got = {k: 0.0 for k in fns}
+    for order in (list(fns), list(fns)[::-1]):
+        for k in order:
+            got[k] += time_ms(fns[k], iters=iters) / 2
+    return got
+
+
 def phase_timing(dev, rec):
     import torch
     from fastllama_tpu_torch.tools.timing import time_ms
@@ -2596,12 +2771,15 @@ def phase_timing(dev, rec):
     nbytes = x.numel() * 2 + I * O + w.scales.numel() * 4 + B * O * 2
     bm, by = bound_ms(nbytes, 2 * B * I * O, BF16_FLOP_S)
     res["qmatmul_pallas"] = dict(
-        ms=time_ms(lambda: qmm.qmatmul_pallas(x, w)),
-        plain_ms=time_ms(lambda: qmm.qmm_plain(x, w)),
-        library_ms=time_ms(lambda: torch.matmul(x, wd)),
+        **in_turns({"ms": lambda: qmm.qmatmul_pallas(x, w),
+                    "loop_ms": lambda: qmm._launch(x, w, torch.bfloat16,
+                                                   mode="loop"),
+                    "library_ms": lambda: torch.matmul(x, wd),
+                    "plain_ms": lambda: qmm.qmm_plain(x, w)}),
         library_call="torch.matmul(x, w) on a pre-dequantized bf16 weight",
         bound_ms=bm, bound_by=by,
-        shape=f"T={B} I={I} O={O}")
+        shape=f"T={B} I={I} O={O} (ms: the pipelined mode; loop_ms: "
+              f"qmm_bf16_kernel's loop on the same inputs)")
     del w, wd
 
     # qmatmul_pallas_indexed: one layer's four projections, T = B
@@ -2631,17 +2809,26 @@ def phase_timing(dev, rec):
         lyr = rot()
         for n in names:
             torch.matmul(xs[n], wds[n][lyr])
+
+    def loop_layer():
+        lyr = rot()
+        for n in names:
+            qmm._launch(xs[n], ws[n][lyr], torch.bfloat16, mode="loop")
     nbytes = sum(B * PROJ_7B[n][0] * 2 + PROJ_7B[n][0] * PROJ_7B[n][1]
                  * (1 + 4 / 64) + B * PROJ_7B[n][1] * 2 for n in names)
     flops = sum(2 * B * PROJ_7B[n][0] * PROJ_7B[n][1] for n in names)
     bm, by = bound_ms(nbytes, flops, BF16_FLOP_S)
     per = {}
     for n in names:
-        per[n] = time_ms(lambda n=n: qmm.qmatmul_pallas_indexed(
-            xs[n], ws[n], rot()))
+        per[n] = in_turns({
+            "ms": lambda n=n: qmm.qmatmul_pallas_indexed(xs[n], ws[n],
+                                                         rot()),
+            "loop_ms": lambda n=n: qmm._launch(xs[n], ws[n][rot()],
+                                               torch.bfloat16,
+                                               mode="loop")})
     res["qmatmul_pallas_indexed"] = dict(
-        ms=time_ms(k_layer), plain_ms=time_ms(p_layer),
-        library_ms=time_ms(l_layer),
+        **in_turns({"ms": k_layer, "loop_ms": loop_layer,
+                    "library_ms": l_layer, "plain_ms": p_layer}),
         library_call="torch.matmul per projection on pre-dequantized bf16 "
                      "weights",
         bound_ms=bm, bound_by=by,
@@ -2662,6 +2849,10 @@ def phase_timing(dev, rec):
     res["qmatmul_pallas_indexed"]["prefill_T2048_tflop_s"] = (
         wave_flops / wave_ms / 1e9)
     del ws, wds, xs, x2
+    res["qmatmul_pallas_indexed"]["verify_T128"] = time_verify_layer(
+        dev, gen)
+    res["qmatmul_pallas_pipe"] = dict(res["qmatmul_pallas"])
+    res["qmatmul_pallas_indexed_pipe"] = dict(res["qmatmul_pallas_indexed"])
 
     # flash_decode_batched: 7B decode shape, int8 cache, pos mid-run
     S, H, n_kv, hs, L = 512, 32, 32, 128, 2
@@ -2766,10 +2957,66 @@ def phase_timing(dev, rec):
     time_block(dev, gen, res)
     time_groupdot(dev, gen, res)
     for k, v in res.items():
-        log(f"  {k}: {v['ms']:.4f} ms (plain {v['plain_ms']:.4f}, library "
-            f"{v['library_ms']:.4f}, bound {v['bound_ms']:.4f} by "
+        loop = f"loop {v['loop_ms']:.4f}, " if "loop_ms" in v else ""
+        log(f"  {k}: {v['ms']:.4f} ms ({loop}plain {v['plain_ms']:.4f}, "
+            f"library {v['library_ms']:.4f}, bound {v['bound_ms']:.4f} by "
             f"{v['bound_by']}) {v['shape']}")
     rec["timing"] = res
+
+
+def time_verify_layer(dev, gen):
+    """K1 at a verify round's rows as phase 4c runs it: one layer of the
+    7B INT8 UNFUSED weights (wq, wk, wv, wo 4096x4096, w1, w3 4096x11008,
+    w2 11008x4096), f32 scales, T = B x D = 128 bf16 rows, layers rotating
+    so every launch finds its weight cold in L2; the pipelined mode, the
+    loop, torch.matmul on pre-dequantized bf16 weights and the plain
+    version, in turns."""
+    import torch
+    from fastllama_tpu_torch.config import QuantType
+    from fastllama_tpu_torch.ops.kernels import qmm
+    from fastllama_tpu_torch.quant.groupquant import dequantize
+    bf16, nl, T = torch.bfloat16, 4, 128
+    shapes = {"wq": (4096, 4096), "wk": (4096, 4096), "wv": (4096, 4096),
+              "wo": (4096, 4096), "w1": (4096, 11008), "w3": (4096, 11008),
+              "w2": (11008, 4096)}
+    ws = {n: rand_qarray(gen, (nl, *sh), QuantType.INT8, dev)
+          for n, sh in shapes.items()}
+    wds = {n: dequantize(ws[n], bf16) for n in shapes}
+    xs = {n: torch.randn((T, sh[0]), generator=gen, device=dev).to(bf16)
+          for n, sh in shapes.items()}
+    layer = [0]
+
+    def per_layer(one):
+        def run():
+            layer[0] = (layer[0] + 1) % nl
+            for n in shapes:
+                one(n, layer[0])
+        return run
+    nbytes = sum(T * I * 2 + I * O + I // 64 * O * 4 + T * O * 2
+                 for I, O in shapes.values())
+    flops = sum(2 * T * I * O for I, O in shapes.values())
+    bm, by = bound_ms(nbytes, flops, BF16_FLOP_S)
+    out = dict(
+        **in_turns({
+            "ms": per_layer(lambda n, lyr: qmm.qmatmul_pallas_indexed(
+                xs[n], ws[n], lyr)),
+            "loop_ms": per_layer(lambda n, lyr: qmm._launch(
+                xs[n], ws[n][lyr], bf16, mode="loop")),
+            "library_ms": per_layer(lambda n, lyr: torch.matmul(
+                xs[n], wds[n][lyr])),
+            "plain_ms": per_layer(lambda n, lyr: qmm.qmm_plain(
+                xs[n], ws[n][lyr]))}),
+        bound_ms=bm, bound_by=by, bytes=nbytes,
+        library_call="torch.matmul per projection on pre-dequantized bf16 "
+                     "weights",
+        shape="T=128 (B=32 x D=4), one unfused INT8 layer, f32 scales: wq, "
+              "wk, wv, wo 4096x4096, w1, w3 4096x11008, w2 11008x4096")
+    log(f"  qmatmul_pallas_indexed verify T=128: {out['ms']:.4f} ms (loop "
+        f"{out['loop_ms']:.4f}, plain {out['plain_ms']:.4f}, library "
+        f"{out['library_ms']:.4f}, bound {bm:.4f} by {by})")
+    del ws, wds
+    torch.cuda.empty_cache()
+    return out
 
 
 def time_single(dev, gen, res):
@@ -2818,6 +3065,11 @@ def time_single(dev, gen, res):
                                 wds[n][lyr])
         return torch.addmm(kws[n]["residual"], xs[n], wds[n][lyr])
 
+    def loop_one(n, lyr):
+        return qmm._launch(xs[n], ws[n][lyr], bf16,
+                           kws[n].get("norm_gain"), kws[n].get("residual"),
+                           mode="loop")
+
     def per_layer(one):
         def run():
             lyr = rot()
@@ -2832,17 +3084,21 @@ def time_single(dev, gen, res):
         flops += 2 * I * O
     bm, by = bound_ms(nbytes, flops, BF16_FLOP_S)
     res["qmatmul_pallas_indexed_fused"] = dict(
-        ms=time_ms(per_layer(k_one)), plain_ms=time_ms(per_layer(p_one)),
-        library_ms=time_ms(per_layer(l_one)),
+        **in_turns({"ms": per_layer(k_one), "loop_ms": per_layer(loop_one),
+                    "library_ms": per_layer(l_one),
+                    "plain_ms": per_layer(p_one)}),
         library_call="torch rms_norm then torch.matmul (norm projections) "
                      "or torch.addmm (residual projections) on "
                      "pre-dequantized bf16 weights",
         bound_ms=bm, bound_by=by, bytes=nbytes,
-        per_projection_ms={n: time_ms(lambda n=n: k_one(n, rot()))
-                           for n in names},
+        per_projection_ms={n: in_turns({
+            "ms": lambda n=n: k_one(n, rot()),
+            "loop_ms": lambda n=n: loop_one(n, rot())}) for n in names},
         shape="T=1 bf16 scales, one layer: wqkv 4096x12288 +norm, wo "
               "4096x4096 +residual, w13 4096x22016 +norm, w2 11008x4096 "
               "+residual")
+    res["qmatmul_pallas_indexed_fused_pipe"] = dict(
+        res["qmatmul_pallas_indexed_fused"])
     del ws, wds
 
     # K1 on the classifier at T=1 with bf16 scales
@@ -2853,13 +3109,15 @@ def time_single(dev, gen, res):
     nbytes = I * 2 + I * O + I // 64 * O * 2 + O * 2
     bm, by = bound_ms(nbytes, 2 * I * O, BF16_FLOP_S)
     res["qmatmul_pallas"]["single_stream"] = dict(
-        ms=time_ms(lambda: qmm.qmatmul_pallas(x, w)),
-        plain_ms=time_ms(lambda: qmm.qmm_plain(x, w)),
-        library_ms=time_ms(lambda: torch.matmul(x, wd)),
+        **in_turns({"ms": lambda: qmm.qmatmul_pallas(x, w),
+                    "loop_ms": lambda: qmm._launch(x, w, bf16, mode="loop"),
+                    "library_ms": lambda: torch.matmul(x, wd),
+                    "plain_ms": lambda: qmm.qmm_plain(x, w)}),
         bound_ms=bm, bound_by=by,
         shape=f"T=1 I={I} O={O} bf16 scales")
     v = res["qmatmul_pallas"]["single_stream"]
-    log(f"  qmatmul_pallas single-stream: {v['ms']:.4f} ms (plain "
+    log(f"  qmatmul_pallas single-stream: {v['ms']:.4f} ms (loop "
+        f"{v['loop_ms']:.4f}, plain "
         f"{v['plain_ms']:.4f}, library {v['library_ms']:.4f}, bound "
         f"{v['bound_ms']:.4f} by {v['bound_by']}) {v['shape']}")
     del w, wd
@@ -3151,9 +3409,11 @@ def time_p4(dev, gen, res):
     for label, T in (("batched", 48), ("single_stream", 1)):
         x = torch.randn((T, I), generator=gen, device=dev).to(bf16)
         bm, by = bound_ms(nbytes_of(T, I, O), 2 * T * I * O, BF16_FLOP_S)
-        d = dict(ms=time_ms(lambda: qmm.qmatmul_pallas(x, w)),
-                 plain_ms=time_ms(lambda: qmm.qmm_p4_plain(x, w)),
-                 library_ms=time_ms(lambda: torch.matmul(x, wd)),
+        d = dict(**in_turns({
+                     "ms": lambda: qmm.qmatmul_pallas(x, w),
+                     "loop_ms": lambda: qmm._launch(x, w, bf16, mode="loop"),
+                     "library_ms": lambda: torch.matmul(x, wd),
+                     "plain_ms": lambda: qmm.qmm_p4_plain(x, w)}),
                  k1_int8_ms=time_ms(lambda: qmm.qmatmul_pallas(x, w8)),
                  bound_ms=bm, bound_by=by,
                  bytes=nbytes_of(T, I, O),
@@ -3190,23 +3450,34 @@ def time_p4(dev, gen, res):
                  for n in names)
         bm, by = bound_ms(nb, fl, BF16_FLOP_S)
         iters = 5 if T == 2048 else 20
-        d = dict(ms=time_ms(kern, iters=iters, warmup=1), bound_ms=bm,
-                 bound_by=by, bytes=nb,
+        d = dict(bound_ms=bm, bound_by=by, bytes=nb,
                  k1_int8_ms=time_ms(run(lambda n, lyr:
                                         qmm.qmatmul_pallas_indexed(
                                             xs[n], w8s[n], lyr)),
                                     iters=iters, warmup=1))
         if T != 2048:
-            d["plain_ms"] = time_ms(run(lambda n, lyr: qmm.qmm_p4_plain(
-                xs[n], ws[n][lyr])))
-            d["library_ms"] = time_ms(run(lambda n, lyr: torch.matmul(
-                xs[n], wds[n][lyr])))
+            d.update(in_turns({
+                "ms": kern,
+                "loop_ms": run(lambda n, lyr: qmm._launch(
+                    xs[n], ws[n][lyr], bf16, mode="loop")),
+                "library_ms": run(lambda n, lyr: torch.matmul(
+                    xs[n], wds[n][lyr])),
+                "plain_ms": run(lambda n, lyr: qmm.qmm_p4_plain(
+                    xs[n], ws[n][lyr]))}))
         else:
+            d["ms"] = time_ms(kern, iters=iters, warmup=1)
             d["tflop_s"] = fl / d["ms"] / 1e9
+        if T != 2048:
+            log(f"  qmatmul_pallas_indexed_p4 T={T}: {d['ms']:.4f} ms (loop "
+                f"{d['loop_ms']:.4f}, plain {d['plain_ms']:.4f}, library "
+                f"{d['library_ms']:.4f}, bound {bm:.4f} by {by})")
         if T == 48:
-            d["per_projection_ms"] = {
-                n: time_ms(lambda n=n: qmm.qmatmul_pallas_indexed(
-                    xs[n], ws[n], rot())) for n in names}
+            d["per_projection_ms"] = {n: in_turns({
+                "ms": lambda n=n: qmm.qmatmul_pallas_indexed(xs[n], ws[n],
+                                                             rot()),
+                "loop_ms": lambda n=n: qmm._launch(
+                    xs[n], ws[n][rot()], bf16, mode="loop")})
+                for n in names}
         out[T] = d
     res["qmatmul_pallas_indexed_p4"] = dict(
         out[48], verify_T128=out[128], prefill_T2048=out[2048],
@@ -3245,11 +3516,15 @@ def time_p4(dev, gen, res):
     fl = sum(2 * PROJ_7B_INT4[n][0] * PROJ_7B_INT4[n][1] for n in names)
     bm, by = bound_ms(nb, fl, BF16_FLOP_S)
     res["qmatmul_pallas_indexed_fused_p4"] = dict(
-        ms=time_ms(per_layer(lambda n, lyr: qmm.qmatmul_pallas_indexed(
-            xs[n], ws[n], lyr, **kws[n]))),
-        plain_ms=time_ms(per_layer(lambda n, lyr: qmm.qmm_p4_plain(
-            xs[n], ws[n][lyr], **kws[n]))),
-        library_ms=time_ms(per_layer(lib)),
+        **in_turns({
+            "ms": per_layer(lambda n, lyr: qmm.qmatmul_pallas_indexed(
+                xs[n], ws[n], lyr, **kws[n])),
+            "loop_ms": per_layer(lambda n, lyr: qmm._launch(
+                xs[n], ws[n][lyr], bf16, kws[n].get("norm_gain"),
+                kws[n].get("residual"), mode="loop")),
+            "library_ms": per_layer(lib),
+            "plain_ms": per_layer(lambda n, lyr: qmm.qmm_p4_plain(
+                xs[n], ws[n][lyr], **kws[n]))}),
         library_call="torch rms_norm then torch.matmul (norm projections) "
                      "or torch.addmm (residual projections) on "
                      "pre-dequantized bf16 weights",
@@ -3518,6 +3793,10 @@ SOURCES = {
 }
 # K2's split-row mode: the same source and TPU function as its wrapper's
 SOURCES.update({k + "_split": SOURCES[k] for k in SPLIT_WRAPPERS})
+# the pipelined mode of K1 and K1p (INT8 and packed alike): K1's wrappers
+SOURCES.update({k + "_pipe": SOURCES[k] for k in (
+    "qmatmul_pallas", "qmatmul_pallas_indexed",
+    "qmatmul_pallas_indexed_fused")})
 
 
 def main() -> int:

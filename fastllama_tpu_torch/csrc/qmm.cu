@@ -33,16 +33,25 @@
 //
 // What bounds it on an H100: decode (T <= 48) streams every weight byte
 // once for few rows, so it is bound by memory bytes (1 B/param + scales);
-// prefill waves (T up to 2048) are bound by tensor-core operations.  The
-// INT8 path tiles 64x64 outputs per block and walks K in stages of 64
-// rows: each thread loads its part of the next stage (16-byte vector loads
-// of W, x and the group scales) into registers while the warps multiply
-// the current stage from shared memory, so the weight stream stays in
-// flight.  When the output tiles alone cannot fill the 132 SMs (decode
-// shapes) K is split across blocks and a second small kernel sums the
-// partials (deterministic).  Shapes whose rows are not 16-byte aligned
-// (O % 16, I % 8) stage element by element instead.  No cp.async/TMA and
-// no wgmma yet: those are later work.
+// a verify round (T = 128) sits near both bounds; prefill waves (T up to
+// 2048) are bound by tensor-core operations.  Two kernels serve it:
+//   * qmm_pipe_kernel, the pipelined mode (below, after qmm_f32_kernel),
+//     takes every standard-mode call that is not wide, is 16-byte aligned,
+//     has gs % 64 == 0 and T <= 128: the batched decode step, the single
+//     stream with its K1f glue and the speculative verify.  A cp.async
+//     ring of raw weight stages in shared memory, dequantized straight
+//     into mma.sync fragments;
+//   * qmm_bf16_kernel, the loop, takes the rest: prefill waves (T > 128),
+//     other group sizes, the groupdot mode and (with the element path)
+//     unaligned rows.  It tiles 64x64 outputs per block and walks K in
+//     stages of 64 rows: each thread loads its part of the next stage
+//     (16-byte vector loads of W, x and the group scales) into registers
+//     while the warps multiply the current stage from shared memory with
+//     WMMA.  No TMA and no wgmma yet: prefill's loop is later work.
+// When the output tiles alone cannot fill the 132 SMs (decode shapes) K is
+// split across blocks and a second small kernel sums the partials
+// (deterministic).  Shapes whose rows are not 16-byte aligned (O % 16,
+// I % 8) stage element by element instead.
 //
 // K1p, the packed INT4 mode, replaces the packed branches of
 // qmatmul_pallas (qmm.py:266-296, body _qmm_kernel_p4 :368-402) and of
@@ -66,10 +75,10 @@
 // (wqkv 4096x12288, wo 4096x4096, w13 4096x22528, w2 11264x4096) moves
 // 115.6 MB, 102.8 MB of nibbles and 12.8 MB of f32 scales: ~0.0345 ms at
 // 3.35 TB/s; the classifier (4096x32000) at T = 1 moves 73.7 MB, ~0.022
-// ms.  Against it the design streams half of K1's bytes per logical row
-// with K1's register double-buffering and split-K, so it keeps half as
-// many bytes in flight per stage; a deeper pipeline (cp.async/TMA stages,
-// more packed rows a stage) is what would bring it nearer the bound.
+// ms; at T = 128 the operations bound it (0.0532 ms a layer).  Its calls
+// up to T = 128 take the pipelined mode, whose stage of 32 packed rows
+// keeps as many nibble bytes in flight as the ring holds; the loop's
+// register double-buffering is left for prefill waves.
 //
 // The groupdot mode of K1 and K1p (template flag GD) replaces the
 // scale-after-dot variant of the Pallas kernels: _qmm_chunk_groupdot
@@ -734,6 +743,454 @@ qmm_f32_kernel(const XT* __restrict__ x, const WT* __restrict__ w,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The pipelined mode (qmm_pipe_kernel): K1 and K1p at T <= 128, standard
+// mode, not wide, 16-byte aligned, gs a multiple of 64.
+//
+// A block computes all T rows (one row tile of 16 * MT rows: 16, 48, 64 or
+// 128, the least that holds T) of BN = 8 * NJ * CG output columns over one
+// split of K.  Its stages (64 logical K rows: 64 W
+// rows, or K1p's 32 packed rows holding two planes, one group each since
+// gs % 64 == 0) sit in a ring of PK_NS slots in dynamic shared memory, each
+// slot the raw weight bytes, the x tile as stored (T rows x 64 columns; K1p:
+// the low plane's 32 columns, then the high plane's) and the stage's
+// BN-wide row of group scales (K1p: one a plane), all moved by 16-byte
+// cp.async with zero fill past the edges; the x rows from T to the tile's
+// end are zeroed once.  PK_NS - 1 stages are in flight while one is
+// multiplied: one barrier a stage (two when x has to be converted first).
+// CG warps, each of NJ mma.sync.m16n8k16 n-tiles (8 * NJ columns; NJ 2
+// halves the accumulators, so that more warps an SM keep the tensor cores
+// fed) whose column n of tile j is the warp's column NJ n + j, so a lane's
+// NJ columns are neighbouring bytes: one 32- (16-) bit shared load a W
+// row feeds a B fragment register of all NJ tiles.  The weights are
+// dequantized from those words straight into the B fragments:
+//   * INT8: each byte becomes an exact float by a magic-exponent LOP3 (the
+//     byte in the mantissa, no int-to-float conversion), two of them a bf16
+//     pair (exact), times the bf16 scale pair in bf16 arithmetic: one
+//     rounding, bf16(bf16(w) * bf16(s)), as _qmm_chunk;
+//   * K1p: a k = 16 step takes 16 packed rows of ONE plane (the low
+//     nibbles, or the high ones against x's columns I/2 + k), each nibble an
+//     exact float the same way, times the f32 scale in f32, the pair rounded
+//     to bf16 once: bf16(f32(nibble) * f32(s)), as _qmm_kernel_p4.
+// x goes to the A fragments by ldmatrix from the slot (bf16 x) or from a
+// bf16 copy that the block writes after the stage lands (f32 x, or the K1f
+// prologue: x * rinv * gain rounded once).  Under the prologue the block
+// first puts its first PK_NS - 1 stages in flight, then reads its rows for the
+// inverse RMS.  The mma chain has constant bounds and no branch: a step
+// past the split multiplies zero-filled weights.  A split-K launch writes
+// f32 partials that splitk_reduce_kernel sums (deterministic; the residual
+// is added there).  Summing them in the kernel instead, by each column
+// tile's last block to finish, measured slower on an H100 at T = 48 and
+// 128.
+constexpr int PK_X = 64;               // x tile columns a stage
+constexpr int PK_XB = PK_X * 2 + 16;   // bf16 x row pitch (bytes)
+constexpr int PK_SMEM_BLOCK = 232448;  // shared memory a block may use
+// the ring's depth: deeper rings leave fewer blocks an SM, which read
+// slower on an H100 (PERF.md, PR 10)
+constexpr int PK_NS = 3;
+
+// bytes of one ring slot: W rows at a pitch of bn + 16, the x tile at a
+// pitch of its row + 16, the scale rows (K1p: two)
+__host__ __device__ constexpr int pipe_stage_bytes(bool p4, int s_size,
+                                                   int mt, int bn,
+                                                   int x_size) {
+  return (p4 ? 32 : 64) * (bn + 16) + 16 * mt * (PK_X * x_size + 16) +
+         (p4 ? 2 : 1) * bn * s_size;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   (uint32_t)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// mma_16816 without `volatile`: a pure function of its registers, so the
+// compiler may schedule the next fragments' loads ahead of the chain
+__device__ __forceinline__ void mma_16816_sched(float (&d)[4],
+                                                const uint32_t (&a)[4],
+                                                const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+      : "r"((uint32_t)__cvta_generic_to_shared(p)));
+}
+
+// The signed field of BITS bits at bit pos (pos + BITS <= 20) of v as an
+// exact float: the field, its sign bit flipped, becomes the low mantissa
+// bits of 2^(23 - pos) (one LOP3), and the bias 2^(23 - pos) +
+// 2^(BITS - 1) comes off exactly.
+template <int BITS>
+__device__ __forceinline__ float field_f(uint32_t v, int pos) {
+  const uint32_t mask = ((1u << BITS) - 1) << pos;
+  const uint32_t magic = (1u << (BITS - 1 + pos)) | ((150u - pos) << 23);
+  return __uint_as_float((v & mask) ^ magic) -
+         (float)((1 << (23 - pos)) + (1 << (BITS - 1)));
+}
+// byte j of v
+__device__ __forceinline__ float byte_f(uint32_t v, int j) {
+  return field_f<8>(j >= 2 ? v >> 16 : v, (j & 1) * 8);
+}
+// plane p's nibble of byte j of v (p 0: the low nibble); vh = v >> 12
+__device__ __forceinline__ float nib_f(uint32_t v, uint32_t vh, int p, int j) {
+  const int pos = 8 * j + 4 * p;
+  return pos < 20 ? field_f<4>(v, pos) : field_f<4>(vh, pos - 12);
+}
+// the bf16 pair (lo, hi) of two floats that bf16 holds exactly
+__device__ __forceinline__ uint32_t exact_pair(float lo, float hi) {
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+__device__ __forceinline__ uint32_t bf16_mul2(uint32_t a, __nv_bfloat162 s) {
+  const __nv_bfloat162 r = __hmul2(*reinterpret_cast<__nv_bfloat162*>(&a), s);
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+__device__ __forceinline__ uint32_t round_pair(float lo, float hi) {
+  const __nv_bfloat162 r = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+// N (2 or 4) neighbouring group scales as f32 (a bf16 one promoted
+// exactly)
+template <int N>
+__device__ __forceinline__ void scales_f(float (&d)[N], const unsigned char* p,
+                                         bool f32) {
+  if (f32) {
+    if constexpr (N == 4) {
+      const float4 v = *reinterpret_cast<const float4*>(p);
+      d[0] = v.x; d[1] = v.y; d[2] = v.z; d[3] = v.w;
+    } else {
+      const float2 v = *reinterpret_cast<const float2*>(p);
+      d[0] = v.x; d[1] = v.y;
+    }
+  } else {
+    uint2 v = make_uint2(0, 0);
+    if constexpr (N == 4) v = *reinterpret_cast<const uint2*>(p);
+    else v.x = *reinterpret_cast<const uint32_t*>(p);
+    const __nv_bfloat16* b = reinterpret_cast<const __nv_bfloat16*>(&v);
+#pragma unroll
+    for (int j = 0; j < N; ++j) d[j] = __bfloat162float(b[j]);
+  }
+}
+// N (4 or 8) f32 at p
+template <int N>
+__device__ __forceinline__ void store_f32(float* p, const float (&v)[N]) {
+#pragma unroll
+  for (int q = 0; q < N / 4; ++q)
+    reinterpret_cast<float4*>(p)[q] =
+        make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+}
+template <int N>
+__device__ __forceinline__ void add_f32(float (&v)[N], const float* p) {
+#pragma unroll
+  for (int q = 0; q < N / 4; ++q) {
+    const float4 a = reinterpret_cast<const float4*>(p)[q];
+    v[4 * q] += a.x; v[4 * q + 1] += a.y; v[4 * q + 2] += a.z;
+    v[4 * q + 3] += a.w;
+  }
+}
+// N (4 or 8) values rounded to bf16 at p
+template <int N>
+__device__ __forceinline__ void store_bf16(__nv_bfloat16* p,
+                                           const float (&v)[N]) {
+  uint32_t u[N / 2];
+#pragma unroll
+  for (int q = 0; q < N / 2; ++q) u[q] = round_pair(v[2 * q], v[2 * q + 1]);
+  if constexpr (N == 8)
+    *reinterpret_cast<uint4*>(p) = make_uint4(u[0], u[1], u[2], u[3]);
+  else
+    *reinterpret_cast<uint2*>(p) = make_uint2(u[0], u[1]);
+}
+template <int N>
+__device__ __forceinline__ void add_bf16(float (&v)[N],
+                                         const __nv_bfloat16* p) {
+  uint32_t u[N / 2];
+  if constexpr (N == 8) {
+    const uint4 a = *reinterpret_cast<const uint4*>(p);
+    u[0] = a.x; u[1] = a.y; u[2] = a.z; u[3] = a.w;
+  } else {
+    const uint2 a = *reinterpret_cast<const uint2*>(p);
+    u[0] = a.x; u[1] = a.y;
+  }
+  const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(u);
+#pragma unroll
+  for (int j = 0; j < N; ++j) v[j] = __bfloat162float(e[j]) + v[j];
+}
+
+template <bool P4, int MT, int CG, int NJ>
+__global__ void __launch_bounds__(CG * 32)
+qmm_pipe_kernel(const void* __restrict__ xv, const int8_t* __restrict__ w,
+                const unsigned char* __restrict__ s,
+                const float* __restrict__ gain,
+                const void* __restrict__ resv, void* __restrict__ outv,
+                float* __restrict__ partial, int T, int I, int O, int gs,
+                int k_per_split, int x_f32, int s_f32, float eps) {
+  constexpr int NS = PK_NS;
+  constexpr int NW = CG, NT = NW * 32, BN = 8 * NJ * CG, BMR = 16 * MT;
+  constexpr int KS = P4 ? 32 : 64;     // W rows a stage
+  constexpr int KSTEPS = KS / 16;      // k = 16 steps a stage (K1p: a plane)
+  constexpr int WP = BN + 16;          // W row pitch in the slot (bytes)
+  constexpr int NP = P4 ? 2 : 1;       // planes
+  extern __shared__ __align__(128) unsigned char psm[];
+  __shared__ float rinv[BMR];
+  __shared__ float wsum[NW][BMR];
+  const int esz = x_f32 ? 4 : 2, ssz = s_f32 ? 4 : 2;
+  const int XP = PK_X * esz + 16;      // x row pitch in the slot (bytes)
+  const int stage = pipe_stage_bytes(P4, ssz, MT, BN, esz);
+  const bool conv = x_f32 || gain != nullptr;
+  __nv_bfloat16* xbuf = reinterpret_cast<__nv_bfloat16*>(psm + NS * stage);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int n0 = blockIdx.x * BN;
+  const int Ih = I / 2;
+  const int kbeg = blockIdx.y * k_per_split;
+  const int kend = min(P4 ? Ih : I, kbeg + k_per_split);
+  const int nst = (kend - kbeg + KS - 1) / KS;
+  const char* xb = static_cast<const char*>(xv);
+  const int xlg = x_f32 ? 4 : 3;       // log2 of an x row's 16-byte chunks
+
+  // Each thread copies the same 16-byte column of every stage: its W
+  // chunks sit in rows wr0, wr0 + WR, ... of the slot, its x chunks in
+  // rows xr0, xr0 + XR, ... (under T), its scale chunk (if any) in plane
+  // sp's row; a stage only moves the sources on by its k0.
+  constexpr int WC = BN / 16, WR = NT / WC;
+  const int wc = (tid % WC) * 16, wr0 = tid / WC;
+  const bool w_in = n0 + wc < O;
+  const int8_t* wsrc = w + (size_t)wr0 * O + n0 + wc;
+  const int xr0 = tid >> xlg, XR = NT >> xlg;
+  const int xc = (tid & ((1 << xlg) - 1)) << (4 - (esz >> 1));
+  const char* xsrc =
+      xb + ((size_t)xr0 * I + (P4 && xc >= 32 ? Ih + xc - 32 : xc)) * esz;
+  const int sc = BN * ssz / 16;        // 16-byte chunks of a scale row
+  const int sp = tid / sc, scol = (tid % sc) * 16 / ssz;
+  auto copy_stage = [&](int slot, int k0) {
+    unsigned char* wsl = psm + slot * stage;
+    const int8_t* wp = wsrc + (size_t)k0 * O;
+#pragma unroll
+    for (int i = 0; i < KS / WR; ++i) {
+      const bool in = w_in && k0 + wr0 + i * WR < kend;
+      cp_async16(wsl + (wr0 + i * WR) * WP + wc,
+                 in ? wp + (size_t)i * WR * O : w, in ? 16 : 0);
+    }
+    // column xc of the x tile: x's k0 + xc, under K1p the high plane's
+    // I/2 + k0 + xc - 32 for xc >= 32 (rows from T on stay zero)
+    unsigned char* xsl = wsl + KS * WP;
+    const bool xin = P4 ? k0 + (xc & 31) < Ih : k0 + xc < I;
+    const char* xp = xsrc + (size_t)k0 * esz;
+    for (int r = xr0; r < T; r += XR, xp += (size_t)XR * I * esz)
+      cp_async16(xsl + r * XP + xc * esz, xin ? xp : xb, xin ? 16 : 0);
+    // the stage's scale row (K1p: the low plane's, then the high plane's)
+    if (sp < NP) {
+      const size_t row = (size_t)((sp * Ih + k0) / gs);
+      const bool in = n0 + scol < O;
+      cp_async16(xsl + BMR * XP + (sp * BN + scol) * ssz,
+                 in ? s + (row * O + n0 + scol) * ssz : s, in ? 16 : 0);
+    }
+  };
+
+  // zero the x rows past T of every slot: the mma reads the whole tile
+  for (int sl = 0; sl < NS; ++sl) {
+    unsigned char* xsl = psm + sl * stage + KS * WP;
+    for (int q = tid; q < (BMR - T) * XP / 16; q += NT)
+      *reinterpret_cast<uint4*>(xsl + T * XP + q * 16) = make_uint4(0, 0, 0, 0);
+  }
+  for (int st = 0; st < NS - 1; ++st) {
+    if (st < nst) copy_stage(st, kbeg + st * KS);
+    cp_async_commit();
+  }
+  // K1f prologue, while those stages land: the inverse RMS of each row
+  // over the whole row (per-warp partial sums, summed in warp order)
+  if (gain != nullptr) {
+    for (int r = 0; r < T; ++r) {
+      float a = 0.0f;
+      if (x_f32) {
+        const float* row = reinterpret_cast<const float*>(xv) + (size_t)r * I;
+        for (int c = tid * 4; c < I; c += NT * 4) {
+          const float4 v = *reinterpret_cast<const float4*>(row + c);
+          a = fmaf(v.x, v.x, fmaf(v.y, v.y, fmaf(v.z, v.z, fmaf(v.w, v.w, a))));
+        }
+      } else {
+        const __nv_bfloat16* row =
+            reinterpret_cast<const __nv_bfloat16*>(xv) + (size_t)r * I;
+        for (int c = tid * 8; c < I; c += NT * 8) {
+          const uint4 v = *reinterpret_cast<const uint4*>(row + c);
+          const __nv_bfloat162* e = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float2 f = __bfloat1622float2(e[j]);
+            a = fmaf(f.x, f.x, fmaf(f.y, f.y, a));
+          }
+        }
+      }
+      a = warp_sum(a);
+      if (lane == 0) wsum[warp][r] = a;
+    }
+    __syncthreads();
+    for (int r = tid; r < BMR; r += NT) {
+      float ss = 0.0f;
+      if (r < T) {
+#pragma unroll
+        for (int v = 0; v < NW; ++v) ss += wsum[v][r];
+      }
+      rinv[r] = r < T ? 1.0f / sqrtf(ss / (float)I + eps) : 0.0f;
+    }
+  }
+
+  float acc[MT][NJ][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+  const int cb = warp * 8 * NJ + NJ * g;   // the lane's first column
+
+  for (int it = 0; it < nst; ++it) {
+    cp_async_wait<NS - 2>();
+    __syncthreads();                   // stage it landed; slot it - 1 free
+    {
+      const int st = it + NS - 1;
+      if (st < nst) copy_stage(st % NS, kbeg + st * KS);
+      cp_async_commit();
+    }
+    const int k0 = kbeg + it * KS;
+    const unsigned char* wsl = psm + (it % NS) * stage;
+    const unsigned char* xsl = wsl + KS * WP;
+    const unsigned char* ssl = xsl + BMR * XP;
+    const __nv_bfloat16* xa = reinterpret_cast<const __nv_bfloat16*>(xsl);
+    int xpe = XP / 2;
+    if (conv) {                        // x -> bf16, normalized under K1f
+      for (int q = tid; q < BMR * (PK_X / 8); q += NT) {
+        const int r = q / (PK_X / 8), c = (q % (PK_X / 8)) * 8;
+        float v[8];
+        if (x_f32) {
+          const float4* p = reinterpret_cast<const float4*>(xsl + r * XP + c * 4);
+          const float4 a = p[0], b = p[1];
+          v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+          v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+        } else {
+          const uint4 u = *reinterpret_cast<const uint4*>(xsl + r * XP + c * 2);
+          const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&u);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) v[j] = __bfloat162float(e[j]);
+        }
+        if (gain != nullptr) {
+          const int col = P4 && c >= 32 ? Ih + k0 + c - 32 : k0 + c;
+          const bool in = P4 ? k0 + (c & 31) < Ih : col < I;
+          const float ri = rinv[r];
+          const float* gp = gain + (in ? col : 0);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) v[j] = in ? v[j] * ri * __ldg(gp + j) : 0.0f;
+        }
+        uint4 o;
+        o.x = round_pair(v[0], v[1]);
+        o.y = round_pair(v[2], v[3]);
+        o.z = round_pair(v[4], v[5]);
+        o.w = round_pair(v[6], v[7]);
+        *reinterpret_cast<uint4*>(xbuf + r * (PK_XB / 2) + c) = o;
+      }
+      __syncthreads();
+      xa = xbuf;
+      xpe = PK_XB / 2;
+    }
+    // the stage's scales of the lane's NJ columns, by plane
+    float sf[NP][NJ];
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+      scales_f<NJ>(sf[p], ssl + (p * BN + cb) * ssz, s_f32);
+    __nv_bfloat162 sb[NJ];
+    if constexpr (!P4) {
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+        sb[j] = __floats2bfloat162_rn(sf[0][j], sf[0][j]);
+    }
+    // the lane's NJ bytes of W row r of the stage
+    auto wbytes = [&](int r) -> uint32_t {
+      const unsigned char* p = wsl + r * WP + cb;
+      if constexpr (NJ == 4) return *reinterpret_cast<const uint32_t*>(p);
+      else return *reinterpret_cast<const uint16_t*>(p);
+    };
+#pragma unroll
+    for (int kp = 0; kp < KSTEPS; ++kp) {
+      const int r0 = 16 * kp + 2 * t4;
+      const uint32_t w0 = wbytes(r0), w1 = wbytes(r0 + 1);
+      const uint32_t w8 = wbytes(r0 + 8), w9 = wbytes(r0 + 9);
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        uint32_t b[NJ][2];
+        if constexpr (P4) {
+          const uint32_t h0 = w0 >> 12, h1 = w1 >> 12, h8 = w8 >> 12,
+                         h9 = w9 >> 12;
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) {
+            b[j][0] = round_pair(nib_f(w0, h0, p, j) * sf[p][j],
+                                 nib_f(w1, h1, p, j) * sf[p][j]);
+            b[j][1] = round_pair(nib_f(w8, h8, p, j) * sf[p][j],
+                                 nib_f(w9, h9, p, j) * sf[p][j]);
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) {
+            b[j][0] = bf16_mul2(exact_pair(byte_f(w0, j), byte_f(w1, j)), sb[j]);
+            b[j][1] = bf16_mul2(exact_pair(byte_f(w8, j), byte_f(w9, j)), sb[j]);
+          }
+        }
+        const __nv_bfloat16* xr =
+            xa + (lane & 15) * xpe + 32 * p + 16 * kp + (lane >> 4) * 8;
+        uint32_t a[MT][4];
+#pragma unroll
+        for (int i = 0; i < MT; ++i) ldmatrix_x4(a[i], xr + 16 * i * xpe);
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) mma_16816_sched(acc[i][j], a[i], b[j]);
+      }
+    }
+  }
+
+  // lane (g, t4) holds, per m-tile, rows g and g + 8 of its warp's
+  // columns 2 NJ t4 .. 2 NJ t4 + 2 NJ - 1: tile j's elements 0/2 are
+  // column 2 NJ t4 + j, elements 1/3 column 2 NJ t4 + NJ + j
+  const int col = n0 + warp * 8 * NJ + 2 * NJ * t4;
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = 16 * i + g + 8 * h;
+      if (row >= T || col >= O) continue;
+      float v[2 * NJ];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        v[j] = acc[i][j][2 * h];
+        v[NJ + j] = acc[i][j][2 * h + 1];
+      }
+      const size_t o = (size_t)row * O + col;
+      if (partial != nullptr) {
+        store_f32(partial + (size_t)blockIdx.y * T * O + o, v);
+      } else if (x_f32) {
+        if (resv != nullptr) add_f32(v, static_cast<const float*>(resv) + o);
+        store_f32(static_cast<float*>(outv) + o, v);
+      } else {
+        if (resv != nullptr)
+          add_bf16(v, static_cast<const __nv_bfloat16*>(resv) + o);
+        store_bf16(static_cast<__nv_bfloat16*>(outv) + o, v);
+      }
+    }
+}
+
 // Sum of the split-K partials (after the K1f residual, when given),
 // written in x's dtype.
 template <typename XT>
@@ -820,6 +1277,97 @@ int launch_typed(const void* x, const void* w, const void* s,
   return (int)cudaGetLastError();
 }
 
+// A pipelined block's dynamic shared memory: the ring, and a bf16 x tile
+// when x is f32 or the norm prologue runs (conv)
+template <bool P4, int MT, int CG, int NJ>
+int pipe_smem(int x_f32, int s_f32, int conv) {
+  return PK_NS * pipe_stage_bytes(P4, s_f32 ? 4 : 2, MT, 8 * NJ * CG,
+                                  x_f32 ? 4 : 2) +
+         (conv ? 16 * MT * PK_XB : 0);
+}
+
+// Lets the instantiation launch with smem bytes of dynamic shared memory.
+template <bool P4, int MT, int CG, int NJ>
+int pipe_allow_smem(int smem) {
+  // the kernel's static arrays (rinv, wsum) share the block's budget
+  const int stat = (int)sizeof(float) * 16 * MT * (1 + CG);
+  if (smem + stat > PK_SMEM_BLOCK) return (int)cudaErrorInvalidValue;
+  static int allowed = 48 * 1024;      // this instantiation's smem limit
+  if (smem > allowed) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        qmm_pipe_kernel<P4, MT, CG, NJ>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) {
+      cudaGetLastError();              // not left for the next launch
+      return (int)e;
+    }
+    allowed = smem;
+  }
+  return 0;
+}
+
+// The blocks of the instantiation that one SM holds at once, by the
+// runtime's occupancy count (registers, shared memory, threads).
+template <bool P4, int MT, int CG, int NJ>
+int pipe_resident_t(int x_f32, int s_f32, int conv, int* blocks) {
+  const int smem = pipe_smem<P4, MT, CG, NJ>(x_f32, s_f32, conv);
+  const int e = pipe_allow_smem<P4, MT, CG, NJ>(smem);
+  if (e != 0) return e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, qmm_pipe_kernel<P4, MT, CG, NJ>, CG * 32, smem);
+}
+
+template <bool P4, int MT, int CG, int NJ>
+int launch_pipe_t(const void* x, const int8_t* w, const void* s,
+                  const float* gain, const void* res, float eps, void* out,
+                  float* partial, int T, int I, int O, int gs, int splits,
+                  int k_per_split, int x_f32, int s_f32, cudaStream_t st) {
+  constexpr int BN = 8 * NJ * CG;
+  const int smem = pipe_smem<P4, MT, CG, NJ>(x_f32, s_f32,
+                                             x_f32 || gain != nullptr);
+  const int e = pipe_allow_smem<P4, MT, CG, NJ>(smem);
+  if (e != 0) return e;
+  const dim3 grid((O + BN - 1) / BN, splits);
+  // the residual is added once: by the reduce pass when K is split
+  qmm_pipe_kernel<P4, MT, CG, NJ><<<grid, CG * 32, smem, st>>>(
+      x, w, static_cast<const unsigned char*>(s), gain,
+      splits > 1 ? nullptr : res, out, splits > 1 ? partial : nullptr, T, I,
+      O, gs, k_per_split, x_f32, s_f32, eps);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  const size_t n = (size_t)T * O;
+  const int blocks = (int)std::min<size_t>((n + 255) / 256, 4096);
+  if (x_f32)
+    splitk_reduce_kernel<float><<<blocks, 256, 0, st>>>(
+        partial, static_cast<const float*>(res), static_cast<float*>(out), n,
+        splits);
+  else
+    splitk_reduce_kernel<__nv_bfloat16><<<blocks, 256, 0, st>>>(
+        partial, static_cast<const __nv_bfloat16*>(res),
+        static_cast<__nv_bfloat16*>(out), n, splits);
+  return (int)cudaGetLastError();
+}
+
+// Calls F's template on the instantiation of (packed, rows, warps): row
+// tiles of 16, 48, 64 or 128 rows, 4 warps of 4 n-tiles, or 8 of 2 at 128
+// rows, 128 output columns a block.
+#define QMM_PIPE_DISPATCH(F, ...)                                             \
+  do {                                                                        \
+    if (rows == 16 && warps == 4) QMM_PIPE_CALL(F, 1, 4, 4, __VA_ARGS__);     \
+    if (rows == 48 && warps == 4) QMM_PIPE_CALL(F, 3, 4, 4, __VA_ARGS__);     \
+    if (rows == 64 && warps == 4) QMM_PIPE_CALL(F, 4, 4, 4, __VA_ARGS__);     \
+    if (rows == 128 && warps == 4) QMM_PIPE_CALL(F, 8, 4, 4, __VA_ARGS__);    \
+    if (rows == 128 && warps == 8) QMM_PIPE_CALL(F, 8, 8, 2, __VA_ARGS__);    \
+    return (int)cudaErrorInvalidValue;                                        \
+  } while (0)
+#define QMM_PIPE_CALL(F, MT, CG, NJ, ...)                                     \
+  return packed ? F<true, MT, CG, NJ>(__VA_ARGS__)                            \
+                : F<false, MT, CG, NJ>(__VA_ARGS__)
+
+bool misaligned(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 != 0;
+}
+
 }  // namespace
 
 // out (T, O) in x's dtype; partial: splits*T*O f32 scratch when splits > 1;
@@ -846,4 +1394,43 @@ extern "C" int qmm_launch(const void* x, const void* w, const void* s,
                                        O, gs, splits, k_per_split, w_dt, s_dt,
                                        wide, vec, packed, groupdot, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// The pipelined mode (qmm_pipe_kernel): out (T, O) in x's dtype, T <= rows.
+// rows x warps: 16, 48, 64 or 128 x 4, or 128 x 8 (a block's row tile and
+// its warps over 128 output columns); k_per_split in W rows (K1p: packed
+// rows), a multiple of 64 (K1p: 32); partial: splits*T*O f32 scratch when
+// splits > 1.  x f32/bf16, scales f32/bf16, w int8 (packed: the (I/2, O)
+// split-half bytes); rows 16-byte aligned (O % 16, I % 8, K1p I % 16; x,
+// w, s and res at 16-byte aligned addresses) and gs % 64 == 0.  gain / res
+// as qmm_launch's.
+extern "C" int qmm_pipe_launch(const void* x, const void* w, const void* s,
+                               const void* gain, const void* res, float eps,
+                               void* out, void* partial, int T, int I, int O,
+                               int gs, int splits, int k_per_split, int x_dt,
+                               int s_dt, int packed, int rows, int warps,
+                               void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int8_t* wp = static_cast<const int8_t*>(w);
+  const float* g = static_cast<const float*>(gain);
+  float* part = static_cast<float*>(partial);
+  if (T < 1 || T > rows || gs % 64 || O % 16 || I % (packed ? 16 : 8) ||
+      splits < 1 || k_per_split % (packed ? 32 : 64) || misaligned(x) ||
+      misaligned(w) || misaligned(s) || misaligned(res) ||
+      (x_dt != DT_F32 && x_dt != DT_BF16) || (s_dt != DT_F32 && s_dt != DT_BF16))
+    return (int)cudaErrorInvalidValue;
+  const int xf = x_dt == DT_F32, sf = s_dt == DT_F32;
+  QMM_PIPE_DISPATCH(launch_pipe_t, x, wp, s, g, res, eps, out, part, T, I, O,
+                    gs, splits, k_per_split, xf, sf, st);
+}
+
+// *blocks: how many blocks of the pipelined instantiation (packed, rows,
+// warps) for x_dt, s_dt and conv (f32 x or the norm prologue) one SM of
+// the current device holds at once; the host's split rule reads it.
+extern "C" int qmm_pipe_resident(int packed, int rows, int warps, int x_dt,
+                                 int s_dt, int conv, int* blocks) {
+  if ((x_dt != DT_F32 && x_dt != DT_BF16) || (s_dt != DT_F32 && s_dt != DT_BF16))
+    return (int)cudaErrorInvalidValue;
+  QMM_PIPE_DISPATCH(pipe_resident_t, x_dt == DT_F32, s_dt == DT_F32, conv,
+                    blocks);
 }

@@ -37,15 +37,27 @@ groups); any other raises on a CUDA tensor.
 ``tiles``/``k_inner`` sweep overrides, qmm.py:251-262); a count that
 leaves a split empty raises, as JAX raises on non-dividing tiles.
 
+The pipelined mode (``qmm_pipe_kernel``) takes every standard-mode call
+of K1 and K1p that is not wide, 16-byte aligned, has a group size that is
+a multiple of 64 and T <= 128 rows: the batched decode step, the single
+stream with its K1f glue and the speculative verify.  Groupdot, the wide
+path, the unaligned element path and T > 128 (prefill waves) stay on
+``qmm_bf16_kernel``'s loop.  :func:`qmm_mode` says which a call takes and
+:func:`pipe_plan` gives the pipelined launch's row tile, warps and split-K
+count.  It computes what the loop computes; only the f32 sum order
+differs.
+
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel or raises.  Each wrapper counts its launches in ``.launches``, and
-those on a packed weight (K1p) in ``.launches_p4``; ``qmatmul_pallas``
+those on a packed weight (K1p) in ``.launches_p4``, those in the
+pipelined mode (K1 and K1p) also in ``.launches_pipe``; ``qmatmul_pallas``
 counts its groupdot launches in ``.launches_groupdot`` (K1) and
 ``.launches_groupdot_p4`` (K1p).
 """
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
@@ -171,6 +183,95 @@ def split_plan(T: int, I: int, O: int, w: QArray, compute_dtype,
                      (I, 16 if is_wide(w, compute_dtype) else 64))
     if splits is None:
         return _split_k(T, k_rows, O, kstep, n_sm)
+    return _explicit_split(k_rows, kstep, splits)
+
+
+PIPE_MAX_T = 128           # the pipelined mode's largest row count
+PIPE_COLS = 128            # output columns of a pipelined block
+PIPE_ROWS = (16, 48, 64, 128)  # the row tiles
+
+
+def qmm_mode(x: torch.Tensor, w: QArray, compute_dtype=torch.bfloat16,
+             groupdot: bool = False, residual=None) -> str:
+    """The kernel a call takes, from dtypes, shapes, alignment and flags:
+    ``"groupdot"`` (the scale-after-dot mode), ``"wide"`` (f32 dequant
+    and FMA: INT16 or f32 compute, unpacked), ``"scalar"`` (rows not
+    16-byte aligned: the loop's element path), ``"pipe"`` (the pipelined
+    mode: T <= 128, a group size that is a multiple of 64, so that a
+    stage holds one group, and a ``residual``, if any, at a 16-byte
+    aligned address, since its epilogue reads the residual by vectors) or
+    ``"loop"`` (``qmm_bf16_kernel``'s vector loop: prefill waves, other
+    group sizes, an offset residual)."""
+    if groupdot and (w.packed or not is_wide(w, compute_dtype)):
+        return "groupdot"
+    if is_wide(w, compute_dtype):
+        return "wide"
+    if not _vec_ok(x, w):
+        return "scalar"
+    if x.shape[0] <= PIPE_MAX_T and w.group_size % 64 == 0 and (
+            residual is None or residual.data_ptr() % 16 == 0):
+        return "pipe"
+    return "loop"
+
+
+@dataclass(frozen=True)
+class PipePlan:
+    """A pipelined launch: ``rows`` the row tile (16, 48, 64 or 128, at
+    least T); ``warps`` over ``cols`` output columns a block; the split-K
+    count and the W rows a split (K1p: packed rows; whole stages of
+    ``kstep``)."""
+    rows: int
+    warps: int
+    cols: int
+    splits: int
+    k_per_split: int
+    kstep: int
+
+
+def pipe_shape(T: int, I: int, O: int) -> tuple:
+    """(rows, warps) of the pipelined launch of a (T, I) x (I, O) product.
+    The row tile is the least of 16, 48, 64, 128 that holds T; its 128
+    columns go to 4 warps, or at 128 rows on a weight of I <= 4096 and
+    O <= 12288 to 8 (half the accumulators a thread, twice the warps an
+    SM: the faster on those 7B shapes in the H100 sweep, the slower on the
+    others)."""
+    if not 1 <= T <= PIPE_MAX_T:
+        raise ValueError(f"the pipelined mode takes 1 <= T <= {PIPE_MAX_T},"
+                         f" not {T}")
+    rows = next(r for r in PIPE_ROWS if r >= T)
+    return rows, 8 if rows == 128 and I <= 4096 and O <= 12288 else 4
+
+
+def pipe_plan(T: int, I: int, O: int, packed: bool, *, resident: int,
+              splits=None, n_sm: int = 132) -> PipePlan:
+    """The pipelined launch of a (T, I) x (I, O) product: the row tile and
+    warps of :func:`pipe_shape`, and the split-K count.
+    ``splits=None``: at 16 rows as many splits as leave each at least 4
+    stages (the partials are one row), up to 16; above, as many blocks as
+    the SMs hold at once (``resident`` blocks an SM, the card's occupancy
+    count for this launch, :func:`_pipe_resident`), rounded down to whole
+    splits of the output tiles, since each split adds T x O f32 partials
+    to write and sum (the rule that read best in the sweep on an H100 at
+    T <= 64; at 128 rows it splits some shapes too little, see PERF.md).
+    An explicit count must leave no split empty (:func:`split_plan`)."""
+    rows, warps = pipe_shape(T, I, O)
+    kstep = 32 if packed else 64
+    k_rows = I // 2 if packed else I
+    if splits is None:
+        most = max(1, min(k_rows // (4 * kstep), 16))
+        tiles = -(-O // PIPE_COLS)
+        splits = (most if rows == 16 else
+                  max(1, min(resident * n_sm // tiles, most)))
+        kps = -(-(-(-k_rows // splits)) // kstep) * kstep
+        splits = -(-k_rows // kps)
+    else:
+        splits, kps = _explicit_split(k_rows, kstep, splits)
+    return PipePlan(rows, warps, PIPE_COLS, splits, kps, kstep)
+
+
+def _explicit_split(k_rows: int, kstep: int, splits):
+    """(splits, k_per_split) of an explicit split count: a positive int that
+    leaves no split empty, else ValueError."""
     if isinstance(splits, int) and splits >= 1:
         kps = -(-(-(-k_rows // splits)) // kstep) * kstep
         if -(-k_rows // kps) == splits:
@@ -215,9 +316,63 @@ def _check_args(x: torch.Tensor, w: QArray) -> None:
                          f"s {w.scales.dtype}")
 
 
+_RESIDENT = {}              # (device, launch kind) -> blocks an SM
+
+
+def _pipe_resident(x: torch.Tensor, w: QArray, rows: int, warps: int,
+                   conv: bool) -> int:
+    """Blocks of the pipelined instantiation an SM of x's card holds at
+    once, asked of the CUDA runtime once a device and kind of launch."""
+    key = (x.device.index, w.packed, rows, warps, x.dtype, w.scales.dtype,
+           conv)
+    if key not in _RESIDENT:
+        fn = _build.load("qmm").qmm_pipe_resident
+        fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        blocks = ctypes.c_int(0)
+        with torch.cuda.device(x.device):
+            rc = fn(int(w.packed), rows, warps, _DT[x.dtype],
+                    _DT[w.scales.dtype], int(conv), ctypes.byref(blocks))
+        _build.check(rc, "qmm_pipe_resident")
+        _RESIDENT[key] = blocks.value
+    return _RESIDENT[key]
+
+
+def _launch_pipe(x: torch.Tensor, w: QArray, gain, residual, eps: float,
+                 splits) -> torch.Tensor:
+    T, I = x.shape
+    O = w.data.shape[1]
+    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
+    rows, warps = pipe_shape(T, I, O)
+    resident = _pipe_resident(x, w, rows, warps,
+                              x.dtype == torch.float32 or gain is not None)
+    plan = pipe_plan(T, I, O, w.packed, resident=resident, splits=splits,
+                     n_sm=n_sm)
+    out = torch.empty((T, O), dtype=x.dtype, device=x.device)
+    partial = (torch.empty((plan.splits, T, O), dtype=torch.float32,
+                           device=x.device) if plan.splits > 1 else None)
+    fn = _build.load("qmm").qmm_pipe_launch
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_float] \
+        + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rc = fn(_build.ptr(x), _build.ptr(w.data), _build.ptr(w.scales),
+            _build.ptr(gain), _build.ptr(residual), eps, _build.ptr(out),
+            _build.ptr(partial), T, I, O, w.group_size, plan.splits,
+            plan.k_per_split, _DT[x.dtype], _DT[w.scales.dtype],
+            int(w.packed), plan.rows, plan.warps, _build.stream_of(x))
+    _build.check(rc, "qmm_pipe_launch")
+    return out
+
+
 def _launch(x: torch.Tensor, w: QArray, compute_dtype, gain=None,
             residual=None, eps: float = 1e-5, gd: bool = False,
-            splits=None) -> torch.Tensor:
+            splits=None, mode=None) -> torch.Tensor:
+    """Launch the kernel of ``mode`` (None: :func:`qmm_mode`'s choice;
+    ``"loop"`` forces ``qmm_bf16_kernel``'s loop on a call the pipelined
+    mode would take, for timing the two side by side)."""
+    mode = mode or qmm_mode(x, w, compute_dtype, gd, residual)
+    if mode == "pipe":
+        return _launch_pipe(x, w, gain, residual, eps, splits)
     T, I = x.shape
     O = w.data.shape[1]
     wide = is_wide(w, compute_dtype)
@@ -249,7 +404,8 @@ def _run(wrapper, x: torch.Tensor, w: QArray, compute_dtype, gain=None,
          splits=None) -> torch.Tensor:
     """The plain version for a CPU tensor; else the kernel, counted on
     ``wrapper.launches`` (K1, K1f) or ``wrapper.launches_p4`` (K1p), or
-    for the groupdot mode ``.launches_groupdot`` / ``_groupdot_p4``."""
+    for the groupdot mode ``.launches_groupdot`` / ``_groupdot_p4``; a
+    launch of the pipelined mode also on ``.launches_pipe``."""
     # the wide path has no groupdot body (qmm.py:111); K1p's has one
     gd = groupdot and (w.packed or not is_wide(w, compute_dtype))
     if x.device.type == "cpu":
@@ -260,10 +416,13 @@ def _run(wrapper, x: torch.Tensor, w: QArray, compute_dtype, gain=None,
         return qmm_fused_plain(x, w, compute_dtype, gain, eps, residual)
     if x.device.type != "cuda":
         raise ValueError(f"{wrapper.__name__}: unsupported device {x.device}")
-    out = _launch(x, w, compute_dtype, gain, residual, eps, gd, splits)
+    mode = qmm_mode(x, w, compute_dtype, gd, residual)
+    out = _launch(x, w, compute_dtype, gain, residual, eps, gd, splits, mode)
     attr = "launches" + ("_groupdot" if gd else "") + \
         ("_p4" if w.packed else "")
     setattr(wrapper, attr, getattr(wrapper, attr) + 1)
+    if mode == "pipe":
+        wrapper.launches_pipe += 1
     return out
 
 
@@ -343,6 +502,8 @@ qmatmul_pallas.launches_groupdot = qmatmul_pallas.launches_groupdot_p4 = 0
 qmatmul_pallas_indexed.launches = qmatmul_pallas_indexed.launches_p4 = 0
 qmatmul_pallas_indexed_fused.launches = 0
 qmatmul_pallas_indexed_fused.launches_p4 = 0
+qmatmul_pallas.launches_pipe = qmatmul_pallas_indexed.launches_pipe = 0
+qmatmul_pallas_indexed_fused.launches_pipe = 0
 
 
 def _unfused_glue(x, w, layer, compute_dtype, norm_gain, eps, residual):
