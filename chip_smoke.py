@@ -9,7 +9,8 @@ Run from the root of a checkout on a machine with one NVIDIA Hopper card:
 Phases (any failure exits non-zero; no phase catches an error and goes on):
 
 1. the card and toolchain; build every CUDA kernel from ``csrc/`` (nvcc
-   version and ``-Xptxas -v`` printed);
+   version and ``-Xptxas -v`` printed; the groupdot ring's instantiations
+   must not spill);
 2. each kernel against its plain PyTorch version on the card, at the
    shapes of the LLaMA2-7B serving paths: the batched path's kernels, then
    K1f (the matmul with the rmsnorm prologue / residual epilogue) at the
@@ -25,8 +26,10 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    GQA hgs = 8 and at ragged T and start, in its tensor-core mode (bf16 q
    over an int8 or bf16 cache) and its f32 mode (2i), K2 with its softmax stats (o, m, l) at B=48 (2j),
    and the groupdot (scale-after-dot) mode of K1 and K1p at the 7B
-   shapes, T in {1, 48, 128}, auto and one split, O = 1000 and gs = 128,
-   the wide cases equal to K1 bit for bit, gs = 8 refused (2k), and the
+   shapes, T in {1, 48, 128}, auto and one split, on the pipelined ring
+   (one ``launches_groupdot_pipe`` a call) and on the forced loop, gs =
+   128 on the ring, O = 1000 and gs = 16 and 32 on the loop, the wide
+   cases equal to K1 bit for bit, gs = 8 refused (2k), and the
    pipelined mode of K1 and K1p (``qmm_pipe_kernel``) at the 7B shapes,
    INT8 with f32 and bf16 scales and packed INT4, T in {1, 48, 128},
    bare and with the norm gain and residual, each call one launch on its
@@ -92,12 +95,15 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
 4h. the measurement path through the port's tools: the bandwidth probe
    (``tools/hbm_peak.py``, 128/512/1024 MB), then ``tools/qmm_sweep.py``
    at the 7B decode shapes, T=1 and 48, INT8 and INT4, auto split,
-   standard and groupdot (the groupdot mode's launches come from here);
+   standard and groupdot (the groupdot mode's launches come from here,
+   every one on the pipelined ring);
 5. each kernel timed with CUDA events at the path's shapes, beside its
    bound (bytes over the card's 3.35 TB/s, or operations over peak), its
    plain version and a library call (K1 and K1p: the pipelined mode, the
    loop on the same calls, ``torch.matmul`` and the plain version timed
-   in turns, and a verify round's unfused INT8 layer at T = 128; K2b:
+   in turns, and a verify round's unfused INT8 layer at T = 128; the
+   groupdot mode: the ring, the loop, the standard mode, ``torch.matmul``
+   and the plain version in turns; K2b:
    the tensor-core mode at T in
    {32, 64, 128, 256} and against start, the f32 mode at T=32 and 256;
    K2 non-fresh: the split-row mode and the tiled kernel at B=1 against
@@ -232,6 +238,31 @@ def rand_qarray(gen, shape, qtype, dev, scale_dtype=None, gs=64):
     if scale_dtype is not None:
         s = s.to(scale_dtype)
     return QArray(data, s, qtype, gs, group_axis=-2)
+
+
+def check_no_spill(build_log: str, kernel: str):
+    """Each instantiation of ``kernel`` in the ``-Xptxas -v`` log: its
+    registers, and no spill (fails otherwise).  Returns {name and
+    template arguments, mangled: registers}."""
+    import re
+    lines = build_log.splitlines()
+    regs = {}
+    for i, line in enumerate(lines):
+        m = re.search(r"Compiling entry function '(\S*" + kernel + r"\S*)'",
+                      line)
+        if not m:
+            continue
+        near = lines[i + 1:i + 6]
+        spill = next((t for t in near if "spill stores" in t), "")
+        used = next((t for t in near if "registers" in t), "")
+        check(" 0 bytes spill stores, 0 bytes spill loads" in spill,
+              f"{m.group(1)} spills: {spill.strip()}")
+        name = m.group(1)[m.group(1).index(kernel):].split("EEv")[0]
+        regs[name] = int(re.search(r"Used (\d+) registers", used).group(1))
+    check(len(regs) > 0, f"no {kernel} instantiation in the build log")
+    log(f"  ok {len(regs)} {kernel} instantiations, no spill; registers "
+        f"{sorted(regs.values())}")
+    return regs
 
 
 # -- phase 2: kernels against plain versions --------------------------------
@@ -910,7 +941,7 @@ def gd_counts():
     from fastllama_tpu_torch.ops.kernels import qmm
     f = qmm.qmatmul_pallas
     return (f.launches, f.launches_p4, f.launches_groupdot,
-            f.launches_groupdot_p4)
+            f.launches_groupdot_p4, f.launches_groupdot_pipe)
 
 
 def check_groupdot(dev, gen, errs):
@@ -918,13 +949,17 @@ def check_groupdot(dev, gen, errs):
     ``qmm_groupdot_plain`` at the four fused-layer shapes and the
     classifier (INT8 with f32 and with bf16 scales; packed INT4, hidden
     11264, f32 scales), T in {1, 48, 128}, bf16 and f32 x, the auto split
-    and one split; then O = 1000 (the element path, not a multiple of 16)
-    and gs = 128; the wide cases (INT16, INT8 at f32 compute) equal to the
+    and one split: each call on the pipelined ring (``groupdot_kernel``),
+    one ``launches_groupdot_pipe``, and the forced loop on the same inputs
+    held to the plain version too; gs = 128 on the ring; then O = 1000
+    (rows off 16 bytes) and gs = 16 and 32 on the loop, the ring's count
+    unmoved; the wide cases (INT16, INT8 at f32 compute) equal to the
     standard K1 path bit for bit and counted as K1; gs = 8 raises."""
     import torch
     from fastllama_tpu_torch.config import QuantType
     from fastllama_tpu_torch.ops.kernels import qmm
-    log("phase 2k: groupdot mode of K1 and K1p vs plain (7B shapes)")
+    log("phase 2k: groupdot mode of K1 and K1p vs plain (7B shapes), on "
+        "the ring and on the loop")
     bf16, f32 = torch.bfloat16, torch.float32
     f = qmm.qmatmul_pallas
 
@@ -932,24 +967,37 @@ def check_groupdot(dev, gen, errs):
         key = "qmatmul_pallas_groupdot" + ("_p4" if w.packed else "")
         slot = 3 if w.packed else 2
         I = w.scales.shape[0] * w.group_size
-        worst, n = 0.0, 0
+        worst, n, rings = 0.0, 0, 0
         for T in Ts:
             for xdt, tol in ((bf16, TOL_BF16), (f32, TOL_F32)):
                 x = torch.randn((T, I), generator=gen, device=dev).to(xdt)
                 want = qmm.qmm_groupdot_plain(x, w)
+                ring = qmm.groupdot_kernel(x, w) == "pipe"
                 for splits in splits_list:
                     before = list(gd_counts())
                     got = f(x, w, groupdot=True, splits=splits)
                     before[slot] += 1
+                    before[4] += ring
                     check(list(gd_counts()) == before,
-                          f"groupdot {label}: not one groupdot launch")
+                          f"groupdot {label}: not one groupdot launch"
+                          f"{' on the ring' if ring else ' on the loop'}")
                     e = compare(f"groupdot {label} T={T} x={str(xdt)[6:]} "
                                 f"splits={splits}", got, want, tol,
                                 quiet=True)
                     worst, n = max(worst, e / max(
                         float(want.float().abs().max()), 1e-30)), n + 1
                     errs[key] = max(errs[key], e)
-        log(f"  ok groupdot {label}: {n} comparisons, largest error "
+                    if ring:
+                        rings += 1
+                        errs["qmatmul_pallas_groupdot_pipe"] = max(
+                            errs["qmatmul_pallas_groupdot_pipe"], e)
+                        loop = qmm._launch(x, w, bf16, gd=True,
+                                           splits=splits, mode="loop")
+                        compare(f"groupdot loop {label} T={T} "
+                                f"x={str(xdt)[6:]} splits={splits}", loop,
+                                want, tol, quiet=True)
+        log(f"  ok groupdot {label}: {n} comparisons ({rings} on the ring, "
+            f"each against the forced loop too), largest error "
             f"{worst:.3e} of max|plain|")
 
     for name, (I, O) in PROJ_7B.items():
@@ -961,7 +1009,7 @@ def check_groupdot(dev, gen, errs):
         w = rand_packed(gen, (I, O), dev)
         run(f"int4 {name}", w, (1, 48, 128))
         del w
-    for gs, O in ((64, 1000), (128, 4096)):
+    for gs, O in ((64, 1000), (128, 4096), (32, 4096), (16, 4096)):
         run(f"int8 4096x{O} gs={gs}",
             rand_qarray(gen, (4096, O), QuantType.INT8, dev, gs=gs), (1, 48))
         run(f"int4 4096x{O} gs={gs}",
@@ -1777,7 +1825,8 @@ KERNELS = ("qmatmul_pallas", "qmatmul_pallas_indexed",
            "decode_attention_pallas_split", "flash_decode_batched_split",
            "decode_attention_pallas_batched_split", "qmatmul_pallas_pipe",
            "qmatmul_pallas_indexed_pipe",
-           "qmatmul_pallas_indexed_fused_pipe")
+           "qmatmul_pallas_indexed_fused_pipe",
+           "qmatmul_pallas_groupdot_pipe")
 # the wrappers of K2's non-fresh mode: each counts its split-row launches
 SPLIT_WRAPPERS = ("flash_decode_single", "decode_attention_pallas_indexed",
                   "decode_attention_pallas", "flash_decode_batched",
@@ -1789,6 +1838,7 @@ def counters():
     are counted on the K1/K1f wrappers' ``launches_p4``, K2's with stats on
     ``flash_decode_batched.launches_stats``, the groupdot mode's on
     ``qmatmul_pallas.launches_groupdot`` (K1) and ``_groupdot_p4`` (K1p),
+    those of them on the pipelined ring also on ``_groupdot_pipe``,
     K2's split-row mode on each non-fresh wrapper's ``launches_split``
     (``<wrapper>_split``), the pipelined mode of K1 and K1p on each K1
     wrapper's ``launches_pipe`` (``<wrapper>_pipe``)."""
@@ -1823,6 +1873,8 @@ def counters():
                                       "launches_groupdot")
     out["qmatmul_pallas_groupdot_p4"] = (qmm.qmatmul_pallas,
                                          "launches_groupdot_p4")
+    out["qmatmul_pallas_groupdot_pipe"] = (qmm.qmatmul_pallas,
+                                           "launches_groupdot_pipe")
     return out
 
 
@@ -2726,8 +2778,13 @@ def phase_sweep(dev, rec):
               "qmatmul_pallas_groupdot", "qmatmul_pallas_groupdot_p4"):
         check(launches[k] == per,
               f"sweep: {k} launched {launches[k]} times, not {per}")
+    # every sweep launch has T <= 48, gs 64 and aligned rows: the ring
+    check(launches["qmatmul_pallas_groupdot_pipe"] == 2 * per,
+          f"sweep: {launches['qmatmul_pallas_groupdot_pipe']} of "
+          f"{2 * per} groupdot launches on the pipelined ring")
     log(f"  ok sweep: {sum(len(v) for v in rows.values())} variants, each "
-        f"mode {per} launches a quant type")
+        f"mode {per} launches a quant type, every groupdot launch on the "
+        f"ring")
     rec["sweep"] = rows
     return launches
 
@@ -3660,11 +3717,12 @@ def time_groupdot(dev, gen, res):
     hidden 11264, f32 scales), the plain form: the classifier at T=48 and
     T=1, and one fused layer's four projections at T=48 and T=1 with the
     layers rotating over 4 copies so every launch finds its weight cold in
-    L2.  Beside each: its bound, its plain version, ``torch.matmul`` on a
-    pre-dequantized bf16 weight, and the standard mode on the same
-    inputs."""
+    L2.  Timed in turns: the pipelined ring (``ms``, the wrapper's choice
+    at these shapes), the loop on the same inputs (``_launch(...,
+    mode="loop")``), the standard mode, ``torch.matmul`` on a
+    pre-dequantized bf16 weight and the plain version; beside them the
+    bound."""
     import torch
-    from fastllama_tpu_torch.tools.timing import time_ms
     from fastllama_tpu_torch.config import QuantType
     from fastllama_tpu_torch.ops.kernels import qmm
     from fastllama_tpu_torch.quant.groupquant import dequantize
@@ -3675,6 +3733,9 @@ def time_groupdot(dev, gen, res):
     def rot():
         layer[0] = (layer[0] + 1) % nl
         return layer[0]
+
+    def loop(x, w):
+        return qmm._launch(x, w, bf16, gd=True, mode="loop")
 
     for kind, proj in (("int8", PROJ_7B), ("int4", PROJ_7B_INT4)):
         def make(shape):
@@ -3692,13 +3753,17 @@ def time_groupdot(dev, gen, res):
         rows = {}
         for T in (48, 1):
             x = torch.randn((T, I), generator=gen, device=dev).to(bf16)
+            check(qmm.groupdot_kernel(x, w) == "pipe",
+                  f"{key} T={T}: not a ring call")
             nb = nbytes_of(T, I, O)
             bm, by = bound_ms(nb, 2 * T * I * O, BF16_FLOP_S)
             rows[T] = dict(
-                ms=time_ms(lambda: qmm.qmatmul_pallas(x, w, groupdot=True)),
-                plain_ms=time_ms(lambda: qmm.qmm_groupdot_plain(x, w)),
-                library_ms=time_ms(lambda: torch.matmul(x, wd)),
-                standard_ms=time_ms(lambda: qmm.qmatmul_pallas(x, w)),
+                **in_turns({
+                    "ms": lambda: qmm.qmatmul_pallas(x, w, groupdot=True),
+                    "loop_ms": lambda: loop(x, w),
+                    "standard_ms": lambda: qmm.qmatmul_pallas(x, w),
+                    "library_ms": lambda: torch.matmul(x, wd),
+                    "plain_ms": lambda: qmm.qmm_groupdot_plain(x, w)}),
                 bound_ms=bm, bound_by=by, bytes=nb,
                 shape=f"T={T} I={I} O={O} {kind}"
                       f"{' packed' if kind == 'int4' else ''}, f32 scales")
@@ -3719,16 +3784,19 @@ def time_groupdot(dev, gen, res):
             fl = sum(2 * T * proj[n][0] * proj[n][1] for n in names)
             bm, by = bound_ms(nb, fl, BF16_FLOP_S)
             rows[f"layer_T{T}"] = dict(
-                ms=time_ms(per_layer(lambda n, lyr: qmm.qmatmul_pallas(
-                    xs[n], ws[n][lyr], groupdot=True))),
-                plain_ms=time_ms(per_layer(lambda n, lyr:
-                                           qmm.qmm_groupdot_plain(
-                                               xs[n], ws[n][lyr]))),
-                library_ms=time_ms(per_layer(lambda n, lyr: torch.matmul(
-                    xs[n], wds[n][lyr]))),
-                standard_ms=time_ms(per_layer(lambda n, lyr:
-                                              qmm.qmatmul_pallas(
-                                                  xs[n], ws[n][lyr]))),
+                **in_turns({
+                    "ms": per_layer(lambda n, lyr: qmm.qmatmul_pallas(
+                        xs[n], ws[n][lyr], groupdot=True)),
+                    "loop_ms": per_layer(lambda n, lyr: loop(xs[n],
+                                                             ws[n][lyr])),
+                    "standard_ms": per_layer(lambda n, lyr:
+                                             qmm.qmatmul_pallas(
+                                                 xs[n], ws[n][lyr])),
+                    "library_ms": per_layer(lambda n, lyr: torch.matmul(
+                        xs[n], wds[n][lyr])),
+                    "plain_ms": per_layer(lambda n, lyr:
+                                          qmm.qmm_groupdot_plain(
+                                              xs[n], ws[n][lyr]))}),
                 bound_ms=bm, bound_by=by, bytes=nb,
                 shape=f"T={T}, one layer: " + ", ".join(
                     f"{n} {proj[n][0]}x{proj[n][1]}" for n in names))
@@ -3740,11 +3808,13 @@ def time_groupdot(dev, gen, res):
                                      "pre-dequantized bf16 weight")
         for label, v in (("T=1", rows[1]), ("layer T=48", rows["layer_T48"]),
                          ("layer T=1", rows["layer_T1"])):
-            log(f"  {key} {label}: {v['ms']:.4f} ms (standard "
-                f"{v['standard_ms']:.4f}, plain {v['plain_ms']:.4f}, library "
+            log(f"  {key} {label}: {v['ms']:.4f} ms (loop "
+                f"{v['loop_ms']:.4f}, standard {v['standard_ms']:.4f}, "
+                f"plain {v['plain_ms']:.4f}, library "
                 f"{v['library_ms']:.4f}, bound {v['bound_ms']:.4f} by "
-                f"{v['bound_by']}) "
-                f"{v['shape']}")
+                f"{v['bound_by']}) {v['shape']}")
+    # the ring's own entry: K1's readings (K1p's stand in its _p4 entry)
+    res["qmatmul_pallas_groupdot_pipe"] = dict(res["qmatmul_pallas_groupdot"])
     torch.cuda.empty_cache()
 
 
@@ -3793,10 +3863,11 @@ SOURCES = {
 }
 # K2's split-row mode: the same source and TPU function as its wrapper's
 SOURCES.update({k + "_split": SOURCES[k] for k in SPLIT_WRAPPERS})
-# the pipelined mode of K1 and K1p (INT8 and packed alike): K1's wrappers
+# the pipelined mode of K1 and K1p (INT8 and packed alike): K1's wrappers;
+# the groupdot mode's ring, K1's groupdot function
 SOURCES.update({k + "_pipe": SOURCES[k] for k in (
     "qmatmul_pallas", "qmatmul_pallas_indexed",
-    "qmatmul_pallas_indexed_fused")})
+    "qmatmul_pallas_indexed_fused", "qmatmul_pallas_groupdot")})
 
 
 def main() -> int:
@@ -3836,6 +3907,8 @@ def main() -> int:
     rec["build_s"] = time.perf_counter() - t0
     log(f"phase 1: kernels built in {rec['build_s']:.1f} s")
     log(_build.build_log())
+    rec["groupdot_ring_ptxas"] = check_no_spill(_build.build_log(),
+                                                "qmm_pipe_gd_kernel")
 
     t_start = time.perf_counter()
     # each kernel's launches on the path it serves: the batched path's from
@@ -3896,7 +3969,8 @@ def main() -> int:
             got["flash_decode_batched_stats"]
     if "4h" in phases:
         got = run("4h", phase_sweep)
-        for k in ("qmatmul_pallas_groupdot", "qmatmul_pallas_groupdot_p4"):
+        for k in ("qmatmul_pallas_groupdot", "qmatmul_pallas_groupdot_p4",
+                  "qmatmul_pallas_groupdot_pipe"):
             launches[k] = got[k]
     if "5" in phases:
         run("5", phase_timing)

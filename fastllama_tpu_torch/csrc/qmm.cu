@@ -40,10 +40,11 @@
 //     has gs % 64 == 0 and T <= 128: the batched decode step, the single
 //     stream with its K1f glue and the speculative verify.  A cp.async
 //     ring of raw weight stages in shared memory, dequantized straight
-//     into mma.sync fragments;
+//     into mma.sync fragments.  Its groupdot instantiation,
+//     qmm_pipe_gd_kernel, takes the groupdot calls of the same kind;
 //   * qmm_bf16_kernel, the loop, takes the rest: prefill waves (T > 128),
-//     other group sizes, the groupdot mode and (with the element path)
-//     unaligned rows.  It tiles 64x64 outputs per block and walks K in
+//     other group sizes (the groupdot mode's too) and (with the element
+//     path) unaligned rows.  It tiles 64x64 outputs per block and walks K in
 //     stages of 64 rows: each thread loads its part of the next stage
 //     (16-byte vector loads of W, x and the group scales) into registers
 //     while the warps multiply the current stage from shared memory with
@@ -84,24 +85,32 @@
 // scale-after-dot variant of the Pallas kernels: _qmm_chunk_groupdot
 // (qmm.py:89-106, run by _qmm_kernel at :109-119) and _groupdot_p4
 // (:405-416, run by _qmm_kernel_p4 at :368-402).  The int8 values (or the
-// sign-extended nibbles) are staged as bf16 with no scale, x as bf16, and
-// each k = 16 tensor-core step goes into a fresh f32 partial; at the end of
-// a group the partial is multiplied by the group's scale per output column
-// (an exact f32 value: a bf16 scale is promoted, the product is not
-// rounded) and added to the block's f32 accumulator.  WMMA's accumulator
-// layout is opaque, so this mode runs mma.sync.m16n8k16 instead, whose
-// register layout is documented: each thread knows the output columns it
-// holds and scales its partial in registers, with no trip through shared
-// memory.  The stage's group scales (one row of BN a k = 16 step) are
-// prefetched into registers with the stage and staged in shared memory.
-// A partial is flushed at the end of its group, at the end of each plane's
-// half of a stage (K1p's stage holds 32 packed rows: half a 64-row group of
-// each plane) and at the end of a split, so a group cut by a stage or a
-// split is scaled in parts (linear: only the f32 sum order changes).  The
-// group size must be a multiple of 16 so that no k = 16 step straddles two
-// groups.  Its bound is K1's: bytes at decode.  It saves the per-element
-// scale multiply of the dequant and adds a scale-and-add of the partials a
-// group; a simple mode first, its speed is later work.
+// sign-extended nibbles) go to bf16 with no scale, x to bf16, and a group's
+// product is contracted in f32 partials; each partial is multiplied by the
+// group's scale per output column (an exact f32 value: a bf16 scale is
+// promoted, the product is not rounded) and added to the block's f32
+// accumulator.  Both kernels run it on mma.sync.m16n8k16, whose register
+// layout is documented (WMMA's is opaque): each thread knows the output
+// columns it holds and scales its partial in registers.  Only the f32 sum
+// order differs from the plain version.  Its bound is K1's: bytes at
+// decode.  It saves the per-element scale multiply of the dequant.
+//   * On the pipelined ring (qmm_pipe_gd_kernel: T <= 128, gs % 64 == 0,
+//     16-byte aligned rows) a stage's plane (64 W rows, or K1p's 32 packed
+//     rows of one plane) lies in one group.  The plane's B fragments of
+//     all four k-steps hold the exact integers (one LOP3 a byte or nibble,
+//     no scale); each m-tile's product over them goes into a partial of
+//     NJ x 4 registers that the lane's f32 scales fold into the
+//     accumulators at once, so the mode needs few registers beside the
+//     standard mode's.  A split ends on a stage, so on a flush.  K1p's
+//     planes run one after the other.  At 128 rows it takes 8 warps of 2
+//     n-tiles: 4 warps of 4 have no registers for the fragments.
+//   * On the loop (qmm_bf16_kernel with GD; T > 128, gs of 16, 32, 80...,
+//     unaligned rows) the stage's group scales (one row of BN a k = 16
+//     step) are prefetched into registers with the stage and staged in
+//     shared memory, and a partial is flushed at the end of its group, of
+//     each plane's half of a stage and of a split, so a group cut by a
+//     stage or a split is scaled in parts.  The group size must be a
+//     multiple of 16 so that no k = 16 step straddles two groups.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
@@ -745,7 +754,9 @@ qmm_f32_kernel(const XT* __restrict__ x, const WT* __restrict__ w,
 
 // ---------------------------------------------------------------------------
 // The pipelined mode (qmm_pipe_kernel): K1 and K1p at T <= 128, standard
-// mode, not wide, 16-byte aligned, gs a multiple of 64.
+// mode, not wide, 16-byte aligned, gs a multiple of 64; its groupdot
+// instantiation (qmm_pipe_gd_kernel, the same body with GD: see the groupdot
+// notes at the top) the groupdot calls of that kind.
 //
 // A block computes all T rows (one row tile of 16 * MT rows: 16, 48, 64 or
 // 128, the least that holds T) of BN = 8 * NJ * CG output columns over one
@@ -823,6 +834,18 @@ __device__ __forceinline__ void mma_16816_sched(float (&d)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// d = a * b, the chain's first step: C is a zero register, so d needs no
+// zeroing first
+__device__ __forceinline__ void mma_16816_first(float (&d)[4],
+                                                const uint32_t (&a)[4],
+                                                const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
+        "f"(0.0f));
+}
+
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], const void* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -862,23 +885,30 @@ __device__ __forceinline__ uint32_t round_pair(float lo, float hi) {
   const __nv_bfloat162 r = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&r);
 }
-// N (2 or 4) neighbouring group scales as f32 (a bf16 one promoted
+// N (2, 4 or 8) neighbouring group scales as f32 (a bf16 one promoted
 // exactly)
 template <int N>
 __device__ __forceinline__ void scales_f(float (&d)[N], const unsigned char* p,
                                          bool f32) {
   if (f32) {
-    if constexpr (N == 4) {
-      const float4 v = *reinterpret_cast<const float4*>(p);
-      d[0] = v.x; d[1] = v.y; d[2] = v.z; d[3] = v.w;
+    if constexpr (N >= 4) {
+#pragma unroll
+      for (int q = 0; q < N / 4; ++q) {
+        const float4 v = reinterpret_cast<const float4*>(p)[q];
+        d[4 * q] = v.x; d[4 * q + 1] = v.y; d[4 * q + 2] = v.z;
+        d[4 * q + 3] = v.w;
+      }
     } else {
       const float2 v = *reinterpret_cast<const float2*>(p);
       d[0] = v.x; d[1] = v.y;
     }
   } else {
-    uint2 v = make_uint2(0, 0);
-    if constexpr (N == 4) v = *reinterpret_cast<const uint2*>(p);
-    else v.x = *reinterpret_cast<const uint32_t*>(p);
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if constexpr (N == 8) v = *reinterpret_cast<const uint4*>(p);
+    else if constexpr (N == 4) {
+      const uint2 h = *reinterpret_cast<const uint2*>(p);
+      v.x = h.x; v.y = h.y;
+    } else v.x = *reinterpret_cast<const uint32_t*>(p);
     const __nv_bfloat16* b = reinterpret_cast<const __nv_bfloat16*>(&v);
 #pragma unroll
     for (int j = 0; j < N; ++j) d[j] = __bfloat162float(b[j]);
@@ -929,14 +959,13 @@ __device__ __forceinline__ void add_bf16(float (&v)[N],
   for (int j = 0; j < N; ++j) v[j] = __bfloat162float(e[j]) + v[j];
 }
 
-template <bool P4, int MT, int CG, int NJ>
-__global__ void __launch_bounds__(CG * 32)
-qmm_pipe_kernel(const void* __restrict__ xv, const int8_t* __restrict__ w,
-                const unsigned char* __restrict__ s,
-                const float* __restrict__ gain,
-                const void* __restrict__ resv, void* __restrict__ outv,
-                float* __restrict__ partial, int T, int I, int O, int gs,
-                int k_per_split, int x_f32, int s_f32, float eps) {
+template <bool P4, int MT, int CG, int NJ, bool GD>
+__device__ __forceinline__ void qmm_pipe_body(
+    const void* __restrict__ xv, const int8_t* __restrict__ w,
+    const unsigned char* __restrict__ s, const float* __restrict__ gain,
+    const void* __restrict__ resv, void* __restrict__ outv,
+    float* __restrict__ partial, int T, int I, int O, int gs,
+    int k_per_split, int x_f32, int s_f32, float eps) {
   constexpr int NS = PK_NS;
   constexpr int NW = CG, NT = NW * 32, BN = 8 * NJ * CG, BMR = 16 * MT;
   constexpr int KS = P4 ? 32 : 64;     // W rows a stage
@@ -1106,6 +1135,80 @@ qmm_pipe_kernel(const void* __restrict__ xv, const int8_t* __restrict__ w,
       xa = xbuf;
       xpe = PK_XB / 2;
     }
+    // the lane's NJ bytes of W row r of the stage
+    auto wbytes = [&](int r) -> uint32_t {
+      const unsigned char* p = wsl + r * WP + cb;
+      if constexpr (NJ == 4) return *reinterpret_cast<const uint32_t*>(p);
+      else return *reinterpret_cast<const uint16_t*>(p);
+    };
+    if constexpr (GD) {
+      // groupdot, plane by plane: the plane's B fragments of all KSTEPS
+      // k-steps hold the exact integers; each m-tile's product over them
+      // goes into a partial (the stage's plane lies in one group, gs %
+      // 64 == 0) that is scaled into acc by the lane's accumulator
+      // columns' f32 group scales (tile j's elements 0/2: warp column
+      // 2 NJ t4 + j, 1/3: 2 NJ t4 + NJ + j).  One m-tile's partial at a
+      // time: NJ * 4 registers beside the accumulators, not MT * NJ * 4.
+      // Above 16 rows K1p's planes run one after the other (the loop not
+      // unrolled), so that ptxas does not hold the second plane's
+      // fragments beside the first's: that spilled at 48 and 128 rows
+#pragma unroll(MT == 1 ? NP : 1)
+      for (int p = 0; p < NP; ++p) {
+        float sa[2 * NJ];
+        scales_f<2 * NJ>(
+            sa, ssl + (p * BN + warp * 8 * NJ + 2 * NJ * t4) * ssz, s_f32);
+        uint32_t b[KSTEPS][NJ][2];
+        // the plane's B fragments, its nibble place a constant (PL)
+        auto fragments = [&](auto pl) {
+          constexpr int PL = decltype(pl)::value;
+#pragma unroll
+          for (int kp = 0; kp < KSTEPS; ++kp) {
+            const int r0 = 16 * kp + 2 * t4;
+            const uint32_t w0 = wbytes(r0), w1 = wbytes(r0 + 1);
+            const uint32_t w8 = wbytes(r0 + 8), w9 = wbytes(r0 + 9);
+#pragma unroll
+            for (int j = 0; j < NJ; ++j) {
+              if constexpr (P4) {      // a nibble is exact in bf16
+                b[kp][j][0] = exact_pair(nib_f(w0, w0 >> 12, PL, j),
+                                         nib_f(w1, w1 >> 12, PL, j));
+                b[kp][j][1] = exact_pair(nib_f(w8, w8 >> 12, PL, j),
+                                         nib_f(w9, w9 >> 12, PL, j));
+              } else {
+                b[kp][j][0] = exact_pair(byte_f(w0, j), byte_f(w1, j));
+                b[kp][j][1] = exact_pair(byte_f(w8, j), byte_f(w9, j));
+              }
+            }
+          }
+        };
+        if (P4 && p == 1)
+          fragments(std::integral_constant<int, 1>{});
+        else
+          fragments(std::integral_constant<int, 0>{});
+        const __nv_bfloat16* xr =
+            xa + (lane & 15) * xpe + 32 * p + (lane >> 4) * 8;
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          float part[NJ][4];
+#pragma unroll
+          for (int kp = 0; kp < KSTEPS; ++kp) {
+            uint32_t a[4];
+            ldmatrix_x4(a, xr + 16 * i * xpe + 16 * kp);
+#pragma unroll
+            for (int j = 0; j < NJ; ++j) {
+              if (kp == 0) mma_16816_first(part[j], a, b[kp][j]);
+              else mma_16816_sched(part[j], a, b[kp][j]);
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < NJ; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              acc[i][j][e] =
+                  fmaf(part[j][e], sa[(e & 1) * NJ + j], acc[i][j][e]);
+        }
+      }
+      continue;
+    }
     // the stage's scales of the lane's NJ columns, by plane
     float sf[NP][NJ];
 #pragma unroll
@@ -1117,12 +1220,6 @@ qmm_pipe_kernel(const void* __restrict__ xv, const int8_t* __restrict__ w,
       for (int j = 0; j < NJ; ++j)
         sb[j] = __floats2bfloat162_rn(sf[0][j], sf[0][j]);
     }
-    // the lane's NJ bytes of W row r of the stage
-    auto wbytes = [&](int r) -> uint32_t {
-      const unsigned char* p = wsl + r * WP + cb;
-      if constexpr (NJ == 4) return *reinterpret_cast<const uint32_t*>(p);
-      else return *reinterpret_cast<const uint16_t*>(p);
-    };
 #pragma unroll
     for (int kp = 0; kp < KSTEPS; ++kp) {
       const int r0 = 16 * kp + 2 * t4;
@@ -1189,6 +1286,43 @@ qmm_pipe_kernel(const void* __restrict__ xv, const int8_t* __restrict__ w,
         store_bf16(static_cast<__nv_bfloat16*>(outv) + o, v);
       }
     }
+}
+
+#define QMM_PIPE_PARAMS                                                       \
+  const void* __restrict__ xv, const int8_t* __restrict__ w,                  \
+      const unsigned char* __restrict__ s, const float* __restrict__ gain,    \
+      const void* __restrict__ resv, void* __restrict__ outv,                 \
+      float* __restrict__ partial, int T, int I, int O, int gs,               \
+      int k_per_split, int x_f32, int s_f32, float eps
+#define QMM_PIPE_ARGS                                                         \
+  xv, w, s, gain, resv, outv, partial, T, I, O, gs, k_per_split, x_f32,       \
+      s_f32, eps
+
+template <bool P4, int MT, int CG, int NJ>
+__global__ void __launch_bounds__(CG * 32) qmm_pipe_kernel(QMM_PIPE_PARAMS) {
+  qmm_pipe_body<P4, MT, CG, NJ, false>(QMM_PIPE_ARGS);
+}
+
+// The groupdot instantiation: its least blocks an SM, so that ptxas fits
+// the B fragments and the partial into the registers of that many blocks
+// (left free it interleaves the m-tiles' partials): 16 rows 6 blocks of
+// 128 threads; 48 rows 3 (the standard mode holds 4); 64 rows 2, since 3
+// spilled; 128 rows 2 of 256 threads, as the standard mode
+__host__ __device__ constexpr int pipe_gd_min_blocks(int mt) {
+  return mt == 1 ? 6 : mt == 3 ? 3 : 2;
+}
+
+template <bool P4, int MT, int CG, int NJ>
+__global__ void __launch_bounds__(CG * 32, pipe_gd_min_blocks(MT))
+    qmm_pipe_gd_kernel(QMM_PIPE_PARAMS) {
+  qmm_pipe_body<P4, MT, CG, NJ, true>(QMM_PIPE_ARGS);
+}
+
+// the __global__ function of the (standard or groupdot) instantiation
+template <bool P4, int MT, int CG, int NJ, bool GD>
+constexpr auto pipe_kernel() {
+  if constexpr (GD) return qmm_pipe_gd_kernel<P4, MT, CG, NJ>;
+  else return qmm_pipe_kernel<P4, MT, CG, NJ>;
 }
 
 // Sum of the split-K partials (after the K1f residual, when given),
@@ -1287,7 +1421,7 @@ int pipe_smem(int x_f32, int s_f32, int conv) {
 }
 
 // Lets the instantiation launch with smem bytes of dynamic shared memory.
-template <bool P4, int MT, int CG, int NJ>
+template <bool P4, int MT, int CG, int NJ, bool GD>
 int pipe_allow_smem(int smem) {
   // the kernel's static arrays (rinv, wsum) share the block's budget
   const int stat = (int)sizeof(float) * 16 * MT * (1 + CG);
@@ -1295,7 +1429,7 @@ int pipe_allow_smem(int smem) {
   static int allowed = 48 * 1024;      // this instantiation's smem limit
   if (smem > allowed) {
     const cudaError_t e = cudaFuncSetAttribute(
-        qmm_pipe_kernel<P4, MT, CG, NJ>,
+        pipe_kernel<P4, MT, CG, NJ, GD>(),
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) {
       cudaGetLastError();              // not left for the next launch
@@ -1308,16 +1442,16 @@ int pipe_allow_smem(int smem) {
 
 // The blocks of the instantiation that one SM holds at once, by the
 // runtime's occupancy count (registers, shared memory, threads).
-template <bool P4, int MT, int CG, int NJ>
+template <bool P4, int MT, int CG, int NJ, bool GD>
 int pipe_resident_t(int x_f32, int s_f32, int conv, int* blocks) {
   const int smem = pipe_smem<P4, MT, CG, NJ>(x_f32, s_f32, conv);
-  const int e = pipe_allow_smem<P4, MT, CG, NJ>(smem);
+  const int e = pipe_allow_smem<P4, MT, CG, NJ, GD>(smem);
   if (e != 0) return e;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, qmm_pipe_kernel<P4, MT, CG, NJ>, CG * 32, smem);
+      blocks, pipe_kernel<P4, MT, CG, NJ, GD>(), CG * 32, smem);
 }
 
-template <bool P4, int MT, int CG, int NJ>
+template <bool P4, int MT, int CG, int NJ, bool GD>
 int launch_pipe_t(const void* x, const int8_t* w, const void* s,
                   const float* gain, const void* res, float eps, void* out,
                   float* partial, int T, int I, int O, int gs, int splits,
@@ -1325,11 +1459,12 @@ int launch_pipe_t(const void* x, const int8_t* w, const void* s,
   constexpr int BN = 8 * NJ * CG;
   const int smem = pipe_smem<P4, MT, CG, NJ>(x_f32, s_f32,
                                              x_f32 || gain != nullptr);
-  const int e = pipe_allow_smem<P4, MT, CG, NJ>(smem);
+  const int e = pipe_allow_smem<P4, MT, CG, NJ, GD>(smem);
   if (e != 0) return e;
   const dim3 grid((O + BN - 1) / BN, splits);
   // the residual is added once: by the reduce pass when K is split
-  qmm_pipe_kernel<P4, MT, CG, NJ><<<grid, CG * 32, smem, st>>>(
+  const auto kernel = pipe_kernel<P4, MT, CG, NJ, GD>();
+  kernel<<<grid, CG * 32, smem, st>>>(
       x, w, static_cast<const unsigned char*>(s), gain,
       splits > 1 ? nullptr : res, out, splits > 1 ? partial : nullptr, T, I,
       O, gs, k_per_split, x_f32, s_f32, eps);
@@ -1348,21 +1483,29 @@ int launch_pipe_t(const void* x, const int8_t* w, const void* s,
   return (int)cudaGetLastError();
 }
 
-// Calls F's template on the instantiation of (packed, rows, warps): row
-// tiles of 16, 48, 64 or 128 rows, 4 warps of 4 n-tiles, or 8 of 2 at 128
-// rows, 128 output columns a block.
+// Calls F's template on the instantiation of (packed, rows, warps, gd):
+// row tiles of 16, 48, 64 or 128 rows, 4 warps of 4 n-tiles, or 8 of 2 at
+// 128 rows, 128 output columns a block; gd the groupdot mode, which has
+// no 4-warp instantiation at 128 rows (pipe_shape gives it 8)
 #define QMM_PIPE_DISPATCH(F, ...)                                             \
   do {                                                                        \
     if (rows == 16 && warps == 4) QMM_PIPE_CALL(F, 1, 4, 4, __VA_ARGS__);     \
     if (rows == 48 && warps == 4) QMM_PIPE_CALL(F, 3, 4, 4, __VA_ARGS__);     \
     if (rows == 64 && warps == 4) QMM_PIPE_CALL(F, 4, 4, 4, __VA_ARGS__);     \
-    if (rows == 128 && warps == 4) QMM_PIPE_CALL(F, 8, 4, 4, __VA_ARGS__);    \
+    if (rows == 128 && warps == 4 && !gd)                                     \
+      QMM_PIPE_CALL_STD(F, 8, 4, 4, __VA_ARGS__);                             \
     if (rows == 128 && warps == 8) QMM_PIPE_CALL(F, 8, 8, 2, __VA_ARGS__);    \
     return (int)cudaErrorInvalidValue;                                        \
   } while (0)
 #define QMM_PIPE_CALL(F, MT, CG, NJ, ...)                                     \
-  return packed ? F<true, MT, CG, NJ>(__VA_ARGS__)                            \
-                : F<false, MT, CG, NJ>(__VA_ARGS__)
+  do {                                                                        \
+    if (gd) return packed ? F<true, MT, CG, NJ, true>(__VA_ARGS__)            \
+                          : F<false, MT, CG, NJ, true>(__VA_ARGS__);          \
+    QMM_PIPE_CALL_STD(F, MT, CG, NJ, __VA_ARGS__);                            \
+  } while (0)
+#define QMM_PIPE_CALL_STD(F, MT, CG, NJ, ...)                                 \
+  return packed ? F<true, MT, CG, NJ, false>(__VA_ARGS__)                     \
+                : F<false, MT, CG, NJ, false>(__VA_ARGS__)
 
 bool misaligned(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 != 0;
@@ -1403,13 +1546,14 @@ extern "C" int qmm_launch(const void* x, const void* w, const void* s,
 // splits > 1.  x f32/bf16, scales f32/bf16, w int8 (packed: the (I/2, O)
 // split-half bytes); rows 16-byte aligned (O % 16, I % 8, K1p I % 16; x,
 // w, s and res at 16-byte aligned addresses) and gs % 64 == 0.  gain / res
-// as qmm_launch's.
+// as qmm_launch's.  gd: the groupdot instantiation (no gain, no res; rows
+// x warps 128 x 4 refused).
 extern "C" int qmm_pipe_launch(const void* x, const void* w, const void* s,
                                const void* gain, const void* res, float eps,
                                void* out, void* partial, int T, int I, int O,
                                int gs, int splits, int k_per_split, int x_dt,
                                int s_dt, int packed, int rows, int warps,
-                               void* stream) {
+                               int gd, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int8_t* wp = static_cast<const int8_t*>(w);
   const float* g = static_cast<const float*>(gain);
@@ -1417,7 +1561,9 @@ extern "C" int qmm_pipe_launch(const void* x, const void* w, const void* s,
   if (T < 1 || T > rows || gs % 64 || O % 16 || I % (packed ? 16 : 8) ||
       splits < 1 || k_per_split % (packed ? 32 : 64) || misaligned(x) ||
       misaligned(w) || misaligned(s) || misaligned(res) ||
-      (x_dt != DT_F32 && x_dt != DT_BF16) || (s_dt != DT_F32 && s_dt != DT_BF16))
+      (x_dt != DT_F32 && x_dt != DT_BF16) ||
+      (s_dt != DT_F32 && s_dt != DT_BF16) ||
+      (gd && (gain != nullptr || res != nullptr)))
     return (int)cudaErrorInvalidValue;
   const int xf = x_dt == DT_F32, sf = s_dt == DT_F32;
   QMM_PIPE_DISPATCH(launch_pipe_t, x, wp, s, g, res, eps, out, part, T, I, O,
@@ -1425,10 +1571,10 @@ extern "C" int qmm_pipe_launch(const void* x, const void* w, const void* s,
 }
 
 // *blocks: how many blocks of the pipelined instantiation (packed, rows,
-// warps) for x_dt, s_dt and conv (f32 x or the norm prologue) one SM of
+// warps, gd) for x_dt, s_dt and conv (f32 x or the norm prologue) one SM of
 // the current device holds at once; the host's split rule reads it.
-extern "C" int qmm_pipe_resident(int packed, int rows, int warps, int x_dt,
-                                 int s_dt, int conv, int* blocks) {
+extern "C" int qmm_pipe_resident(int packed, int rows, int warps, int gd,
+                                 int x_dt, int s_dt, int conv, int* blocks) {
   if ((x_dt != DT_F32 && x_dt != DT_BF16) || (s_dt != DT_F32 && s_dt != DT_BF16))
     return (int)cudaErrorInvalidValue;
   QMM_PIPE_DISPATCH(pipe_resident_t, x_dt == DT_F32, s_dt == DT_F32, conv,

@@ -40,19 +40,22 @@ leaves a split empty raises, as JAX raises on non-dividing tiles.
 The pipelined mode (``qmm_pipe_kernel``) takes every standard-mode call
 of K1 and K1p that is not wide, 16-byte aligned, has a group size that is
 a multiple of 64 and T <= 128 rows: the batched decode step, the single
-stream with its K1f glue and the speculative verify.  Groupdot, the wide
-path, the unaligned element path and T > 128 (prefill waves) stay on
-``qmm_bf16_kernel``'s loop.  :func:`qmm_mode` says which a call takes and
-:func:`pipe_plan` gives the pipelined launch's row tile, warps and split-K
-count.  It computes what the loop computes; only the f32 sum order
-differs.
+stream with its K1f glue and the speculative verify.  Its groupdot
+instantiation (``qmm_pipe_gd_kernel``) takes the groupdot calls of that
+kind (:func:`groupdot_kernel`).  The wide path, the unaligned element
+path, other group sizes and T > 128 (prefill waves) stay on
+``qmm_bf16_kernel``'s loop, groupdot or not.  :func:`qmm_mode` says which
+a call takes and :func:`pipe_plan` gives the pipelined launch's row tile,
+warps and split-K count.  It computes what the loop computes; only the
+f32 sum order differs.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel or raises.  Each wrapper counts its launches in ``.launches``, and
 those on a packed weight (K1p) in ``.launches_p4``, those in the
 pipelined mode (K1 and K1p) also in ``.launches_pipe``; ``qmatmul_pallas``
 counts its groupdot launches in ``.launches_groupdot`` (K1) and
-``.launches_groupdot_p4`` (K1p).
+``.launches_groupdot_p4`` (K1p), those on the pipelined ring also in
+``.launches_groupdot_pipe``.
 """
 from __future__ import annotations
 
@@ -194,7 +197,8 @@ PIPE_ROWS = (16, 48, 64, 128)  # the row tiles
 def qmm_mode(x: torch.Tensor, w: QArray, compute_dtype=torch.bfloat16,
              groupdot: bool = False, residual=None) -> str:
     """The kernel a call takes, from dtypes, shapes, alignment and flags:
-    ``"groupdot"`` (the scale-after-dot mode), ``"wide"`` (f32 dequant
+    ``"groupdot"`` (the scale-after-dot mode, on the ring or the loop by
+    :func:`groupdot_kernel`), ``"wide"`` (f32 dequant
     and FMA: INT16 or f32 compute, unpacked), ``"scalar"`` (rows not
     16-byte aligned: the loop's element path), ``"pipe"`` (the pipelined
     mode: T <= 128, a group size that is a multiple of 64, so that a
@@ -214,6 +218,32 @@ def qmm_mode(x: torch.Tensor, w: QArray, compute_dtype=torch.bfloat16,
     return "loop"
 
 
+def groupdot_kernel(x: torch.Tensor, w: QArray,
+                    compute_dtype=torch.bfloat16) -> str:
+    """The kernel of a groupdot call (:func:`qmm_mode` ``"groupdot"``):
+    ``"pipe"``, the groupdot instantiation of ``qmm_pipe_kernel``'s ring,
+    for T <= 128, a group size that is a multiple of 64 (a stage's plane
+    lies in one group) and 16-byte aligned rows; else ``"loop"``,
+    ``qmm_bf16_kernel``'s ``mma.sync`` groupdot mode (T > 128, group sizes
+    of 16, 32, 80..., rows off 16 bytes such as O = 1000).  A wide
+    unpacked call is no groupdot call (it takes the standard wide path):
+    ValueError."""
+    if not w.packed and is_wide(w, compute_dtype):
+        raise ValueError("a wide unpacked call takes the standard wide "
+                         "path, not the groupdot mode")
+    if x.shape[0] <= PIPE_MAX_T and w.group_size % 64 == 0 and _vec_ok(x, w):
+        return "pipe"
+    return "loop"
+
+
+def _kernel(x: torch.Tensor, w: QArray, compute_dtype, groupdot: bool,
+            residual) -> str:
+    """:func:`qmm_mode`'s choice, a groupdot call resolved to its kernel by
+    :func:`groupdot_kernel`."""
+    mode = qmm_mode(x, w, compute_dtype, groupdot, residual)
+    return groupdot_kernel(x, w, compute_dtype) if mode == "groupdot" else mode
+
+
 @dataclass(frozen=True)
 class PipePlan:
     """A pipelined launch: ``rows`` the row tile (16, 48, 64 or 128, at
@@ -228,24 +258,29 @@ class PipePlan:
     kstep: int
 
 
-def pipe_shape(T: int, I: int, O: int) -> tuple:
+def pipe_shape(T: int, I: int, O: int, groupdot: bool = False) -> tuple:
     """(rows, warps) of the pipelined launch of a (T, I) x (I, O) product.
     The row tile is the least of 16, 48, 64, 128 that holds T; its 128
     columns go to 4 warps, or at 128 rows on a weight of I <= 4096 and
     O <= 12288 to 8 (half the accumulators a thread, twice the warps an
     SM: the faster on those 7B shapes in the H100 sweep, the slower on the
-    others)."""
+    others).  The groupdot mode keeps a partial beside the accumulators,
+    which 4 warps of 128 rows have no registers for: it takes 8 warps at
+    every 128-row launch."""
     if not 1 <= T <= PIPE_MAX_T:
         raise ValueError(f"the pipelined mode takes 1 <= T <= {PIPE_MAX_T},"
                          f" not {T}")
     rows = next(r for r in PIPE_ROWS if r >= T)
-    return rows, 8 if rows == 128 and I <= 4096 and O <= 12288 else 4
+    eight = rows == 128 and (groupdot or (I <= 4096 and O <= 12288))
+    return rows, 8 if eight else 4
 
 
 def pipe_plan(T: int, I: int, O: int, packed: bool, *, resident: int,
-              splits=None, n_sm: int = 132) -> PipePlan:
+              splits=None, n_sm: int = 132,
+              groupdot: bool = False) -> PipePlan:
     """The pipelined launch of a (T, I) x (I, O) product: the row tile and
-    warps of :func:`pipe_shape`, and the split-K count.
+    warps of :func:`pipe_shape` (``groupdot``: of the groupdot mode), and
+    the split-K count.
     ``splits=None``: at 16 rows as many splits as leave each at least 4
     stages (the partials are one row), up to 16; above, as many blocks as
     the SMs hold at once (``resident`` blocks an SM, the card's occupancy
@@ -254,7 +289,7 @@ def pipe_plan(T: int, I: int, O: int, packed: bool, *, resident: int,
     to write and sum (the rule that read best in the sweep on an H100 at
     T <= 64; at 128 rows it splits some shapes too little, see PERF.md).
     An explicit count must leave no split empty (:func:`split_plan`)."""
-    rows, warps = pipe_shape(T, I, O)
+    rows, warps = pipe_shape(T, I, O, groupdot)
     kstep = 32 if packed else 64
     k_rows = I // 2 if packed else I
     if splits is None:
@@ -320,18 +355,19 @@ _RESIDENT = {}              # (device, launch kind) -> blocks an SM
 
 
 def _pipe_resident(x: torch.Tensor, w: QArray, rows: int, warps: int,
-                   conv: bool) -> int:
-    """Blocks of the pipelined instantiation an SM of x's card holds at
-    once, asked of the CUDA runtime once a device and kind of launch."""
-    key = (x.device.index, w.packed, rows, warps, x.dtype, w.scales.dtype,
-           conv)
+                   conv: bool, gd: bool = False) -> int:
+    """Blocks of the pipelined instantiation (``gd``: its groupdot one) an
+    SM of x's card holds at once, asked of the CUDA runtime once a device
+    and kind of launch."""
+    key = (x.device.index, w.packed, rows, warps, gd, x.dtype,
+           w.scales.dtype, conv)
     if key not in _RESIDENT:
         fn = _build.load("qmm").qmm_pipe_resident
-        fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+        fn.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_int
         blocks = ctypes.c_int(0)
         with torch.cuda.device(x.device):
-            rc = fn(int(w.packed), rows, warps, _DT[x.dtype],
+            rc = fn(int(w.packed), rows, warps, int(gd), _DT[x.dtype],
                     _DT[w.scales.dtype], int(conv), ctypes.byref(blocks))
         _build.check(rc, "qmm_pipe_resident")
         _RESIDENT[key] = blocks.value
@@ -339,27 +375,31 @@ def _pipe_resident(x: torch.Tensor, w: QArray, rows: int, warps: int,
 
 
 def _launch_pipe(x: torch.Tensor, w: QArray, gain, residual, eps: float,
-                 splits) -> torch.Tensor:
+                 splits, gd: bool = False) -> torch.Tensor:
+    """The pipelined mode (``gd``: its groupdot instantiation, plain form
+    only: no gain, no residual)."""
     T, I = x.shape
     O = w.data.shape[1]
     n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
-    rows, warps = pipe_shape(T, I, O)
+    rows, warps = pipe_shape(T, I, O, gd)
     resident = _pipe_resident(x, w, rows, warps,
-                              x.dtype == torch.float32 or gain is not None)
+                              x.dtype == torch.float32 or gain is not None,
+                              gd)
     plan = pipe_plan(T, I, O, w.packed, resident=resident, splits=splits,
-                     n_sm=n_sm)
+                     n_sm=n_sm, groupdot=gd)
     out = torch.empty((T, O), dtype=x.dtype, device=x.device)
     partial = (torch.empty((plan.splits, T, O), dtype=torch.float32,
                            device=x.device) if plan.splits > 1 else None)
     fn = _build.load("qmm").qmm_pipe_launch
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_float] \
-        + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+        + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     rc = fn(_build.ptr(x), _build.ptr(w.data), _build.ptr(w.scales),
             _build.ptr(gain), _build.ptr(residual), eps, _build.ptr(out),
             _build.ptr(partial), T, I, O, w.group_size, plan.splits,
             plan.k_per_split, _DT[x.dtype], _DT[w.scales.dtype],
-            int(w.packed), plan.rows, plan.warps, _build.stream_of(x))
+            int(w.packed), plan.rows, plan.warps, int(gd),
+            _build.stream_of(x))
     _build.check(rc, "qmm_pipe_launch")
     return out
 
@@ -367,12 +407,13 @@ def _launch_pipe(x: torch.Tensor, w: QArray, gain, residual, eps: float,
 def _launch(x: torch.Tensor, w: QArray, compute_dtype, gain=None,
             residual=None, eps: float = 1e-5, gd: bool = False,
             splits=None, mode=None) -> torch.Tensor:
-    """Launch the kernel of ``mode`` (None: :func:`qmm_mode`'s choice;
-    ``"loop"`` forces ``qmm_bf16_kernel``'s loop on a call the pipelined
-    mode would take, for timing the two side by side)."""
-    mode = mode or qmm_mode(x, w, compute_dtype, gd, residual)
+    """Launch the kernel of ``mode`` (None: :func:`qmm_mode`'s choice, a
+    groupdot call's by :func:`groupdot_kernel`; ``"loop"`` forces
+    ``qmm_bf16_kernel``'s loop on a call the pipelined mode would take,
+    standard or groupdot, for timing the two side by side)."""
+    mode = mode or _kernel(x, w, compute_dtype, gd, residual)
     if mode == "pipe":
-        return _launch_pipe(x, w, gain, residual, eps, splits)
+        return _launch_pipe(x, w, gain, residual, eps, splits, gd)
     T, I = x.shape
     O = w.data.shape[1]
     wide = is_wide(w, compute_dtype)
@@ -405,7 +446,8 @@ def _run(wrapper, x: torch.Tensor, w: QArray, compute_dtype, gain=None,
     """The plain version for a CPU tensor; else the kernel, counted on
     ``wrapper.launches`` (K1, K1f) or ``wrapper.launches_p4`` (K1p), or
     for the groupdot mode ``.launches_groupdot`` / ``_groupdot_p4``; a
-    launch of the pipelined mode also on ``.launches_pipe``."""
+    launch of the pipelined mode also on ``.launches_pipe``, or in the
+    groupdot mode on ``.launches_groupdot_pipe``."""
     # the wide path has no groupdot body (qmm.py:111); K1p's has one
     gd = groupdot and (w.packed or not is_wide(w, compute_dtype))
     if x.device.type == "cpu":
@@ -416,13 +458,16 @@ def _run(wrapper, x: torch.Tensor, w: QArray, compute_dtype, gain=None,
         return qmm_fused_plain(x, w, compute_dtype, gain, eps, residual)
     if x.device.type != "cuda":
         raise ValueError(f"{wrapper.__name__}: unsupported device {x.device}")
-    mode = qmm_mode(x, w, compute_dtype, gd, residual)
+    mode = _kernel(x, w, compute_dtype, gd, residual)
     out = _launch(x, w, compute_dtype, gain, residual, eps, gd, splits, mode)
     attr = "launches" + ("_groupdot" if gd else "") + \
         ("_p4" if w.packed else "")
     setattr(wrapper, attr, getattr(wrapper, attr) + 1)
     if mode == "pipe":
-        wrapper.launches_pipe += 1
+        if gd:
+            wrapper.launches_groupdot_pipe += 1
+        else:
+            wrapper.launches_pipe += 1
     return out
 
 
@@ -499,6 +544,7 @@ def qmatmul_pallas_indexed_fused(x: torch.Tensor, w: QArray, layer: int,
 
 qmatmul_pallas.launches = qmatmul_pallas.launches_p4 = 0
 qmatmul_pallas.launches_groupdot = qmatmul_pallas.launches_groupdot_p4 = 0
+qmatmul_pallas.launches_groupdot_pipe = 0
 qmatmul_pallas_indexed.launches = qmatmul_pallas_indexed.launches_p4 = 0
 qmatmul_pallas_indexed_fused.launches = 0
 qmatmul_pallas_indexed_fused.launches_p4 = 0

@@ -3,7 +3,9 @@
 shapes, each split-K count and each mode (standard K1/K1p and groupdot),
 in GB/s of weight and scale bytes and as a share of the card's measured
 read bandwidth.  At T <= 128 the standard variants run K1/K1p's pipelined
-mode (``qmm.qmm_mode``), each split count through its own plan.
+mode (``qmm.qmm_mode``) and the groupdot variants its groupdot
+instantiation (``qmm.groupdot_kernel``), each split count through its own
+plan (the same explicit-split rule for both).
 
 The weights rotate over enough copies (three times the L2 cache in all)
 that every launch finds its weight cold in L2, as a decode step finds each
