@@ -9,8 +9,9 @@ Run from the root of a checkout on a machine with one NVIDIA Hopper card:
 Phases (any failure exits non-zero; no phase catches an error and goes on):
 
 1. the card and toolchain; build every CUDA kernel from ``csrc/`` (nvcc
-   version and ``-Xptxas -v`` printed; the groupdot ring's instantiations
-   must not spill);
+   version and ``-Xptxas -v`` printed; the instantiations of the groupdot
+   ring and of the split-row modes of K2 and K2s must not spill, and their
+   registers are recorded);
 2. each kernel against its plain PyTorch version on the card, at the
    shapes of the LLaMA2-7B serving paths: the batched path's kernels, then
    K1f (the matmul with the rmsnorm prologue / residual epilogue) at the
@@ -20,7 +21,10 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    cache dtypes, hgs 1/2/4/8, hs 64/128, B 1/4/32 and pos 0, 1, 107,
    S-1 and 2047 at S=2048, each call advancing ``launches_split`` (2e),
    K2s, the speculative-verify
-   attention, at B=32 and T in {2, 4, 8} (2f), ``spec_write`` (2g),
+   attention, at B=32 and T in {2, 4, 8} through its wrapper (the
+   split-row mode, one ``launches_split`` a call), the tiled kernel and
+   the split mode at 2, 3, 8 and 16 splits on the same inputs, and at B=1
+   and 4 over S=2048 (2f), ``spec_write`` (2g),
    K1p, the packed INT4 matmul, at the 7B INT4 shapes (2h), K2b, the
    prefix cache's block-attend, at T up to 496 over a B=48 cache, at
    GQA hgs = 8 and at ragged T and start, in its tensor-core mode (bf16 q
@@ -40,7 +44,7 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    with a tail chunk, a two-turn ``ChatSession``) and (3c) the batched
    speculative verify and ``SpecBatchedEngine`` (int8 KV, B=4: logits,
    caches, greedy tokens equal to plain serving with the tuner off and
-   on);
+   on; every verify launch of K2s in its split-row mode);
 3d. the same three comparisons at packed INT4 (bench.py's INT4 shape:
    hidden_dim 11264, every projection packed, through K1p);
 3e. the prefix cache and deferred KV, kernel path against plain path (7B
@@ -76,8 +80,9 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    "auto" (f32) / int8 KV / B=32 / S=512, width 4, 32 rounds a chunk, decode
    chunk 64, the tuner on; 32 requests of the repetitive 43-token prompt,
    129 new tokens, greedy; a warm-up and a measured pass with the counters
-   zeroed just before it; the plain ``BatchedEngine`` on the same traffic
-   for scale; one spec chunk of 8 rounds traced;
+   zeroed just before it (every K2s launch must be in its split-row mode);
+   the plain ``BatchedEngine`` on the same traffic for scale; one spec
+   chunk of 8 rounds traced;
 4d. INT4 serving at full width (bench.py's ``BENCH_QUANT=int4``): phase
    4's measurement over 7B / INT4 packed, hidden_dim 11264, fused once /
    f32 scales / int8 KV / B=48 / S=512, 32 layers; K1p's indexed and plain
@@ -109,7 +114,10 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    K2 non-fresh: the split-row mode and the tiled kernel at B=1 against
    pos, 0 to 511 at S=512 and 2047 at S=2048, and at B=32, the split
    mode at other split counts, least chunks and warps a block at pos 107,
-   255, 511 and 2047, and other warps a block at pos 0 and 107).
+   255, 511 and 2047, and other warps a block at pos 0 and 107; K2s: the
+   split-row mode, the tiled kernel, the plain version and SDPA in turns
+   at phase 4c's reading, B=32, pos 107, T in {2, 4, 8}, and at B=4,
+   S=2048, pos 2040, the split mode also at 1, 2 and 4 splits).
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Details go to
@@ -621,58 +629,91 @@ def check_spec(dev, gen, errs):
     """K2s at the 7B verify shapes: B=32, 32 heads of 128, S=512, T in
     {2, 4, 8}; an int8 cache with the exact diagonal (k_self/v_self) and a
     bf16 cache without; positions 0, across a 64-row tile and S - T; f32
-    and bf16 q."""
+    and bf16 q.  Each call through the wrapper (the split-row mode, one
+    ``launches_split``), then the tiled kernel and the split mode at 2, 3,
+    8 and 16 splits of at least 16 rows on the same inputs; then B=1 and
+    B=4 at S=2048, pos up to S - T, at the default split count."""
     import torch
     from fastllama_tpu_torch.ops.kernels import flash_decode as fd
     from fastllama_tpu_torch.quant.groupquant import (dequantize_rows,
                                                       quantize_rows)
-    log("phase 2f: K2s speculative-verify attention vs plain (7B, B=32)")
-    B, L, H, n_kv, hs, S = 32, 2, 32, 32, 128, 512
-    shape = (L, B, n_kv, S, hs)
-    for cache_dt in (torch.int8, torch.bfloat16):
-        if cache_dt == torch.int8:
-            ck = torch.empty(shape, dtype=torch.int8, device=dev)
-            cv = torch.empty(shape, dtype=torch.int8, device=dev)
-            ck.random_(-127, 128, generator=gen)
-            cv.random_(-127, 128, generator=gen)
-            ks = torch.rand(shape[:-1], generator=gen, device=dev) * 0.05
-            vs = torch.rand(shape[:-1], generator=gen, device=dev) * 0.05
-        else:
-            ck = torch.randn(shape, generator=gen, device=dev).to(cache_dt)
-            cv = torch.randn(shape, generator=gen, device=dev).to(cache_dt)
-            ks = vs = None
-        for T in (2, 4, 8):
-            pos = torch.randint(0, S - T + 1, (B,), generator=gen,
-                                device=dev, dtype=torch.int32)
-            pos[:6] = torch.tensor([0, 1, 63, 64, 130, S - T],
-                                   dtype=torch.int32, device=dev)
-            for qdt, tol in ((torch.bfloat16, TOL_BF16),
-                             (torch.float32, TOL_F32)):
-                q = torch.randn((B, H, T, hs), generator=gen,
-                                device=dev).to(qdt)
-                ke = torch.randn((B, n_kv, T, hs), generator=gen,
-                                 device=dev).to(qdt)
-                ve = torch.randn((B, n_kv, T, hs), generator=gen,
-                                 device=dev).to(qdt)
-                if cache_dt == torch.int8:
-                    # the verify's fresh rows: the exact rows round-tripped
-                    # through the cache quantizer
-                    kn = dequantize_rows(*quantize_rows(ke), qdt)
-                    vn = dequantize_rows(*quantize_rows(ve), qdt)
-                    kw = dict(k_self=ke, v_self=ve)
-                else:
-                    kn, vn, kw = ke, ve, {}
-                got = fd.flash_spec_batched(q, ck, cv, pos, 1, ks, vs, kn,
-                                            vn, **kw)
-                want = fd.flash_spec_plain(q, ck, cv, pos, 1, ks, vs, kn, vn,
-                                           **kw)
-                e = compare(f"flash_spec cache={str(cache_dt)[6:]} T={T} "
-                            f"q={str(qdt)[6:]}"
-                            + (" exact_diag" if kw else ""), got, want, tol)
-                errs["flash_spec_batched"] = max(errs["flash_spec_batched"],
-                                                 e)
-        del ck, cv
+    log("phase 2f: K2s speculative-verify attention vs plain (7B, B=32 at "
+        "S=512, B=1 and 4 at S=2048), split-row mode and tiled kernel")
+    H, n_kv, hs, L = 32, 32, 128, 2
+    n = 0
+
+    def note(e, split=True):
+        # the wrapper's entry holds every mode, its _split entry that mode
+        for key in ("flash_spec_batched",) + (
+                ("flash_spec_batched_split",) if split else ()):
+            errs[key] = max(errs[key], e)
+
+    def run(label, args, tol):
+        nonlocal n
+        want = fd.flash_spec_plain(*args)
+        s0 = fd.flash_spec_batched.launches_split
+        check(fd.spec_mode(args[0], args[1]) == "split",
+              f"{label}: not the split-row mode")
+        note(compare(f"flash_spec {label}", fd.flash_spec_batched(*args),
+                     want, tol))
+        check(fd.flash_spec_batched.launches_split == s0 + 1,
+              f"{label}: launches_split did not advance")
+        note(compare(f"flash_spec {label} tiled", fd._spec_launch(*args),
+                     want, tol, quiet=True), split=False)
+        n += 2
+        if args[0].shape[0] == 32:
+            for ns in (2, 3, 8, 16):
+                note(compare(f"flash_spec {label} {ns} splits",
+                             fd._spec_split_launch(*args, ns, 16), want, tol,
+                             quiet=True))
+                n += 1
+
+    for B, S in ((32, 512), (1, 2048), (4, 2048)):
+        shape = (L, B, n_kv, S, hs)
+        for cache_dt in (torch.int8, torch.bfloat16):
+            if cache_dt == torch.int8:
+                ck = torch.empty(shape, dtype=torch.int8, device=dev)
+                cv = torch.empty(shape, dtype=torch.int8, device=dev)
+                ck.random_(-127, 128, generator=gen)
+                cv.random_(-127, 128, generator=gen)
+                ks = torch.rand(shape[:-1], generator=gen, device=dev) * 0.05
+                vs = torch.rand(shape[:-1], generator=gen, device=dev) * 0.05
+            else:
+                ck = torch.randn(shape, generator=gen, device=dev).to(cache_dt)
+                cv = torch.randn(shape, generator=gen, device=dev).to(cache_dt)
+                ks = vs = None
+            for T in (2, 4, 8):
+                pos = torch.randint(0, S - T + 1, (B,), generator=gen,
+                                    device=dev, dtype=torch.int32)
+                edge = [0, 1, 63, 64, 130, S - T] if B == 32 else \
+                    [S - T, 0, 1107, 2040 - T]
+                pos[:len(edge)] = torch.tensor(edge[:B], dtype=torch.int32,
+                                               device=dev)
+                for qdt, tol in ((torch.bfloat16, TOL_BF16),
+                                 (torch.float32, TOL_F32)):
+                    q = torch.randn((B, H, T, hs), generator=gen,
+                                    device=dev).to(qdt)
+                    ke = torch.randn((B, n_kv, T, hs), generator=gen,
+                                     device=dev).to(qdt)
+                    ve = torch.randn((B, n_kv, T, hs), generator=gen,
+                                     device=dev).to(qdt)
+                    if cache_dt == torch.int8:
+                        # the verify's fresh rows: the exact rows
+                        # round-tripped through the cache quantizer
+                        kn = dequantize_rows(*quantize_rows(ke), qdt)
+                        vn = dequantize_rows(*quantize_rows(ve), qdt)
+                        kw = (ke, ve)
+                    else:
+                        kn, vn, kw = ke, ve, (None, None)
+                    run(f"B={B} S={S} cache={str(cache_dt)[6:]} T={T} "
+                        f"q={str(qdt)[6:]}"
+                        + (" exact_diag" if kw[0] is not None else ""),
+                        (q, ck, cv, pos, 1, ks, vs, kn, vn) + kw, tol)
+            del ck, cv
     torch.cuda.empty_cache()
+    log(f"  ok {n} K2s comparisons; largest errors split "
+        f"{errs['flash_spec_batched_split']:.3e}, tiled "
+        f"{errs['flash_spec_batched']:.3e}")
 
 
 def check_spec_write(dev, gen, errs):
@@ -1339,6 +1380,8 @@ def phase_spec_parity(dev, rec, cfg=None, tol=TOL_F32, flip_cap=1e-3,
     batch = torch.randint(1, cfg.vocab_size, (B, D), generator=rng,
                           dtype=torch.int32).to(dev)
     errs = []
+    from fastllama_tpu_torch.ops.kernels import flash_decode as fd
+    split0 = fd.flash_spec_batched.launches_split
     for rnd in range(2):
         out = {}
         for use, kb in kbs.items():
@@ -1362,6 +1405,8 @@ def phase_spec_parity(dev, rec, cfg=None, tol=TOL_F32, flip_cap=1e-3,
             getattr(ck, name + "_scale").copy_(getattr(cp, name + "_scale"))
         pos = pos + torch.tensor([1, 4, 2, 1], dtype=torch.int32, device=dev)
         batch = (batch * 31 + 5) % cfg.vocab_size
+    check(fd.flash_spec_batched.launches_split - split0 == 2 * cfg.n_layers,
+          "the verify's K2s launches were not all in the split-row mode")
     del caches, fused
 
     # engine level: greedy tokens of the spec engine equal plain serving
@@ -1801,7 +1846,8 @@ BATCHED_PATH = ("qmatmul_pallas", "qmatmul_pallas_indexed",
                 "flash_decode_batched", "decode_write", "prefill_write",
                 "qmatmul_pallas_pipe", "qmatmul_pallas_indexed_pipe")
 SPEC_PATH = ("qmatmul_pallas", "qmatmul_pallas_indexed",
-             "flash_spec_batched", "spec_write", "prefill_write",
+             "flash_spec_batched", "flash_spec_batched_split", "spec_write",
+             "prefill_write",
              "qmatmul_pallas_pipe", "qmatmul_pallas_indexed_pipe")
 SINGLE_PATH = ("qmatmul_pallas", "qmatmul_pallas_indexed",
                "qmatmul_pallas_indexed_fused", "flash_decode_single",
@@ -1826,7 +1872,7 @@ KERNELS = ("qmatmul_pallas", "qmatmul_pallas_indexed",
            "decode_attention_pallas_batched_split", "qmatmul_pallas_pipe",
            "qmatmul_pallas_indexed_pipe",
            "qmatmul_pallas_indexed_fused_pipe",
-           "qmatmul_pallas_groupdot_pipe")
+           "qmatmul_pallas_groupdot_pipe", "flash_spec_batched_split")
 # the wrappers of K2's non-fresh mode: each counts its split-row launches
 SPLIT_WRAPPERS = ("flash_decode_single", "decode_attention_pallas_indexed",
                   "decode_attention_pallas", "flash_decode_batched",
@@ -1840,7 +1886,8 @@ def counters():
     ``qmatmul_pallas.launches_groupdot`` (K1) and ``_groupdot_p4`` (K1p),
     those of them on the pipelined ring also on ``_groupdot_pipe``,
     K2's split-row mode on each non-fresh wrapper's ``launches_split``
-    (``<wrapper>_split``), the pipelined mode of K1 and K1p on each K1
+    (``<wrapper>_split``), K2s's on ``flash_spec_batched.launches_split``,
+    the pipelined mode of K1 and K1p on each K1
     wrapper's ``launches_pipe`` (``<wrapper>_pipe``)."""
     from fastllama_tpu_torch.ops.kernels import attention as at
     from fastllama_tpu_torch.ops.kernels import flash_decode as fd
@@ -1867,6 +1914,8 @@ def counters():
     out["flash_decode_batched_stats"] = (fd.flash_decode_batched,
                                          "launches_stats")
     out["flash_block_attend_tc"] = (fd.flash_block_attend, "launches_tc")
+    out["flash_spec_batched_split"] = (fd.flash_spec_batched,
+                                       "launches_split")
     out.update({k + "_split": (rest[k], "launches_split")
                 for k in SPLIT_WRAPPERS})
     out["qmatmul_pallas_groupdot"] = (qmm.qmatmul_pallas,
@@ -2461,6 +2510,10 @@ def phase_spec_serving(dev, rec):
     wall = time.perf_counter() - t0
     launches = read_launches()
     check_all_pipe(launches, tally, "speculative serving")
+    check(launches["flash_spec_batched_split"]
+          == launches["flash_spec_batched"],
+          f"K2s: {launches['flash_spec_batched_split']} of "
+          f"{launches['flash_spec_batched']} launches in the split-row mode")
     for k in SPEC_PATH:
         check(launches[k] > 0, f"kernel {k} was not launched on the "
                                f"speculative path")
@@ -2484,6 +2537,7 @@ def phase_spec_serving(dev, rec):
         "launches": launches, "k1_modes": tally.record(),
         "launches_per_spec_round": {
             k: launches[k] / rounds for k in ("flash_spec_batched",
+                                              "flash_spec_batched_split",
                                               "spec_write")},
         "card": smi_line(),
     }
@@ -3308,11 +3362,15 @@ def time_decode_by_pos(dev, gen, res):
 
 def time_spec(dev, gen, res):
     """The speculative path's kernels at phase 4c's shapes: K2s at B=32,
-    T=4, 7B heads, pos 107 in every slot, int8 cache with the exact
-    diagonal, one layer of two (layers rotate); spec_write of D=4 rows for
-    32 slots into the 7B int8 cache, all 32 layers.  Also
-    ``decode_attention_pallas_batched`` (on K2 non-fresh; no engine path
-    reaches it) at B=32, bf16 cache, pos 107."""
+    7B heads, pos 107 in every slot, int8 cache with the exact diagonal,
+    one layer of two (layers rotate), at T = 4 (4c's width) and at T = 2
+    and 8 (the tuner's other arms), and at B=4, S=2048, pos 2040, T=4 (the
+    split count at its default, 4): the split-row mode (what the wrapper
+    runs), the tiled kernel, the plain version and SDPA in turns, the
+    bytes bound beside them; spec_write of D=4 rows for 32 slots into the
+    7B int8 cache, all 32 layers.  Also ``decode_attention_pallas_batched``
+    (on K2 non-fresh; no engine path reaches it) at B=32, bf16 cache, pos
+    107."""
     import torch
     from fastllama_tpu_torch.tools.timing import time_ms
     import torch.nn.functional as F
@@ -3323,54 +3381,86 @@ def time_spec(dev, gen, res):
     from fastllama_tpu_torch.quant.groupquant import (dequantize_rows,
                                                       quantize_rows)
     bf16 = torch.bfloat16
-    B, T, H, n_kv, hs, S, L, p = 32, 4, 32, 32, 128, 512, 2, 107
-    shape = (L, B, n_kv, S, hs)
-    ck = torch.empty(shape, dtype=torch.int8, device=dev).random_(
-        -127, 128, generator=gen)
-    cv = torch.empty(shape, dtype=torch.int8, device=dev).random_(
-        -127, 128, generator=gen)
-    ksc = torch.rand(shape[:-1], generator=gen, device=dev) * 0.02
-    vsc = torch.rand(shape[:-1], generator=gen, device=dev) * 0.02
-    pos = torch.full((B,), p, dtype=torch.int32, device=dev)
-    q = torch.randn((B, H, T, hs), generator=gen, device=dev).to(bf16)
-    ke = torch.randn((B, n_kv, T, hs), generator=gen, device=dev).to(bf16)
-    ve = torch.randn((B, n_kv, T, hs), generator=gen, device=dev).to(bf16)
-    kn = dequantize_rows(*quantize_rows(ke), bf16)
-    vn = dequantize_rows(*quantize_rows(ve), bf16)
+    H, n_kv, hs, L = 32, 32, 128, 2
     layer = [0]
 
     def rot():
         layer[0] = (layer[0] + 1) % L
         return layer[0]
-    # library: SDPA over pre-dequantized bf16 rows [0, S) of the layer and
-    # the fresh block, masked to rows [0, pos) and the causal block (the
-    # exact diagonal has no counterpart there)
-    kd = [torch.cat([(ck[i].float() * ksc[i][..., None]).to(bf16), kn], 2)
-          for i in range(L)]
-    vd = [torch.cat([(cv[i].float() * vsc[i][..., None]).to(bf16), vn], 2)
-          for i in range(L)]
-    col = torch.arange(S + T, device=dev)
-    t_i = torch.arange(T, device=dev)[:, None]
-    mask = ((col[None, :] < p) | ((col[None, :] >= S)
-                                  & (col[None, :] - S <= t_i)))[None, None]
-    rows = B * p
-    nbytes = (q.numel() * 2 * 2 + rows * n_kv * (2 * hs + 8)
-              + 4 * kn.numel() * 2)
-    flops = 4 * rows * H * T * hs + 4 * B * H * T * T * hs
-    bm, by = bound_ms(nbytes, flops, F32_FLOP_S)
-    res["flash_spec_batched"] = dict(
-        ms=time_ms(lambda: fd.flash_spec_batched(
-            q, ck, cv, pos, rot(), ksc, vsc, kn, vn, ke, ve)),
-        plain_ms=time_ms(lambda: fd.flash_spec_plain(
-            q, ck, cv, pos, rot(), ksc, vsc, kn, vn, ke, ve)),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            q, kd[rot()], vd[layer[0]], attn_mask=mask)),
-        library_call="SDPA with an explicit mask over pre-dequantized bf16 "
-                     "K/V rows and the fresh block (no exact diagonal)",
-        bound_ms=bm, bound_by=by, bytes=nbytes,
-        shape=f"B={B} T={T} H={H} n_kv={n_kv} hs={hs} S={S} int8 cache, "
-              f"exact diagonal, pos={p} every slot")
-    del ck, cv, kd, vd
+    rows = {}
+    for B, S, p, Ts in ((32, 512, 107, (4, 2, 8)), (4, 2048, 2040, (4,))):
+        shape = (L, B, n_kv, S, hs)
+        ck = torch.empty(shape, dtype=torch.int8, device=dev).random_(
+            -127, 128, generator=gen)
+        cv = torch.empty(shape, dtype=torch.int8, device=dev).random_(
+            -127, 128, generator=gen)
+        ksc = torch.rand(shape[:-1], generator=gen, device=dev) * 0.02
+        vsc = torch.rand(shape[:-1], generator=gen, device=dev) * 0.02
+        pos = torch.full((B,), p, dtype=torch.int32, device=dev)
+        for T in Ts:
+            q = torch.randn((B, H, T, hs), generator=gen, device=dev).to(bf16)
+            ke = torch.randn((B, n_kv, T, hs), generator=gen,
+                             device=dev).to(bf16)
+            ve = torch.randn((B, n_kv, T, hs), generator=gen,
+                             device=dev).to(bf16)
+            kn = dequantize_rows(*quantize_rows(ke), bf16)
+            vn = dequantize_rows(*quantize_rows(ve), bf16)
+            args = (q, ck, cv, pos)
+            rest = (ksc, vsc, kn, vn, ke, ve)
+            # library: SDPA over pre-dequantized bf16 rows [0, S) of the
+            # layer and the fresh block, masked to rows [0, pos) and the
+            # causal block (the exact diagonal has no counterpart there)
+            kd = [torch.cat([(ck[i].float() * ksc[i][..., None]).to(bf16),
+                             kn], 2) for i in range(L)]
+            vd = [torch.cat([(cv[i].float() * vsc[i][..., None]).to(bf16),
+                             vn], 2) for i in range(L)]
+            col = torch.arange(S + T, device=dev)
+            t_i = torch.arange(T, device=dev)[:, None]
+            mask = ((col[None, :] < p) | ((col[None, :] >= S)
+                                          & (col[None, :] - S <= t_i))
+                    )[None, None]
+            nrows = B * p
+            nbytes = (q.numel() * 2 * 2 + nrows * n_kv * (2 * hs + 8)
+                      + 4 * kn.numel() * 2)
+            flops = 4 * nrows * H * T * hs + 4 * B * H * T * T * hs
+            bm, by = bound_ms(nbytes, flops, F32_FLOP_S)
+            r = dict(
+                **in_turns({
+                    "ms": lambda: fd.flash_spec_batched(*args, rot(), *rest),
+                    "tile_ms": lambda: fd._spec_launch(*args, rot(), *rest),
+                    "plain_ms": lambda: fd.flash_spec_plain(*args, rot(),
+                                                            *rest),
+                    "library_ms": lambda: F.scaled_dot_product_attention(
+                        q, kd[rot()], vd[layer[0]], attn_mask=mask)}),
+                library_call="SDPA with an explicit mask over "
+                             "pre-dequantized bf16 K/V rows and the fresh "
+                             "block (no exact diagonal)",
+                bound_ms=bm, bound_by=by, bytes=nbytes,
+                nsplit=fd.split_count(B, n_kv, S, fd.spec_rows(T), True),
+                shape=f"B={B} T={T} H={H} n_kv={n_kv} hs={hs} S={S} int8 "
+                      f"cache, exact diagonal, pos={p} every slot (ms: the "
+                      f"split-row mode; tile_ms: the tiled kernel)")
+            if B == 32 and T == 4:
+                # more blocks a (slot, kv head), each fewer rows
+                r["ms_by_nsplit"] = {n: time_ms(
+                    lambda: fd._spec_split_launch(*args, rot(), *rest, n, 16))
+                    for n in (1, 2, 4)}
+            key = f"B{B}_S{S}_T{T}_pos{p}"
+            rows[key] = r
+            log(f"  K2s {key}: split {r['ms']:.4f} ms (nsplit "
+                f"{r['nsplit']}), tiled {r['tile_ms']:.4f}, plain "
+                f"{r['plain_ms']:.4f}, SDPA {r['library_ms']:.4f}, bound "
+                f"{bm:.5f} by {by} ({nbytes} bytes)"
+                + (f"; by nsplit (least chunk 16) {r['ms_by_nsplit']}"
+                   if "ms_by_nsplit" in r else ""))
+            del kd, vd
+        del ck, cv
+        torch.cuda.empty_cache()
+    res["flash_spec_batched"] = dict(rows["B32_S512_T4_pos107"], by_shape=rows)
+    res["flash_spec_batched_split"] = dict(rows["B32_S512_T4_pos107"])
+    B, S, p = 32, 512, 107
+    shape = (L, B, n_kv, S, hs)
+    pos = torch.full((B,), p, dtype=torch.int32, device=dev)
 
     # decode_attention_pallas_batched: B=32, bf16 cache, rows [0, pos]
     ckb = torch.randn(shape, generator=gen, device=dev).to(bf16)
@@ -3861,8 +3951,10 @@ SOURCES = {
     "qmatmul_pallas_groupdot_p4": ("fastllama_tpu_torch/csrc/qmm.cu",
                                    "fastllama_tpu/ops/pallas/qmm.py:405"),
 }
-# K2's split-row mode: the same source and TPU function as its wrapper's
-SOURCES.update({k + "_split": SOURCES[k] for k in SPLIT_WRAPPERS})
+# the split-row modes of K2 and K2s: the same source and TPU function as
+# their wrapper's
+SOURCES.update({k + "_split": SOURCES[k] for k in SPLIT_WRAPPERS
+                + ("flash_spec_batched",)})
 # the pipelined mode of K1 and K1p (INT8 and packed alike): K1's wrappers;
 # the groupdot mode's ring, K1's groupdot function
 SOURCES.update({k + "_pipe": SOURCES[k] for k in (
@@ -3909,6 +4001,10 @@ def main() -> int:
     log(_build.build_log())
     rec["groupdot_ring_ptxas"] = check_no_spill(_build.build_log(),
                                                 "qmm_pipe_gd_kernel")
+    rec["spec_split_ptxas"] = check_no_spill(_build.build_log(),
+                                             "flash_spec_split_kernel")
+    rec["decode_split_ptxas"] = check_no_spill(_build.build_log(),
+                                               "flash_decode_split_kernel")
 
     t_start = time.perf_counter()
     # each kernel's launches on the path it serves: the batched path's from
@@ -3949,6 +4045,7 @@ def main() -> int:
     if "4c" in phases:
         got = run("4c", phase_spec_serving)
         launches.update({k: got[k] for k in ("flash_spec_batched",
+                                             "flash_spec_batched_split",
                                              "spec_write")})
     if "4d" in phases:
         got = run("4d", phase_int4_serving)

@@ -1,8 +1,9 @@
 // K2: bounded flash-decode attention over the stacked batched KV cache,
 // with a fresh row (deferred writes) or without one, optionally with its
 // softmax stats; K2s, its speculative-verify mode with T query rows per
-// slot; and K2b, its block-attend mode for one slot's prefill tail (below),
-// in an f32 mode and a tensor-core mode.
+// slot, in a split-row mode (up to 8 query rows a (slot, kv head)) and a
+// tiled one; and K2b, its block-attend mode for one slot's prefill tail
+// (below), in an f32 mode and a tensor-core mode.
 //
 // Replaces the Pallas kernel of fastllama_tpu/ops/pallas/flash_decode.py:
 // flash_decode_batched (flash_decode.py:203, body _flash_kernel :67) in
@@ -372,38 +373,114 @@ __device__ __forceinline__ void merge_weights(float m_a, float m_b, float& w_a,
   w_b = expf(m_b - m);
 }
 
-// q, out: f32 (q_bf16 = 0) or bf16; caches CT; row scales f32 or null;
-// part_acc (B*n_kv, nsplit, HGS, hs), part_ml (B*n_kv, nsplit, HGS, 2)
-// and ticket (B*n_kv) only used when more than one split has rows.
-template <typename CT, int HSP, int HGS>
-__global__ void __launch_bounds__(split_warps<CT, HGS>() * 32)
-flash_decode_split_kernel(const void* __restrict__ q,      // (B, n_kv, HGS, hs)
-                          const CT* __restrict__ kc,       // (L, Bc, n_kv, S, hs)
-                          const CT* __restrict__ vc,
-                          const float* __restrict__ ks,    // (L, Bc, n_kv, S) or null
-                          const float* __restrict__ vs,
-                          const int* __restrict__ pos,     // (B,)
-                          void* __restrict__ out,          // (B, n_kv, HGS, hs)
-                          float* __restrict__ part_acc,
-                          float* __restrict__ part_ml,
-                          int* __restrict__ ticket,
-                          int layer, int Bc, int n_kv, int S, int hs,
-                          int nsplit, int min_chunk, float scale, int q_bf16) {
-  using IO = SplitIO<CT, HGS>;
+// cp.async of `bytes` (16 or 4) with zero fill past src_bytes (0: zeros)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   (uint32_t)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   (uint32_t)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// K2s's split-row mode reads an int8 cache through a byte permute: the
+// byte x + 128 placed in the mantissa of 2^23 is the float 2^23 + x + 128
+// exactly, so an element costs a PRMT and an FADD, against the I2F
+// conversion's quarter rate (the XOR that adds 128 serves four bytes).
+__device__ __forceinline__ float i8_magic(uint32_t u, int i) {
+  return __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + i)) -
+         8388736.0f;
+}
+template <typename CT> struct SpecIO : SplitIO<CT, 1> {};
+template <> struct SpecIO<int8_t> : SplitIO<int8_t, 8> {
+  __device__ static void unpack(const uint2& r, float (&f)[8]) {
+    const uint32_t w[2] = {r.x ^ 0x80808080u, r.y ^ 0x80808080u};
+#pragma unroll
+    for (int i = 0; i < 8; ++i) f[i] = i8_magic(w[i / 4], i % 4);
+  }
+};
+
+// element `at` of a row in q's dtype (K2s's fresh rows, in shared
+// memory), as f32
+__device__ __forceinline__ float ld_qt(const unsigned char* p, int at,
+                                       int q_bf16) {
+  return q_bf16 ? __bfloat162float(
+                      reinterpret_cast<const __nv_bfloat16*>(p)[at])
+                : reinterpret_cast<const float*>(p)[at];
+}
+
+// U rows' K and V loads of a lane from `base` (split_rows's prefetch);
+// none past r1
+template <typename CT, typename Raw, int U, int CPL, int RPI>
+__device__ __forceinline__ void split_load(
+    const CT* kb, const CT* vb, const float* ks, const float* vs,
+    size_t row0, int base, int r1, int rg, int hs, const int (&col)[CPL],
+    Raw (&kr)[U][CPL], Raw (&vr)[U][CPL], float (&ksc)[U], float (&vsc)[U]) {
+  if (base >= r1) return;
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int r = min(base + u * RPI + rg, r1 - 1);
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) {
+      kr[u][c] = ld_raw<Raw>(kb + (size_t)r * hs + col[c]);
+      vr[u][c] = ld_raw<Raw>(vb + (size_t)r * hs + col[c]);
+    }
+    if (ks != nullptr) {
+      ksc[u] = __ldg(ks + row0 + r);
+      vsc[u] = __ldg(vs + row0 + r);
+    }
+  }
+}
+
+// The split-row body that K2's split mode and K2s's split mode share.
+// SPEC false: cache rows [0, pos] and HG = hgs query rows.  SPEC true:
+// cache rows [0, pos) strictly, nq = hgs * T <= HG query rows (row
+// g * T + t at position pos + t; rows past nq read q = 0 and are never
+// written), then the causal fresh block (flash_spec_split_kernel).  IO
+// loads and unpacks the cache rows; LOADS sets the rows a lane loads a
+// step; PF issues each step's loads before the previous step's
+// arithmetic.  q, out: f32 (q_bf16 = 0) or bf16;
+// caches CT; row scales f32 or null; part_acc (B*n_kv, nsplit, HG, hs),
+// part_ml (B*n_kv, nsplit, HG, 2) and ticket (B*n_kv) only used when more
+// than one split has rows.
+template <typename CT, int HSP, int HG, typename IO, bool SPEC,
+          int LOADS = SPLIT_LOADS, bool PF = false>
+__device__ __forceinline__ void split_rows(
+    const void* __restrict__ q, const CT* __restrict__ kc,
+    const CT* __restrict__ vc, const float* __restrict__ ks,
+    const float* __restrict__ vs, const void* __restrict__ k_new,
+    const void* __restrict__ v_new, const void* __restrict__ k_self,
+    const void* __restrict__ v_self, const int* __restrict__ pos,
+    void* __restrict__ out, float* __restrict__ part_acc,
+    float* __restrict__ part_ml, int* __restrict__ ticket, int layer, int Bc,
+    int n_kv, int S, int hs, int T, int nq, int nsplit, int min_chunk,
+    float scale, int q_bf16) {
   using Raw = typename IO::Raw;
-  constexpr int W = split_warps<CT, HGS>();           // warps a block, most
+  constexpr int W = split_warps<CT, HG>();            // warps a block, most
   constexpr int DPL = IO::DPL;                        // elements a load
   constexpr int CHUNKS = HSP / DPL;                   // loads a row
   constexpr int LPR = CHUNKS < 32 ? CHUNKS : 32;      // lanes a row
   constexpr int CPL = CHUNKS / LPR;                   // loads a lane a row
   constexpr int RPI = 32 / LPR;                       // rows a warp load
-  constexpr int U = SPLIT_LOADS / CPL;                // rows a lane a step
+  constexpr int U = LOADS > CPL ? LOADS / CPL : 1;    // rows a lane a step
   constexpr int RS = RPI * U;                         // rows a warp step
   constexpr int DL = CPL * DPL;                       // dims a lane holds
   static_assert(U >= 1 && LPR * RPI == 32, "split tiling");
-  __shared__ float sm_acc[W][HGS][HSP];
-  __shared__ float sm_m[W][HGS], sm_l[W][HGS];
-  __shared__ float pm[SPLIT_MAX][HGS], pl[SPLIT_MAX][HGS];
+  // (K2s copies its fresh rows into this space with 16-byte cp.async)
+  __shared__ alignas(SPEC ? 16 : 4) float sm_acc[W][HG][HSP];
+  __shared__ float sm_m[W][HG], sm_l[W][HG];
+  __shared__ float pm[SPLIT_MAX][HG], pl[SPLIT_MAX][HG];
   __shared__ int last;
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
@@ -414,89 +491,137 @@ flash_decode_split_kernel(const void* __restrict__ q,      // (B, n_kv, HGS, hs)
   const size_t row0 = ((size_t)(layer * Bc + b) * n_kv + h) * S;
   const CT* kb = kc + row0 * hs;
   const CT* vb = vc + row0 * hs;
-  const size_t qoff = (size_t)bh * HGS * hs;
+  const size_t qoff = (size_t)bh * nq * hs;
 
-  const int p = min(max(pos[b], 0) + 1, S);
+  const int p = min(max(pos[b], 0) + (SPEC ? 0 : 1), S);
   const int per = max((p + nsplit - 1) / nsplit, min_chunk);
   const int chunk = (per + SPLIT_UNIT - 1) / SPLIT_UNIT * SPLIT_UNIT;
-  // the splits with rows; the others have nothing to do
-  const int n_eff = (p + chunk - 1) / chunk;
+  // the splits with rows; the others have nothing to do.  With fresh rows
+  // and no cache row (pos 0) split 0 takes the fresh block alone.
+  int n_eff = (p + chunk - 1) / chunk;
+  if constexpr (SPEC) n_eff = max(n_eff, 1);
   if (split >= n_eff) return;
   const int r0 = min(split * chunk, p), r1 = min(r0 + chunk, p);
 
   // this lane's dims: load c covers dims (c * LPR + li) * DPL + [0, DPL);
   // a load past hs reads the row's first elements instead, against q = 0
   int col[CPL];
-  float qf[HGS][DL];
+  float qf[HG][DL];
 #pragma unroll
   for (int c = 0; c < CPL; ++c) {
     const int d0 = (c * LPR + li) * DPL;
     const bool ok = d0 < hs;
     col[c] = ok ? d0 : 0;
 #pragma unroll
-    for (int g = 0; g < HGS; ++g)
+    for (int g = 0; g < HG; ++g)
 #pragma unroll
       for (int i = 0; i < DPL; ++i) {
         const size_t at = qoff + (size_t)g * hs + d0 + i;
         float v = 0.0f;
-        if (ok)
+        if (ok && (!SPEC || g < nq))
           v = q_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(q)[at])
                      : static_cast<const float*>(q)[at];
         qf[g][c * DPL + i] = v;
       }
   }
-  float m[HGS], l[HGS], acc[HGS][DL];
+  float m[HG], l[HG], acc[HG][DL];
 #pragma unroll
-  for (int g = 0; g < HGS; ++g) {
+  for (int g = 0; g < HG; ++g) {
     m[g] = NEG_INF;
     l[g] = 0.0f;
 #pragma unroll
     for (int d = 0; d < DL; ++d) acc[g][d] = 0.0f;
   }
 
+  // K2s: the block that takes the fresh block copies its rows (k_new,
+  // k_self, v_new, v_self: T x hs each in q's dtype) into the space of
+  // sm_acc while it reads the cache
+  unsigned char* fbuf = reinterpret_cast<unsigned char*>(&sm_acc[0][0][0]);
+  const int row_b = hs * (q_bf16 ? 2 : 4), part_b = T * row_b;
+  const bool fresh_here = SPEC && split == n_eff - 1;
+  if constexpr (SPEC) {
+    if (fresh_here) {
+      for (int c = tid * 16; c < 4 * part_b; c += nthreads * 16) {
+        const int which = c / part_b, off = c % part_b;
+        const void* src = which == 0 ? k_new : which == 1 ? k_self
+                          : which == 2 ? v_new : v_self;
+        if (src != nullptr)
+          cp_async16(fbuf + c,
+                     static_cast<const unsigned char*>(src) +
+                         (size_t)bh * part_b + off, 16);
+      }
+      cp_async_commit();
+    }
+  }
+
+  // with PF each step's loads are issued before the previous step's
+  // arithmetic (pk/pv: the next step's rows)
+  Raw pk[U][CPL], pv[U][CPL];
+  float pks[U], pvs[U];
+  if constexpr (PF)
+    split_load<CT, Raw, U, CPL, RPI>(kb, vb, ks, vs, row0, r0 + warp * RS,
+                                     r1, rg, hs, col, pk, pv, pks, pvs);
+
   for (int base = r0 + warp * RS; base < r1; base += nw * RS) {
     // every K and V load of the step first; rows past r1 re-read row
-    // r1 - 1 (just loaded, so cached) and are masked below
+    // r1 - 1 (just loaded, so cached) and are masked below.  K2's own
+    // loads stay written out here: through split_load its instantiations
+    // took other registers (phase 1)
     Raw kr[U][CPL], vr[U][CPL];
     float ksc[U], vsc[U];
+    if constexpr (PF) {
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int r = min(base + u * RPI + rg, r1 - 1);
+      for (int u = 0; u < U; ++u) {
 #pragma unroll
-      for (int c = 0; c < CPL; ++c) {
-        kr[u][c] = ld_raw<Raw>(kb + (size_t)r * hs + col[c]);
-        vr[u][c] = ld_raw<Raw>(vb + (size_t)r * hs + col[c]);
+        for (int c = 0; c < CPL; ++c) {
+          kr[u][c] = pk[u][c];
+          vr[u][c] = pv[u][c];
+        }
+        ksc[u] = pks[u];
+        vsc[u] = pvs[u];
       }
-      if (ks != nullptr) {
-        ksc[u] = __ldg(ks + row0 + r);
-        vsc[u] = __ldg(vs + row0 + r);
+      split_load<CT, Raw, U, CPL, RPI>(kb, vb, ks, vs, row0, base + nw * RS,
+                                       r1, rg, hs, col, pk, pv, pks, pvs);
+    } else {
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int r = min(base + u * RPI + rg, r1 - 1);
+#pragma unroll
+        for (int c = 0; c < CPL; ++c) {
+          kr[u][c] = ld_raw<Raw>(kb + (size_t)r * hs + col[c]);
+          vr[u][c] = ld_raw<Raw>(vb + (size_t)r * hs + col[c]);
+        }
+        if (ks != nullptr) {
+          ksc[u] = __ldg(ks + row0 + r);
+          vsc[u] = __ldg(vs + row0 + r);
+        }
       }
     }
     // scores: this lane's partial dots, summed over the row's LPR lanes
-    float s[U][HGS];
+    float s[U][HG];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
 #pragma unroll
-      for (int g = 0; g < HGS; ++g) s[u][g] = 0.0f;
+      for (int g = 0; g < HG; ++g) s[u][g] = 0.0f;
 #pragma unroll
       for (int c = 0; c < CPL; ++c) {
         float kf[DPL];
         IO::unpack(kr[u][c], kf);
 #pragma unroll
-        for (int g = 0; g < HGS; ++g)
+        for (int g = 0; g < HG; ++g)
 #pragma unroll
           for (int i = 0; i < DPL; ++i) s[u][g] += qf[g][c * DPL + i] * kf[i];
       }
 #pragma unroll
-      for (int g = 0; g < HGS; ++g)
+      for (int g = 0; g < HG; ++g)
 #pragma unroll
         for (int o = LPR / 2; o > 0; o >>= 1)
           s[u][g] += __shfl_xor_sync(0xffffffffu, s[u][g], o);
     }
     // online softmax over the step's rows, then P.V into this lane's dims
-    float pe[U][HGS];
+    float pe[U][HG];
 #pragma unroll
-    for (int g = 0; g < HGS; ++g) {
+    for (int g = 0; g < HG; ++g) {
       float mx = m[g];
 #pragma unroll
       for (int u = 0; u < U; ++u) {
@@ -527,17 +652,84 @@ flash_decode_split_kernel(const void* __restrict__ q,      // (B, n_kv, HGS, hs)
         float vf[DPL];
         IO::unpack(vr[u][c], vf);
 #pragma unroll
-        for (int g = 0; g < HGS; ++g)
+        for (int g = 0; g < HG; ++g)
 #pragma unroll
           for (int i = 0; i < DPL; ++i) acc[g][c * DPL + i] += pe[u][g] * vf[i];
       }
+  }
+
+  if constexpr (SPEC) {
+    // the causal fresh block, in the split that holds the last cache rows
+    // (so it enters the merge once), from shared memory: fresh row j in
+    // row group j % RPI of warp (j / RPI) % nw; query row g, at position
+    // pos + g % T, sees j <= g % T, at j == g % T the exact row
+    // k_self/v_self when given
+    if (fresh_here) {
+      cp_async_wait<0>();
+      __syncthreads();
+      const bool exact = k_self != nullptr;
+      for (int j0 = warp * RPI; j0 < T; j0 += nw * RPI) {
+        const int j = j0 + rg;
+        const int kn_at = min(j, T - 1) * hs;
+        float sn[HG], se[HG];
+#pragma unroll
+        for (int g = 0; g < HG; ++g) sn[g] = se[g] = 0.0f;
+#pragma unroll
+        for (int c = 0; c < CPL; ++c)
+#pragma unroll
+          for (int i = 0; i < DPL; ++i) {
+            const int ix = kn_at + col[c] + i;
+            const float kn = ld_qt(fbuf, ix, q_bf16);
+            const float ke = exact ? ld_qt(fbuf + part_b, ix, q_bf16) : 0.0f;
+#pragma unroll
+            for (int g = 0; g < HG; ++g) {
+              sn[g] += qf[g][c * DPL + i] * kn;
+              se[g] += qf[g][c * DPL + i] * ke;
+            }
+          }
+        float pn[HG], pd[HG];
+#pragma unroll
+        for (int g = 0; g < HG; ++g) {
+#pragma unroll
+          for (int o = LPR / 2; o > 0; o >>= 1) {
+            sn[g] += __shfl_xor_sync(0xffffffffu, sn[g], o);
+            se[g] += __shfl_xor_sync(0xffffffffu, se[g], o);
+          }
+          const int t = g % T;
+          const bool diag = exact && j == t;
+          const float s = (diag ? se[g] : sn[g]) * scale;
+          const float mx = fmaxf(m[g], j <= t ? s : NEG_INF);
+          const float corr = expf(m[g] - mx);
+          const float e = expf(j <= t ? s - mx : neg_infinity());
+          m[g] = mx;
+          l[g] = l[g] * corr + e;
+          pn[g] = diag ? 0.0f : e;
+          pd[g] = diag ? e : 0.0f;
+#pragma unroll
+          for (int d = 0; d < DL; ++d) acc[g][d] *= corr;
+        }
+#pragma unroll
+        for (int c = 0; c < CPL; ++c)
+#pragma unroll
+          for (int i = 0; i < DPL; ++i) {
+            const int ix = kn_at + col[c] + i;
+            const float vn = ld_qt(fbuf + 2 * part_b, ix, q_bf16);
+            const float ve =
+                exact ? ld_qt(fbuf + 3 * part_b, ix, q_bf16) : 0.0f;
+#pragma unroll
+            for (int g = 0; g < HG; ++g)
+              acc[g][c * DPL + i] += pn[g] * vn + pd[g] * ve;
+          }
+      }
+      __syncthreads();   // the fresh rows are read before sm_acc is written
+    }
   }
 
   // the warp's row groups merged into lanes 0 .. LPR-1, then to shared
 #pragma unroll
   for (int o = LPR; o < 32; o <<= 1)
 #pragma unroll
-    for (int g = 0; g < HGS; ++g) {
+    for (int g = 0; g < HG; ++g) {
       const float mo = __shfl_xor_sync(0xffffffffu, m[g], o);
       const float lo = __shfl_xor_sync(0xffffffffu, l[g], o);
       float wa, wb, mm;
@@ -551,7 +743,7 @@ flash_decode_split_kernel(const void* __restrict__ q,      // (B, n_kv, HGS, hs)
     }
   if (rg == 0) {
 #pragma unroll
-    for (int g = 0; g < HGS; ++g) {
+    for (int g = 0; g < HG; ++g) {
 #pragma unroll
       for (int c = 0; c < CPL; ++c)
 #pragma unroll
@@ -567,7 +759,7 @@ flash_decode_split_kernel(const void* __restrict__ q,      // (B, n_kv, HGS, hs)
 
   // the block's (m, l, acc): the warps merged in order; with one split
   // holding rows, the output
-  for (int i = tid; i < HGS * hs; i += nthreads) {
+  for (int i = tid; i < nq * hs; i += nthreads) {
     const int g = i / hs, d = i % hs;
     // every slot is read (no branch, so the loads go out together); the
     // slots of warps past nw are selected away
@@ -591,7 +783,7 @@ flash_decode_split_kernel(const void* __restrict__ q,      // (B, n_kv, HGS, hs)
       else
         static_cast<float*>(out)[qoff + i] = ab / lb;
     } else {
-      const size_t pidx = ((size_t)bh * nsplit + split) * HGS + g;
+      const size_t pidx = ((size_t)bh * nsplit + split) * HG + g;
       part_acc[pidx * hs + d] = ab;
       if (d == 0) {
         part_ml[2 * pidx] = mb;
@@ -613,18 +805,18 @@ flash_decode_split_kernel(const void* __restrict__ q,      // (B, n_kv, HGS, hs)
   }
   __syncthreads();
   if (!last) return;
-  if (tid < n_eff * HGS) {
-    const size_t pidx = (size_t)bh * nsplit * HGS + tid;
-    pm[tid / HGS][tid % HGS] = __ldcg(part_ml + 2 * pidx);
-    pl[tid / HGS][tid % HGS] = __ldcg(part_ml + 2 * pidx + 1);
+  if (tid < n_eff * HG) {
+    const size_t pidx = (size_t)bh * nsplit * HG + tid;
+    pm[tid / HG][tid % HG] = __ldcg(part_ml + 2 * pidx);
+    pl[tid / HG][tid % HG] = __ldcg(part_ml + 2 * pidx + 1);
   }
   __syncthreads();
-  for (int i = tid; i < HGS * hs; i += nthreads) {
+  for (int i = tid; i < nq * hs; i += nthreads) {
     const int g = i / hs, d = i % hs;
     float ar[SPLIT_MAX];
 #pragma unroll
     for (int r = 0; r < SPLIT_MAX; ++r)
-      ar[r] = r < n_eff ? __ldcg(part_acc + (((size_t)bh * nsplit + r) * HGS + g) * hs + d)
+      ar[r] = r < n_eff ? __ldcg(part_acc + (((size_t)bh * nsplit + r) * HG + g) * hs + d)
                         : 0.0f;
     float mt = NEG_INF;
     for (int r = 0; r < n_eff; ++r) mt = fmaxf(mt, pm[r][g]);
@@ -645,7 +837,111 @@ flash_decode_split_kernel(const void* __restrict__ q,      // (B, n_kv, HGS, hs)
   if (tid == 0) ticket[bh] = 0;
 }
 
-// K2s: speculative-verify attention, T query rows per slot.
+// q (B, n_kv, HGS, hs) and out: f32 (q_bf16 = 0) or bf16; the rest as
+// split_rows.
+template <typename CT, int HSP, int HGS>
+__global__ void __launch_bounds__(split_warps<CT, HGS>() * 32)
+flash_decode_split_kernel(const void* __restrict__ q,      // (B, n_kv, HGS, hs)
+                          const CT* __restrict__ kc,       // (L, Bc, n_kv, S, hs)
+                          const CT* __restrict__ vc,
+                          const float* __restrict__ ks,    // (L, Bc, n_kv, S) or null
+                          const float* __restrict__ vs,
+                          const int* __restrict__ pos,     // (B,)
+                          void* __restrict__ out,          // (B, n_kv, HGS, hs)
+                          float* __restrict__ part_acc,
+                          float* __restrict__ part_ml,
+                          int* __restrict__ ticket,
+                          int layer, int Bc, int n_kv, int S, int hs,
+                          int nsplit, int min_chunk, float scale, int q_bf16) {
+  split_rows<CT, HSP, HGS, SplitIO<CT, HGS>, false>(
+      q, kc, vc, ks, vs, nullptr, nullptr, nullptr, nullptr, pos, out,
+      part_acc, part_ml, ticket, layer, Bc, n_kv, S, hs, 1, HGS, nsplit,
+      min_chunk, scale, q_bf16);
+}
+
+// K2s, split-row mode: speculative-verify attention, R = hgs * T <= 8
+// query rows per (slot, kv head).
+//
+// Replaces, like flash_spec_kernel below, _flash_spec_kernel /
+// flash_spec_batched (fastllama_tpu/ops/pallas/flash_decode.py:579, :700):
+// slot b's T rows at positions pos[b] .. pos[b]+T-1 attend the cache rows
+// [0, pos[b]) of layer `layer` strictly, then the fresh T x T block
+// causally (query t sees fresh rows j <= t, at j == t the exact rows
+// k_self/v_self when given); one online softmax in f32 over both; K scale
+// on the score, V scale on the probability before P.V; fresh rows carry
+// no scale; output acc / l in q's dtype.  The wrapper sends every call
+// with R <= 8 and hs a multiple of 16 (up to 256) here; flash_spec_kernel
+// keeps the rest.
+//
+// What bounds it on an H100: the bytes bound is pos[b] * hs * 2 cache
+// bytes (+ 8 bytes of row scales a row at int8) per (slot, kv head), read
+// once for all R rows; but each element takes R f32 FMAs (scores, then
+// P.V) and, at int8, its conversion, so at R >= 2 the f32 issue rate
+// (and the warps an SM that hide its latencies) bounds it.  SpecIO
+// converts int8 by a byte permute (2 full-rate ops), not I2F (quarter
+// rate).
+//
+// What held the tiled kernel back, and what this design does about it:
+// the tiled kernel's one warp a cache row with scalar 1-byte loads and a
+// 5-shuffle sum a query row, its one warp a query row for the softmax
+// (scores reread from shared memory), three barriers a 64-row tile, P.V
+// one V element a thread with the R accumulator rows in shared memory,
+// and its serial fresh block (one warp a (query row, fresh row) pair,
+// then a serial loop a thread).  Here the cache part is K2's split-row
+// loop (split_rows) with the R rows as its query rows: 16-byte loads a
+// lane (8 bytes at int8), each warp's scores, (m, l) and accumulators for
+// all RP rows in registers, one merge through shared memory; the grid is
+// (B * n_kv, nsplit) with the splits and ticket merge of K2's split mode
+// over [0, pos).  The fresh block is T more rows (k_new, and k_self at the
+// diagonal), copied by cp.async into shared memory while the cache is
+// read, that the warps of the split holding the last cache rows score and
+// merge into their registers before the warps merge, so it enters the
+// softmax once: split 0 alone at pos 0, where the running max starts at
+// -1e30 and the empty cache part weighs exp(-1e30 - s) = 0.  Only the f32
+// sum order differs from the plain version.  RP (2, 4 or 8) pads R; the
+// least RP >= R is launched.
+// Tuned on the card (phase 5 of chip_smoke.py; PERF.md): R rows of FMAs
+// per element make it issue-bound, so warps an SM count most.  Each step's
+// loads are issued before the previous step's arithmetic (split_rows's PF)
+// with U = 1 row a lane (2 at RP 2: spec_loads), and at an int8 cache and
+// RP 4 the launch bounds ask for 4 blocks an SM (128 registers; 2 with 16
+// bytes a load, 3 with U = 2).
+template <int RP> __host__ __device__ constexpr int spec_loads() {
+  return RP >= 4 ? 1 : 2;
+}
+template <typename CT, int RP>
+__host__ __device__ constexpr int spec_min_blocks() {
+  return RP == 4 && sizeof(CT) == 1 ? 4 : 1;
+}
+template <typename CT, int HSP, int RP>
+__global__ void __launch_bounds__(split_warps<CT, RP>() * 32,
+                                  spec_min_blocks<CT, RP>())
+flash_spec_split_kernel(const void* __restrict__ q,       // (B, n_kv, R, hs)
+                        const CT* __restrict__ kc,        // (L, Bc, n_kv, S, hs)
+                        const CT* __restrict__ vc,
+                        const float* __restrict__ ks,     // (L, Bc, n_kv, S) or null
+                        const float* __restrict__ vs,
+                        const void* __restrict__ k_new,   // (B, n_kv, T, hs)
+                        const void* __restrict__ v_new,
+                        const void* __restrict__ k_self,  // (B, n_kv, T, hs) or null
+                        const void* __restrict__ v_self,
+                        const int* __restrict__ pos,      // (B,)
+                        void* __restrict__ out,           // (B, n_kv, R, hs)
+                        float* __restrict__ part_acc,
+                        float* __restrict__ part_ml,
+                        int* __restrict__ ticket,
+                        int layer, int Bc, int n_kv, int S, int hs, int T,
+                        int R, int nsplit, int min_chunk, float scale,
+                        int q_bf16) {
+  split_rows<CT, HSP, RP, SpecIO<CT>, true, spec_loads<RP>(), true>(
+      q, kc, vc, ks, vs, k_new, v_new, k_self, v_self, pos, out, part_acc,
+      part_ml, ticket, layer, Bc, n_kv, S, hs, T, R, nsplit, min_chunk,
+      scale, q_bf16);
+}
+
+// K2s: speculative-verify attention, T query rows per slot (the tiled
+// kernel: the calls flash_spec_split_kernel does not take, R = hgs * T
+// above 8 or hs off the multiple of 16).
 //
 // Replaces _flash_spec_kernel / flash_spec_batched (flash_decode.py:579,
 // :700).  Slot b's T rows sit at positions pos[b] .. pos[b]+T-1.  Each
@@ -1039,27 +1335,6 @@ __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// cp.async of `bytes` (16 or 4) with zero fill past src_bytes (0: zeros)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   (uint32_t)__cvta_generic_to_shared(dst)),
-               "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   (uint32_t)__cvta_generic_to_shared(dst)),
-               "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // signed byte i of w, and two of them as a bf16 pair (exact)
@@ -1645,6 +1920,48 @@ int launch_split(const void* q, const void* kc, const void* vc,
                                  st);
 }
 
+// K2s's split-row mode: its launch arguments, the padded head size and
+// the padded query rows RP as template constants
+struct SpecSplitArgs {
+  const void *q, *kc, *vc;
+  const float *ks, *vs;
+  const void *kn, *vn, *ke, *ve;
+  const int* pos;
+  void* out;
+  float *part_acc, *part_ml;
+  int* ticket;
+  int B, layer, Bc, n_kv, S, hs, T, R, nsplit, min_chunk, nw;
+  float scale;
+  int q_bf16;
+};
+
+template <typename CT, int HSP, int RP>
+int launch_spec_split_h(const SpecSplitArgs& a, cudaStream_t st) {
+  if (a.nw < 4 || a.nw > split_warps<CT, RP>())
+    return (int)cudaErrorInvalidValue;
+  flash_spec_split_kernel<CT, HSP, RP>
+      <<<dim3(a.B * a.n_kv, a.nsplit), a.nw * 32, 0, st>>>(
+          a.q, static_cast<const CT*>(a.kc), static_cast<const CT*>(a.vc),
+          a.ks, a.vs, a.kn, a.vn, a.ke, a.ve, a.pos, a.out, a.part_acc,
+          a.part_ml, a.ticket, a.layer, a.Bc, a.n_kv, a.S, a.hs, a.T, a.R,
+          a.nsplit, a.min_chunk, a.scale, a.q_bf16);
+  return (int)cudaGetLastError();
+}
+
+template <typename CT, int HSP>
+int launch_spec_split_r(const SpecSplitArgs& a, cudaStream_t st) {
+  if (a.R <= 2) return launch_spec_split_h<CT, HSP, 2>(a, st);
+  if (a.R <= 4) return launch_spec_split_h<CT, HSP, 4>(a, st);
+  return launch_spec_split_h<CT, HSP, 8>(a, st);
+}
+
+template <typename CT>
+int launch_spec_split(const SpecSplitArgs& a, cudaStream_t st) {
+  if (a.hs <= 64) return launch_spec_split_r<CT, 64>(a, st);
+  if (a.hs <= 128) return launch_spec_split_r<CT, 128>(a, st);
+  return launch_spec_split_r<CT, 256>(a, st);
+}
+
 template <typename QT, typename CT>
 int launch_block(const void* q, const void* kc, const void* vc,
                  const float* ks, const float* vs, const void* kn,
@@ -1826,6 +2143,52 @@ extern "C" int flash_decode_split_launch(const void* q, const void* kc,
       return launch_split<float>(q, kc, vc, ksp, vsp, pp, out, pa, pml, tk,
                                  B, layer, Bc, n_kv, S, hs, hgs, nsplit,
                                  min_chunk, nw, scale, qb, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// K2s, split-row mode.  q and out (B, n_kv, hgs, T, hs): R = hgs * T <= 8
+// rows per (slot, kv head), f32 or bf16 (q_dt); the fresh rows k_new/v_new
+// and, with the exact diagonal, k_self/v_self (B, n_kv, T, hs) in q's
+// dtype (k_self/v_self both null without it); caches and scales as
+// flash_decode_launch, the caches 16-byte aligned; hs a multiple of 16 up
+// to 256; nsplit, min_chunk, nw and the workspace as
+// flash_decode_split_launch, with nw up to split_warps at RP rows (RP: 2,
+// 4 or 8, the least >= R) and the workspace for B * n_kv * nsplit * RP
+// rows.
+extern "C" int flash_spec_split_launch(
+    const void* q, const void* kc, const void* vc, const void* ks,
+    const void* vs, const void* k_new, const void* v_new, const void* k_self,
+    const void* v_self, const void* pos, void* out, void* part_acc,
+    void* part_ml, void* ticket, int B, int layer, int Bc, int n_kv, int S,
+    int hs, int T, int R, int nsplit, int min_chunk, int nw, float scale,
+    int q_dt, int c_dt, void* stream) {
+  const uintptr_t align = (uintptr_t)kc | (uintptr_t)vc |
+                          (uintptr_t)k_new | (uintptr_t)v_new |
+                          (uintptr_t)k_self | (uintptr_t)v_self;
+  if (hs < 16 || hs % 16 != 0 || hs > HS_MAX || T < 1 || R < T ||
+      R % T != 0 || R > 8 || nsplit < 1 || nsplit > SPLIT_MAX ||
+      min_chunk < 1 || k_new == nullptr || v_new == nullptr ||
+      (k_self == nullptr) != (v_self == nullptr) ||
+      (ks == nullptr) != (vs == nullptr) ||
+      (ks != nullptr) != (c_dt == DT_I8) || (align & 15) != 0 ||
+      (q_dt != DT_F32 && q_dt != DT_BF16) ||
+      (nsplit > 1 &&
+       (part_acc == nullptr || part_ml == nullptr || ticket == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const SpecSplitArgs a{q, kc, vc, static_cast<const float*>(ks),
+                        static_cast<const float*>(vs), k_new, v_new, k_self,
+                        v_self, static_cast<const int*>(pos), out,
+                        static_cast<float*>(part_acc),
+                        static_cast<float*>(part_ml),
+                        static_cast<int*>(ticket), B, layer, Bc, n_kv, S, hs,
+                        T, R, nsplit, min_chunk, nw, scale,
+                        q_dt == DT_BF16};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (c_dt) {
+    case DT_I8: return launch_spec_split<int8_t>(a, st);
+    case DT_BF16: return launch_spec_split<__nv_bfloat16>(a, st);
+    case DT_F32: return launch_spec_split<float>(a, st);
   }
   return (int)cudaErrorInvalidValue;
 }

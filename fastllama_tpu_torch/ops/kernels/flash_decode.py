@@ -22,7 +22,10 @@ flash_decode.py:203) in its two modes:
 The same kernel serves ``ops/kernels/attention.py``.  K2s
 (:func:`flash_spec_batched`, replacing flash_decode.py:700) is its
 speculative-verify mode: T query rows per slot over rows [0, pos[b]) plus
-a causal fresh block, in the same source.  K2b
+a causal fresh block, in the same source; a call with hgs * T <= 8 query
+rows a (slot, kv head) and hs a multiple of 16 takes its split-row mode
+(``spec_mode``, ``flash_spec_split_kernel``), counted also in
+``.launches_split``.  K2b
 (:func:`flash_block_attend`, replacing flash_decode.py:426) attends one
 slot's prefill tail: T query rows over that slot's rows [0, start) and
 the causal block, for the prefix cache; bf16 q over an int8 or bf16
@@ -464,28 +467,73 @@ def _validate_spec(q, ck, cv, pos, layer, k_scale, v_scale, k_new, v_new,
                     fresh, (B, n_kv, T, hs))
 
 
-def flash_spec_batched(q, ck, cv, pos, layer: int, k_scale=None,
-                       v_scale=None, k_new=None, v_new=None, k_self=None,
-                       v_self=None):
-    """K2s, batched speculative-verify attention over the stacked cache.
+SPEC_SPLIT_ROWS = (2, 4, 8)    # the split mode's padded query rows (csrc)
 
-    q (B, n_heads, T, hs): slot b's T query rows at positions
-    pos[b] .. pos[b]+T-1; caches (L, B, n_kv, S, hs) int8/bf16/f32, read
-    in place at layer ``layer``, rows [0, pos[b]) only; ``k_scale``/
-    ``v_scale`` (L, B, n_kv, S) f32 mark an int8 cache; ``k_new``/``v_new``
-    (B, n_kv, T, hs) the fresh block (quantize-roundtripped with an int8
-    cache), attended causally; ``k_self``/``v_self`` the exact rows for the
-    diagonal, or None.  pos (B,) int32 on the device: a chunk of rounds
-    needs no host value.  Returns (B, n_heads, T, hs) in q.dtype.  A CPU
-    tensor takes :func:`flash_spec_plain`; a CUDA tensor launches K2s or
-    raises."""
-    _validate_spec(q, ck, cv, pos, layer, k_scale, v_scale, k_new, v_new,
-                   k_self, v_self)
-    if q.device.type == "cpu":
-        return flash_spec_plain(q, ck, cv, pos, layer, k_scale, v_scale,
-                                k_new, v_new, k_self, v_self)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_spec_batched: unsupported device {q.device}")
+
+def spec_mode(q, ck) -> str:
+    """K2s's mode, a function of shapes and dtypes only: ``"split"``
+    (``flash_spec_split_kernel``) for f32 or bf16 q over an f32, bf16 or
+    int8 cache with R = hgs * T <= 8 query rows a (slot, kv head) and hs
+    a multiple of 16 up to 256; ``"tiled"`` (``flash_spec_kernel``) for
+    every other call."""
+    _, H, T, hs = q.shape
+    n_kv = ck.shape[2]
+    return ("split" if q.dtype in (torch.float32, torch.bfloat16)
+            and ck.dtype in _DT and H % n_kv == 0
+            and 1 <= (H // n_kv) * T <= SPEC_SPLIT_ROWS[-1]
+            and hs % 16 == 0 and 16 <= hs <= HS_MAX else "tiled")
+
+
+def spec_rows(R: int) -> int:
+    """RP, the split mode's query rows a block: the least of
+    ``SPEC_SPLIT_ROWS`` that holds R."""
+    return next(rp for rp in SPEC_SPLIT_ROWS if rp >= R)
+
+
+def _spec_split_launch(q, ck, cv, pos, layer, k_scale, v_scale, k_new,
+                       v_new, k_self, v_self, nsplit=None,
+                       min_chunk=SPLIT_MIN_CHUNK, nw=None):
+    """Launch K2s's split-row mode on validated CUDA operands: K2's
+    split-row loop over cache rows [0, pos) with the R = hgs * T query
+    rows (padded to :func:`spec_rows`) as its rows, then the causal fresh
+    block.  ``nsplit`` and ``nw`` default to :func:`split_count` and
+    :func:`split_block_warps` at RP rows (phase 5 of ``chip_smoke.py``
+    and the card tests try others, and other ``min_chunk``).  The caches
+    and the fresh rows must start on a 16-byte boundary (the kernel
+    raises otherwise), as the verify's own tensors do."""
+    B, H, T, hs = q.shape
+    _, Bc, n_kv, S, _ = ck.shape
+    R = (H // n_kv) * T
+    rp = spec_rows(R)
+    int8 = ck.dtype == torch.int8
+    if nsplit is None:
+        nsplit = split_count(B, n_kv, S, rp, int8)
+    if nw is None:
+        nw = split_block_warps(B, n_kv, nsplit, rp, int8)
+    out = torch.empty_like(q)
+    acc = ml = ticket = None
+    if nsplit > 1:
+        acc, ml, ticket = _split_workspace(q.device, B * n_kv,
+                                           B * n_kv * nsplit * rp, hs)
+    fn = _build.load("flash_decode").flash_spec_split_launch
+    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 11 \
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rc = fn(_build.ptr(q), _build.ptr(ck), _build.ptr(cv),
+            _build.ptr(k_scale), _build.ptr(v_scale), _build.ptr(k_new),
+            _build.ptr(v_new), _build.ptr(k_self), _build.ptr(v_self),
+            _build.ptr(pos), _build.ptr(out), _build.ptr(acc),
+            _build.ptr(ml), _build.ptr(ticket), B, layer, Bc, n_kv, S, hs,
+            T, R, nsplit, min_chunk, nw, 1.0 / math.sqrt(hs), _DT[q.dtype],
+            _DT[ck.dtype], _build.stream_of(q))
+    _build.check(rc, "flash_spec_split_launch")
+    return out
+
+
+def _spec_launch(q, ck, cv, pos, layer, k_scale, v_scale, k_new, v_new,
+                 k_self, v_self):
+    """Launch K2s's tiled kernel (``flash_spec_kernel``) on validated CUDA
+    operands."""
     B, H, T, hs = q.shape
     _, Bc, n_kv, S, _ = ck.shape
     out = torch.empty_like(q)
@@ -500,11 +548,46 @@ def flash_spec_batched(q, ck, cv, pos, layer: int, k_scale=None,
             (H // n_kv) * T, 1.0 / math.sqrt(hs), _DT[q.dtype],
             _DT[ck.dtype], _build.stream_of(q))
     _build.check(rc, "flash_spec_launch")
+    return out
+
+
+def flash_spec_batched(q, ck, cv, pos, layer: int, k_scale=None,
+                       v_scale=None, k_new=None, v_new=None, k_self=None,
+                       v_self=None):
+    """K2s, batched speculative-verify attention over the stacked cache.
+
+    q (B, n_heads, T, hs): slot b's T query rows at positions
+    pos[b] .. pos[b]+T-1; caches (L, B, n_kv, S, hs) int8/bf16/f32, read
+    in place at layer ``layer``, rows [0, pos[b]) only; ``k_scale``/
+    ``v_scale`` (L, B, n_kv, S) f32 mark an int8 cache; ``k_new``/``v_new``
+    (B, n_kv, T, hs) the fresh block (quantize-roundtripped with an int8
+    cache), attended causally; ``k_self``/``v_self`` the exact rows for the
+    diagonal, or None.  pos (B,) int32 on the device: a chunk of rounds
+    needs no host value.  Returns (B, n_heads, T, hs) in q.dtype.  A CPU
+    tensor takes :func:`flash_spec_plain`; a CUDA tensor launches K2s in
+    the mode :func:`spec_mode` picks, or raises.  Every launch adds one to
+    ``.launches``, one in the split-row mode also to
+    ``.launches_split``."""
+    _validate_spec(q, ck, cv, pos, layer, k_scale, v_scale, k_new, v_new,
+                   k_self, v_self)
+    if q.device.type == "cpu":
+        return flash_spec_plain(q, ck, cv, pos, layer, k_scale, v_scale,
+                                k_new, v_new, k_self, v_self)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_spec_batched: unsupported device {q.device}")
+    args = (q, ck, cv, pos, layer, k_scale, v_scale, k_new, v_new, k_self,
+            v_self)
+    if spec_mode(q, ck) == "split":
+        out = _spec_split_launch(*args)
+        flash_spec_batched.launches_split += 1
+    else:
+        out = _spec_launch(*args)
     flash_spec_batched.launches += 1
     return out
 
 
 flash_spec_batched.launches = 0
+flash_spec_batched.launches_split = 0
 
 
 def make_attn_spec_batched():
