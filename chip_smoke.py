@@ -5,15 +5,21 @@ Run from the root of a checkout on a machine with one NVIDIA Hopper card:
 
     python3 chip_smoke.py            # every phase, as the check runs it
     python3 chip_smoke.py --phases 1,2   # a subset while iterating
+    python3 chip_smoke.py --phases 1 --regs-against OTHER/flash_decode.cu
 
 Phases (any failure exits non-zero; no phase catches an error and goes on):
 
 1. the card and toolchain; build every CUDA kernel from ``csrc/`` (nvcc
    version and ``-Xptxas -v`` printed; the instantiations of the groupdot
-   ring and of the split-row modes of K2 and K2s must not spill, and their
-   registers are recorded);
+   ring and of the split-row modes of K2 (non-fresh; fresh and stats) and
+   K2s must not spill, and their registers are recorded; with
+   ``--regs-against`` another tree's flash_decode.cu is built beside them
+   and the split kernels of K2 and K2s must keep its registers);
 2. each kernel against its plain PyTorch version on the card, at the
-   shapes of the LLaMA2-7B serving paths: the batched path's kernels, then
+   shapes of the LLaMA2-7B serving paths: the batched path's kernels (K2
+   with fresh rows, every call in its split-row mode, then that mode with
+   and without stats at B=48 and pos 0, 107, 511 and mixed, at B=12 and 1
+   over S=2048, also at 2-16 forced splits: 2b), then
    K1f (the matmul with the rmsnorm prologue / residual epilogue) at the
    single-stream decode shapes, K2's non-fresh mode at B=1 through its
    three wrappers and per slot through ``flash_decode_batched`` and
@@ -28,7 +34,8 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    K1p, the packed INT4 matmul, at the 7B INT4 shapes (2h), K2b, the
    prefix cache's block-attend, at T up to 496 over a B=48 cache, at
    GQA hgs = 8 and at ragged T and start, in its tensor-core mode (bf16 q
-   over an int8 or bf16 cache) and its f32 mode (2i), K2 with its softmax stats (o, m, l) at B=48 (2j),
+   over an int8 or bf16 cache) and its f32 mode (2i), K2 with its softmax
+   stats (o, m, l) at B=48, every call in the split-row mode (2j),
    and the groupdot (scale-after-dot) mode of K1 and K1p at the 7B
    shapes, T in {1, 48, 128}, auto and one split, on the pipelined ring
    (one ``launches_groupdot_pipe`` a call) and on the forced loop, gs =
@@ -62,9 +69,10 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    zeroed just before and read just after; every kernel of the path must
    have run, and every K1/K1p launch with T <= 128 must have taken the
    pipelined mode (a tally of ``qmm.qmm_mode`` by mode and T, held to
-   the wrappers' ``launches_pipe``; so in 4b-4e too).  Then one 16-step
-   decode chunk is traced with ``torch.profiler`` (device time by kernel,
-   the K1 family's share of it, the device's idle share);
+   the wrappers' ``launches_pipe``; so in 4b-4e too), and every K2 launch
+   its split-row mode (so in 4d and 4f).  Then one 16-step decode chunk is
+   traced with ``torch.profiler`` (device time by kernel, the K1 family's
+   and K2's a step, the device's idle share);
 4b. the single-stream serving path at full width (bench.py's
    ``bench_single`` shape): ``Engine`` over 7B / INT8 / QKV and gate|up
    fused once / bf16 scales ("auto") / bf16 KV / S=512, the 43-token
@@ -96,7 +104,8 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    hit, every launch in its tensor-core mode, are required; TTFT, prefill seconds, tok/s and memory beside the
    same traffic without the prefix cache;
 4g. deferred KV on phase 4's engine and traffic at decode chunk 16
-   (every chunk deferred) against plain chunks, in turns;
+   (every chunk deferred, every K2 launch with stats in the split-row
+   mode) against plain chunks, in turns;
 4h. the measurement path through the port's tools: the bandwidth probe
    (``tools/hbm_peak.py``, 128/512/1024 MB), then ``tools/qmm_sweep.py``
    at the 7B decode shapes, T=1 and 48, INT8 and INT4, auto split,
@@ -114,7 +123,11 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    K2 non-fresh: the split-row mode and the tiled kernel at B=1 against
    pos, 0 to 511 at S=512 and 2047 at S=2048, and at B=32, the split
    mode at other split counts, least chunks and warps a block at pos 107,
-   255, 511 and 2047, and other warps a block at pos 0 and 107; K2s: the
+   255, 511 and 2047, and other warps a block at pos 0 and 107; K2 with
+   fresh rows and with stats: the split-row mode, the tiled kernel, SDPA
+   and the plain version in turns at B=48, S=512, pos 107 (phase 4's
+   reading, with and without stats) and mixed positions, and at B=12,
+   S=2048, pos 2040, also at 1, 2, 4 and 8 splits; K2s: the
    split-row mode, the tiled kernel, the plain version and SDPA in turns
    at phase 4c's reading, B=32, pos 107, T in {2, 4, 8}, and at B=4,
    S=2048, pos 2040, the split mode also at 1, 2 and 4 splits).
@@ -273,6 +286,25 @@ def check_no_spill(build_log: str, kernel: str):
     return regs
 
 
+def check_regs_against(ref, src, rec):
+    """Phase 1 with ``--regs-against``: the reference build ``ref`` (an
+    nvcc process on another tree's flash_decode.cu) must hold the same
+    instantiations of ``flash_decode_split_kernel`` and
+    ``flash_spec_split_kernel`` with the same registers as this build."""
+    text = ref.communicate()[0]
+    check(ref.returncode == 0, f"nvcc failed for {src}:\n{text}")
+    for key, kernel in (("decode_split_ptxas", "flash_decode_split_kernel"),
+                        ("spec_split_ptxas", "flash_spec_split_kernel")):
+        theirs = check_no_spill(text, kernel)
+        diff = {k: (rec[key].get(k), v) for k, v in theirs.items()
+                if rec[key].get(k) != v}
+        check(not diff and len(theirs) == len(rec[key]),
+              f"{kernel}: registers (this build, {src}) differ: {diff}")
+        log(f"  ok {kernel}: the {len(theirs)} instantiations keep the "
+            f"registers of {src}")
+    rec["regs_against"] = src
+
+
 # -- phase 2: kernels against plain versions --------------------------------
 
 def phase_kernels(dev, rec):
@@ -351,8 +383,11 @@ def phase_kernels(dev, rec):
                                  device=dev).to(qdt)
                 vn = torch.randn((B, n_kv, hs), generator=gen,
                                  device=dev).to(qdt)
+                s0 = fd.flash_decode_batched.launches_split
                 got = fd.flash_decode_batched(q, ck, cv, pos, 1, ks, vs,
                                               kn, vn)
+                check(fd.flash_decode_batched.launches_split == s0 + 1,
+                      f"flash {label}: a fresh call outside the split mode")
                 want = fd.flash_decode_plain(q, ck, cv, pos, 1, ks, vs,
                                              kn, vn)
                 e = compare(f"flash {label} cache={str(cache_dt)[6:]} "
@@ -367,6 +402,7 @@ def phase_kernels(dev, rec):
                     vn[idle].float().repeat_interleave(hgs, dim=1)),
                     f"flash {label}: pos=0 slot is not exactly v_new")
         del ck, cv
+    check_fresh_split(dev, gen, errs)
 
     log("phase 2c: K3 KV row scatter vs plain (bit-equal)")
     from fastllama_tpu_torch.models.batched import BatchedKVCache
@@ -932,12 +968,105 @@ def check_block(dev, gen, errs):
     torch.cuda.empty_cache()
 
 
+def fresh_split_cases(dev, gen, B, S, pos_list, nsplits, errs, label,
+                      stats_too=True):
+    """K2's fresh and stats split mode at 7B heads against the plain
+    version: int8 and bf16 caches, bf16 and f32 q, fresh rows with and
+    without stats, at each of ``pos_list`` (label, (B,) positions),
+    through the wrapper (one ``launches_split`` or
+    ``launches_stats_split`` a call) and at each forced split count of
+    ``nsplits`` with a 16-row least chunk (several splits merge); o within
+    TOL_F32 / TOL_BF16, m and l within TOL_F32.  Returns the comparisons
+    made."""
+    import torch
+    from fastllama_tpu_torch.ops.kernels import flash_decode as fd
+    L, H, n_kv, hs = 2, 32, 32, 128
+    n = 0
+    for cache_dt in (torch.int8, torch.bfloat16):
+        ck, cv, ks, vs = rand_cache(gen, (L, B, n_kv, S, hs), cache_dt, dev)
+        for qdt, tol in ((torch.bfloat16, TOL_BF16),
+                         (torch.float32, TOL_F32)):
+            q = torch.randn((B, H, 1, hs), generator=gen,
+                            device=dev).to(qdt)
+            kn = torch.randn((B, n_kv, hs), generator=gen,
+                             device=dev).to(qdt)
+            vn = torch.randn((B, n_kv, hs), generator=gen,
+                             device=dev).to(qdt)
+            for plabel, pos in pos_list:
+                for stats in ((False, True) if stats_too else (False,)):
+                    args = (q, ck, cv, pos, 1, ks, vs, kn, vn)
+                    want = fd.flash_decode_plain(*args, stats=stats)
+                    want = want if stats else (want,)
+                    attr = "launches_stats_split" if stats \
+                        else "launches_split"
+                    c0 = getattr(fd.flash_decode_batched, attr)
+                    runs = [(None, fd.flash_decode_batched(*args,
+                                                           stats=stats))]
+                    check(getattr(fd.flash_decode_batched, attr) == c0 + 1,
+                          f"{label}: a call outside the split mode")
+                    runs += [(ns, fd._split_launch(*args[:7], ns, 16,
+                                                   k_new=kn, v_new=vn,
+                                                   stats=stats))
+                             for ns in nsplits]
+                    for ns, got in runs:
+                        got = got if stats else (got,)
+                        for name, g, w, t in zip("oml", got, want,
+                                                 (tol, TOL_F32, TOL_F32)):
+                            e = compare(
+                                f"{label} {name} cache={str(cache_dt)[6:]} "
+                                f"q={str(qdt)[6:]} {plabel} stats={stats} "
+                                f"nsplit={ns or 'auto'}", g, w, t,
+                                quiet=True)
+                            key = ("flash_decode_batched_stats_split"
+                                   if stats else "flash_decode_batched_split")
+                            errs[key] = max(errs[key], e)
+                            n += 1
+        del ck, cv, ks, vs
+    torch.cuda.empty_cache()
+    return n
+
+
+def check_fresh_split(dev, gen, errs):
+    """Phase 2b, K2's fresh and stats split mode (7B heads): at B=48, S=512
+    (phase 4's shape) every slot at pos 0, 107 and 511 and mixed
+    positions, also at 2 and 4 forced splits; at B=12, S=2048 (the long
+    context reading) pos 2047 and mixed positions at 2, 4, 8 and 16
+    forced splits; at B=1, S=2048 pos 2040."""
+    import torch
+    log("phase 2b: K2's fresh and stats split mode vs plain")
+
+    def full(B, p):
+        return torch.full((B,), p, dtype=torch.int32, device=dev)
+
+    def mixed(B, S):
+        pos = torch.randint(0, S, (B,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        pos[:4] = torch.tensor([0, 1, 107, S - 1], dtype=torch.int32,
+                               device=dev)
+        return pos
+    n = fresh_split_cases(
+        dev, gen, 48, 512, [(f"pos {p}", full(48, p)) for p in (0, 107, 511)]
+        + [("mixed pos", mixed(48, 512))], (2, 4), errs, "fresh split B=48")
+    n += fresh_split_cases(
+        dev, gen, 12, 2048, [("pos 2047", full(12, 2047)),
+                             ("mixed pos", mixed(12, 2048))],
+        (2, 4, 8, 16), errs, "fresh split B=12 S=2048")
+    n += fresh_split_cases(
+        dev, gen, 1, 2048, [("pos 2040", full(1, 2040))], (2, 4, 8, 16),
+        errs, "fresh split B=1 S=2048")
+    log(f"  ok {n} comparisons of the fresh and stats split mode; largest "
+        f"max_abs_err fresh "
+        f"{errs['flash_decode_batched_split']:.3e}, stats "
+        f"{errs['flash_decode_batched_stats_split']:.3e}")
+
+
 def check_stats(dev, gen, errs):
     """K2 with its softmax stats (the deferred-KV path) against the plain
     version at the 7B decode shape, B=48, S=512, int8 and bf16 caches, f32
     and bf16 q: o, m and l with every slot at pos 0, 107 and 511, and with
-    mixed positions.  m and l are f32 in both dtypes, so TOL_F32 holds
-    them."""
+    mixed positions, every call in the split mode (one
+    ``launches_stats_split``).  m and l are f32 in both dtypes, so TOL_F32
+    holds them."""
     import torch
     from fastllama_tpu_torch.ops.kernels import flash_decode as fd
     log("phase 2j: K2 with softmax stats vs plain (7B, B=48, S=512)")
@@ -963,8 +1092,11 @@ def check_stats(dev, gen, errs):
                                  device=dev).to(qdt)
                 vn = torch.randn((B, n_kv, hs), generator=gen,
                                  device=dev).to(qdt)
+                s0 = fd.flash_decode_batched.launches_stats_split
                 got = fd.flash_decode_batched(q, ck, cv, pos, 1, ks, vs, kn,
                                               vn, stats=True)
+                check(fd.flash_decode_batched.launches_stats_split == s0 + 1,
+                      "flash stats: a stats call outside the split mode")
                 want = fd.flash_decode_plain(q, ck, cv, pos, 1, ks, vs, kn,
                                              vn, stats=True)
                 for name, g, w, t in zip("oml", got, want,
@@ -1843,7 +1975,8 @@ def phase_f32_parity(dev, rec):
 
 # one entry per Pallas function the port replaces; the kernels of each path
 BATCHED_PATH = ("qmatmul_pallas", "qmatmul_pallas_indexed",
-                "flash_decode_batched", "decode_write", "prefill_write",
+                "flash_decode_batched", "flash_decode_batched_split",
+                "decode_write", "prefill_write",
                 "qmatmul_pallas_pipe", "qmatmul_pallas_indexed_pipe")
 SPEC_PATH = ("qmatmul_pallas", "qmatmul_pallas_indexed",
              "flash_spec_batched", "flash_spec_batched_split", "spec_write",
@@ -1853,7 +1986,8 @@ SINGLE_PATH = ("qmatmul_pallas", "qmatmul_pallas_indexed",
                "qmatmul_pallas_indexed_fused", "flash_decode_single",
                "qmatmul_pallas_pipe", "qmatmul_pallas_indexed_fused_pipe")
 INT4_BATCHED_PATH = ("qmatmul_pallas_p4", "qmatmul_pallas_indexed_p4",
-                     "flash_decode_batched", "decode_write", "prefill_write",
+                     "flash_decode_batched", "flash_decode_batched_split",
+                     "decode_write", "prefill_write",
                      "qmatmul_pallas_pipe", "qmatmul_pallas_indexed_pipe")
 INT4_SINGLE_PATH = ("qmatmul_pallas_p4", "qmatmul_pallas_indexed_p4",
                     "qmatmul_pallas_indexed_fused_p4", "flash_decode_single",
@@ -1872,7 +2006,8 @@ KERNELS = ("qmatmul_pallas", "qmatmul_pallas_indexed",
            "decode_attention_pallas_batched_split", "qmatmul_pallas_pipe",
            "qmatmul_pallas_indexed_pipe",
            "qmatmul_pallas_indexed_fused_pipe",
-           "qmatmul_pallas_groupdot_pipe", "flash_spec_batched_split")
+           "qmatmul_pallas_groupdot_pipe", "flash_spec_batched_split",
+           "flash_decode_batched_stats_split")
 # the wrappers of K2's non-fresh mode: each counts its split-row launches
 SPLIT_WRAPPERS = ("flash_decode_single", "decode_attention_pallas_indexed",
                   "decode_attention_pallas", "flash_decode_batched",
@@ -1882,13 +2017,14 @@ SPLIT_WRAPPERS = ("flash_decode_single", "decode_attention_pallas_indexed",
 def counters():
     """(wrapper, count attribute) of each entry of KERNELS: K1p's launches
     are counted on the K1/K1f wrappers' ``launches_p4``, K2's with stats on
-    ``flash_decode_batched.launches_stats``, the groupdot mode's on
+    ``flash_decode_batched.launches_stats`` (those in the split mode also
+    on ``launches_stats_split``), the groupdot mode's on
     ``qmatmul_pallas.launches_groupdot`` (K1) and ``_groupdot_p4`` (K1p),
     those of them on the pipelined ring also on ``_groupdot_pipe``,
-    K2's split-row mode on each non-fresh wrapper's ``launches_split``
-    (``<wrapper>_split``), K2s's on ``flash_spec_batched.launches_split``,
-    the pipelined mode of K1 and K1p on each K1
-    wrapper's ``launches_pipe`` (``<wrapper>_pipe``)."""
+    K2's split-row modes on each K2 wrapper's ``launches_split``
+    (``<wrapper>_split``; fresh calls too), K2s's on
+    ``flash_spec_batched.launches_split``, the pipelined mode of K1 and
+    K1p on each K1 wrapper's ``launches_pipe`` (``<wrapper>_pipe``)."""
     from fastllama_tpu_torch.ops.kernels import attention as at
     from fastllama_tpu_torch.ops.kernels import flash_decode as fd
     from fastllama_tpu_torch.ops.kernels import kv_write as kw
@@ -1913,6 +2049,8 @@ def counters():
     out.update({k + "_pipe": (fn, "launches_pipe") for k, fn in k1.items()})
     out["flash_decode_batched_stats"] = (fd.flash_decode_batched,
                                          "launches_stats")
+    out["flash_decode_batched_stats_split"] = (fd.flash_decode_batched,
+                                               "launches_stats_split")
     out["flash_block_attend_tc"] = (fd.flash_block_attend, "launches_tc")
     out["flash_spec_batched_split"] = (fd.flash_spec_batched,
                                        "launches_split")
@@ -1975,10 +2113,13 @@ def profile_decode(eng, prompt, step_ms, n_steps=16):
            "device_ops_per_step": sum(r[1] for r in rows) / n_steps,
            "device_idle_share": 1.0 - busy_step_ms / step_ms,
            "k1_ms_per_step": k1_rows(rows, n_steps),
+           "k2_ms_per_step": k2_rows(rows, n_steps),
            "top_kernels": [{"name": k[:120], "count": c, "device_ms":
                             us / 1e3} for us, c, k in rows[:15]]}
     log(f"  K1 family device ms per step {out['k1_ms_per_step']} of "
         f"{busy_step_ms:.3f}")
+    log(f"  K2 device ms per step by kernel (ms, launches) "
+        f"{out['k2_ms_per_step']}")
     log(f"  profile: {n_steps} decode steps in {wall * 1e3:.3f} ms wall, "
         f"device busy {busy_s * 1e3:.3f} ms (idle share traced "
         f"{out['device_idle_share_traced']:.3f}); {busy_step_ms:.3f} ms "
@@ -2036,6 +2177,11 @@ def serve_batched(eng, path, t0, n_new=128):
     wall = time.perf_counter() - t0
     launches = read_launches()
     check_all_pipe(launches, tally, "batched serving")
+    check(launches["flash_decode_batched_split"]
+          == launches["flash_decode_batched"] > 0,
+          f"batched serving: {launches['flash_decode_batched_split']} of "
+          f"{launches['flash_decode_batched']} K2 launches in the split "
+          f"mode")
     check(all(len(r.output_tokens) == n_new and r.done for r in reqs),
           "a request did not get all its tokens")
     for k in path:
@@ -2181,6 +2327,16 @@ def check_all_pipe(launches, tally, label):
           f"{pipe} on the wrappers' launches_pipe")
     log(f"  ok {label}: all {pipe} K1/K1p launches with T <= 128 in the "
         f"pipelined mode; by mode {tally.record()}")
+
+
+def k2_rows(rows, per):
+    """Device ms and launches of K2's batched kernels in a profile's rows,
+    divided by ``per`` (steps): the fresh and stats split mode and the
+    tiled kernel."""
+    return {mode: [sum(us for us, _, k in rows if name in k) / 1e3 / per,
+                   sum(c for _, c, k in rows if name in k) / per]
+            for mode, name in (("split", "flash_decode_fresh_split_kernel"),
+                               ("tiled", "flash_decode_kernel"))}
 
 
 def k1_rows(rows, per):
@@ -2581,7 +2737,9 @@ def phase_spec_serving(dev, rec):
 
 PREFIX_PATH = BATCHED_PATH + ("flash_block_attend",)
 DEFERRED_PATH = ("qmatmul_pallas", "qmatmul_pallas_indexed",
-                 "flash_decode_batched_stats", "spec_write", "prefill_write")
+                 "flash_decode_batched_stats",
+                 "flash_decode_batched_stats_split", "spec_write",
+                 "prefill_write")
 
 
 def phase_prefix_serving(dev, rec):
@@ -2754,6 +2912,11 @@ def phase_deferred_serving(dev, rec):
             for k in DEFERRED_PATH:
                 check(got[k] > 0, f"kernel {k} was not launched on the "
                                   f"deferred path")
+            n_split = got["flash_decode_batched_stats_split"]
+            check(n_split == got["flash_decode_batched_stats"],
+                  f"deferred serving: {n_split} of "
+                  f"{got['flash_decode_batched_stats']} stats launches in "
+                  f"the split mode")
             launches = got
         tokens[d] = reqs[0].output_tokens
         runs.append({"deferred": d, "aggregate_decode_tok_s":
@@ -2845,21 +3008,9 @@ def phase_sweep(dev, rec):
 
 # -- phase 5: timing ---------------------------------------------------------
 
-def in_turns(fns, iters=20):
-    """Device ms of each of ``fns`` (key -> callable), timed in turns: each
-    in order, then each in the reverse order, the two readings averaged, so
-    that a drift of the card's clock falls on every version alike."""
-    from fastllama_tpu_torch.tools.timing import time_ms
-    got = {k: 0.0 for k in fns}
-    for order in (list(fns), list(fns)[::-1]):
-        for k in order:
-            got[k] += time_ms(fns[k], iters=iters) / 2
-    return got
-
-
 def phase_timing(dev, rec):
     import torch
-    from fastllama_tpu_torch.tools.timing import time_ms
+    from fastllama_tpu_torch.tools.timing import in_turns, time_ms
     import torch.nn.functional as F
     from fastllama_tpu_torch.config import QuantType
     from fastllama_tpu_torch.models.batched import BatchedKVCache
@@ -2965,44 +3116,7 @@ def phase_timing(dev, rec):
     res["qmatmul_pallas_pipe"] = dict(res["qmatmul_pallas"])
     res["qmatmul_pallas_indexed_pipe"] = dict(res["qmatmul_pallas_indexed"])
 
-    # flash_decode_batched: 7B decode shape, int8 cache, pos mid-run
-    S, H, n_kv, hs, L = 512, 32, 32, 128, 2
-    shape = (L, B, n_kv, S, hs)
-    ck = torch.empty(shape, dtype=torch.int8, device=dev).random_(
-        -127, 128, generator=gen)
-    cv = torch.empty(shape, dtype=torch.int8, device=dev).random_(
-        -127, 128, generator=gen)
-    ksc = torch.rand(shape[:-1], generator=gen, device=dev) * 0.02
-    vsc = torch.rand(shape[:-1], generator=gen, device=dev) * 0.02
-    pos = torch.full((B,), 107, dtype=torch.int32, device=dev)
-    q = torch.randn((B, H, 1, hs), generator=gen, device=dev).to(
-        torch.bfloat16)
-    kn = torch.randn((B, n_kv, hs), generator=gen, device=dev).to(
-        torch.bfloat16)
-    vn = torch.randn((B, n_kv, hs), generator=gen, device=dev).to(
-        torch.bfloat16)
-    kdq = (ck[0].float() * ksc[0][..., None]).to(torch.bfloat16)
-    vdq = (cv[0].float() * vsc[0][..., None]).to(torch.bfloat16)
-    mask = (torch.arange(S, device=dev)[None, :] < pos[:, None])[:, None,
-                                                                 None, :]
-    rows = int(pos.sum())
-    nbytes = (q.numel() * 2 + rows * n_kv * (2 * hs + 8) + kn.numel() * 4
-              + q.numel() * 2)
-    flops = 4 * rows * H * hs
-    bm, by = bound_ms(nbytes, flops, F32_FLOP_S)
-    res["flash_decode_batched"] = dict(
-        ms=time_ms(lambda: fd.flash_decode_batched(q, ck, cv, pos, 0, ksc,
-                                                   vsc, kn, vn)),
-        plain_ms=time_ms(lambda: fd.flash_decode_plain(q, ck, cv, pos, 0,
-                                                       ksc, vsc, kn, vn)),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            q, kdq, vdq, attn_mask=mask)),
-        library_call="SDPA over pre-dequantized bf16 K/V, masked to pos "
-                     "(no fresh row)",
-        bound_ms=bm, bound_by=by,
-        shape=f"B={B} H={H} n_kv={n_kv} hs={hs} S={S} int8 cache, "
-              f"pos=107 every slot")
-    del ck, cv, kdq, vdq
+    time_fresh(dev, gen, res)
 
     # decode_write / prefill_write: int8 7B cache, all 32 layers
     cfg = cfg_7b()
@@ -3083,6 +3197,7 @@ def time_verify_layer(dev, gen):
     loop, torch.matmul on pre-dequantized bf16 weights and the plain
     version, in turns."""
     import torch
+    from fastllama_tpu_torch.tools.timing import in_turns
     from fastllama_tpu_torch.config import QuantType
     from fastllama_tpu_torch.ops.kernels import qmm
     from fastllama_tpu_torch.quant.groupquant import dequantize
@@ -3137,7 +3252,7 @@ def time_single(dev, gen, res):
     three wrappers.  Layers rotate so that every launch finds its weights
     and cache rows cold in L2, as it does between two layers."""
     import torch
-    from fastllama_tpu_torch.tools.timing import time_ms
+    from fastllama_tpu_torch.tools.timing import in_turns, time_ms
     import torch.nn.functional as F
     from fastllama_tpu_torch.config import QuantType
     from fastllama_tpu_torch.ops.kernels import attention as at
@@ -3275,6 +3390,95 @@ def time_single(dev, gen, res):
     torch.cuda.empty_cache()
 
 
+FRESH_READINGS = (
+    # (key, B, S, pos: an int for every slot or None for mixed, stats)
+    ("B48_S512_pos107", 48, 512, 107, False),        # phase 4's
+    ("B48_S512_pos107_stats", 48, 512, 107, True),   # phase 4g's
+    ("B48_S512_mixed", 48, 512, None, False),
+    ("B12_S2048_pos2040", 12, 2048, 2040, False))    # bench.py's long context
+
+
+def time_fresh(dev, gen, res):
+    """K2's fresh and stats split mode at ``FRESH_READINGS`` (7B heads,
+    int8 cache, bf16 q, layers rotating over 4 so that L2 stays cold):
+    the split mode (the wrapper's choice), the tiled kernel
+    (``fd._launch``), SDPA over pre-dequantized bf16 rows masked to the
+    cache rows the kernel reads (no fresh row, no stats) and the plain
+    version, in turns; the bound from the rows this run reads.  At the
+    long context also the split mode at 1, 2, 4 and 8 splits (warps a
+    block by the rule)."""
+    import torch
+    import torch.nn.functional as F
+    from fastllama_tpu_torch.ops.kernels import flash_decode as fd
+    from fastllama_tpu_torch.tools.timing import in_turns
+    bf16 = torch.bfloat16
+    H, n_kv, hs, L = 32, 32, 128, 4
+    layer = [0]
+
+    def rot():
+        layer[0] = (layer[0] + 1) % L
+        return layer[0]
+    rows = {}
+    for B, S in ((48, 512), (12, 2048)):
+        ck, cv, ksc, vsc = rand_cache(gen, (L, B, n_kv, S, hs), torch.int8,
+                                      dev)
+        kd = [(ck[i].float() * ksc[i][..., None]).to(bf16) for i in range(L)]
+        vd = [(cv[i].float() * vsc[i][..., None]).to(bf16) for i in range(L)]
+        q = torch.randn((B, H, 1, hs), generator=gen, device=dev).to(bf16)
+        kn = torch.randn((B, n_kv, hs), generator=gen, device=dev).to(bf16)
+        vn = torch.randn((B, n_kv, hs), generator=gen, device=dev).to(bf16)
+        for key, b, s, p, stats in FRESH_READINGS:
+            if (b, s) != (B, S):
+                continue
+            pos = (torch.randint(0, S, (B,), generator=gen, device=dev,
+                                 dtype=torch.int32) if p is None
+                   else torch.full((B,), p, dtype=torch.int32, device=dev))
+            mask = (torch.arange(S, device=dev)[None, :]
+                    < pos[:, None])[:, None, None, :]
+            nrows = int(pos.sum())
+            nbytes = (2 * q.numel() * 2 + nrows * n_kv * (2 * hs + 8)
+                      + 2 * kn.numel() * 2 + (2 * B * H * 4 if stats else 0))
+            bm, by = bound_ms(nbytes, 4 * (nrows + B) * H * hs, F32_FLOP_S)
+
+            def args(pos=pos):
+                return (q, ck, cv, pos, rot(), ksc, vsc, kn, vn)
+            r = dict(
+                **in_turns({
+                    "ms": lambda: fd.flash_decode_batched(*args(),
+                                                          stats=stats),
+                    "tile_ms": lambda: fd._launch(*args(), stats),
+                    "library_ms": lambda: F.scaled_dot_product_attention(
+                        q, kd[rot()], vd[layer[0]], attn_mask=mask),
+                    "plain_ms": lambda: fd.flash_decode_plain(
+                        *args(), stats=stats)}),
+                library_call="SDPA over pre-dequantized bf16 K/V of the "
+                             "layer, masked to rows [0, pos) (no fresh row, "
+                             "no stats)",
+                bound_ms=bm, bound_by=by, bytes=nbytes,
+                plan=dict(zip(("nsplit", "nw"), fd.fresh_split_plan(q, ck))),
+                shape=f"B={B} H={H} n_kv={n_kv} hs={hs} S={S} int8 cache, "
+                      f"bf16 q, {'mixed pos' if p is None else f'pos={p}'}"
+                      f"{', stats' if stats else ''} (ms: the split mode; "
+                      f"tile_ms: the tiled kernel)")
+            if S == 2048:
+                r["ms_by_nsplit"] = in_turns({n: lambda n=n: fd._split_launch(
+                    *args()[:7], n, k_new=kn, v_new=vn) for n in (1, 2, 4, 8)})
+            rows[key] = r
+            log(f"  K2 {key}: split {r['ms']:.4f} ms (plan {r['plan']}), "
+                f"tiled {r['tile_ms']:.4f}, SDPA {r['library_ms']:.4f}, plain "
+                f"{r['plain_ms']:.4f}, bound {bm:.5f} by {by} ({nbytes} "
+                f"bytes)" + (f"; by nsplit {r['ms_by_nsplit']}"
+                             if "ms_by_nsplit" in r else ""))
+        del ck, cv, kd, vd
+        torch.cuda.empty_cache()
+    res["flash_decode_batched"] = dict(rows["B48_S512_pos107"],
+                                       by_reading=rows)
+    res["flash_decode_batched_split"] = dict(rows["B48_S512_pos107"])
+    res["flash_decode_batched_stats"] = dict(rows["B48_S512_pos107_stats"])
+    res["flash_decode_batched_stats_split"] = dict(
+        rows["B48_S512_pos107_stats"])
+
+
 def time_decode_by_pos(dev, gen, res):
     """K2 non-fresh against the rows it reads: 7B heads, bf16 cache of 32
     layers (layers rotating), B=1 at pos 0, 63, 64, 107, 255, 511 (S=512)
@@ -3286,7 +3490,7 @@ def time_decode_by_pos(dev, gen, res):
     chunks than ``SPLIT_MIN_CHUNK`` and other warps a block (also at pos
     0)."""
     import torch
-    from fastllama_tpu_torch.tools.timing import time_ms
+    from fastllama_tpu_torch.tools.timing import in_turns, time_ms
     import torch.nn.functional as F
     from fastllama_tpu_torch.ops.kernels import flash_decode as fd
     bf16 = torch.bfloat16
@@ -3357,7 +3561,6 @@ def time_decode_by_pos(dev, gen, res):
         del ck, cv
         torch.cuda.empty_cache()
     res["flash_decode_single"]["by_pos"] = rows
-    res["flash_decode_batched_split"] = dict(rows["B32_S512_pos107"])
 
 
 def time_spec(dev, gen, res):
@@ -3372,7 +3575,7 @@ def time_spec(dev, gen, res):
     (on K2 non-fresh; no engine path reaches it) at B=32, bf16 cache, pos
     107."""
     import torch
-    from fastllama_tpu_torch.tools.timing import time_ms
+    from fastllama_tpu_torch.tools.timing import in_turns, time_ms
     import torch.nn.functional as F
     from fastllama_tpu_torch.models.batched import BatchedKVCache
     from fastllama_tpu_torch.ops.kernels import attention as at
@@ -3532,7 +3735,7 @@ def time_p4(dev, gen, res):
     scale only) and K1 on the same shapes at INT8.  Layers rotate so that
     every launch finds its weights cold in L2."""
     import torch
-    from fastllama_tpu_torch.tools.timing import time_ms
+    from fastllama_tpu_torch.tools.timing import in_turns, time_ms
     import torch.nn.functional as F
     from fastllama_tpu_torch.config import QuantType
     from fastllama_tpu_torch.ops.kernels import qmm
@@ -3690,11 +3893,10 @@ def time_block(dev, gen, res):
     S=512, start 256, bf16 q and fresh block), layers rotating: the TC
     mode at T in {32, 64, 128, 256}, bounded at the bf16 tensor-core peak;
     the f32 mode (``flash_block_kernel``) on the same inputs at T=32 and
-    T=256, bounded at the f32 peak, as its own record.  Then K2 with its
-    softmax stats against K2 without them at phase 4's decode shape (B=48,
-    pos 107, int8)."""
+    T=256, bounded at the f32 peak, as its own record (K2 with its
+    softmax stats is timed by :func:`time_fresh`)."""
     import torch
-    from fastllama_tpu_torch.tools.timing import time_ms
+    from fastllama_tpu_torch.tools.timing import in_turns, time_ms
     import torch.nn.functional as F
     from fastllama_tpu_torch.ops.kernels import flash_decode as fd
     bf16 = torch.bfloat16
@@ -3771,34 +3973,7 @@ def time_block(dev, gen, res):
         rows[32], T64=rows[64], T128=rows[128], T256=rows[256],
         f32_mode=f32_rows, tc_T32_ms_by_start=by_start)
 
-    # K2 with stats against K2 without, B=48 at pos 107, int8 cache
-    q = torch.randn((B, H, 1, hs), generator=gen, device=dev).to(bf16)
-    kn = torch.randn((B, n_kv, hs), generator=gen, device=dev).to(bf16)
-    vn = torch.randn((B, n_kv, hs), generator=gen, device=dev).to(bf16)
-    pos = torch.full((B,), 107, dtype=torch.int32, device=dev)
-    kdq = [(ck[i].float() * ksc[i][..., None]).to(bf16) for i in range(L)]
-    vdq = [(cv[i].float() * vsc[i][..., None]).to(bf16) for i in range(L)]
-    mask = (torch.arange(S, device=dev)[None, :] < pos[:, None])[:, None,
-                                                                 None, :]
-    rows = int(pos.sum())
-    nbytes = (2 * q.numel() * 2 + rows * n_kv * (2 * hs + 8)
-              + 2 * kn.numel() * 2 + 2 * B * H * 4)
-    bm, by = bound_ms(nbytes, 4 * rows * H * hs, F32_FLOP_S)
-    res["flash_decode_batched_stats"] = dict(
-        ms=time_ms(lambda: fd.flash_decode_batched(
-            q, ck, cv, pos, rot(), ksc, vsc, kn, vn, stats=True)),
-        ms_without_stats=time_ms(lambda: fd.flash_decode_batched(
-            q, ck, cv, pos, rot(), ksc, vsc, kn, vn)),
-        plain_ms=time_ms(lambda: fd.flash_decode_plain(
-            q, ck, cv, pos, rot(), ksc, vsc, kn, vn, stats=True)),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            q, kdq[rot()], vdq[layer[0]], attn_mask=mask)),
-        library_call="SDPA over pre-dequantized bf16 K/V, masked to pos (no "
-                     "fresh row, no stats)",
-        bound_ms=bm, bound_by=by, bytes=nbytes,
-        shape=f"B={B} H={H} n_kv={n_kv} hs={hs} S={S} int8 cache, pos=107 "
-              f"every slot, layers rotating over {L}")
-    del ck, cv, kdq, vdq
+    del ck, cv
     torch.cuda.empty_cache()
 
 
@@ -3813,6 +3988,7 @@ def time_groupdot(dev, gen, res):
     pre-dequantized bf16 weight and the plain version; beside them the
     bound."""
     import torch
+    from fastllama_tpu_torch.tools.timing import in_turns
     from fastllama_tpu_torch.config import QuantType
     from fastllama_tpu_torch.ops.kernels import qmm
     from fastllama_tpu_torch.quant.groupquant import dequantize
@@ -3915,7 +4091,7 @@ SOURCES = {
                                "fastllama_tpu/ops/pallas/qmm.py:551"),
     "qmatmul_pallas_indexed_fused": ("fastllama_tpu_torch/csrc/qmm.cu",
                                      "fastllama_tpu/ops/pallas/qmm.py:470"),
-    "flash_decode_batched": ("fastllama_tpu_torch/csrc/flash_decode.cu",
+    "flash_decode_batched": ("fastllama_tpu_torch/csrc/flash_decode_fresh.cu",
                              "fastllama_tpu/ops/pallas/flash_decode.py:203"),
     "flash_decode_single": ("fastllama_tpu_torch/csrc/flash_decode.cu",
                             "fastllama_tpu/ops/pallas/flash_decode.py:299"),
@@ -3944,7 +4120,7 @@ SOURCES = {
     "flash_block_attend": ("fastllama_tpu_torch/csrc/flash_decode.cu",
                            "fastllama_tpu/ops/pallas/flash_decode.py:426"),
     "flash_decode_batched_stats": (
-        "fastllama_tpu_torch/csrc/flash_decode.cu",
+        "fastllama_tpu_torch/csrc/flash_decode_fresh.cu",
         "fastllama_tpu/ops/pallas/flash_decode.py:203"),
     "qmatmul_pallas_groupdot": ("fastllama_tpu_torch/csrc/qmm.cu",
                                 "fastllama_tpu/ops/pallas/qmm.py:89"),
@@ -3952,9 +4128,10 @@ SOURCES = {
                                    "fastllama_tpu/ops/pallas/qmm.py:405"),
 }
 # the split-row modes of K2 and K2s: the same source and TPU function as
-# their wrapper's
+# their wrapper's (flash_decode_batched's: the fresh and stats split mode,
+# which its main paths run)
 SOURCES.update({k + "_split": SOURCES[k] for k in SPLIT_WRAPPERS
-                + ("flash_spec_batched",)})
+                + ("flash_spec_batched", "flash_decode_batched_stats")})
 # the pipelined mode of K1 and K1p (INT8 and packed alike): K1's wrappers;
 # the groupdot mode's ring, K1's groupdot function
 SOURCES.update({k + "_pipe": SOURCES[k] for k in (
@@ -3967,6 +4144,12 @@ def main() -> int:
     ap.add_argument("--phases",
                     default="1,2,3,3d,3e,3f,4,4b,4c,4d,4e,4f,4g,4h,5",
                     help="comma-separated phases to run (default: all)")
+    ap.add_argument("--regs-against", metavar="FLASH_DECODE_CU",
+                    help="another tree's csrc/flash_decode.cu (such as the "
+                         "parent commit's), built beside the kernels with "
+                         "the same flags: phase 1 then requires the "
+                         "registers of every instantiation of the split "
+                         "kernels of K2 and K2s to be equal in both")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
 
@@ -3995,6 +4178,14 @@ def main() -> int:
     rec["nvcc"] = nv.splitlines()[-1]
     log(nv)
     t0 = time.perf_counter()
+    ref = None
+    if args.regs_against:
+        os.makedirs(os.path.join("build", "regs_against"), exist_ok=True)
+        ref = subprocess.Popen(
+            [_build.nvcc(), *_build.NVCC_FLAGS, "-o",
+             os.path.join("build", "regs_against", "libref.so"),
+             args.regs_against],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     _build.build()
     rec["build_s"] = time.perf_counter() - t0
     log(f"phase 1: kernels built in {rec['build_s']:.1f} s")
@@ -4005,6 +4196,10 @@ def main() -> int:
                                              "flash_spec_split_kernel")
     rec["decode_split_ptxas"] = check_no_spill(_build.build_log(),
                                                "flash_decode_split_kernel")
+    rec["fresh_split_ptxas"] = check_no_spill(
+        _build.build_log(), "flash_decode_fresh_split_kernel")
+    if ref is not None:
+        check_regs_against(ref, args.regs_against, rec)
 
     t_start = time.perf_counter()
     # each kernel's launches on the path it serves: the batched path's from
@@ -4062,8 +4257,9 @@ def main() -> int:
         launches["flash_block_attend"] = got["flash_block_attend"]
     if "4g" in phases:
         got = run("4g", phase_deferred_serving)
-        launches["flash_decode_batched_stats"] = \
-            got["flash_decode_batched_stats"]
+        for k in ("flash_decode_batched_stats",
+                  "flash_decode_batched_stats_split"):
+            launches[k] = got[k]
     if "4h" in phases:
         got = run("4h", phase_sweep)
         for k in ("qmatmul_pallas_groupdot", "qmatmul_pallas_groupdot_p4",

@@ -14,10 +14,16 @@ flash_decode.py:203) in its two modes:
 * non-fresh — rows [0, pos[b]] (the mask ``col <= pos``), the form that
   ``flash_decode_single`` (flash_decode.py:299) gives the single-stream
   ``models/llama.forward`` through ``make_attn_indexed_flash`` (:561).
-  Without stats and with hs a multiple of 16 it runs K2's split-row mode
-  (``decode_mode``): the rows of a (slot, kv head) shared by up to
-  ``split_count`` blocks, merged in the same launch, counted also in
-  ``.launches_split``.
+
+With hs a multiple of 16 (up to 256) and the caches and fresh rows on a
+16-byte boundary, every call runs a split-row mode (``decode_mode``): the
+rows of a (slot, kv head) shared by up to ``split_count`` blocks, merged
+in the same launch; ``flash_decode_split_kernel`` for a non-fresh call
+without stats, ``flash_decode_fresh_split_kernel`` (``csrc/
+flash_decode_fresh.cu``) for fresh rows, stats or both.  A split launch
+counts also in ``.launches_split``, one with stats in
+``.launches_stats_split``; the tiled ``flash_decode_kernel`` keeps the
+other calls.
 
 The same kernel serves ``ops/kernels/attention.py``.  K2s
 (:func:`flash_spec_batched`, replacing flash_decode.py:700) is its
@@ -163,7 +169,7 @@ def _launch(q, ck, cv, pos, layer, k_scale, v_scale, k_new, v_new, stats):
     return (out, m, l) if stats else out
 
 
-# -- K2's split-row mode: non-fresh calls without stats ---------------------
+# -- K2's split-row modes ----------------------------------------------------
 
 SPLIT_MAX = 16             # splits a (slot, kv head) (csrc)
 SPLIT_UNIT = 16            # a split's rows are a multiple of this (csrc)
@@ -172,19 +178,30 @@ SPLIT_WAVE_WARPS = 16 * 132  # one wave of 16 warps on each H100 SM
 SPLIT_MIN_ROWS = 512       # cache rows a split at the least, in a full cache
 
 
-def decode_mode(q, ck, fresh: bool = False, stats: bool = False) -> str:
-    """K2's mode, a function of shapes, dtypes and flags only: ``"split"``
-    (``flash_decode_split_kernel``) for a non-fresh call without stats,
-    f32 or bf16 q over an f32, bf16 or int8 cache, hgs in {1, 2, 4, 8} and
-    hs a multiple of 16 up to 256; ``"tiled"`` (``flash_decode_kernel``)
-    for every other call: fresh rows, stats, other head sizes."""
+def aligned16(*ts) -> bool:
+    """Every tensor given (None skipped) starts on a 16-byte boundary, as
+    the split modes' 8- and 16-byte loads and ``cp.async`` copies need."""
+    return all(t is None or t.data_ptr() % 16 == 0 for t in ts)
+
+
+def decode_mode(q, ck, fresh: bool = False, stats: bool = False, cv=None,
+                k_new=None, v_new=None) -> str:
+    """K2's mode, a function of the operands: ``"split"`` for f32 or bf16
+    q over an f32, bf16 or int8 cache, hgs in {1, 2, 4, 8}, hs a multiple
+    of 16 up to 256, and the caches and fresh rows given (``ck`` always,
+    ``cv``, ``k_new``, ``v_new`` when passed) on a 16-byte boundary, in
+    every form of the call: the kernel is ``flash_decode_split_kernel``
+    for a non-fresh call without stats, ``flash_decode_fresh_split_kernel``
+    with ``fresh`` rows, ``stats`` or both; ``"tiled"``
+    (``flash_decode_kernel``) for every other call: other head sizes and
+    misaligned views."""
     hs = q.shape[-1]
     n_kv = ck.shape[2]
-    return ("split" if not fresh and not stats
-            and q.dtype in (torch.float32, torch.bfloat16) and ck.dtype in _DT
-            and q.shape[1] % n_kv == 0
+    return ("split" if q.dtype in (torch.float32, torch.bfloat16)
+            and ck.dtype in _DT and q.shape[1] % n_kv == 0
             and q.shape[1] // n_kv in HGS_SUPPORTED
-            and hs % 16 == 0 and 16 <= hs <= HS_MAX else "tiled")
+            and hs % 16 == 0 and 16 <= hs <= HS_MAX
+            and aligned16(ck, cv, k_new, v_new) else "tiled")
 
 
 def split_warps(hgs: int, int8: bool = False) -> int:
@@ -213,6 +230,22 @@ def split_block_warps(B: int, n_kv: int, nsplit: int, hgs: int = 1,
     so that a large batch keeps several blocks on an SM."""
     nw = split_warps(hgs, int8)
     while nw > 4 and B * n_kv * nsplit * nw > SPLIT_WAVE_WARPS:
+        nw //= 2
+    return nw
+
+
+def fresh_block_warps(B: int, n_kv: int, nsplit: int, hgs: int, int8: bool,
+                      wave_blocks) -> int:
+    """Warps a block of the fresh and stats split mode: the most (a power
+    of two from :func:`split_warps` down to 4) at which the grid of
+    B * n_kv * nsplit blocks fits one wave of the card, ``wave_blocks(nw)``
+    blocks of nw warps at once (the runtime's occupancy count times the
+    SMs: on an H100 3 blocks of 8 warps an SM, or 6 of 4, at the 7B
+    instantiation); 4 when none fits.  So B=12 at S=2048 takes blocks of
+    8 warps and B=48 blocks of 4, the faster at each on the card
+    (PERF.md)."""
+    nw = split_warps(hgs, int8)
+    while nw > 4 and B * n_kv * nsplit > wave_blocks(nw):
         nw //= 2
     return nw
 
@@ -247,24 +280,39 @@ def _split_workspace(device, n_bh: int, n_part: int, hs: int):
 
 
 def _split_launch(q, ck, cv, pos, layer, k_scale, v_scale, nsplit=None,
-                  min_chunk=SPLIT_MIN_CHUNK, nw=None):
-    """Launch K2's split-row mode on validated CUDA operands; ``nsplit``
-    and ``nw`` default to :func:`split_count` and
-    :func:`split_block_warps` (phase 5 of ``chip_smoke.py`` and the card
-    tests try others, and other ``min_chunk``)."""
+                  min_chunk=SPLIT_MIN_CHUNK, nw=None, k_new=None, v_new=None,
+                  stats=False, lib=None):
+    """Launch K2's split-row mode on validated CUDA operands: the fresh
+    and stats kernel with fresh rows ``k_new``/``v_new`` or ``stats``
+    (then returning (out, m, l)), else the non-fresh one.  ``nsplit``
+    defaults to :func:`split_count`, ``nw`` to :func:`split_block_warps`
+    (the non-fresh kernel) or :func:`fresh_block_warps` (the fresh and
+    stats kernel, :func:`fresh_split_plan`); phase 5 of ``chip_smoke.py``
+    and the card tests try others, and other ``min_chunk``.  ``lib``: a
+    build of ``flash_decode_fresh.cu`` with other tuning constants
+    (``tools/fresh_split_design.py``) for the fresh and stats kernel."""
     B, H, _, hs = q.shape
     _, Bc, n_kv, S, _ = ck.shape
     hgs = H // n_kv
     int8 = ck.dtype == torch.int8
-    if nsplit is None:
-        nsplit = split_count(B, n_kv, S, hgs, int8)
-    if nw is None:
-        nw = split_block_warps(B, n_kv, nsplit, hgs, int8)
+    fresh = k_new is not None or stats
+    if fresh:
+        lib = _build.load("flash_decode_fresh") if lib is None else lib
+        nsplit, nw = fresh_split_plan(q, ck, nsplit, nw, lib)
+    else:
+        if nsplit is None:
+            nsplit = split_count(B, n_kv, S, hgs, int8)
+        if nw is None:
+            nw = split_block_warps(B, n_kv, nsplit, hgs, int8)
     out = torch.empty_like(q)
     acc = ml = ticket = None
     if nsplit > 1:
         acc, ml, ticket = _split_workspace(q.device, B * n_kv,
                                            B * n_kv * nsplit * hgs, hs)
+    if fresh:
+        return _fresh_split_launch(q, ck, cv, pos, layer, k_scale, v_scale,
+                                   k_new, v_new, stats, nsplit, min_chunk,
+                                   nw, out, acc, ml, ticket, lib)
     fn = _build.load("flash_decode").flash_decode_split_launch
     fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 \
         + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
@@ -279,13 +327,81 @@ def _split_launch(q, ck, cv, pos, layer, k_scale, v_scale, nsplit=None,
     return out
 
 
+_RESIDENT = {}      # (library, device, cache dtype, hs, hgs, warps) -> blocks
+
+
+def _fresh_resident(lib, device, cache_dtype, hs: int, hgs: int,
+                    nw: int) -> int:
+    """Blocks of nw warps of the fresh and stats split mode's instantiation
+    that an SM of ``device`` holds at once, asked of the CUDA runtime once
+    a library, device and instantiation."""
+    key = (id(lib), device.index, cache_dtype, hs, hgs, nw)
+    if key not in _RESIDENT:
+        fn = lib.flash_decode_fresh_split_resident
+        fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        blocks = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            rc = fn(_DT[cache_dtype], hs, hgs, nw, ctypes.byref(blocks))
+        _build.check(rc, "flash_decode_fresh_split_resident")
+        _RESIDENT[key] = blocks.value
+    return _RESIDENT[key]
+
+
+def fresh_split_plan(q, ck, nsplit=None, nw=None, lib=None):
+    """(nsplit, nw) of a fresh or stats launch on CUDA operands: the given
+    values, else :func:`split_count` and :func:`fresh_block_warps` with
+    the card's occupancy count of the instantiation (of ``lib``, a build
+    of ``flash_decode_fresh.cu``; by default the wrapper's)."""
+    B, H, _, hs = q.shape
+    _, _, n_kv, S, _ = ck.shape
+    hgs = H // n_kv
+    int8 = ck.dtype == torch.int8
+    if nsplit is None:
+        nsplit = split_count(B, n_kv, S, hgs, int8)
+    if nw is None:
+        lib = _build.load("flash_decode_fresh") if lib is None else lib
+        n_sm = torch.cuda.get_device_properties(
+            q.device).multi_processor_count
+        nw = fresh_block_warps(
+            B, n_kv, nsplit, hgs, int8,
+            lambda w: n_sm * _fresh_resident(lib, q.device, ck.dtype, hs,
+                                             hgs, w))
+    return nsplit, nw
+
+
+def _fresh_split_launch(q, ck, cv, pos, layer, k_scale, v_scale, k_new,
+                        v_new, stats, nsplit, min_chunk, nw, out, acc, ml,
+                        ticket, lib):
+    B, H, _, hs = q.shape
+    _, Bc, n_kv, S, _ = ck.shape
+    m = l = None
+    if stats:
+        m = torch.empty((B, n_kv, H // n_kv), dtype=torch.float32,
+                        device=q.device)
+        l = torch.empty_like(m)
+    fn = lib.flash_decode_fresh_split_launch
+    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 10 \
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rc = fn(_build.ptr(q), _build.ptr(ck), _build.ptr(cv),
+            _build.ptr(k_scale), _build.ptr(v_scale), _build.ptr(k_new),
+            _build.ptr(v_new), _build.ptr(pos), _build.ptr(out),
+            _build.ptr(m), _build.ptr(l), _build.ptr(acc), _build.ptr(ml),
+            _build.ptr(ticket), B, layer, Bc, n_kv, S, hs, H // n_kv,
+            nsplit, min_chunk, nw, 1.0 / math.sqrt(hs), _DT[q.dtype],
+            _DT[ck.dtype], _build.stream_of(q))
+    _build.check(rc, "flash_decode_fresh_split_launch")
+    return (out, m, l) if stats else out
+
+
 def attend(wrapper, q, ck, cv, pos, layer: int, k_scale=None, v_scale=None,
            k_new=None, v_new=None, stats: bool = False):
     """Check the operands, then run the plain version (CPU tensors) or
     launch K2 (CUDA tensors) in the mode :func:`decode_mode` picks, and add
     one to ``wrapper.launches`` (to ``wrapper.launches_stats`` with
-    ``stats``) and, in the split mode, also to
-    ``wrapper.launches_split``."""
+    ``stats``) and, in the split mode, also to ``wrapper.launches_split``
+    (to ``wrapper.launches_stats_split`` with ``stats``)."""
     _validate(q, ck, cv, pos, layer, k_scale, v_scale, k_new, v_new)
     if q.device.type == "cpu":
         return flash_decode_plain(q, ck, cv, pos, layer, k_scale, v_scale,
@@ -293,9 +409,14 @@ def attend(wrapper, q, ck, cv, pos, layer: int, k_scale=None, v_scale=None,
     if q.device.type != "cuda":
         raise ValueError(f"{wrapper.__name__}: unsupported device "
                          f"{q.device}")
-    if decode_mode(q, ck, k_new is not None, stats) == "split":
-        out = _split_launch(q, ck, cv, pos, layer, k_scale, v_scale)
-        wrapper.launches_split += 1
+    if decode_mode(q, ck, k_new is not None, stats, cv, k_new,
+                   v_new) == "split":
+        out = _split_launch(q, ck, cv, pos, layer, k_scale, v_scale,
+                            k_new=k_new, v_new=v_new, stats=stats)
+        if stats:
+            wrapper.launches_stats_split += 1
+        else:
+            wrapper.launches_split += 1
     else:
         out = _launch(q, ck, cv, pos, layer, k_scale, v_scale, k_new,
                       v_new, stats)
@@ -317,7 +438,8 @@ def flash_decode_batched(q, ck, cv, pos, layer: int, k_scale=None,
     (rows [0, pos) are read), or None (rows [0, pos] are read).  Returns
     (B, n_heads, 1, hs) in q.dtype; with ``stats`` also the final running
     max and sum of every query row (after the fresh row), two (B, n_kv,
-    hgs) f32 tensors, and the launch counts in ``.launches_stats``."""
+    hgs) f32 tensors, and the launch counts in ``.launches_stats`` (in the
+    split mode also in ``.launches_stats_split``)."""
     return attend(flash_decode_batched, q, ck, cv, pos, layer, k_scale,
                   v_scale, k_new, v_new, stats)
 
@@ -352,6 +474,7 @@ def flash_decode_single_plain(q, ck, cv, pos, layer: int):
 flash_decode_batched.launches = 0
 flash_decode_batched.launches_stats = 0
 flash_decode_batched.launches_split = 0
+flash_decode_batched.launches_stats_split = 0
 flash_decode_single.launches = 0
 flash_decode_single.launches_split = 0
 

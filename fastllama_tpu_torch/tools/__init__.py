@@ -2,4 +2,7 @@
 ``python3 -m fastllama_tpu_torch.tools.<name>``: ``hbm_peak`` (sustained
 device-memory read bandwidth, the sweep's denominator) and
 ``qmm_sweep`` (the dequant-matmul's steady-state bandwidth at the 7B
-decode shapes), with ``timing``, the port's one device timer."""
+decode shapes), with ``timing``, the port's one device timer, and
+``fresh_split_design`` (K2's fresh and stats split mode built with other
+tuning constants and timed in turns: the design calls behind its
+defaults)."""

@@ -44,3 +44,14 @@ def time_ms(fn, iters: int = 20, warmup: int = 3, device=None) -> float:
     t1.record()
     t1.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+def in_turns(fns, iters: int = 20):
+    """Device ms of each of ``fns`` (key -> callable), timed in turns: each
+    in order, then each in the reverse order, the two readings averaged, so
+    that a drift of the card's clock falls on every version alike."""
+    got = {k: 0.0 for k in fns}
+    for order in (list(fns), list(fns)[::-1]):
+        for k in order:
+            got[k] += time_ms(fns[k], iters=iters) / 2
+    return got

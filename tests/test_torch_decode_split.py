@@ -107,14 +107,14 @@ def _caches(rng, shape, cache_dt):
 @pytest.mark.parametrize("fresh,stats", [(False, False), (True, False),
                                          (False, True), (True, True)])
 def test_decode_mode_takes_split_exactly(qdt, cache_dt, hs, fresh, stats):
-    """The split mode exactly for non-fresh calls without stats with hs a
-    multiple of 16 (up to 256); every other call keeps the tiled
+    """The split mode exactly for calls with hs a multiple of 16 (up to
+    256), fresh rows and stats included (their split kernel is
+    ``flash_decode_fresh_split_kernel``); other head sizes keep the tiled
     kernel."""
     for n_kv, hgs in GROUPS:
         q = torch.zeros((2, n_kv * hgs, 1, hs), dtype=getattr(torch, qdt))
         ck = torch.zeros((1, 2, n_kv, 8, hs), dtype=getattr(torch, cache_dt))
-        want = ("split" if not fresh and not stats and hs % 16 == 0
-                else "tiled")
+        want = "split" if hs % 16 == 0 else "tiled"
         assert tfd.decode_mode(q, ck, fresh, stats) == want
 
 
@@ -383,9 +383,11 @@ def test_split_kernel_vs_plain_on_card(cuda, qdt, cache_dt, hs, B):
 @pytest.mark.parametrize("cache_dt", ["bfloat16", "int8"])
 def test_other_head_sizes_and_modes_keep_the_tiled_kernel_on_card(
         cuda, hs, cache_dt):
-    """hs off the multiple of 16, fresh rows or stats: the tiled kernel
-    (``launches`` advances, ``launches_split`` does not), against
-    flash_decode_plain; the same call at hs 64 takes the split mode."""
+    """hs off the multiple of 16: the tiled kernel (``launches`` advances,
+    ``launches_split`` does not), against flash_decode_plain; at hs 64
+    fresh rows take the split mode (``launches_split`` advances), stats
+    too (``launches_stats_split`` advances, ``launches_split`` does not),
+    and so does the call without either."""
     rng = np.random.default_rng(hs)
     B, n_kv, hgs, Sc = 3, 2, 4, 256
     q, ck, cv, ks, vs = _card_operands(cuda, rng, 2, B, n_kv, hgs, Sc, hs,
@@ -401,11 +403,13 @@ def test_other_head_sizes_and_modes_keep_the_tiled_kernel_on_card(
               for _ in range(2))
     _check(tfd.flash_decode_batched, (q, ck, cv, pos, 1, ks, vs, kn, vn),
            tfd.flash_decode_plain, (q, ck, cv, pos, 1, ks, vs, kn, vn),
-           TOL_BF16, split=False)
+           TOL_BF16, split=True)
     s0 = tfd.flash_decode_batched.launches_split
     n0 = tfd.flash_decode_batched.launches_stats
+    t0 = tfd.flash_decode_batched.launches_stats_split
     o, m, l = tfd.flash_decode_batched(q, ck, cv, pos, 1, ks, vs, stats=True)
     assert tfd.flash_decode_batched.launches_stats == n0 + 1
+    assert tfd.flash_decode_batched.launches_stats_split == t0 + 1
     assert tfd.flash_decode_batched.launches_split == s0
     wo, wm, wl = tfd.flash_decode_plain(q, ck, cv, pos, 1, ks, vs,
                                         stats=True)
