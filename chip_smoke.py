@@ -11,10 +11,11 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
 
 1. the card and toolchain; build every CUDA kernel from ``csrc/`` (nvcc
    version and ``-Xptxas -v`` printed; the instantiations of the groupdot
-   ring and of the split-row modes of K2 (non-fresh; fresh and stats) and
-   K2s must not spill, and their registers are recorded; with
-   ``--regs-against`` another tree's flash_decode.cu is built beside them
-   and the split kernels of K2 and K2s must keep its registers);
+   ring, of the split-row modes of K2 (non-fresh; fresh and stats) and
+   K2s and of K2b's split-TF32 mode must not spill, and their registers
+   are recorded; with ``--regs-against`` another tree's flash_decode.cu
+   is built beside them and its kernels, the split kernels of K2 and K2s
+   among them, must keep its registers);
 2. each kernel against its plain PyTorch version on the card, at the
    shapes of the LLaMA2-7B serving paths: the batched path's kernels (K2
    with fresh rows, every call in its split-row mode, then that mode with
@@ -34,7 +35,11 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    K1p, the packed INT4 matmul, at the 7B INT4 shapes (2h), K2b, the
    prefix cache's block-attend, at T up to 496 over a B=48 cache, at
    GQA hgs = 8 and at ragged T and start, in its tensor-core mode (bf16 q
-   over an int8 or bf16 cache) and its f32 mode (2i), K2 with its softmax
+   over an int8 or bf16 cache) and its split-TF32 mode (f32 q over every
+   cache, bf16 q over an f32 cache; also at hs 64, 80, 96 and 256, where
+   bf16 q off hs % 16 takes it too), each call one ``launches_tc`` or
+   ``launches_tf32``, and a misaligned view in the CUDA-core f32 mode
+   (2i), K2 with its softmax
    stats (o, m, l) at B=48, every call in the split-row mode (2j),
    and the groupdot (scale-after-dot) mode of K1 and K1p at the 7B
    shapes, T in {1, 48, 128}, auto and one split, on the pipelined ring
@@ -57,7 +62,11 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
 3e. the prefix cache and deferred KV, kernel path against plain path (7B
    width, 2 layers, f32, int8 KV, B=4): a tail prefill and deferred steps
    in lockstep, then the BatchedEngine and SpecBatchedEngine on
-   donor-then-hits traffic and the deferred BatchedEngine;
+   donor-then-hits traffic and the deferred BatchedEngine; every K2b
+   launch (f32 q over the int8 cache, and over an f32 cache where the
+   hits' tokens must equal the engine's without the prefix cache) in the
+   split-TF32 mode, and K1's launches of a deferred step counted, all in
+   its wide mode;
 3f. unquantized f32 weights (``random_params``) at phase 3's
    configuration: the BatchedEngine with plain and deferred chunks and
    the single-stream Engine, kernel path against plain path (equal greedy
@@ -101,8 +110,13 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
 4f. prefix-cache serving on phase 4's engine: a donor with a 256-token
    system prompt, then 47 hits with distinct 8-40-token tails, 128 new
    tokens each; 47 hits reusing 256 rows each and K2b launched 32 times a
-   hit, every launch in its tensor-core mode, are required; TTFT, prefill seconds, tok/s and memory beside the
-   same traffic without the prefix cache;
+   hit, every launch in its tensor-core mode, and every K2 launch split,
+   are required; TTFT, prefill seconds, tok/s and memory beside the same
+   traffic without the prefix cache;
+4i. phase 4f at the default f32 KV cache of both packages (``kv_dtype
+   "float32"``; 25.8 GB of cache): every K2b launch in its split-TF32
+   mode (``launches_tf32``), every K2 launch split, every kernel of
+   ``PREFIX_F32_PATH`` launched; the same records;
 4g. deferred KV on phase 4's engine and traffic at decode chunk 16
    (every chunk deferred, every K2 launch with stats in the split-row
    mode) against plain chunks, in turns;
@@ -117,9 +131,15 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    loop on the same calls, ``torch.matmul`` and the plain version timed
    in turns, and a verify round's unfused INT8 layer at T = 128; the
    groupdot mode: the ring, the loop, the standard mode, ``torch.matmul``
-   and the plain version in turns; K2b:
+   and the plain version in turns; K1's wide mode (f32 compute) at a
+   7B layer, T=48 and 1, beside ``torch.matmul`` on f32 weights; K2b:
    the tensor-core mode at T in
-   {32, 64, 128, 256} and against start, the f32 mode at T=32 and 256;
+   {32, 64, 128, 256} and against start, the CUDA-core f32 mode on its
+   inputs at T=32 and 256, and on its own f32 inputs (bf16 q over an f32
+   cache, f32 q over an int8 and over an f32 cache) at T=32 and 256 the
+   split-TF32 mode, the CUDA-core f32 mode, SDPA in f32 and the plain
+   version in turns (the TF32 mode must beat the CUDA-core mode at
+   each; the SDPA backend's kernels are recorded);
    K2 non-fresh: the split-row mode and the tiled kernel at B=1 against
    pos, 0 to 511 at S=512 and 2047 at S=2048, and at B=32, the split
    mode at other split counts, least chunks and warps a block at pos 107,
@@ -140,6 +160,7 @@ without printing a result when no CUDA device is available.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -151,6 +172,7 @@ import time
 HBM_BYTES_S = 3.35e12          # H100 SXM HBM3
 BF16_FLOP_S = 989e12           # H100 SXM dense bf16 tensor cores
 F32_FLOP_S = 67e12             # H100 SXM f32 outside the tensor cores
+TF32_FLOP_S = 495e12           # H100 SXM dense TF32 tensor cores
 
 # Tolerances, kernel against plain version on the same inputs: the two sum
 # in a different order and both round the output.
@@ -286,11 +308,30 @@ def check_no_spill(build_log: str, kernel: str):
     return regs
 
 
-def check_regs_against(ref, src, rec):
+def entry_regs(text: str):
+    """{entry function: registers} of an ``-Xptxas -v`` log, each mangled
+    name without its anonymous namespace (which hashes the file's
+    path)."""
+    import re
+    lines = text.splitlines()
+    regs = {}
+    for i, line in enumerate(lines):
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            used = next(t for t in lines[i + 1:i + 6] if "registers" in t)
+            name = re.sub(r"^_ZN\d+_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_"
+                          r"[0-9a-f]{8}", "", m.group(1))
+            regs[name] = int(
+                re.search(r"Used (\d+) registers", used).group(1))
+    return regs
+
+
+def check_regs_against(ref, src, rec, build_log):
     """Phase 1 with ``--regs-against``: the reference build ``ref`` (an
     nvcc process on another tree's flash_decode.cu) must hold the same
     instantiations of ``flash_decode_split_kernel`` and
-    ``flash_spec_split_kernel`` with the same registers as this build."""
+    ``flash_spec_split_kernel`` with the same registers as this build,
+    and so every kernel of this build's flash_decode.cu."""
     text = ref.communicate()[0]
     check(ref.returncode == 0, f"nvcc failed for {src}:\n{text}")
     for key, kernel in (("decode_split_ptxas", "flash_decode_split_kernel"),
@@ -302,6 +343,13 @@ def check_regs_against(ref, src, rec):
               f"{kernel}: registers (this build, {src}) differ: {diff}")
         log(f"  ok {kernel}: the {len(theirs)} instantiations keep the "
             f"registers of {src}")
+    ours = build_log.split("== flash_decode.cu (rc")[1].split("\n== ")[0]
+    mine, theirs = entry_regs(ours), entry_regs(text)
+    check(mine == theirs, f"flash_decode.cu: kernels or registers differ "
+                          f"from {src}: "
+                          f"{set(mine.items()) ^ set(theirs.items())}")
+    log(f"  ok flash_decode.cu: all {len(mine)} kernels keep the registers "
+        f"of {src}")
     rec["regs_against"] = src
 
 
@@ -889,6 +937,20 @@ def rand_cache(gen, shape, cache_dt, dev):
             None, None)
 
 
+def block_expect(qdt, cache_dt, hs, hgs):
+    """The mode of an aligned K2b call (``block_mode``'s rule restated):
+    TC for bf16 q over an int8 or bf16 cache at hs % 16 == 0 (past hs
+    128 for hgs <= 32), TF32 for the other calls at hs % 8 == 0 (past hs
+    128 for hgs <= 16), f32 otherwise."""
+    import torch
+    if hs > 256:
+        return "f32"
+    if (qdt == torch.bfloat16 and cache_dt != torch.float32
+            and hs % 16 == 0 and (hs <= 128 or hgs <= 32)):
+        return "tc"
+    return "tf32" if hs % 8 == 0 and (hs <= 128 or hgs <= 16) else "f32"
+
+
 def check_block(dev, gen, errs):
     """K2b against ``flash_block_plain`` at the 7B prefix-cache shapes:
     32 heads of 128 over a B=48, S=512 cache (int8, bf16, f32), layer 1;
@@ -898,23 +960,69 @@ def check_block(dev, gen, errs):
     hgs = 1.  Then ragged T in {1, 15, 17, 63, 65, 150} at start in
     {0, 1, 100, S - T}, hgs 1 and 8, int8 and bf16 caches.  bf16 q over an
     int8 or bf16 cache runs the TC mode (``launches_tc`` must advance),
-    every other case the f32 mode (it must not); errors are logged by
-    mode."""
+    every other case the split-TF32 mode (``launches_tf32`` must
+    advance).  Then the TF32 mode across head sizes (:func:`block_cases`)
+    and a misaligned view in the CUDA-core f32 mode.  Errors are logged
+    by mode; f32 q is held to TOL_F32, bf16 q to TOL_BF16."""
     import torch
     from fastllama_tpu_torch.ops.kernels import flash_decode as fd
     log("phase 2i: K2b block-attend vs plain (7B heads, B=48, S=512)")
     B, S = 48, 512
     i8, b16, f32 = torch.int8, torch.bfloat16, torch.float32
     ragged = (1, 15, 17, 63, 65, 150)
-    cases = [(32, 32, 2, (1, 16, 32, 64, 100, 256, 496), (0, 16, 256),
+    cases = [(32, 32, 2, 128, (1, 16, 32, 64, 100, 256, 496), (0, 16, 256),
               (0, 47), (i8, b16, f32)),
-             (64, 8, 1, (1, 32, 100, 256), (0, 256), (47,), (i8, b16)),
-             (32, 32, 2, ragged, (0, 1, 100, None), (47,), (i8, b16)),
-             (64, 8, 1, ragged, (0, 1, 100, None), (0,), (i8, b16))]
+             (64, 8, 1, 128, (1, 32, 100, 256), (0, 256), (47,), (i8, b16)),
+             (32, 32, 2, 128, ragged, (0, 1, 100, None), (47,), (i8, b16)),
+             (64, 8, 1, 128, ragged, (0, 1, 100, None), (0,), (i8, b16))]
+    n, by_mode = block_cases(dev, gen, errs, cases, B, S)
+    # the TF32 mode across head sizes: 8 kv heads at hgs 1 and 8, every
+    # cache dtype, f32 q and (over an f32 cache, or off hs % 16) bf16 q
+    cases = [(8 * hgs, 8, 1, hs, ragged[::2] + (150,), (0, 1, 100, None),
+              (3,), (i8, b16, f32))
+             for hs in (64, 80, 96, 128, 256) for hgs in (1, 8)]
+    m, more = block_cases(dev, gen, errs, cases, 4, S, quiet=True)
+    n += m
+    for k, v in more.items():
+        by_mode[k] = max(by_mode.get(k, 0.0), v)
+    # a cache view off a 16-byte boundary: the CUDA-core f32 mode
+    for qdt, tol in ((f32, TOL_F32), (b16, TOL_BF16)):
+        ck, cv, ks, vs = rand_cache(gen, (1, 4, 8, S, 128), f32, dev)
+        flat = torch.empty(ck.numel() + 4, dtype=f32, device=dev)
+        ck = flat[1:1 + ck.numel()].view(ck.shape).copy_(ck)
+        q = torch.randn((8, 65, 128), generator=gen, device=dev).to(qdt)
+        kn, vn = (torch.randn((8, 65, 128), generator=gen, device=dev).to(qdt)
+                  for _ in range(2))
+        check(fd.block_mode(q, ck, cv, kn, vn) == "f32",
+              "K2b: a misaligned view outside the f32 mode")
+        n_tf = fd.flash_block_attend.launches_tf32
+        got = fd.flash_block_attend(q, ck, cv, 2, 0, 100, ks, vs, kn, vn)
+        check(fd.flash_block_attend.launches_tf32 == n_tf,
+              "K2b: a misaligned view launched the TF32 mode")
+        compare(f"flash_block misaligned f32 cache q={str(qdt)[6:]} "
+                f"mode=f32", got, fd.flash_block_plain(
+                    q, ck, cv, 2, 0, 100, ks, vs, kn, vn), tol)
+        n += 1
+        del ck, cv, flat
+    log(f"  {n} K2b comparisons passed; largest error / max|ref| by mode "
+        f"{by_mode}")
+    torch.cuda.empty_cache()
+
+
+def block_cases(dev, gen, errs, cases, B, S, quiet=False):
+    """K2b calls of ``cases`` (H, n_kv, L, hs, Ts, starts, slots, cache
+    dtypes; a start of None is S - T) at f32 and bf16 q against
+    ``flash_block_plain``, each in the mode :func:`block_expect` names,
+    advancing ``launches_tc`` or ``launches_tf32`` exactly then.  Returns
+    the count and the largest error / max|ref| by mode and q dtype."""
+    import torch
+    from fastllama_tpu_torch.ops.kernels import flash_decode as fd
+    b16, f32 = torch.bfloat16, torch.float32
+    fn = fd.flash_block_attend
     n, by_mode = 0, {}
-    for H, n_kv, L, Ts, starts, slots, cache_dts in cases:
+    for H, n_kv, L, hs, Ts, starts, slots, cache_dts in cases:
         for cache_dt in cache_dts:
-            ck, cv, ks, vs = rand_cache(gen, (L, B, n_kv, S, 128), cache_dt,
+            ck, cv, ks, vs = rand_cache(gen, (L, B, n_kv, S, hs), cache_dt,
                                         dev)
             worst = {}
             for T in Ts:
@@ -924,48 +1032,54 @@ def check_block(dev, gen, errs):
                         continue
                     for slot in slots:
                         for qdt, tol in ((b16, TOL_BF16), (f32, TOL_F32)):
-                            q = torch.randn((H, T, 128), generator=gen,
+                            q = torch.randn((H, T, hs), generator=gen,
                                             device=dev).to(qdt)
-                            kn = torch.randn((n_kv, T, 128), generator=gen,
+                            kn = torch.randn((n_kv, T, hs), generator=gen,
                                              device=dev).to(qdt)
-                            vn = torch.randn((n_kv, T, 128), generator=gen,
+                            vn = torch.randn((n_kv, T, hs), generator=gen,
                                              device=dev).to(qdt)
-                            mode = fd.block_mode(q, ck)
-                            check(mode == ("tc" if qdt == b16 and cache_dt
-                                           != f32 else "f32"),
+                            mode = fd.block_mode(q, ck, cv, kn, vn)
+                            want_mode = block_expect(qdt, cache_dt, hs,
+                                                     H // n_kv)
+                            check(mode == want_mode,
                                   f"K2b mode {mode} for q {qdt} cache "
-                                  f"{cache_dt}")
-                            n_tc = fd.flash_block_attend.launches_tc
-                            got = fd.flash_block_attend(q, ck, cv, slot,
-                                                        L - 1, start, ks, vs,
-                                                        kn, vn)
-                            check(fd.flash_block_attend.launches_tc - n_tc
-                                  == (mode == "tc"),
-                                  f"K2b launches_tc wrong in the {mode} "
-                                  f"mode")
+                                  f"{cache_dt} hs {hs}, not {want_mode}")
+                            n_tc, n_tf = fn.launches_tc, fn.launches_tf32
+                            got = fn(q, ck, cv, slot, L - 1, start, ks, vs,
+                                     kn, vn)
+                            check(fn.launches_tc - n_tc == (mode == "tc")
+                                  and fn.launches_tf32 - n_tf
+                                  == (mode == "tf32"),
+                                  f"K2b launches_tc / launches_tf32 wrong "
+                                  f"in the {mode} mode")
                             want = fd.flash_block_plain(q, ck, cv, slot,
                                                         L - 1, start, ks, vs,
                                                         kn, vn)
                             e = compare(f"flash_block H={H} n_kv={n_kv} "
-                                        f"cache={str(cache_dt)[6:]} T={T} "
-                                        f"start={start} slot={slot} "
+                                        f"hs={hs} cache={str(cache_dt)[6:]} "
+                                        f"T={T} start={start} slot={slot} "
                                         f"q={str(qdt)[6:]} mode={mode}",
                                         got, want, tol, quiet=True)
                             rel = e / max(float(want.float().abs().max()),
                                           1e-30)
                             k = f"{mode} q={str(qdt)[6:]}"
                             worst[k] = max(worst.get(k, 0.0), e)
-                            by_mode[mode] = max(by_mode.get(mode, 0.0), rel)
+                            by_mode[k] = max(by_mode.get(k, 0.0), rel)
                             errs["flash_block_attend"] = max(
                                 errs["flash_block_attend"], e)
+                            if mode == "tf32":
+                                errs["flash_block_attend_tf32"] = max(
+                                    errs["flash_block_attend_tf32"], e)
                             n += 1
-            log(f"  ok flash_block H={H} n_kv={n_kv} "
-                f"cache={str(cache_dt)[6:]}: T {Ts} x start {starts} x "
-                f"slots {slots}; max_abs_err by mode {worst}")
+            if not quiet:
+                log(f"  ok flash_block H={H} n_kv={n_kv} hs={hs} "
+                    f"cache={str(cache_dt)[6:]}: T {Ts} x start {starts} x "
+                    f"slots {slots}; max_abs_err by mode {worst}")
             del ck, cv, ks, vs
-    log(f"  {n} K2b comparisons passed; largest error / max|ref| by mode "
-        f"{by_mode}")
-    torch.cuda.empty_cache()
+    if quiet:
+        log(f"  ok {n} K2b calls across head sizes; largest error / "
+            f"max|ref| by mode {by_mode}")
+    return n, by_mode
 
 
 def fresh_split_cases(dev, gen, B, S, pos_list, nsplits, errs, label,
@@ -1772,10 +1886,13 @@ def phase_prefix_deferred_parity(dev, rec):
     staged = make_staged(cfg, caches[True], B, K)
     n0 = fd.flash_decode_batched.launches_stats
     pos = pos0.clone()
+    tally = ModeTally()          # K1's modes on the first deferred step
     for s in range(K):
-        got, staged = decode_step_deferred(
-            cfg, fused, toks[s], pos0, s, staged, caches[True], mm=kb.mm,
-            mm_idx=kb.mm_idx, attn_stats=kb.attn_stats, compute_dtype=f32)
+        with tally if s == 0 else contextlib.nullcontext():
+            got, staged = decode_step_deferred(
+                cfg, fused, toks[s], pos0, s, staged, caches[True],
+                mm=kb.mm, mm_idx=kb.mm_idx, attn_stats=kb.attn_stats,
+                compute_dtype=f32)
         kp = kbs[False]
         want, _ = decode_step(cfg, fused, toks[s], pos, caches[False],
                               mm=kp.mm, mm_idx=kp.mm_idx,
@@ -1798,6 +1915,12 @@ def phase_prefix_deferred_parity(dev, rec):
         pos = pos + 1
     check(fd.flash_decode_batched.launches_stats - n0 == K * cfg.n_layers,
           "the deferred steps did not launch K2 with stats once a layer")
+    # K1 at f32 compute: its wide mode (qmm_f32_kernel), every launch of a
+    # step (the first step's, tallied alone)
+    wide = tally.counts[("wide", True)]
+    check(sum(tally.counts.values()) == wide > 0,
+          f"a deferred step's K1 launches by mode {tally.record()}: not "
+          f"all wide")
     land_staged(caches[True], staged, pos0, kb.spec_writer)
     sync("deferred landing")
     del caches, fused
@@ -1822,7 +1945,8 @@ def phase_prefix_deferred_parity(dev, rec):
     def ec(use, kv="int8", **kw):
         return EngineConfig(max_batch_size=B, kv_dtype=kv,
                             compute_dtype="float32", use_pallas=use, **kw)
-    n0 = fd.flash_block_attend.launches
+    fn = fd.flash_block_attend
+    n0, n0_tf = fn.launches, fn.launches_tf32
     for use in (True, False):
         out["batched", use] = hits_run(BatchedEngine(
             cfg, params, tok, ec(use, prefix_cache=True), decode_chunk=8,
@@ -1830,13 +1954,20 @@ def phase_prefix_deferred_parity(dev, rec):
         out["spec", use] = hits_run(SpecBatchedEngine(
             cfg, params, tok, ec(use, prefix_cache=True), decode_chunk=8,
             width=4, rounds_per_chunk=4, spec_auto=False, device=dev))
-    launched = fd.flash_block_attend.launches - n0
+    launched = fn.launches - n0
+    launched_tf = fn.launches_tf32 - n0_tf
     # against whole prefills only at an f32 cache: at int8 a hit's tail
     # attends the prefix rows as quantized in the cache, where a whole
     # prefill attends its own exact rows
+    n0, n0_tf = fn.launches, fn.launches_tf32
     by_pc = {pc: hits_run(BatchedEngine(
         cfg, params, tok, ec(True, "float32", prefix_cache=pc),
         decode_chunk=8, device=dev)) for pc in (True, False)}
+    f32_launched = fn.launches - n0
+    check(f32_launched == fn.launches_tf32 - n0_tf == 3 * cfg.n_layers,
+          f"f32 KV: K2b launched {f32_launched} times, "
+          f"{fn.launches_tf32 - n0_tf} in the TF32 mode; want "
+          f"{3 * cfg.n_layers}, all TF32")
     want_stats = (3, 3 * 48)
     for kind in ("batched", "spec"):
         check(out[kind, True] == out[kind, False],
@@ -1849,10 +1980,14 @@ def phase_prefix_deferred_parity(dev, rec):
     check(by_pc[True][1] == want_stats, "f32 KV: prefix stats differ")
     check(launched == 2 * 3 * cfg.n_layers,
           f"K2b launched {launched} times, not once a layer a hit")
+    check(launched_tf == launched,
+          f"K2b launched {launched_tf} of {launched} times in the TF32 mode")
     log(f"  ok prefix cache: BatchedEngine and SpecBatchedEngine tokens "
         f"equal on both paths (int8 KV), and to the engine without the "
         f"cache at f32 KV; {want_stats[0]} hits, {want_stats[1]} rows "
-        f"reused each; K2b {launched} launches on the int8 kernel paths")
+        f"reused each; K2b {launched} launches on the int8 kernel paths "
+        f"and {f32_launched} at f32 KV, all in the TF32 mode; K1 {wide} "
+        f"launches a deferred step, all wide")
 
     deferred = {}
     prompts = [system + t for t in tails] + [tails[2]]
@@ -1872,8 +2007,10 @@ def phase_prefix_deferred_parity(dev, rec):
         f"{n_stats} times")
     rec["prefix_deferred_parity"] = {
         "max_logit_err": max(errs), "prefix_stats": want_stats,
-        "k2b_launches": launched, "stats_launches": n_stats,
-        "tokens_equal": True}
+        "k2b_launches": launched, "k2b_tf32_launches": launched_tf,
+        "k2b_f32_kv_tf32_launches": f32_launched,
+        "k1_wide_launches_per_step": wide,
+        "stats_launches": n_stats, "tokens_equal": True}
     del params
     torch.cuda.empty_cache()
 
@@ -2007,7 +2144,7 @@ KERNELS = ("qmatmul_pallas", "qmatmul_pallas_indexed",
            "qmatmul_pallas_indexed_pipe",
            "qmatmul_pallas_indexed_fused_pipe",
            "qmatmul_pallas_groupdot_pipe", "flash_spec_batched_split",
-           "flash_decode_batched_stats_split")
+           "flash_decode_batched_stats_split", "flash_block_attend_tf32")
 # the wrappers of K2's non-fresh mode: each counts its split-row launches
 SPLIT_WRAPPERS = ("flash_decode_single", "decode_attention_pallas_indexed",
                   "decode_attention_pallas", "flash_decode_batched",
@@ -2024,7 +2161,9 @@ def counters():
     K2's split-row modes on each K2 wrapper's ``launches_split``
     (``<wrapper>_split``; fresh calls too), K2s's on
     ``flash_spec_batched.launches_split``, the pipelined mode of K1 and
-    K1p on each K1 wrapper's ``launches_pipe`` (``<wrapper>_pipe``)."""
+    K1p on each K1 wrapper's ``launches_pipe`` (``<wrapper>_pipe``), K2b's
+    TC and split-TF32 modes on ``flash_block_attend.launches_tc`` and
+    ``.launches_tf32``."""
     from fastllama_tpu_torch.ops.kernels import attention as at
     from fastllama_tpu_torch.ops.kernels import flash_decode as fd
     from fastllama_tpu_torch.ops.kernels import kv_write as kw
@@ -2052,6 +2191,8 @@ def counters():
     out["flash_decode_batched_stats_split"] = (fd.flash_decode_batched,
                                                "launches_stats_split")
     out["flash_block_attend_tc"] = (fd.flash_block_attend, "launches_tc")
+    out["flash_block_attend_tf32"] = (fd.flash_block_attend,
+                                      "launches_tf32")
     out["flash_spec_batched_split"] = (fd.flash_spec_batched,
                                        "launches_split")
     out.update({k + "_split": (rest[k], "launches_split")
@@ -2736,6 +2877,7 @@ def phase_spec_serving(dev, rec):
 
 
 PREFIX_PATH = BATCHED_PATH + ("flash_block_attend",)
+PREFIX_F32_PATH = PREFIX_PATH + ("flash_block_attend_tf32",)
 DEFERRED_PATH = ("qmatmul_pallas", "qmatmul_pallas_indexed",
                  "flash_decode_batched_stats",
                  "flash_decode_batched_stats_split", "spec_write",
@@ -2751,16 +2893,34 @@ def phase_prefix_serving(dev, rec):
     drawn from SEED; 128 new tokens each, greedy, decode chunk 64.  The
     counters are zeroed just before the donor is submitted; every request
     after the donor must be a hit reusing 256 rows, with K2b launched once
-    a layer a hit.  Then the same traffic without the prefix cache, for
-    scale.  TTFT is each hit's (submit to first token; the 47 are
-    submitted together and admitted one tail call after another)."""
+    a layer a hit, every launch in its TC mode.  Then the same traffic
+    without the prefix cache, for scale.  TTFT is each hit's (submit to
+    first token; the 47 are submitted together and admitted one tail call
+    after another)."""
+    return serve_prefix(dev, rec, "int8")
+
+
+def phase_prefix_f32_serving(dev, rec):
+    """Phase 4i: phase 4f at the default f32 KV cache of both packages
+    (``EngineConfig.kv_dtype = "float32"``): the same engine, traffic and
+    checks, but every K2b launch (bf16 q over the f32 cache) in its
+    split-TF32 mode, and every kernel of ``PREFIX_F32_PATH`` launched."""
+    return serve_prefix(dev, rec, "float32")
+
+
+def serve_prefix(dev, rec, kv):
+    """Phases 4f and 4i on a ``kv`` ("int8" or "float32") KV cache; every
+    K2 launch must be in its split-row mode."""
     import torch
     from fastllama_tpu_torch.config import EngineConfig
     from fastllama_tpu_torch.loaders.tokenizer import Tokenizer
     from fastllama_tpu_torch.models.llama import random_params_int
     from fastllama_tpu_torch.runtime.batching import BatchedEngine
-    log("phase 4f: prefix-cache serving 7B INT8 fused, int8 KV, B=48, "
-        "S=512, 32 layers: a 256-token system prompt shared by 48 requests")
+    label, mode, path = {"int8": ("4f", "tc", PREFIX_PATH),
+                         "float32": ("4i", "tf32", PREFIX_F32_PATH)}[kv]
+    log(f"phase {label}: prefix-cache serving 7B INT8 fused, {kv} KV, B=48, "
+        f"S=512, 32 layers: a 256-token system prompt shared by 48 "
+        f"requests")
     cfg = cfg_7b()
     B, n_new, plen = 48, 128, 256
     rng = torch.Generator(device="cpu")
@@ -2779,7 +2939,7 @@ def phase_prefix_serving(dev, rec):
     for pc in (True, False):
         eng = BatchedEngine(cfg, params, Tokenizer().finalize(),
                             EngineConfig(max_seq_len=512, max_batch_size=B,
-                                         kv_dtype="int8", prefix_cache=pc),
+                                         kv_dtype=kv, prefix_cache=pc),
                             decode_chunk=64, device=dev)
         # warm-up: a donor and two hits, a few tokens each
         eng.submit(donor, max_new_tokens=70, temperature=0.0, stop_tokens=())
@@ -2824,19 +2984,26 @@ def phase_prefix_serving(dev, rec):
             check(got["flash_block_attend"] == (B - 1) * cfg.n_layers,
                   f"K2b launched {got['flash_block_attend']} times, not "
                   f"{cfg.n_layers} a hit")
-            check(got["flash_block_attend_tc"] == got["flash_block_attend"],
-                  f"K2b launched {got['flash_block_attend_tc']} times in "
-                  f"the TC mode, not all {got['flash_block_attend']}")
-            for k in PREFIX_PATH:
+            check(got[f"flash_block_attend_{mode}"]
+                  == got["flash_block_attend"],
+                  f"K2b launched {got[f'flash_block_attend_{mode}']} times "
+                  f"in the {mode} mode, not all {got['flash_block_attend']}")
+            check(got["flash_decode_batched_split"]
+                  == got["flash_decode_batched"],
+                  f"{got['flash_decode_batched_split']} of "
+                  f"{got['flash_decode_batched']} K2 launches in the split "
+                  f"mode")
+            for k in path:
                 check(got[k] > 0, f"kernel {k} was not launched on the "
                                   f"prefix-cache path")
             launches = got
             tokens_pc = [r.output_tokens for r in hits]
         else:
             check(st.prefix_hits == 0, "hits without the prefix cache")
-            # int8 KV at bf16: a hit's tail attends the prefix rows as
-            # quantized in the cache, a whole prefill its own rows, so the
-            # tokens part; how soon is recorded (phase 3e compares at f32)
+            # at bf16 a hit's tail and a whole prefill round differently
+            # (and at int8 KV the tail attends the prefix rows as quantized
+            # in the cache, a whole prefill its own rows), so the tokens
+            # part; how soon is recorded (phase 3e compares at f32)
             common = [next((i for i, (x, y) in enumerate(
                 zip(a, r.output_tokens)) if x != y), n_new)
                 for a, r in zip(tokens_pc, hits)]
@@ -2858,7 +3025,7 @@ def phase_prefix_serving(dev, rec):
     log(f"  hits against whole prefills: first token equal in "
         f"{nc['hit_first_token_equal_share']:.3f} of 47, tokens equal for "
         f"{nc['hit_common_prefix_mean']:.2f} steps on average")
-    rec["prefix_serving"] = out
+    rec["prefix_serving" if kv == "int8" else "prefix_serving_f32"] = out
     del params
     torch.cuda.empty_cache()
     return launches
@@ -3179,14 +3346,36 @@ def phase_timing(dev, rec):
     time_decode_by_pos(dev, gen, res)
     time_spec(dev, gen, res)
     time_p4(dev, gen, res)
-    time_block(dev, gen, res)
+    sdpa = time_block(dev, gen, res)
     time_groupdot(dev, gen, res)
+    time_wide(dev, gen, res)
     for k, v in res.items():
         loop = f"loop {v['loop_ms']:.4f}, " if "loop_ms" in v else ""
         log(f"  {k}: {v['ms']:.4f} ms ({loop}plain {v['plain_ms']:.4f}, "
             f"library {v['library_ms']:.4f}, bound {v['bound_ms']:.4f} by "
             f"{v['bound_by']}) {v['shape']}")
+    # which SDPA backend ran K2b's f32 library readings: its device
+    # kernels under the profiler, after the last timing of the phase
+    backends = {k: sdpa_kernels(fn) for k, fn in sdpa.items()}
+    for k, names in backends.items():
+        res["flash_block_attend_tf32"]["by_reading"][k]["sdpa_kernels"] = \
+            names
+    log(f"  K2b f32 readings' SDPA device kernels: {backends}")
     rec["timing"] = res
+
+
+def sdpa_kernels(fn):
+    """Names of the device kernels one call of ``fn`` runs (which SDPA
+    backend serves it), from ``torch.profiler``: the second of two traces
+    (the first trace of a process can come back empty)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(2):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    return sorted({r[2][:100] for r in device_rows(prof)})
 
 
 def time_verify_layer(dev, gen):
@@ -3972,9 +4161,180 @@ def time_block(dev, gen, res):
     res["flash_block_attend"] = dict(
         rows[32], T64=rows[64], T128=rows[128], T256=rows[256],
         f32_mode=f32_rows, tc_T32_ms_by_start=by_start)
-
     del ck, cv
     torch.cuda.empty_cache()
+    return time_block_f32(dev, gen, res)
+
+
+# K2b's f32 inputs: (reading, q dtype, cache dtype); passes of the split
+# TF32 mode for the cache part and for the fresh block (in q's dtype)
+F32_BLOCK_READINGS = (("bf16q_f32cache", "bfloat16", "float32", 2, 1),
+                      ("f32q_int8cache", "float32", "int8", 2, 3),
+                      ("f32q_f32cache", "float32", "float32", 3, 3))
+
+
+def time_block_f32(dev, gen, res):
+    """K2b's f32 inputs at the prefix-cache tail shapes (7B heads, B=48,
+    S=512, start 256, layers rotating over 4), at T=32 and 256:
+    ``F32_BLOCK_READINGS`` -- bf16 q over an f32 cache (phase 4i's), f32 q
+    over an int8 cache (phase 3e's) and f32 q over an f32 cache.  In
+    turns: the split-TF32 mode (the wrapper's choice), the CUDA-core f32
+    mode (``flash_block_kernel``), SDPA at the matching dtype (q cast to
+    f32 over f32 K/V: the cache rows [0, start), int8 rows dequantized,
+    and the fresh block; an explicit mask; ``allow_tf32`` off) and the
+    plain version.  The bound is max(bytes / 3.35 TB/s, operations / 67
+    TFLOP/s), the TF32 bound (the mode's passes at 495 TFLOP/s) beside
+    it.  Returns the SDPA calls, whose backend :func:`phase_timing` reads
+    after the last timing."""
+    import torch
+    import torch.nn.functional as F
+    from fastllama_tpu_torch.ops.kernels import flash_decode as fd
+    from fastllama_tpu_torch.tools.timing import in_turns
+    B, L, H, n_kv, hs, S, start, slot = 48, 4, 32, 32, 128, 512, 256, 5
+    layer = [0]
+
+    def rot():
+        layer[0] = (layer[0] + 1) % L
+        return layer[0]
+    rows, sdpa, caches = {}, {}, {}
+    for key, qname, cname, p_cache, p_fresh in F32_BLOCK_READINGS:
+        qdt, cdt = getattr(torch, qname), getattr(torch, cname)
+        if cname not in caches:
+            caches.clear()
+            torch.cuda.empty_cache()
+            caches[cname] = rand_cache(gen, (L, B, n_kv, S, hs), cdt, dev)
+        ck, cv, ksc, vsc = caches[cname]
+        csize = ck.element_size()
+        for T in (32, 256):
+            q = torch.randn((H, T, hs), generator=gen, device=dev).to(qdt)
+            kn = torch.randn((n_kv, T, hs), generator=gen, device=dev).to(qdt)
+            vn = torch.randn((n_kv, T, hs), generator=gen, device=dev).to(qdt)
+            check(fd.block_mode(q, ck, cv, kn, vn) == "tf32",
+                  f"K2b phase 5 {key}: not the TF32 mode")
+
+            def deq(c, sc, i):
+                rows_ = c[i, slot, :, :start].float()
+                return rows_ if sc is None else rows_ * sc[i, slot, :, :start,
+                                                           None]
+            kd = [torch.cat([deq(ck, ksc, i), kn.float()], 1)
+                  for i in range(L)]
+            vd = [torch.cat([deq(cv, vsc, i), vn.float()], 1)
+                  for i in range(L)]
+            qf = q.float()
+            col = torch.arange(start + T, device=dev)[None, :]
+            t_i = torch.arange(T, device=dev)[:, None]
+            mask = (col < start) | (col - start <= t_i)
+            qb = q.element_size()
+            nbytes = (2 * q.numel() * qb
+                      + start * n_kv * (2 * hs * csize
+                                        + (8 if ksc is not None else 0))
+                      + 2 * kn.numel() * qb)
+            f_cache = 4 * H * T * start * hs
+            f_fresh = 4 * H * hs * T * (T + 1) // 2
+            bm, by = bound_ms(nbytes, f_cache + f_fresh, F32_FLOP_S)
+            tf_ms = (f_cache * p_cache + f_fresh * p_fresh) / TF32_FLOP_S * 1e3
+
+            def args():
+                return (q, ck, cv, slot, rot(), start, ksc, vsc, kn, vn)
+            sdpa[f"{key}_T{T}"] = (
+                lambda q=qf, kd=kd, vd=vd, mask=mask:
+                F.scaled_dot_product_attention(q, kd[0], vd[0],
+                                               attn_mask=mask))
+            r = dict(
+                **in_turns({
+                    "ms": lambda: fd.flash_block_attend(*args()),
+                    "cuda_core_ms": lambda: fd._block_launch("f32", *args()),
+                    "library_ms": lambda kd=kd, vd=vd, qf=qf, mask=mask:
+                        F.scaled_dot_product_attention(
+                            qf, kd[rot()], vd[layer[0]], attn_mask=mask),
+                    "plain_ms": lambda: fd.flash_block_plain(*args())}),
+                library_call="SDPA in f32 (allow_tf32 off) with an explicit "
+                             "mask over q cast to f32, the slot's cache rows "
+                             "[0, start) (int8 rows dequantized) and the "
+                             "fresh block",
+                bound_ms=bm, bound_by=by, bytes=nbytes,
+                flops=f_cache + f_fresh, bound_tf32_ms=tf_ms,
+                tf32_passes={"cache": p_cache, "fresh": p_fresh},
+                block_rows=fd.block_rows(T, H // n_kv, n_kv, "tf32", hs),
+                shape=f"T={T} start={start} H={H} n_kv={n_kv} hs={hs} "
+                      f"{cname} cache B={B} S={S}, {qname} q (ms: the TF32 "
+                      f"mode; cuda_core_ms: flash_block_kernel)")
+            check(r["ms"] < r["cuda_core_ms"],
+                  f"K2b {key} T={T}: the TF32 mode ({r['ms']:.4f} ms) is not "
+                  f"faster than the CUDA-core mode ({r['cuda_core_ms']:.4f})")
+            rows[f"{key}_T{T}"] = r
+            log(f"  flash_block_attend {key} T={T}: TF32 {r['ms']:.4f} ms, "
+                f"CUDA-core {r['cuda_core_ms']:.4f}, SDPA "
+                f"{r['library_ms']:.4f}, plain {r['plain_ms']:.4f}, bound "
+                f"{bm:.5f} by {by} (TF32 {tf_ms:.5f} at passes {p_cache}/"
+                f"{p_fresh}), TQ {r['block_rows']}")
+            del kd, vd
+    del caches
+    torch.cuda.empty_cache()
+    res["flash_block_attend_tf32"] = dict(rows["bf16q_f32cache_T32"],
+                                          by_reading=rows)
+    return sdpa
+
+
+def time_wide(dev, gen, res):
+    """K1's wide mode (``qmm_f32_kernel``: f32 dequant and FMA, taken at
+    f32 compute or INT16) at the 7B decode shapes: one layer's four INT8
+    projections (wqkv, wo, w13, w2; layers rotating over 4) at T=48 and
+    T=1, f32 x, f32 compute; in turns with ``torch.matmul`` on
+    pre-dequantized f32 weights (``allow_tf32`` off) and the plain
+    version.  Bound: max(bytes / 3.35 TB/s, operations / 67 TFLOP/s)."""
+    import torch
+    from fastllama_tpu_torch.config import QuantType
+    from fastllama_tpu_torch.ops.kernels import qmm
+    from fastllama_tpu_torch.quant.groupquant import dequantize
+    from fastllama_tpu_torch.tools.timing import in_turns
+    f32, nl = torch.float32, 4
+    names = ("wqkv", "wo", "w13", "w2")
+    ws = {n: rand_qarray(gen, (nl, *PROJ_7B[n]), QuantType.INT8, dev)
+          for n in names}
+    wds = {n: dequantize(ws[n], f32) for n in names}
+    layer = [0]
+
+    def rot():
+        layer[0] = (layer[0] + 1) % nl
+        return layer[0]
+    rows = {}
+    for T in (48, 1):
+        xs = {n: torch.randn((T, PROJ_7B[n][0]), generator=gen, device=dev)
+              for n in names}
+        check(all(qmm.qmm_mode(xs[n], ws[n][0], f32) == "wide"
+                  for n in names), "K1 at f32 compute: not the wide mode")
+
+        def k_layer():
+            lyr = rot()
+            for n in names:
+                qmm.qmatmul_pallas_indexed(xs[n], ws[n], lyr, f32)
+
+        def l_layer():
+            lyr = rot()
+            for n in names:
+                torch.matmul(xs[n], wds[n][lyr])
+
+        def p_layer():
+            lyr = rot()
+            for n in names:
+                qmm.qmm_plain(xs[n], ws[n][lyr], f32)
+        nbytes = sum(T * I * 4 + I * O * (1 + 4 / 64) + T * O * 4
+                     for I, O in (PROJ_7B[n] for n in names))
+        flops = sum(2 * T * I * O for I, O in (PROJ_7B[n] for n in names))
+        bm, by = bound_ms(nbytes, flops, F32_FLOP_S)
+        rows[f"T{T}"] = dict(
+            **in_turns({"ms": k_layer, "library_ms": l_layer,
+                        "plain_ms": p_layer}),
+            library_call="torch.matmul per projection on pre-dequantized "
+                         "f32 weights (allow_tf32 off)",
+            bound_ms=bm, bound_by=by, bytes=nbytes, flops=flops,
+            shape=f"T={T}, one layer (wqkv 4096x12288, wo 4096x4096, w13 "
+                  f"4096x22016, w2 11008x4096), INT8, f32 x and compute, "
+                  f"wide mode")
+    del ws, wds
+    torch.cuda.empty_cache()
+    res["qmatmul_pallas_indexed_wide"] = dict(rows["T48"], T1=rows["T1"])
 
 
 def time_groupdot(dev, gen, res):
@@ -4126,6 +4486,9 @@ SOURCES = {
                                 "fastllama_tpu/ops/pallas/qmm.py:89"),
     "qmatmul_pallas_groupdot_p4": ("fastllama_tpu_torch/csrc/qmm.cu",
                                    "fastllama_tpu/ops/pallas/qmm.py:405"),
+    "flash_block_attend_tf32": (
+        "fastllama_tpu_torch/csrc/flash_block_tf32.cu",
+        "fastllama_tpu/ops/pallas/flash_decode.py:426"),
 }
 # the split-row modes of K2 and K2s: the same source and TPU function as
 # their wrapper's (flash_decode_batched's: the fresh and stats split mode,
@@ -4142,7 +4505,7 @@ SOURCES.update({k + "_pipe": SOURCES[k] for k in (
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="1,2,3,3d,3e,3f,4,4b,4c,4d,4e,4f,4g,4h,5",
+                    default="1,2,3,3d,3e,3f,4,4b,4c,4d,4e,4f,4i,4g,4h,5",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--regs-against", metavar="FLASH_DECODE_CU",
                     help="another tree's csrc/flash_decode.cu (such as the "
@@ -4198,8 +4561,10 @@ def main() -> int:
                                                "flash_decode_split_kernel")
     rec["fresh_split_ptxas"] = check_no_spill(
         _build.build_log(), "flash_decode_fresh_split_kernel")
+    rec["block_tf32_ptxas"] = check_no_spill(_build.build_log(),
+                                             "flash_block_tf32_kernel")
     if ref is not None:
-        check_regs_against(ref, args.regs_against, rec)
+        check_regs_against(ref, args.regs_against, rec, _build.build_log())
 
     t_start = time.perf_counter()
     # each kernel's launches on the path it serves: the batched path's from
@@ -4255,6 +4620,10 @@ def main() -> int:
     if "4f" in phases:
         got = run("4f", phase_prefix_serving)
         launches["flash_block_attend"] = got["flash_block_attend"]
+    if "4i" in phases:
+        got = run("4i", phase_prefix_f32_serving)
+        launches["flash_block_attend_tf32"] = got["flash_block_attend_tf32"]
+        launches.setdefault("flash_block_attend", got["flash_block_attend"])
     if "4g" in phases:
         got = run("4g", phase_deferred_serving)
         for k in ("flash_decode_batched_stats",

@@ -36,7 +36,10 @@ rows a (slot, kv head) and hs a multiple of 16 takes its split-row mode
 slot's prefill tail: T query rows over that slot's rows [0, start) and
 the causal block, for the prefix cache; bf16 q over an int8 or bf16
 cache takes its tensor-core mode (``block_mode``), counted also in
-``.launches_tc``.  The TPU's host ``s_bound``
+``.launches_tc``; every other call with hs a multiple of 8 and 16-byte
+aligned operands its split-TF32 tensor-core mode (``csrc/
+flash_block_tf32.cu``), counted also in ``.launches_tf32``; the rest the
+f32 CUDA-core kernel.  The TPU's host ``s_bound``
 window (``round_bound``) has no counterpart: the kernel reads ``pos``
 from the device and only the rows the mask keeps.
 
@@ -785,18 +788,28 @@ def _validate_block(q, ck, cv, slot, layer, start, k_scale, v_scale, k_new,
                     [k_new, v_new], (n_kv, T, hs), B=1)
 
 
-def block_mode(q, ck) -> str:
-    """K2b's mode, a function of dtypes and shapes only: ``"tc"`` (the
-    tensor-core kernel) for bf16 q over an int8 or bf16 cache with hs a
-    multiple of 16 up to 256 (and, past hs 128, where a block holds at
-    most 32 query rows, hgs <= 32); ``"f32"`` (the f32 CUDA-core kernel)
-    for every other call."""
+def block_mode(q, ck, cv=None, k_new=None, v_new=None) -> str:
+    """K2b's mode, a function of dtypes, shapes and alignment only:
+    ``"tc"`` (the bf16 tensor-core kernel) for bf16 q over an int8 or
+    bf16 cache with hs a multiple of 16 up to 256 (past hs 128, where a
+    block holds at most 32 query rows, hgs <= 32); ``"tf32"`` (the
+    split-TF32 tensor-core kernel, ``csrc/flash_block_tf32.cu``) for every
+    other call with hs a multiple of 8 up to 256 (past hs 128, at most 16
+    query rows a block: hgs <= 16) and q and the caches and fresh block
+    given (``cv``, ``k_new``, ``v_new`` when passed) on a 16-byte
+    boundary; ``"f32"`` (the f32 CUDA-core kernel) for the rest: other
+    head sizes and head groups, and misaligned views."""
     hs = q.shape[-1]
     hgs = q.shape[0] // ck.shape[2]
-    return ("tc" if q.dtype == torch.bfloat16
-            and ck.dtype in (torch.int8, torch.bfloat16)
-            and hs % 16 == 0 and hs <= HS_MAX
-            and (hs <= 128 or hgs <= 32) else "f32")
+    if hs > HS_MAX:
+        return "f32"
+    if (q.dtype == torch.bfloat16 and ck.dtype in (torch.int8, torch.bfloat16)
+            and hs % 16 == 0 and (hs <= 128 or hgs <= 32)):
+        return "tc"
+    if (hs % 8 == 0 and (hs <= 128 or hgs <= 16)
+            and aligned16(q, ck, cv, k_new, v_new)):
+        return "tf32"
+    return "f32"
 
 
 def block_rows(T: int, hgs: int, n_kv: int, mode: str = "f32",
@@ -804,15 +817,16 @@ def block_rows(T: int, hgs: int, n_kv: int, mode: str = "f32",
     """TQ, the query positions a block takes: at most 64 // hgs rows (and
     no more than T needs), halved while the grid of n_kv x ceil(T / TQ)
     blocks would leave SMs idle -- down to 8 in the f32 mode; in the TC
-    mode (at most 32 rows past hs 128) down to the least TQ that keeps
-    hgs * TQ a multiple of 16 (a warp's 16 rows), where the row limit
-    allows one (else the kernel pads its rows to 16)."""
+    and TF32 modes (past hs 128 at most 32 and 16 rows) down to the least
+    TQ that keeps hgs * TQ a multiple of 16 (a warp's 16 rows), where the
+    row limit allows one (else the kernel pads its rows to 16)."""
     if mode == "f32":
         tq = min(BLOCK_ROWS_MAX // hgs, 1 << max(T - 1, 0).bit_length())
         while tq > 8 and n_kv * -(-T // tq) < BLOCK_GRID_MIN:
             tq //= 2
         return max(tq, 1)
-    rows = BLOCK_ROWS_MAX if hs <= 128 else BLOCK_ROWS_MAX // 2
+    rows = (BLOCK_ROWS_MAX if hs <= 128 else
+            BLOCK_ROWS_MAX // 2 if mode == "tc" else BLOCK_ROWS_MAX // 4)
     unit = 16 // math.gcd(hgs, 16)
     if hgs * unit > rows:
         unit = 1
@@ -834,8 +848,9 @@ def flash_block_attend(q, ck, cv, slot: int, layer: int, start: int,
     host ints.  Any T <= S is taken (the TPU kernel's T * n_heads <= 4096
     limit is Mosaic's).  Returns (n_heads, T, hs) in q.dtype.  A CPU
     tensor takes :func:`flash_block_plain`; a CUDA tensor launches K2b in
-    the mode :func:`block_mode` picks, or raises.  Both modes count in
-    ``.launches``, the TC mode also in ``.launches_tc``."""
+    the mode :func:`block_mode` picks, or raises.  Every mode counts in
+    ``.launches``, the TC mode also in ``.launches_tc``, the TF32 mode in
+    ``.launches_tf32``."""
     _validate_block(q, ck, cv, slot, layer, start, k_scale, v_scale, k_new,
                     v_new)
     if q.device.type == "cpu":
@@ -843,24 +858,28 @@ def flash_block_attend(q, ck, cv, slot: int, layer: int, start: int,
                                  v_scale, k_new, v_new)
     if q.device.type != "cuda":
         raise ValueError(f"flash_block_attend: unsupported device {q.device}")
-    return _block_launch(block_mode(q, ck), q, ck, cv, slot, layer, start,
-                         k_scale, v_scale, k_new, v_new)
+    return _block_launch(block_mode(q, ck, cv, k_new, v_new), q, ck, cv,
+                         slot, layer, start, k_scale, v_scale, k_new, v_new)
 
 
 def _block_launch(mode, q, ck, cv, slot, layer, start, k_scale, v_scale,
-                  k_new, v_new):
+                  k_new, v_new, lib=None):
     """Launch K2b in ``mode`` on validated CUDA operands and count it.  The
     f32 mode takes any operands :func:`flash_block_attend` takes (phase 5
-    of ``chip_smoke.py`` times it on the TC mode's inputs too)."""
+    of ``chip_smoke.py`` times it on the other modes' inputs too).
+    ``lib``: another build of the TF32 mode's library (the design tool's
+    variants, ``tools/block_tf32_design.py``)."""
     n_heads, T, hs = q.shape
     _, Bc, n_kv, S, _ = ck.shape
     hgs = n_heads // n_kv
     out = torch.empty_like(q)
-    lib = _build.load("flash_decode")
+    dts = [_DT[q.dtype], _DT[ck.dtype]]
     if mode == "tc":        # bf16 q: the cache's dtype code only
-        fn, dts = lib.flash_block_tc_launch, [_DT[ck.dtype]]
+        fn, dts = _build.load("flash_decode").flash_block_tc_launch, dts[1:]
+    elif mode == "tf32":
+        fn = (lib or _build.load("flash_block_tf32")).flash_block_tf32_launch
     else:
-        fn, dts = lib.flash_block_launch, [_DT[q.dtype], _DT[ck.dtype]]
+        fn = _build.load("flash_decode").flash_block_launch
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 \
         + [ctypes.c_float] + [ctypes.c_int] * len(dts) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -873,11 +892,14 @@ def _block_launch(mode, q, ck, cv, slot, layer, start, k_scale, v_scale,
     flash_block_attend.launches += 1
     if mode == "tc":
         flash_block_attend.launches_tc += 1
+    elif mode == "tf32":
+        flash_block_attend.launches_tf32 += 1
     return out
 
 
 flash_block_attend.launches = 0
 flash_block_attend.launches_tc = 0
+flash_block_attend.launches_tf32 = 0
 
 
 def make_attn_tail():

@@ -5,4 +5,5 @@ device-memory read bandwidth, the sweep's denominator) and
 decode shapes), with ``timing``, the port's one device timer, and
 ``fresh_split_design`` (K2's fresh and stats split mode built with other
 tuning constants and timed in turns: the design calls behind its
-defaults)."""
+defaults), and ``block_tf32_design`` (the same for K2b's split-TF32
+mode)."""

@@ -142,11 +142,15 @@ def _rel_err(got, want):
 def test_block_mode_picks_tc_exactly(qdt, cache_dt, hs, hgs):
     """TC exactly for bf16 q over an int8 or bf16 cache with hs % 16 == 0
     (up to 256; past 128 only for hgs <= 32, since a block then holds at
-    most 32 query rows); the f32 mode for every other case."""
+    most 32 query rows); every other case here with hgs = 1, or hs up to
+    128 (hs a multiple of 8, aligned operands), the split-TF32 mode; the
+    f32 mode for the rest (the modes' full rule is held in
+    test_torch_block_tf32.py)."""
     q = torch.zeros((2 * hgs, 3, hs), dtype=getattr(torch, qdt))
     ck = torch.zeros((1, 1, 2, 8, hs), dtype=getattr(torch, cache_dt))
+    rows = hs <= 128 or hgs <= 32
     want = ("tc" if qdt == "bfloat16" and cache_dt != "float32"
-            and hs % 16 == 0 and (hs <= 128 or hgs <= 32) else "f32")
+            and hs % 16 == 0 and rows else "tf32" if rows else "f32")
     assert tfd.block_mode(q, ck) == want
 
 
@@ -294,8 +298,9 @@ def test_tc_kernel_padded_head_sizes_on_card(cuda, cache_dt, hs, hgs):
     ("bfloat16", "float32", 128), ("float32", "float32", 64),
     ("bfloat16", "int8", 72)])
 def test_f32_mode_leaves_launches_tc_on_card(cuda, qdt, cache_dt, hs):
-    """f32 q, an f32 cache or an hs off the multiple of 16 runs the f32
-    mode: ``launches`` advances, ``launches_tc`` does not."""
+    """f32 q, an f32 cache or an hs off the multiple of 16 runs a mode
+    other than TC (here, with hs a multiple of 8 and aligned operands, the
+    split-TF32 mode): ``launches`` advances, ``launches_tc`` does not."""
     rng = np.random.default_rng(hs)
     L, B, n_kv, hgs, S, T, start = 2, 3, 2, 2, 128, 33, 70
     q, ck, cv, ks, vs, kn, vn = _inputs(rng, L, B, n_kv, hgs, S, hs, T,
@@ -308,7 +313,7 @@ def test_f32_mode_leaves_launches_tc_on_card(cuda, qdt, cache_dt, hs):
     q, kn, vn = t(q, qt), t(kn, qt), t(vn, qt)
     ck, cv, ks, vs = t(ck, ct), t(cv, ct), t(ks, torch.float32), \
         t(vs, torch.float32)
-    assert tfd.block_mode(q, ck) == "f32"
+    assert tfd.block_mode(q, ck) == "tf32"
     n0 = tfd.flash_block_attend.launches
     n_tc = tfd.flash_block_attend.launches_tc
     got = tfd.flash_block_attend(q, ck, cv, 1, 0, start, ks, vs, kn, vn)
