@@ -5,17 +5,20 @@ Run from the root of a checkout on a machine with one NVIDIA Hopper card:
 
     python3 chip_smoke.py            # every phase, as the check runs it
     python3 chip_smoke.py --phases 1,2   # a subset while iterating
-    python3 chip_smoke.py --phases 1 --regs-against OTHER/flash_decode.cu
+    python3 chip_smoke.py --phases 1 --regs-against OTHER/flash_decode.cu \
+        --regs-against OTHER/qmm.cu
 
 Phases (any failure exits non-zero; no phase catches an error and goes on):
 
 1. the card and toolchain; build every CUDA kernel from ``csrc/`` (nvcc
    version and ``-Xptxas -v`` printed; the instantiations of the groupdot
-   ring, of the split-row modes of K2 (non-fresh; fresh and stats) and
-   K2s and of K2b's split-TF32 mode must not spill, and their registers
-   are recorded; with ``--regs-against`` another tree's flash_decode.cu
-   is built beside them and its kernels, the split kernels of K2 and K2s
-   among them, must keep its registers);
+   ring and the wide ring of K1, of the split-row modes of K2 (non-fresh;
+   fresh and stats) and K2s and of K2b's split-TF32 mode must not spill,
+   and their registers are recorded; with ``--regs-against`` another
+   tree's flash_decode.cu is built beside them and its kernels, the split
+   kernels of K2 and K2s among them, must keep its registers, and another
+   tree's qmm.cu, whose ``qmm_pipe_kernel`` and ``qmm_pipe_gd_kernel``
+   instantiations must keep its registers);
 2. each kernel against its plain PyTorch version on the card, at the
    shapes of the LLaMA2-7B serving paths: the batched path's kernels (K2
    with fresh rows, every call in its split-row mode, then that mode with
@@ -49,7 +52,11 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    pipelined mode of K1 and K1p (``qmm_pipe_kernel``) at the 7B shapes,
    INT8 with f32 and bf16 scales and packed INT4, T in {1, 48, 128},
    bare and with the norm gain and residual, each call one launch on its
-   wrapper's ``launches_pipe`` (2l);
+   wrapper's ``launches_pipe`` (2l), and K1's wide mode on the ring
+   (``qmm_pipe_wide_kernel``, f32 compute) at the 7B shapes, T in {1, 5,
+   48, 128}, f32 and bf16 scales and x, bare and with the norm gain and
+   residual, the auto split and one split, each wrapper call one launch on
+   its ``launches_wide_pipe`` (2m);
 3. the engines' kernel paths against their plain paths at 7B width, 2
    layers, f32 compute: the ``BatchedEngine`` (int8 KV, B=4), the
    single-stream ``Engine`` (f32 scales and KV: logits, 40 greedy tokens
@@ -66,7 +73,7 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    launch (f32 q over the int8 cache, and over an f32 cache where the
    hits' tokens must equal the engine's without the prefix cache) in the
    split-TF32 mode, and K1's launches of a deferred step counted, all in
-   its wide mode;
+   its wide mode's ring;
 3f. unquantized f32 weights (``random_params``) at phase 3's
    configuration: the BatchedEngine with plain and deferred chunks and
    the single-stream Engine, kernel path against plain path (equal greedy
@@ -117,6 +124,16 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    "float32"``; 25.8 GB of cache): every K2b launch in its split-TF32
    mode (``launches_tf32``), every K2 launch split, every kernel of
    ``PREFIX_F32_PATH`` launched; the same records;
+4j. phase 4b's single stream at f32 compute (7B INT8 fused once, bf16
+   scales "auto", the default f32 KV cache, the 43-token prompt, 128 new
+   tokens, decode chunk 64): every K1 launch with T <= 128 (the prefill,
+   the K1f glue, the classifier) in the wide mode's ring, by a tally of
+   ``qmm.wide_kernel`` held to the wrappers' ``launches_wide_pipe``; tok/s,
+   memory and a traced chunk as 4b;
+4k. phase 4's batched serving at f32 compute (int8 KV, B=48, S=512, 48
+   requests of the 43-token prompt, 128 new tokens): every K1 launch with
+   T <= 128 in the wide mode's ring, the prefill waves above 128 rows on
+   ``qmm_f32_kernel``, tallied; the records of phase 4;
 4g. deferred KV on phase 4's engine and traffic at decode chunk 16
    (every chunk deferred, every K2 launch with stats in the split-row
    mode) against plain chunks, in turns;
@@ -131,8 +148,12 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    loop on the same calls, ``torch.matmul`` and the plain version timed
    in turns, and a verify round's unfused INT8 layer at T = 128; the
    groupdot mode: the ring, the loop, the standard mode, ``torch.matmul``
-   and the plain version in turns; K1's wide mode (f32 compute) at a
-   7B layer, T=48 and 1, beside ``torch.matmul`` on f32 weights; K2b:
+   and the plain version in turns; K1's wide mode (f32 compute): the
+   ring, ``qmm_f32_kernel`` on the same calls, ``torch.matmul`` on f32
+   weights and the plain version in turns at a 7B layer, T=48 (f32
+   scales), T=1 (f32 and bf16 scales; a glue layer at bf16 scales) and
+   the classifier at T=48, and ``qmm_f32_kernel`` against
+   ``torch.matmul`` at a T=512 layer; K2b:
    the tensor-core mode at T in
    {32, 64, 128, 256} and against start, the CUDA-core f32 mode on its
    inputs at T=32 and 256, and on its own f32 inputs (bf16 q over an f32
@@ -328,12 +349,28 @@ def entry_regs(text: str):
 
 def check_regs_against(ref, src, rec, build_log):
     """Phase 1 with ``--regs-against``: the reference build ``ref`` (an
-    nvcc process on another tree's flash_decode.cu) must hold the same
-    instantiations of ``flash_decode_split_kernel`` and
-    ``flash_spec_split_kernel`` with the same registers as this build,
-    and so every kernel of this build's flash_decode.cu."""
+    nvcc process on another tree's flash_decode.cu or qmm.cu).  Of
+    flash_decode.cu it must hold the same instantiations of
+    ``flash_decode_split_kernel`` and ``flash_spec_split_kernel`` with the
+    same registers as this build, and so every kernel of this build's
+    flash_decode.cu; of qmm.cu the same instantiations of
+    ``qmm_pipe_kernel`` and ``qmm_pipe_gd_kernel`` with the same
+    registers."""
     text = ref.communicate()[0]
     check(ref.returncode == 0, f"nvcc failed for {src}:\n{text}")
+    rec.setdefault("regs_against", []).append(src)
+    if os.path.basename(src) == "qmm.cu":
+        ours = build_log.split("== qmm.cu (rc")[1].split("\n== ")[0]
+        mine, theirs = entry_regs(ours), entry_regs(text)
+        for kernel in ("qmm_pipe_kernel", "qmm_pipe_gd_kernel"):
+            a, b = ({k: v for k, v in regs.items() if kernel + "I" in k}
+                    for regs in (mine, theirs))
+            check(a == b and len(a) > 0,
+                  f"{kernel}: instantiations or registers differ from "
+                  f"{src}: {set(a.items()) ^ set(b.items())}")
+            log(f"  ok {kernel}: the {len(a)} instantiations keep the "
+                f"registers of {src} ({sorted(set(a.values()))})")
+        return
     for key, kernel in (("decode_split_ptxas", "flash_decode_split_kernel"),
                         ("spec_split_ptxas", "flash_spec_split_kernel")):
         theirs = check_no_spill(text, kernel)
@@ -350,7 +387,6 @@ def check_regs_against(ref, src, rec, build_log):
                           f"{set(mine.items()) ^ set(theirs.items())}")
     log(f"  ok flash_decode.cu: all {len(mine)} kernels keep the registers "
         f"of {src}")
-    rec["regs_against"] = src
 
 
 # -- phase 2: kernels against plain versions --------------------------------
@@ -521,6 +557,7 @@ def phase_kernels(dev, rec):
     check_stats(dev, gen, errs)
     check_groupdot(dev, gen, errs)
     check_pipe(dev, gen, errs)
+    check_wide(dev, gen, errs)
     rec["max_abs_err"] = errs
 
 
@@ -1402,6 +1439,85 @@ def check_pipe(dev, gen, errs):
     torch.cuda.empty_cache()
 
 
+def check_wide(dev, gen, errs):
+    """Phase 2m: K1's wide mode on the ring (``qmm_pipe_wide_kernel``, f32
+    compute) against ``qmm_fused_plain`` at the 7B projections (the four
+    fused-layer ones and the classifier), INT8 with f32 and with bf16
+    scales, T in {1, 5, 48, 128}, f32 and bf16 x: bare through
+    ``qmatmul_pallas`` and with the norm gain, the residual and both
+    through the fused wrapper on layer 1 of a stacked weight, each at the
+    auto split (one ``launches_wide_pipe`` on the calling wrapper, none on
+    ``launches_pipe``) and at one split (``_launch``, uncounted).  Limits:
+    f32 x 1e-4 (``TOL_F32``), bf16 x 1e-2 of max|plain| (the output's
+    rounding)."""
+    import torch
+    from fastllama_tpu_torch.config import QuantType
+    from fastllama_tpu_torch.ops.kernels import qmm
+    log("phase 2m: K1's wide mode on the ring vs plain (7B shapes, f32 "
+        "compute, T in {1, 5, 48, 128}, with and without the glue)")
+    bf16, f32 = torch.bfloat16, torch.float32
+    glue = (("bare", False, False), ("norm", True, False),
+            ("residual", False, True), ("norm+residual", True, True))
+    for sdt in (f32, bf16):
+        worst, n = {f32: 0.0, bf16: 0.0}, 0
+        for name, (I, O) in PROJ_7B.items():
+            w = rand_qarray(gen, (2, I, O), QuantType.INT8, dev, sdt)
+            g = torch.rand((I,), generator=gen, device=dev) + 0.5
+            for T in (1, 5, 48, 128):
+                for xdt, tol in ((f32, TOL_F32), (bf16, TOL_BF16)):
+                    x = torch.randn((T, I), generator=gen, device=dev).to(xdt)
+                    r = torch.randn((T, O), generator=gen, device=dev).to(xdt)
+                    check(qmm.wide_kernel(x, w[1], f32, r) == "pipe",
+                          f"wide {name} T={T}: not a ring call")
+                    for gl, norm, res in glue:
+                        kw = dict(norm_gain=g if norm else None,
+                                  residual=r if res else None)
+                        fn = (qmm.qmatmul_pallas if gl == "bare"
+                              else qmm.qmatmul_pallas_indexed_fused)
+                        n0, p0 = fn.launches_wide_pipe, fn.launches_pipe
+                        got = (qmm.qmatmul_pallas(x, w[1], f32)
+                               if gl == "bare" else
+                               qmm.qmatmul_pallas_indexed(x, w, 1, f32, **kw))
+                        check(fn.launches_wide_pipe == n0 + 1
+                              and fn.launches_pipe == p0,
+                              f"wide {name} T={T} {gl}: not one launch on "
+                              f"the wide ring")
+                        one = qmm._launch(x, w[1], f32, kw["norm_gain"],
+                                          kw["residual"], splits=1)
+                        want = qmm.qmm_fused_plain(x, w[1], f32, **kw)
+                        label = (f"wide {name} s={str(sdt)[6:]} T={T} "
+                                 f"x={str(xdt)[6:]} {gl}")
+                        e = compare(label, got, want, tol, quiet=True)
+                        compare(label + " splits=1", one, want, tol,
+                                quiet=True)
+                        key = ("qmatmul_pallas_wide_pipe" if gl == "bare"
+                               else "qmatmul_pallas_indexed_fused_wide_pipe")
+                        errs[key] = max(errs[key], e)
+                        worst[xdt] = max(worst[xdt], e / max(float(
+                            want.float().abs().max()), 1e-30))
+                        n += 2
+            del w
+        log(f"  ok wide s={str(sdt)[6:]}: {n} comparisons, largest error "
+            f"{worst[f32]:.3e} of max|plain| at f32 x, {worst[bf16]:.3e} "
+            f"at bf16 x")
+    # the indexed wrapper without glue takes the ring too
+    w = rand_qarray(gen, (2, *PROJ_7B["w2"]), QuantType.INT8, dev)
+    f = qmm.qmatmul_pallas_indexed
+    for T in (1, 48, 128):
+        x = torch.randn((T, PROJ_7B["w2"][0]), generator=gen, device=dev)
+        n0 = f.launches_wide_pipe
+        e = compare(f"wide qmatmul_pallas_indexed w2[1] T={T}",
+                    f(x, w, 1, f32), qmm.qmm_plain(x, w[1], f32), TOL_F32,
+                    quiet=True)
+        check(f.launches_wide_pipe == n0 + 1,
+              "indexed: not a launch on the wide ring")
+        errs["qmatmul_pallas_indexed_wide_pipe"] = max(
+            errs["qmatmul_pallas_indexed_wide_pipe"], e)
+    log("  ok wide qmatmul_pallas_indexed w2[1] T in {1, 48, 128}")
+    del w
+    torch.cuda.empty_cache()
+
+
 # -- phase 3: engine, kernel path against plain path ------------------------
 
 def plain_logits(dev, cfg, params):
@@ -1915,12 +2031,12 @@ def phase_prefix_deferred_parity(dev, rec):
         pos = pos + 1
     check(fd.flash_decode_batched.launches_stats - n0 == K * cfg.n_layers,
           "the deferred steps did not launch K2 with stats once a layer")
-    # K1 at f32 compute: its wide mode (qmm_f32_kernel), every launch of a
-    # step (the first step's, tallied alone)
-    wide = tally.counts[("wide", True)]
+    # K1 at f32 compute: its wide mode's ring, every launch of a step (the
+    # first step's, tallied alone)
+    wide = tally.counts[("wide_pipe", True)]
     check(sum(tally.counts.values()) == wide > 0,
           f"a deferred step's K1 launches by mode {tally.record()}: not "
-          f"all wide")
+          f"all on the wide ring")
     land_staged(caches[True], staged, pos0, kb.spec_writer)
     sync("deferred landing")
     del caches, fused
@@ -1987,7 +2103,7 @@ def phase_prefix_deferred_parity(dev, rec):
         f"cache at f32 KV; {want_stats[0]} hits, {want_stats[1]} rows "
         f"reused each; K2b {launched} launches on the int8 kernel paths "
         f"and {f32_launched} at f32 KV, all in the TF32 mode; K1 {wide} "
-        f"launches a deferred step, all wide")
+        f"launches a deferred step, all on the wide ring")
 
     deferred = {}
     prompts = [system + t for t in tails] + [tails[2]]
@@ -2122,6 +2238,15 @@ SPEC_PATH = ("qmatmul_pallas", "qmatmul_pallas_indexed",
 SINGLE_PATH = ("qmatmul_pallas", "qmatmul_pallas_indexed",
                "qmatmul_pallas_indexed_fused", "flash_decode_single",
                "qmatmul_pallas_pipe", "qmatmul_pallas_indexed_fused_pipe")
+WIDE_BATCHED_PATH = ("qmatmul_pallas", "qmatmul_pallas_indexed",
+                     "flash_decode_batched", "flash_decode_batched_split",
+                     "decode_write", "prefill_write",
+                     "qmatmul_pallas_wide_pipe",
+                     "qmatmul_pallas_indexed_wide_pipe")
+WIDE_SINGLE_PATH = ("qmatmul_pallas", "qmatmul_pallas_indexed",
+                    "qmatmul_pallas_indexed_fused", "flash_decode_single",
+                    "qmatmul_pallas_wide_pipe",
+                    "qmatmul_pallas_indexed_fused_wide_pipe")
 INT4_BATCHED_PATH = ("qmatmul_pallas_p4", "qmatmul_pallas_indexed_p4",
                      "flash_decode_batched", "flash_decode_batched_split",
                      "decode_write", "prefill_write",
@@ -2144,7 +2269,9 @@ KERNELS = ("qmatmul_pallas", "qmatmul_pallas_indexed",
            "qmatmul_pallas_indexed_pipe",
            "qmatmul_pallas_indexed_fused_pipe",
            "qmatmul_pallas_groupdot_pipe", "flash_spec_batched_split",
-           "flash_decode_batched_stats_split", "flash_block_attend_tf32")
+           "flash_decode_batched_stats_split", "flash_block_attend_tf32",
+           "qmatmul_pallas_wide_pipe", "qmatmul_pallas_indexed_wide_pipe",
+           "qmatmul_pallas_indexed_fused_wide_pipe")
 # the wrappers of K2's non-fresh mode: each counts its split-row launches
 SPLIT_WRAPPERS = ("flash_decode_single", "decode_attention_pallas_indexed",
                   "decode_attention_pallas", "flash_decode_batched",
@@ -2161,7 +2288,8 @@ def counters():
     K2's split-row modes on each K2 wrapper's ``launches_split``
     (``<wrapper>_split``; fresh calls too), K2s's on
     ``flash_spec_batched.launches_split``, the pipelined mode of K1 and
-    K1p on each K1 wrapper's ``launches_pipe`` (``<wrapper>_pipe``), K2b's
+    K1p on each K1 wrapper's ``launches_pipe`` (``<wrapper>_pipe``), K1's
+    wide mode's ring on its ``launches_wide_pipe`` (``_wide_pipe``), K2b's
     TC and split-TF32 modes on ``flash_block_attend.launches_tc`` and
     ``.launches_tf32``."""
     from fastllama_tpu_torch.ops.kernels import attention as at
@@ -2186,6 +2314,8 @@ def counters():
     out = {k: (fn, "launches") for k, fn in {**k1, **rest}.items()}
     out.update({k + "_p4": (fn, "launches_p4") for k, fn in k1.items()})
     out.update({k + "_pipe": (fn, "launches_pipe") for k, fn in k1.items()})
+    out.update({k + "_wide_pipe": (fn, "launches_wide_pipe")
+                for k, fn in k1.items()})
     out["flash_decode_batched_stats"] = (fd.flash_decode_batched,
                                          "launches_stats")
     out["flash_decode_batched_stats_split"] = (fd.flash_decode_batched,
@@ -2294,11 +2424,12 @@ def phase_serving(dev, rec):
     return launches
 
 
-def serve_batched(eng, path, t0, n_new=128):
+def serve_batched(eng, path, t0, n_new=128, k1_check=None):
     """bench.py's batched measurement on a ready engine of 48 slots: a
     warm-up wave, then 48 requests of a 43-token prompt and ``n_new``
     tokens with every launch counter zeroed just before; every kernel of
-    ``path`` must have run.  Then one 16-step decode chunk traced."""
+    ``path`` must have run, and K1's modes pass ``k1_check`` (default
+    :func:`check_all_pipe`).  Then one 16-step decode chunk traced."""
     import torch
     B = eng.B
     torch.cuda.synchronize()
@@ -2317,7 +2448,7 @@ def serve_batched(eng, path, t0, n_new=128):
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches()
-    check_all_pipe(launches, tally, "batched serving")
+    (k1_check or check_all_pipe)(launches, tally, "batched serving")
     check(launches["flash_decode_batched_split"]
           == launches["flash_decode_batched"] > 0,
           f"batched serving: {launches['flash_decode_batched_split']} of "
@@ -2430,7 +2561,9 @@ class ModeTally:
     """Counts each K1/K1p launch of a run by (mode, T <= 128) while it is
     entered, by wrapping ``qmm.qmm_mode`` (which the wrappers consult once
     a launch, on a CUDA tensor only); the wrapped function returns what
-    the original returns, so the path is unchanged."""
+    the original returns, so the path is unchanged.  A wide call is
+    tallied by its kernel (``qmm.wide_kernel``): ``"wide_pipe"`` the ring,
+    ``"wide_f32"`` ``qmm_f32_kernel``."""
 
     def __enter__(self):
         import collections
@@ -2440,7 +2573,9 @@ class ModeTally:
 
         def tally(x, w, compute_dtype=None, groupdot=False, residual=None):
             mode = self.orig(x, w, compute_dtype, groupdot, residual)
-            self.counts[(mode, x.shape[0] <= qmm.PIPE_MAX_T)] += 1
+            key = (mode if mode != "wide" else "wide_" + qmm.wide_kernel(
+                x, w, compute_dtype, residual))
+            self.counts[(key, x.shape[0] <= qmm.PIPE_MAX_T)] += 1
             return mode
         qmm.qmm_mode = tally
         return self
@@ -2470,6 +2605,25 @@ def check_all_pipe(launches, tally, label):
         f"pipelined mode; by mode {tally.record()}")
 
 
+def check_all_wide_pipe(launches, tally, label):
+    """Every K1 launch with T <= 128 of a run at f32 compute on the wide
+    mode's ring: no other kernel at T <= 128 in the tally, and the tally's
+    ring launches equal to the three wrappers' ``launches_wide_pipe``;
+    returns {mode: launches} of the rest (prefill waves above 128 rows on
+    ``qmm_f32_kernel``)."""
+    small = {m: n for (m, s), n in tally.counts.items() if s}
+    ring = sum(launches[k + "_wide_pipe"] for k in (
+        "qmatmul_pallas", "qmatmul_pallas_indexed",
+        "qmatmul_pallas_indexed_fused"))
+    check(set(small) <= {"wide_pipe"},
+          f"{label}: K1 launches with T <= 128 off the wide ring: {small}")
+    check(small.get("wide_pipe", 0) == ring > 0,
+          f"{label}: {small.get('wide_pipe', 0)} wide ring launches in the "
+          f"tally, {ring} on the wrappers' launches_wide_pipe")
+    log(f"  ok {label}: all {ring} K1 launches with T <= 128 on the wide "
+        f"ring; by mode {tally.record()}")
+
+
 def k2_rows(rows, per):
     """Device ms and launches of K2's batched kernels in a profile's rows,
     divided by ``per`` (steps): the fresh and stats split mode and the
@@ -2482,11 +2636,13 @@ def k2_rows(rows, per):
 
 def k1_rows(rows, per):
     """Device ms of the K1 family in a profile's rows, divided by ``per``
-    (steps or rounds): the pipelined kernel, the loop and the split-K
-    reduce pass."""
+    (steps or rounds): the pipelined kernel, the loop, the wide mode's ring
+    and ``qmm_f32_kernel``, and the split-K reduce pass."""
     return {mode: sum(us for us, _, k in rows if name in k) / 1e3 / per
             for mode, name in (("pipe", "qmm_pipe_kernel"),
                                ("loop", "qmm_bf16_kernel"),
+                               ("wide_pipe", "qmm_pipe_wide_kernel"),
+                               ("wide_f32", "qmm_f32_kernel"),
                                ("reduce", "splitk_reduce_kernel"))}
 
 
@@ -2565,11 +2721,12 @@ def phase_single_serving(dev, rec):
     return launches
 
 
-def serve_single(eng, path, t0, n_new=128, chunk=64):
+def serve_single(eng, path, t0, n_new=128, chunk=64, k1_check=None):
     """bench.py's single-stream measurement (``bench_single``) on a ready
     engine: the 43-token prompt, ``n_new`` greedy tokens in chunks of
     ``chunk``, one warm-up run and one measured run with every launch
-    counter zeroed just before; every kernel of ``path`` must have run.
+    counter zeroed just before; every kernel of ``path`` must have run,
+    and K1's modes pass ``k1_check`` (default :func:`check_all_pipe`).
     Then one decode chunk traced.  Returns (record, launches, tokens)."""
     import torch
     torch.cuda.synchronize()
@@ -2589,7 +2746,7 @@ def serve_single(eng, path, t0, n_new=128, chunk=64):
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches()
-    check_all_pipe(launches, tally, "single-stream serving")
+    (k1_check or check_all_pipe)(launches, tally, "single-stream serving")
     check(len(toks) == n_new, f"{len(toks)} tokens, not {n_new}")
     check(toks == warm, "two greedy runs gave different tokens")
     for k in path:
@@ -2616,6 +2773,67 @@ def serve_single(eng, path, t0, n_new=128, chunk=64):
         f"flash_decode_single launches in the split-row mode")
     out["profile"] = profile_single(eng, prompt, out["ms_per_decode_step"])
     return out, launches, toks
+
+
+def phase_wide_single_serving(dev, rec):
+    """Phase 4j: phase 4b's single stream at f32 compute, the configuration
+    that gives the reference's full-precision arithmetic: 7B INT8 fused
+    once, scale_dtype "auto" (bf16 at INT8 on the single-stream kernel
+    path, ``resolve_scale_dtype``), the default f32 KV cache; every K1
+    launch with T <= 128 (the 43-row prefill, the K1f glue, the
+    classifier) on the wide mode's ring."""
+    import torch
+    from fastllama_tpu_torch.config import EngineConfig
+    from fastllama_tpu_torch.loaders.tokenizer import Tokenizer
+    from fastllama_tpu_torch.models.llama import (fuse_params,
+                                                  random_params_int)
+    from fastllama_tpu_torch.runtime.engine import Engine
+    log("phase 4j: single-stream 7B INT8 fused once at f32 compute, bf16 "
+        "scales (auto), f32 KV, S=512, 32 layers")
+    cfg = cfg_7b()
+    t0 = time.perf_counter()
+    params = fuse_params(cfg, random_params_int(cfg, seed=SEED, device=dev))
+    ec = EngineConfig(max_seq_len=512, fuse_weights=False,
+                      compute_dtype="float32")
+    eng = Engine(cfg, params, Tokenizer().finalize(), ec, device=dev)
+    del params
+    check(eng.params.wq.scales.dtype == torch.bfloat16,
+          "scale_dtype='auto' did not narrow the scales on the kernel path")
+    out, launches, _ = serve_single(eng, WIDE_SINGLE_PATH, t0,
+                                    k1_check=check_all_wide_pipe)
+    rec["wide_single_serving"] = out
+    del eng
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_wide_serving(dev, rec):
+    """Phase 4k: phase 4's batched serving at f32 compute (7B INT8 fused,
+    f32 scales, int8 KV, B=48, S=512): every K1 launch with T <= 128 (the
+    decode steps at T=48) on the wide mode's ring; the prefill waves above
+    128 rows on ``qmm_f32_kernel``, tallied."""
+    import torch
+    from fastllama_tpu_torch.config import EngineConfig
+    from fastllama_tpu_torch.loaders.tokenizer import Tokenizer
+    from fastllama_tpu_torch.models.llama import random_params_int
+    from fastllama_tpu_torch.runtime.batching import BatchedEngine
+    log("phase 4k: serving 7B INT8 fused at f32 compute, int8 KV, B=48, "
+        "S=512, 32 layers")
+    cfg = cfg_7b()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = random_params_int(cfg, seed=SEED, device=dev)
+    eng = BatchedEngine(cfg, params, Tokenizer().finalize(),
+                        EngineConfig(max_seq_len=512, max_batch_size=48,
+                                     kv_dtype="int8",
+                                     compute_dtype="float32"),
+                        decode_chunk=64, device=dev)
+    del params
+    rec["wide_serving"], launches = serve_batched(
+        eng, WIDE_BATCHED_PATH, t0, k1_check=check_all_wide_pipe)
+    del eng
+    torch.cuda.empty_cache()
+    return launches
 
 
 # the INT4 parameter set of phases 4d and 4e: made once and shared, as
@@ -4277,64 +4495,162 @@ def time_block_f32(dev, gen, res):
 
 
 def time_wide(dev, gen, res):
-    """K1's wide mode (``qmm_f32_kernel``: f32 dequant and FMA, taken at
-    f32 compute or INT16) at the 7B decode shapes: one layer's four INT8
-    projections (wqkv, wo, w13, w2; layers rotating over 4) at T=48 and
-    T=1, f32 x, f32 compute; in turns with ``torch.matmul`` on
-    pre-dequantized f32 weights (``allow_tf32`` off) and the plain
-    version.  Bound: max(bytes / 3.35 TB/s, operations / 67 TFLOP/s)."""
+    """K1's wide mode (f32 compute) at the 7B decode shapes, f32 x: one
+    layer's four INT8 projections (wqkv, wo, w13, w2; layers rotating over
+    4 so every launch finds its weight cold in L2) at T=48 with f32 scales
+    (phase 4k's step), at T=1 with f32 scales and at T=1 with bf16 scales
+    through the K1f glue (phase 4j's step: the norm on wqkv and w13, the
+    residual on wo and w2), and the classifier at T=48.  Timed in turns:
+    the wide ring (``ms``, the wrapper's choice), ``qmm_f32_kernel`` on
+    the same calls (``_launch(..., mode="wide")``), ``torch.matmul`` on
+    pre-dequantized f32 weights (``allow_tf32`` off; the glue by
+    ``rms_norm`` and ``addmm``) and the plain version.  Then
+    ``qmm_f32_kernel`` beside ``torch.matmul`` at a T=512 layer (the
+    prefill waves it keeps).  Bound: max(bytes / 3.35 TB/s, operations x 3
+    / 989 TFLOP/s): the f32 product on the tensor cores takes three bf16
+    passes (the ring beats the f32 cores' figure, operations / 67 TFLOP/s,
+    which stands beside it as ``f32_core_bound_ms``)."""
     import torch
+    import torch.nn.functional as F
     from fastllama_tpu_torch.config import QuantType
     from fastllama_tpu_torch.ops.kernels import qmm
     from fastllama_tpu_torch.quant.groupquant import dequantize
     from fastllama_tpu_torch.tools.timing import in_turns
-    f32, nl = torch.float32, 4
+    f32, bf16, nl = torch.float32, torch.bfloat16, 4
     names = ("wqkv", "wo", "w13", "w2")
-    ws = {n: rand_qarray(gen, (nl, *PROJ_7B[n]), QuantType.INT8, dev)
-          for n in names}
-    wds = {n: dequantize(ws[n], f32) for n in names}
+    norm = {"wqkv": True, "wo": False, "w13": True, "w2": False}
     layer = [0]
 
     def rot():
         layer[0] = (layer[0] + 1) % nl
         return layer[0]
+
+    def bounds(T, shapes, ssz, glue=False):
+        nbytes = sum(T * I * 4 + I * O + I // 64 * O * ssz + T * O * 4
+                     for I, O in shapes)
+        if glue:
+            nbytes += sum((I * 4 if norm[n] else T * O * 4)
+                          for n, (I, O) in zip(names, shapes))
+        flops = sum(2 * T * I * O for I, O in shapes)
+        bm, by = bound_ms(nbytes, 3 * flops, BF16_FLOP_S)
+        return dict(bound_ms=bm, bound_by=by, bytes=nbytes, flops=flops,
+                    f32_core_bound_ms=bound_ms(nbytes, flops,
+                                               F32_FLOP_S)[0])
+
+    def log_row(label, v):
+        log(f"  wide {label}: {v['ms']:.4f} ms (qmm_f32_kernel "
+            f"{v['f32_kernel_ms']:.4f}, plain {v['plain_ms']:.4f}, library "
+            f"{v['library_ms']:.4f}, bound {v['bound_ms']:.4f} by "
+            f"{v['bound_by']}; f32 cores {v['f32_core_bound_ms']:.4f})")
     rows = {}
-    for T in (48, 1):
-        xs = {n: torch.randn((T, PROJ_7B[n][0]), generator=gen, device=dev)
-              for n in names}
-        check(all(qmm.qmm_mode(xs[n], ws[n][0], f32) == "wide"
-                  for n in names), "K1 at f32 compute: not the wide mode")
+    for sdt in (f32, bf16):
+        ws = {n: rand_qarray(gen, (nl, *PROJ_7B[n]), QuantType.INT8, dev,
+                             sdt) for n in names}
+        wds = {n: dequantize(ws[n], f32) for n in names}
+        for T in ((48, 1) if sdt == f32 else (1,)):
+            glue = sdt == bf16
+            xs = {n: torch.randn((T, PROJ_7B[n][0]), generator=gen,
+                                 device=dev) for n in names}
+            kws = {n: (dict(norm_gain=torch.rand(
+                (PROJ_7B[n][0],), generator=gen, device=dev) + 0.5)
+                if norm[n] else dict(residual=torch.randn(
+                    (T, PROJ_7B[n][1]), generator=gen, device=dev)))
+                if glue else {} for n in names}
+            check(all(qmm.wide_kernel(xs[n], ws[n][0], f32,
+                                      kws[n].get("residual")) == "pipe"
+                      for n in names), "K1 at f32 compute: not the wide ring")
 
-        def k_layer():
-            lyr = rot()
-            for n in names:
-                qmm.qmatmul_pallas_indexed(xs[n], ws[n], lyr, f32)
+            def per_layer(one):
+                def run():
+                    lyr = rot()
+                    for n in names:
+                        one(n, lyr)
+                return run
 
-        def l_layer():
-            lyr = rot()
-            for n in names:
-                torch.matmul(xs[n], wds[n][lyr])
+            def l_one(n, lyr):
+                if kws[n].get("norm_gain") is not None:
+                    g = kws[n]["norm_gain"]
+                    return torch.matmul(F.rms_norm(xs[n], g.shape, g, 1e-5),
+                                        wds[n][lyr])
+                if kws[n].get("residual") is not None:
+                    return torch.addmm(kws[n]["residual"], xs[n],
+                                       wds[n][lyr])
+                return torch.matmul(xs[n], wds[n][lyr])
+            label = f"T{T}" + ("_glue_bf16_scales" if glue else "")
+            rows[label] = dict(
+                **in_turns({
+                    "ms": per_layer(lambda n, lyr: qmm.qmatmul_pallas_indexed(
+                        xs[n], ws[n], lyr, f32, **kws[n])),
+                    "f32_kernel_ms": per_layer(lambda n, lyr: qmm._launch(
+                        xs[n], ws[n][lyr], f32, kws[n].get("norm_gain"),
+                        kws[n].get("residual"), mode="wide")),
+                    "library_ms": per_layer(l_one),
+                    "plain_ms": per_layer(lambda n, lyr: qmm.qmm_fused_plain(
+                        xs[n], ws[n][lyr], f32, **kws[n]))}),
+                **bounds(T, [PROJ_7B[n] for n in names], 2 if glue else 4,
+                         glue),
+                library_call=("torch rms_norm then torch.matmul (norm "
+                              "projections) or torch.addmm (residual "
+                              "projections)" if glue else
+                              "torch.matmul per projection") +
+                " on pre-dequantized f32 weights (allow_tf32 off)",
+                shape=f"T={T}, one layer (wqkv 4096x12288, wo 4096x4096, "
+                      f"w13 4096x22016, w2 11008x4096), INT8, "
+                      f"{str(sdt)[6:]} scales, f32 x and compute"
+                      + (", K1f glue" if glue else ""))
+            log_row(label, rows[label])
+        if sdt == f32:
+            # the prefill waves above 128 rows keep qmm_f32_kernel
+            x5 = {n: torch.randn((512, PROJ_7B[n][0]), generator=gen,
+                                 device=dev) for n in names}
+            check(all(qmm.wide_kernel(x5[n], ws[n][0], f32) == "f32"
+                      for n in names), "T=512: not qmm_f32_kernel")
 
-        def p_layer():
-            lyr = rot()
-            for n in names:
-                qmm.qmm_plain(xs[n], ws[n][lyr], f32)
-        nbytes = sum(T * I * 4 + I * O * (1 + 4 / 64) + T * O * 4
-                     for I, O in (PROJ_7B[n] for n in names))
-        flops = sum(2 * T * I * O for I, O in (PROJ_7B[n] for n in names))
-        bm, by = bound_ms(nbytes, flops, F32_FLOP_S)
-        rows[f"T{T}"] = dict(
-            **in_turns({"ms": k_layer, "library_ms": l_layer,
-                        "plain_ms": p_layer}),
-            library_call="torch.matmul per projection on pre-dequantized "
-                         "f32 weights (allow_tf32 off)",
-            bound_ms=bm, bound_by=by, bytes=nbytes, flops=flops,
-            shape=f"T={T}, one layer (wqkv 4096x12288, wo 4096x4096, w13 "
-                  f"4096x22016, w2 11008x4096), INT8, f32 x and compute, "
-                  f"wide mode")
-    del ws, wds
+            def wave(lib):
+                def run():
+                    lyr = rot()
+                    for n in names:
+                        if lib:
+                            torch.matmul(x5[n], wds[n][lyr])
+                        else:
+                            qmm.qmatmul_pallas_indexed(x5[n], ws[n], lyr, f32)
+                return run
+            rows["T512"] = dict(
+                **in_turns({"f32_kernel_ms": wave(False),
+                            "library_ms": wave(True)}, iters=5),
+                **bounds(512, [PROJ_7B[n] for n in names], 4),
+                shape="T=512, one layer, INT8, f32 scales, x and compute: "
+                      "qmm_f32_kernel (the wrapper's choice)")
+            v = rows["T512"]
+            log(f"  wide T512: qmm_f32_kernel {v['f32_kernel_ms']:.4f} ms, "
+                f"library {v['library_ms']:.4f}, bound {v['bound_ms']:.4f} "
+                f"by {v['bound_by']}")
+            del x5
+        del ws, wds
+    # the classifier at T=48, f32 scales (phase 4k's)
+    I, O = PROJ_7B["classifier"]
+    w = rand_qarray(gen, (I, O), QuantType.INT8, dev)
+    wd = dequantize(w, f32)
+    x = torch.randn((48, I), generator=gen, device=dev)
+    check(qmm.wide_kernel(x, w) == "pipe", "classifier: not the wide ring")
+    cls = dict(
+        **in_turns({"ms": lambda: qmm.qmatmul_pallas(x, w, f32),
+                    "f32_kernel_ms": lambda: qmm._launch(x, w, f32,
+                                                         mode="wide"),
+                    "library_ms": lambda: torch.matmul(x, wd),
+                    "plain_ms": lambda: qmm.qmm_plain(x, w, f32)}),
+        **bounds(48, [(I, O)], 4),
+        library_call="torch.matmul on a pre-dequantized f32 weight "
+                     "(allow_tf32 off)",
+        shape=f"T=48 I={I} O={O} INT8, f32 scales, x and compute")
+    log_row("classifier T48", cls)
+    del w, wd
     torch.cuda.empty_cache()
-    res["qmatmul_pallas_indexed_wide"] = dict(rows["T48"], T1=rows["T1"])
+    res["qmatmul_pallas_indexed_wide_pipe"] = dict(
+        rows["T48"], T1=rows["T1"], prefill_T512=rows["T512"])
+    res["qmatmul_pallas_indexed_fused_wide_pipe"] = dict(
+        rows["T1_glue_bf16_scales"])
+    res["qmatmul_pallas_wide_pipe"] = cls
 
 
 def time_groupdot(dev, gen, res):
@@ -4496,23 +4812,31 @@ SOURCES = {
 SOURCES.update({k + "_split": SOURCES[k] for k in SPLIT_WRAPPERS
                 + ("flash_spec_batched", "flash_decode_batched_stats")})
 # the pipelined mode of K1 and K1p (INT8 and packed alike): K1's wrappers;
-# the groupdot mode's ring, K1's groupdot function
+# the groupdot mode's ring, K1's groupdot function; the wide mode's ring,
+# K1's wrappers (the JAX wide branch, _qmm_chunk's, runs in each)
 SOURCES.update({k + "_pipe": SOURCES[k] for k in (
     "qmatmul_pallas", "qmatmul_pallas_indexed",
     "qmatmul_pallas_indexed_fused", "qmatmul_pallas_groupdot")})
+SOURCES.update({k + "_wide_pipe": SOURCES[k] for k in (
+    "qmatmul_pallas", "qmatmul_pallas_indexed",
+    "qmatmul_pallas_indexed_fused")})
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="1,2,3,3d,3e,3f,4,4b,4c,4d,4e,4f,4i,4g,4h,5",
+                    default="1,2,3,3d,3e,3f,4,4b,4c,4d,4e,4f,4i,4j,4k,4g,"
+                            "4h,5",
                     help="comma-separated phases to run (default: all)")
-    ap.add_argument("--regs-against", metavar="FLASH_DECODE_CU",
-                    help="another tree's csrc/flash_decode.cu (such as the "
-                         "parent commit's), built beside the kernels with "
-                         "the same flags: phase 1 then requires the "
-                         "registers of every instantiation of the split "
-                         "kernels of K2 and K2s to be equal in both")
+    ap.add_argument("--regs-against", metavar="CU", action="append",
+                    default=[],
+                    help="another tree's csrc/flash_decode.cu or "
+                         "csrc/qmm.cu (such as the parent commit's; may "
+                         "repeat), built beside the kernels with the same "
+                         "flags: phase 1 then requires the registers of "
+                         "every instantiation of the split kernels of K2 "
+                         "and K2s, or of qmm_pipe_kernel and "
+                         "qmm_pipe_gd_kernel, to be equal in both")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
 
@@ -4541,20 +4865,22 @@ def main() -> int:
     rec["nvcc"] = nv.splitlines()[-1]
     log(nv)
     t0 = time.perf_counter()
-    ref = None
-    if args.regs_against:
+    refs = []
+    for src in args.regs_against:
         os.makedirs(os.path.join("build", "regs_against"), exist_ok=True)
-        ref = subprocess.Popen(
+        stem = os.path.splitext(os.path.basename(src))[0]
+        refs.append((src, subprocess.Popen(
             [_build.nvcc(), *_build.NVCC_FLAGS, "-o",
-             os.path.join("build", "regs_against", "libref.so"),
-             args.regs_against],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             os.path.join("build", "regs_against", f"lib{stem}.so"), src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     _build.build()
     rec["build_s"] = time.perf_counter() - t0
     log(f"phase 1: kernels built in {rec['build_s']:.1f} s")
     log(_build.build_log())
     rec["groupdot_ring_ptxas"] = check_no_spill(_build.build_log(),
                                                 "qmm_pipe_gd_kernel")
+    rec["wide_ring_ptxas"] = check_no_spill(_build.build_log(),
+                                            "qmm_pipe_wide_kernel")
     rec["spec_split_ptxas"] = check_no_spill(_build.build_log(),
                                              "flash_spec_split_kernel")
     rec["decode_split_ptxas"] = check_no_spill(_build.build_log(),
@@ -4563,8 +4889,8 @@ def main() -> int:
         _build.build_log(), "flash_decode_fresh_split_kernel")
     rec["block_tf32_ptxas"] = check_no_spill(_build.build_log(),
                                              "flash_block_tf32_kernel")
-    if ref is not None:
-        check_regs_against(ref, args.regs_against, rec, _build.build_log())
+    for src, ref in refs:
+        check_regs_against(ref, src, rec, _build.build_log())
 
     t_start = time.perf_counter()
     # each kernel's launches on the path it serves: the batched path's from
@@ -4624,6 +4950,19 @@ def main() -> int:
         got = run("4i", phase_prefix_f32_serving)
         launches["flash_block_attend_tf32"] = got["flash_block_attend_tf32"]
         launches.setdefault("flash_block_attend", got["flash_block_attend"])
+    if "4j" in phases:
+        got = run("4j", phase_wide_single_serving)
+        launches["qmatmul_pallas_indexed_fused_wide_pipe"] = \
+            got["qmatmul_pallas_indexed_fused_wide_pipe"]
+        # the classifier's ring launches: 4k's batched path when it runs
+        if not launches.get("qmatmul_pallas_wide_pipe"):
+            launches["qmatmul_pallas_wide_pipe"] = \
+                got["qmatmul_pallas_wide_pipe"]
+    if "4k" in phases:
+        got = run("4k", phase_wide_serving)
+        for k in ("qmatmul_pallas_wide_pipe",
+                  "qmatmul_pallas_indexed_wide_pipe"):
+            launches[k] = got[k]
     if "4g" in phases:
         got = run("4g", phase_deferred_serving)
         for k in ("flash_decode_batched_stats",

@@ -111,6 +111,27 @@
 //     each plane's half of a stage and of a split, so a group cut by a
 //     stage or a split is scaled in parts.  The group size must be a
 //     multiple of 16 so that no k = 16 step straddles two groups.
+//
+// The wide mode's pipelined instantiation (qmm_pipe_wide_kernel) takes
+// every wide call (f32 compute) with an int8-held weight (INT8, or INT4
+// that did not pack), T <= 128, gs % 64 == 0 and 16-byte aligned rows: the
+// batched decode step, the single stream with its K1f glue and the verify
+// at f32 compute.  It computes the JAX wide kernel's function (f32 dequant
+// and a Precision.HIGHEST dot, qmm.py:62-74) on bf16 tensor cores: the
+// groupdot ring's body, whose B fragments hold the exact integers, with x
+// split once a stage into three bf16 planes, hi = bf16(v), mid = bf16(v -
+// hi), lo = bf16(v - hi - mid), which together hold f32's 24-bit
+// significand.  Every m-tile's partial takes the planes' products in turn
+// (lo, mid, then hi) against the same B fragments, and the lane's f32
+// group scales fold it into the accumulators once a group.  A bf16 x (or
+// K1f's prologue rounding to bf16) is exact in one plane: one pass.  It
+// departs from the reference only in rounding: the reference rounds
+// f32(w) * f32(s) once an element before the dot, this mode the group's
+// partial times the scale once a group (with a bf16 scale both products
+// are exact: only the f32 sum order differs).  Its bound is bytes up to
+// T = 128 at three passes (0.059 ms of tensor work a 7B layer at T = 48,
+// 0.0643 ms of bytes at T = 1).  qmm_f32_kernel keeps INT16, T > 128,
+// other group sizes and unaligned rows.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
@@ -673,7 +694,9 @@ qmm_bf16_kernel(const XT* __restrict__ x, const int8_t* __restrict__ w,
 }
 
 // Wide path: f32 dequant and f32 FMA.  256 threads, each a 4x4 block of
-// outputs strided by 16 so shared-memory reads do not conflict.
+// outputs strided by 16 so shared-memory reads do not conflict.  The wide
+// calls that qmm_pipe_wide_kernel does not take: INT16, T > 128, other
+// group sizes, unaligned rows.
 template <typename XT, typename WT, typename ST>
 __global__ void __launch_bounds__(256)
 qmm_f32_kernel(const XT* __restrict__ x, const WT* __restrict__ w,
@@ -755,8 +778,11 @@ qmm_f32_kernel(const XT* __restrict__ x, const WT* __restrict__ w,
 // ---------------------------------------------------------------------------
 // The pipelined mode (qmm_pipe_kernel): K1 and K1p at T <= 128, standard
 // mode, not wide, 16-byte aligned, gs a multiple of 64; its groupdot
-// instantiation (qmm_pipe_gd_kernel, the same body with GD: see the groupdot
-// notes at the top) the groupdot calls of that kind.
+// instantiation (qmm_pipe_gd_kernel, the same body with MODE PM_GD: see the
+// groupdot notes at the top) the groupdot calls of that kind, and its wide
+// instantiation (qmm_pipe_wide_kernel, MODE PM_WIDE: the groupdot body
+// over three bf16 planes of x) the wide calls of that kind with an
+// int8-held weight.
 //
 // A block computes all T rows (one row tile of 16 * MT rows: 16, 48, 64 or
 // 128, the least that holds T) of BN = 8 * NJ * CG output columns over one
@@ -785,7 +811,8 @@ qmm_f32_kernel(const XT* __restrict__ x, const WT* __restrict__ w,
 //     to bf16 once: bf16(f32(nibble) * f32(s)), as _qmm_kernel_p4.
 // x goes to the A fragments by ldmatrix from the slot (bf16 x) or from a
 // bf16 copy that the block writes after the stage lands (f32 x, or the K1f
-// prologue: x * rinv * gain rounded once).  Under the prologue the block
+// prologue: x * rinv * gain rounded once; the wide mode's f32 x: three
+// planes, hi, mid and lo, one after the other).  Under the prologue the block
 // first puts its first PK_NS - 1 stages in flight, then reads its rows for the
 // inverse RMS.  The mma chain has constant bounds and no branch: a step
 // past the split multiplies zero-filled weights.  A split-K launch writes
@@ -799,6 +826,26 @@ constexpr int PK_SMEM_BLOCK = 232448;  // shared memory a block may use
 // the ring's depth: deeper rings leave fewer blocks an SM, which read
 // slower on an H100 (PERF.md, PR 10)
 constexpr int PK_NS = 3;
+// The wide mode's tuning macros (tools/wide_pipe_design.py builds
+// variants and times them in turns):
+//   QMM_WIDE_STAGES48, QMM_WIDE_MIN_BLOCKS48: the wide ring's depth and
+//     least blocks an SM at 48 rows (the batched step's T): a two-stage
+//     ring leaves shared memory for three blocks on f32 x, and ptxas fits
+//     them in 168 registers; 17 % faster a 7B layer than three stages and
+//     two blocks on an H100 (PERF.md), where the other row tiles
+//     keep PK_NS stages;
+//   QMM_WIDE_PLANES: the planes of f32 x it multiplies; 3 holds f32's
+//     significand, fewer is a diagnostic of what the passes cost (it
+//     misses the reference's accuracy)
+#ifndef QMM_WIDE_STAGES48
+#define QMM_WIDE_STAGES48 2
+#endif
+#ifndef QMM_WIDE_MIN_BLOCKS48
+#define QMM_WIDE_MIN_BLOCKS48 3
+#endif
+#ifndef QMM_WIDE_PLANES
+#define QMM_WIDE_PLANES 3
+#endif
 
 // bytes of one ring slot: W rows at a pitch of bn + 16, the x tile at a
 // pitch of its row + 16, the scale rows (K1p: two)
@@ -959,14 +1006,52 @@ __device__ __forceinline__ void add_bf16(float (&v)[N],
   for (int j = 0; j < N; ++j) v[j] = __bfloat162float(e[j]) + v[j];
 }
 
-template <bool P4, int MT, int CG, int NJ, bool GD>
+// the instantiations of the ring's body: standard, groupdot, wide
+enum { PM_STD = 0, PM_GD = 1, PM_WIDE = 2 };
+
+// the bf16 x planes of a ring block: three in the wide mode on f32 x, else
+// one (a bf16 value is exact in one)
+__host__ __device__ constexpr int pipe_x_planes(int mode, int x_f32) {
+  return mode == PM_WIDE && x_f32 ? QMM_WIDE_PLANES : 1;
+}
+
+// the ring's depth of an instantiation of MT m-tiles
+__host__ __device__ constexpr int pipe_stages(int mode, int mt) {
+  return mode == PM_WIDE && mt == 3 ? QMM_WIDE_STAGES48 : PK_NS;
+}
+
+// v (8 f32) as three bf16 planes, hi = bf16(v), mid = bf16(v - hi), lo =
+// bf16(v - hi - mid), round to nearest; each difference is exact in f32, so
+// hi + mid + lo == v (the 24-bit significand in three 8-bit parts)
+__device__ __forceinline__ void split3_store(__nv_bfloat16* dst, int plane,
+                                             float (&v)[8]) {
+#pragma unroll
+  for (int p = 0; p < QMM_WIDE_PLANES; ++p) {
+    uint32_t u[4];
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      const __nv_bfloat162 b = __floats2bfloat162_rn(v[2 * h], v[2 * h + 1]);
+      u[h] = *reinterpret_cast<const uint32_t*>(&b);
+      const float2 f = __bfloat1622float2(b);
+      v[2 * h] -= f.x;
+      v[2 * h + 1] -= f.y;
+    }
+    *reinterpret_cast<uint4*>(dst + p * plane) =
+        make_uint4(u[0], u[1], u[2], u[3]);
+  }
+}
+
+template <bool P4, int MT, int CG, int NJ, int MODE>
 __device__ __forceinline__ void qmm_pipe_body(
     const void* __restrict__ xv, const int8_t* __restrict__ w,
     const unsigned char* __restrict__ s, const float* __restrict__ gain,
     const void* __restrict__ resv, void* __restrict__ outv,
     float* __restrict__ partial, int T, int I, int O, int gs,
     int k_per_split, int x_f32, int s_f32, float eps) {
-  constexpr int NS = PK_NS;
+  // the wide mode is the groupdot body over the planes of x
+  constexpr bool GD = MODE != PM_STD, WIDE = MODE == PM_WIDE;
+  static_assert(!(WIDE && P4), "the wide mode takes int8-held weights");
+  constexpr int NS = pipe_stages(MODE, MT);
   constexpr int NW = CG, NT = NW * 32, BN = 8 * NJ * CG, BMR = 16 * MT;
   constexpr int KS = P4 ? 32 : 64;     // W rows a stage
   constexpr int KSTEPS = KS / 16;      // k = 16 steps a stage (K1p: a plane)
@@ -1124,6 +1209,12 @@ __device__ __forceinline__ void qmm_pipe_body(
 #pragma unroll
           for (int j = 0; j < 8; ++j) v[j] = in ? v[j] * ri * __ldg(gp + j) : 0.0f;
         }
+        if constexpr (WIDE) {
+          if (x_f32) {                 // f32 x: three planes
+            split3_store(xbuf + r * (PK_XB / 2) + c, BMR * (PK_XB / 2), v);
+            continue;
+          }
+        }
         uint4 o;
         o.x = round_pair(v[0], v[1]);
         o.y = round_pair(v[2], v[3]);
@@ -1186,6 +1277,43 @@ __device__ __forceinline__ void qmm_pipe_body(
           fragments(std::integral_constant<int, 0>{});
         const __nv_bfloat16* xr =
             xa + (lane & 15) * xpe + 32 * p + (lane >> 4) * 8;
+        if constexpr (WIDE) {
+          // every m-tile's partial at once: the planes' products against
+          // the same B fragments, the smallest plane first (lo, mid, hi;
+          // one plane on bf16 x), in MT x NJ chains (one m-tile's partial
+          // at a time, as groupdot keeps them, read even on an H100)
+          float part[MT][NJ][4];
+#pragma unroll
+          for (int i = 0; i < MT; ++i)
+#pragma unroll
+            for (int j = 0; j < NJ; ++j)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) part[i][j][e] = 0.0f;
+          for (int q = pipe_x_planes(MODE, x_f32) - 1; q >= 0; --q) {
+            const __nv_bfloat16* xq = xr + q * BMR * (PK_XB / 2);
+#pragma unroll
+            for (int kp = 0; kp < KSTEPS; ++kp) {
+              uint32_t a[MT][4];
+#pragma unroll
+              for (int i = 0; i < MT; ++i)
+                ldmatrix_x4(a[i], xq + 16 * i * xpe + 16 * kp);
+#pragma unroll
+              for (int i = 0; i < MT; ++i)
+#pragma unroll
+                for (int j = 0; j < NJ; ++j)
+                  mma_16816_sched(part[i][j], a[i], b[kp][j]);
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < MT; ++i)
+#pragma unroll
+            for (int j = 0; j < NJ; ++j)
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                acc[i][j][e] =
+                    fmaf(part[i][j][e], sa[(e & 1) * NJ + j], acc[i][j][e]);
+          continue;
+        }
 #pragma unroll
         for (int i = 0; i < MT; ++i) {
           float part[NJ][4];
@@ -1300,7 +1428,7 @@ __device__ __forceinline__ void qmm_pipe_body(
 
 template <bool P4, int MT, int CG, int NJ>
 __global__ void __launch_bounds__(CG * 32) qmm_pipe_kernel(QMM_PIPE_PARAMS) {
-  qmm_pipe_body<P4, MT, CG, NJ, false>(QMM_PIPE_ARGS);
+  qmm_pipe_body<P4, MT, CG, NJ, PM_STD>(QMM_PIPE_ARGS);
 }
 
 // The groupdot instantiation: its least blocks an SM, so that ptxas fits
@@ -1315,13 +1443,28 @@ __host__ __device__ constexpr int pipe_gd_min_blocks(int mt) {
 template <bool P4, int MT, int CG, int NJ>
 __global__ void __launch_bounds__(CG * 32, pipe_gd_min_blocks(MT))
     qmm_pipe_gd_kernel(QMM_PIPE_PARAMS) {
-  qmm_pipe_body<P4, MT, CG, NJ, true>(QMM_PIPE_ARGS);
+  qmm_pipe_body<P4, MT, CG, NJ, PM_GD>(QMM_PIPE_ARGS);
 }
 
-// the __global__ function of the (standard or groupdot) instantiation
-template <bool P4, int MT, int CG, int NJ, bool GD>
+// The wide instantiation's least blocks an SM: as many as its shared
+// memory leaves on f32 x (three x planes beside the ring: 16 rows 4
+// blocks, 48 rows 3 on its two-stage ring, 64 rows 2, 128 rows 1), so
+// that ptxas may give the partials the registers those blocks leave
+__host__ __device__ constexpr int pipe_wide_min_blocks(int mt) {
+  return mt == 1 ? 4 : mt == 8 ? 1 : mt == 3 ? QMM_WIDE_MIN_BLOCKS48 : 2;
+}
+
+template <int MT, int CG, int NJ>
+__global__ void __launch_bounds__(CG * 32, pipe_wide_min_blocks(MT))
+    qmm_pipe_wide_kernel(QMM_PIPE_PARAMS) {
+  qmm_pipe_body<false, MT, CG, NJ, PM_WIDE>(QMM_PIPE_ARGS);
+}
+
+// the __global__ function of the (standard, groupdot or wide) instantiation
+template <bool P4, int MT, int CG, int NJ, int MODE>
 constexpr auto pipe_kernel() {
-  if constexpr (GD) return qmm_pipe_gd_kernel<P4, MT, CG, NJ>;
+  if constexpr (MODE == PM_WIDE) return qmm_pipe_wide_kernel<MT, CG, NJ>;
+  else if constexpr (MODE == PM_GD) return qmm_pipe_gd_kernel<P4, MT, CG, NJ>;
   else return qmm_pipe_kernel<P4, MT, CG, NJ>;
 }
 
@@ -1411,25 +1554,29 @@ int launch_typed(const void* x, const void* w, const void* s,
   return (int)cudaGetLastError();
 }
 
-// A pipelined block's dynamic shared memory: the ring, and a bf16 x tile
-// when x is f32 or the norm prologue runs (conv)
-template <bool P4, int MT, int CG, int NJ>
+// A pipelined block's dynamic shared memory: the ring, and the bf16 x
+// planes (pipe_x_planes) when x is f32 or the norm prologue runs (conv)
+template <bool P4, int MT, int CG, int NJ, int MODE>
 int pipe_smem(int x_f32, int s_f32, int conv) {
-  return PK_NS * pipe_stage_bytes(P4, s_f32 ? 4 : 2, MT, 8 * NJ * CG,
-                                  x_f32 ? 4 : 2) +
-         (conv ? 16 * MT * PK_XB : 0);
+  return pipe_stages(MODE, MT) * pipe_stage_bytes(P4, s_f32 ? 4 : 2, MT,
+                                                  8 * NJ * CG,
+                                                  x_f32 ? 4 : 2) +
+         (conv ? pipe_x_planes(MODE, x_f32) * 16 * MT * PK_XB : 0);
 }
 
 // Lets the instantiation launch with smem bytes of dynamic shared memory.
-template <bool P4, int MT, int CG, int NJ, bool GD>
+template <bool P4, int MT, int CG, int NJ, int MODE>
 int pipe_allow_smem(int smem) {
   // the kernel's static arrays (rinv, wsum) share the block's budget
   const int stat = (int)sizeof(float) * 16 * MT * (1 + CG);
   if (smem + stat > PK_SMEM_BLOCK) return (int)cudaErrorInvalidValue;
-  static int allowed = 48 * 1024;      // this instantiation's smem limit
+  // this instantiation's dynamic smem limit, raised on its first launch:
+  // without it the limit is 48 KB less the static arrays (a wide 16-row
+  // block on f32 x asks for exactly 48 KB)
+  static int allowed = 0;
   if (smem > allowed) {
     const cudaError_t e = cudaFuncSetAttribute(
-        pipe_kernel<P4, MT, CG, NJ, GD>(),
+        pipe_kernel<P4, MT, CG, NJ, MODE>(),
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) {
       cudaGetLastError();              // not left for the next launch
@@ -1442,28 +1589,28 @@ int pipe_allow_smem(int smem) {
 
 // The blocks of the instantiation that one SM holds at once, by the
 // runtime's occupancy count (registers, shared memory, threads).
-template <bool P4, int MT, int CG, int NJ, bool GD>
+template <bool P4, int MT, int CG, int NJ, int MODE>
 int pipe_resident_t(int x_f32, int s_f32, int conv, int* blocks) {
-  const int smem = pipe_smem<P4, MT, CG, NJ>(x_f32, s_f32, conv);
-  const int e = pipe_allow_smem<P4, MT, CG, NJ, GD>(smem);
+  const int smem = pipe_smem<P4, MT, CG, NJ, MODE>(x_f32, s_f32, conv);
+  const int e = pipe_allow_smem<P4, MT, CG, NJ, MODE>(smem);
   if (e != 0) return e;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, pipe_kernel<P4, MT, CG, NJ, GD>(), CG * 32, smem);
+      blocks, pipe_kernel<P4, MT, CG, NJ, MODE>(), CG * 32, smem);
 }
 
-template <bool P4, int MT, int CG, int NJ, bool GD>
+template <bool P4, int MT, int CG, int NJ, int MODE>
 int launch_pipe_t(const void* x, const int8_t* w, const void* s,
                   const float* gain, const void* res, float eps, void* out,
                   float* partial, int T, int I, int O, int gs, int splits,
                   int k_per_split, int x_f32, int s_f32, cudaStream_t st) {
   constexpr int BN = 8 * NJ * CG;
-  const int smem = pipe_smem<P4, MT, CG, NJ>(x_f32, s_f32,
-                                             x_f32 || gain != nullptr);
-  const int e = pipe_allow_smem<P4, MT, CG, NJ, GD>(smem);
+  const int smem = pipe_smem<P4, MT, CG, NJ, MODE>(x_f32, s_f32,
+                                                   x_f32 || gain != nullptr);
+  const int e = pipe_allow_smem<P4, MT, CG, NJ, MODE>(smem);
   if (e != 0) return e;
   const dim3 grid((O + BN - 1) / BN, splits);
   // the residual is added once: by the reduce pass when K is split
-  const auto kernel = pipe_kernel<P4, MT, CG, NJ, GD>();
+  const auto kernel = pipe_kernel<P4, MT, CG, NJ, MODE>();
   kernel<<<grid, CG * 32, smem, st>>>(
       x, w, static_cast<const unsigned char*>(s), gain,
       splits > 1 ? nullptr : res, out, splits > 1 ? partial : nullptr, T, I,
@@ -1483,29 +1630,34 @@ int launch_pipe_t(const void* x, const int8_t* w, const void* s,
   return (int)cudaGetLastError();
 }
 
-// Calls F's template on the instantiation of (packed, rows, warps, gd):
+// Calls F's template on the instantiation of (packed, rows, warps, mode):
 // row tiles of 16, 48, 64 or 128 rows, 4 warps of 4 n-tiles, or 8 of 2 at
-// 128 rows, 128 output columns a block; gd the groupdot mode, which has
-// no 4-warp instantiation at 128 rows (pipe_shape gives it 8)
+// 128 rows, 128 output columns a block; the groupdot and wide modes have
+// no 4-warp instantiation at 128 rows (pipe_shape gives them 8), the wide
+// mode none on a packed weight
 #define QMM_PIPE_DISPATCH(F, ...)                                             \
   do {                                                                        \
     if (rows == 16 && warps == 4) QMM_PIPE_CALL(F, 1, 4, 4, __VA_ARGS__);     \
     if (rows == 48 && warps == 4) QMM_PIPE_CALL(F, 3, 4, 4, __VA_ARGS__);     \
     if (rows == 64 && warps == 4) QMM_PIPE_CALL(F, 4, 4, 4, __VA_ARGS__);     \
-    if (rows == 128 && warps == 4 && !gd)                                     \
+    if (rows == 128 && warps == 4 && mode == PM_STD)                          \
       QMM_PIPE_CALL_STD(F, 8, 4, 4, __VA_ARGS__);                             \
     if (rows == 128 && warps == 8) QMM_PIPE_CALL(F, 8, 8, 2, __VA_ARGS__);    \
     return (int)cudaErrorInvalidValue;                                        \
   } while (0)
 #define QMM_PIPE_CALL(F, MT, CG, NJ, ...)                                     \
   do {                                                                        \
-    if (gd) return packed ? F<true, MT, CG, NJ, true>(__VA_ARGS__)            \
-                          : F<false, MT, CG, NJ, true>(__VA_ARGS__);          \
+    if (mode == PM_WIDE)                                                      \
+      return packed ? (int)cudaErrorInvalidValue                              \
+                    : F<false, MT, CG, NJ, PM_WIDE>(__VA_ARGS__);             \
+    if (mode == PM_GD)                                                        \
+      return packed ? F<true, MT, CG, NJ, PM_GD>(__VA_ARGS__)                 \
+                    : F<false, MT, CG, NJ, PM_GD>(__VA_ARGS__);               \
     QMM_PIPE_CALL_STD(F, MT, CG, NJ, __VA_ARGS__);                            \
   } while (0)
 #define QMM_PIPE_CALL_STD(F, MT, CG, NJ, ...)                                 \
-  return packed ? F<true, MT, CG, NJ, false>(__VA_ARGS__)                     \
-                : F<false, MT, CG, NJ, false>(__VA_ARGS__)
+  return packed ? F<true, MT, CG, NJ, PM_STD>(__VA_ARGS__)                    \
+                : F<false, MT, CG, NJ, PM_STD>(__VA_ARGS__)
 
 bool misaligned(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 != 0;
@@ -1546,14 +1698,15 @@ extern "C" int qmm_launch(const void* x, const void* w, const void* s,
 // splits > 1.  x f32/bf16, scales f32/bf16, w int8 (packed: the (I/2, O)
 // split-half bytes); rows 16-byte aligned (O % 16, I % 8, K1p I % 16; x,
 // w, s and res at 16-byte aligned addresses) and gs % 64 == 0.  gain / res
-// as qmm_launch's.  gd: the groupdot instantiation (no gain, no res; rows
-// x warps 128 x 4 refused).
+// as qmm_launch's.  mode: 0 standard; 1 the groupdot instantiation (no
+// gain, no res; rows x warps 128 x 4 refused); 2 the wide one (f32
+// compute; not packed; rows x warps 128 x 4 refused).
 extern "C" int qmm_pipe_launch(const void* x, const void* w, const void* s,
                                const void* gain, const void* res, float eps,
                                void* out, void* partial, int T, int I, int O,
                                int gs, int splits, int k_per_split, int x_dt,
                                int s_dt, int packed, int rows, int warps,
-                               int gd, void* stream) {
+                               int mode, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int8_t* wp = static_cast<const int8_t*>(w);
   const float* g = static_cast<const float*>(gain);
@@ -1563,7 +1716,9 @@ extern "C" int qmm_pipe_launch(const void* x, const void* w, const void* s,
       misaligned(w) || misaligned(s) || misaligned(res) ||
       (x_dt != DT_F32 && x_dt != DT_BF16) ||
       (s_dt != DT_F32 && s_dt != DT_BF16) ||
-      (gd && (gain != nullptr || res != nullptr)))
+      (mode != PM_STD && mode != PM_GD && mode != PM_WIDE) ||
+      (mode == PM_GD && (gain != nullptr || res != nullptr)) ||
+      (mode == PM_WIDE && packed))
     return (int)cudaErrorInvalidValue;
   const int xf = x_dt == DT_F32, sf = s_dt == DT_F32;
   QMM_PIPE_DISPATCH(launch_pipe_t, x, wp, s, g, res, eps, out, part, T, I, O,
@@ -1571,9 +1726,10 @@ extern "C" int qmm_pipe_launch(const void* x, const void* w, const void* s,
 }
 
 // *blocks: how many blocks of the pipelined instantiation (packed, rows,
-// warps, gd) for x_dt, s_dt and conv (f32 x or the norm prologue) one SM of
-// the current device holds at once; the host's split rule reads it.
-extern "C" int qmm_pipe_resident(int packed, int rows, int warps, int gd,
+// warps, mode as qmm_pipe_launch's) for x_dt, s_dt and conv (f32 x or the
+// norm prologue) one SM of the current device holds at once; the host's
+// split rule reads it.
+extern "C" int qmm_pipe_resident(int packed, int rows, int warps, int mode,
                                  int x_dt, int s_dt, int conv, int* blocks) {
   if ((x_dt != DT_F32 && x_dt != DT_BF16) || (s_dt != DT_F32 && s_dt != DT_BF16))
     return (int)cudaErrorInvalidValue;

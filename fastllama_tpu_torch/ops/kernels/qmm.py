@@ -42,17 +42,31 @@ of K1 and K1p that is not wide, 16-byte aligned, has a group size that is
 a multiple of 64 and T <= 128 rows: the batched decode step, the single
 stream with its K1f glue and the speculative verify.  Its groupdot
 instantiation (``qmm_pipe_gd_kernel``) takes the groupdot calls of that
-kind (:func:`groupdot_kernel`).  The wide path, the unaligned element
-path, other group sizes and T > 128 (prefill waves) stay on
-``qmm_bf16_kernel``'s loop, groupdot or not.  :func:`qmm_mode` says which
-a call takes and :func:`pipe_plan` gives the pipelined launch's row tile,
-warps and split-K count.  It computes what the loop computes; only the
-f32 sum order differs.
+kind (:func:`groupdot_kernel`).  The unaligned element path, other group
+sizes and T > 128 (prefill waves) stay on ``qmm_bf16_kernel``'s loop,
+groupdot or not.  :func:`qmm_mode` says which a call takes and
+:func:`pipe_plan` gives the pipelined launch's row tile, warps and split-K
+count.  It computes what the loop computes; only the f32 sum order
+differs.
+
+The wide mode (f32 compute, or INT16; :func:`is_wide`) replaces the JAX
+wide kernel (f32 dequant and a ``Precision.HIGHEST`` dot, qmm.py:62-74).
+Its calls with an int8-held weight (INT8, or INT4 that did not pack), T <=
+128, a group size that is a multiple of 64 and 16-byte aligned rows take
+the ring's wide instantiation (``qmm_pipe_wide_kernel``,
+:func:`wide_kernel` ``"pipe"``): the groupdot body on bf16 tensor cores,
+the exact integers times x split into three bf16 planes (hi, mid, lo:
+f32's 24-bit significand; one plane for a bf16 x), each group's partial
+times its f32 scale (``tests/test_torch_wide_pipe.py`` emulates it
+against the Pallas wide kernel).  The rest (INT16, T > 128, other group
+sizes, unaligned rows) stays on ``qmm_f32_kernel`` (``"f32"``).  A
+groupdot call that is wide takes the same kernel as the standard one.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel or raises.  Each wrapper counts its launches in ``.launches``, and
 those on a packed weight (K1p) in ``.launches_p4``, those in the
-pipelined mode (K1 and K1p) also in ``.launches_pipe``; ``qmatmul_pallas``
+pipelined mode (K1 and K1p) also in ``.launches_pipe``, those in the wide
+mode's ring also in ``.launches_wide_pipe``; ``qmatmul_pallas``
 counts its groupdot launches in ``.launches_groupdot`` (K1) and
 ``.launches_groupdot_p4`` (K1p), those on the pipelined ring also in
 ``.launches_groupdot_pipe``.
@@ -198,12 +212,13 @@ def qmm_mode(x: torch.Tensor, w: QArray, compute_dtype=torch.bfloat16,
              groupdot: bool = False, residual=None) -> str:
     """The kernel a call takes, from dtypes, shapes, alignment and flags:
     ``"groupdot"`` (the scale-after-dot mode, on the ring or the loop by
-    :func:`groupdot_kernel`), ``"wide"`` (f32 dequant
-    and FMA: INT16 or f32 compute, unpacked), ``"scalar"`` (rows not
-    16-byte aligned: the loop's element path), ``"pipe"`` (the pipelined
-    mode: T <= 128, a group size that is a multiple of 64, so that a
-    stage holds one group, and a ``residual``, if any, at a 16-byte
-    aligned address, since its epilogue reads the residual by vectors) or
+    :func:`groupdot_kernel`), ``"wide"`` (INT16 or f32 compute, unpacked:
+    the wide ring or ``qmm_f32_kernel`` by :func:`wide_kernel`),
+    ``"scalar"`` (rows not 16-byte aligned: the loop's element path),
+    ``"pipe"`` (the pipelined mode: T <= 128, a group size that is a
+    multiple of 64, so that a stage holds one group, and a ``residual``,
+    if any, at a 16-byte aligned address, since its epilogue reads the
+    residual by vectors) or
     ``"loop"`` (``qmm_bf16_kernel``'s vector loop: prefill waves, other
     group sizes, an offset residual)."""
     if groupdot and (w.packed or not is_wide(w, compute_dtype)):
@@ -236,12 +251,38 @@ def groupdot_kernel(x: torch.Tensor, w: QArray,
     return "loop"
 
 
+def wide_kernel(x: torch.Tensor, w: QArray, compute_dtype=torch.float32,
+                residual=None) -> str:
+    """The kernel of a wide call (:func:`qmm_mode` ``"wide"``): ``"pipe"``,
+    the wide instantiation of ``qmm_pipe_kernel``'s ring, for an int8-held
+    weight (INT8, or INT4 that did not pack; INT16 overflows bf16), T <=
+    128, a group size that is a multiple of 64, 16-byte aligned rows and a
+    ``residual``, if any, at a 16-byte aligned address; else ``"f32"``,
+    ``qmm_f32_kernel`` (INT16, prefill waves, gs of 16 or 32, O = 1000...).
+    A packed weight has no wide path, and a call that is not wide takes
+    another mode: ValueError."""
+    if w.packed or not is_wide(w, compute_dtype):
+        raise ValueError("not a wide call: a packed weight or a non-wide "
+                         "compute dtype takes another mode")
+    if (w.data.dtype == torch.int8 and x.shape[0] <= PIPE_MAX_T
+            and w.group_size % 64 == 0 and _vec_ok(x, w)
+            and (residual is None or residual.data_ptr() % 16 == 0)):
+        return "pipe"
+    return "f32"
+
+
 def _kernel(x: torch.Tensor, w: QArray, compute_dtype, groupdot: bool,
             residual) -> str:
     """:func:`qmm_mode`'s choice, a groupdot call resolved to its kernel by
-    :func:`groupdot_kernel`."""
+    :func:`groupdot_kernel` and a wide call by :func:`wide_kernel`
+    (``"wide_pipe"`` the ring, ``"wide"`` ``qmm_f32_kernel``)."""
     mode = qmm_mode(x, w, compute_dtype, groupdot, residual)
-    return groupdot_kernel(x, w, compute_dtype) if mode == "groupdot" else mode
+    if mode == "groupdot":
+        return groupdot_kernel(x, w, compute_dtype)
+    if mode == "wide" and wide_kernel(x, w, compute_dtype,
+                                      residual) == "pipe":
+        return "wide_pipe"
+    return mode
 
 
 @dataclass(frozen=True)
@@ -264,9 +305,10 @@ def pipe_shape(T: int, I: int, O: int, groupdot: bool = False) -> tuple:
     columns go to 4 warps, or at 128 rows on a weight of I <= 4096 and
     O <= 12288 to 8 (half the accumulators a thread, twice the warps an
     SM: the faster on those 7B shapes in the H100 sweep, the slower on the
-    others).  The groupdot mode keeps a partial beside the accumulators,
-    which 4 warps of 128 rows have no registers for: it takes 8 warps at
-    every 128-row launch."""
+    others).  The groupdot mode (``groupdot``; the wide ring, which runs
+    its body, too) keeps a partial beside the accumulators, which 4 warps
+    of 128 rows have no registers for: it takes 8 warps at every 128-row
+    launch."""
     if not 1 <= T <= PIPE_MAX_T:
         raise ValueError(f"the pipelined mode takes 1 <= T <= {PIPE_MAX_T},"
                          f" not {T}")
@@ -279,8 +321,8 @@ def pipe_plan(T: int, I: int, O: int, packed: bool, *, resident: int,
               splits=None, n_sm: int = 132,
               groupdot: bool = False) -> PipePlan:
     """The pipelined launch of a (T, I) x (I, O) product: the row tile and
-    warps of :func:`pipe_shape` (``groupdot``: of the groupdot mode), and
-    the split-K count.
+    warps of :func:`pipe_shape` (``groupdot``: of the groupdot mode or the
+    wide ring), and the split-K count.
     ``splits=None``: at 16 rows as many splits as leave each at least 4
     stages (the partials are one row), up to 16; above, as many blocks as
     the SMs hold at once (``resident`` blocks an SM, the card's occupancy
@@ -351,23 +393,27 @@ def _check_args(x: torch.Tensor, w: QArray) -> None:
                          f"s {w.scales.dtype}")
 
 
-_RESIDENT = {}              # (device, launch kind) -> blocks an SM
+_RESIDENT = {}              # (library, device, launch kind) -> blocks an SM
+# the ring's instantiations (qmm_pipe_launch's mode codes)
+PIPE_STD, PIPE_GD, PIPE_WIDE = 0, 1, 2
 
 
 def _pipe_resident(x: torch.Tensor, w: QArray, rows: int, warps: int,
-                   conv: bool, gd: bool = False) -> int:
-    """Blocks of the pipelined instantiation (``gd``: its groupdot one) an
-    SM of x's card holds at once, asked of the CUDA runtime once a device
-    and kind of launch."""
-    key = (x.device.index, w.packed, rows, warps, gd, x.dtype,
+                   conv: bool, pmode: int = PIPE_STD, lib=None) -> int:
+    """Blocks of the pipelined instantiation (``pmode``: standard, groupdot
+    or wide) an SM of x's card holds at once, asked of the CUDA runtime
+    once a library, device and kind of launch (``lib``: another build of
+    ``qmm.cu``, for the design tools; None the package's)."""
+    lib = lib or _build.load("qmm")
+    key = (lib._name, x.device.index, w.packed, rows, warps, pmode, x.dtype,
            w.scales.dtype, conv)
     if key not in _RESIDENT:
-        fn = _build.load("qmm").qmm_pipe_resident
+        fn = lib.qmm_pipe_resident
         fn.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_int
         blocks = ctypes.c_int(0)
         with torch.cuda.device(x.device):
-            rc = fn(int(w.packed), rows, warps, int(gd), _DT[x.dtype],
+            rc = fn(int(w.packed), rows, warps, pmode, _DT[x.dtype],
                     _DT[w.scales.dtype], int(conv), ctypes.byref(blocks))
         _build.check(rc, "qmm_pipe_resident")
         _RESIDENT[key] = blocks.value
@@ -375,22 +421,25 @@ def _pipe_resident(x: torch.Tensor, w: QArray, rows: int, warps: int,
 
 
 def _launch_pipe(x: torch.Tensor, w: QArray, gain, residual, eps: float,
-                 splits, gd: bool = False) -> torch.Tensor:
-    """The pipelined mode (``gd``: its groupdot instantiation, plain form
-    only: no gain, no residual)."""
+                 splits, pmode: int = PIPE_STD, lib=None) -> torch.Tensor:
+    """The pipelined mode (``pmode``: ``PIPE_GD`` its groupdot
+    instantiation, plain form only: no gain, no residual; ``PIPE_WIDE`` its
+    wide one, glue and all, not packed), from ``lib`` (another build of
+    ``qmm.cu``; None the package's)."""
+    lib = lib or _build.load("qmm")
     T, I = x.shape
     O = w.data.shape[1]
     n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
-    rows, warps = pipe_shape(T, I, O, gd)
+    rows, warps = pipe_shape(T, I, O, pmode != PIPE_STD)
     resident = _pipe_resident(x, w, rows, warps,
                               x.dtype == torch.float32 or gain is not None,
-                              gd)
+                              pmode, lib)
     plan = pipe_plan(T, I, O, w.packed, resident=resident, splits=splits,
-                     n_sm=n_sm, groupdot=gd)
+                     n_sm=n_sm, groupdot=pmode != PIPE_STD)
     out = torch.empty((T, O), dtype=x.dtype, device=x.device)
     partial = (torch.empty((plan.splits, T, O), dtype=torch.float32,
                            device=x.device) if plan.splits > 1 else None)
-    fn = _build.load("qmm").qmm_pipe_launch
+    fn = lib.qmm_pipe_launch
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_float] \
         + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -398,7 +447,7 @@ def _launch_pipe(x: torch.Tensor, w: QArray, gain, residual, eps: float,
             _build.ptr(gain), _build.ptr(residual), eps, _build.ptr(out),
             _build.ptr(partial), T, I, O, w.group_size, plan.splits,
             plan.k_per_split, _DT[x.dtype], _DT[w.scales.dtype],
-            int(w.packed), plan.rows, plan.warps, int(gd),
+            int(w.packed), plan.rows, plan.warps, pmode,
             _build.stream_of(x))
     _build.check(rc, "qmm_pipe_launch")
     return out
@@ -407,13 +456,17 @@ def _launch_pipe(x: torch.Tensor, w: QArray, gain, residual, eps: float,
 def _launch(x: torch.Tensor, w: QArray, compute_dtype, gain=None,
             residual=None, eps: float = 1e-5, gd: bool = False,
             splits=None, mode=None) -> torch.Tensor:
-    """Launch the kernel of ``mode`` (None: :func:`qmm_mode`'s choice, a
-    groupdot call's by :func:`groupdot_kernel`; ``"loop"`` forces
-    ``qmm_bf16_kernel``'s loop on a call the pipelined mode would take,
-    standard or groupdot, for timing the two side by side)."""
+    """Launch the kernel of ``mode`` (None: :func:`_kernel`'s choice;
+    ``"loop"`` forces ``qmm_bf16_kernel``'s loop on a call the pipelined
+    mode would take, standard or groupdot, and ``"wide"`` (or ``"loop"``)
+    ``qmm_f32_kernel`` on a call the wide ring would take, for timing the
+    two side by side)."""
     mode = mode or _kernel(x, w, compute_dtype, gd, residual)
     if mode == "pipe":
-        return _launch_pipe(x, w, gain, residual, eps, splits, gd)
+        return _launch_pipe(x, w, gain, residual, eps, splits,
+                            PIPE_GD if gd else PIPE_STD)
+    if mode == "wide_pipe":
+        return _launch_pipe(x, w, gain, residual, eps, splits, PIPE_WIDE)
     T, I = x.shape
     O = w.data.shape[1]
     wide = is_wide(w, compute_dtype)
@@ -447,7 +500,8 @@ def _run(wrapper, x: torch.Tensor, w: QArray, compute_dtype, gain=None,
     ``wrapper.launches`` (K1, K1f) or ``wrapper.launches_p4`` (K1p), or
     for the groupdot mode ``.launches_groupdot`` / ``_groupdot_p4``; a
     launch of the pipelined mode also on ``.launches_pipe``, or in the
-    groupdot mode on ``.launches_groupdot_pipe``."""
+    groupdot mode on ``.launches_groupdot_pipe``, one of the wide ring on
+    ``.launches_wide_pipe``."""
     # the wide path has no groupdot body (qmm.py:111); K1p's has one
     gd = groupdot and (w.packed or not is_wide(w, compute_dtype))
     if x.device.type == "cpu":
@@ -468,6 +522,8 @@ def _run(wrapper, x: torch.Tensor, w: QArray, compute_dtype, gain=None,
             wrapper.launches_groupdot_pipe += 1
         else:
             wrapper.launches_pipe += 1
+    elif mode == "wide_pipe":
+        wrapper.launches_wide_pipe += 1
     return out
 
 
@@ -550,6 +606,9 @@ qmatmul_pallas_indexed_fused.launches = 0
 qmatmul_pallas_indexed_fused.launches_p4 = 0
 qmatmul_pallas.launches_pipe = qmatmul_pallas_indexed.launches_pipe = 0
 qmatmul_pallas_indexed_fused.launches_pipe = 0
+qmatmul_pallas.launches_wide_pipe = 0
+qmatmul_pallas_indexed.launches_wide_pipe = 0
+qmatmul_pallas_indexed_fused.launches_wide_pipe = 0
 
 
 def _unfused_glue(x, w, layer, compute_dtype, norm_gain, eps, residual):
