@@ -18,7 +18,10 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    tree's flash_decode.cu is built beside them and its kernels, the split
    kernels of K2 and K2s among them, must keep its registers, and another
    tree's qmm.cu, whose ``qmm_pipe_kernel`` and ``qmm_pipe_gd_kernel``
-   instantiations must keep its registers);
+   instantiations must keep its registers; ``qmm_prefill.cu``'s
+   ``qmm_wgmma_kernel`` must not spill, ptxas must not have serialized its
+   wgmma, and its library's SASS must hold ``HGMMA`` where the toolkit
+   has ``cuobjdump``);
 2. each kernel against its plain PyTorch version on the card, at the
    shapes of the LLaMA2-7B serving paths: the batched path's kernels (K2
    with fresh rows, every call in its split-row mode, then that mode with
@@ -56,7 +59,12 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    (``qmm_pipe_wide_kernel``, f32 compute) at the 7B shapes, T in {1, 5,
    48, 128}, f32 and bf16 scales and x, bare and with the norm gain and
    residual, the auto split and one split, each wrapper call one launch on
-   its ``launches_wide_pipe`` (2m);
+   its ``launches_wide_pipe`` (2m), and the prefill mode of K1 and K1p
+   (``qmm_wgmma_kernel``, T > 128) at the four 7B projections, T in {129,
+   200, 256, 1024, 2048}, INT8 with f32 and bf16 scales and packed INT4
+   (hidden 11264) with f32 scales on bf16 and f32 x, bare and with the
+   norm gain, the residual and both, each wrapper call one launch on its
+   ``launches_prefill`` and none on ``launches_pipe`` (2n);
 3. the engines' kernel paths against their plain paths at 7B width, 2
    layers, f32 compute: the ``BatchedEngine`` (int8 KV, B=4), the
    single-stream ``Engine`` (f32 scales and KV: logits, 40 greedy tokens
@@ -83,10 +91,12 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    synthetic weights made on the card; 48 requests of a 43-token prompt
    and 128 new tokens, greedy, decode chunk 64.  Launch counters are
    zeroed just before and read just after; every kernel of the path must
-   have run, and every K1/K1p launch with T <= 128 must have taken the
-   pipelined mode (a tally of ``qmm.qmm_mode`` by mode and T, held to
-   the wrappers' ``launches_pipe``; so in 4b-4e too), and every K2 launch
-   its split-row mode (so in 4d and 4f).  Then one 16-step decode chunk is
+   have run, every K1/K1p launch with T <= 128 must have taken the
+   pipelined mode and every one above 128 rows (the prefill waves: 256)
+   the prefill mode (a tally of ``qmm.qmm_mode`` by mode and T, held to
+   the wrappers' ``launches_pipe`` and ``launches_prefill``; so in 4b-4g
+   and 4i too), and every K2 launch its split-row mode (so in 4d and
+   4f).  Then one 16-step decode chunk is
    traced with ``torch.profiler`` (device time by kernel, the K1 family's
    and K2's a step, the device's idle share);
 4b. the single-stream serving path at full width (bench.py's
@@ -98,7 +108,9 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    ``flash_attention=False`` engine and a ``forward`` with the one-layer
    attention hook, each with the counters zeroed, so that every wrapper
    of K2's non-fresh mode runs on a path; every non-fresh launch of the
-   three must be in the split-row mode;
+   three must be in the split-row mode; then a ``ChatSession`` fed a
+   200-token block (a 256-row prefill at pos 1, K1f's glue above 128
+   rows), every K1f launch of the block in the prefill mode;
 4c. speculative serving at full width (bench.py's ``bench_spec_serving``
    shape): ``SpecBatchedEngine`` over 7B / INT8 unfused / scale_dtype
    "auto" (f32) / int8 KV / B=32 / S=512, width 4, 32 rounds a chunk, decode
@@ -146,7 +158,12 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    bound (bytes over the card's 3.35 TB/s, or operations over peak), its
    plain version and a library call (K1 and K1p: the pipelined mode, the
    loop on the same calls, ``torch.matmul`` and the plain version timed
-   in turns, and a verify round's unfused INT8 layer at T = 128; the
+   in turns, and a verify round's unfused INT8 layer at T = 128; their
+   prefill mode: a 7B INT8 layer at T in {256, 512, 1024, 2048}, the INT4
+   layer at T in {512, 2048}, each projection at T = 2048, K1f's glue
+   layer at T = 256 and the unindexed wrapper on wqkv at T = 2048, the
+   kernel, the loop and ``torch.matmul`` in turns, the plain version at
+   T = 512 in turns and alone at 2048 and 256; the
    groupdot mode: the ring, the loop, the standard mode, ``torch.matmul``
    and the plain version in turns; K1's wide mode (f32 compute): the
    ring, ``qmm_f32_kernel`` on the same calls, ``torch.matmul`` on f32
@@ -327,6 +344,34 @@ def check_no_spill(build_log: str, kernel: str):
     log(f"  ok {len(regs)} {kernel} instantiations, no spill; registers "
         f"{sorted(regs.values())}")
     return regs
+
+
+def check_prefill_build(build_log: str):
+    """Phase 1 for ``qmm_prefill.cu``: no ``qmm_wgmma_kernel``
+    instantiation spills, ptxas left its wgmma asynchronous (no C75xx
+    performance note in the source's log), and the library's SASS holds
+    ``HGMMA`` (where the toolkit has ``cuobjdump``).  Returns the
+    registers and the HGMMA count."""
+    import shutil
+    from fastllama_tpu_torch.ops.kernels import _build
+    regs = check_no_spill(build_log, "qmm_wgmma_kernel")
+    ours = build_log.split("== qmm_prefill.cu (rc")[1].split("\n== ")[0]
+    notes = [t.strip() for t in ours.splitlines() if "(C75" in t]
+    check(not notes, f"qmm_prefill.cu: ptxas performance notes {notes}")
+    cuobjdump = (shutil.which("cuobjdump", path=os.path.dirname(
+        _build.nvcc())) or shutil.which("cuobjdump"))
+    hgmma = None
+    if cuobjdump is not None:
+        sass = subprocess.run(
+            [cuobjdump, "-sass", str(_build.build() / "libqmm_prefill.so")],
+            capture_output=True, text=True, check=True).stdout
+        hgmma = sum("HGMMA" in t for t in sass.splitlines())
+        check(hgmma > 0, "qmm_prefill.cu: no HGMMA in the library's SASS")
+        log(f"  ok qmm_prefill.cu: {hgmma} HGMMA instructions in its SASS, "
+            f"no ptxas performance note")
+    else:
+        log("  qmm_prefill.cu: no cuobjdump in the toolkit, SASS not read")
+    return {"registers": regs, "hgmma": hgmma}
 
 
 def entry_regs(text: str):
@@ -558,6 +603,7 @@ def phase_kernels(dev, rec):
     check_groupdot(dev, gen, errs)
     check_pipe(dev, gen, errs)
     check_wide(dev, gen, errs)
+    check_prefill(dev, gen, errs)
     rec["max_abs_err"] = errs
 
 
@@ -1518,6 +1564,89 @@ def check_wide(dev, gen, errs):
     torch.cuda.empty_cache()
 
 
+def check_prefill(dev, gen, errs):
+    """Phase 2n: the prefill mode of K1 and K1p (``qmm_wgmma_kernel``)
+    against the plain versions at the four 7B projections of a fused layer,
+    INT8 with f32 and with bf16 scales, packed INT4 (hidden 11264) with f32
+    scales and bf16 or f32 x, T in {129, 200, 256, 1024, 2048}: the plain
+    wrapper, then layer 1 of a stacked weight with the norm gain, the
+    residual and both; the indexed wrapper without glue at T = 2048.  Every
+    call must be one launch on its wrapper's ``launches_prefill`` and none
+    on ``launches_pipe``.  Limits as phase 2l: bf16 x 1e-2, f32 x 1e-4 of
+    max|plain|, 1e-3 (TOL_P4_NORM) for f32 x through the norm prologue."""
+    import torch
+    from fastllama_tpu_torch.config import QuantType
+    from fastllama_tpu_torch.ops.kernels import qmm
+    log("phase 2n: the prefill mode of K1 and K1p vs plain (7B projections, "
+        "T in {129, 200, 256, 1024, 2048}, with and without the glue)")
+    bf16, f32 = torch.bfloat16, torch.float32
+    glue = (("bare", False, False), ("norm", True, False),
+            ("residual", False, True), ("norm+residual", True, True))
+    kinds = (("int8 s=f32", PROJ_7B, None, (bf16,)),
+             ("int8 s=bf16", PROJ_7B, bf16, (bf16,)),
+             ("int4 s=f32", PROJ_7B_INT4, None, (bf16, f32)))
+    layer = ("wqkv", "wo", "w13", "w2")
+    for label, proj, sdt, xdts in kinds:
+        worst, n = 0.0, 0
+        for name in layer:
+            I, O = proj[name]
+            shape = (2, I, O)
+            w = (rand_packed(gen, shape, dev, sdt) if label.startswith("int4")
+                 else rand_qarray(gen, shape, QuantType.INT8, dev, sdt))
+            g = torch.rand((I,), generator=gen, device=dev) + 0.5
+            for T in (129, 200, 256, 1024, 2048):
+                for xdt in xdts:
+                    x = torch.randn((T, I), generator=gen, device=dev).to(xdt)
+                    r = torch.randn((T, O), generator=gen, device=dev).to(xdt)
+                    check(qmm._kernel(x, w[1], bf16, False, r) == "prefill",
+                          f"prefill {label} {name} T={T}: not a prefill "
+                          f"call")
+                    for gl, norm, res in glue:
+                        kw = dict(norm_gain=g if norm else None,
+                                  residual=r if res else None)
+                        fn = (qmm.qmatmul_pallas if gl == "bare"
+                              else qmm.qmatmul_pallas_indexed_fused)
+                        n0, p0 = fn.launches_prefill, fn.launches_pipe
+                        got = (qmm.qmatmul_pallas(x, w[1]) if gl == "bare"
+                               else qmm.qmatmul_pallas_indexed(x, w, 1, bf16,
+                                                               **kw))
+                        check(fn.launches_prefill == n0 + 1
+                              and fn.launches_pipe == p0,
+                              f"prefill {label} {name} T={T} {gl}: not one "
+                              f"prefill launch")
+                        want = qmm.qmm_fused_plain(x, w[1], bf16, **kw)
+                        tol = (TOL_BF16 if xdt == bf16 else
+                               TOL_P4_NORM if norm else TOL_F32)
+                        e = compare(f"prefill {label} {name} T={T} "
+                                    f"x={str(xdt)[6:]} {gl}", got, want, tol,
+                                    quiet=True)
+                        key = ("qmatmul_pallas_prefill" if gl == "bare" else
+                               "qmatmul_pallas_indexed_fused_prefill")
+                        errs[key] = max(errs[key], e)
+                        worst = max(worst, e / max(float(
+                            want.float().abs().max()), 1e-30))
+                        n += 1
+            del w
+            torch.cuda.empty_cache()
+        log(f"  ok prefill {label}: {n} comparisons, largest error "
+            f"{worst:.3e} of max|plain|")
+    # the indexed wrapper without glue takes the mode too
+    f = qmm.qmatmul_pallas_indexed
+    for name in ("wo", "w2"):
+        w = rand_qarray(gen, (2, *PROJ_7B[name]), QuantType.INT8, dev)
+        x = torch.randn((2048, PROJ_7B[name][0]), generator=gen,
+                        device=dev).to(bf16)
+        n0 = f.launches_prefill
+        e = compare(f"prefill qmatmul_pallas_indexed {name}[1] T=2048",
+                    f(x, w, 1), qmm.qmm_plain(x, w[1]), TOL_BF16, quiet=True)
+        check(f.launches_prefill == n0 + 1, "indexed: not a prefill launch")
+        errs["qmatmul_pallas_indexed_prefill"] = max(
+            errs["qmatmul_pallas_indexed_prefill"], e)
+        del w
+    log("  ok prefill qmatmul_pallas_indexed wo[1], w2[1] T=2048")
+    torch.cuda.empty_cache()
+
+
 # -- phase 3: engine, kernel path against plain path ------------------------
 
 def plain_logits(dev, cfg, params):
@@ -2230,11 +2359,13 @@ def phase_f32_parity(dev, rec):
 BATCHED_PATH = ("qmatmul_pallas", "qmatmul_pallas_indexed",
                 "flash_decode_batched", "flash_decode_batched_split",
                 "decode_write", "prefill_write",
-                "qmatmul_pallas_pipe", "qmatmul_pallas_indexed_pipe")
+                "qmatmul_pallas_pipe", "qmatmul_pallas_indexed_pipe",
+                "qmatmul_pallas_indexed_prefill")
 SPEC_PATH = ("qmatmul_pallas", "qmatmul_pallas_indexed",
              "flash_spec_batched", "flash_spec_batched_split", "spec_write",
              "prefill_write",
-             "qmatmul_pallas_pipe", "qmatmul_pallas_indexed_pipe")
+             "qmatmul_pallas_pipe", "qmatmul_pallas_indexed_pipe",
+             "qmatmul_pallas_indexed_prefill")
 SINGLE_PATH = ("qmatmul_pallas", "qmatmul_pallas_indexed",
                "qmatmul_pallas_indexed_fused", "flash_decode_single",
                "qmatmul_pallas_pipe", "qmatmul_pallas_indexed_fused_pipe")
@@ -2250,7 +2381,8 @@ WIDE_SINGLE_PATH = ("qmatmul_pallas", "qmatmul_pallas_indexed",
 INT4_BATCHED_PATH = ("qmatmul_pallas_p4", "qmatmul_pallas_indexed_p4",
                      "flash_decode_batched", "flash_decode_batched_split",
                      "decode_write", "prefill_write",
-                     "qmatmul_pallas_pipe", "qmatmul_pallas_indexed_pipe")
+                     "qmatmul_pallas_pipe", "qmatmul_pallas_indexed_pipe",
+                     "qmatmul_pallas_indexed_prefill")
 INT4_SINGLE_PATH = ("qmatmul_pallas_p4", "qmatmul_pallas_indexed_p4",
                     "qmatmul_pallas_indexed_fused_p4", "flash_decode_single",
                     "qmatmul_pallas_pipe", "qmatmul_pallas_indexed_fused_pipe")
@@ -2271,7 +2403,9 @@ KERNELS = ("qmatmul_pallas", "qmatmul_pallas_indexed",
            "qmatmul_pallas_groupdot_pipe", "flash_spec_batched_split",
            "flash_decode_batched_stats_split", "flash_block_attend_tf32",
            "qmatmul_pallas_wide_pipe", "qmatmul_pallas_indexed_wide_pipe",
-           "qmatmul_pallas_indexed_fused_wide_pipe")
+           "qmatmul_pallas_indexed_fused_wide_pipe", "qmatmul_pallas_prefill",
+           "qmatmul_pallas_indexed_prefill",
+           "qmatmul_pallas_indexed_fused_prefill")
 # the wrappers of K2's non-fresh mode: each counts its split-row launches
 SPLIT_WRAPPERS = ("flash_decode_single", "decode_attention_pallas_indexed",
                   "decode_attention_pallas", "flash_decode_batched",
@@ -2288,7 +2422,8 @@ def counters():
     K2's split-row modes on each K2 wrapper's ``launches_split``
     (``<wrapper>_split``; fresh calls too), K2s's on
     ``flash_spec_batched.launches_split``, the pipelined mode of K1 and
-    K1p on each K1 wrapper's ``launches_pipe`` (``<wrapper>_pipe``), K1's
+    K1p on each K1 wrapper's ``launches_pipe`` (``<wrapper>_pipe``), their
+    prefill mode on its ``launches_prefill`` (``<wrapper>_prefill``), K1's
     wide mode's ring on its ``launches_wide_pipe`` (``_wide_pipe``), K2b's
     TC and split-TF32 modes on ``flash_block_attend.launches_tc`` and
     ``.launches_tf32``."""
@@ -2314,6 +2449,8 @@ def counters():
     out = {k: (fn, "launches") for k, fn in {**k1, **rest}.items()}
     out.update({k + "_p4": (fn, "launches_p4") for k, fn in k1.items()})
     out.update({k + "_pipe": (fn, "launches_pipe") for k, fn in k1.items()})
+    out.update({k + "_prefill": (fn, "launches_prefill")
+                for k, fn in k1.items()})
     out.update({k + "_wide_pipe": (fn, "launches_wide_pipe")
                 for k, fn in k1.items()})
     out["flash_decode_batched_stats"] = (fd.flash_decode_batched,
@@ -2419,6 +2556,11 @@ def phase_serving(dev, rec):
                         decode_chunk=64, device=dev)
     del params
     rec["serving"], launches = serve_batched(eng, BATCHED_PATH, t0)
+    # 48 prompts padded to 64 rows: waves of 2048 and 1024 rows, 4
+    # projections a layer
+    check(launches["qmatmul_pallas_indexed_prefill"] == 256,
+          f"batched serving: {launches['qmatmul_pallas_indexed_prefill']} "
+          f"prefill launches, not 256")
     del eng
     torch.cuda.empty_cache()
     return launches
@@ -2563,7 +2705,8 @@ class ModeTally:
     a launch, on a CUDA tensor only); the wrapped function returns what
     the original returns, so the path is unchanged.  A wide call is
     tallied by its kernel (``qmm.wide_kernel``): ``"wide_pipe"`` the ring,
-    ``"wide_f32"`` ``qmm_f32_kernel``."""
+    ``"wide_f32"`` ``qmm_f32_kernel``; a loop call by its kernel
+    (``qmm.prefill_kernel``'s choice): ``"prefill"`` or ``"loop"``."""
 
     def __enter__(self):
         import collections
@@ -2573,8 +2716,10 @@ class ModeTally:
 
         def tally(x, w, compute_dtype=None, groupdot=False, residual=None):
             mode = self.orig(x, w, compute_dtype, groupdot, residual)
-            key = (mode if mode != "wide" else "wide_" + qmm.wide_kernel(
-                x, w, compute_dtype, residual))
+            key = ("wide_" + qmm.wide_kernel(x, w, compute_dtype, residual)
+                   if mode == "wide" else
+                   qmm._loop_kernel(x, w, residual) if mode == "loop"
+                   else mode)
             self.counts[(key, x.shape[0] <= qmm.PIPE_MAX_T)] += 1
             return mode
         qmm.qmm_mode = tally
@@ -2589,20 +2734,31 @@ class ModeTally:
 
 
 def check_all_pipe(launches, tally, label):
-    """Every K1/K1p launch with T <= 128 of a run in the pipelined mode:
-    no other mode at T <= 128 in the tally, and the tally's pipelined
-    launches equal to the three wrappers' ``launches_pipe``."""
+    """Every K1/K1p launch with T <= 128 of a run in the pipelined mode
+    and every one above 128 rows in the prefill mode: no other mode in
+    the tally, and the tally's pipelined and prefill launches equal to the
+    three wrappers' ``launches_pipe`` and ``launches_prefill``.  Returns
+    the prefill launches."""
     small = {m: n for (m, s), n in tally.counts.items() if s}
-    pipe = sum(launches[k + "_pipe"] for k in (
-        "qmatmul_pallas", "qmatmul_pallas_indexed",
-        "qmatmul_pallas_indexed_fused"))
+    large = {m: n for (m, s), n in tally.counts.items() if not s}
+    k1 = ("qmatmul_pallas", "qmatmul_pallas_indexed",
+          "qmatmul_pallas_indexed_fused")
+    pipe = sum(launches[k + "_pipe"] for k in k1)
+    prefill = sum(launches[k + "_prefill"] for k in k1)
     check(set(small) <= {"pipe"}, f"{label}: K1/K1p launches with T <= 128 "
                                   f"outside the pipelined mode: {small}")
     check(small.get("pipe", 0) == pipe > 0,
           f"{label}: {small.get('pipe', 0)} pipelined launches in the tally, "
           f"{pipe} on the wrappers' launches_pipe")
+    check(set(large) <= {"prefill"}, f"{label}: K1/K1p launches with T > "
+                                     f"128 outside the prefill mode: {large}")
+    check(large.get("prefill", 0) == prefill,
+          f"{label}: {large.get('prefill', 0)} prefill launches in the "
+          f"tally, {prefill} on the wrappers' launches_prefill")
     log(f"  ok {label}: all {pipe} K1/K1p launches with T <= 128 in the "
-        f"pipelined mode; by mode {tally.record()}")
+        f"pipelined mode, all {prefill} above in the prefill mode; by mode "
+        f"{tally.record()}")
+    return prefill
 
 
 def check_all_wide_pipe(launches, tally, label):
@@ -2657,7 +2813,7 @@ def phase_single_serving(dev, rec):
                                                   fuse_params,
                                                   random_params_int)
     from fastllama_tpu_torch.ops.kernels import attention as at
-    from fastllama_tpu_torch.runtime.engine import Engine
+    from fastllama_tpu_torch.runtime.engine import ChatSession, Engine
     log("phase 4b: single-stream 7B INT8 fused once, bf16 scales (auto), "
         "bf16 KV, S=512, 32 layers")
     cfg = cfg_7b()
@@ -2715,8 +2871,38 @@ def phase_single_serving(dev, rec):
         f"mode")
     for k in ("decode_attention_pallas", "decode_attention_pallas_split"):
         launches[k] = more[k]
+
+    # a 200-token block fed to a ChatSession after its first token: a
+    # 256-row prefill at pos 1, whose layer glue runs K1f above 128 rows
+    del cache
+    sess = ChatSession(eng)
+    block = torch.randint(1, cfg.vocab_size, (200,),
+                          generator=torch.Generator().manual_seed(SEED + 4),
+                          ).tolist()
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    with ModeTally() as tally:
+        sess.feed(block)
+        torch.cuda.synchronize()
+    feed_s = time.perf_counter() - t0
+    more = read_launches()
+    n = check_all_pipe(more, tally, "a 200-token ChatSession block")
+    want = 4 * cfg.n_layers      # QKV and gate|up fused: all four glued
+    check(more["qmatmul_pallas_indexed_fused_prefill"] == n == want,
+          f"the block's K1f launches: "
+          f"{more['qmatmul_pallas_indexed_fused_prefill']} in the prefill "
+          f"mode of {n}, want {want}")
+    check(bool(torch.isfinite(sess._last_logits).all())
+          and sess._last_logits.shape == (cfg.vocab_size,),
+          "the block's logits are not finite or not (vocab,)")
+    out["long_block"] = {"tokens": len(block), "feed_s": feed_s,
+                         "k1_modes": tally.record(), "card": smi_line()}
+    log(f"  ok ChatSession block of {len(block)} tokens in {feed_s:.3f} s: "
+        f"{n} K1f launches in the prefill mode")
+    launches["qmatmul_pallas_indexed_fused_prefill"] = n
     rec["single_serving"] = out
-    del eng, cache, params
+    del eng, sess, params
     torch.cuda.empty_cache()
     return launches
 
@@ -3099,7 +3285,7 @@ PREFIX_F32_PATH = PREFIX_PATH + ("flash_block_attend_tf32",)
 DEFERRED_PATH = ("qmatmul_pallas", "qmatmul_pallas_indexed",
                  "flash_decode_batched_stats",
                  "flash_decode_batched_stats_split", "spec_write",
-                 "prefill_write")
+                 "prefill_write", "qmatmul_pallas_indexed_prefill")
 
 
 def phase_prefix_serving(dev, rec):
@@ -3170,15 +3356,18 @@ def serve_prefix(dev, rec, kv):
 
         zero_launches()
         t0 = time.perf_counter()
-        first = eng.submit(donor, max_new_tokens=n_new, temperature=0.0,
-                           stop_tokens=())
-        eng.step()
-        hits = [eng.submit(system + t, max_new_tokens=n_new,
-                           temperature=0.0, stop_tokens=()) for t in tails]
-        eng.run()
-        torch.cuda.synchronize()
+        with ModeTally() as tally:
+            first = eng.submit(donor, max_new_tokens=n_new,
+                               temperature=0.0, stop_tokens=())
+            eng.step()
+            hits = [eng.submit(system + t, max_new_tokens=n_new,
+                               temperature=0.0, stop_tokens=())
+                    for t in tails]
+            eng.run()
+            torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         got = read_launches()
+        n_prefill = check_all_pipe(got, tally, f"prefix_cache={pc}")
         check(all(len(r.output_tokens) == n_new and r.done
                   for r in [first] + hits),
               "a request did not get all its tokens")
@@ -3192,7 +3381,8 @@ def serve_prefix(dev, rec, kv):
             "prefix_rows_reused": st.prefix_rows_reused,
             "max_memory_allocated_gb":
                 torch.cuda.max_memory_allocated() / 1e9,
-            "launches": got, "card": smi_line()}
+            "launches": got, "k1_modes": tally.record(),
+            "prefill_launches": n_prefill, "card": smi_line()}
         if pc:
             check(st.prefix_hits == B - 1
                   and st.prefix_rows_reused == (B - 1) * plen,
@@ -3281,9 +3471,11 @@ def phase_deferred_serving(dev, rec):
         eng.stats = type(eng.stats)()
         eng.deferred_chunks = 0
         zero_launches()
-        reqs = eng.generate_all([prompt] * B, max_new_tokens=n_new,
-                                temperature=0.0, stop_tokens=())
+        with ModeTally() as tally:
+            reqs = eng.generate_all([prompt] * B, max_new_tokens=n_new,
+                                    temperature=0.0, stop_tokens=())
         got = read_launches()
+        check_all_pipe(got, tally, f"deferred={d} serving")
         check(all(len(r.output_tokens) == n_new for r in reqs),
               "a request did not get all its tokens")
         check(all(r.output_tokens == reqs[0].output_tokens for r in reqs),
@@ -3567,6 +3759,7 @@ def phase_timing(dev, rec):
     sdpa = time_block(dev, gen, res)
     time_groupdot(dev, gen, res)
     time_wide(dev, gen, res)
+    time_prefill(dev, gen, res)
     for k, v in res.items():
         loop = f"loop {v['loop_ms']:.4f}, " if "loop_ms" in v else ""
         log(f"  {k}: {v['ms']:.4f} ms ({loop}plain {v['plain_ms']:.4f}, "
@@ -4653,6 +4846,178 @@ def time_wide(dev, gen, res):
     res["qmatmul_pallas_wide_pipe"] = cls
 
 
+def time_prefill(dev, gen, res):
+    """K1 and K1p above 128 rows: the prefill mode (``qmm_wgmma_kernel``,
+    the wrappers' choice), ``qmm_bf16_kernel``'s loop on the same calls
+    (``mode="loop"``) and ``torch.matmul`` on pre-dequantized bf16 weights
+    (the library), in turns: one 7B layer's four projections (INT8, f32
+    scales, bf16 x) at T in {256, 512, 1024, 2048}, the INT4 layer (hidden
+    11264, packed, f32 scales) at T in {512, 2048}, each projection alone
+    at T = 2048; the plain version in turns at T = 512 and alone (three
+    calls) at T = 2048.  K1f's glue layer (the norm on wqkv and w13, the
+    residual on wo and w2, bf16 scales) at T = 256, a single-stream block;
+    the unindexed wrapper on wqkv at T = 2048.  Layers rotate over 2, so
+    that every launch finds its weights cold in L2.  Bound: bytes (x, the
+    weight and its scales, out, the glue operands) over 3.35 TB/s against
+    operations over 989 TFLOP/s."""
+    import torch
+    import torch.nn.functional as F
+    from fastllama_tpu_torch.tools.timing import in_turns, time_ms
+    from fastllama_tpu_torch.config import QuantType
+    from fastllama_tpu_torch.ops.kernels import qmm
+    from fastllama_tpu_torch.quant.groupquant import dequantize
+    bf16, nl = torch.bfloat16, 2
+    names = ("wqkv", "wo", "w13", "w2")
+    layer = [0]
+
+    def rot():
+        layer[0] = (layer[0] + 1) % nl
+        return layer[0]
+
+    def nbytes_of(T, I, O, packed=False, ssz=4, glue=0):
+        return (T * I * 2 + (I * O // 2 if packed else I * O)
+                + I // 64 * O * ssz + T * O * 2 + glue)
+
+    def per_layer(one):
+        def f():
+            lyr = rot()
+            for n in names:
+                one(n, lyr)
+        return f
+
+    def log_row(label, d):
+        extra = (f", plain {d['plain_ms']:.4f}" if "plain_ms" in d else "")
+        log(f"  {label}: {d['ms']:.4f} ms ({d['tflop_s']:.1f} TFLOP/s; loop "
+            f"{d['loop_ms']:.4f}, library {d['library_ms']:.4f}{extra}, "
+            f"bound {d['bound_ms']:.4f} by {d['bound_by']})")
+
+    out = {}
+    for packed, proj, Ts in ((False, PROJ_7B, (256, 512, 1024, 2048)),
+                             (True, PROJ_7B_INT4, (512, 2048))):
+        ws = {n: (rand_packed(gen, (nl, *proj[n]), dev) if packed else
+                  rand_qarray(gen, (nl, *proj[n]), QuantType.INT8, dev))
+              for n in names}
+        wds = {n: dequantize(ws[n], bf16) for n in names}
+        by_t = {}
+        for T in Ts:
+            xs = {n: torch.randn((T, proj[n][0]), generator=gen,
+                                 device=dev).to(bf16) for n in names}
+            fns = {"ms": per_layer(lambda n, lyr: qmm.qmatmul_pallas_indexed(
+                       xs[n], ws[n], lyr)),
+                   "loop_ms": per_layer(lambda n, lyr: qmm._launch(
+                       xs[n], ws[n][lyr], bf16, mode="loop")),
+                   "library_ms": per_layer(lambda n, lyr: torch.matmul(
+                       xs[n], wds[n][lyr]))}
+            if T == 512:
+                fns["plain_ms"] = per_layer(lambda n, lyr: qmm.qmm_fused_plain(
+                    xs[n], ws[n][lyr]))
+            fl = sum(2 * T * proj[n][0] * proj[n][1] for n in names)
+            nb = sum(nbytes_of(T, *proj[n], packed) for n in names)
+            bm, bb = bound_ms(nb, fl, BF16_FLOP_S)
+            d = dict(**in_turns(fns, iters=10 if T >= 1024 else 20),
+                     bound_ms=bm, bound_by=bb, bytes=nb, gflop=fl / 1e9)
+            d["tflop_s"] = fl / d["ms"] / 1e9
+            if T == 2048:
+                d["plain_ms"] = time_ms(per_layer(
+                    lambda n, lyr: qmm.qmm_fused_plain(xs[n], ws[n][lyr])),
+                    iters=3, warmup=1)
+                d["per_projection_ms"] = {}
+                for n in names:
+                    I, O = proj[n]
+                    bmp, bbp = bound_ms(nbytes_of(T, I, O, packed),
+                                        2 * T * I * O, BF16_FLOP_S)
+                    d["per_projection_ms"][n] = dict(
+                        **in_turns({
+                            "ms": lambda n=n: qmm.qmatmul_pallas_indexed(
+                                xs[n], ws[n], rot()),
+                            "loop_ms": lambda n=n: qmm._launch(
+                                xs[n], ws[n][rot()], bf16, mode="loop"),
+                            "library_ms": lambda n=n: torch.matmul(
+                                xs[n], wds[n][rot()])}, iters=10),
+                        bound_ms=bmp, bound_by=bbp)
+            by_t[T] = d
+            log_row(f"prefill {'int4' if packed else 'int8'} layer T={T}", d)
+        out["int4" if packed else "int8"] = by_t
+        del ws, wds, xs
+        torch.cuda.empty_cache()
+    res["qmatmul_pallas_indexed_prefill"] = dict(
+        out["int8"][2048], by_T=out["int8"], int4_by_T=out["int4"],
+        library_call="torch.matmul per projection on pre-dequantized bf16 "
+                     "weights",
+        shape="T=2048, one layer: wqkv 4096x12288, wo 4096x4096, w13 "
+              "4096x22016, w2 11008x4096, INT8 f32 scales (int4_by_T: "
+              "packed, hidden 11264)")
+
+    # K1f's glue layer at T = 256 (a single-stream block), bf16 scales
+    T = 256
+    norm = {"wqkv": True, "wo": False, "w13": True, "w2": False}
+    ws = {n: rand_qarray(gen, (nl, *PROJ_7B[n]), QuantType.INT8, dev, bf16)
+          for n in names}
+    wds = {n: dequantize(ws[n], bf16) for n in names}
+    xs = {n: torch.randn((T, PROJ_7B[n][0]), generator=gen,
+                         device=dev).to(bf16) for n in names}
+    kws = {n: (dict(norm_gain=torch.rand((PROJ_7B[n][0],), generator=gen,
+                                         device=dev) + 0.5) if norm[n] else
+               dict(residual=torch.randn((T, PROJ_7B[n][1]), generator=gen,
+                                         device=dev).to(bf16)))
+           for n in names}
+
+    def lib(n, lyr):
+        if norm[n]:
+            g = kws[n]["norm_gain"].to(bf16)
+            return torch.matmul(F.rms_norm(xs[n], g.shape, g, 1e-5),
+                                wds[n][lyr])
+        return torch.addmm(kws[n]["residual"], xs[n], wds[n][lyr])
+    fl = sum(2 * T * PROJ_7B[n][0] * PROJ_7B[n][1] for n in names)
+    nb = sum(nbytes_of(T, *PROJ_7B[n], ssz=2,
+                       glue=PROJ_7B[n][0] * 4 if norm[n] else T *
+                       PROJ_7B[n][1] * 2) for n in names)
+    bm, bb = bound_ms(nb, fl, BF16_FLOP_S)
+    d = dict(**in_turns({
+        "ms": per_layer(lambda n, lyr: qmm.qmatmul_pallas_indexed(
+            xs[n], ws[n], lyr, **kws[n])),
+        "loop_ms": per_layer(lambda n, lyr: qmm._launch(
+            xs[n], ws[n][lyr], bf16, kws[n].get("norm_gain"),
+            kws[n].get("residual"), mode="loop")),
+        "library_ms": per_layer(lib),
+        "plain_ms": per_layer(lambda n, lyr: qmm.qmm_fused_plain(
+            xs[n], ws[n][lyr], **kws[n]))}),
+        bound_ms=bm, bound_by=bb, bytes=nb, gflop=fl / 1e9,
+        library_call="torch rms_norm then torch.matmul (norm projections) "
+                     "or torch.addmm (residual projections) on "
+                     "pre-dequantized bf16 weights",
+        shape="T=256 bf16 scales, one layer: wqkv 4096x12288 +norm, wo "
+              "4096x4096 +residual, w13 4096x22016 +norm, w2 11008x4096 "
+              "+residual")
+    d["tflop_s"] = fl / d["ms"] / 1e9
+    log_row("prefill K1f glue layer T=256", d)
+    res["qmatmul_pallas_indexed_fused_prefill"] = d
+    del ws, wds
+
+    # the unindexed wrapper on wqkv at T = 2048
+    T, (I, O) = 2048, PROJ_7B["wqkv"]
+    w = rand_qarray(gen, (I, O), QuantType.INT8, dev)
+    wd = dequantize(w, bf16)
+    x = torch.randn((T, I), generator=gen, device=dev).to(bf16)
+    bm, bb = bound_ms(nbytes_of(T, I, O), 2 * T * I * O, BF16_FLOP_S)
+    d = dict(**in_turns({"ms": lambda: qmm.qmatmul_pallas(x, w),
+                         "loop_ms": lambda: qmm._launch(x, w, bf16,
+                                                        mode="loop"),
+                         "library_ms": lambda: torch.matmul(x, wd)},
+                        iters=10),
+             plain_ms=time_ms(lambda: qmm.qmm_plain(x, w), iters=3,
+                              warmup=1),
+             bound_ms=bm, bound_by=bb,
+             library_call="torch.matmul(x, w) on a pre-dequantized bf16 "
+                          "weight",
+             shape=f"T={T} I={I} O={O} INT8 f32 scales")
+    d["tflop_s"] = 2 * T * I * O / d["ms"] / 1e9
+    log_row("prefill qmatmul_pallas wqkv T=2048", d)
+    res["qmatmul_pallas_prefill"] = d
+    del w, wd
+    torch.cuda.empty_cache()
+
+
 def time_groupdot(dev, gen, res):
     """The groupdot mode of K1 (INT8, f32 scales) and K1p (packed INT4,
     hidden 11264, f32 scales), the plain form: the classifier at T=48 and
@@ -4820,6 +5185,12 @@ SOURCES.update({k + "_pipe": SOURCES[k] for k in (
 SOURCES.update({k + "_wide_pipe": SOURCES[k] for k in (
     "qmatmul_pallas", "qmatmul_pallas_indexed",
     "qmatmul_pallas_indexed_fused")})
+# the prefill mode of K1 and K1p (T > 128): its own source, the TPU
+# functions of K1's wrappers
+SOURCES.update({k + "_prefill": ("fastllama_tpu_torch/csrc/qmm_prefill.cu",
+                                 SOURCES[k][1]) for k in (
+    "qmatmul_pallas", "qmatmul_pallas_indexed",
+    "qmatmul_pallas_indexed_fused")})
 
 
 def main() -> int:
@@ -4889,6 +5260,7 @@ def main() -> int:
         _build.build_log(), "flash_decode_fresh_split_kernel")
     rec["block_tf32_ptxas"] = check_no_spill(_build.build_log(),
                                              "flash_block_tf32_kernel")
+    rec["prefill_ptxas"] = check_prefill_build(_build.build_log())
     for src, ref in refs:
         check_regs_against(ref, src, rec, _build.build_log())
 
@@ -4922,6 +5294,9 @@ def main() -> int:
     if "4" in phases:
         got = run("4", phase_serving)
         launches.update({k: got[k] for k in BATCHED_PATH})
+        # no engine path calls the unindexed wrapper above 128 rows (as in
+        # JAX): its prefill count is this run's, 0
+        launches["qmatmul_pallas_prefill"] = got["qmatmul_pallas_prefill"]
     if "4b" in phases:
         got = run("4b", phase_single_serving)
         # every count of the single-stream run but K1p's (4d and 4e's)

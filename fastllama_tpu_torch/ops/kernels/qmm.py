@@ -62,10 +62,25 @@ against the Pallas wide kernel).  The rest (INT16, T > 128, other group
 sizes, unaligned rows) stays on ``qmm_f32_kernel`` (``"f32"``).  A
 groupdot call that is wide takes the same kernel as the standard one.
 
+The prefill mode (``qmm_wgmma_kernel`` in ``csrc/qmm_prefill.cu``, its
+own library) takes the calls above 128 rows that would otherwise take the
+loop: not wide, an int8-held or packed weight, a group size that is a
+multiple of 64, 16-byte aligned rows and residual (:func:`prefill_kernel`
+``"prefill"``).  These are the prefill waves (``prefill_many`` on up to
+2048 rows, INT8 and INT4) and K1f's glue on a single-stream block of more
+than 128 tokens.  TMA brings the raw weight and x into a ring of stages,
+each thread dequantizes its weight bytes into ``wgmma``'s register A
+operand (the product is computed transposed) and x is the B operand in
+shared memory; a pre-pass writes bf16 x once a call where x is f32 or the
+norm runs.  It computes what the loop computes; only the f32 sum order
+differs.  :func:`prefill_plan` gives its tile, ring, shared memory, boxes,
+grid and split-K count.
+
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel or raises.  Each wrapper counts its launches in ``.launches``, and
 those on a packed weight (K1p) in ``.launches_p4``, those in the
-pipelined mode (K1 and K1p) also in ``.launches_pipe``, those in the wide
+pipelined mode (K1 and K1p) also in ``.launches_pipe``, those in the
+prefill mode (K1 and K1p) also in ``.launches_prefill``, those in the wide
 mode's ring also in ``.launches_wide_pipe``; ``qmatmul_pallas``
 counts its groupdot launches in ``.launches_groupdot`` (K1) and
 ``.launches_groupdot_p4`` (K1p), those on the pipelined ring also in
@@ -219,8 +234,10 @@ def qmm_mode(x: torch.Tensor, w: QArray, compute_dtype=torch.bfloat16,
     multiple of 64, so that a stage holds one group, and a ``residual``,
     if any, at a 16-byte aligned address, since its epilogue reads the
     residual by vectors) or
-    ``"loop"`` (``qmm_bf16_kernel``'s vector loop: prefill waves, other
-    group sizes, an offset residual)."""
+    ``"loop"`` (the rest: prefill waves, other group sizes, an offset
+    residual; :func:`prefill_kernel` sends those above 128 rows with a
+    group size that is a multiple of 64 and an aligned residual to the
+    prefill mode, the others to ``qmm_bf16_kernel``'s vector loop)."""
     if groupdot and (w.packed or not is_wide(w, compute_dtype)):
         return "groupdot"
     if is_wide(w, compute_dtype):
@@ -271,17 +288,44 @@ def wide_kernel(x: torch.Tensor, w: QArray, compute_dtype=torch.float32,
     return "f32"
 
 
+def prefill_kernel(x: torch.Tensor, w: QArray,
+                   compute_dtype=torch.bfloat16, residual=None) -> str:
+    """The kernel of a call that :func:`qmm_mode` calls ``"loop"``:
+    ``"prefill"``, the ``wgmma`` prefill mode, for T > 128, a group size
+    that is a multiple of 64 (a stage's plane lies in one group) and a
+    ``residual``, if any, at a 16-byte aligned address (its epilogue reads
+    it by vectors); else ``"loop"``, ``qmm_bf16_kernel`` (group sizes of
+    16, 32, 80..., an offset residual, T <= 128 off the ring).  A call that
+    :func:`qmm_mode` sends elsewhere: ValueError."""
+    mode = qmm_mode(x, w, compute_dtype, False, residual)
+    if mode != "loop":
+        raise ValueError(f"not a loop call: qmm_mode gives {mode!r}")
+    return _loop_kernel(x, w, residual)
+
+
+def _loop_kernel(x: torch.Tensor, w: QArray, residual) -> str:
+    """:func:`prefill_kernel`'s choice for a call :func:`qmm_mode` calls
+    ``"loop"`` (unchecked)."""
+    if x.shape[0] > PIPE_MAX_T and w.group_size % 64 == 0 and (
+            residual is None or residual.data_ptr() % 16 == 0):
+        return "prefill"
+    return "loop"
+
+
 def _kernel(x: torch.Tensor, w: QArray, compute_dtype, groupdot: bool,
             residual) -> str:
     """:func:`qmm_mode`'s choice, a groupdot call resolved to its kernel by
-    :func:`groupdot_kernel` and a wide call by :func:`wide_kernel`
-    (``"wide_pipe"`` the ring, ``"wide"`` ``qmm_f32_kernel``)."""
+    :func:`groupdot_kernel`, a wide call by :func:`wide_kernel`
+    (``"wide_pipe"`` the ring, ``"wide"`` ``qmm_f32_kernel``) and a loop
+    call by :func:`prefill_kernel` (``"prefill"`` or ``"loop"``)."""
     mode = qmm_mode(x, w, compute_dtype, groupdot, residual)
     if mode == "groupdot":
         return groupdot_kernel(x, w, compute_dtype)
     if mode == "wide" and wide_kernel(x, w, compute_dtype,
                                       residual) == "pipe":
         return "wide_pipe"
+    if mode == "loop":
+        return _loop_kernel(x, w, residual)
     return mode
 
 
@@ -355,6 +399,78 @@ def _explicit_split(k_rows: int, kstep: int, splits):
             return splits, kps
     raise ValueError(f"splits {splits!r} does not fit {k_rows} rows in "
                      f"stages of {kstep}: each split needs a stage")
+
+
+PREFILL_ROWS = 256         # rows of x a prefill block (the wgmma N)
+PREFILL_COLS = 128         # output columns a prefill block: one W box
+PREFILL_STAGES = {False: 5, True: 4}   # the prefill ring's depth (K1, K1p)
+PREFILL_XK = 32            # x columns a plane of a stage
+
+
+@dataclass(frozen=True)
+class PrefillPlan:
+    """A prefill launch (``csrc/qmm_prefill.cu``): ``rows`` x ``cols``
+    outputs a block over ``grid`` (column tiles, row tiles, splits);
+    ``kstep`` W rows a stage (K1p: packed rows) in a ring of ``stages``
+    slots of ``stage_bytes``, ``smem`` bytes of dynamic shared memory and
+    ``static_smem`` of barriers; the TMA boxes (inner, outer elements) of W
+    (int8, 128-byte swizzle; one a stage), x (bf16, 64-byte swizzle; two a
+    stage) and the scales (one row a plane), ``tx_bytes`` a stage; the
+    split-K count and the W rows a split."""
+    rows: int
+    cols: int
+    grid: tuple
+    splits: int
+    k_per_split: int
+    kstep: int
+    stages: int
+    stage_bytes: int
+    smem: int
+    static_smem: int
+    w_box: tuple
+    x_box: tuple
+    s_box: tuple
+    tx_bytes: int
+
+
+def prefill_plan(T: int, I: int, O: int, packed: bool,
+                 scale_bytes: int = 4, splits=None,
+                 n_sm: int = 132) -> PrefillPlan:
+    """The prefill launch of a (T, I) x (I, O) product, T > 128, with
+    ``scale_bytes`` (4 f32, 2 bf16) scales.  ``splits=None``: one split when
+    the output tiles alone give the ``n_sm`` SMs a block each; else as many
+    splits as leave a block an SM, rounded down, each at least 4 stages, up
+    to 16 (the narrow projections at T = 256).  An explicit count must
+    leave no split empty (as :func:`split_plan`).  Mirrors the constants of
+    ``csrc/qmm_prefill.cu``."""
+    if T <= PIPE_MAX_T:
+        raise ValueError(f"the prefill mode takes T > {PIPE_MAX_T}, not {T}")
+    kstep = 32 if packed else 64
+    k_rows = I // 2 if packed else I
+    tiles = -(-O // PREFILL_COLS) * -(-T // PREFILL_ROWS)
+    if splits is None:
+        most = max(1, min(k_rows // (4 * kstep), 16))
+        splits = max(1, min(n_sm // tiles, most))
+        kps = -(-(-(-k_rows // splits)) // kstep) * kstep
+        splits = -(-k_rows // kps)
+    else:
+        splits, kps = _explicit_split(k_rows, kstep, splits)
+    stages = PREFILL_STAGES[packed]
+    w_box = (PREFILL_COLS, kstep)
+    x_box = (PREFILL_XK, PREFILL_ROWS)
+    s_box = (PREFILL_COLS, 1)
+    # the W box and two x planes a stage, and its scale row(s) in two 1 KB
+    # slots
+    boxes = w_box[0] * w_box[1] + 2 * x_box[0] * x_box[1] * 2
+    stage_bytes = boxes + 2 * 1024
+    tx = boxes + (2 if packed else 1) * s_box[0] * scale_bytes
+    return PrefillPlan(
+        rows=PREFILL_ROWS, cols=PREFILL_COLS,
+        grid=(-(-O // PREFILL_COLS), -(-T // PREFILL_ROWS), splits),
+        splits=splits, k_per_split=kps, kstep=kstep, stages=stages,
+        stage_bytes=stage_bytes, smem=stages * stage_bytes + 1024,
+        static_smem=16 * stages, w_box=w_box, x_box=x_box,
+        s_box=s_box, tx_bytes=tx)
 
 
 def _vec_ok(x: torch.Tensor, w: QArray) -> bool:
@@ -453,15 +569,45 @@ def _launch_pipe(x: torch.Tensor, w: QArray, gain, residual, eps: float,
     return out
 
 
+def _launch_prefill(x: torch.Tensor, w: QArray, gain, residual,
+                    eps: float, splits=None, lib=None) -> torch.Tensor:
+    """The prefill mode (``qmm_wgmma_kernel``), glue and all, from ``lib``
+    (another build of ``qmm_prefill.cu``; None the package's)."""
+    lib = lib or _build.load("qmm_prefill")
+    T, I = x.shape
+    O = w.data.shape[1]
+    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
+    plan = prefill_plan(T, I, O, w.packed, w.scales.element_size(), splits,
+                        n_sm)
+    out = torch.empty((T, O), dtype=x.dtype, device=x.device)
+    partial = (torch.empty((plan.splits, T, O), dtype=torch.float32,
+                           device=x.device) if plan.splits > 1 else None)
+    xb = (torch.empty((T, I), dtype=torch.bfloat16, device=x.device)
+          if x.dtype == torch.float32 or gain is not None else None)
+    fn = lib.qmm_prefill_launch
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_float] \
+        + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rc = fn(_build.ptr(x), _build.ptr(w.data), _build.ptr(w.scales),
+            _build.ptr(gain), _build.ptr(residual), eps, _build.ptr(out),
+            _build.ptr(partial), _build.ptr(xb), T, I, O, w.group_size,
+            plan.splits, plan.k_per_split, _DT[x.dtype], _DT[w.scales.dtype],
+            int(w.packed), _build.stream_of(x))
+    _build.check(rc, "qmm_prefill_launch")
+    return out
+
+
 def _launch(x: torch.Tensor, w: QArray, compute_dtype, gain=None,
             residual=None, eps: float = 1e-5, gd: bool = False,
             splits=None, mode=None) -> torch.Tensor:
     """Launch the kernel of ``mode`` (None: :func:`_kernel`'s choice;
-    ``"loop"`` forces ``qmm_bf16_kernel``'s loop on a call the pipelined
-    mode would take, standard or groupdot, and ``"wide"`` (or ``"loop"``)
-    ``qmm_f32_kernel`` on a call the wide ring would take, for timing the
-    two side by side)."""
+    ``"loop"`` forces ``qmm_bf16_kernel``'s loop on a call the pipelined or
+    the prefill mode would take, standard or groupdot, and ``"wide"`` (or
+    ``"loop"``) ``qmm_f32_kernel`` on a call the wide ring would take, for
+    timing them side by side)."""
     mode = mode or _kernel(x, w, compute_dtype, gd, residual)
+    if mode == "prefill":
+        return _launch_prefill(x, w, gain, residual, eps, splits)
     if mode == "pipe":
         return _launch_pipe(x, w, gain, residual, eps, splits,
                             PIPE_GD if gd else PIPE_STD)
@@ -500,7 +646,8 @@ def _run(wrapper, x: torch.Tensor, w: QArray, compute_dtype, gain=None,
     ``wrapper.launches`` (K1, K1f) or ``wrapper.launches_p4`` (K1p), or
     for the groupdot mode ``.launches_groupdot`` / ``_groupdot_p4``; a
     launch of the pipelined mode also on ``.launches_pipe``, or in the
-    groupdot mode on ``.launches_groupdot_pipe``, one of the wide ring on
+    groupdot mode on ``.launches_groupdot_pipe``, one of the prefill mode on
+    ``.launches_prefill``, one of the wide ring on
     ``.launches_wide_pipe``."""
     # the wide path has no groupdot body (qmm.py:111); K1p's has one
     gd = groupdot and (w.packed or not is_wide(w, compute_dtype))
@@ -522,6 +669,8 @@ def _run(wrapper, x: torch.Tensor, w: QArray, compute_dtype, gain=None,
             wrapper.launches_groupdot_pipe += 1
         else:
             wrapper.launches_pipe += 1
+    elif mode == "prefill":
+        wrapper.launches_prefill += 1
     elif mode == "wide_pipe":
         wrapper.launches_wide_pipe += 1
     return out
@@ -606,6 +755,8 @@ qmatmul_pallas_indexed_fused.launches = 0
 qmatmul_pallas_indexed_fused.launches_p4 = 0
 qmatmul_pallas.launches_pipe = qmatmul_pallas_indexed.launches_pipe = 0
 qmatmul_pallas_indexed_fused.launches_pipe = 0
+qmatmul_pallas.launches_prefill = qmatmul_pallas_indexed.launches_prefill = 0
+qmatmul_pallas_indexed_fused.launches_prefill = 0
 qmatmul_pallas.launches_wide_pipe = 0
 qmatmul_pallas_indexed.launches_wide_pipe = 0
 qmatmul_pallas_indexed_fused.launches_wide_pipe = 0
