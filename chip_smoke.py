@@ -6,7 +6,7 @@ Run from the root of a checkout on a machine with one NVIDIA Hopper card:
     python3 chip_smoke.py            # every phase, as the check runs it
     python3 chip_smoke.py --phases 1,2   # a subset while iterating
     python3 chip_smoke.py --phases 1 --regs-against OTHER/flash_decode.cu \
-        --regs-against OTHER/qmm.cu
+        --regs-against OTHER/qmm.cu --regs-against OTHER/qmm_prefill.cu
 
 Phases (any failure exits non-zero; no phase catches an error and goes on):
 
@@ -18,10 +18,12 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    tree's flash_decode.cu is built beside them and its kernels, the split
    kernels of K2 and K2s among them, must keep its registers, and another
    tree's qmm.cu, whose ``qmm_pipe_kernel`` and ``qmm_pipe_gd_kernel``
-   instantiations must keep its registers; ``qmm_prefill.cu``'s
-   ``qmm_wgmma_kernel`` must not spill, ptxas must not have serialized its
-   wgmma, and its library's SASS must hold ``HGMMA`` where the toolkit
-   has ``cuobjdump``);
+   instantiations must keep its registers, and another tree's
+   qmm_prefill.cu, whose ``qmm_wgmma_kernel`` instantiations must keep
+   its registers; ``qmm_prefill.cu``'s ``qmm_wgmma_kernel`` and
+   ``qmm_wgmma_wide_kernel`` must not spill, ptxas must not have
+   serialized their wgmma, and its library's SASS must hold ``HGMMA``
+   where the toolkit has ``cuobjdump``);
 2. each kernel against its plain PyTorch version on the card, at the
    shapes of the LLaMA2-7B serving paths: the batched path's kernels (K2
    with fresh rows, every call in its split-row mode, then that mode with
@@ -59,7 +61,13 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    (``qmm_pipe_wide_kernel``, f32 compute) at the 7B shapes, T in {1, 5,
    48, 128}, f32 and bf16 scales and x, bare and with the norm gain and
    residual, the auto split and one split, each wrapper call one launch on
-   its ``launches_wide_pipe`` (2m), and the prefill mode of K1 and K1p
+   its ``launches_wide_pipe``, then above 128 rows on its prefill kernel
+   (``qmm_wgmma_wide_kernel``) at the four projections of a layer, T in
+   {129, 200, 256, 1024, 2048}, f32 and bf16 scales and x, bare and with
+   the glue, each wrapper call one launch on its ``launches_wide_prefill``,
+   and both on the plane probe (an identity INT8 weight with power-of-two
+   scales on f32 x, within 2^-21 of the exact product, where leaving out
+   x's lo plane is four times that off) (2m), and the prefill mode of K1 and K1p
    (``qmm_wgmma_kernel``, T > 128) at the four 7B projections, T in {129,
    200, 256, 1024, 2048}, INT8 with f32 and bf16 scales and packed INT4
    (hidden 11264) with f32 scales on bf16 and f32 x, bare and with the
@@ -110,7 +118,8 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    of K2's non-fresh mode runs on a path; every non-fresh launch of the
    three must be in the split-row mode; then a ``ChatSession`` fed a
    200-token block (a 256-row prefill at pos 1, K1f's glue above 128
-   rows), every K1f launch of the block in the prefill mode;
+   rows), every K1f launch of the block in the prefill mode
+   (``feed_block``);
 4c. speculative serving at full width (bench.py's ``bench_spec_serving``
    shape): ``SpecBatchedEngine`` over 7B / INT8 unfused / scale_dtype
    "auto" (f32) / int8 KV / B=32 / S=512, width 4, 32 rounds a chunk, decode
@@ -141,11 +150,15 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    tokens, decode chunk 64): every K1 launch with T <= 128 (the prefill,
    the K1f glue, the classifier) in the wide mode's ring, by a tally of
    ``qmm.wide_kernel`` held to the wrappers' ``launches_wide_pipe``; tok/s,
-   memory and a traced chunk as 4b;
+   memory and a traced chunk as 4b; then 4b's 200-token ``ChatSession``
+   block, its 128 K1f launches above 128 rows on the wide mode's prefill
+   kernel (held to ``launches_wide_prefill``);
 4k. phase 4's batched serving at f32 compute (int8 KV, B=48, S=512, 48
    requests of the 43-token prompt, 128 new tokens): every K1 launch with
-   T <= 128 in the wide mode's ring, the prefill waves above 128 rows on
-   ``qmm_f32_kernel``, tallied; the records of phase 4;
+   T <= 128 in the wide mode's ring, every one of the prefill waves above
+   128 rows (256) on its prefill kernel and none on ``qmm_f32_kernel``,
+   tallied and held to ``launches_wide_pipe`` and
+   ``launches_wide_prefill``; the records of phase 4;
 4g. deferred KV on phase 4's engine and traffic at decode chunk 16
    (every chunk deferred, every K2 launch with stats in the split-row
    mode) against plain chunks, in turns;
@@ -169,9 +182,13 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    ring, ``qmm_f32_kernel`` on the same calls, ``torch.matmul`` on f32
    weights and the plain version in turns at a 7B layer, T=48 (f32
    scales), T=1 (f32 and bf16 scales; a glue layer at bf16 scales) and
-   the classifier at T=48, and ``qmm_f32_kernel`` against
-   ``torch.matmul`` at a T=512 layer; K2b:
-   the tensor-core mode at T in
+   the classifier at T=48; its prefill kernel above 128 rows: a 7B layer
+   at T in {256, 512, 1024, 2048}, each projection at T = 2048, K1f's glue
+   layer at T = 256 and the unindexed wrapper on wqkv at T = 2048, in
+   turns with ``qmm_f32_kernel`` on the same calls, ``torch.matmul`` on
+   f32 weights and (T = 512) the plain version, and the pre-pass's share
+   of a layer at T = 2048 (the pre-pass alone in turns with the calls);
+   K2b: the tensor-core mode at T in
    {32, 64, 128, 256} and against start, the CUDA-core f32 mode on its
    inputs at T=32 and 256, and on its own f32 inputs (bf16 q over an f32
    cache, f32 q over an int8 and over an f32 cache) at T=32 and 256 the
@@ -217,6 +234,7 @@ TF32_FLOP_S = 495e12           # H100 SXM dense TF32 tensor cores
 TOL_F32 = 1e-4                 # x max|plain|, f32 outputs
 TOL_BF16 = 1e-2                # x max|plain|, bf16 outputs
 TOL_P4_NORM = 1e-3             # K1p, f32 x through the norm prologue (2h)
+TOL_PLANES = 2.0 ** -21        # x max|exact|: the wide mode's plane probe
 INT4_FLIP_CAP = 2e-2           # share of int8 cache elements one quantum off
 
 SEED = 1234
@@ -347,14 +365,15 @@ def check_no_spill(build_log: str, kernel: str):
 
 
 def check_prefill_build(build_log: str):
-    """Phase 1 for ``qmm_prefill.cu``: no ``qmm_wgmma_kernel``
-    instantiation spills, ptxas left its wgmma asynchronous (no C75xx
-    performance note in the source's log), and the library's SASS holds
-    ``HGMMA`` (where the toolkit has ``cuobjdump``).  Returns the
-    registers and the HGMMA count."""
+    """Phase 1 for ``qmm_prefill.cu``: no ``qmm_wgmma_kernel`` or
+    ``qmm_wgmma_wide_kernel`` instantiation spills, ptxas left their wgmma
+    asynchronous (no C75xx performance note in the source's log), and the
+    library's SASS holds ``HGMMA`` (where the toolkit has ``cuobjdump``).
+    Returns the registers and the HGMMA count."""
     import shutil
     from fastllama_tpu_torch.ops.kernels import _build
     regs = check_no_spill(build_log, "qmm_wgmma_kernel")
+    regs.update(check_no_spill(build_log, "qmm_wgmma_wide_kernel"))
     ours = build_log.split("== qmm_prefill.cu (rc")[1].split("\n== ")[0]
     notes = [t.strip() for t in ours.splitlines() if "(C75" in t]
     check(not notes, f"qmm_prefill.cu: ptxas performance notes {notes}")
@@ -394,20 +413,22 @@ def entry_regs(text: str):
 
 def check_regs_against(ref, src, rec, build_log):
     """Phase 1 with ``--regs-against``: the reference build ``ref`` (an
-    nvcc process on another tree's flash_decode.cu or qmm.cu).  Of
-    flash_decode.cu it must hold the same instantiations of
-    ``flash_decode_split_kernel`` and ``flash_spec_split_kernel`` with the
-    same registers as this build, and so every kernel of this build's
-    flash_decode.cu; of qmm.cu the same instantiations of
-    ``qmm_pipe_kernel`` and ``qmm_pipe_gd_kernel`` with the same
-    registers."""
+    nvcc process on another tree's flash_decode.cu, qmm.cu or
+    qmm_prefill.cu).  Of flash_decode.cu it must hold the same
+    instantiations of ``flash_decode_split_kernel`` and
+    ``flash_spec_split_kernel`` with the same registers as this build, and
+    so every kernel of this build's flash_decode.cu; of qmm.cu the same
+    instantiations of ``qmm_pipe_kernel`` and ``qmm_pipe_gd_kernel`` with
+    the same registers; of qmm_prefill.cu those of ``qmm_wgmma_kernel``."""
     text = ref.communicate()[0]
     check(ref.returncode == 0, f"nvcc failed for {src}:\n{text}")
     rec.setdefault("regs_against", []).append(src)
-    if os.path.basename(src) == "qmm.cu":
-        ours = build_log.split("== qmm.cu (rc")[1].split("\n== ")[0]
+    base = os.path.basename(src)
+    if base in ("qmm.cu", "qmm_prefill.cu"):
+        ours = build_log.split(f"== {base} (rc")[1].split("\n== ")[0]
         mine, theirs = entry_regs(ours), entry_regs(text)
-        for kernel in ("qmm_pipe_kernel", "qmm_pipe_gd_kernel"):
+        for kernel in (("qmm_pipe_kernel", "qmm_pipe_gd_kernel")
+                       if base == "qmm.cu" else ("qmm_wgmma_kernel",)):
             a, b = ({k: v for k, v in regs.items() if kernel + "I" in k}
                     for regs in (mine, theirs))
             check(a == b and len(a) > 0,
@@ -603,6 +624,8 @@ def phase_kernels(dev, rec):
     check_groupdot(dev, gen, errs)
     check_pipe(dev, gen, errs)
     check_wide(dev, gen, errs)
+    check_wide_prefill(dev, gen, errs)
+    check_wide_planes(dev, gen)
     check_prefill(dev, gen, errs)
     rec["max_abs_err"] = errs
 
@@ -1564,6 +1587,182 @@ def check_wide(dev, gen, errs):
     torch.cuda.empty_cache()
 
 
+def check_wide_prefill(dev, gen, errs):
+    """Phase 2m above 128 rows: K1's wide mode on its prefill kernel
+    (``qmm_wgmma_wide_kernel``, f32 compute) against ``qmm_fused_plain`` at
+    the four 7B projections of a fused layer, INT8 with f32 and with bf16
+    scales, T in {129, 200, 256, 1024, 2048}, f32 and bf16 x: bare through
+    ``qmatmul_pallas`` and with the norm gain, the residual and both
+    through the fused wrapper on layer 1 of a stacked weight (one
+    ``launches_wide_prefill`` on the calling wrapper, none on
+    ``launches_wide_pipe``), at T <= 256 also at one split (``_launch``,
+    uncounted); the indexed wrapper without glue at T = 2048; gs 128 (a
+    group over two stages) on wo with the glue, at the auto split and at
+    three (which cut groups), T in {256, 2048}.  Limits as
+    the ring's: f32 x 1e-4 (``TOL_F32``), bf16 x 1e-2 of max|plain|."""
+    import torch
+    from fastllama_tpu_torch.config import QuantType
+    from fastllama_tpu_torch.ops.kernels import qmm
+    log("phase 2m: K1's wide mode above 128 rows vs plain (7B projections, "
+        "f32 compute, T in {129, 200, 256, 1024, 2048}, with and without "
+        "the glue)")
+    bf16, f32 = torch.bfloat16, torch.float32
+    glue = (("bare", False, False), ("norm", True, False),
+            ("residual", False, True), ("norm+residual", True, True))
+    for sdt in (f32, bf16):
+        worst, n = {f32: 0.0, bf16: 0.0}, 0
+        for name in ("wqkv", "wo", "w13", "w2"):
+            I, O = PROJ_7B[name]
+            w = rand_qarray(gen, (2, I, O), QuantType.INT8, dev, sdt)
+            g = torch.rand((I,), generator=gen, device=dev) + 0.5
+            for T in (129, 200, 256, 1024, 2048):
+                for xdt, tol in ((f32, TOL_F32), (bf16, TOL_BF16)):
+                    x = torch.randn((T, I), generator=gen, device=dev).to(xdt)
+                    r = torch.randn((T, O), generator=gen, device=dev).to(xdt)
+                    check(qmm._kernel(x, w[1], f32, False, r)
+                          == "wide_prefill",
+                          f"wide {name} T={T}: not a wide prefill call")
+                    for gl, norm, res in glue:
+                        kw = dict(norm_gain=g if norm else None,
+                                  residual=r if res else None)
+                        fn = (qmm.qmatmul_pallas if gl == "bare"
+                              else qmm.qmatmul_pallas_indexed_fused)
+                        n0 = fn.launches_wide_prefill
+                        p0 = fn.launches_wide_pipe
+                        got = (qmm.qmatmul_pallas(x, w[1], f32)
+                               if gl == "bare" else
+                               qmm.qmatmul_pallas_indexed(x, w, 1, f32, **kw))
+                        check(fn.launches_wide_prefill == n0 + 1
+                              and fn.launches_wide_pipe == p0,
+                              f"wide {name} T={T} {gl}: not one launch of "
+                              f"the wide prefill kernel")
+                        want = qmm.qmm_fused_plain(x, w[1], f32, **kw)
+                        label = (f"wide prefill {name} s={str(sdt)[6:]} "
+                                 f"T={T} x={str(xdt)[6:]} {gl}")
+                        e = compare(label, got, want, tol, quiet=True)
+                        if T <= 256:
+                            one = qmm._launch(x, w[1], f32, kw["norm_gain"],
+                                              kw["residual"], splits=1)
+                            compare(label + " splits=1", one, want, tol,
+                                    quiet=True)
+                        key = ("qmatmul_pallas_wide_prefill" if gl == "bare"
+                               else "qmatmul_pallas_indexed_fused_"
+                                    "wide_prefill")
+                        errs[key] = max(errs[key], e)
+                        worst[xdt] = max(worst[xdt], e / max(float(
+                            want.float().abs().max()), 1e-30))
+                        n += 1
+            del w
+            torch.cuda.empty_cache()
+        log(f"  ok wide prefill s={str(sdt)[6:]}: {n} comparisons, largest "
+            f"error {worst[f32]:.3e} of max|plain| at f32 x, "
+            f"{worst[bf16]:.3e} at bf16 x")
+    f = qmm.qmatmul_pallas_indexed
+    for name in ("wo", "w2"):
+        w = rand_qarray(gen, (2, *PROJ_7B[name]), QuantType.INT8, dev)
+        x = torch.randn((2048, PROJ_7B[name][0]), generator=gen, device=dev)
+        n0 = f.launches_wide_prefill
+        e = compare(f"wide prefill qmatmul_pallas_indexed {name}[1] T=2048",
+                    f(x, w, 1, f32), qmm.qmm_plain(x, w[1], f32), TOL_F32,
+                    quiet=True)
+        check(f.launches_wide_prefill == n0 + 1,
+              "indexed: not a launch of the wide prefill kernel")
+        errs["qmatmul_pallas_indexed_wide_prefill"] = max(
+            errs["qmatmul_pallas_indexed_wide_prefill"], e)
+        del w
+    log("  ok wide prefill qmatmul_pallas_indexed wo[1], w2[1] T=2048")
+    # gs 128: a group over two stages, cut by three splits
+    w = rand_qarray(gen, (2, *PROJ_7B["wo"]), QuantType.INT8, dev, gs=128)
+    g = torch.rand((PROJ_7B["wo"][0],), generator=gen, device=dev) + 0.5
+    fi = qmm.qmatmul_pallas_indexed_fused
+    for T in (256, 2048):
+        x = torch.randn((T, PROJ_7B["wo"][0]), generator=gen, device=dev)
+        r = torch.randn((T, PROJ_7B["wo"][1]), generator=gen, device=dev)
+        want = qmm.qmm_fused_plain(x, w[1], f32, g, 1e-5, r)
+        n0 = fi.launches_wide_prefill
+        e = compare(f"wide prefill gs=128 wo[1] T={T} norm+residual",
+                    qmm.qmatmul_pallas_indexed(x, w, 1, f32, norm_gain=g,
+                                               residual=r), want, TOL_F32,
+                    quiet=True)
+        check(fi.launches_wide_prefill == n0 + 1,
+              "gs=128: not a launch of the wide prefill kernel")
+        compare(f"wide prefill gs=128 wo[1] T={T} splits=3",
+                qmm._launch(x, w[1], f32, g, r, splits=3), want, TOL_F32,
+                quiet=True)
+        errs["qmatmul_pallas_indexed_fused_wide_prefill"] = max(
+            errs["qmatmul_pallas_indexed_fused_wide_prefill"], e)
+    log("  ok wide prefill gs=128 wo[1] T in {256, 2048}, auto and 3 "
+        "splits")
+    del w
+    torch.cuda.empty_cache()
+
+
+def plane_probe(dev, gen, T, I, scale_dtype, gs=64):
+    """Inputs on which the wide mode's product shows whether each of x's
+    three bf16 planes was multiplied: an f32 x of full 24-bit significands
+    (its lo plane about 2^-17 of |x|) and an INT8 identity weight (I, I)
+    whose group scales are powers of two (1/2, 1 and 2 by group), so that
+    the product is x times its column's scale exactly, which the three
+    planes reach up to the f32 accumulation's last bit.  Returns (x, the
+    weight, the exact product, max|error| of the same product without the
+    lo plane)."""
+    import torch
+    from fastllama_tpu_torch.config import QuantType
+    from fastllama_tpu_torch.quant.groupquant import QArray
+    x = torch.randn((T, I), generator=gen, device=dev)
+    e = torch.arange(I // gs, device=dev) % 3 - 1
+    s = torch.exp2(e.float())[:, None].expand(I // gs, I).contiguous()
+    w = QArray(torch.eye(I, dtype=torch.int8, device=dev),
+               s.to(scale_dtype), QuantType.INT8, gs, group_axis=-2)
+    col = torch.exp2((torch.arange(I, device=dev) // gs % 3 - 1).float())
+    exact = x * col
+    hi = x.to(torch.bfloat16).float()
+    two = (hi + (x - hi).to(torch.bfloat16).float()) * col
+    return x, w, exact, float((two - exact).abs().max())
+
+
+def check_wide_planes(dev, gen):
+    """Phase 2m's plane probe (:func:`plane_probe`, at wo's width 4096):
+    the wide ring (T = 48) and the wide prefill kernel (T in {129, 256,
+    2048}, the auto split and, above 128 rows, one and three splits), f32
+    and bf16 scales, each within ``TOL_PLANES`` (2^-21) of max|exact| of
+    the exact product, where the product without the lo plane is more than
+    four times that limit off: a kernel that drops or misplaces a plane
+    fails here though it passes ``TOL_F32``."""
+    import torch
+    from fastllama_tpu_torch.ops.kernels import qmm
+    f32, I = torch.float32, PROJ_7B["wo"][0]
+    log("phase 2m: the wide mode's plane probe (identity INT8 weight, "
+        "power-of-two scales, f32 x at 4096 columns) against the exact "
+        "product")
+    worst, n = 0.0, 0
+    for sdt in (f32, torch.bfloat16):
+        for T in (48, 129, 256, 2048):
+            x, w, exact, two = plane_probe(dev, gen, T, I, sdt)
+            ref = float(exact.abs().max())
+            label = f"plane probe T={T} s={str(sdt)[6:]}"
+            check(two > 4 * TOL_PLANES * ref,
+                  f"{label}: the product without the lo plane is only "
+                  f"{two / ref:.3e} of max|exact| off")
+            mode = "wide_pipe" if T <= 128 else "wide_prefill"
+            check(qmm._kernel(x, w, f32, False, None) == mode,
+                  f"{label}: not a {mode} call")
+            got = {"auto": qmm.qmatmul_pallas(x, w, f32)}
+            if T > 128:
+                for splits in (1, 3):
+                    got[f"splits={splits}"] = qmm._launch(x, w, f32,
+                                                          splits=splits)
+            for k, v in got.items():
+                e = compare(f"{label} {k}", v, exact, TOL_PLANES, quiet=True)
+                worst = max(worst, e / ref)
+                n += 1
+            del x, w, exact
+    torch.cuda.empty_cache()
+    log(f"  ok plane probe: {n} products, largest error {worst:.3e} of "
+        f"max|exact| (limit {TOL_PLANES:.3e}; without the lo plane "
+        f"> {4 * TOL_PLANES:.3e})")
+
+
 def check_prefill(dev, gen, errs):
     """Phase 2n: the prefill mode of K1 and K1p (``qmm_wgmma_kernel``)
     against the plain versions at the four 7B projections of a fused layer,
@@ -2373,7 +2572,8 @@ WIDE_BATCHED_PATH = ("qmatmul_pallas", "qmatmul_pallas_indexed",
                      "flash_decode_batched", "flash_decode_batched_split",
                      "decode_write", "prefill_write",
                      "qmatmul_pallas_wide_pipe",
-                     "qmatmul_pallas_indexed_wide_pipe")
+                     "qmatmul_pallas_indexed_wide_pipe",
+                     "qmatmul_pallas_indexed_wide_prefill")
 WIDE_SINGLE_PATH = ("qmatmul_pallas", "qmatmul_pallas_indexed",
                     "qmatmul_pallas_indexed_fused", "flash_decode_single",
                     "qmatmul_pallas_wide_pipe",
@@ -2405,7 +2605,10 @@ KERNELS = ("qmatmul_pallas", "qmatmul_pallas_indexed",
            "qmatmul_pallas_wide_pipe", "qmatmul_pallas_indexed_wide_pipe",
            "qmatmul_pallas_indexed_fused_wide_pipe", "qmatmul_pallas_prefill",
            "qmatmul_pallas_indexed_prefill",
-           "qmatmul_pallas_indexed_fused_prefill")
+           "qmatmul_pallas_indexed_fused_prefill",
+           "qmatmul_pallas_wide_prefill",
+           "qmatmul_pallas_indexed_wide_prefill",
+           "qmatmul_pallas_indexed_fused_wide_prefill")
 # the wrappers of K2's non-fresh mode: each counts its split-row launches
 SPLIT_WRAPPERS = ("flash_decode_single", "decode_attention_pallas_indexed",
                   "decode_attention_pallas", "flash_decode_batched",
@@ -2424,7 +2627,9 @@ def counters():
     ``flash_spec_batched.launches_split``, the pipelined mode of K1 and
     K1p on each K1 wrapper's ``launches_pipe`` (``<wrapper>_pipe``), their
     prefill mode on its ``launches_prefill`` (``<wrapper>_prefill``), K1's
-    wide mode's ring on its ``launches_wide_pipe`` (``_wide_pipe``), K2b's
+    wide mode's ring on its ``launches_wide_pipe`` (``_wide_pipe``) and its
+    wide prefill kernel on ``launches_wide_prefill`` (``_wide_prefill``),
+    K2b's
     TC and split-TF32 modes on ``flash_block_attend.launches_tc`` and
     ``.launches_tf32``."""
     from fastllama_tpu_torch.ops.kernels import attention as at
@@ -2452,6 +2657,8 @@ def counters():
     out.update({k + "_prefill": (fn, "launches_prefill")
                 for k, fn in k1.items()})
     out.update({k + "_wide_pipe": (fn, "launches_wide_pipe")
+                for k, fn in k1.items()})
+    out.update({k + "_wide_prefill": (fn, "launches_wide_prefill")
                 for k, fn in k1.items()})
     out["flash_decode_batched_stats"] = (fd.flash_decode_batched,
                                          "launches_stats")
@@ -2705,7 +2912,8 @@ class ModeTally:
     a launch, on a CUDA tensor only); the wrapped function returns what
     the original returns, so the path is unchanged.  A wide call is
     tallied by its kernel (``qmm.wide_kernel``): ``"wide_pipe"`` the ring,
-    ``"wide_f32"`` ``qmm_f32_kernel``; a loop call by its kernel
+    ``"wide_prefill"`` its prefill kernel, ``"wide_f32"``
+    ``qmm_f32_kernel``; a loop call by its kernel
     (``qmm.prefill_kernel``'s choice): ``"prefill"`` or ``"loop"``."""
 
     def __enter__(self):
@@ -2761,23 +2969,35 @@ def check_all_pipe(launches, tally, label):
     return prefill
 
 
-def check_all_wide_pipe(launches, tally, label):
-    """Every K1 launch with T <= 128 of a run at f32 compute on the wide
-    mode's ring: no other kernel at T <= 128 in the tally, and the tally's
-    ring launches equal to the three wrappers' ``launches_wide_pipe``;
-    returns {mode: launches} of the rest (prefill waves above 128 rows on
-    ``qmm_f32_kernel``)."""
+def check_all_wide(launches, tally, label):
+    """Every K1 launch of a run at f32 compute in the wide mode's tensor
+    core kernels: those with T <= 128 on the ring, those above (prefill
+    waves, a long K1f block) on its prefill kernel; no other kernel (none
+    on ``qmm_f32_kernel``) in the tally, and the tally's ring and prefill
+    launches equal to the three wrappers' ``launches_wide_pipe`` (at least
+    one) and ``launches_wide_prefill``.
+    Returns the wide prefill launches."""
     small = {m: n for (m, s), n in tally.counts.items() if s}
-    ring = sum(launches[k + "_wide_pipe"] for k in (
-        "qmatmul_pallas", "qmatmul_pallas_indexed",
-        "qmatmul_pallas_indexed_fused"))
+    large = {m: n for (m, s), n in tally.counts.items() if not s}
+    k1 = ("qmatmul_pallas", "qmatmul_pallas_indexed",
+          "qmatmul_pallas_indexed_fused")
+    ring = sum(launches[k + "_wide_pipe"] for k in k1)
+    prefill = sum(launches[k + "_wide_prefill"] for k in k1)
     check(set(small) <= {"wide_pipe"},
           f"{label}: K1 launches with T <= 128 off the wide ring: {small}")
-    check(small.get("wide_pipe", 0) == ring > 0,
+    check(small.get("wide_pipe", 0) == ring and ring > 0,
           f"{label}: {small.get('wide_pipe', 0)} wide ring launches in the "
           f"tally, {ring} on the wrappers' launches_wide_pipe")
+    check(set(large) <= {"wide_prefill"},
+          f"{label}: K1 launches with T > 128 off the wide prefill kernel: "
+          f"{large}")
+    check(large.get("wide_prefill", 0) == prefill,
+          f"{label}: {large.get('wide_prefill', 0)} wide prefill launches in "
+          f"the tally, {prefill} on the wrappers' launches_wide_prefill")
     log(f"  ok {label}: all {ring} K1 launches with T <= 128 on the wide "
-        f"ring; by mode {tally.record()}")
+        f"ring, all {prefill} above on its prefill kernel; by mode "
+        f"{tally.record()}")
+    return prefill
 
 
 def k2_rows(rows, per):
@@ -2792,12 +3012,14 @@ def k2_rows(rows, per):
 
 def k1_rows(rows, per):
     """Device ms of the K1 family in a profile's rows, divided by ``per``
-    (steps or rounds): the pipelined kernel, the loop, the wide mode's ring
-    and ``qmm_f32_kernel``, and the split-K reduce pass."""
+    (steps or rounds): the pipelined kernel, the loop, the wide mode's ring,
+    its prefill kernel and ``qmm_f32_kernel``, and the split-K reduce
+    pass."""
     return {mode: sum(us for us, _, k in rows if name in k) / 1e3 / per
             for mode, name in (("pipe", "qmm_pipe_kernel"),
                                ("loop", "qmm_bf16_kernel"),
                                ("wide_pipe", "qmm_pipe_wide_kernel"),
+                               ("wide_prefill", "qmm_wgmma_wide_kernel"),
                                ("wide_f32", "qmm_f32_kernel"),
                                ("reduce", "splitk_reduce_kernel"))}
 
@@ -2813,7 +3035,7 @@ def phase_single_serving(dev, rec):
                                                   fuse_params,
                                                   random_params_int)
     from fastllama_tpu_torch.ops.kernels import attention as at
-    from fastllama_tpu_torch.runtime.engine import ChatSession, Engine
+    from fastllama_tpu_torch.runtime.engine import Engine
     log("phase 4b: single-stream 7B INT8 fused once, bf16 scales (auto), "
         "bf16 KV, S=512, 32 layers")
     cfg = cfg_7b()
@@ -2872,9 +3094,26 @@ def phase_single_serving(dev, rec):
     for k in ("decode_attention_pallas", "decode_attention_pallas_split"):
         launches[k] = more[k]
 
-    # a 200-token block fed to a ChatSession after its first token: a
-    # 256-row prefill at pos 1, whose layer glue runs K1f above 128 rows
     del cache
+    key = "qmatmul_pallas_indexed_fused_prefill"
+    out["long_block"], launches[key] = feed_block(eng, cfg, check_all_pipe,
+                                                  key)
+    rec["single_serving"] = out
+    del eng, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def feed_block(eng, cfg, k1_check, key):
+    """A 200-token block fed to a ``ChatSession`` of ``eng`` after its first
+    token, with the counters zeroed just before: a 256-row prefill at pos
+    1, whose layer glue runs K1f above 128 rows.  K1's modes must pass
+    ``k1_check`` (which returns the launches above 128 rows) and every K1f
+    launch of the block (four a layer: QKV and gate|up fused, all four
+    glued) be counted on ``key``; the logits finite.  Returns (record, K1f
+    launches)."""
+    import torch
+    from fastllama_tpu_torch.runtime.engine import ChatSession
     sess = ChatSession(eng)
     block = torch.randint(1, cfg.vocab_size, (200,),
                           generator=torch.Generator().manual_seed(SEED + 4),
@@ -2887,24 +3126,18 @@ def phase_single_serving(dev, rec):
         torch.cuda.synchronize()
     feed_s = time.perf_counter() - t0
     more = read_launches()
-    n = check_all_pipe(more, tally, "a 200-token ChatSession block")
-    want = 4 * cfg.n_layers      # QKV and gate|up fused: all four glued
-    check(more["qmatmul_pallas_indexed_fused_prefill"] == n == want,
-          f"the block's K1f launches: "
-          f"{more['qmatmul_pallas_indexed_fused_prefill']} in the prefill "
-          f"mode of {n}, want {want}")
+    n = k1_check(more, tally, "a 200-token ChatSession block")
+    want = 4 * cfg.n_layers
+    check(more[key] == n == want,
+          f"the block's K1f launches: {more[key]} on {key} of {n} above 128 "
+          f"rows, want {want}")
     check(bool(torch.isfinite(sess._last_logits).all())
           and sess._last_logits.shape == (cfg.vocab_size,),
           "the block's logits are not finite or not (vocab,)")
-    out["long_block"] = {"tokens": len(block), "feed_s": feed_s,
-                         "k1_modes": tally.record(), "card": smi_line()}
     log(f"  ok ChatSession block of {len(block)} tokens in {feed_s:.3f} s: "
-        f"{n} K1f launches in the prefill mode")
-    launches["qmatmul_pallas_indexed_fused_prefill"] = n
-    rec["single_serving"] = out
-    del eng, sess, params
-    torch.cuda.empty_cache()
-    return launches
+        f"{n} K1f launches on {key}")
+    return {"tokens": len(block), "feed_s": feed_s,
+            "k1_modes": tally.record(), "card": smi_line()}, n
 
 
 def serve_single(eng, path, t0, n_new=128, chunk=64, k1_check=None):
@@ -2967,7 +3200,9 @@ def phase_wide_single_serving(dev, rec):
     once, scale_dtype "auto" (bf16 at INT8 on the single-stream kernel
     path, ``resolve_scale_dtype``), the default f32 KV cache; every K1
     launch with T <= 128 (the 43-row prefill, the K1f glue, the
-    classifier) on the wide mode's ring."""
+    classifier) on the wide mode's ring; then 4b's 200-token
+    ``ChatSession`` block, every K1f launch of its 256-row prefill on the
+    wide mode's prefill kernel."""
     import torch
     from fastllama_tpu_torch.config import EngineConfig
     from fastllama_tpu_torch.loaders.tokenizer import Tokenizer
@@ -2986,7 +3221,10 @@ def phase_wide_single_serving(dev, rec):
     check(eng.params.wq.scales.dtype == torch.bfloat16,
           "scale_dtype='auto' did not narrow the scales on the kernel path")
     out, launches, _ = serve_single(eng, WIDE_SINGLE_PATH, t0,
-                                    k1_check=check_all_wide_pipe)
+                                    k1_check=check_all_wide)
+    key = "qmatmul_pallas_indexed_fused_wide_prefill"
+    out["long_block"], launches[key] = feed_block(eng, cfg, check_all_wide,
+                                                  key)
     rec["wide_single_serving"] = out
     del eng
     torch.cuda.empty_cache()
@@ -2996,8 +3234,10 @@ def phase_wide_single_serving(dev, rec):
 def phase_wide_serving(dev, rec):
     """Phase 4k: phase 4's batched serving at f32 compute (7B INT8 fused,
     f32 scales, int8 KV, B=48, S=512): every K1 launch with T <= 128 (the
-    decode steps at T=48) on the wide mode's ring; the prefill waves above
-    128 rows on ``qmm_f32_kernel``, tallied."""
+    decode steps at T=48) on the wide mode's ring; every one of the
+    prefill waves above 128 rows (256: two waves, 2048 and 1024 rows, 4
+    projections a layer) on its prefill kernel, none on
+    ``qmm_f32_kernel``, tallied."""
     import torch
     from fastllama_tpu_torch.config import EngineConfig
     from fastllama_tpu_torch.loaders.tokenizer import Tokenizer
@@ -3016,7 +3256,10 @@ def phase_wide_serving(dev, rec):
                         decode_chunk=64, device=dev)
     del params
     rec["wide_serving"], launches = serve_batched(
-        eng, WIDE_BATCHED_PATH, t0, k1_check=check_all_wide_pipe)
+        eng, WIDE_BATCHED_PATH, t0, k1_check=check_all_wide)
+    n = launches["qmatmul_pallas_indexed_wide_prefill"]
+    check(n == 256, f"batched serving at f32 compute: {n} wide prefill "
+                    f"launches, not 256")
     del eng
     torch.cuda.empty_cache()
     return launches
@@ -3759,6 +4002,7 @@ def phase_timing(dev, rec):
     sdpa = time_block(dev, gen, res)
     time_groupdot(dev, gen, res)
     time_wide(dev, gen, res)
+    time_wide_prefill(dev, gen, res)
     time_prefill(dev, gen, res)
     for k, v in res.items():
         loop = f"loop {v['loop_ms']:.4f}, " if "loop_ms" in v else ""
@@ -4697,9 +4941,8 @@ def time_wide(dev, gen, res):
     the wide ring (``ms``, the wrapper's choice), ``qmm_f32_kernel`` on
     the same calls (``_launch(..., mode="wide")``), ``torch.matmul`` on
     pre-dequantized f32 weights (``allow_tf32`` off; the glue by
-    ``rms_norm`` and ``addmm``) and the plain version.  Then
-    ``qmm_f32_kernel`` beside ``torch.matmul`` at a T=512 layer (the
-    prefill waves it keeps).  Bound: max(bytes / 3.35 TB/s, operations x 3
+    ``rms_norm`` and ``addmm``) and the plain version.  Bound: max(bytes /
+    3.35 TB/s, operations x 3
     / 989 TFLOP/s): the f32 product on the tensor cores takes three bf16
     passes (the ring beats the f32 cores' figure, operations / 67 TFLOP/s,
     which stands beside it as ``f32_core_bound_ms``)."""
@@ -4792,33 +5035,6 @@ def time_wide(dev, gen, res):
                       f"{str(sdt)[6:]} scales, f32 x and compute"
                       + (", K1f glue" if glue else ""))
             log_row(label, rows[label])
-        if sdt == f32:
-            # the prefill waves above 128 rows keep qmm_f32_kernel
-            x5 = {n: torch.randn((512, PROJ_7B[n][0]), generator=gen,
-                                 device=dev) for n in names}
-            check(all(qmm.wide_kernel(x5[n], ws[n][0], f32) == "f32"
-                      for n in names), "T=512: not qmm_f32_kernel")
-
-            def wave(lib):
-                def run():
-                    lyr = rot()
-                    for n in names:
-                        if lib:
-                            torch.matmul(x5[n], wds[n][lyr])
-                        else:
-                            qmm.qmatmul_pallas_indexed(x5[n], ws[n], lyr, f32)
-                return run
-            rows["T512"] = dict(
-                **in_turns({"f32_kernel_ms": wave(False),
-                            "library_ms": wave(True)}, iters=5),
-                **bounds(512, [PROJ_7B[n] for n in names], 4),
-                shape="T=512, one layer, INT8, f32 scales, x and compute: "
-                      "qmm_f32_kernel (the wrapper's choice)")
-            v = rows["T512"]
-            log(f"  wide T512: qmm_f32_kernel {v['f32_kernel_ms']:.4f} ms, "
-                f"library {v['library_ms']:.4f}, bound {v['bound_ms']:.4f} "
-                f"by {v['bound_by']}")
-            del x5
         del ws, wds
     # the classifier at T=48, f32 scales (phase 4k's)
     I, O = PROJ_7B["classifier"]
@@ -4839,11 +5055,223 @@ def time_wide(dev, gen, res):
     log_row("classifier T48", cls)
     del w, wd
     torch.cuda.empty_cache()
-    res["qmatmul_pallas_indexed_wide_pipe"] = dict(
-        rows["T48"], T1=rows["T1"], prefill_T512=rows["T512"])
+    res["qmatmul_pallas_indexed_wide_pipe"] = dict(rows["T48"], T1=rows["T1"])
     res["qmatmul_pallas_indexed_fused_wide_pipe"] = dict(
         rows["T1_glue_bf16_scales"])
     res["qmatmul_pallas_wide_pipe"] = cls
+
+
+def time_wide_prefill(dev, gen, res):
+    """K1's wide mode above 128 rows (f32 compute): its prefill kernel
+    (``qmm_wgmma_wide_kernel``, the wrappers' choice), ``qmm_f32_kernel``
+    on the same calls (``_launch(..., mode="wide")``) and ``torch.matmul``
+    on pre-dequantized f32 weights (``allow_tf32`` off), in turns: one 7B
+    layer's four INT8 projections (f32 scales and x) at T in {256, 512,
+    1024, 2048}, the plain version in turns at T = 512 and alone (three
+    calls) at T = 2048, and each projection alone at T = 2048 (the kernel
+    and the library); K1f's glue layer at T = 256 with bf16 scales (4j's
+    200-token block: the norm on wqkv and w13, the residual on wo and
+    w2); the unindexed wrapper on wqkv at T = 2048.  Layers rotate over 2,
+    so that every launch finds its weights cold in L2.  Bound: bytes (f32
+    x, the weight and its scales, f32 out, the glue operands) over 3.35
+    TB/s against operations x 3 (the bf16 passes) over 989 TFLOP/s; the
+    f32 cores' figure (operations / 67 TFLOP/s) beside it.  Ends with
+    :func:`time_wide_prepass` on the layer's inputs at T = 2048."""
+    import torch
+    import torch.nn.functional as F
+    from fastllama_tpu_torch.tools.timing import in_turns, time_ms
+    from fastllama_tpu_torch.config import QuantType
+    from fastllama_tpu_torch.ops.kernels import qmm
+    from fastllama_tpu_torch.quant.groupquant import dequantize
+    f32, nl = torch.float32, 2
+    names = ("wqkv", "wo", "w13", "w2")
+    layer = [0]
+
+    def rot():
+        layer[0] = (layer[0] + 1) % nl
+        return layer[0]
+
+    def bounds(T, shapes, ssz=4, glue=0):
+        nbytes = sum(T * I * 4 + I * O + I // 64 * O * ssz + T * O * 4
+                     for I, O in shapes) + glue
+        flops = sum(2 * T * I * O for I, O in shapes)
+        bm, by = bound_ms(nbytes, 3 * flops, BF16_FLOP_S)
+        return dict(bound_ms=bm, bound_by=by, bytes=nbytes,
+                    gflop=flops / 1e9,
+                    f32_core_bound_ms=bound_ms(nbytes, flops, F32_FLOP_S)[0])
+
+    def per_layer(one):
+        def f():
+            lyr = rot()
+            for n in names:
+                one(n, lyr)
+        return f
+
+    def log_row(label, d):
+        extra = (f", plain {d['plain_ms']:.4f}" if "plain_ms" in d else "")
+        log(f"  {label}: {d['ms']:.4f} ms ({d['tflop_s_3_passes']:.1f} "
+            f"TFLOP/s of bf16 passes; qmm_f32_kernel "
+            f"{d['f32_kernel_ms']:.4f}, library {d['library_ms']:.4f}"
+            f"{extra}, bound {d['bound_ms']:.4f} by {d['bound_by']})")
+
+    ws = {n: rand_qarray(gen, (nl, *PROJ_7B[n]), QuantType.INT8, dev)
+          for n in names}
+    wds = {n: dequantize(ws[n], f32) for n in names}
+    by_t = {}
+    for T in (256, 512, 1024, 2048):
+        xs = {n: torch.randn((T, PROJ_7B[n][0]), generator=gen, device=dev)
+              for n in names}
+        check(all(qmm._kernel(xs[n], ws[n][0], f32, False, None)
+                  == "wide_prefill" for n in names),
+              f"T={T}: not the wide prefill kernel")
+        fns = {"ms": per_layer(lambda n, lyr: qmm.qmatmul_pallas_indexed(
+                   xs[n], ws[n], lyr, f32)),
+               "f32_kernel_ms": per_layer(lambda n, lyr: qmm._launch(
+                   xs[n], ws[n][lyr], f32, mode="wide")),
+               "library_ms": per_layer(lambda n, lyr: torch.matmul(
+                   xs[n], wds[n][lyr]))}
+        if T == 512:
+            fns["plain_ms"] = per_layer(lambda n, lyr: qmm.qmm_fused_plain(
+                xs[n], ws[n][lyr], f32))
+        d = dict(**in_turns(fns, iters=5 if T >= 1024 else 10),
+                 **bounds(T, [PROJ_7B[n] for n in names]))
+        d["tflop_s_3_passes"] = 3 * d["gflop"] / d["ms"]
+        if T == 2048:
+            d["plain_ms"] = time_ms(per_layer(
+                lambda n, lyr: qmm.qmm_fused_plain(xs[n], ws[n][lyr], f32)),
+                iters=3, warmup=1)
+            d["per_projection_ms"] = {}
+            for n in names:
+                I, O = PROJ_7B[n]
+                d["per_projection_ms"][n] = dict(
+                    **in_turns({
+                        "ms": lambda n=n: qmm.qmatmul_pallas_indexed(
+                            xs[n], ws[n], rot(), f32),
+                        "library_ms": lambda n=n: torch.matmul(
+                            xs[n], wds[n][rot()])}, iters=10),
+                    **bounds(T, [(I, O)]))
+            x2048 = xs
+        by_t[T] = d
+        log_row(f"wide prefill layer T={T}", d)
+    res["qmatmul_pallas_indexed_wide_prefill"] = dict(
+        by_t[2048], by_T=by_t,
+        library_call="torch.matmul per projection on pre-dequantized f32 "
+                     "weights (allow_tf32 off)",
+        shape="T=2048, one layer: wqkv 4096x12288, wo 4096x4096, w13 "
+              "4096x22016, w2 11008x4096, INT8 f32 scales, f32 x and "
+              "compute (by_T: T 256-2048)")
+    del wds
+
+    # K1f's glue layer at T = 256 (4j's block), bf16 scales
+    T = 256
+    norm = {"wqkv": True, "wo": False, "w13": True, "w2": False}
+    wb = {n: rand_qarray(gen, (nl, *PROJ_7B[n]), QuantType.INT8, dev,
+                         torch.bfloat16) for n in names}
+    wbd = {n: dequantize(wb[n], f32) for n in names}
+    xs = {n: torch.randn((T, PROJ_7B[n][0]), generator=gen, device=dev)
+          for n in names}
+    kws = {n: (dict(norm_gain=torch.rand((PROJ_7B[n][0],), generator=gen,
+                                         device=dev) + 0.5) if norm[n] else
+               dict(residual=torch.randn((T, PROJ_7B[n][1]), generator=gen,
+                                         device=dev)))
+           for n in names}
+
+    def lib(n, lyr):
+        if norm[n]:
+            g = kws[n]["norm_gain"]
+            return torch.matmul(F.rms_norm(xs[n], g.shape, g, 1e-5),
+                                wbd[n][lyr])
+        return torch.addmm(kws[n]["residual"], xs[n], wbd[n][lyr])
+    d = dict(**in_turns({
+        "ms": per_layer(lambda n, lyr: qmm.qmatmul_pallas_indexed(
+            xs[n], wb[n], lyr, f32, **kws[n])),
+        "f32_kernel_ms": per_layer(lambda n, lyr: qmm._launch(
+            xs[n], wb[n][lyr], f32, kws[n].get("norm_gain"),
+            kws[n].get("residual"), mode="wide")),
+        "library_ms": per_layer(lib),
+        "plain_ms": per_layer(lambda n, lyr: qmm.qmm_fused_plain(
+            xs[n], wb[n][lyr], f32, **kws[n]))}),
+        **bounds(T, [PROJ_7B[n] for n in names], 2,
+                 sum(PROJ_7B[n][0] * 4 if norm[n] else T * PROJ_7B[n][1] * 4
+                     for n in names)),
+        library_call="torch rms_norm then torch.matmul (norm projections) "
+                     "or torch.addmm (residual projections) on "
+                     "pre-dequantized f32 weights",
+        shape="T=256 bf16 scales, f32 x and compute, one layer: wqkv "
+              "+norm, wo +residual, w13 +norm, w2 +residual")
+    d["tflop_s_3_passes"] = 3 * d["gflop"] / d["ms"]
+    log_row("wide prefill K1f glue layer T=256", d)
+    res["qmatmul_pallas_indexed_fused_wide_prefill"] = d
+    del wb, wbd
+
+    # the unindexed wrapper on wqkv at T = 2048
+    T, (I, O) = 2048, PROJ_7B["wqkv"]
+    w = ws["wqkv"][0]
+    wd = dequantize(w, f32)
+    x = x2048["wqkv"]
+    d = dict(**in_turns({"ms": lambda: qmm.qmatmul_pallas(x, w, f32),
+                         "f32_kernel_ms": lambda: qmm._launch(
+                             x, w, f32, mode="wide"),
+                         "library_ms": lambda: torch.matmul(x, wd)},
+                        iters=5),
+             plain_ms=time_ms(lambda: qmm.qmm_plain(x, w, f32), iters=3,
+                              warmup=1),
+             **bounds(T, [(I, O)]),
+             library_call="torch.matmul(x, w) on a pre-dequantized f32 "
+                          "weight (allow_tf32 off)",
+             shape=f"T={T} I={I} O={O} INT8 f32 scales, f32 x and compute")
+    d["tflop_s_3_passes"] = 3 * d["gflop"] / d["ms"]
+    log_row("wide prefill qmatmul_pallas wqkv T=2048", d)
+    res["qmatmul_pallas_wide_prefill"] = d
+    del wd
+    time_wide_prepass(ws, x2048, res)
+
+
+def time_wide_prepass(ws, xs, res):
+    """The pre-pass's share of the wide prefill calls of a 7B layer at
+    T = 2048 (f32 x), by CUDA events, in turns: for each projection the
+    wrapper's call (the pre-pass ``prefill_x_kernel`` writing x's three
+    bf16 planes, then ``qmm_wgmma_wide_kernel``) and the pre-pass alone
+    (``qmm._launch_prepass``) on the same x; the kernel is the call less
+    the pre-pass.  Layers rotate over 2 as in :func:`time_wide_prefill`.
+    Fails unless the pre-pass's hi plane is bf16(x), the three planes sum
+    to x within ``TOL_PLANES`` and each pre-pass is shorter than its
+    call."""
+    import torch
+    from fastllama_tpu_torch.tools.timing import in_turns
+    from fastllama_tpu_torch.ops.kernels import qmm
+    f32, layer = torch.float32, [0]
+
+    def rot():
+        layer[0] = (layer[0] + 1) % 2
+        return layer[0]
+    by = {}
+    for n, x in xs.items():
+        I = x.shape[1]
+        xb = qmm._launch_prepass(x)
+        check(torch.equal(xb[:, :I], x.to(torch.bfloat16)),
+              f"wide pre-pass {n}: the hi plane is not bf16(x)")
+        compare(f"wide pre-pass {n}: the planes' sum against x",
+                sum(xb[:, q * I:(q + 1) * I].double() for q in range(3)),
+                x.double(), TOL_PLANES)
+        del xb
+        d = in_turns({
+            "call_ms": lambda x=x, n=n: qmm.qmatmul_pallas_indexed(
+                x, ws[n], rot(), f32),
+            "prepass_ms": lambda x=x: qmm._launch_prepass(x)}, iters=10)
+        check(0.0 < d["prepass_ms"] < d["call_ms"],
+              f"wide pre-pass {n}: {d['prepass_ms']:.4f} ms against the "
+              f"call's {d['call_ms']:.4f}")
+        d["kernel_ms"] = d["call_ms"] - d["prepass_ms"]
+        by[n] = d
+    call = sum(v["call_ms"] for v in by.values())
+    pre = sum(v["prepass_ms"] for v in by.values())
+    out = {"by_projection": by, "layer_call_ms": call,
+           "layer_prepass_ms": pre, "prepass_share": pre / call}
+    res["qmatmul_pallas_indexed_wide_prefill"]["prepass_T2048"] = out
+    log(f"  wide prefill layer T=2048, pre-pass by CUDA events: "
+        f"{pre:.4f} ms of the calls' {call:.4f} ms a layer (share "
+        f"{out['prepass_share']:.3f}); by projection {by}")
 
 
 def time_prefill(dev, gen, res):
@@ -5191,6 +5619,12 @@ SOURCES.update({k + "_prefill": ("fastllama_tpu_torch/csrc/qmm_prefill.cu",
                                  SOURCES[k][1]) for k in (
     "qmatmul_pallas", "qmatmul_pallas_indexed",
     "qmatmul_pallas_indexed_fused")})
+# the wide mode's prefill kernel (f32 compute, T > 128): the same source,
+# the TPU functions of K1's wrappers (the JAX wide branch runs in each)
+SOURCES.update({k + "_wide_prefill": (
+    "fastllama_tpu_torch/csrc/qmm_prefill.cu", SOURCES[k][1]) for k in (
+    "qmatmul_pallas", "qmatmul_pallas_indexed",
+    "qmatmul_pallas_indexed_fused")})
 
 
 def main() -> int:
@@ -5201,13 +5635,14 @@ def main() -> int:
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--regs-against", metavar="CU", action="append",
                     default=[],
-                    help="another tree's csrc/flash_decode.cu or "
-                         "csrc/qmm.cu (such as the parent commit's; may "
-                         "repeat), built beside the kernels with the same "
-                         "flags: phase 1 then requires the registers of "
-                         "every instantiation of the split kernels of K2 "
-                         "and K2s, or of qmm_pipe_kernel and "
-                         "qmm_pipe_gd_kernel, to be equal in both")
+                    help="another tree's csrc/flash_decode.cu, csrc/qmm.cu "
+                         "or csrc/qmm_prefill.cu (such as the parent "
+                         "commit's; may repeat), built beside the kernels "
+                         "with the same flags: phase 1 then requires the "
+                         "registers of every instantiation of the split "
+                         "kernels of K2 and K2s, of qmm_pipe_kernel and "
+                         "qmm_pipe_gd_kernel, or of qmm_wgmma_kernel, to "
+                         "be equal in both")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
 
@@ -5327,16 +5762,21 @@ def main() -> int:
         launches.setdefault("flash_block_attend", got["flash_block_attend"])
     if "4j" in phases:
         got = run("4j", phase_wide_single_serving)
-        launches["qmatmul_pallas_indexed_fused_wide_pipe"] = \
-            got["qmatmul_pallas_indexed_fused_wide_pipe"]
+        for k in ("qmatmul_pallas_indexed_fused_wide_pipe",
+                  "qmatmul_pallas_indexed_fused_wide_prefill"):
+            launches[k] = got[k]
         # the classifier's ring launches: 4k's batched path when it runs
         if not launches.get("qmatmul_pallas_wide_pipe"):
             launches["qmatmul_pallas_wide_pipe"] = \
                 got["qmatmul_pallas_wide_pipe"]
     if "4k" in phases:
         got = run("4k", phase_wide_serving)
+        # the unindexed wrapper's wide prefill count is this run's, 0: no
+        # engine path calls it above 128 rows (as in JAX)
         for k in ("qmatmul_pallas_wide_pipe",
-                  "qmatmul_pallas_indexed_wide_pipe"):
+                  "qmatmul_pallas_indexed_wide_pipe",
+                  "qmatmul_pallas_indexed_wide_prefill",
+                  "qmatmul_pallas_wide_prefill"):
             launches[k] = got[k]
     if "4g" in phases:
         got = run("4g", phase_deferred_serving)
@@ -5378,5 +5818,7 @@ if __name__ == "__main__":
     try:
         sys.exit(main())
     except Failed as e:
+        # on both streams: a caller that keeps only one still reads why
         print(f"chip_smoke FAILED: {e}", flush=True)
+        print(f"chip_smoke FAILED: {e}", file=sys.stderr, flush=True)
         sys.exit(1)

@@ -10,7 +10,10 @@
 // single-stream block of more than 128 tokens.  It takes every such call
 // that is not wide (bf16 compute, or a packed weight at any compute dtype)
 // with gs a multiple of 64 and 16-byte aligned rows and residual; the loop
-// (qmm_bf16_kernel in qmm.cu) keeps the rest, qmm_f32_kernel the wide calls.
+// (qmm_bf16_kernel in qmm.cu) keeps the rest.  Its wide mode
+// (qmm_wgmma_wide_kernel, below the design notes) takes the wide calls of
+// that kind with an int8-held weight; qmm_f32_kernel keeps the other wide
+// calls.
 //
 // It computes what the loop computes (qmm_fused_plain / qmm_p4_plain in
 // ops/kernels/qmm.py); only the f32 sum order differs:
@@ -83,6 +86,43 @@
 //     projections) K is split across blocks by the host's plan, and
 //     prefill_reduce_kernel sums the f32 partials in split order after the
 //     residual (deterministic).
+//
+// The wide mode (qmm_wgmma_wide_kernel) takes every wide call (f32 compute)
+// above 128 rows with an int8-held weight (INT8, or INT4 that did not
+// pack), gs % 64 == 0 and 16-byte aligned rows and residual: the batched
+// prefill waves at f32 compute and K1f's glue on a single-stream block of
+// more than 128 tokens at f32 compute.  It computes the JAX wide kernel's
+// function (f32 dequant and a Precision.HIGHEST dot, qmm.py:62-74) as the
+// wide ring of qmm.cu does: the A operand holds the exact integers (no
+// scale), x goes in as three bf16 planes, hi = bf16(v), mid = bf16(v - hi),
+// lo = bf16(v - hi - mid), whose products (lo, mid, hi) go into one f32
+// partial a group, folded into the accumulators times the group's f32 (or
+// bf16) scale once the group ends; a bf16 x is exact in one plane, one
+// pass.  K1f: xn = to_x_dtype(x * rsqrt(mean(x^2) + eps) * gain) in f32,
+// then the planes; the residual added once at the end; split-K partials
+// summed in split order after it.  Its bound is operations: three bf16
+// passes, 0.629 ms a 7B layer at T = 512 at 989 TFLOP/s.
+//   * A block computes 128 output columns x 128 rows of x (wgmma
+//     m64n128k16): 64 accumulators and a 64-register partial a thread
+//     (m64n256 would leave no registers for the partial).  The same
+//     warpgroups, register hand-over and ldmatrix.trans A rows as above.
+//   * A stage is 64 W rows: the W box, each 32-row part's x planes (TMA
+//     boxes of 128 rows x 32 columns, 64-byte swizzle, from the pre-pass's
+//     (T, planes x I) scratch) and the group's scale row; the ring holds as
+//     many stages as fit (3 on f32 x).  The two parts' A fragments are
+//     register sets of their own: a part is dequantized while the part
+//     before is in flight, never over fragments an MMA still reads.
+//   * Each byte becomes its exact integer in f32 by a PRMT into a magic
+//     float and one FADD, the pair exact in bf16 by a PRMT: no scale, so
+//     one A fragment of a k16 step serves every plane's wgmma.
+//   * The partial is folded once its group (or the split) ends, after
+//     wait_group 0: a drain of the warpgroup's MMAs once a group, which
+//     the other consumer warpgroup's MMAs fill (two partials used in
+//     turn were slower: a design call, PERF.md).  A group's first wgmma
+//     has scale-d 0, so a partial needs no zeroing.
+//   * The pre-pass writes x's planes once a call (the norm first when a
+//     gain is given); a bf16 x without the norm is read in place.
+//
 // The host builds the three CUtensorMaps a call (cuTensorMapEncodeTiled,
 // reached through cudaGetDriverEntryPoint, so the library needs no -lcuda)
 // and passes them as __grid_constant__ parameters.  w[layer] of a stacked
@@ -120,6 +160,11 @@ constexpr int PF_XK = 32;           // x columns a plane (64-byte rows)
 #ifndef PF_SETMAXNREG
 #define PF_SETMAXNREG 1
 #endif
+// The wide mode's tuning macro (the same tool): PF_WIDE_STAGES, the most
+// stages its ring takes (it takes as many as fit, up to this).
+#ifndef PF_WIDE_STAGES
+#define PF_WIDE_STAGES 8
+#endif
 constexpr int PF_ROWS = 256;        // rows of x a block (the wgmma N)
 constexpr int PF_WG_COLS = 64;      // output columns a consumer warpgroup
 constexpr int PF_COLS = 128;        // output columns a block: one W box
@@ -149,6 +194,30 @@ __host__ __device__ constexpr int pf_stage_bytes(bool p4) {
 __host__ __device__ constexpr int pf_smem(bool p4) {
   return pf_stages(p4) * pf_stage_bytes(p4) + 1024;
 }
+constexpr int PFW_ROWS = 128;       // the wide mode: rows of x a block
+constexpr int PFW_KS = 64;          // W rows a stage: two parts of 32
+constexpr int PFW_X_BOX = PFW_ROWS * PF_XK * 2;   // bytes of an x box
+// bf16 planes of x: three hold an f32 x, one a bf16 x
+__host__ __device__ constexpr int pfw_planes(bool x_f32) {
+  return x_f32 ? 3 : 1;
+}
+// a wide ring slot: the W box, each part's x planes, the scale row (each
+// piece a multiple of 1024 bytes)
+__host__ __device__ constexpr int pfw_stage_bytes(int planes) {
+  return PFW_KS * PF_COLS + 2 * planes * PFW_X_BOX + PF_S_ROW;
+}
+// the wide ring's depth: as many stages as fit beside their two barriers
+// and the 1 KB that aligns the ring, up to PF_WIDE_STAGES
+__host__ __device__ constexpr int pfw_stages(int planes) {
+  return (PF_SMEM_BLOCK - 1024) / (pfw_stage_bytes(planes) + 16) <
+                 PF_WIDE_STAGES
+             ? (PF_SMEM_BLOCK - 1024) / (pfw_stage_bytes(planes) + 16)
+             : PF_WIDE_STAGES;
+}
+__host__ __device__ constexpr int pfw_smem(int planes) {
+  return pfw_stages(planes) * pfw_stage_bytes(planes) + 1024;
+}
+static_assert(pfw_stages(3) >= 2, "the wide ring needs two stages");
 // the producer's registers cover the consumers' rise: all from 65536
 static_assert(128 * PF_PRODUCER_REGS + 256 * PF_CONSUMER_REGS <= 65536,
               "the warpgroups' registers exceed an SM's");
@@ -281,6 +350,26 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[128],
         PF_D8(96), PF_D8(104), PF_D8(112), PF_D8(120)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
+// d (64 rows x 128 columns, f32, 64 registers a thread) = a (64 x 16
+// bf16, registers) * b (16 x 128 bf16, K-major in shared memory at desc)
+// + (scale_d ? d : 0)
+__device__ __forceinline__ void wgmma_rs128(float (&d)[64],
+                                            const uint32_t (&a)[4],
+                                            uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : PF_D8(0), PF_D8(8), PF_D8(16), PF_D8(24), PF_D8(32), PF_D8(40),
+        PF_D8(48), PF_D8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"(scale_d));
+}
 #undef PF_D8
 
 // -- dequant (the magic-exponent conversions of qmm.cu) ---------------------
@@ -362,6 +451,22 @@ __device__ __forceinline__ void deq8_ldsm(uint32_t (&a)[2][4],
       }
     }
 }
+// The wide mode's A fragments of two k16 steps (the registers of
+// deq8_ldsm): the exact integers, each byte's magic float less its bias
+// (one FADD, exact), the pair exact in bf16.
+__device__ __forceinline__ void deq8_exact(uint32_t (&a)[2][4],
+                                           const uint32_t (&r)[4]) {
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const uint32_t rx = r[2 * ks + hh] ^ 0x80808080u;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        a[ks][2 * hh + h] = exact_pair(magic8(rx, h) - 8388736.0f,
+                                       magic8(rx, h + 2) - 8388736.0f);
+    }
+}
 // K1p: plane p's nibbles, bf16(f32(nibble) * f32(s))
 __device__ __forceinline__ void deq4_ldsm(uint32_t (&a)[2][4],
                                           const uint32_t (&r)[4], int p,
@@ -413,7 +518,7 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float v0, float v1,
 
 // P4: K1p (W the (I/2, O) split-half bytes; k_per_split in packed rows).
 // XT: x's (and the output's and residual's) dtype; ST: the scales'.
-// Grid (ceil(O / 256), ceil(T / 128), splits); PF_THREADS threads;
+// Grid (ceil(O / PF_COLS), ceil(T / PF_ROWS), splits); PF_THREADS threads;
 // pf_smem(P4) bytes of dynamic shared memory.  partial non-null: write the
 // split's f32 partials (res unused).
 template <bool P4, typename XT, typename ST>
@@ -573,6 +678,179 @@ __global__ void __launch_bounds__(PF_THREADS, 1)
   }
 }
 
+// The wide mode.  XT: x's (and the output's and residual's) dtype, which
+// sets the planes (f32 three, bf16 one); ST: the scales'.  tm_x maps the
+// (T, planes x I) bf16 planes (plane q of row t at columns q I ..), or a
+// bf16 x read in place.  Grid (ceil(O / PF_COLS), ceil(T / PFW_ROWS),
+// splits); PF_THREADS threads; pfw_smem(planes) bytes of dynamic shared
+// memory.  partial non-null: write the split's f32 partials (res unused).
+template <typename XT, typename ST>
+__global__ void __launch_bounds__(PF_THREADS, 1)
+    qmm_wgmma_wide_kernel(const __grid_constant__ CUtensorMap tm_x,
+                          const __grid_constant__ CUtensorMap tm_w,
+                          const __grid_constant__ CUtensorMap tm_s,
+                          const XT* __restrict__ res, XT* __restrict__ out,
+                          float* __restrict__ partial, int T, int I, int O,
+                          int gs, int k_per_split) {
+  extern __shared__ unsigned char pf_smem_raw[];
+  constexpr int NPL = pfw_planes(sizeof(XT) == 4), NS = pfw_stages(NPL);
+  constexpr int KS = PFW_KS, NP = 2;   // W rows, parts a stage
+  constexpr int STAGE = pfw_stage_bytes(NPL);
+  constexpr int XOFF = KS * PF_COLS, SOFF = XOFF + NP * NPL * PFW_X_BOX;
+  __shared__ __align__(8) uint64_t full[NS], empty[NS];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(pf_smem_raw) + 1023) & ~uintptr_t(1023));
+  const int o0 = blockIdx.x * PF_COLS, t0 = blockIdx.y * PFW_ROWS;
+  const int kbeg = blockIdx.z * k_per_split;
+  const int nst = (min(I, kbeg + k_per_split) - kbeg) / KS;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);        // the eight consumer warps
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 8) {                    // the producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        PF_PRODUCER_REGS));
+    if (warp == 8 && lane == 0) {
+      constexpr uint32_t TX = SOFF + PF_COLS * sizeof(ST);
+      for (int i = 0; i < nst; ++i) {
+        const int s = i % NS;
+        if (i >= NS) mbar_wait(&empty[s], ((i / NS) - 1) & 1);
+        unsigned char* st = smem + s * STAGE;
+        const int kr = kbeg + i * KS;   // the stage's first W row
+        mbar_expect_tx(&full[s], TX);
+        tma_load(st, &tm_w, &full[s], o0, kr);
+#pragma unroll
+        for (int p = 0; p < NP; ++p)
+#pragma unroll
+          for (int q = 0; q < NPL; ++q)
+            tma_load(st + XOFF + (p * NPL + q) * PFW_X_BOX, &tm_x, &full[s],
+                     q * I + kr + PF_XK * p, t0);
+        tma_load(st + SOFF, &tm_s, &full[s], o0, kr / gs);
+      }
+    }
+    return;
+  }
+
+  // the consumers: warpgroup wg's 64 columns 64 wg .. of the block, one
+  // m64 tile, warp wq's 16 of them
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+      PF_CONSUMER_REGS));
+  const int wg = warp / 4, wq = warp % 4, g = lane / 4, t4 = lane % 4;
+  const int col = PF_WG_COLS * wg + 16 * wq;
+  float acc[64], pa[64];              // the accumulators, the partial
+#pragma unroll
+  for (int j = 0; j < 64; ++j) {
+    acc[j] = pa[j] = 0.0f;
+    reg_fence(acc[j]);
+    reg_fence(pa[j]);
+  }
+  // acc += pt * the scales sv of the thread's columns col + 2 g + h
+  // (accumulator register 4 j + 2 h + c), once pt's MMAs have retired
+  auto fold = [&](float (&pt)[64], const float (&sv)[2]) {
+#pragma unroll
+    for (int j = 0; j < 64; ++j) reg_fence(pt[j]);
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          acc[4 * j + 2 * h + c] =
+              fmaf(pt[4 * j + 2 * h + c], sv[h], acc[4 * j + 2 * h + c]);
+  };
+  auto release = [&](int i) {
+    if (lane == 0) mbar_arrive(&empty[i % NS]);
+  };
+  bool held = false;     // the stage before is held: its MMAs may run
+  float sp[2] = {0.0f, 0.0f};   // the scales of the partial to fold
+  uint32_t a[NP][2][4];  // [part][k16 step][register]
+  // the A fragments of stage st's part p, and their fence
+  auto fragments = [&](const unsigned char* st, int p) {
+    uint32_t r[4];
+    const int wr = 32 * p + lane;     // lane l gives the part's W row l
+    ldsm_x4_t(r, st + wr * 128 + (((col >> 4) ^ (wr & 7)) << 4));
+    deq8_exact(a[p], r);
+    reg_fence(a[p]);
+    wgmma_fence();
+  };
+  // part p's wgmma of stage st into cur, planes lo, mid, hi; fresh: the
+  // first starts the partial (scale-d 0)
+  auto mmas = [&](float (&cur)[64], const unsigned char* st, int p,
+                  bool fresh) {
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+      for (int q = NPL - 1; q >= 0; --q)
+        wgmma_rs128(cur, a[p][ks],
+                    desc_sw64(st + XOFF + (p * NPL + q) * PFW_X_BOX +
+                              32 * ks),
+                    fresh && ks == 0 && q == NPL - 1 ? 0 : 1);
+    wgmma_commit();
+  };
+  // after part 0's commit and wait: the part before, the stage before's
+  // last, has retired
+  auto retire_before = [&](int i) {
+    if (held) release(i - 1);
+    held = false;
+  };
+  const auto group_end = [&](int i) {
+    return (kbeg + i * KS + KS) % gs == 0 || i == nst - 1;
+  };
+  bool fresh = true;   // the next MMA starts the partial
+  for (int i = 0; i < nst; ++i) {
+    const int s = i % NS;
+    mbar_wait(&full[s], (i / NS) & 1);
+    const unsigned char* st = smem + s * STAGE;
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      fragments(st, p);
+      mmas(pa, st, p, fresh && p == 0);
+      wgmma_wait<1>();
+      if (p == 0) retire_before(i);
+    }
+    fresh = group_end(i);
+    if (fresh) {                    // fold after a drain, release
+      scales2(sp, st + SOFF + (col + 2 * g) * sizeof(ST), ST());
+      wgmma_wait<0>();
+      fold(pa, sp);
+      release(i);
+    } else {
+      held = true;
+    }
+  }
+  // the last stage folded after a drain; said again so that ptxas sees
+  // every MMA retired before the epilogue reuses the partial's registers
+  wgmma_wait<0>();
+
+  // accumulator register 4 j + 2 h + c: the column col + 2 g + h and row
+  // 8 j + 2 t4 + c of x
+  const int o = o0 + col + 2 * g;
+  if (o < O) {                            // O % 2 == 0: both or none
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int t = t0 + 8 * j + 2 * t4 + c;
+        if (t >= T) continue;
+        const size_t e = (size_t)t * O + o;
+        if (partial != nullptr)
+          store2(partial + (size_t)blockIdx.z * T * O + e, acc[4 * j + c],
+                 acc[4 * j + 2 + c], static_cast<const float*>(nullptr));
+        else
+          store2(out + e, acc[4 * j + c], acc[4 * j + 2 + c],
+                 res != nullptr ? res + e : nullptr);
+      }
+  }
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -582,16 +860,20 @@ __device__ __forceinline__ float warp_sum(float v) {
 // The pre-pass: row blockIdx.x of x as bf16 into xb, normalized first when
 // gain is given (xn = to_x_dtype(x * rinv * gain), rinv = 1 / sqrt(mean(x^2)
 // + eps), per-thread sums of squares summed by warps in order:
-// deterministic).  256 threads; x's rows 16-byte aligned (I % 8 == 0).
+// deterministic).  planes 3 (the wide mode on f32 x): the row's three bf16
+// planes hi, mid, lo (each the rest's rounding to nearest; their sum is the
+// value) at columns 0, I and 2 I of a row of 3 I; else one plane, rounded.
+// 256 threads; x's rows 16-byte aligned (I % 8 == 0).
 template <typename XT>
 __global__ void __launch_bounds__(256)
     prefill_x_kernel(const XT* __restrict__ x, const float* __restrict__ gain,
-                     float eps, __nv_bfloat16* __restrict__ xb, int I) {
+                     float eps, __nv_bfloat16* __restrict__ xb, int I,
+                     int planes) {
   __shared__ float wsum[8];
   constexpr int V = 16 / sizeof(XT);
   const int tid = threadIdx.x;
   const XT* row = x + (size_t)blockIdx.x * I;
-  __nv_bfloat16* dst = xb + (size_t)blockIdx.x * I;
+  __nv_bfloat16* dst = xb + (size_t)blockIdx.x * planes * I;
   float rinv = 1.0f;
   if (gain != nullptr) {
     float acc = 0.0f;
@@ -621,13 +903,22 @@ __global__ void __launch_bounds__(256)
       v[j] = to_f(e[j]);
       if (gain != nullptr) v[j] = to_f(from_f<XT>(v[j] * rinv * gain[c + j]));
     }
-    uint32_t p[V / 2];
+    for (int q = 0; q < planes; ++q) {
+      uint32_t p[V / 2];
 #pragma unroll
-    for (int j = 0; j < V / 2; ++j) p[j] = round_pair(v[2 * j], v[2 * j + 1]);
-    if constexpr (V == 8)
-      *reinterpret_cast<uint4*>(dst + c) = make_uint4(p[0], p[1], p[2], p[3]);
-    else
-      *reinterpret_cast<uint2*>(dst + c) = make_uint2(p[0], p[1]);
+      for (int j = 0; j < V / 2; ++j) {
+        p[j] = round_pair(v[2 * j], v[2 * j + 1]);
+        const float2 f = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&p[j]));
+        v[2 * j] -= f.x;                  // exact: the next plane's rest
+        v[2 * j + 1] -= f.y;
+      }
+      if constexpr (V == 8)
+        *reinterpret_cast<uint4*>(dst + q * I + c) =
+            make_uint4(p[0], p[1], p[2], p[3]);
+      else
+        *reinterpret_cast<uint2*>(dst + q * I + c) = make_uint2(p[0], p[1]);
+    }
   }
 }
 
@@ -692,6 +983,36 @@ int make_map(CUtensorMap* map, CUtensorMapDataType dt, const void* base,
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
+// Raises kernel's dynamic shared memory limit to smem before its first
+// launch (allowed: the instantiation's flag); 0 or the runtime's error,
+// not left for the next launch.
+template <typename K>
+int allow_smem(K* kernel, int smem, bool& allowed) {
+  if (allowed) return 0;
+  const cudaError_t a = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (a != cudaSuccess) {
+    cudaGetLastError();
+    return (int)a;
+  }
+  allowed = true;
+  return 0;
+}
+
+// After a prefill launch: its error, and with splits > 1 the reduce pass
+// (the residual added once, there)
+template <typename XT>
+int reduce_splits(const float* partial, const XT* res, XT* out, int T, int O,
+                  int splits, cudaStream_t st) {
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  const size_t n = (size_t)T * O;
+  const int blocks = (int)std::min<size_t>((n + 255) / 256, 4096);
+  prefill_reduce_kernel<XT><<<blocks, 256, 0, st>>>(partial, res, out, n,
+                                                    splits);
+  return (int)cudaGetLastError();
+}
+
 template <bool P4, typename XT, typename ST>
 int launch_t(const __nv_bfloat16* xsrc, const int8_t* w, const void* s,
              const void* res, void* out, float* partial, int T, int I, int O,
@@ -712,19 +1033,9 @@ int launch_t(const __nv_bfloat16* xsrc, const int8_t* w, const void* s,
                  CU_TENSOR_MAP_SWIZZLE_NONE);
   if (e != 0) return e;
   constexpr int smem = pf_smem(P4);
-  // this instantiation's dynamic shared memory limit, raised before its
-  // first launch
   static bool allowed = false;
-  if (!allowed) {
-    const cudaError_t a = cudaFuncSetAttribute(
-        qmm_wgmma_kernel<P4, XT, ST>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (a != cudaSuccess) {
-      cudaGetLastError();                // not left for the next launch
-      return (int)a;
-    }
-    allowed = true;
-  }
+  e = allow_smem(qmm_wgmma_kernel<P4, XT, ST>, smem, allowed);
+  if (e != 0) return e;
   const dim3 grid((O + PF_COLS - 1) / PF_COLS, (T + PF_ROWS - 1) / PF_ROWS,
                   splits);
   const XT* rp = static_cast<const XT*>(res);
@@ -733,13 +1044,41 @@ int launch_t(const __nv_bfloat16* xsrc, const int8_t* w, const void* s,
   qmm_wgmma_kernel<P4, XT, ST><<<grid, PF_THREADS, smem, st>>>(
       tx, tw, ts, splits > 1 ? nullptr : rp, op,
       splits > 1 ? partial : nullptr, T, I, O, gs, k_per_split);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return (int)err;
-  const size_t n = (size_t)T * O;
-  const int blocks = (int)std::min<size_t>((n + 255) / 256, 4096);
-  prefill_reduce_kernel<XT><<<blocks, 256, 0, st>>>(partial, rp, op, n,
-                                                    splits);
-  return (int)cudaGetLastError();
+  return reduce_splits<XT>(partial, rp, op, T, O, splits, st);
+}
+
+template <typename XT, typename ST>
+int launch_wide_t(const __nv_bfloat16* xsrc, const int8_t* w, const void* s,
+                  const void* res, void* out, float* partial, int T, int I,
+                  int O, int gs, int splits, int k_per_split,
+                  cudaStream_t st) {
+  constexpr int npl = pfw_planes(sizeof(XT) == 4);
+  CUtensorMap tx, tw, ts;
+  int e = make_map(&tx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, xsrc,
+                   (uint64_t)npl * I, T, (uint64_t)npl * I * 2, PF_XK,
+                   PFW_ROWS, CU_TENSOR_MAP_SWIZZLE_64B);
+  if (e == 0)
+    e = make_map(&tw, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, O, I, (uint64_t)O,
+                 128, PFW_KS, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (e == 0)
+    e = make_map(&ts,
+                 sizeof(ST) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                 s, O, I / gs, (uint64_t)O * sizeof(ST), PF_COLS, 1,
+                 CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (e != 0) return e;
+  constexpr int smem = pfw_smem(npl);
+  static bool allowed = false;
+  e = allow_smem(qmm_wgmma_wide_kernel<XT, ST>, smem, allowed);
+  if (e != 0) return e;
+  const dim3 grid((O + PF_COLS - 1) / PF_COLS, (T + PFW_ROWS - 1) / PFW_ROWS,
+                  splits);
+  const XT* rp = static_cast<const XT*>(res);
+  XT* op = static_cast<XT*>(out);
+  qmm_wgmma_wide_kernel<XT, ST><<<grid, PF_THREADS, smem, st>>>(
+      tx, tw, ts, splits > 1 ? nullptr : rp, op,
+      splits > 1 ? partial : nullptr, T, I, O, gs, k_per_split);
+  return reduce_splits<XT>(partial, rp, op, T, O, splits, st);
 }
 
 // dtype codes shared with ops/kernels/qmm.py
@@ -747,6 +1086,19 @@ enum { DT_F32 = 0, DT_BF16 = 1 };
 
 bool misaligned(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 != 0;
+}
+
+// The pre-pass over x (x_dt) into xb, planes bf16 planes a row, the norm
+// first when gain is given; 0 or the launch's error.
+int prepass(const void* x, int x_dt, const float* gain, float eps,
+            __nv_bfloat16* xb, int T, int I, int planes, cudaStream_t st) {
+  if (x_dt == DT_F32)
+    prefill_x_kernel<float><<<T, 256, 0, st>>>(static_cast<const float*>(x),
+                                               gain, eps, xb, I, planes);
+  else
+    prefill_x_kernel<__nv_bfloat16><<<T, 256, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(x), gain, eps, xb, I, planes);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -780,18 +1132,12 @@ extern "C" int qmm_prefill_launch(const void* x, const void* w, const void* s,
       misaligned(s) || misaligned(res) || misaligned(xb) ||
       (conv != (xb != nullptr)) || (splits > 1 && partial == nullptr))
     return (int)cudaErrorInvalidValue;
-  const float* g = static_cast<const float*>(gain);
   const __nv_bfloat16* xsrc = static_cast<const __nv_bfloat16*>(x);
   if (conv) {
-    __nv_bfloat16* xbp = static_cast<__nv_bfloat16*>(xb);
-    if (x_dt == DT_F32)
-      prefill_x_kernel<float><<<T, 256, 0, st>>>(static_cast<const float*>(x),
-                                                 g, eps, xbp, I);
-    else
-      prefill_x_kernel<__nv_bfloat16><<<T, 256, 0, st>>>(xsrc, g, eps, xbp, I);
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-    xsrc = xbp;
+    const int e = prepass(x, x_dt, static_cast<const float*>(gain), eps,
+                          static_cast<__nv_bfloat16*>(xb), T, I, 1, st);
+    if (e != 0) return e;
+    xsrc = static_cast<const __nv_bfloat16*>(xb);
   }
   const int8_t* wp = static_cast<const int8_t*>(w);
   float* part = static_cast<float*>(partial);
@@ -809,4 +1155,70 @@ extern "C" int qmm_prefill_launch(const void* x, const void* w, const void* s,
 #undef PF_S
 #undef PF_CALL
   return (int)cudaErrorInvalidValue;
+}
+
+// The wide mode (qmm_wgmma_wide_kernel): out (T, O) in x's dtype, at f32
+// compute.  x (T, I) f32/bf16; w int8 (I, O) (INT8, or INT4 held in int8);
+// scales (I/gs, O) f32/bf16; gs % 64 == 0; O % 16 == 0, x, w, s and res
+// 16-byte aligned.  gain (I,) f32 or null (the rmsnorm prologue with eps),
+// res (T, O) in x's dtype or null (the residual epilogue).  xb: (T, planes
+// x I) bf16 scratch that the pre-pass fills (planes 3 for f32 x, 1 for
+// bf16), required when x is f32 or gain is given, else null (bf16 x is read
+// in place).  splits blocks along K of k_per_split W rows each (a multiple
+// of 64), none empty; partial: splits*T*O f32 scratch when
+// splits > 1.  Returns the launches' cudaGetLastError().
+extern "C" int qmm_prefill_wide_launch(const void* x, const void* w,
+                                       const void* s, const void* gain,
+                                       const void* res, float eps, void* out,
+                                       void* partial, void* xb, int T, int I,
+                                       int O, int gs, int splits,
+                                       int k_per_split, int x_dt, int s_dt,
+                                       void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool conv = x_dt == DT_F32 || gain != nullptr;
+  if (T < 1 || I < 1 || O < 16 || gs < 64 || gs % 64 || O % 16 || I % gs ||
+      splits < 1 || k_per_split < PFW_KS || k_per_split % PFW_KS ||
+      (long long)(splits - 1) * k_per_split >= I ||
+      (x_dt != DT_F32 && x_dt != DT_BF16) ||
+      (s_dt != DT_F32 && s_dt != DT_BF16) || misaligned(x) || misaligned(w) ||
+      misaligned(s) || misaligned(res) || misaligned(xb) ||
+      (conv != (xb != nullptr)) || (splits > 1 && partial == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const __nv_bfloat16* xsrc = static_cast<const __nv_bfloat16*>(x);
+  if (conv) {
+    const int e = prepass(x, x_dt, static_cast<const float*>(gain), eps,
+                          static_cast<__nv_bfloat16*>(xb), T, I,
+                          pfw_planes(x_dt == DT_F32), st);
+    if (e != 0) return e;
+    xsrc = static_cast<const __nv_bfloat16*>(xb);
+  }
+  const int8_t* wp = static_cast<const int8_t*>(w);
+  float* part = static_cast<float*>(partial);
+#define PFW_CALL(XT, ST)                                                      \
+  return launch_wide_t<XT, ST>(xsrc, wp, s, res, out, part, T, I, O, gs,     \
+                               splits, k_per_split, st)
+  if (x_dt == DT_F32) {
+    if (s_dt == DT_F32) PFW_CALL(float, float);
+    PFW_CALL(float, __nv_bfloat16);
+  }
+  if (s_dt == DT_F32) PFW_CALL(__nv_bfloat16, float);
+  PFW_CALL(__nv_bfloat16, __nv_bfloat16);
+#undef PFW_CALL
+}
+
+// The pre-pass alone, as both modes launch it (to time it apart from the
+// kernel it feeds): xb (T, planes x I) bf16 from x (T, I) f32/bf16, the
+// norm first when gain (I,) f32 is given.  planes 1, or 3 for f32 x;
+// I % 8 == 0, x and xb 16-byte aligned.  Returns cudaGetLastError().
+extern "C" int qmm_prefill_x_launch(const void* x, const void* gain,
+                                    float eps, void* xb, int T, int I,
+                                    int planes, int x_dt, void* stream) {
+  if (T < 1 || I < 8 || I % 8 || (planes != 1 && planes != 3) ||
+      (planes == 3 && x_dt != DT_F32) ||
+      (x_dt != DT_F32 && x_dt != DT_BF16) || misaligned(x) ||
+      misaligned(xb))
+    return (int)cudaErrorInvalidValue;
+  return prepass(x, x_dt, static_cast<const float*>(gain), eps,
+                 static_cast<__nv_bfloat16*>(xb), T, I, planes,
+                 static_cast<cudaStream_t>(stream));
 }

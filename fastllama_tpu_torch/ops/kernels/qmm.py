@@ -51,16 +51,23 @@ differs.
 
 The wide mode (f32 compute, or INT16; :func:`is_wide`) replaces the JAX
 wide kernel (f32 dequant and a ``Precision.HIGHEST`` dot, qmm.py:62-74).
-Its calls with an int8-held weight (INT8, or INT4 that did not pack), T <=
-128, a group size that is a multiple of 64 and 16-byte aligned rows take
-the ring's wide instantiation (``qmm_pipe_wide_kernel``,
-:func:`wide_kernel` ``"pipe"``): the groupdot body on bf16 tensor cores,
-the exact integers times x split into three bf16 planes (hi, mid, lo:
-f32's 24-bit significand; one plane for a bf16 x), each group's partial
-times its f32 scale (``tests/test_torch_wide_pipe.py`` emulates it
-against the Pallas wide kernel).  The rest (INT16, T > 128, other group
-sizes, unaligned rows) stays on ``qmm_f32_kernel`` (``"f32"``).  A
-groupdot call that is wide takes the same kernel as the standard one.
+Its calls with an int8-held weight (INT8, or INT4 that did not pack), a
+group size that is a multiple of 64, 16-byte aligned rows and a residual,
+if any, at a 16-byte aligned address take one of two kernels that compute
+it on bf16 tensor cores: the exact integers times x split into three bf16
+planes (hi, mid, lo: f32's 24-bit significand; one plane for a bf16 x),
+each group's partial times its f32 scale.  Up to 128 rows the ring's wide
+instantiation (``qmm_pipe_wide_kernel``, :func:`wide_kernel` ``"pipe"``;
+``tests/test_torch_wide_pipe.py`` emulates it against the Pallas wide
+kernel); above, the prefill mode's wide kernel (``qmm_wgmma_wide_kernel``
+in ``csrc/qmm_prefill.cu``, ``"prefill"``: the batched prefill waves at
+f32 compute and K1f's glue on a long single-stream block; a pre-pass
+writes the planes once a call, TMA brings them and the raw weight into a
+ring, the exact integers are ``wgmma``'s register A operand;
+:func:`wide_prefill_plan`; ``tests/test_torch_wide_prefill.py``).  The
+rest (INT16, other group sizes, unaligned rows, an offset residual) stays
+on ``qmm_f32_kernel`` (``"f32"``).  A groupdot call that is wide takes
+the same kernel as the standard one.
 
 The prefill mode (``qmm_wgmma_kernel`` in ``csrc/qmm_prefill.cu``, its
 own library) takes the calls above 128 rows that would otherwise take the
@@ -81,7 +88,8 @@ kernel or raises.  Each wrapper counts its launches in ``.launches``, and
 those on a packed weight (K1p) in ``.launches_p4``, those in the
 pipelined mode (K1 and K1p) also in ``.launches_pipe``, those in the
 prefill mode (K1 and K1p) also in ``.launches_prefill``, those in the wide
-mode's ring also in ``.launches_wide_pipe``; ``qmatmul_pallas``
+mode's ring also in ``.launches_wide_pipe`` and those in its prefill
+kernel in ``.launches_wide_prefill``; ``qmatmul_pallas``
 counts its groupdot launches in ``.launches_groupdot`` (K1) and
 ``.launches_groupdot_p4`` (K1p), those on the pipelined ring also in
 ``.launches_groupdot_pipe``.
@@ -228,7 +236,8 @@ def qmm_mode(x: torch.Tensor, w: QArray, compute_dtype=torch.bfloat16,
     """The kernel a call takes, from dtypes, shapes, alignment and flags:
     ``"groupdot"`` (the scale-after-dot mode, on the ring or the loop by
     :func:`groupdot_kernel`), ``"wide"`` (INT16 or f32 compute, unpacked:
-    the wide ring or ``qmm_f32_kernel`` by :func:`wide_kernel`),
+    the wide ring, the wide prefill kernel or ``qmm_f32_kernel`` by
+    :func:`wide_kernel`),
     ``"scalar"`` (rows not 16-byte aligned: the loop's element path),
     ``"pipe"`` (the pipelined mode: T <= 128, a group size that is a
     multiple of 64, so that a stage holds one group, and a ``residual``,
@@ -270,21 +279,22 @@ def groupdot_kernel(x: torch.Tensor, w: QArray,
 
 def wide_kernel(x: torch.Tensor, w: QArray, compute_dtype=torch.float32,
                 residual=None) -> str:
-    """The kernel of a wide call (:func:`qmm_mode` ``"wide"``): ``"pipe"``,
-    the wide instantiation of ``qmm_pipe_kernel``'s ring, for an int8-held
-    weight (INT8, or INT4 that did not pack; INT16 overflows bf16), T <=
-    128, a group size that is a multiple of 64, 16-byte aligned rows and a
-    ``residual``, if any, at a 16-byte aligned address; else ``"f32"``,
-    ``qmm_f32_kernel`` (INT16, prefill waves, gs of 16 or 32, O = 1000...).
-    A packed weight has no wide path, and a call that is not wide takes
-    another mode: ValueError."""
+    """The kernel of a wide call (:func:`qmm_mode` ``"wide"``), for an
+    int8-held weight (INT8, or INT4 that did not pack; INT16 overflows
+    bf16), a group size that is a multiple of 64, 16-byte aligned rows and
+    a ``residual``, if any, at a 16-byte aligned address: ``"pipe"``, the
+    wide instantiation of ``qmm_pipe_kernel``'s ring, for T <= 128;
+    ``"prefill"``, ``qmm_wgmma_wide_kernel``, above (prefill waves, a long
+    K1f block).  Else ``"f32"``, ``qmm_f32_kernel`` (INT16, gs of 16 or
+    32, O = 1000, an offset residual...).  A packed weight has no wide
+    path, and a call that is not wide takes another mode: ValueError."""
     if w.packed or not is_wide(w, compute_dtype):
         raise ValueError("not a wide call: a packed weight or a non-wide "
                          "compute dtype takes another mode")
-    if (w.data.dtype == torch.int8 and x.shape[0] <= PIPE_MAX_T
-            and w.group_size % 64 == 0 and _vec_ok(x, w)
+    if (w.data.dtype == torch.int8 and w.group_size % 64 == 0
+            and _vec_ok(x, w)
             and (residual is None or residual.data_ptr() % 16 == 0)):
-        return "pipe"
+        return "pipe" if x.shape[0] <= PIPE_MAX_T else "prefill"
     return "f32"
 
 
@@ -316,14 +326,15 @@ def _kernel(x: torch.Tensor, w: QArray, compute_dtype, groupdot: bool,
             residual) -> str:
     """:func:`qmm_mode`'s choice, a groupdot call resolved to its kernel by
     :func:`groupdot_kernel`, a wide call by :func:`wide_kernel`
-    (``"wide_pipe"`` the ring, ``"wide"`` ``qmm_f32_kernel``) and a loop
+    (``"wide_pipe"`` the ring, ``"wide_prefill"``
+    ``qmm_wgmma_wide_kernel``, ``"wide"`` ``qmm_f32_kernel``) and a loop
     call by :func:`prefill_kernel` (``"prefill"`` or ``"loop"``)."""
     mode = qmm_mode(x, w, compute_dtype, groupdot, residual)
     if mode == "groupdot":
         return groupdot_kernel(x, w, compute_dtype)
-    if mode == "wide" and wide_kernel(x, w, compute_dtype,
-                                      residual) == "pipe":
-        return "wide_pipe"
+    if mode == "wide":
+        return {"pipe": "wide_pipe", "prefill": "wide_prefill"}.get(
+            wide_kernel(x, w, compute_dtype, residual), "wide")
     if mode == "loop":
         return _loop_kernel(x, w, residual)
     return mode
@@ -405,6 +416,10 @@ PREFILL_ROWS = 256         # rows of x a prefill block (the wgmma N)
 PREFILL_COLS = 128         # output columns a prefill block: one W box
 PREFILL_STAGES = {False: 5, True: 4}   # the prefill ring's depth (K1, K1p)
 PREFILL_XK = 32            # x columns a plane of a stage
+PREFILL_SMEM_BLOCK = 232448   # shared memory an H100 block may use
+WIDE_PREFILL_ROWS = 128    # the wide mode: rows of x a block
+WIDE_PREFILL_KSTEP = 64    # W rows a stage (two parts of 32)
+WIDE_PREFILL_MAX_STAGES = 8
 
 
 @dataclass(frozen=True)
@@ -414,9 +429,10 @@ class PrefillPlan:
     ``kstep`` W rows a stage (K1p: packed rows) in a ring of ``stages``
     slots of ``stage_bytes``, ``smem`` bytes of dynamic shared memory and
     ``static_smem`` of barriers; the TMA boxes (inner, outer elements) of W
-    (int8, 128-byte swizzle; one a stage), x (bf16, 64-byte swizzle; two a
-    stage) and the scales (one row a plane), ``tx_bytes`` a stage; the
-    split-K count and the W rows a split."""
+    (int8, 128-byte swizzle; one a stage), x (bf16, 64-byte swizzle;
+    ``x_boxes`` a stage, from ``x_planes`` bf16 planes of x) and the scales
+    (one row a nibble plane), ``tx_bytes`` a stage; the split-K count and
+    the W rows a split."""
     rows: int
     cols: int
     grid: tuple
@@ -431,6 +447,8 @@ class PrefillPlan:
     x_box: tuple
     s_box: tuple
     tx_bytes: int
+    x_planes: int = 1
+    x_boxes: int = 2
 
 
 def prefill_plan(T: int, I: int, O: int, packed: bool,
@@ -448,13 +466,7 @@ def prefill_plan(T: int, I: int, O: int, packed: bool,
     kstep = 32 if packed else 64
     k_rows = I // 2 if packed else I
     tiles = -(-O // PREFILL_COLS) * -(-T // PREFILL_ROWS)
-    if splits is None:
-        most = max(1, min(k_rows // (4 * kstep), 16))
-        splits = max(1, min(n_sm // tiles, most))
-        kps = -(-(-(-k_rows // splits)) // kstep) * kstep
-        splits = -(-k_rows // kps)
-    else:
-        splits, kps = _explicit_split(k_rows, kstep, splits)
+    splits, kps = _prefill_splits(tiles, k_rows, kstep, splits, n_sm)
     stages = PREFILL_STAGES[packed]
     w_box = (PREFILL_COLS, kstep)
     x_box = (PREFILL_XK, PREFILL_ROWS)
@@ -471,6 +483,55 @@ def prefill_plan(T: int, I: int, O: int, packed: bool,
         stage_bytes=stage_bytes, smem=stages * stage_bytes + 1024,
         static_smem=16 * stages, w_box=w_box, x_box=x_box,
         s_box=s_box, tx_bytes=tx)
+
+
+def _prefill_splits(tiles: int, k_rows: int, kstep: int, splits,
+                    n_sm: int):
+    """(splits, k_per_split) of a prefill launch of ``tiles`` output
+    tiles: ``splits=None`` one split when the tiles give the ``n_sm`` SMs a
+    block each, else as many as leave a block an SM (rounded down), each
+    at least 4 stages of ``kstep`` rows, up to 16; an explicit count as
+    :func:`split_plan`'s."""
+    if splits is not None:
+        return _explicit_split(k_rows, kstep, splits)
+    most = max(1, min(k_rows // (4 * kstep), 16))
+    splits = max(1, min(n_sm // tiles, most))
+    kps = -(-(-(-k_rows // splits)) // kstep) * kstep
+    return -(-k_rows // kps), kps
+
+
+def wide_prefill_plan(T: int, I: int, O: int, x_f32: bool = True,
+                      scale_bytes: int = 4, splits=None,
+                      n_sm: int = 132) -> PrefillPlan:
+    """The launch of the wide mode's prefill kernel
+    (``qmm_wgmma_wide_kernel``) on a (T, I) x (I, O) int8-held product, T >
+    128: 128 columns x 128 rows a block; a stage of 64 W rows holds the W
+    box, two 32-column x boxes a plane of x (three planes for f32 x,
+    ``x_f32``; one for bf16) and the group's scale row (``scale_bytes`` 4
+    f32, 2 bf16); as many stages as fit a block's shared memory, up to 8;
+    the split rule of :func:`prefill_plan`.  Mirrors the constants of
+    ``csrc/qmm_prefill.cu``."""
+    if T <= PIPE_MAX_T:
+        raise ValueError(f"the prefill mode takes T > {PIPE_MAX_T}, not {T}")
+    kstep, planes = WIDE_PREFILL_KSTEP, 3 if x_f32 else 1
+    tiles = -(-O // PREFILL_COLS) * -(-T // WIDE_PREFILL_ROWS)
+    splits, kps = _prefill_splits(tiles, I, kstep, splits, n_sm)
+    w_box = (PREFILL_COLS, kstep)
+    x_box = (PREFILL_XK, WIDE_PREFILL_ROWS)
+    s_box = (PREFILL_COLS, 1)
+    x_boxes = kstep // PREFILL_XK * planes
+    boxes = w_box[0] * w_box[1] + x_boxes * x_box[0] * x_box[1] * 2
+    stage_bytes = boxes + 1024            # the scale row in a 1 KB slot
+    stages = min(WIDE_PREFILL_MAX_STAGES,
+                 (PREFILL_SMEM_BLOCK - 1024) // (stage_bytes + 16))
+    return PrefillPlan(
+        rows=WIDE_PREFILL_ROWS, cols=PREFILL_COLS,
+        grid=(-(-O // PREFILL_COLS), -(-T // WIDE_PREFILL_ROWS), splits),
+        splits=splits, k_per_split=kps, kstep=kstep, stages=stages,
+        stage_bytes=stage_bytes, smem=stages * stage_bytes + 1024,
+        static_smem=16 * stages, w_box=w_box, x_box=x_box, s_box=s_box,
+        tx_bytes=boxes + s_box[0] * scale_bytes, x_planes=planes,
+        x_boxes=x_boxes)
 
 
 def _vec_ok(x: torch.Tensor, w: QArray) -> bool:
@@ -570,31 +631,57 @@ def _launch_pipe(x: torch.Tensor, w: QArray, gain, residual, eps: float,
 
 
 def _launch_prefill(x: torch.Tensor, w: QArray, gain, residual,
-                    eps: float, splits=None, lib=None) -> torch.Tensor:
-    """The prefill mode (``qmm_wgmma_kernel``), glue and all, from ``lib``
+                    eps: float, splits=None, lib=None,
+                    wide: bool = False) -> torch.Tensor:
+    """The prefill mode (``qmm_wgmma_kernel``; ``wide``: the wide mode's
+    ``qmm_wgmma_wide_kernel``, f32 compute), glue and all, from ``lib``
     (another build of ``qmm_prefill.cu``; None the package's)."""
     lib = lib or _build.load("qmm_prefill")
     T, I = x.shape
     O = w.data.shape[1]
     n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
-    plan = prefill_plan(T, I, O, w.packed, w.scales.element_size(), splits,
-                        n_sm)
+    ssz = w.scales.element_size()
+    plan = (wide_prefill_plan(T, I, O, x.dtype == torch.float32, ssz,
+                              splits, n_sm) if wide else
+            prefill_plan(T, I, O, w.packed, ssz, splits, n_sm))
     out = torch.empty((T, O), dtype=x.dtype, device=x.device)
     partial = (torch.empty((plan.splits, T, O), dtype=torch.float32,
                            device=x.device) if plan.splits > 1 else None)
-    xb = (torch.empty((T, I), dtype=torch.bfloat16, device=x.device)
+    xb = (torch.empty((T, plan.x_planes * I), dtype=torch.bfloat16,
+                      device=x.device)
           if x.dtype == torch.float32 or gain is not None else None)
-    fn = lib.qmm_prefill_launch
+    name = "qmm_prefill_wide_launch" if wide else "qmm_prefill_launch"
+    fn = getattr(lib, name)
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_float] \
-        + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        + [ctypes.c_void_p] * 3 + [ctypes.c_int] * (8 if wide else 9) \
+        + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    rc = fn(_build.ptr(x), _build.ptr(w.data), _build.ptr(w.scales),
+    args = [_build.ptr(x), _build.ptr(w.data), _build.ptr(w.scales),
             _build.ptr(gain), _build.ptr(residual), eps, _build.ptr(out),
             _build.ptr(partial), _build.ptr(xb), T, I, O, w.group_size,
-            plan.splits, plan.k_per_split, _DT[x.dtype], _DT[w.scales.dtype],
-            int(w.packed), _build.stream_of(x))
-    _build.check(rc, "qmm_prefill_launch")
+            plan.splits, plan.k_per_split, _DT[x.dtype],
+            _DT[w.scales.dtype]]
+    rc = fn(*args, *([] if wide else [int(w.packed)]), _build.stream_of(x))
+    _build.check(rc, name)
     return out
+
+
+def _launch_prepass(x: torch.Tensor, gain=None, eps: float = 1e-5,
+                    planes: int = 3) -> torch.Tensor:
+    """The prefill modes' pre-pass (``prefill_x_kernel``) alone, for timing
+    it apart from the kernel it feeds: (T, planes * I) bf16, x's bf16 planes
+    (3, f32 x only: hi, mid, lo) after the norm when ``gain`` is given.
+    Counts nothing."""
+    T, I = x.shape
+    xb = torch.empty((T, planes * I), dtype=torch.bfloat16, device=x.device)
+    fn = _build.load("qmm_prefill").qmm_prefill_x_launch
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_float, ctypes.c_void_p] \
+        + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rc = fn(_build.ptr(x), _build.ptr(gain), eps, _build.ptr(xb), T, I,
+            planes, _DT[x.dtype], _build.stream_of(x))
+    _build.check(rc, "qmm_prefill_x_launch")
+    return xb
 
 
 def _launch(x: torch.Tensor, w: QArray, compute_dtype, gain=None,
@@ -603,11 +690,13 @@ def _launch(x: torch.Tensor, w: QArray, compute_dtype, gain=None,
     """Launch the kernel of ``mode`` (None: :func:`_kernel`'s choice;
     ``"loop"`` forces ``qmm_bf16_kernel``'s loop on a call the pipelined or
     the prefill mode would take, standard or groupdot, and ``"wide"`` (or
-    ``"loop"``) ``qmm_f32_kernel`` on a call the wide ring would take, for
-    timing them side by side)."""
+    ``"loop"``) ``qmm_f32_kernel`` on a call the wide ring or the wide
+    prefill kernel would take, for timing them side by side)."""
     mode = mode or _kernel(x, w, compute_dtype, gd, residual)
     if mode == "prefill":
         return _launch_prefill(x, w, gain, residual, eps, splits)
+    if mode == "wide_prefill":
+        return _launch_prefill(x, w, gain, residual, eps, splits, wide=True)
     if mode == "pipe":
         return _launch_pipe(x, w, gain, residual, eps, splits,
                             PIPE_GD if gd else PIPE_STD)
@@ -648,7 +737,8 @@ def _run(wrapper, x: torch.Tensor, w: QArray, compute_dtype, gain=None,
     launch of the pipelined mode also on ``.launches_pipe``, or in the
     groupdot mode on ``.launches_groupdot_pipe``, one of the prefill mode on
     ``.launches_prefill``, one of the wide ring on
-    ``.launches_wide_pipe``."""
+    ``.launches_wide_pipe``, one of the wide prefill kernel on
+    ``.launches_wide_prefill``."""
     # the wide path has no groupdot body (qmm.py:111); K1p's has one
     gd = groupdot and (w.packed or not is_wide(w, compute_dtype))
     if x.device.type == "cpu":
@@ -673,6 +763,8 @@ def _run(wrapper, x: torch.Tensor, w: QArray, compute_dtype, gain=None,
         wrapper.launches_prefill += 1
     elif mode == "wide_pipe":
         wrapper.launches_wide_pipe += 1
+    elif mode == "wide_prefill":
+        wrapper.launches_wide_prefill += 1
     return out
 
 
@@ -760,6 +852,9 @@ qmatmul_pallas_indexed_fused.launches_prefill = 0
 qmatmul_pallas.launches_wide_pipe = 0
 qmatmul_pallas_indexed.launches_wide_pipe = 0
 qmatmul_pallas_indexed_fused.launches_wide_pipe = 0
+qmatmul_pallas.launches_wide_prefill = 0
+qmatmul_pallas_indexed.launches_wide_prefill = 0
+qmatmul_pallas_indexed_fused.launches_wide_prefill = 0
 
 
 def _unfused_glue(x, w, layer, compute_dtype, norm_gain, eps, residual):

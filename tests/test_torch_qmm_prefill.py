@@ -58,12 +58,13 @@ def _close(got: torch.Tensor, want, tol: float):
 
 def _expected(kind: str, T: int, gs: int) -> str:
     """The kernel the table expects: the ring up to 128 rows, the prefill
-    mode above, both for gs a multiple of 64 and aligned operands."""
+    mode above (at f32 compute the wide ring and the wide prefill kernel),
+    both for gs a multiple of 64 and aligned operands."""
     big, g64 = T > tqmm.PIPE_MAX_T, gs % 64 == 0
     if kind in ("int8", "int4p"):
         return ("prefill" if big else "pipe") if g64 else "loop"
     if kind == "wide":
-        return "wide_pipe" if g64 and not big else "wide"
+        return ("wide_prefill" if big else "wide_pipe") if g64 else "wide"
     if kind == "groupdot":
         return "pipe" if g64 and not big else "loop"
     if kind == "o1000":
