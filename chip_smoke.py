@@ -94,6 +94,16 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    configuration: the BatchedEngine with plain and deferred chunks and
    the single-stream Engine, kernel path against plain path (equal greedy
    tokens; K1 must not launch, K2 and K3 must);
+3g. the single-stream ``SpeculativeEngine`` at phase 3's configuration
+   (INT8, f32 compute, f32 scales and KV, S=128), kernel path and plain
+   path: speculative greedy tokens equal to ``Engine.generate``'s for the
+   n-gram drafter at widths 4 and 8, a ``truncate_params(..., 1)`` and a
+   ``requantize_params(..., INT4)`` draft and a 90-token prompt (38 new
+   tokens, the shrunken last chunk and the plain tail); ``forward`` at
+   device positions bit-equal to a host pos (T = 1 and 8); on the kernel
+   path no synchronizing call inside a chunk (greedy and sampled, both
+   drafters; the debug mode "error") and sampled runs (0.8, 0.9) of 40
+   tokens inside the vocab;
 4. the batched serving path at full width: ``BatchedEngine`` over 7B /
    INT8 / fused QKV and gate|up / int8 KV / B=48 / S=512, 32 layers,
    synthetic weights made on the card; 48 requests of a 43-token prompt
@@ -159,6 +169,16 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    128 rows (256) on its prefill kernel and none on ``qmm_f32_kernel``,
    tallied and held to ``launches_wide_pipe`` and
    ``launches_wide_prefill``; the records of phase 4;
+4l. single-stream speculative serving on phase 4b's engine
+   (``SpeculativeEngine``, width 8, 8 rounds a call, 128 new greedy
+   tokens): the n-gram drafter on ``tools/spec_bench.py``'s loop prompt
+   and on 4b's prompt, and a ``truncate_params(cfg, params, 4)`` draft on
+   4b's prompt, each beside ``Engine.generate`` on its prompt; every
+   K1/K1f launch with T <= 128 (the verify's 8 rows, the draft's steps)
+   on the pipelined ring and every K2 non-fresh launch split; the tokens
+   held to plain greedy by ``same_greedy``'s tie rule (bf16 compute);
+   tok/s, acceptance, rounds, memory and launches a round; then one chunk
+   of 8 rounds of each traced (device ms and ops a round, idle share);
 4g. deferred KV on phase 4's engine and traffic at decode chunk 16
    (every chunk deferred, every K2 launch with stats in the split-row
    mode) against plain chunks, in turns;
@@ -1848,15 +1868,17 @@ def check_prefill(dev, gen, errs):
 
 # -- phase 3: engine, kernel path against plain path ------------------------
 
-def plain_logits(dev, cfg, params):
+def plain_logits(dev, cfg, params, use_pallas=False):
     """logits_of(seq): the plain path's next-token logits after ``seq``
     (``forward`` over the whole sequence at pos 0, f32, plain matmuls and
-    attention): the referee of ``same_greedy``."""
+    attention): the referee of ``same_greedy``.  ``use_pallas`` takes the
+    kernel path at f32 compute instead (held to the plain path within
+    ``TOL_F32`` by phases 2 and 3), a faster referee at 32 layers."""
     import torch
     from fastllama_tpu_torch.config import EngineConfig
     from fastllama_tpu_torch.models.llama import KVCache, forward
     from fastllama_tpu_torch.runtime.kernels import select_kernels
-    kb = select_kernels(dev, EngineConfig(use_pallas=False,
+    kb = select_kernels(dev, EngineConfig(use_pallas=use_pallas,
                                           compute_dtype="float32"),
                         torch.float32)
 
@@ -1867,6 +1889,16 @@ def plain_logits(dev, cfg, params):
                         compute_dtype=torch.float32,
                         last_index=len(seq) - 1)
         return lg[0].float()
+
+    def rows_of(seq):
+        """Every row's next-token logits of one forward over ``seq``: row
+        i is ``logits_of(seq[:i + 1])`` computed causally in one block."""
+        cache = KVCache.create(cfg, dtype=torch.float32, device=dev)
+        lg, _ = forward(cfg, params, torch.tensor(seq, device=dev), 0, cache,
+                        mm=kb.mm, mm_idx=kb.mm_idx,
+                        compute_dtype=torch.float32)
+        return lg.float()
+    logits_of.rows = rows_of
     return logits_of
 
 
@@ -1880,8 +1912,9 @@ def same_greedy(label, got, want, prompts, logits_of, tie_tol=None):
     prompt and the common prefix (two logits each within the logit
     tolerance).  After the parting the two requests condition on
     different prefixes, so each later token of ``got`` is held to the
-    same bound against ``logits_of`` over its own prefix.  Returns the
-    number of partings."""
+    same bound against ``logits_of`` over its own prefix (the rows of one
+    forward over it, ``logits_of.rows``: a :func:`plain_logits` referee).
+    Returns the number of partings."""
     ties = 0
     for i, (g, w, p) in enumerate(zip(got, want, prompts)):
         if g == w:
@@ -1897,8 +1930,11 @@ def same_greedy(label, got, want, prompts, logits_of, tie_tol=None):
               f"not at a tie: gaps to the top logit {gaps}, max|logit| "
               f"{m:.4e}")
         worst = 0.0
+        # one forward over the request's own tokens gives every later
+        # step's logits
+        rows = logits_of.rows(list(p) + list(g[:-1]))
         for j in range(k + 1, len(g)):
-            lg = logits_of(list(p) + list(g[:j]))
+            lg = rows[len(p) + j - 1]
             gap = float(lg.max() - lg[g[j]]) / float(lg.abs().max())
             check(gap <= 2 * tie_tol,
                   f"{label}: request {i} after its parting at step {k}: "
@@ -2212,6 +2248,160 @@ def phase_single_parity(dev, rec, cfg=None, tol=TOL_F32,
     rec[key] = {"max_logit_err": max(errs), "tokens_equal": True,
                 "ties": ties, "chat_equal": True}
     del engs
+    torch.cuda.empty_cache()
+
+
+def phase_single_spec_parity(dev, rec, cfg=None):
+    """Phase 3g: the single-stream ``SpeculativeEngine``, kernel path
+    against plain path (7B width, 2 layers, INT8, f32 compute, f32 scales,
+    f32 KV, S = 128).  On each path the speculative greedy tokens equal
+    ``Engine.generate``'s for the n-gram drafter at widths 4 and 8 on a
+    repetitive prompt, a ``truncate_params(..., 1)`` draft, a
+    ``requantize_params(..., INT4)`` draft, and near the context limit (a
+    90-token prompt, 38 new tokens, width 8, 8 rounds a call).  On the
+    kernel path a chunk queues no host sync (greedy and sampled, both
+    drafters; ``torch.cuda.set_sync_debug_mode``), sampled runs
+    (temperature 0.8, top-p 0.9) complete at full length inside the vocab,
+    and ``forward`` at device positions equals ``forward`` at a host pos
+    bit for bit (logits and cache, T = 1 and 8, both paths)."""
+    import traceback
+    import warnings
+
+    import torch
+    from fastllama_tpu_torch.config import EngineConfig, QuantType
+    from fastllama_tpu_torch.loaders.tokenizer import \
+        build_byte_fallback_vocab
+    from fastllama_tpu_torch.models.llama import (KVCache, forward,
+                                                  random_params_int,
+                                                  requantize_params,
+                                                  truncate_params)
+    from fastllama_tpu_torch.runtime.engine import Engine
+    from fastllama_tpu_torch.runtime.speculative import SpeculativeEngine
+    cfg = cfg or cfg_7b(n_layers=2)
+    log("phase 3g: single-stream SpeculativeEngine kernel path vs plain "
+        "path (7B width, 2 layers, INT8, f32 compute, f32 scales, f32 KV, "
+        "S=128)")
+    V = cfg.vocab_size
+    params = random_params_int(cfg, seed=SEED + 7, device=dev)
+    cfg1, p1 = truncate_params(cfg, params, 1)
+    cfg4 = cfg.replace(quant_type=QuantType.INT4)
+    p4 = requantize_params(cfg, params, QuantType.INT4)
+    vocab = build_byte_fallback_vocab([f"w{i}" for i in range(V - 259)])
+    loop = [t % V for t in ([7, 121, 3088, 59] * 11)[:43]]
+    near = (loop * 3)[:90]
+    # (label, draft, width, prompt, new tokens)
+    cases = [("n-gram width 4", None, 4, loop, 40),
+             ("n-gram width 8", None, 8, loop, 40),
+             ("truncate_params 1 layer", "trunc", 4, loop, 40),
+             ("requantize_params INT4", "int4", 4, loop, 40),
+             ("near the context limit", None, 8, near, 38)]
+    out = {}
+    for use in (True, False):
+        ec = EngineConfig(max_seq_len=128, compute_dtype="float32",
+                          scale_dtype="float32", kv_dtype="float32",
+                          use_pallas=use)
+        target = Engine(cfg, params, vocab, ec, device=dev)
+        drafts = {"trunc": Engine(cfg1, p1, vocab, ec, device=dev),
+                  "int4": Engine(cfg4, p4, vocab, ec, device=dev)}
+        path = "kernel" if use else "plain"
+        plain = {}
+        for label, d, width, prompt, n in cases:
+            key = (tuple(prompt), n)
+            if key not in plain:
+                plain[key], _ = target.generate(
+                    prompt, max_new_tokens=n, temperature=0.0,
+                    stop_tokens=(), decode_chunk=16)
+            spec = SpeculativeEngine(target, drafts.get(d), width=width,
+                                     rounds_per_call=8)
+            toks, st = spec.generate(prompt, max_new_tokens=n,
+                                     stop_tokens=())
+            check(toks == plain[key],
+                  f"3g {path} path, {label}: speculative tokens {toks} "
+                  f"differ from plain greedy {plain[key]}")
+            out[f"{path}: {label}"] = {
+                "tokens": len(toks), "rounds": st.rounds,
+                "drafted": st.drafted, "accepted": st.accepted,
+                "acceptance": st.acceptance}
+            log(f"  ok {path} path, {label}: {len(toks)} tokens equal to "
+                f"plain greedy; {st.rounds} rounds, acceptance "
+                f"{st.acceptance:.3f}")
+
+        # forward at device positions against a host pos, bit for bit
+        kb = target.kernels
+        hooks = dict(mm=kb.mm, attn=kb.attn, mm_idx=kb.mm_idx,
+                     attn_idx=kb.attn_idx, compute_dtype=torch.float32)
+        toks = torch.tensor(loop + [5, 9, 300, 17, 2, 88, 41, 3][:8],
+                            device=dev)
+        for T in (1, 8):
+            res = []
+            for device_pos in (False, True):
+                c = KVCache.create(target.config, dtype=torch.float32,
+                                   device=dev)
+                forward(target.config, target.params, toks[:43], 0, c,
+                        **hooks)
+                if device_pos:
+                    lg, _ = forward(
+                        target.config, target.params, toks[43:43 + T], None,
+                        c, positions=torch.arange(43, 43 + T,
+                                                  dtype=torch.int32,
+                                                  device=dev), **hooks)
+                else:
+                    lg, _ = forward(target.config, target.params,
+                                    toks[43:43 + T], 43, c, **hooks)
+                res.append((lg, c))
+            (la, ca), (lb, cb) = res
+            check(torch.equal(la, lb) and torch.equal(ca.k, cb.k)
+                  and torch.equal(ca.v, cb.v),
+                  f"3g {path} path: forward at device positions differs "
+                  f"from a host pos at T={T}")
+            log(f"  ok {path} path: forward at device positions equals a "
+                f"host pos bit for bit at T={T} (logits and cache)")
+            del res, ca, cb
+        if not use:
+            continue
+
+        # no host sync inside a chunk (a synchronizing call raises in the
+        # debug mode "error"; where, is reported); sampled runs at full
+        # length
+        syncs = []
+        for d in (None, drafts["trunc"]):
+            spec = SpeculativeEngine(target, d, width=8)
+            for temp in (0.0, 0.8):
+                st, _, gen = spec._start(loop, temp, 0.9, SEED)
+                torch.cuda.synchronize()
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore")   # "a prototype"
+                    torch.cuda.set_sync_debug_mode("error")
+                try:
+                    spec._chunk(st, 2, temp > 0, temp, 0.9, gen)
+                except RuntimeError as e:
+                    where = [f"{f.filename.split('/')[-1]}:{f.lineno} "
+                             f"{f.line}" for f in
+                             traceback.extract_tb(e.__traceback__)
+                             if "fastllama_tpu_torch" in f.filename]
+                    syncs.append((f"{'draft' if d else 'n-gram'} "
+                                  f"temperature {temp}", str(e)[:120],
+                                  where[-3:]))
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                torch.cuda.synchronize()
+            toks, st = spec.generate(loop, max_new_tokens=40,
+                                     stop_tokens=(), temperature=0.8,
+                                     topp=0.9, seed=SEED + 1)
+            check(len(toks) == 40 and all(0 <= t < V for t in toks),
+                  f"3g sampled run ({'draft' if d else 'n-gram'}): "
+                  f"{len(toks)} tokens, vocab {V}: {toks}")
+            out[f"sampled {'draft' if d else 'n-gram'} acceptance"] = \
+                st.acceptance
+        check(not syncs, f"3g: a speculative chunk synchronized with the "
+                         f"host: {syncs[:3]}")
+        log(f"  ok no host sync in a chunk of 2 rounds (greedy and sampled, "
+            f"both drafters); sampled runs 40 tokens in the vocab, "
+            f"acceptance n-gram {out['sampled n-gram acceptance']:.3f}, "
+            f"draft {out['sampled draft acceptance']:.3f}")
+        del target, drafts, spec, st
+    rec["single_spec_parity"] = out
+    del params, p1, p4
     torch.cuda.empty_cache()
 
 
@@ -3521,6 +3711,178 @@ def phase_spec_serving(dev, rec):
     del eng, params
     torch.cuda.empty_cache()
     return launches
+
+
+SINGLE_SPEC_PATH = ("qmatmul_pallas", "qmatmul_pallas_indexed_fused",
+                    "qmatmul_pallas_pipe",
+                    "qmatmul_pallas_indexed_fused_pipe")
+
+
+def profile_spec_single(spec, prompt, rounds=8):
+    """Two chunks of ``rounds`` greedy rounds of a ``SpeculativeEngine``
+    after its prefill: the first timed untraced, the second traced with
+    ``torch.profiler``.  Device time by kernel per round, and the device's
+    idle share of the traced chunk and against the untraced one."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    st, _, gen = spec._start(prompt, 0.0, 0.9, SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    spec._chunk(st, rounds, False, 0.0, 0.9, gen)
+    torch.cuda.synchronize()
+    untraced = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        spec._chunk(st, rounds, False, 0.0, 0.9, gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = device_rows(prof)
+    busy_s = sum(r[0] for r in rows) / 1e6
+    R = rounds
+    out = {"rounds": R, "width": spec.width, "wall_ms": wall * 1e3,
+           "untraced_wall_ms": untraced * 1e3,
+           "device_busy_ms": busy_s * 1e3,
+           "device_busy_ms_per_round": busy_s * 1e3 / R,
+           "device_ops_per_round": sum(r[1] for r in rows) / R,
+           "device_idle_share_traced": 1.0 - busy_s / wall,
+           "device_idle_share": 1.0 - busy_s / untraced,
+           "k1_ms_per_round": k1_rows(rows, R),
+           "top_kernels_per_round": [
+               {"name": k[:120], "count_per_round": c / R,
+                "device_ms_per_round": us / 1e3 / R}
+               for us, c, k in rows[:15]]}
+    log(f"  profile: {R} rounds at width {spec.width}: {wall * 1e3:.3f} ms "
+        f"wall traced, {untraced * 1e3:.3f} ms untraced; device busy "
+        f"{busy_s * 1e3:.3f} ms ({out['device_busy_ms_per_round']:.4f} ms "
+        f"a round, {out['device_ops_per_round']:.1f} device ops a round), "
+        f"idle share {out['device_idle_share']:.3f} untraced, "
+        f"{out['device_idle_share_traced']:.3f} traced")
+    log(f"  K1 family device ms a round {out['k1_ms_per_round']}")
+    for r in out["top_kernels_per_round"][:8]:
+        log(f"    {r['device_ms_per_round']:9.4f} ms/round  "
+            f"x{r['count_per_round']:<7.1f} {r['name']}")
+    return out
+
+
+def phase_single_spec_serving(dev, rec):
+    """Phase 4l: single-stream speculative serving on phase 4b's engine
+    (7B INT8, QKV and gate|up fused once, bf16 scales "auto", bf16 KV,
+    S=512, 32 layers), 128 new greedy tokens, width 8, 8 rounds a call:
+    the n-gram drafter on ``tools/spec_bench.py``'s loop prompt and on
+    4b's ``list(range(1, 44))``, then a ``truncate_params(cfg, params,
+    4)`` draft (fused, the same engine config) on 4b's prompt.  Each
+    beside ``Engine.generate`` on its prompt in this call; a short warm-up
+    of each, then the measured run with the counters zeroed just before:
+    every K1/K1p launch with T <= 128 (the verify's T = 8, the draft's
+    T = 1) on the pipelined ring, every K2 non-fresh launch split; the
+    tokens held to plain greedy by ``same_greedy``'s tie rule (bf16
+    compute: the verify's 8 rows and a decode step round differently),
+    the referee the kernel path at f32 compute.  Then one chunk of each
+    traced (after every timing)."""
+    import torch
+    from fastllama_tpu_torch.config import EngineConfig
+    from fastllama_tpu_torch.loaders.tokenizer import Tokenizer
+    from fastllama_tpu_torch.models.llama import (fuse_params,
+                                                  random_params_int,
+                                                  truncate_params)
+    from fastllama_tpu_torch.runtime.engine import Engine
+    from fastllama_tpu_torch.runtime.speculative import SpeculativeEngine
+    log("phase 4l: single-stream speculative serving, 7B INT8 fused once, "
+        "bf16 scales (auto), bf16 KV, S=512, 32 layers, width 8")
+    cfg = cfg_7b()
+    n_new, width = 128, 8
+    t0 = time.perf_counter()
+    unfused = random_params_int(cfg, seed=SEED, device=dev)
+    cfg_d, draft_p = truncate_params(cfg, unfused, 4)
+    params = fuse_params(cfg, unfused)
+    del unfused
+    ec = EngineConfig(max_seq_len=512, kv_dtype="bfloat16",
+                      fuse_weights=False, scale_dtype="auto")
+    eng = Engine(cfg, params, Tokenizer().finalize(), ec, device=dev)
+    draft = Engine(cfg_d, fuse_params(cfg_d, draft_p),
+                   Tokenizer().finalize(), ec, device=dev)
+    del params, draft_p
+    torch.cuda.synchronize()
+    log(f"  weights + engines ready in {time.perf_counter() - t0:.2f} s")
+    referee = plain_logits(dev, cfg, eng.params, use_pallas=True)
+    loop = ([7, 121, 3088, 59] * 11)[:43]
+    rng_prompt = list(range(1, 44))
+    kw = dict(max_new_tokens=n_new, temperature=0.0, stop_tokens=())
+
+    plain = {}
+    for name, prompt in (("loop", loop), ("range", rng_prompt)):
+        eng.generate(prompt, max_new_tokens=16, temperature=0.0,
+                     stop_tokens=(), decode_chunk=64)
+        toks, st = eng.generate(prompt, decode_chunk=64, **kw)
+        torch.cuda.synchronize()
+        check(len(toks) == n_new, f"4l plain {name}: {len(toks)} tokens")
+        plain[name] = (toks, {"decode_tok_s": st.decode_tps,
+                              "decode_s": st.decode_s})
+        log(f"  plain Engine.generate, {name} prompt: {st.decode_tps:.2f} "
+            f"tok/s")
+
+    runs = (("n-gram, loop prompt", None, "loop", loop),
+            ("n-gram, range prompt", None, "range", rng_prompt),
+            ("truncate_params 4 layers, range prompt", draft, "range",
+             rng_prompt))
+    out, all_launches, specs = {}, {}, []
+    for label, d, pname, prompt in runs:
+        spec = SpeculativeEngine(eng, d, width=width, rounds_per_call=8)
+        spec.generate(prompt, max_new_tokens=16, stop_tokens=())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        t0 = time.perf_counter()
+        with ModeTally() as tally:
+            toks, st = spec.generate(prompt, **kw)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        check(len(toks) == n_new, f"4l {label}: {len(toks)} tokens")
+        check_all_pipe(launches, tally, f"4l {label}")
+        check_all_split(launches, ("flash_decode_single",))
+        path = SINGLE_SPEC_PATH + (("flash_decode_single",
+                                    "flash_decode_single_split")
+                                   if d is not None else ())
+        for k in path:
+            check(launches[k] > 0, f"4l {label}: kernel {k} was not "
+                                   f"launched")
+        ties = same_greedy(f"4l {label}", [toks], [plain[pname][0]],
+                           [prompt], referee, tie_tol=TOL_BF16)
+        r = {"decode_tok_s": st.decode_tps, "decode_s": st.decode_s,
+             "prefill_s": st.prefill_s, "wall_s": wall,
+             "plain_decode_tok_s": plain[pname][1]["decode_tok_s"],
+             "speedup": st.decode_tps / plain[pname][1]["decode_tok_s"],
+             "rounds": st.rounds, "drafted": st.drafted,
+             "accepted": st.accepted, "acceptance": st.acceptance,
+             "tokens_a_round": n_new / st.rounds, "ties": ties,
+             "max_memory_allocated_gb":
+                 torch.cuda.max_memory_allocated() / 1e9,
+             "launches": {k: v for k, v in launches.items() if v},
+             "launches_per_round": {k: launches[k] / st.rounds
+                                    for k in path},
+             "k1_modes": tally.record(), "card": smi_line()}
+        out[label] = r
+        for k, v in launches.items():
+            all_launches[k] = all_launches.get(k, 0) + v
+        specs.append((label, spec, prompt))
+        log(f"  {label}: {st.decode_tps:.2f} tok/s against plain "
+            f"{r['plain_decode_tok_s']:.2f} ({r['speedup']:.3f}x); "
+            f"acceptance {st.acceptance:.4f}, {st.rounds} rounds "
+            f"({r['tokens_a_round']:.2f} tokens a round), {ties} parted at "
+            f"a tie; max memory {r['max_memory_allocated_gb']:.2f} GB on "
+            f"{r['card']}")
+        log(f"  launches a round {r['launches_per_round']}; K1 by mode "
+            f"{r['k1_modes']}")
+    for label, spec, prompt in specs:
+        log(f"  trace: {label}")
+        out[label]["profile"] = profile_spec_single(spec, prompt, rounds=4)
+    out["plain"] = {k: v[1] for k, v in plain.items()}
+    rec["single_spec_serving"] = out
+    del eng, draft, specs, spec
+    torch.cuda.empty_cache()
+    return all_launches
 
 
 PREFIX_PATH = BATCHED_PATH + ("flash_block_attend",)
@@ -5630,8 +5992,8 @@ SOURCES.update({k + "_wide_prefill": (
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="1,2,3,3d,3e,3f,4,4b,4c,4d,4e,4f,4i,4j,4k,4g,"
-                            "4h,5",
+                    default="1,2,3,3d,3e,3f,3g,4,4b,4c,4d,4e,4f,4i,4j,4k,"
+                            "4l,4g,4h,5",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--regs-against", metavar="CU", action="append",
                     default=[],
@@ -5726,6 +6088,8 @@ def main() -> int:
         run("3e", phase_prefix_deferred_parity)
     if "3f" in phases:
         run("3f", phase_f32_parity)
+    if "3g" in phases:
+        run("3g", phase_single_spec_parity)
     if "4" in phases:
         got = run("4", phase_serving)
         launches.update({k: got[k] for k in BATCHED_PATH})
@@ -5778,6 +6142,13 @@ def main() -> int:
                   "qmatmul_pallas_indexed_wide_prefill",
                   "qmatmul_pallas_wide_prefill"):
             launches[k] = got[k]
+    if "4l" in phases:
+        # the single-stream speculative path's counts, where 4b did not
+        # run: K1 at T = 8 and 1, K1f, K2 non-fresh (the draft's steps)
+        got = run("4l", phase_single_spec_serving)
+        for k in SINGLE_SPEC_PATH + ("flash_decode_single",
+                                     "flash_decode_single_split"):
+            launches.setdefault(k, got[k])
     if "4g" in phases:
         got = run("4g", phase_deferred_serving)
         for k in ("flash_decode_batched_stats",

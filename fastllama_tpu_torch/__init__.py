@@ -12,6 +12,7 @@ kernel wrapper runs its plain PyTorch version.
 from fastllama_tpu_torch.config import EngineConfig, ModelConfig, QuantType
 from fastllama_tpu_torch.runtime.engine import ChatSession, Engine
 from fastllama_tpu_torch.runtime.spec_batching import SpecBatchedEngine
+from fastllama_tpu_torch.runtime.speculative import SpeculativeEngine
 
 __all__ = ["ChatSession", "Engine", "EngineConfig", "ModelConfig",
-           "QuantType", "SpecBatchedEngine"]
+           "QuantType", "SpecBatchedEngine", "SpeculativeEngine"]

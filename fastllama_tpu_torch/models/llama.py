@@ -1,7 +1,8 @@
 """LLaMA forward pass and parameters for the port (part of
 ``fastllama_tpu/models/llama.py``: ``LlamaParams``, ``KVCache``,
 ``embed_tokens``, ``fuse_params``, ``forward``, ``logits_at``,
-``random_params``, ``random_params_int``) plus ``params_from_numpy``, the
+``truncate_params``, ``requantize_params``, ``random_params``,
+``random_params_int``) plus ``params_from_numpy``, the
 bridge that builds the port's parameters from the JAX package's arrays
 handed over as numpy.
 
@@ -20,7 +21,9 @@ import torch
 
 from fastllama_tpu_torch.config import ModelConfig, QuantType
 from fastllama_tpu_torch.device import resolve_device, torch_dtype
-from fastllama_tpu_torch.ops.attention import gqa_attention, update_kv_cache
+from fastllama_tpu_torch.ops.attention import (gqa_attention,
+                                               update_kv_cache,
+                                               update_kv_cache_at)
 from fastllama_tpu_torch.ops.norms import rmsnorm, swiglu
 from fastllama_tpu_torch.ops.qmatmul import qmatmul
 from fastllama_tpu_torch.ops.rope import apply_rope_half, rope_tables
@@ -121,7 +124,7 @@ def fuse_params(cfg: ModelConfig, params: LlamaParams) -> LlamaParams:
 
 
 def forward(cfg: ModelConfig, params: LlamaParams, tokens: torch.Tensor,
-            pos: int, cache: KVCache, *, mm: Callable = qmatmul,
+            pos: Optional[int], cache: KVCache, *, mm: Callable = qmatmul,
             attn: Callable = gqa_attention, unroll: bool = False,
             mm_idx: Optional[Callable] = None,
             attn_idx: Optional[Callable] = None,
@@ -149,14 +152,24 @@ def forward(cfg: ModelConfig, params: LlamaParams, tokens: torch.Tensor,
     (T,) int32 device tensor ``pos + arange(T)``, made here when None; the
     decode chunk passes a slice of one it made per chunk, so a step copies
     nothing from the host.  The attention hooks get ``positions[:1]``.
-    ``last_index`` keeps one row for the classifier (a padded prefill)."""
+    ``last_index`` keeps one row for the classifier (a padded prefill).
+
+    ``pos=None`` places the rows at the device ``positions`` instead (a
+    copy along the cache's row axis at those indices), so that a caller
+    whose position lives on the device (the speculative engine's rounds)
+    never reads it back.  That path does not check that the rows fit the
+    cache: its caller guarantees it (``SpeculativeEngine``'s room rule
+    leaves every block it queues inside ``max_seq_len``)."""
     T = tokens.shape[0]
     hs, n_heads, n_kv = cfg.head_size, cfg.n_heads, cfg.n_kv_heads
     S = cache.k.shape[2]
-    if not 0 <= pos <= S - T:
+    if pos is None:
+        if positions is None:
+            raise ValueError("forward at pos=None needs device positions")
+    elif not 0 <= pos <= S - T:
         raise ValueError(f"positions [{pos}, {pos + T}) do not fit a cache "
                          f"of {S} rows")
-    if positions is None:
+    elif positions is None:
         positions = torch.arange(pos, pos + T, dtype=torch.int32,
                                  device=tokens.device)
     pos_t = positions[:1]
@@ -193,7 +206,10 @@ def forward(cfg: ModelConfig, params: LlamaParams, tokens: torch.Tensor,
         q = apply_rope_half(q, cos[None], sin[None])
         k = apply_rope_half(k, cos[None], sin[None])
 
-        update_kv_cache(cache.k[l], cache.v[l], k, v, pos)
+        if pos is None:
+            update_kv_cache_at(cache.k[l], cache.v[l], k, v, positions)
+        else:
+            update_kv_cache(cache.k[l], cache.v[l], k, v, pos)
         if attn_idx is not None:
             o = attn_idx(q, cache.k, cache.v, pos_t, l)           # (H, T, hs)
         else:
@@ -223,6 +239,72 @@ def forward(cfg: ModelConfig, params: LlamaParams, tokens: torch.Tensor,
 def logits_at(logits: torch.Tensor, length: int) -> torch.Tensor:
     """Logits of the last valid token of a padded prefill."""
     return logits[length - 1]
+
+
+def truncate_params(cfg: ModelConfig, params: LlamaParams, n_layers: int
+                    ) -> Tuple[ModelConfig, LlamaParams]:
+    """(cfg', params') keeping only the first ``n_layers`` layers: a draft
+    model for speculative decoding made from the target's own weights
+    (``fastllama_tpu/models/llama.py:480``).  Every stacked leaf (QArray
+    data and scales, the norms) keeps its first ``n_layers`` layers; the
+    embedding, classifier and ``out_norm`` are shared.  The slices are
+    copies, so the draft holds ``n_layers / L`` of the layer bytes again.
+    Takes parameters before :func:`fuse_params`, as an ``Engine`` does."""
+    if not 0 < n_layers <= cfg.n_layers:
+        raise ValueError(f"n_layers {n_layers} out of range")
+
+    def take(w):
+        if isinstance(w, QArray):
+            return QArray(w.data[:n_layers].clone(),
+                          w.scales[:n_layers].clone(), w.qtype,
+                          w.group_size, w.group_axis, w.packed)
+        return w[:n_layers].clone()
+
+    p = dataclasses.replace(params, **{
+        name: take(getattr(params, name))
+        for name in ("attn_norm", "wq", "wk", "wv", "wo", "ffn_norm", "w1",
+                     "w2", "w3")})
+    return cfg.replace(n_layers=n_layers), p
+
+
+def requantize_params(cfg: ModelConfig, params: LlamaParams,
+                      qtype: QuantType) -> LlamaParams:
+    """Every QArray quantized again to ``qtype`` through its current
+    quantization (dequantize to f32, then :func:`quantize` along the same
+    group axis, truncating toward zero): the same weights at a lower
+    precision, a draft for speculative decoding
+    (``fastllama_tpu/models/llama.py:506``).  Norms and unquantized leaves
+    pass through; a packed leaf raises, as in the JAX package.
+
+    The JAX function runs under ``jit``, where XLA turns the scale's
+    division by QF into a product with QF's f32 reciprocal; the port
+    computes the scale the same way, so the two agree bit for bit."""
+    recip = torch.tensor(1.0, dtype=torch.float32) / float(qtype.factor)
+
+    def requant(fp, gs):
+        """(data, scales) of ``fp`` quantized along its last axis."""
+        g = fp.reshape(*fp.shape[:-1], fp.shape[-1] // gs, gs)
+        scale = g.abs().amax(dim=-1) * recip.to(fp.device)
+        safe = torch.where(scale > 0, scale, torch.ones_like(scale))
+        q = torch.trunc(g / safe[..., None]).to(QDTYPE[qtype])
+        return q.reshape(fp.shape), scale
+
+    def conv(w):
+        if not isinstance(w, QArray):
+            return w
+        if w.packed:
+            raise ValueError("requantize of packed INT4 not supported")
+        fp = dequantize(w, torch.float32)
+        if w.group_axis == -2:       # groups along the contraction axis
+            data, scales = requant(fp.transpose(-1, -2), w.group_size)
+            return QArray(data.transpose(-1, -2).contiguous(),
+                          scales.transpose(-1, -2).contiguous(), qtype,
+                          w.group_size, -2)
+        data, scales = requant(fp, w.group_size)
+        return QArray(data, scales, qtype, w.group_size, w.group_axis)
+
+    return LlamaParams(**{f.name: conv(getattr(params, f.name))
+                          for f in dataclasses.fields(LlamaParams)})
 
 
 def _shapes(cfg: ModelConfig):

@@ -1,11 +1,12 @@
 """GQA attention, plain PyTorch (port of
-``fastllama_tpu/ops/attention.py:26-176``).
+``fastllama_tpu/ops/attention.py:26-209``).
 
-``update_kv_cache`` writes new rows into one layer's cache in place.
+``update_kv_cache`` writes new rows into one layer's cache in place at a
+host position, ``update_kv_cache_at`` at device positions.
 ``gqa_attention`` is the prefill attention, which the JAX package also
-computes outside Pallas.  ``gqa_attention_decode_batched`` is the
-reference form of decode attention with deferred cache writes (strict mask
-plus the fresh row), ``gqa_attention_spec_batched`` that of the batched
+computes outside Pallas; ``gqa_attention_batched`` its per-slot form.
+``gqa_attention_decode_batched`` is the reference form of decode
+attention with deferred cache writes (strict mask plus the fresh row), ``gqa_attention_spec_batched`` that of the batched
 speculative verify (T rows per slot, a causal fresh block); the
 flash-decode kernels and their plain versions live in
 ``ops/kernels/flash_decode.py``.
@@ -34,6 +35,20 @@ def update_kv_cache(k_cache: torch.Tensor, v_cache: torch.Tensor,
     return k_cache, v_cache
 
 
+def update_kv_cache_at(k_cache: torch.Tensor, v_cache: torch.Tensor,
+                       k_new: torch.Tensor, v_new: torch.Tensor,
+                       positions: torch.Tensor):
+    """Write T new rows at the device ``positions`` (T,) along the row
+    axis, in place: the same rows :func:`update_kv_cache` writes at a host
+    int, without reading the position back.  The caller keeps the
+    positions inside the cache (an index past it raises on the CPU and is
+    undefined on the card).  Returns the same two tensors."""
+    idx = positions.to(torch.long)
+    k_cache.index_copy_(-2, idx, k_new.to(k_cache.dtype))
+    v_cache.index_copy_(-2, idx, v_new.to(v_cache.dtype))
+    return k_cache, v_cache
+
+
 def gqa_attention(q: torch.Tensor, k_cache: torch.Tensor,
                   v_cache: torch.Tensor, pos: int = 0) -> torch.Tensor:
     """Masked GQA attention.  q (..., n_heads, T, hs) at absolute positions
@@ -54,6 +69,29 @@ def gqa_attention(q: torch.Tensor, k_cache: torch.Tensor,
     probs = torch.softmax(scores, dim=-1)
     out = torch.matmul(probs, vf)                          # (..., n_kv, hgs, T, hs)
     return out.reshape(*lead, n_heads, T, hs).to(q.dtype)
+
+
+def gqa_attention_batched(q: torch.Tensor, k_cache: torch.Tensor,
+                          v_cache: torch.Tensor, pos: torch.Tensor
+                          ) -> torch.Tensor:
+    """Per-slot masked GQA attention (``fastllama_tpu/ops/attention.py:179``).
+    q (B, n_heads, T, hs) at positions pos[b]..pos[b]+T-1; caches (B, n_kv,
+    S, hs), slot b's rows >= pos[b]+T stale; pos (B,).  All math in f32;
+    returns q.dtype."""
+    B, n_heads, T, hs = q.shape
+    n_kv, S = k_cache.shape[1], k_cache.shape[2]
+    hgs = n_heads // n_kv
+    qf = q.reshape(B, n_kv, hgs, T, hs).to(torch.float32)
+    scores = torch.einsum("bkgth,bksh->bkgts", qf,
+                          k_cache.to(torch.float32)) * (1.0 / math.sqrt(hs))
+    s_idx = torch.arange(S, device=q.device)[None, None, :]
+    t_idx = torch.arange(T, device=q.device)[None, :, None]
+    mask = s_idx <= t_idx + pos.to(torch.long)[:, None, None]     # (B, T, S)
+    scores = torch.where(mask[:, None, None], scores,
+                         torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgts,bksh->bkgth", probs, v_cache.to(torch.float32))
+    return out.reshape(B, n_heads, T, hs).to(q.dtype)
 
 
 def gqa_attention_decode_batched(q: torch.Tensor, k_cache: torch.Tensor,

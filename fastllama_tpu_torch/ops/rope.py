@@ -12,9 +12,12 @@ import torch
 
 
 def _freqs(head_size: int, theta: float, device) -> torch.Tensor:
+    """theta^(-2i/head_size).  The base is filled on the device, not
+    copied from the host: a host copy is a synchronizing call, and a
+    decode step makes these tables every step."""
     idx = torch.arange(0, head_size // 2, dtype=torch.float32, device=device)
-    return torch.pow(torch.tensor(theta, dtype=torch.float32, device=device),
-                     -idx * (2.0 / head_size))
+    return torch.pow(torch.full((), theta, dtype=torch.float32,
+                                device=device), -idx * (2.0 / head_size))
 
 
 def rope_cos_sin(positions: torch.Tensor, head_size: int,
