@@ -72,7 +72,10 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    200, 256, 1024, 2048}, INT8 with f32 and bf16 scales and packed INT4
    (hidden 11264) with f32 scales on bf16 and f32 x, bare and with the
    norm gain, the residual and both, each wrapper call one launch on its
-   ``launches_prefill`` and none on ``launches_pipe`` (2n);
+   ``launches_prefill`` and none on ``launches_pipe`` (2n), and the K1
+   modes a loaded model reaches (2o): the loop at group size 32 and
+   ``qmm_f32_kernel`` on INT16 weights at the 7B projections, T in {1,
+   48, 2048}, bare and with the glue;
 3. the engines' kernel paths against their plain paths at 7B width, 2
    layers, f32 compute: the ``BatchedEngine`` (int8 KV, B=4), the
    single-stream ``Engine`` (f32 scales and KV: logits, 40 greedy tokens
@@ -104,6 +107,17 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    path no synchronizing call inside a chunk (greedy and sampled, both
    drafters; the debug mode "error") and sampled runs (0.8, 0.9) of 40
    tokens inside the vocab;
+3h. the checkpoint loaders on the card (7B width, 2 layers, f32
+   compute): one seeded set of fp32 weights written as an llama2c file,
+   an FLM INT8 file (the port's ``write_flm``, quantizing on the card), a
+   GGUF ``Q8_0`` file and two HF directories (a ``.bin`` shard by
+   ``torch.save``, a ``.safetensors`` shard written byte by byte), one at
+   a time under ``tempfile.gettempdir()``, each loaded by ``Engine.load``:
+   every leaf bit-equal to ``build_params`` on the in-memory arrays (the
+   GGUF leaves to what its ``Q8_0`` bytes encode, group size 32), the
+   card's ``build_params`` bit-equal to the CPU's, the prefill logits
+   within ``TOL_F32`` and 24 greedy tokens equal to an engine on the
+   in-memory parameters;
 4. the batched serving path at full width: ``BatchedEngine`` over 7B /
    INT8 / fused QKV and gate|up / int8 KV / B=48 / S=512, 32 layers,
    synthetic weights made on the card; 48 requests of a 43-token prompt
@@ -179,6 +193,20 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    held to plain greedy by ``same_greedy``'s tie rule (bf16 compute);
    tok/s, acceptance, rounds, memory and launches a round; then one chunk
    of 8 rounds of each traced (device ms and ops a round, idle share);
+4m. serving from files at 7B width: a 32-layer FLM INT8 file written by
+   the port's ``write_flm`` from fp32 layers drawn on the card one at a
+   time (while the kernels build), served through ``Engine.load`` on
+   4b's measurement and ``BatchedEngine.load`` on 4's (every K1/K1f
+   launch on the ring or the prefill mode, the launch counts equal to
+   4/4b's, which must run with it); a 4-layer GGUF ``Q8_0`` file (group size 32: every K1 launch
+   on the loop) and a 4-layer fp32 llama2c file loaded with qtype INT16
+   (every K1 launch on ``qmm_f32_kernel``) through both entry points on
+   the same traffic; the seconds to write and to load, tok/s, ms a step,
+   memory and profiles; then the CLI as subprocesses (``-m benchmark`` on
+   the 32-layer file; ``gen --spec``, ``serve``, ``serve --spec``,
+   ``serve --prefix-cache``, ``chat`` on stdin, ``-e``/``-d`` and
+   ``--profile-dir`` on a 4-layer FLM file), each exiting 0 with its
+   output checked, and ``--mesh`` exiting non-zero;
 4g. deferred KV on phase 4's engine and traffic at decode chunk 16
    (every chunk deferred, every K2 launch with stats in the split-row
    mode) against plain chunks, in turns;
@@ -225,7 +253,11 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    S=2048, pos 2040, also at 1, 2, 4 and 8 splits; K2s: the
    split-row mode, the tiled kernel, the plain version and SDPA in turns
    at phase 4c's reading, B=32, pos 107, T in {2, 4, 8}, and at B=4,
-   S=2048, pos 2040, the split mode also at 1, 2 and 4 splits).
+   S=2048, pos 2040, the split mode also at 1, 2 and 4 splits; the modes a
+   loaded model reaches (4m): K1 and K1f on the loop at group size 32 and
+   on ``qmm_f32_kernel`` at INT16, a 7B layer at T in {1, 48, 2048}, in
+   turns with ``torch.matmul`` on pre-dequantized weights and the plain
+   version).
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Details go to
@@ -647,7 +679,55 @@ def phase_kernels(dev, rec):
     check_wide_prefill(dev, gen, errs)
     check_wide_planes(dev, gen)
     check_prefill(dev, gen, errs)
+    check_loaded_modes(dev, gen, errs)
     rec["max_abs_err"] = errs
+
+
+def check_loaded_modes(dev, gen, errs):
+    """Phase 2o: the K1 modes a loaded model reaches, against their plain
+    versions at the four 7B projections, bf16 x and compute: the loop
+    (``qmm_bf16_kernel``) at group size 32 (a GGUF ``Q8_0`` file), K1 with
+    f32 scales at T in {1, 48, 2048} and K1f with the glue (bf16 scales)
+    at T in {1, 48}; ``qmm_f32_kernel`` on INT16 weights (group size 64,
+    f32 scales), K1 at T in {1, 48, 2048} and K1f with the glue at T in
+    {1, 48}.  Every call must take that kernel (``qmm._kernel``); bf16
+    outputs within ``TOL_BF16``."""
+    import torch
+    from fastllama_tpu_torch.config import QuantType
+    from fastllama_tpu_torch.ops.kernels import qmm
+    log("phase 2o: K1 on the loop at group size 32 and on qmm_f32_kernel "
+        "at INT16, 7B projections, against the plain version")
+    bf16, f32 = torch.bfloat16, torch.float32
+    for qt, gs, sdt, kernel, suffix, glues in (
+            (QuantType.INT8, 32, f32, "loop", "gs32", (False,)),
+            (QuantType.INT8, 32, bf16, "loop", "gs32", (True,)),
+            (QuantType.INT16, 64, f32, "wide", "int16", (False, True))):
+        for n, (I, O) in ((n, PROJ_7B[n]) for n in ("wqkv", "wo", "w13",
+                                                    "w2")):
+            w = rand_qarray(gen, (2, I, O), qt, dev, sdt, gs=gs)
+            for glue, T in ((g, T) for g in glues
+                            for T in ((1, 48) if g else (1, 48, 2048))):
+                x = torch.randn((T, I), generator=gen, device=dev).to(bf16)
+                kw = {}
+                if glue and n in ("wqkv", "w13"):
+                    kw["norm_gain"] = torch.rand((I,), generator=gen,
+                                                 device=dev) + 0.5
+                elif glue:
+                    kw["residual"] = torch.randn((T, O), generator=gen,
+                                                 device=dev).to(bf16)
+                check(qmm._kernel(x, w[1], bf16, False, kw.get("residual"))
+                      == kernel, f"2o {n} T={T}: not on {kernel}")
+                name = ("qmatmul_pallas_indexed_fused_" if kw
+                        else "qmatmul_pallas_indexed_") + suffix
+                fn = (qmm.qmatmul_pallas_indexed_fused if kw
+                      else qmm.qmatmul_pallas_indexed)
+                got = fn(x, w, 1, bf16, **kw)
+                want = qmm.qmm_fused_plain(x, w[1], bf16, **kw)
+                e = compare(f"{name} {n} T={T} {qt.name} gs {gs} "
+                            f"{str(sdt)[6:]} scales", got, want, TOL_BF16)
+                errs[name] = max(errs.get(name, 0.0), e)
+            del w
+    torch.cuda.empty_cache()
 
 
 def check_fused(dev, gen, errs):
@@ -2798,7 +2878,10 @@ KERNELS = ("qmatmul_pallas", "qmatmul_pallas_indexed",
            "qmatmul_pallas_indexed_fused_prefill",
            "qmatmul_pallas_wide_prefill",
            "qmatmul_pallas_indexed_wide_prefill",
-           "qmatmul_pallas_indexed_fused_wide_prefill")
+           "qmatmul_pallas_indexed_fused_wide_prefill",
+           "qmatmul_pallas_indexed_gs32", "qmatmul_pallas_indexed_fused_gs32",
+           "qmatmul_pallas_indexed_int16",
+           "qmatmul_pallas_indexed_fused_int16")
 # the wrappers of K2's non-fresh mode: each counts its split-row launches
 SPLIT_WRAPPERS = ("flash_decode_single", "decode_attention_pallas_indexed",
                   "decode_attention_pallas", "flash_decode_batched",
@@ -4366,6 +4449,7 @@ def phase_timing(dev, rec):
     time_wide(dev, gen, res)
     time_wide_prefill(dev, gen, res)
     time_prefill(dev, gen, res)
+    time_loaded_modes(dev, gen, res)
     for k, v in res.items():
         loop = f"loop {v['loop_ms']:.4f}, " if "loop_ms" in v else ""
         log(f"  {k}: {v['ms']:.4f} ms ({loop}plain {v['plain_ms']:.4f}, "
@@ -5915,6 +5999,827 @@ def time_groupdot(dev, gen, res):
     torch.cuda.empty_cache()
 
 
+# -- phases 3h and 4m: checkpoint files through the loaders and the CLI ------
+
+class SeededLayers:
+    """One per-layer fp32 field in checkpoint layout, made on the card from
+    a seed when indexed: ``[l]`` is layer ``l`` (normal x ``scale``, or a
+    norm gain ``1 + 0.1 x normal``), so a 32-layer 7B set never sits whole
+    in any memory.  ``stack(L)`` gives the first ``L`` layers stacked."""
+
+    def __init__(self, shape, seed, dev, scale=0.02, norm=False):
+        self.shape, self.seed, self.dev = shape, seed, dev
+        self.scale, self.norm = scale, norm
+
+    def __getitem__(self, layer):
+        import torch
+        gen = torch.Generator(device=self.dev)
+        gen.manual_seed(self.seed * 1009 + layer)
+        x = torch.randn(self.shape, generator=gen, device=self.dev)
+        return 1 + 0.1 * x if self.norm else x * self.scale
+
+    def stack(self, n_layers):
+        import torch
+        return torch.stack([self[l] for l in range(n_layers)])
+
+
+def seeded_weights(cfg, seed, dev, scale=0.02):
+    """fp32 weights of ``cfg`` in checkpoint layout (projections (out, in),
+    the convention a file stores), made on the card from ``seed``: the
+    embedding, classifier and final norm as tensors, every per-layer field
+    a :class:`SeededLayers`."""
+    import torch
+    D, H, V = cfg.dim, cfg.hidden_dim, cfg.vocab_size
+    qd, kd = cfg.n_heads * cfg.head_size, cfg.kv_dim
+    shapes = dict(wq=(qd, D), wk=(kd, D), wv=(kd, D), wo=(D, qd),
+                  w1=(H, D), w2=(D, H), w3=(H, D))
+    w = {k: SeededLayers(s, seed * 16 + i, dev, scale)
+         for i, (k, s) in enumerate(shapes.items())}
+    w["attn_norm"] = SeededLayers((D,), seed * 16 + 8, dev, norm=True)
+    w["ffn_norm"] = SeededLayers((D,), seed * 16 + 9, dev, norm=True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    w["embedding"] = torch.randn((V, D), generator=gen, device=dev) * scale
+    w["classifier"] = torch.randn((V, D), generator=gen, device=dev) * scale
+    w["out_norm"] = 1 + 0.1 * torch.randn((D,), generator=gen, device=dev)
+    return w
+
+
+def host_weights(cfg, w):
+    """The stacked host (numpy f32) arrays of :func:`seeded_weights`."""
+    return {k: (v.stack(cfg.n_layers) if isinstance(v, SeededLayers)
+                else v).cpu().numpy() for k, v in w.items()}
+
+
+def q8_0_blocks(t):
+    """``Q8_0`` of an f32 tensor on the card, blocks of 32 along its last
+    axis: an fp16 scale max|x| / 127 and 32 int8 values rounded against
+    it.  Returns (the file's bytes, int8 data, f32 scales as stored)."""
+    import torch
+    a = t.reshape(-1, 32)
+    d = (a.abs().amax(dim=1) / 127.0).to(torch.float16)
+    safe = torch.where(d > 0, d.float(), torch.ones_like(d.float()))
+    q = torch.round(a / safe[:, None]).clamp(-127, 127).to(torch.int8)
+    blob = torch.cat([d.view(torch.uint8).reshape(-1, 2),
+                      q.view(torch.uint8)], dim=1)
+    return (blob.cpu().numpy().tobytes(), q.reshape(t.shape),
+            d.float().reshape(*t.shape[:-1], t.shape[-1] // 32))
+
+
+GGUF_LAYER = {"attn_norm": "attn_norm", "wq": "attn_q", "wk": "attn_k",
+              "wv": "attn_v", "wo": "attn_output", "ffn_norm": "ffn_norm",
+              "w1": "ffn_gate", "w2": "ffn_down", "w3": "ffn_up"}
+
+
+def write_gguf_q8(path, cfg, w, tok, keep=False):
+    """A GGUF v3 file by hand (the format's byte layout): the metadata,
+    the tokenizer, every projection, the embedding and the classifier as
+    ``Q8_0`` (encoded on the card), the norms F32.  ``keep``: return
+    {field: (data, scales)} of the ``Q8_0`` tensors as host arrays,
+    stacked over layers, else None."""
+    import struct
+
+    import numpy as np
+
+    def s(txt):
+        b = txt.encode()
+        return struct.pack("<Q", len(b)) + b
+
+    def kv(key, vtype, payload):
+        return s(key) + struct.pack("<I", vtype) + payload
+
+    def arr(key, etype, items):
+        head = struct.pack("<IQ", etype, len(items))
+        if etype == 8:
+            return kv(key, 9, head + b"".join(s(t) for t in items))
+        fmt = {6: "f", 5: "i"}[etype]
+        return kv(key, 9, head + struct.pack(f"<{len(items)}{fmt}", *items))
+    u32 = {"llama.embedding_length": cfg.dim,
+           "llama.feed_forward_length": cfg.hidden_dim,
+           "llama.block_count": cfg.n_layers,
+           "llama.attention.head_count": cfg.n_heads,
+           "llama.attention.head_count_kv": cfg.n_kv_heads,
+           "llama.context_length": cfg.max_seq_len,
+           "tokenizer.ggml.bos_token_id": tok.bos_token_id,
+           "tokenizer.ggml.eos_token_id": tok.eos_token_id}
+    kvs = [kv("general.architecture", 8, s("llama")),
+           kv("general.name", 8, s("llama2-7b-synthetic-q8_0")),
+           kv("llama.rope.freq_base", 6, struct.pack("<f", cfg.rope_theta)),
+           kv("llama.attention.layer_norm_rms_epsilon", 6,
+              struct.pack("<f", cfg.norm_eps)),
+           kv("tokenizer.ggml.model", 8, s("llama")),
+           arr("tokenizer.ggml.tokens", 8, tok.index_texts),
+           arr("tokenizer.ggml.scores", 6, tok.scores),
+           arr("tokenizer.ggml.token_type", 5, [int(t) for t in tok.types])]
+    kvs += [kv(k, 4, struct.pack("<I", v)) for k, v in u32.items()]
+    D, V = cfg.dim, cfg.vocab_size
+    tensors = [("token_embd.weight", "embedding", None, (V, D)),
+               ("output_norm.weight", "out_norm", None, (D,)),
+               ("output.weight", "classifier", None, (V, D))]
+    for l in range(cfg.n_layers):
+        for f, g in GGUF_LAYER.items():
+            tensors.append((f"blk.{l}.{g}.weight", f, l,
+                            tuple(w[f].shape)))
+    infos, offsets, offset = [], [], 0
+    for name, field, _, shape in tensors:
+        n = int(np.prod(shape))
+        size = 4 * n if len(shape) == 1 else n // 32 * 34
+        offset += (-offset) % 32
+        dims = tuple(reversed(shape))          # ggml: innermost first
+        infos.append(s(name) + struct.pack("<I", len(dims))
+                     + struct.pack(f"<{len(dims)}Q", *dims)
+                     + struct.pack("<IQ", 0 if len(shape) == 1 else 8,
+                                   offset))
+        offsets.append(offset)
+        offset += size
+    kept = {}
+    with open(path, "wb") as f:
+        f.write(struct.pack("<IIQQ", 0x46554747, 3, len(tensors), len(kvs)))
+        f.write(b"".join(kvs) + b"".join(infos))
+        start = f.tell() + (-f.tell()) % 32
+        for (name, field, l, shape), off in zip(tensors, offsets):
+            t = w[field] if l is None else w[field][l]
+            f.seek(start + off)
+            if len(shape) == 1:
+                f.write(t.float().cpu().numpy().astype("<f4").tobytes())
+                continue
+            blob, q, sc = q8_0_blocks(t.float())
+            f.write(blob)
+            if keep:
+                kept.setdefault(field, []).append((q.cpu().numpy(),
+                                                   sc.cpu().numpy()))
+    if not keep:
+        return None
+    return {k: (v[0] if k in ("embedding", "classifier") else
+                (np.stack([q for q, _ in v]), np.stack([s for _, s in v])))
+            for k, v in kept.items()}
+
+
+HF_LAYER = {"attn_norm": "input_layernorm.weight",
+            "wq": "self_attn.q_proj.weight", "wk": "self_attn.k_proj.weight",
+            "wv": "self_attn.v_proj.weight", "wo": "self_attn.o_proj.weight",
+            "ffn_norm": "post_attention_layernorm.weight",
+            "w1": "mlp.gate_proj.weight", "w2": "mlp.down_proj.weight",
+            "w3": "mlp.up_proj.weight"}
+
+
+def write_hf_dir(dirpath, cfg, host, shard):
+    """An HF checkpoint directory from the host arrays ``host``:
+    ``config.json``, and one shard: ``"bin"`` by ``torch.save`` of the
+    state dict, ``"safetensors"`` written here byte by byte (an 8-byte
+    header size, the JSON header, the raw little-endian data)."""
+    import struct
+
+    import torch
+    os.makedirs(dirpath, exist_ok=True)
+    with open(os.path.join(dirpath, "config.json"), "w") as f:
+        json.dump(dict(hidden_size=cfg.dim, intermediate_size=cfg.hidden_dim,
+                       num_hidden_layers=cfg.n_layers,
+                       num_attention_heads=cfg.n_heads,
+                       num_key_value_heads=cfg.n_kv_heads,
+                       vocab_size=cfg.vocab_size,
+                       max_position_embeddings=cfg.max_seq_len,
+                       rope_theta=cfg.rope_theta, rms_norm_eps=cfg.norm_eps,
+                       model_type="llama"), f)
+    sd = {"model.embed_tokens.weight": host["embedding"],
+          "model.norm.weight": host["out_norm"],
+          "lm_head.weight": host["classifier"]}
+    for l in range(cfg.n_layers):
+        for k, n in HF_LAYER.items():
+            sd[f"model.layers.{l}.{n}"] = host[k][l]
+    if shard == "bin":
+        torch.save({k: torch.from_numpy(v.copy()) for k, v in sd.items()},
+                   os.path.join(dirpath, "pytorch_model.bin"))
+        return dirpath
+    header, off = {}, 0
+    for k, v in sd.items():
+        header[k] = {"dtype": "F32", "shape": list(v.shape),
+                     "data_offsets": [off, off + v.nbytes]}
+        off += v.nbytes
+    h = json.dumps(header).encode()
+    h += b" " * (-len(h) % 8)
+    with open(os.path.join(dirpath, "model.safetensors"), "wb") as f:
+        f.write(struct.pack("<Q", len(h)) + h)
+        for v in sd.values():
+            f.write(v.astype("<f4").tobytes())
+    return dirpath
+
+
+def same_params(label, got, want):
+    """Every leaf of two ``LlamaParams`` bit-equal (data, scales, dtypes,
+    shapes and the QArray flags)."""
+    import torch
+    for f in dataclasses.fields(want):
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        if hasattr(b, "scales"):
+            check(hasattr(a, "scales")
+                  and (a.qtype, a.group_size, a.group_axis, a.packed)
+                  == (b.qtype, b.group_size, b.group_axis, b.packed),
+                  f"{label}: {f.name}'s layout differs")
+            pairs = ((a.data, b.data), (a.scales, b.scales))
+        else:
+            pairs = ((a, b),)
+        for x, y in pairs:
+            check(x.dtype == y.dtype and x.shape == y.shape
+                  and bool(torch.equal(x.to(y.device), y)),
+                  f"{label}: {f.name} is not bit-equal ({x.dtype} "
+                  f"{tuple(x.shape)} against {y.dtype} {tuple(y.shape)})")
+
+
+def phase_loader_parity(dev, rec):
+    """Phase 3h: the loaders on the card, 7B width, 2 layers, f32 compute.
+    One seeded set of fp32 weights is written as an llama2c file, an FLM
+    INT8 file (``write_flm`` on the card's tensors), a GGUF ``Q8_0`` file
+    and two HF directories (a ``torch.save`` ``.bin`` shard and a
+    ``.safetensors`` shard written here), one at a time under
+    ``tempfile.gettempdir()``.  Each is loaded on the card
+    (``Engine.load``, unfused, f32 scales): every leaf bit-equal to
+    ``build_params`` on the same in-memory arrays (the GGUF leaves to what
+    its ``Q8_0`` bytes encode), the card's build bit-equal to the CPU's
+    (the JAX package's quantization, held on the CPU by the tests); the
+    prefill logits within ``TOL_F32`` and 24 greedy tokens equal to an
+    engine on the in-memory parameters."""
+    import shutil
+    import tempfile
+
+    import torch
+    from fastllama_tpu_torch.config import EngineConfig, QuantType
+    from fastllama_tpu_torch.loaders import flm, llama2c
+    from fastllama_tpu_torch.loaders.registry import FileType
+    from fastllama_tpu_torch.models.llama import build_params
+    from fastllama_tpu_torch.ops.rope import deinterleave_heads
+    from fastllama_tpu_torch.runtime.engine import Engine
+    from fastllama_tpu_torch.tools.synthetic import tiny_tokenizer
+    log("phase 3h: the loaders on the card (7B width, 2 layers, f32 "
+        "compute): llama2c, FLM INT8, GGUF Q8_0, HF .bin and .safetensors")
+    cfg = cfg_7b(n_layers=2).replace(quant_type=QuantType.NONE, name="")
+    cfg8 = cfg.replace(quant_type=QuantType.INT8)
+    hs = cfg.head_size
+    w = seeded_weights(cfg, SEED + 30, dev)
+    host = host_weights(cfg, w)
+    deint = dict(host, wq=deinterleave_heads(host["wq"], hs),
+                 wk=deinterleave_heads(host["wk"], hs))
+    tok = tiny_tokenizer(cfg.vocab_size)
+    ec = EngineConfig(max_seq_len=128, compute_dtype="float32",
+                      scale_dtype="float32", kv_dtype="float32",
+                      fuse_weights=False)
+    prompt = list(range(3, 46))
+    t0 = time.perf_counter()
+    ref = build_params(cfg8, deint, QuantType.INT8, device=dev)
+    ref_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    same_params("the card's build against the CPU's", ref,
+                build_params(cfg8, deint, QuantType.INT8, device="cpu"))
+    log(f"  ok build_params on the card ({ref_s:.2f} s) bit-equal to the "
+        f"CPU's ({time.perf_counter() - t0:.2f} s)")
+
+    def run(eng):
+        cache = eng.new_cache()
+        lg = eng._prefill(prompt, eng._bucket(len(prompt)), cache, 0)
+        toks, _ = eng.generate(prompt, max_new_tokens=24, temperature=0.0,
+                               stop_tokens=(), decode_chunk=8)
+        return lg.float(), toks
+    d = tempfile.mkdtemp(prefix="chip_smoke_3h_")
+    out = {"free_gb": shutil.disk_usage(d).free / 1e9}
+    log(f"  files under {d}: {out['free_gb']:.1f} GB free")
+    refs, runs = {"deint": ref}, {}
+    try:
+        tokp = os.path.join(d, "tokenizer.bin")
+        llama2c.write_llama2c_tokenizer(tokp, tok)
+        cases = [
+            ("llama2c", lambda p: llama2c.write_llama2c(
+                p, cfg, host, shared_classifier=False), tokp,
+             FileType.LLAMA2C, QuantType.INT8, "deint"),
+            ("flm_int8", lambda p: flm.write_flm(
+                p, cfg8, tok, w, QuantType.INT8,
+                rope_convention="interleaved"), "", FileType.UNKNOWN, None,
+             "deint"),
+            ("gguf_q8_0", None, "", FileType.UNKNOWN, None, "gguf"),
+            ("hf_bin", lambda p: write_hf_dir(p, cfg, host, "bin"), "",
+             FileType.UNKNOWN, QuantType.INT8, "hf"),
+            ("hf_safetensors", lambda p: write_hf_dir(p, cfg, host,
+                                                      "safetensors"), "",
+             FileType.UNKNOWN, QuantType.INT8, "hf")]
+        for label, write, tkp, ft, qt, kind in cases:
+            p = os.path.join(d, label)
+            t0 = time.perf_counter()
+            if kind == "gguf":
+                # the leaves are what the Q8_0 bytes encode
+                pairs = write_gguf_q8(p, cfg, w, tok, keep=True)
+                for k in ("wq", "wk"):
+                    pairs[k] = tuple(deinterleave_heads(a, hs)
+                                     for a in pairs[k])
+                write_s = time.perf_counter() - t0
+                refs["gguf"] = build_params(cfg8.replace(group_size=32),
+                                            dict(deint, **pairs),
+                                            QuantType.INT8, device=dev)
+            else:
+                write(p)
+                write_s = time.perf_counter() - t0
+                if kind == "hf" and "hf" not in refs:
+                    # HF files hold the rotate-half layout: no deinterleave
+                    refs["hf"] = build_params(cfg8, host, QuantType.INT8,
+                                              device=dev)
+            size = (sum(os.path.getsize(os.path.join(r, f))
+                        for r, _, fs in os.walk(p) for f in fs)
+                    if os.path.isdir(p) else os.path.getsize(p))
+            t0 = time.perf_counter()
+            eng = Engine.load(p, tkp, ft, qt, ec, device=dev)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            check(eng.config.group_size == (32 if kind == "gguf" else 64)
+                  and eng.config.quant_type == QuantType.INT8,
+                  f"{label}: loaded as {eng.config.quant_type} at group "
+                  f"size {eng.config.group_size}")
+            same_params(label, eng.params, refs[kind])
+            if kind not in runs:
+                mem = Engine(eng.config, refs[kind], tok, ec, device=dev)
+                runs[kind] = run(mem)
+                del mem
+            lg, toks = run(eng)
+            err = compare(f"{label}: Engine.load's prefill logits against "
+                          f"the in-memory engine's", lg, runs[kind][0],
+                          TOL_F32)
+            check(toks == runs[kind][1] and len(toks) == 24,
+                  f"{label}: Engine.load's greedy tokens {toks} differ from "
+                  f"the in-memory engine's {runs[kind][1]}")
+            out[label] = {"bytes": size, "write_s": write_s, "load_s": load_s,
+                          "max_logit_err": err}
+            log(f"  ok {label}: {size / 1e9:.3f} GB written in "
+                f"{write_s:.2f} s, Engine.load {load_s:.2f} s, every leaf "
+                f"bit-equal to build_params, 24 greedy tokens equal")
+            del eng
+            if os.path.isdir(p):
+                shutil.rmtree(p)
+            else:
+                os.unlink(p)
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    rec["loader_parity"] = out
+    del ref, refs
+    torch.cuda.empty_cache()
+
+
+# the kernels of a loaded model that no random-weight phase reaches: K1 and
+# K1f on the loop at group size 32 (a GGUF Q8_0 file) and on
+# qmm_f32_kernel at INT16 (an fp32 file loaded with qtype INT16)
+LOADED_SINGLE_PATH = ("qmatmul_pallas", "qmatmul_pallas_indexed_fused",
+                      "flash_decode_single")
+LOADED_BATCHED_PATH = ("qmatmul_pallas", "qmatmul_pallas_indexed",
+                       "flash_decode_batched", "flash_decode_batched_split",
+                       "decode_write", "prefill_write")
+K1_WRAPPERS = ("qmatmul_pallas", "qmatmul_pallas_indexed",
+               "qmatmul_pallas_indexed_fused")
+
+
+def check_one_kernel(want):
+    """A ``k1_check`` for a run whose every K1 launch must take one kernel:
+    ``"loop"`` (``qmm_bf16_kernel``; a group size of 32) or ``"wide_f32"``
+    (``qmm_f32_kernel``; INT16): the tally holds that kernel alone, and
+    its count equals the wrappers' ``launches`` less their other modes'
+    (``_pipe`` and ``_prefill``, or ``_wide_pipe`` and ``_wide_prefill``).
+    Returns the launches above 128 rows."""
+    others = (("_pipe", "_prefill") if want == "loop"
+              else ("_wide_pipe", "_wide_prefill"))
+
+    def k1_check(launches, tally, label):
+        modes = {m for m, _ in tally.counts}
+        total = sum(launches[k] for k in K1_WRAPPERS)
+        rest = total - sum(launches[k + s] for k in K1_WRAPPERS
+                           for s in others)
+        n = sum(tally.counts.values())
+        check(modes == {want}, f"{label}: K1 launches outside {want}: "
+                               f"{tally.record()}")
+        check(n == rest == total > 0,
+              f"{label}: {n} launches of {want} in the tally, {rest} of "
+              f"{total} on the wrappers outside their other modes")
+        log(f"  ok {label}: all {total} K1 launches on {want}; by mode "
+            f"{tally.record()}")
+        return sum(c for (m, small), c in tally.counts.items() if not small)
+    return k1_check
+
+
+class FileSet:
+    """Phase 4m's checkpoint files, written by the port's writers under
+    ``tempfile.gettempdir()`` on a thread started before the kernels build
+    (the card is idle then): a 32-layer and a 4-layer FLM INT8 file
+    (``write_flm`` on fp32 layers drawn on the card from a seed, one layer
+    at a time), a 4-layer GGUF ``Q8_0`` file and a 4-layer fp32 llama2c
+    file with its tokenizer, all at 7B width.  ``join`` waits and re-raises
+    a writer's error; ``remove`` deletes the files."""
+
+    def __init__(self, dev):
+        import tempfile
+        import threading
+        self.dev = dev
+        self.dir = tempfile.mkdtemp(prefix="chip_smoke_4m_")
+        self.paths, self.rec, self.err = {}, {}, None
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _run(self):
+        try:
+            self._write()
+        except BaseException as e:           # re-raised by join()
+            self.err = e
+
+    def _write(self):
+        import shutil
+
+        from fastllama_tpu_torch.config import QuantType
+        from fastllama_tpu_torch.loaders import flm, llama2c
+        from fastllama_tpu_torch.tools.synthetic import tiny_tokenizer
+        free = shutil.disk_usage(self.dir).free
+        self.rec["dir"], self.rec["free_gb"] = self.dir, free / 1e9
+        log(f"  phase 4m files under {self.dir}: {free / 1e9:.1f} GB free")
+        check(free > 16e9, f"{self.dir}: {free / 1e9:.1f} GB free, phase 4m "
+                           f"writes about 15 GB")
+        tok = tiny_tokenizer(32000)
+        jobs = [("flm32", 32, "flm"), ("flm4", 4, "flm"),
+                ("gguf4", 4, "gguf"), ("llama2c4", 4, "llama2c")]
+        for name, n_layers, kind in jobs:
+            cfg = cfg_7b(n_layers)
+            w = seeded_weights(cfg, SEED + 40, self.dev)
+            p = os.path.join(self.dir, name)
+            t0 = time.perf_counter()
+            if kind == "flm":
+                flm.write_flm(p, cfg, tok, w, QuantType.INT8,
+                              rope_convention="interleaved")
+            elif kind == "gguf":
+                write_gguf_q8(p, cfg, w, tok)
+            else:
+                llama2c.write_llama2c(p, cfg, host_weights(cfg, w),
+                                      shared_classifier=False)
+                llama2c.write_llama2c_tokenizer(p + ".tok", tok)
+                self.paths[name + ".tok"] = p + ".tok"
+            self.paths[name] = p
+            self.rec[name] = {"layers": n_layers, "write_s":
+                              time.perf_counter() - t0,
+                              "bytes": os.path.getsize(p)}
+            log(f"  phase 4m file {name}: {n_layers} layers, "
+                f"{self.rec[name]['bytes'] / 1e9:.3f} GB written in "
+                f"{self.rec[name]['write_s']:.2f} s")
+            del w
+
+    def join(self):
+        self.thread.join()
+        if self.err is not None:
+            raise self.err
+        return self
+
+    def remove(self):
+        import shutil
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def run_cli(args, label, stdin=None, timeout=600, rc=0):
+    """``python3 -m fastllama_tpu_torch.cli`` as a subprocess from the
+    checkout's root; its exit code must be ``rc`` (0: success; None: any
+    non-zero).  Returns (stdout, stderr, seconds)."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "fastllama_tpu_torch.cli",
+                        *args], input=stdin, capture_output=True, text=True,
+                       timeout=timeout,
+                       cwd=os.path.dirname(os.path.abspath(__file__)))
+    sec = time.perf_counter() - t0
+    ok = r.returncode == rc if rc is not None else r.returncode != 0
+    check(ok, f"CLI {label}: exit code {r.returncode}; stderr "
+              f"{r.stderr[-2000:]!r}")
+    log(f"  ok CLI {label}: rc {r.returncode} in {sec:.1f} s")
+    return r.stdout, r.stderr, sec
+
+
+def phase_cli(files, rec):
+    """Phase 4m's CLI runs, each a subprocess that loads its file again:
+    ``-m benchmark`` on the 32-layer FLM file, the rest on the 4-layer
+    one; every run must exit 0 with its output checked, ``--mesh`` must
+    exit non-zero with the not-ported message."""
+    import re
+    f32, f4 = files.paths["flm32"], files.paths["flm4"]
+    out = {}
+    so, _, sec = run_cli(["-c", f32, "-m", "benchmark", "-t", "0", "-n",
+                          "64", "--rounds", "2"], "benchmark (32 layers)")
+    stats = dict(kv.split(":", 1) for kv in so.strip().splitlines()[-1]
+                 .split("\t"))
+    check(0 < float(stats.get("output_size", 0)) <= 64
+          and "output_speed" in stats, f"CLI benchmark: stats line {stats}")
+    out["benchmark"] = dict(stats, seconds=sec,
+                            output_speed_tps=float(
+                                stats["output_speed"].rstrip("tps")))
+    log(f"  CLI benchmark: {stats}")
+    so, se, sec = run_cli(["-c", f4, "-m", "gen", "--spec", "-t", "0", "-n",
+                           "32", "-i", "the cat and the cat and the cat",
+                           "--detail"], "gen --spec")
+    check("output:" in so and "spec acceptance" in se,
+          f"CLI gen --spec: no output or acceptance line: {so[-500:]!r}")
+    out["gen_spec_s"] = sec
+    prompts = os.path.join(files.dir, "prompts.txt")
+    with open(prompts, "w") as f:
+        f.write("\n".join(f"the story of the {w} and the dog"
+                          for w in ("cat", "boy", "she", "it", "sto", "c",
+                                    "b", "w")) + "\n")
+    shared = os.path.join(files.dir, "shared.txt")
+    with open(shared, "w") as f:
+        f.write("\n".join("the story of the cat and the dog and the boy " * 3
+                          + w for w in ("a", "the", "on", "in", "to", "of",
+                                        "he", "it")) + "\n")
+    for label, extra, pf in (("serve", [], prompts),
+                             ("serve --spec", ["--spec"], prompts),
+                             ("serve --prefix-cache", ["--prefix-cache"],
+                              shared)):
+        so, se, sec = run_cli(["-c", f4, "-m", "serve", "--batch", "8",
+                               "-n", "32", "-t", "0", "--prompts-file", pf]
+                              + extra, label)
+        m = re.search(r"served (\d+) requests \| aggregate decode "
+                      r"([0-9.]+) tok/s", se)
+        check(m is not None and m.group(1) == "8"
+              and so.count(" tokens=") == 8, f"CLI {label}: {se[-500:]!r}")
+        out[label] = {"aggregate_decode_tok_s": float(m.group(2)),
+                      "seconds": sec}
+        log(f"  CLI {label}: 8 requests, aggregate decode "
+            f"{m.group(2)} tok/s")
+    so, _, sec = run_cli(["-c", f4, "-m", "chat", "-n", "16", "-t", "0"],
+                         "chat", stdin="the cat\nand the dog\n")
+    check(so.count("bot> ") == 2, f"CLI chat: {so[-500:]!r}")
+    out["chat_s"] = sec
+    # -e and -d in one run: the file's tokenizer read here gives the ids
+    from fastllama_tpu_torch.loaders.registry import load_model
+    text = "the story of the cat and the dog"
+    ids = load_model(f4, tokenizer_only=True).tokenizer.encode(text)
+    so, _, _ = run_cli(["-c", f4, "-e", text, "-d",
+                        ",".join(map(str, ids[1:]))], "-e/-d")
+    got = re.search(r"tokens\((\d+)\): \[(.*)\]", so)
+    check(got is not None and [int(i) for i in got.group(2).split(", ")]
+          == ids and so.split("text:", 1)[-1].strip() == text,
+          f"CLI -e/-d: {so!r}, want the ids {ids} and the text back")
+    prof = os.path.join(files.dir, "prof")
+    so, se, sec = run_cli(["-c", f4, "-n", "16", "-t", "0", "-i", text,
+                           "--profile-dir", prof], "--profile-dir")
+    with open(os.path.join(prof, "trace.json")) as f:
+        trace = f.read()
+    check("qmm_pipe_kernel" in trace,
+          "CLI --profile-dir: the trace names no qmm_pipe_kernel")
+    out["profile_trace_bytes"] = len(trace)
+    _, se, _ = run_cli(["-c", f4, "--mesh", "model=2"], "--mesh", rc=None)
+    check("not ported" in se, f"CLI --mesh: {se[-300:]!r}")
+    rec["file_serving"]["cli"] = out
+
+
+def phase_file_serving(dev, rec, files):
+    """Phase 4m: serving from files at 7B width.  The 32-layer FLM INT8
+    file through ``Engine.load`` on phase 4b's traffic (its measured run
+    and its 200-token ``ChatSession`` block) and through
+    ``BatchedEngine.load`` on phase 4's (B=48): every K1/K1f launch on the
+    ring or the prefill mode, the launch counts equal to 4/4b's (which
+    must run before it); then the 4-layer GGUF ``Q8_0`` file (group size 32: every K1
+    launch on the loop) and the 4-layer fp32 llama2c file loaded with
+    qtype INT16 (every K1 launch on ``qmm_f32_kernel``) through both load
+    entry points on the same traffic; then the CLI (:func:`phase_cli`).
+    Records tok/s, ms a step, the profiles, peak memory and the seconds to
+    write and to load."""
+    import torch
+    from fastllama_tpu_torch.config import EngineConfig, QuantType
+    from fastllama_tpu_torch.loaders.registry import FileType
+    from fastllama_tpu_torch.runtime.batching import BatchedEngine
+    from fastllama_tpu_torch.runtime.engine import Engine
+    log("phase 4m: serving from files at 7B width (FLM INT8 32 layers; "
+        "GGUF Q8_0 and llama2c fp32 at INT16, 4 layers; the CLI)")
+    out = rec["file_serving"] = {"files": files.rec}
+    ec1 = EngineConfig(max_seq_len=512, kv_dtype="bfloat16",
+                       scale_dtype="auto")
+    ecb = EngineConfig(max_seq_len=512, max_batch_size=48, kv_dtype="int8")
+    launches = {}
+
+    def same_counts(label, got, key):
+        want = rec.get(key, {}).get("launches")
+        check(want is not None, f"{label}: phase {key}'s launch counts are "
+                                f"missing, so 4m cannot hold its own to them")
+        keys = [k for k in want if k.startswith(("qmatmul", "flash_decode",
+                                                 "decode_write",
+                                                 "prefill_write"))]
+        diff = {k: (got[k], want[k]) for k in keys if got[k] != want[k]}
+        check(not diff, f"{label}: launch counts differ from the random-"
+                        f"weight phase's: {diff}")
+        log(f"  ok {label}: launch counts equal to phase {key}'s")
+
+    path = files.paths["flm32"]
+    t0 = time.perf_counter()
+    eng = Engine.load(path, engine_config=ec1, device=dev)
+    torch.cuda.synchronize()
+    load1 = time.perf_counter() - t0
+    check(eng.config.n_layers == 32 and eng.params.wq.scales.dtype
+          == torch.bfloat16, "the 32-layer FLM engine: wrong depth or "
+                             "scales")
+    log(f"  Engine.load of the 32-layer FLM INT8 file: {load1:.2f} s")
+    single, ls, _ = serve_single(eng, SINGLE_PATH, t0)
+    # 4b's counts take its 200-token ChatSession block in too
+    key = "qmatmul_pallas_indexed_fused_prefill"
+    single["long_block"], ls[key] = feed_block(eng, eng.config,
+                                               check_all_pipe, key)
+    same_counts("FLM single stream", ls, "single_serving")
+    del eng
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    beng = BatchedEngine.load(path, engine_config=ecb, decode_chunk=64,
+                              device=dev)
+    torch.cuda.synchronize()
+    loadb = time.perf_counter() - t0
+    log(f"  BatchedEngine.load of the 32-layer FLM INT8 file: {loadb:.2f} s")
+    batched, lb = serve_batched(beng, BATCHED_PATH, t0)
+    check(lb["qmatmul_pallas_indexed_prefill"] == 256,
+          f"FLM batched serving: {lb['qmatmul_pallas_indexed_prefill']} "
+          f"prefill launches, not 256")
+    same_counts("FLM batched", lb, "serving")
+    del beng
+    torch.cuda.empty_cache()
+    write_load = files.rec["flm32"]["write_s"] + load1 + loadb
+    out["flm_int8_32"] = {"single": single, "batched": batched,
+                          "engine_load_s": load1, "batched_load_s": loadb,
+                          "write_s": files.rec["flm32"]["write_s"],
+                          "write_and_load_s": write_load}
+    log(f"  the 32-layer FLM file: written in "
+        f"{files.rec['flm32']['write_s']:.2f} s, loaded in {load1:.2f} + "
+        f"{loadb:.2f} s ({write_load:.1f} s in all)")
+
+    for label, name, tokp, ft, qt, kernel, suffix in (
+            ("GGUF Q8_0", "gguf4", "", FileType.UNKNOWN, None, "loop",
+             "gs32"),
+            ("llama2c fp32 at INT16", "llama2c4",
+             files.paths["llama2c4.tok"], FileType.LLAMA2C, QuantType.INT16,
+             "wide_f32", "int16")):
+        path, k1 = files.paths[name], check_one_kernel(kernel)
+        t0 = time.perf_counter()
+        eng = Engine.load(path, tokp, ft, qt, ec1, device=dev)
+        torch.cuda.synchronize()
+        l1 = time.perf_counter() - t0
+        check(eng.config.group_size == (32 if suffix == "gs32" else 64)
+              and eng.config.quant_type == (QuantType.INT8 if suffix
+                                            == "gs32" else QuantType.INT16),
+              f"{label}: loaded as {eng.config.quant_type} at group size "
+              f"{eng.config.group_size}")
+        log(f"  {label}: Engine.load {l1:.2f} s")
+        single, ls, _ = serve_single(eng, LOADED_SINGLE_PATH, t0,
+                                     k1_check=k1)
+        del eng
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        beng = BatchedEngine.load(path, tokp, ft, qt, ecb, decode_chunk=64,
+                                  device=dev)
+        torch.cuda.synchronize()
+        lb_s = time.perf_counter() - t0
+        batched, lb = serve_batched(beng, LOADED_BATCHED_PATH, t0,
+                                    k1_check=k1)
+        del beng
+        torch.cuda.empty_cache()
+        launches[f"qmatmul_pallas_indexed_{suffix}"] = \
+            lb["qmatmul_pallas_indexed"]
+        launches[f"qmatmul_pallas_indexed_fused_{suffix}"] = \
+            ls["qmatmul_pallas_indexed_fused"]
+        out[name] = {"single": single, "batched": batched,
+                     "engine_load_s": l1, "batched_load_s": lb_s,
+                     "write_s": files.rec[name]["write_s"]}
+    phase_cli(files, rec)
+    return launches
+
+
+def time_loaded_modes(dev, gen, res):
+    """The two K1 modes a loaded model puts on a path, at a 7B layer (the
+    four projections, layers rotating over 4 so L2 stays cold), T in {1,
+    48, 2048}: the loop (``qmm_bf16_kernel``) at group size 32, K1 (f32
+    scales, the batched path's) and K1f with its glue (bf16 scales, the
+    single stream's: the norm on wqkv and w13, the residual on wo and w2),
+    in turns with ``torch.matmul`` on pre-dequantized bf16 weights and the
+    plain version (T <= 48); and ``qmm_f32_kernel`` on INT16 weights
+    (group size 64, f32 scales, bf16 x as the engines give it at bf16
+    compute), K1 and K1f with its glue, in turns with ``torch.matmul`` on
+    f32 weights (``allow_tf32`` off) and the plain version (T <= 48; at
+    T = 2048 the plain version is timed alone, twice).  Bound: bytes over
+    3.35 TB/s against operations over 989 TFLOP/s, the bf16 tensor cores:
+    once for the loop, twice at INT16, whose weight is hi * 256 + lo with
+    both parts exact in bf16 (the f32 cores' figure, operations over 67
+    TFLOP/s, stands beside it as ``f32_core_bound_ms``)."""
+    import torch
+    import torch.nn.functional as F
+    from fastllama_tpu_torch.config import QuantType
+    from fastllama_tpu_torch.ops.kernels import qmm
+    from fastllama_tpu_torch.quant.groupquant import dequantize
+    from fastllama_tpu_torch.tools.timing import in_turns, time_ms
+    bf16, f32, nl = torch.bfloat16, torch.float32, 4
+    names = ("wqkv", "wo", "w13", "w2")
+    norm = {"wqkv": True, "wo": False, "w13": True, "w2": False}
+    layer = [0]
+
+    def rot():
+        layer[0] = (layer[0] + 1) % nl
+        return layer[0]
+
+    def per_layer(one):
+        def run():
+            lyr = rot()
+            for n in names:
+                one(n, lyr)
+        return run
+    rows = {}
+    for mode, qt, gs, sdt, glue in (
+            ("loop", QuantType.INT8, 32, f32, False),
+            ("loop", QuantType.INT8, 32, bf16, True),
+            ("f32", QuantType.INT16, 64, f32, False),
+            ("f32", QuantType.INT16, 64, f32, True)):
+        ws = {n: rand_qarray(gen, (nl, *PROJ_7B[n]), qt, dev, sdt, gs=gs)
+              for n in names}
+        ldt = bf16 if mode == "loop" else f32
+        wds = {n: dequantize(ws[n], ldt) for n in names}
+        ssz = 4 if sdt == f32 else 2
+        wb = 1 if qt == QuantType.INT8 else 2
+        for T in (1, 48, 2048):
+            xs = {n: torch.randn((T, PROJ_7B[n][0]), generator=gen,
+                                 device=dev).to(bf16) for n in names}
+            kws = {n: (dict(norm_gain=torch.rand(
+                (PROJ_7B[n][0],), generator=gen, device=dev) + 0.5)
+                if norm[n] else dict(residual=torch.randn(
+                    (T, PROJ_7B[n][1]), generator=gen, device=dev).to(bf16)))
+                if glue else {} for n in names}
+            want = "loop" if mode == "loop" else "wide"
+            check(all(qmm._kernel(xs[n], ws[n][0], bf16, False,
+                                  kws[n].get("residual")) == want
+                      for n in names),
+                  f"{mode} rows at T={T}: another K1 kernel")
+
+            def l_one(n, lyr):
+                x = xs[n].to(ldt)
+                if kws[n].get("norm_gain") is not None:
+                    g = kws[n]["norm_gain"].to(ldt)
+                    return torch.matmul(F.rms_norm(x, g.shape, g, 1e-5),
+                                        wds[n][lyr])
+                if kws[n].get("residual") is not None:
+                    return torch.addmm(kws[n]["residual"].to(ldt), x,
+                                       wds[n][lyr])
+                return torch.matmul(x, wds[n][lyr])
+            fns = {"ms": per_layer(lambda n, lyr: (
+                       qmm.qmatmul_pallas_indexed_fused if glue
+                       else qmm.qmatmul_pallas_indexed)(
+                           xs[n], ws[n], lyr, bf16, **kws[n])),
+                   "library_ms": per_layer(l_one)}
+            if T <= 48:
+                fns["plain_ms"] = per_layer(
+                    lambda n, lyr: qmm.qmm_fused_plain(
+                        xs[n], ws[n][lyr], bf16, **kws[n]))
+            got = in_turns(fns, iters=20 if T <= 48 else 5)
+            if "plain_ms" not in got:
+                got["plain_ms"] = time_ms(per_layer(
+                    lambda n, lyr: qmm.qmm_fused_plain(
+                        xs[n], ws[n][lyr], bf16, **kws[n])), iters=2,
+                    warmup=1)
+            shapes = [PROJ_7B[n] for n in names]
+            nbytes = sum(T * I * 2 + I * O * wb + I // gs * O * ssz
+                         + T * O * 2 for I, O in shapes)
+            if glue:
+                nbytes += sum((I * 4 if norm[n] else T * O * 2)
+                              for n, (I, O) in zip(names, shapes))
+            flops = sum(2 * T * I * O for I, O in shapes)
+            # an int16 weight is hi * 256 + lo, each exact in bf16: two
+            # passes on the bf16 tensor cores
+            bm, by = bound_ms(nbytes, flops * (1 if mode == "loop" else 2),
+                              BF16_FLOP_S)
+            label = (f"{'K1f glue' if glue else 'K1'} "
+                     f"{'gs32 loop' if mode == 'loop' else 'INT16 f32'} T={T}")
+            core = ({} if mode == "loop" else dict(
+                f32_core_bound_ms=bound_ms(nbytes, flops, F32_FLOP_S)[0]))
+            rows[label] = dict(
+                **got, bound_ms=bm, bound_by=by, bytes=nbytes, flops=flops,
+                **core,
+                library_call=(
+                    ("torch rms_norm then torch.matmul or torch.addmm"
+                     if glue else "torch.matmul per projection")
+                    + (" on pre-dequantized bf16 weights" if mode == "loop"
+                       else " on pre-dequantized f32 weights, f32 x "
+                            "(allow_tf32 off)")),
+                shape=f"T={T}, one layer (wqkv 4096x12288, wo 4096x4096, "
+                      f"w13 4096x22016, w2 11008x4096), {qt.name} gs {gs}, "
+                      f"{str(sdt)[6:]} scales, bf16 x and compute"
+                      + (", K1f glue" if glue else ""))
+            log(f"  {label}: {got['ms']:.4f} ms (library "
+                f"{got['library_ms']:.4f}, plain {got['plain_ms']:.4f}, "
+                f"bound {bm:.4f} by {by}"
+                + (f"; f32 cores {core['f32_core_bound_ms']:.4f})" if core
+                   else ")"))
+        del ws, wds
+        torch.cuda.empty_cache()
+    res["qmatmul_pallas_indexed_gs32"] = dict(
+        rows["K1 gs32 loop T=48"], T1=rows["K1 gs32 loop T=1"],
+        T2048=rows["K1 gs32 loop T=2048"])
+    res["qmatmul_pallas_indexed_fused_gs32"] = dict(
+        rows["K1f glue gs32 loop T=1"], T48=rows["K1f glue gs32 loop T=48"],
+        T2048=rows["K1f glue gs32 loop T=2048"])
+    res["qmatmul_pallas_indexed_int16"] = dict(
+        rows["K1 INT16 f32 T=48"], T1=rows["K1 INT16 f32 T=1"],
+        T2048=rows["K1 INT16 f32 T=2048"])
+    res["qmatmul_pallas_indexed_fused_int16"] = dict(
+        rows["K1f glue INT16 f32 T=1"], T48=rows["K1f glue INT16 f32 T=48"],
+        T2048=rows["K1f glue INT16 f32 T=2048"])
+
+
 SOURCES = {
     "qmatmul_pallas": ("fastllama_tpu_torch/csrc/qmm.cu",
                        "fastllama_tpu/ops/pallas/qmm.py:251"),
@@ -5989,11 +6894,19 @@ SOURCES.update({k + "_wide_prefill": (
     "qmatmul_pallas_indexed_fused")})
 
 
+# the modes a loaded model puts on a path (phase 4m): K1 and K1f on the
+# loop at group size 32 (GGUF Q8_0) and on qmm_f32_kernel at INT16; the
+# same source and TPU functions as their wrappers'
+SOURCES.update({k + s: SOURCES[k] for k in (
+    "qmatmul_pallas_indexed", "qmatmul_pallas_indexed_fused")
+    for s in ("_gs32", "_int16")})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="1,2,3,3d,3e,3f,3g,4,4b,4c,4d,4e,4f,4i,4j,4k,"
-                            "4l,4g,4h,5",
+                    default="1,2,3,3d,3e,3f,3g,3h,4,4b,4c,4d,4e,4f,4i,"
+                            "4j,4k,4l,4m,4g,4h,5",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--regs-against", metavar="CU", action="append",
                     default=[],
@@ -6007,6 +6920,9 @@ def main() -> int:
                          "be equal in both")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
+    if "4m" in phases and not {"4", "4b"} <= phases:
+        ap.error("phase 4m holds its launch counts to phases 4 and 4b's: "
+                 "run those with it (--phases ...,4,4b,4m)")
 
     import torch
     if not torch.cuda.is_available():
@@ -6032,6 +6948,18 @@ def main() -> int:
     nv = _build.nvcc_version()
     rec["nvcc"] = nv.splitlines()[-1]
     log(nv)
+    # phase 4m's files are written while nvcc builds (the card is idle)
+    files = FileSet(dev) if "4m" in phases else None
+    try:
+        return run_phases(args, phases, dev, rec, files)
+    finally:
+        if files is not None:
+            files.remove()
+
+
+def run_phases(args, phases, dev, rec, files) -> int:
+    import torch
+    from fastllama_tpu_torch.ops.kernels import _build
     t0 = time.perf_counter()
     refs = []
     for src in args.regs_against:
@@ -6060,6 +6988,11 @@ def main() -> int:
     rec["prefill_ptxas"] = check_prefill_build(_build.build_log())
     for src, ref in refs:
         check_regs_against(ref, src, rec, _build.build_log())
+    if files is not None:
+        t0 = time.perf_counter()
+        files.join()
+        log(f"phase 4m's files written ({time.perf_counter() - t0:.1f} s "
+            f"waited after the build)")
 
     t_start = time.perf_counter()
     # each kernel's launches on the path it serves: the batched path's from
@@ -6090,6 +7023,8 @@ def main() -> int:
         run("3f", phase_f32_parity)
     if "3g" in phases:
         run("3g", phase_single_spec_parity)
+    if "3h" in phases:
+        run("3h", phase_loader_parity)
     if "4" in phases:
         got = run("4", phase_serving)
         launches.update({k: got[k] for k in BATCHED_PATH})
@@ -6149,6 +7084,9 @@ def main() -> int:
         for k in SINGLE_SPEC_PATH + ("flash_decode_single",
                                      "flash_decode_single_split"):
             launches.setdefault(k, got[k])
+    if "4m" in phases:
+        got = run("4m", lambda d, r: phase_file_serving(d, r, files))
+        launches.update(got)
     if "4g" in phases:
         got = run("4g", phase_deferred_serving)
         for k in ("flash_decode_batched_stats",

@@ -11,10 +11,11 @@ Re-implements the C++ engine's ``cpuft::Tokenizer`` (its
 * decode (tokenizer.cpp:329-398): show-text with "▁"→" ", leading-space strip
   after BOS, ``<0xXX>`` byte pieces, unsafe single-byte filter.
 
-The port's own copy of ``fastllama_tpu/loaders/tokenizer.py`` (pure
-Python).  The JAX package's optional C++ merge-loop fast path is not
-carried over: encode here is always the pure-Python loop, which defines
-the same tokens.
+The port's own copy of ``fastllama_tpu/loaders/tokenizer.py``.  A C++
+fast path for the merge loop (``loaders/native.py``, ctypes-loaded from
+the repo's ``csrc/ftl_native.cpp``) is used where the host can build it;
+this file is the always-available pure-Python implementation and the
+golden reference for it.
 """
 from __future__ import annotations
 
@@ -77,6 +78,15 @@ class Tokenizer:
         # C++ inserts in order and operator[] overwrites, so LAST duplicate
         # wins — match dict semantics above (same behaviour).
         self._underline_id = self._text2id.get(self.conn_tag, -1)
+        # native fast path for the greedy merge loop; falls back to the
+        # pure-Python encode below when unavailable
+        self._native = None
+        try:
+            from fastllama_tpu_torch.loaders.native import NativeEncoder
+            self._native = NativeEncoder(self.index_texts, self.scores,
+                                         self.bos_token_id, self.conn_tag)
+        except Exception:
+            self._native = None
         return self
 
     @staticmethod
@@ -115,6 +125,14 @@ class Tokenizer:
                ) -> List[int]:
         if not text:
             return []
+        if getattr(self, "_native", None) is not None:
+            try:
+                tokens = self._native.encode(text, add_bos)
+                if add_eos:
+                    tokens.append(self.eos_token_id)
+                return tokens
+            except Exception:
+                pass  # fall through to the Python reference implementation
         tokens: List[int] = []
         if add_bos:
             tokens.append(self.bos_token_id)

@@ -2,7 +2,7 @@
 ``fastllama_tpu/models/llama.py``: ``LlamaParams``, ``KVCache``,
 ``embed_tokens``, ``fuse_params``, ``forward``, ``logits_at``,
 ``truncate_params``, ``requantize_params``, ``random_params``,
-``random_params_int``) plus ``params_from_numpy``, the
+``random_params_int``, ``build_params``) plus ``params_from_numpy``, the
 bridge that builds the port's parameters from the JAX package's arrays
 handed over as numpy.
 
@@ -28,7 +28,7 @@ from fastllama_tpu_torch.ops.norms import rmsnorm, swiglu
 from fastllama_tpu_torch.ops.qmatmul import qmatmul
 from fastllama_tpu_torch.ops.rope import apply_rope_half, rope_tables
 from fastllama_tpu_torch.quant.groupquant import (QDTYPE, QArray, dequantize,
-                                                  pack_int4_rows,
+                                                  host_tensor, pack_int4_rows,
                                                   pack_supported, quantize)
 
 
@@ -392,13 +392,68 @@ def random_params_int(cfg: ModelConfig, seed: int = 0,
     return LlamaParams(**out)
 
 
+_NORM_FIELDS = ("attn_norm", "ffn_norm", "out_norm")
+
+
+def build_params(cfg: ModelConfig, raw: Mapping[str, Any],
+                 qtype: Optional[QuantType] = None,
+                 device=None) -> LlamaParams:
+    """Assemble parameters from a loader's numpy dict (checkpoint layout:
+    projections ``(…, out, in)``, groups along ``in``).
+
+    ``raw`` values are fp32 arrays, or ``(data, scales)`` pairs for
+    pre-quantized tensors (FLM and GGUF files store integers).  fp32
+    weights are quantized here to ``qtype`` (quantize on load); every
+    projection is transposed to the ``(in, out)`` layout with its groups
+    on axis -2, INT4 ones nibble-packed where :func:`pack_supported` says;
+    scales stay f32.  The arrays go to ``device`` first and are quantized,
+    transposed and packed there, with the same bits as the JAX package's
+    host-side ``build_params``."""
+    qtype = qtype if qtype is not None else cfg.quant_type
+    dev = resolve_device(device)
+    gs = cfg.group_size
+    out = {}
+    for f in dataclasses.fields(LlamaParams):
+        v = raw[f.name]
+        if f.name in _NORM_FIELDS:
+            out[f.name] = host_tensor(np.asarray(v, dtype=np.float32), dev)
+            continue
+        transpose = f.name != "embedding"
+        if isinstance(v, tuple):
+            data = host_tensor(v[0], dev)
+            scales = host_tensor(np.asarray(v[1], dtype=np.float32), dev)
+        else:
+            w = host_tensor(np.asarray(v, dtype=np.float32), dev)
+            if qtype == QuantType.NONE:
+                out[f.name] = (w.transpose(-1, -2).contiguous() if transpose
+                               else w)
+                continue
+            q = quantize(w, qtype, gs)
+            del w
+            data, scales = q.data, q.scales
+        if not transpose:
+            out[f.name] = QArray(data, scales, qtype, gs)
+            continue
+        data = data.transpose(-1, -2).contiguous()
+        scales = scales.transpose(-1, -2).contiguous()
+        # INT4 ships nibble-packed where the JAX package packs it; odd
+        # contraction extents (an unpadded hidden size) stay int8-held
+        packed = (qtype == QuantType.INT4
+                  and pack_supported(data.shape[-2], data.shape[-1], gs))
+        if packed:
+            data = pack_int4_rows(data)
+        out[f.name] = QArray(data, scales, qtype, gs, group_axis=-2,
+                             packed=packed)
+    return LlamaParams(**out)
+
+
 def _tensor(a: np.ndarray, dev: torch.device) -> torch.Tensor:
     """A copy of ``a`` on ``dev`` (the caller's array may be read-only)."""
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":       # ml_dtypes bfloat16 from JAX
         return torch.from_numpy(a.astype(np.float32)).to(
             dev).to(torch.bfloat16)
-    return torch.from_numpy(np.array(a)).to(dev)
+    return host_tensor(a, dev)
 
 
 def _qtype(q) -> QuantType:

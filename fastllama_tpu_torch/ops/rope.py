@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 
@@ -84,3 +85,34 @@ def apply_rope_half(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
     h = x.shape[-1] // 2
     x1, x2 = x[..., :h], x[..., h:]
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+def apply_rope_interleaved(x: torch.Tensor, cos: torch.Tensor,
+                           sin: torch.Tensor) -> torch.Tensor:
+    """RoPE on adjacent pairs, the C++ engine's convention.  Used only in
+    parity tests; the runtime applies rotate-half on deinterleaved
+    weights."""
+    shape = x.shape
+    xp = x.reshape(*shape[:-1], shape[-1] // 2, 2)
+    x0, x1 = xp[..., 0], xp[..., 1]
+    o0 = x0 * cos - x1 * sin
+    o1 = x0 * sin + x1 * cos
+    return torch.stack([o0, o1], dim=-1).reshape(shape)
+
+
+def deinterleave_perm(head_size: int) -> np.ndarray:
+    """Permutation of interleaved dims to half-layout dims:
+    [0, 2, 4, ..., 1, 3, 5, ...]."""
+    return np.concatenate([np.arange(0, head_size, 2),
+                           np.arange(1, head_size, 2)])
+
+
+def deinterleave_heads(w: np.ndarray, head_size: int) -> np.ndarray:
+    """Reorder the output rows of a (..., n_heads*head_size, in_dim) weight
+    so that interleaved-pair RoPE becomes rotate-half.  Applied at load to
+    Wq/Wk (and their scales) of llama2c, FLM and GGUF checkpoints."""
+    out_dim = w.shape[-2]
+    n_heads = out_dim // head_size
+    perm = deinterleave_perm(head_size)
+    idx = (np.arange(n_heads)[:, None] * head_size + perm[None, :]).reshape(-1)
+    return np.take(w, idx, axis=-2)

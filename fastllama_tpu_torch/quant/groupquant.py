@@ -20,6 +20,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from fastllama_tpu_torch.config import QuantType
@@ -29,6 +30,8 @@ QDTYPE = {
     QuantType.INT8: torch.int8,
     QuantType.INT4: torch.int8,      # int4 values carried in int8 lanes
 }
+QDTYPE_NP = {QuantType.INT16: np.int16, QuantType.INT8: np.int8,
+             QuantType.INT4: np.int8}
 
 
 @dataclasses.dataclass
@@ -111,7 +114,11 @@ def quantize(x: torch.Tensor, qtype: QuantType, group_size: int = 64
     gs = group_size
     _check(x.shape[-1], gs)
     g = x.reshape(*x.shape[:-1], x.shape[-1] // gs, gs).to(torch.float32)
-    scale = g.abs().amax(dim=-1) / float(qtype.factor)
+    amax = g.abs().amax(dim=-1)
+    # a tensor divisor: on a CUDA tensor, division by a Python number
+    # multiplies by its reciprocal, which rounds differently from the
+    # division that numpy (and so the JAX package's quantize_np) does
+    scale = amax / torch.full_like(amax, float(qtype.factor))
     safe = torch.where(scale > 0, scale, torch.ones_like(scale))
     q = torch.trunc(g / safe[..., None]).to(QDTYPE[qtype])
     return QArray(q.reshape(x.shape), scale, qtype, gs)
@@ -211,3 +218,94 @@ def pack_supported(I: int, O: int, gs: int) -> bool:
             if to and tk * to <= _PACK_TILE_ELEMS:
                 return True
     return False
+
+
+# -- numpy versions (host side: the loaders, the FLM writer, the converter) --
+
+def transpose_weight(data: np.ndarray, scales: np.ndarray
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+    """(…, O, I) data + (…, O, I/gs) scales -> (…, I, O) + (…, I/gs, O):
+    checkpoint layout to the transposed (group_axis=-2) layout."""
+    return (np.ascontiguousarray(np.swapaxes(data, -1, -2)),
+            np.ascontiguousarray(np.swapaxes(scales, -1, -2)))
+
+
+def quantize_np(x: np.ndarray, qtype: QuantType, group_size: int = 64
+                ) -> Tuple[np.ndarray, np.ndarray]:
+    """Host quantization along the last axis: the same bits as
+    :func:`quantize` (scale = max|group| / QF, truncation toward zero)."""
+    gs = group_size
+    _check(x.shape[-1], gs)
+    g = np.ascontiguousarray(x, dtype=np.float32).reshape(
+        *x.shape[:-1], x.shape[-1] // gs, gs)
+    scale = np.abs(g).max(axis=-1) / float(qtype.factor)
+    safe = np.where(scale > 0, scale, 1.0).astype(np.float32)
+    q = np.trunc(g / safe[..., None]).astype(QDTYPE_NP[qtype])
+    return q.reshape(x.shape), scale.astype(np.float32)
+
+
+def dequantize_np(q: np.ndarray, scales: np.ndarray, group_size: int = 64
+                  ) -> np.ndarray:
+    gs = group_size
+    g = q.reshape(*q.shape[:-1], q.shape[-1] // gs, gs).astype(np.float32)
+    return (g * scales[..., None]).reshape(q.shape)
+
+
+def pack_int4_np(q: np.ndarray) -> np.ndarray:
+    """Pack int8-held int4 values into the C++ engine's ``Bit4Pair`` bytes:
+    low nibble the even element, high nibble the odd one."""
+    assert q.shape[-1] % 2 == 0
+    lo = q[..., 0::2].astype(np.uint8) & 0x0F
+    hi = (q[..., 1::2].astype(np.uint8) & 0x0F) << 4
+    return (lo | hi).astype(np.uint8)
+
+
+def unpack_int4_np(packed: np.ndarray) -> np.ndarray:
+    """Inverse of :func:`pack_int4_np`: two's-complement nibbles -> int8."""
+    lo = (packed & 0x0F).astype(np.int8)
+    hi = ((packed >> 4) & 0x0F).astype(np.int8)
+    lo = np.where(lo >= 8, lo - 16, lo).astype(np.int8)
+    hi = np.where(hi >= 8, hi - 16, hi).astype(np.int8)
+    out = np.empty(packed.shape[:-1] + (packed.shape[-1] * 2,), dtype=np.int8)
+    out[..., 0::2] = lo
+    out[..., 1::2] = hi
+    return out
+
+
+def pack_int4_rows_np(q: np.ndarray) -> np.ndarray:
+    """:func:`pack_int4_rows` on the host: (…, I, O) int8 -> (…, I/2, O)
+    int8, split-half order."""
+    assert q.shape[-2] % 2 == 0
+    half = q.shape[-2] // 2
+    lo = q[..., :half, :].astype(np.uint8) & 0x0F
+    hi = (q[..., half:, :].astype(np.uint8) & 0x0F) << 4
+    return (lo | hi).astype(np.int8)
+
+
+def unpack_int4_rows_np(packed: np.ndarray) -> np.ndarray:
+    """Inverse of :func:`pack_int4_rows_np`."""
+    u = packed.astype(np.uint8)
+    lo = (u & 0x0F).astype(np.int8)
+    hi = ((u >> 4) & 0x0F).astype(np.int8)
+    lo = np.where(lo >= 8, lo - 16, lo).astype(np.int8)
+    hi = np.where(hi >= 8, hi - 16, hi).astype(np.int8)
+    return np.concatenate([lo, hi], axis=-2)
+
+
+def host_tensor(a: np.ndarray, device) -> torch.Tensor:
+    """A copy of the host array ``a`` on ``device``; ``a`` may be read-only
+    (``np.frombuffer`` of a file's bytes) or unaligned."""
+    a = np.asarray(a)
+    if not a.flags.writeable or not a.flags.c_contiguous:
+        a = np.array(a, order="C")
+        return torch.from_numpy(a).to(device)
+    return torch.from_numpy(a).to(device, copy=True)
+
+
+def from_prequantized(data: np.ndarray, scales: np.ndarray, qtype: QuantType,
+                      group_size: int = 64, device="cpu") -> QArray:
+    """Wrap pre-quantized host arrays (read from an FLM file) as a QArray
+    on ``device``."""
+    return QArray(host_tensor(data, device),
+                  host_tensor(scales.astype(np.float32), device),
+                  qtype, group_size)

@@ -28,8 +28,7 @@ The KV cache is updated in place (the JAX engine donates its buffers to
 the same effect).  Weights are INT8, INT16 or INT4 (split-half packed
 where it packs, through K1p; int8-held otherwise; mixed layouts stay
 unfused).  Not ported yet, and refused with NotImplementedError when asked
-for: ``mesh`` / ``spmd_kernels``, ``FASTLLAMA_PIPELINE=1`` and
-:meth:`BatchedEngine.load`.
+for: ``mesh`` / ``spmd_kernels`` and ``FASTLLAMA_PIPELINE=1``.
 """
 from __future__ import annotations
 
@@ -209,9 +208,19 @@ class BatchedEngine:
         self.deferred_chunks = 0
 
     @staticmethod
-    def load(*args, **kwargs) -> "BatchedEngine":
-        raise NotImplementedError("BatchedEngine.load needs the checkpoint "
-                                  "loaders, not ported yet")
+    def load(ckpt_path: str, tokenizer_path: str = "",
+             file_type=None, qtype=None,
+             engine_config: Optional[EngineConfig] = None,
+             decode_chunk: int = DEFAULT_CHUNK,
+             device=None) -> "BatchedEngine":
+        """A serving engine on a checkpoint file (see ``Engine.load``)."""
+        from fastllama_tpu_torch.loaders.registry import (FileType,
+                                                          resolve_and_build)
+        cfg, params, tok = resolve_and_build(
+            ckpt_path, tokenizer_path, file_type or FileType.UNKNOWN, qtype,
+            engine_config, device)
+        return BatchedEngine(cfg, params, tok, engine_config, decode_chunk,
+                             device)
 
     # -- compute ---------------------------------------------------------------
 

@@ -20,8 +20,8 @@ plain ``.cpu()`` of chunk k's tokens would wait for chunk k+1 too.
 The cache is updated in place (JAX donates its buffers to the same effect).
 Weights are INT8, INT16 or INT4 (split-half packed where it packs, through
 K1p; int8-held otherwise; mixed layouts stay unfused).  ``mesh``,
-``spmd_kernels`` and ``pallas_interpret`` are not ported and raise; so does
-``Engine.load`` (it needs the checkpoint loaders).
+``spmd_kernels`` and ``pallas_interpret`` are not ported and raise.
+:meth:`Engine.load` builds an engine on a checkpoint file.
 """
 from __future__ import annotations
 
@@ -129,9 +129,20 @@ class Engine:
             self.kernels = select_kernels(self.device, ec, self._cdt)
 
     @staticmethod
-    def load(*args, **kwargs) -> "Engine":
-        raise NotImplementedError("Engine.load needs the checkpoint loaders, "
-                                  "not ported yet")
+    def load(ckpt_path: str, tokenizer_path: str = "",
+             file_type=None, qtype=None,
+             engine_config: Optional[EngineConfig] = None,
+             device=None) -> "Engine":
+        """An engine on a checkpoint file (llama2c, FLM, GGUF or an HF
+        directory; ``file_type`` None or UNKNOWN sniffs it): the weights
+        are built on ``device`` (None: the card) and quantized to
+        ``qtype`` if the file holds fp32 weights."""
+        from fastllama_tpu_torch.loaders.registry import (FileType,
+                                                          resolve_and_build)
+        cfg, params, tok = resolve_and_build(
+            ckpt_path, tokenizer_path, file_type or FileType.UNKNOWN, qtype,
+            engine_config, device)
+        return Engine(cfg, params, tok, engine_config, device)
 
     # -- compute ---------------------------------------------------------------
 

@@ -267,9 +267,23 @@ class SpecBatchedEngine(BatchedEngine):
         self._temps_dev = self._topps_dev = None
 
     @staticmethod
-    def load_spec(*args, **kwargs) -> "SpecBatchedEngine":
-        raise NotImplementedError("SpecBatchedEngine.load_spec needs the "
-                                  "checkpoint loaders, not ported yet")
+    def load_spec(ckpt_path: str, tokenizer_path: str = "",
+                  file_type=None, qtype=None,
+                  engine_config: Optional[EngineConfig] = None,
+                  decode_chunk: int = DEFAULT_CHUNK, width: int = 4,
+                  ngram: int = 3, rounds_per_chunk: int = 8,
+                  spec_auto: bool = True,
+                  device=None) -> "SpecBatchedEngine":
+        """A speculative serving engine on a checkpoint file (see
+        ``Engine.load``)."""
+        from fastllama_tpu_torch.loaders.registry import (FileType,
+                                                          resolve_and_build)
+        cfg, params, tok = resolve_and_build(
+            ckpt_path, tokenizer_path, file_type or FileType.UNKNOWN, qtype,
+            engine_config, device)
+        return SpecBatchedEngine(cfg, params, tok, engine_config,
+                                 decode_chunk, width, ngram,
+                                 rounds_per_chunk, spec_auto, device)
 
     def _spec_chunk(self, D: int, greedy: bool) -> Callable:
         cfg, kb, cdt, n = self.config, self.kernels, self._cdt, self.ngram

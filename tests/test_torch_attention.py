@@ -21,6 +21,17 @@ from fastllama_tpu_torch.ops import attention as tatt
 from fastllama_tpu_torch.ops.kernels import attention as tkatt
 from fastllama_tpu_torch.ops.kernels import flash_decode as tfd
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Many tiny ops: one intra-op thread keeps them fast when the suite's
+    workers share the cores (restored after)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 F32 = dict(rtol=2e-5, atol=2e-5)
 S, HS = 64, 32
 POSITIONS = (0, 17, S - 1)

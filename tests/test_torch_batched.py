@@ -24,6 +24,17 @@ from fastllama_tpu_torch.models import llama as tl
 from fastllama_tpu_torch.runtime.batching import BatchedEngine as TEngine
 from fastllama_tpu_torch.runtime.kernels import select_kernels as t_select
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The engines here run many tiny ops: one intra-op thread keeps them
+    fast when the suite's workers share the cores (restored after)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 F32 = dict(rtol=2e-5, atol=2e-5)
 CFG = dict(dim=256, hidden_dim=512, n_layers=4, n_heads=8, n_kv_heads=4,
            vocab_size=1024, max_seq_len=128)

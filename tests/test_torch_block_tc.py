@@ -17,6 +17,17 @@ from fastllama_tpu.ops.pallas.flash_decode import \
     flash_block_attend as j_block
 from fastllama_tpu_torch.ops.kernels import flash_decode as tfd
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Many tiny ops: one intra-op thread keeps them fast when the suite's
+    workers share the cores (restored after)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL_BF16 = 1e-2      # x max|ref|, bf16 outputs (chip_smoke.TOL_BF16)
 TOL_F32 = 1e-4
 TILE = 64            # K/V rows a tile of the TC kernel

@@ -27,6 +27,17 @@ from fastllama_tpu_torch.loaders.tokenizer import \
 from fastllama_tpu_torch.runtime.batching import BatchedEngine as TBatched
 from tests.test_torch_model import to_port
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The engines here run many tiny ops: one intra-op thread keeps them
+    fast when the suite's workers share the cores (restored after)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 V = 512
 CFG = dict(dim=256, hidden_dim=512, n_layers=4, n_heads=8, n_kv_heads=4,
            vocab_size=V, max_seq_len=128)
@@ -196,7 +207,8 @@ def test_engine_refusals(sides):
         Engine(tc, te.raw_params, te.tokenizer,
                tcfg.EngineConfig(kv_dtype="int8"), device="cpu")
     with pytest.raises(NotImplementedError):
-        Engine.load("ckpt", "tok")
+        Engine.load("ckpt", "tok",
+                    engine_config=tcfg.EngineConfig(mesh="model=2"))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             Engine(tc, te.raw_params, te.tokenizer)

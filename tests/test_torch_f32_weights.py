@@ -40,6 +40,17 @@ from fastllama_tpu_torch.runtime.engine import Engine as TEngine
 from fastllama_tpu_torch.runtime.kernels import select_kernels
 from tests.test_torch_model import to_port
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The engines here run many tiny ops: one intra-op thread keeps them
+    fast when the suite's workers share the cores (restored after)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = 1e-4
 # tests/test_batching.py:_tiny_cfg; S = 64 as tests/test_deferred_kv.py:_cfg
 TINY = dict(dim=32, hidden_dim=64, n_layers=2, n_heads=4, n_kv_heads=2,

@@ -24,6 +24,17 @@ from fastllama_tpu_torch import config as tcfg
 from fastllama_tpu_torch.ops.kernels import qmm as tqmm
 from fastllama_tpu_torch.quant import groupquant as tq
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Many tiny ops: one intra-op thread keeps them fast when the suite's
+    workers share the cores (restored after)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 O = 512
 
 

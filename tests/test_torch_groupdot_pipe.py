@@ -31,6 +31,16 @@ from fastllama_tpu_torch.ops.kernels import qmm as tqmm
 from fastllama_tpu_torch.quant import groupquant as tq
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Many tiny ops: one intra-op thread keeps them fast when the suite's
+    workers share the cores (restored after)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _weight(rng, I, O, kind, sdt="float32", gs=64):
     """(JAX QArray, port QArray) of random values and random positive group
     scales: ``kind`` INT8, INT16, INT4 (int8-held) or INT4P (packed)."""

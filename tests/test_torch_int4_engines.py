@@ -42,6 +42,17 @@ from fastllama_tpu_torch.runtime.spec_batching import \
     SpecBatchedEngine as TSpec
 from tests.test_torch_model import to_port
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The engines here run many tiny ops: one intra-op thread keeps them
+    fast when the suite's workers share the cores (restored after)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 V = 512
 BASE = dict(dim=1024, n_layers=2, vocab_size=V, max_seq_len=128)
 # hidden 1024: every projection packs; 1536: w2 stays int8-held (K1) while

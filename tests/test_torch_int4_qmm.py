@@ -24,6 +24,16 @@ from fastllama_tpu_torch.ops.qmatmul import qmatmul, qmatmul_parity
 from fastllama_tpu_torch.quant import groupquant as tq
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Many tiny ops: one intra-op thread keeps them fast when the suite's
+    workers share the cores (restored after)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _int4(rng, shape):
     return rng.integers(-8, 8, size=shape).astype(np.int8)
 

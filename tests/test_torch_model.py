@@ -29,6 +29,17 @@ from fastllama_tpu_torch.quant import groupquant as tq
 from fastllama_tpu_torch.runtime import sampler as tsampler
 from fastllama_tpu_torch.runtime.kernels import select_kernels
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Many tiny ops: one intra-op thread keeps them fast when the suite's
+    workers share the cores (restored after)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 F32 = dict(rtol=2e-5, atol=2e-5)
 CFG = dict(dim=256, hidden_dim=512, n_layers=4, n_heads=8, n_kv_heads=4,
            vocab_size=1024, max_seq_len=128)

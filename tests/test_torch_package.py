@@ -46,7 +46,11 @@ def test_port_imports_no_jax():
                 "ops.kernels.flash_decode", "ops.kernels.kv_write",
                 "ops.kernels.qmm", "models.llama", "models.batched",
                 "ops.sampling", "tools.timing", "tools.hbm_peak",
-                "tools.qmm_sweep"):
+                "tools.qmm_sweep", "tools.synthetic", "tools.convert",
+                "loaders.registry", "loaders.flm", "loaders.gguf",
+                "loaders.hf", "loaders.llama2c", "loaders.native",
+                "parallel.sharding", "utils.profiling", "utils.debug",
+                "utils.logging", "cli"):
         assert "fastllama_tpu_torch." + mod in walked
 
 
@@ -125,11 +129,14 @@ def test_unported_options_raise(option):
 
 
 def test_unported_entry_points_raise(monkeypatch):
+    """Multi-device loading (a mesh) and dispatch-ahead decode stay
+    refused; the mesh before any file is read."""
     params = tl.random_params_int(CFG, seed=0, device="cpu")
+    mesh = tcfg.EngineConfig(max_batch_size=2, mesh="model=2")
     with pytest.raises(NotImplementedError):
-        BatchedEngine.load("ckpt", "tok")
+        BatchedEngine.load("ckpt", "tok", engine_config=mesh)
     with pytest.raises(NotImplementedError):
-        SpecBatchedEngine.load_spec("ckpt", "tok")
+        SpecBatchedEngine.load_spec("ckpt", "tok", engine_config=mesh)
     eng = BatchedEngine(CFG, params, Tokenizer().finalize(),
                         tcfg.EngineConfig(max_batch_size=2), device="cpu")
     eng.submit([5, 6], max_new_tokens=2)

@@ -40,6 +40,17 @@ from fastllama_tpu_torch.runtime.batching import BatchedEngine as TEngine
 from fastllama_tpu_torch.runtime.spec_batching import \
     SpecBatchedEngine as TSpec
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The engines here run many tiny ops: one intra-op thread keeps them
+    fast when the suite's workers share the cores (restored after)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 F32 = dict(rtol=2e-5, atol=2e-5)
 BLOCK = 16           # the Pallas kernel's cache block
 CFG = dict(dim=128, hidden_dim=256, n_layers=2, n_heads=8, n_kv_heads=4,

@@ -17,6 +17,17 @@ from fastllama_tpu.ops.pallas.qmm import (make_mm_indexed as j_make_mm_idx,
 from fastllama_tpu_torch.ops.kernels import qmm as tqmm
 from tests.test_torch_qmm import _check, _weights
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Many tiny ops: one intra-op thread keeps them fast when the suite's
+    workers share the cores (restored after)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # (T, I, O): I = 256, 512 and 768 take one full-K block in the JAX tiling
 SHAPES = [(1, 768, 256), (4, 512, 384), (16, 256, 512)]
 GLUE = [(True, False), (False, True), (True, True)]

@@ -15,6 +15,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from fastllama_tpu import config as jcfg
 from fastllama_tpu.loaders.tokenizer import Tokenizer as JTokenizer
@@ -27,6 +28,17 @@ from fastllama_tpu_torch.models import llama as tl
 from fastllama_tpu_torch.runtime.batching import BatchedEngine as TEngine
 from fastllama_tpu_torch.runtime.spec_batching import \
     SpecBatchedEngine as TSpec
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The engines here run many tiny ops: one intra-op thread keeps them
+    fast when the suite's workers share the cores (restored after)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 CFG = dict(dim=64, hidden_dim=128, n_layers=2, n_heads=4, n_kv_heads=2,
            vocab_size=512, max_seq_len=128, group_size=16)

@@ -30,6 +30,17 @@ from fastllama_tpu_torch.ops.kernels import attention as tka
 from fastllama_tpu_torch.ops.kernels import flash_decode as tfd
 from fastllama_tpu_torch.ops.kernels import kv_write as tkw
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Many tiny ops: one intra-op thread keeps them fast when the suite's
+    workers share the cores (restored after)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 F32 = dict(rtol=2e-5, atol=2e-5)
 BLOCK = 16          # the Pallas kernel's cache block: pos 16 and 32 are edges
 

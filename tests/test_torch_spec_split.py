@@ -24,6 +24,17 @@ from fastllama_tpu.ops.pallas import flash_decode as jfd
 from fastllama_tpu.quant.groupquant import quantize_rows as j_quantize_rows
 from fastllama_tpu_torch.ops.kernels import flash_decode as tfd
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Many tiny ops: one intra-op thread keeps them fast when the suite's
+    workers share the cores (restored after)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL_EMU = 1e-5       # x max|ref|, the emulation at f32 (sum order only)
 TOL_F32 = 1e-4       # x max|ref|, the kernel on the card (chip_smoke)
 TOL_BF16 = 1e-2

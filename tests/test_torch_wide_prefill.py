@@ -33,6 +33,17 @@ from fastllama_tpu_torch.ops.kernels import qmm as tqmm
 from tests.test_torch_qmm import _weights
 from tests.test_torch_wide_pipe import split_planes
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Many tiny ops: one intra-op thread keeps them fast when the suite's
+    workers share the cores (restored after)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 F32, BF16 = torch.float32, torch.bfloat16
 TOL_EMU = 1e-5             # x max|ref|: the emulation against Pallas
 TOL_CARD = 1e-4            # x max|plain|: the kernel against its plain twin
