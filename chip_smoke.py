@@ -72,10 +72,15 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    200, 256, 1024, 2048}, INT8 with f32 and bf16 scales and packed INT4
    (hidden 11264) with f32 scales on bf16 and f32 x, bare and with the
    norm gain, the residual and both, each wrapper call one launch on its
-   ``launches_prefill`` and none on ``launches_pipe`` (2n), and the K1
-   modes a loaded model reaches (2o): the loop at group size 32 and
-   ``qmm_f32_kernel`` on INT16 weights at the 7B projections, T in {1,
-   48, 2048}, bare and with the glue;
+   ``launches_prefill`` and none on ``launches_pipe`` (2n), the K1
+   mode a GGUF ``Q8_0`` file reaches (2o): the loop at group size 32 at
+   the 7B projections, T in {1, 48, 2048}, bare and with the glue, and
+   K1 on INT16 weights (2p): the wide ring's INT16 instantiation (T in
+   {1, 16, 48, 64, 128}) and the wide prefill kernel's (T in {129, 512,
+   2048}) at wqkv's and w2's shapes with the planes' edge values, bf16
+   and f32 x and scales, K1, K1 indexed and K1f with the norm and with
+   the residual (each call one launch on its ``launches_wide_pipe`` or
+   ``launches_wide_prefill``), at one and three forced splits;
 3. the engines' kernel paths against their plain paths at 7B width, 2
    layers, f32 compute: the ``BatchedEngine`` (int8 KV, B=4), the
    single-stream ``Engine`` (f32 scales and KV: logits, 40 greedy tokens
@@ -200,13 +205,22 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    launch on the ring or the prefill mode, the launch counts equal to
    4/4b's, which must run with it); a 4-layer GGUF ``Q8_0`` file (group size 32: every K1 launch
    on the loop) and a 4-layer fp32 llama2c file loaded with qtype INT16
-   (every K1 launch on ``qmm_f32_kernel``) through both entry points on
-   the same traffic; the seconds to write and to load, tok/s, ms a step,
+   (every K1 launch on the wide ring or the wide prefill kernel, none on
+   ``qmm_f32_kernel``) through both entry points on the same traffic; the seconds to write and to load, tok/s, ms a step,
    memory and profiles; then the CLI as subprocesses (``-m benchmark`` on
    the 32-layer file; ``gen --spec``, ``serve``, ``serve --spec``,
    ``serve --prefix-cache``, ``chat`` on stdin, ``-e``/``-d`` and
    ``--profile-dir`` on a 4-layer FLM file), each exiting 0 with its
    output checked, and ``--mesh`` exiting non-zero;
+4n. INT16 at full depth: 7B / INT16 / 32 layers from
+   ``random_params_int`` (13.5 GB of weights, f32 scales), fused once,
+   at bf16 compute through phase 4's ``BatchedEngine`` (int8 KV, B=48,
+   4's traffic) and phase 4b's ``Engine`` (bf16 KV, 4b's traffic and its
+   200-token ``ChatSession`` block): every K1 launch with T <= 128 on
+   the wide ring and every one above (the 256 prefill-wave launches, the
+   block's 128 K1f launches) on the wide prefill kernel, none on
+   ``qmm_f32_kernel``; tok/s, ms a step, the traced device ms a step and
+   idle share, memory;
 4g. deferred KV on phase 4's engine and traffic at decode chunk 16
    (every chunk deferred, every K2 launch with stats in the split-row
    mode) against plain chunks, in turns;
@@ -254,10 +268,12 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    split-row mode, the tiled kernel, the plain version and SDPA in turns
    at phase 4c's reading, B=32, pos 107, T in {2, 4, 8}, and at B=4,
    S=2048, pos 2040, the split mode also at 1, 2 and 4 splits; the modes a
-   loaded model reaches (4m): K1 and K1f on the loop at group size 32 and
-   on ``qmm_f32_kernel`` at INT16, a 7B layer at T in {1, 48, 2048}, in
-   turns with ``torch.matmul`` on pre-dequantized weights and the plain
-   version).
+   loaded model reaches (4m, 4n): K1 and K1f on the loop at group size 32
+   and at INT16 on the wide ring (T in {1, 48}) and the wide prefill
+   kernel (T = 2048), a 7B layer, in turns with ``torch.matmul`` on
+   pre-dequantized weights and the plain version, at INT16 also with
+   ``qmm_f32_kernel`` on the same calls, which the new kernels must
+   beat).
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Details go to
@@ -532,16 +548,11 @@ def phase_kernels(dev, rec):
                             tol)
                 errs["qmatmul_pallas"] = max(errs["qmatmul_pallas"], e)
         del w
-    # bf16-stored scales (compress_scales) and the INT16 wide path
+    # bf16-stored scales (compress_scales); INT16: check_int16 (2p)
     w = rand_qarray(gen, (4096, 4096), QuantType.INT8, dev, torch.bfloat16)
     x = torch.randn((48, 4096), generator=gen, device=dev).to(torch.bfloat16)
     compare("qmm wo bf16-scales T=48", qmm.qmatmul_pallas(x, w),
             qmm.qmm_plain(x, w), TOL_BF16)
-    w16 = rand_qarray(gen, (4096, 4096), QuantType.INT16, dev)
-    for xdt, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
-        x = torch.randn((48, 4096), generator=gen, device=dev).to(xdt)
-        compare(f"qmm int16 wide x={str(xdt)[6:]} T=48",
-                qmm.qmatmul_pallas(x, w16), qmm.qmm_plain(x, w16), tol)
     # layer-indexed: layer 1 of a stacked (2, I, O) weight
     for name in ("wqkv", "w2"):
         I, O = PROJ_7B[name]
@@ -680,28 +691,26 @@ def phase_kernels(dev, rec):
     check_wide_planes(dev, gen)
     check_prefill(dev, gen, errs)
     check_loaded_modes(dev, gen, errs)
+    check_int16(dev, gen, errs)
     rec["max_abs_err"] = errs
 
 
 def check_loaded_modes(dev, gen, errs):
-    """Phase 2o: the K1 modes a loaded model reaches, against their plain
-    versions at the four 7B projections, bf16 x and compute: the loop
-    (``qmm_bf16_kernel``) at group size 32 (a GGUF ``Q8_0`` file), K1 with
-    f32 scales at T in {1, 48, 2048} and K1f with the glue (bf16 scales)
-    at T in {1, 48}; ``qmm_f32_kernel`` on INT16 weights (group size 64,
-    f32 scales), K1 at T in {1, 48, 2048} and K1f with the glue at T in
-    {1, 48}.  Every call must take that kernel (``qmm._kernel``); bf16
-    outputs within ``TOL_BF16``."""
+    """Phase 2o: the K1 mode a loaded GGUF ``Q8_0`` file reaches, against
+    its plain version at the four 7B projections, bf16 x and compute: the
+    loop (``qmm_bf16_kernel``) at group size 32, K1 with f32 scales at T
+    in {1, 48, 2048} and K1f with the glue (bf16 scales) at T in {1, 48}.
+    Every call must take that kernel (``qmm._kernel``); bf16 outputs
+    within ``TOL_BF16``.  (INT16: :func:`check_int16`.)"""
     import torch
     from fastllama_tpu_torch.config import QuantType
     from fastllama_tpu_torch.ops.kernels import qmm
-    log("phase 2o: K1 on the loop at group size 32 and on qmm_f32_kernel "
-        "at INT16, 7B projections, against the plain version")
+    log("phase 2o: K1 on the loop at group size 32, 7B projections, "
+        "against the plain version")
     bf16, f32 = torch.bfloat16, torch.float32
     for qt, gs, sdt, kernel, suffix, glues in (
             (QuantType.INT8, 32, f32, "loop", "gs32", (False,)),
-            (QuantType.INT8, 32, bf16, "loop", "gs32", (True,)),
-            (QuantType.INT16, 64, f32, "wide", "int16", (False, True))):
+            (QuantType.INT8, 32, bf16, "loop", "gs32", (True,))):
         for n, (I, O) in ((n, PROJ_7B[n]) for n in ("wqkv", "wo", "w13",
                                                     "w2")):
             w = rand_qarray(gen, (2, I, O), qt, dev, sdt, gs=gs)
@@ -728,6 +737,95 @@ def check_loaded_modes(dev, gen, errs):
                 errs[name] = max(errs.get(name, 0.0), e)
             del w
     torch.cuda.empty_cache()
+
+
+def rand_int16_edges(gen, shape, dev, scale_dtype):
+    """An INT16 weight of :func:`rand_qarray` with the planes' edge values
+    in every layer: rows 0-6 all 5792, -5792, -1 (hi -1, lo 255), 255,
+    -256, 256 and 0, and the group of rows 64-127 all at 5792 (QF)."""
+    from fastllama_tpu_torch.config import QuantType
+    w = rand_qarray(gen, shape, QuantType.INT16, dev, scale_dtype)
+    for r, v in enumerate((5792, -5792, -1, 255, -256, 256, 0)):
+        w.data[..., r, :] = v
+    w.data[..., 64:128, :] = 5792
+    return w
+
+
+def check_int16(dev, gen, errs):
+    """Phase 2p: K1 on INT16 weights, the wide ring's INT16 instantiation
+    (T <= 128) and the wide prefill kernel's (above), against
+    ``qmm_fused_plain`` at wqkv's and w2's 7B shapes (group size 64, the
+    edge values of :func:`rand_int16_edges`), T in {1, 16, 48, 64, 128,
+    129, 512, 2048}, bf16 x at bf16 compute (the engines') and f32 x at f32
+    compute, f32 and bf16 scales: K1 (``qmatmul_pallas``), K1 indexed
+    (layer 1 of a stacked weight) and K1f with the norm gain and with the
+    residual, each wrapper call one launch on its ``launches_wide_pipe``
+    or ``launches_wide_prefill`` and its ``launches`` (so none on
+    ``qmm_f32_kernel``); at the auto split (split-K at decode) and forced
+    (``_launch``, uncounted) to one split and to three.  Limits: f32
+    output ``TOL_F32``, bf16 ``TOL_BF16`` (x max|plain|)."""
+    import torch
+    from fastllama_tpu_torch.ops.kernels import qmm
+    log("phase 2p: K1 at INT16 on the wide ring and the wide prefill kernel "
+        "vs plain (wqkv, w2; T in {1, 16, 48, 64, 128, 129, 512, 2048}; "
+        "bf16 and f32 x and scales; the glue; split-K; edge values)")
+    bf16, f32 = torch.bfloat16, torch.float32
+    forms = (("K1", qmm.qmatmul_pallas, {}),
+             ("K1 indexed", qmm.qmatmul_pallas_indexed, {}),
+             ("K1f norm", qmm.qmatmul_pallas_indexed_fused, {"norm": True}),
+             ("K1f residual", qmm.qmatmul_pallas_indexed_fused,
+              {"res": True}))
+    worst, n = {}, 0
+    for name in ("wqkv", "w2"):
+        I, O = PROJ_7B[name]
+        g = torch.rand((I,), generator=gen, device=dev) + 0.5
+        for sdt in (f32, bf16):
+            w = rand_int16_edges(gen, (2, I, O), dev, sdt)
+            for T in (1, 16, 48, 64, 128, 129, 512, 2048):
+                mode = "wide_pipe" if T <= 128 else "wide_prefill"
+                for xdt, tol in ((bf16, TOL_BF16), (f32, TOL_F32)):
+                    x = torch.randn((T, I), generator=gen, device=dev).to(xdt)
+                    r = torch.randn((T, O), generator=gen, device=dev).to(xdt)
+                    check(qmm._kernel(x, w[1], xdt, False, r) == mode,
+                          f"2p {name} T={T}: not a {mode} call")
+                    for label, fn, how in forms:
+                        kw = dict(norm_gain=g if how.get("norm") else None,
+                                  residual=r if how.get("res") else None)
+                        attr = "launches_" + mode
+                        n0, a0 = getattr(fn, attr), fn.launches
+                        got = (fn(x, w[1], xdt) if label == "K1" else
+                               fn(x, w, 1, xdt, **{k: v for k, v in
+                                                   kw.items() if v is not
+                                                   None}))
+                        check(getattr(fn, attr) == n0 + 1
+                              and fn.launches == a0 + 1,
+                              f"2p {name} T={T} {label}: not one launch on "
+                              f"{attr}")
+                        want = qmm.qmm_fused_plain(x, w[1], xdt, **kw)
+                        tag = (f"int16 {name} s={str(sdt)[6:]} T={T} "
+                               f"x={str(xdt)[6:]} {label}")
+                        e = compare(tag, got, want, tol, quiet=True)
+                        if label in ("K1", "K1f residual"):
+                            for splits in (1, 3):
+                                compare(f"{tag} splits={splits}",
+                                        qmm._launch(x, w[1], xdt,
+                                                    kw["norm_gain"],
+                                                    kw["residual"],
+                                                    splits=splits),
+                                        want, tol, quiet=True)
+                                n += 1
+                        key = ("qmatmul_pallas_indexed_"
+                               + ("fused_" if label.startswith("K1f")
+                                  else "") + "int16"
+                               + ("_prefill" if T > 128 else ""))
+                        errs[key] = max(errs.get(key, 0.0), e)
+                        worst[xdt] = max(worst.get(xdt, 0.0), e / max(
+                            float(want.float().abs().max()), 1e-30))
+                        n += 1
+            del w
+            torch.cuda.empty_cache()
+    log(f"  ok int16: {n} comparisons, largest error {worst[f32]:.3e} of "
+        f"max|plain| at f32 x, {worst[bf16]:.3e} at bf16 x")
 
 
 def check_fused(dev, gen, errs):
@@ -2881,7 +2979,9 @@ KERNELS = ("qmatmul_pallas", "qmatmul_pallas_indexed",
            "qmatmul_pallas_indexed_fused_wide_prefill",
            "qmatmul_pallas_indexed_gs32", "qmatmul_pallas_indexed_fused_gs32",
            "qmatmul_pallas_indexed_int16",
-           "qmatmul_pallas_indexed_fused_int16")
+           "qmatmul_pallas_indexed_fused_int16",
+           "qmatmul_pallas_indexed_int16_prefill",
+           "qmatmul_pallas_indexed_fused_int16_prefill")
 # the wrappers of K2's non-fresh mode: each counts its split-row launches
 SPLIT_WRAPPERS = ("flash_decode_single", "decode_attention_pallas_indexed",
                   "decode_attention_pallas", "flash_decode_batched",
@@ -3536,6 +3636,72 @@ def phase_wide_serving(dev, rec):
     del eng
     torch.cuda.empty_cache()
     return launches
+
+
+def phase_int16_serving(dev, rec):
+    """Phase 4n: INT16 at full depth, 7B / INT16 / 32 layers from
+    ``random_params_int`` (13.5 GB of int16 weights, f32 scales: "auto"
+    at INT16), QKV and gate|up fused once and shared by two engines at bf16
+    compute: phase 4's ``BatchedEngine`` (int8 KV, B=48, S=512, 48
+    requests of the 43-token prompt, 128 new tokens, decode chunk 64) and
+    phase 4b's ``Engine`` (bf16 KV, S=512, the same prompt, 128 new tokens
+    in chunks of 64, then its 200-token ``ChatSession`` block).  Every K1
+    launch with T <= 128 on the wide ring's INT16 instantiation and every
+    one above on the wide prefill kernel's, none on ``qmm_f32_kernel``
+    (:func:`check_all_wide`; the prefill waves' 256 and the block's 128
+    K1f launches); tok/s, ms a step, the traced device ms a step and idle
+    share, max memory.  Returns the INT16 launches of the kernels line."""
+    import torch
+    from fastllama_tpu_torch.config import EngineConfig, QuantType
+    from fastllama_tpu_torch.loaders.tokenizer import Tokenizer
+    from fastllama_tpu_torch.models.llama import (fuse_params,
+                                                  random_params_int)
+    from fastllama_tpu_torch.runtime.batching import BatchedEngine
+    from fastllama_tpu_torch.runtime.engine import Engine
+    log("phase 4n: serving 7B INT16 fused at 32 layers (bf16 compute, f32 "
+        "scales): B=48 int8 KV, then one stream bf16 KV")
+    cfg = cfg_7b().replace(quant_type=QuantType.INT16)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = fuse_params(cfg, random_params_int(cfg, seed=SEED, device=dev))
+    check(params.wq.data.dtype == torch.int16
+          and params.wq.scales.dtype == torch.float32,
+          "4n: the parameters are not INT16 with f32 scales")
+    weights_gb = sum(q.data.numel() * q.data.element_size()
+                     for q in params.quantized().values()) / 1e9
+    out = rec["int16_serving"] = {"weights_gb": weights_gb}
+    log(f"  INT16 weights: {weights_gb:.2f} GB")
+    beng = BatchedEngine(cfg, params, Tokenizer().finalize(),
+                         EngineConfig(max_seq_len=512, max_batch_size=48,
+                                      kv_dtype="int8", fuse_weights=False),
+                         decode_chunk=64, device=dev)
+    out["batched"], lb = serve_batched(beng, WIDE_BATCHED_PATH, t0,
+                                       k1_check=check_all_wide)
+    n = lb["qmatmul_pallas_indexed_wide_prefill"]
+    check(n == 256, f"4n batched: {n} wide prefill launches, not 256")
+    del beng
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    eng = Engine(cfg, params, Tokenizer().finalize(),
+                 EngineConfig(max_seq_len=512, kv_dtype="bfloat16",
+                              fuse_weights=False, scale_dtype="auto"),
+                 device=dev)
+    check(eng.params.wq.scales.dtype == torch.float32,
+          "4n: scale_dtype 'auto' at INT16 is not f32")
+    out["single"], ls, _ = serve_single(eng, WIDE_SINGLE_PATH, t0,
+                                        k1_check=check_all_wide)
+    key = "qmatmul_pallas_indexed_fused_wide_prefill"
+    out["single"]["long_block"], nb = feed_block(eng, cfg, check_all_wide,
+                                                 key)
+    out["card"] = smi_line()
+    del eng, params
+    torch.cuda.empty_cache()
+    return {"qmatmul_pallas_indexed_int16":
+            lb["qmatmul_pallas_indexed_wide_pipe"],
+            "qmatmul_pallas_indexed_int16_prefill": n,
+            "qmatmul_pallas_indexed_fused_int16":
+            ls["qmatmul_pallas_indexed_fused_wide_pipe"],
+            "qmatmul_pallas_indexed_fused_int16_prefill": nb}
 
 
 # the INT4 parameter set of phases 4d and 4e: made once and shared, as
@@ -6361,9 +6527,9 @@ def phase_loader_parity(dev, rec):
     torch.cuda.empty_cache()
 
 
-# the kernels of a loaded model that no random-weight phase reaches: K1 and
-# K1f on the loop at group size 32 (a GGUF Q8_0 file) and on
-# qmm_f32_kernel at INT16 (an fp32 file loaded with qtype INT16)
+# the kernels of a loaded model that no random-weight phase before 4m
+# reaches: K1 and K1f on the loop at group size 32 (a GGUF Q8_0 file); at
+# INT16 (an fp32 file loaded with qtype INT16) the wide kernels
 LOADED_SINGLE_PATH = ("qmatmul_pallas", "qmatmul_pallas_indexed_fused",
                       "flash_decode_single")
 LOADED_BATCHED_PATH = ("qmatmul_pallas", "qmatmul_pallas_indexed",
@@ -6373,31 +6539,23 @@ K1_WRAPPERS = ("qmatmul_pallas", "qmatmul_pallas_indexed",
                "qmatmul_pallas_indexed_fused")
 
 
-def check_one_kernel(want):
-    """A ``k1_check`` for a run whose every K1 launch must take one kernel:
-    ``"loop"`` (``qmm_bf16_kernel``; a group size of 32) or ``"wide_f32"``
-    (``qmm_f32_kernel``; INT16): the tally holds that kernel alone, and
-    its count equals the wrappers' ``launches`` less their other modes'
-    (``_pipe`` and ``_prefill``, or ``_wide_pipe`` and ``_wide_prefill``).
+def check_all_loop(launches, tally, label):
+    """Every K1 launch of a run on the loop (``qmm_bf16_kernel``; a group
+    size of 32): the tally holds that kernel alone, and its count equals
+    the wrappers' ``launches`` less their ring and prefill modes'.
     Returns the launches above 128 rows."""
-    others = (("_pipe", "_prefill") if want == "loop"
-              else ("_wide_pipe", "_wide_prefill"))
-
-    def k1_check(launches, tally, label):
-        modes = {m for m, _ in tally.counts}
-        total = sum(launches[k] for k in K1_WRAPPERS)
-        rest = total - sum(launches[k + s] for k in K1_WRAPPERS
-                           for s in others)
-        n = sum(tally.counts.values())
-        check(modes == {want}, f"{label}: K1 launches outside {want}: "
-                               f"{tally.record()}")
-        check(n == rest == total > 0,
-              f"{label}: {n} launches of {want} in the tally, {rest} of "
-              f"{total} on the wrappers outside their other modes")
-        log(f"  ok {label}: all {total} K1 launches on {want}; by mode "
-            f"{tally.record()}")
-        return sum(c for (m, small), c in tally.counts.items() if not small)
-    return k1_check
+    total = sum(launches[k] for k in K1_WRAPPERS)
+    rest = total - sum(launches[k + s] for k in K1_WRAPPERS
+                       for s in ("_pipe", "_prefill"))
+    n = sum(tally.counts.values())
+    check({m for m, _ in tally.counts} == {"loop"},
+          f"{label}: K1 launches outside the loop: {tally.record()}")
+    check(n == rest == total > 0,
+          f"{label}: {n} launches of the loop in the tally, {rest} of "
+          f"{total} on the wrappers outside their other modes")
+    log(f"  ok {label}: all {total} K1 launches on the loop; by mode "
+        f"{tally.record()}")
+    return sum(c for (m, small), c in tally.counts.items() if not small)
 
 
 class FileSet:
@@ -6574,8 +6732,10 @@ def phase_file_serving(dev, rec, files):
     ring or the prefill mode, the launch counts equal to 4/4b's (which
     must run before it); then the 4-layer GGUF ``Q8_0`` file (group size 32: every K1
     launch on the loop) and the 4-layer fp32 llama2c file loaded with
-    qtype INT16 (every K1 launch on ``qmm_f32_kernel``) through both load
-    entry points on the same traffic; then the CLI (:func:`phase_cli`).
+    qtype INT16 (every K1 launch on the wide ring or the wide prefill
+    kernel, none on ``qmm_f32_kernel``: :func:`check_all_wide`) through
+    both load entry points on the same traffic; then the CLI
+    (:func:`phase_cli`).
     Records tok/s, ms a step, the profiles, peak memory and the seconds to
     write and to load."""
     import torch
@@ -6584,7 +6744,8 @@ def phase_file_serving(dev, rec, files):
     from fastllama_tpu_torch.runtime.batching import BatchedEngine
     from fastllama_tpu_torch.runtime.engine import Engine
     log("phase 4m: serving from files at 7B width (FLM INT8 32 layers; "
-        "GGUF Q8_0 and llama2c fp32 at INT16, 4 layers; the CLI)")
+        "GGUF Q8_0 and llama2c fp32 at INT16 on the wide kernels, 4 "
+        "layers; the CLI)")
     out = rec["file_serving"] = {"files": files.rec}
     ec1 = EngineConfig(max_seq_len=512, kv_dtype="bfloat16",
                        scale_dtype="auto")
@@ -6642,13 +6803,13 @@ def phase_file_serving(dev, rec, files):
         f"{files.rec['flm32']['write_s']:.2f} s, loaded in {load1:.2f} + "
         f"{loadb:.2f} s ({write_load:.1f} s in all)")
 
-    for label, name, tokp, ft, qt, kernel, suffix in (
-            ("GGUF Q8_0", "gguf4", "", FileType.UNKNOWN, None, "loop",
-             "gs32"),
+    for label, name, tokp, ft, qt, k1, suffix in (
+            ("GGUF Q8_0", "gguf4", "", FileType.UNKNOWN, None,
+             check_all_loop, "gs32"),
             ("llama2c fp32 at INT16", "llama2c4",
              files.paths["llama2c4.tok"], FileType.LLAMA2C, QuantType.INT16,
-             "wide_f32", "int16")):
-        path, k1 = files.paths[name], check_one_kernel(kernel)
+             check_all_wide, "int16")):
+        path = files.paths[name]
         t0 = time.perf_counter()
         eng = Engine.load(path, tokp, ft, qt, ec1, device=dev)
         torch.cuda.synchronize()
@@ -6672,10 +6833,12 @@ def phase_file_serving(dev, rec, files):
                                     k1_check=k1)
         del beng
         torch.cuda.empty_cache()
-        launches[f"qmatmul_pallas_indexed_{suffix}"] = \
-            lb["qmatmul_pallas_indexed"]
-        launches[f"qmatmul_pallas_indexed_fused_{suffix}"] = \
-            ls["qmatmul_pallas_indexed_fused"]
+        # INT16's launches for the kernels line: 4n's, at full depth
+        if suffix == "gs32":
+            launches["qmatmul_pallas_indexed_gs32"] = \
+                lb["qmatmul_pallas_indexed"]
+            launches["qmatmul_pallas_indexed_fused_gs32"] = \
+                ls["qmatmul_pallas_indexed_fused"]
         out[name] = {"single": single, "batched": batched,
                      "engine_load_s": l1, "batched_load_s": lb_s,
                      "write_s": files.rec[name]["write_s"]}
@@ -6690,14 +6853,17 @@ def time_loaded_modes(dev, gen, res):
     scales, the batched path's) and K1f with its glue (bf16 scales, the
     single stream's: the norm on wqkv and w13, the residual on wo and w2),
     in turns with ``torch.matmul`` on pre-dequantized bf16 weights and the
-    plain version (T <= 48); and ``qmm_f32_kernel`` on INT16 weights
-    (group size 64, f32 scales, bf16 x as the engines give it at bf16
-    compute), K1 and K1f with its glue, in turns with ``torch.matmul`` on
-    f32 weights (``allow_tf32`` off) and the plain version (T <= 48; at
-    T = 2048 the plain version is timed alone, twice).  Bound: bytes over
-    3.35 TB/s against operations over 989 TFLOP/s, the bf16 tensor cores:
-    once for the loop, twice at INT16, whose weight is hi * 256 + lo with
-    both parts exact in bf16 (the f32 cores' figure, operations over 67
+    plain version (T <= 48); and INT16 weights (group size 64, f32 scales,
+    bf16 x as the engines give it at bf16 compute) on the wide ring (T <=
+    48) and the wide prefill kernel (T = 2048), K1 and K1f with its glue,
+    in turns with ``qmm_f32_kernel`` on the same calls (``_launch(...,
+    mode="wide")``, INT16's kernel before these, ``f32_kernel_ms``, which
+    the new kernels must beat), ``torch.matmul`` on f32 weights
+    (``allow_tf32`` off) and the plain version (T <= 48; at T = 2048 the
+    plain version is timed alone, twice).  Bound: bytes over 3.35 TB/s
+    against operations over 989 TFLOP/s, the bf16 tensor cores: once for
+    the loop, twice at INT16, whose weight is hi * 256 + lo with both
+    parts exact in bf16 (the f32 cores' figure, operations over 67
     TFLOP/s, stands beside it as ``f32_core_bound_ms``)."""
     import torch
     import torch.nn.functional as F
@@ -6724,8 +6890,8 @@ def time_loaded_modes(dev, gen, res):
     for mode, qt, gs, sdt, glue in (
             ("loop", QuantType.INT8, 32, f32, False),
             ("loop", QuantType.INT8, 32, bf16, True),
-            ("f32", QuantType.INT16, 64, f32, False),
-            ("f32", QuantType.INT16, 64, f32, True)):
+            ("int16", QuantType.INT16, 64, f32, False),
+            ("int16", QuantType.INT16, 64, f32, True)):
         ws = {n: rand_qarray(gen, (nl, *PROJ_7B[n]), qt, dev, sdt, gs=gs)
               for n in names}
         ldt = bf16 if mode == "loop" else f32
@@ -6740,7 +6906,8 @@ def time_loaded_modes(dev, gen, res):
                 if norm[n] else dict(residual=torch.randn(
                     (T, PROJ_7B[n][1]), generator=gen, device=dev).to(bf16)))
                 if glue else {} for n in names}
-            want = "loop" if mode == "loop" else "wide"
+            want = ("loop" if mode == "loop" else
+                    "wide_pipe" if T <= 128 else "wide_prefill")
             check(all(qmm._kernel(xs[n], ws[n][0], bf16, False,
                                   kws[n].get("residual")) == want
                       for n in names),
@@ -6761,6 +6928,10 @@ def time_loaded_modes(dev, gen, res):
                        else qmm.qmatmul_pallas_indexed)(
                            xs[n], ws[n], lyr, bf16, **kws[n])),
                    "library_ms": per_layer(l_one)}
+            if mode == "int16":
+                fns["f32_kernel_ms"] = per_layer(lambda n, lyr: qmm._launch(
+                    xs[n], ws[n][lyr], bf16, kws[n].get("norm_gain"),
+                    kws[n].get("residual"), mode="wide"))
             if T <= 48:
                 fns["plain_ms"] = per_layer(
                     lambda n, lyr: qmm.qmm_fused_plain(
@@ -6783,7 +6954,7 @@ def time_loaded_modes(dev, gen, res):
             bm, by = bound_ms(nbytes, flops * (1 if mode == "loop" else 2),
                               BF16_FLOP_S)
             label = (f"{'K1f glue' if glue else 'K1'} "
-                     f"{'gs32 loop' if mode == 'loop' else 'INT16 f32'} T={T}")
+                     f"{'gs32 loop' if mode == 'loop' else 'INT16'} T={T}")
             core = ({} if mode == "loop" else dict(
                 f32_core_bound_ms=bound_ms(nbytes, flops, F32_FLOP_S)[0]))
             rows[label] = dict(
@@ -6802,8 +6973,12 @@ def time_loaded_modes(dev, gen, res):
             log(f"  {label}: {got['ms']:.4f} ms (library "
                 f"{got['library_ms']:.4f}, plain {got['plain_ms']:.4f}, "
                 f"bound {bm:.4f} by {by}"
-                + (f"; f32 cores {core['f32_core_bound_ms']:.4f})" if core
-                   else ")"))
+                + (f"; qmm_f32_kernel {got['f32_kernel_ms']:.4f}, f32 cores "
+                   f"{core['f32_core_bound_ms']:.4f})" if core else ")"))
+            if core:
+                check(got["ms"] < got["f32_kernel_ms"],
+                      f"{label}: {got['ms']:.4f} ms, not faster than "
+                      f"qmm_f32_kernel's {got['f32_kernel_ms']:.4f}")
         del ws, wds
         torch.cuda.empty_cache()
     res["qmatmul_pallas_indexed_gs32"] = dict(
@@ -6813,11 +6988,12 @@ def time_loaded_modes(dev, gen, res):
         rows["K1f glue gs32 loop T=1"], T48=rows["K1f glue gs32 loop T=48"],
         T2048=rows["K1f glue gs32 loop T=2048"])
     res["qmatmul_pallas_indexed_int16"] = dict(
-        rows["K1 INT16 f32 T=48"], T1=rows["K1 INT16 f32 T=1"],
-        T2048=rows["K1 INT16 f32 T=2048"])
+        rows["K1 INT16 T=48"], T1=rows["K1 INT16 T=1"])
     res["qmatmul_pallas_indexed_fused_int16"] = dict(
-        rows["K1f glue INT16 f32 T=1"], T48=rows["K1f glue INT16 f32 T=48"],
-        T2048=rows["K1f glue INT16 f32 T=2048"])
+        rows["K1f glue INT16 T=1"], T48=rows["K1f glue INT16 T=48"])
+    res["qmatmul_pallas_indexed_int16_prefill"] = rows["K1 INT16 T=2048"]
+    res["qmatmul_pallas_indexed_fused_int16_prefill"] = \
+        rows["K1f glue INT16 T=2048"]
 
 
 SOURCES = {
@@ -6895,18 +7071,22 @@ SOURCES.update({k + "_wide_prefill": (
 
 
 # the modes a loaded model puts on a path (phase 4m): K1 and K1f on the
-# loop at group size 32 (GGUF Q8_0) and on qmm_f32_kernel at INT16; the
-# same source and TPU functions as their wrappers'
+# loop at group size 32 (GGUF Q8_0), the same source and TPU functions as
+# their wrappers'; at INT16 (4m, 4n) the wide ring's INT16 instantiation
+# (qmm.cu) and above 128 rows the wide prefill kernel's (qmm_prefill.cu)
 SOURCES.update({k + s: SOURCES[k] for k in (
     "qmatmul_pallas_indexed", "qmatmul_pallas_indexed_fused")
     for s in ("_gs32", "_int16")})
+SOURCES.update({k + "_int16_prefill": (
+    "fastllama_tpu_torch/csrc/qmm_prefill.cu", SOURCES[k][1]) for k in (
+    "qmatmul_pallas_indexed", "qmatmul_pallas_indexed_fused")})
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
                     default="1,2,3,3d,3e,3f,3g,3h,4,4b,4c,4d,4e,4f,4i,"
-                            "4j,4k,4l,4m,4g,4h,5",
+                            "4j,4k,4l,4m,4n,4g,4h,5",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--regs-against", metavar="CU", action="append",
                     default=[],
@@ -7086,6 +7266,9 @@ def run_phases(args, phases, dev, rec, files) -> int:
             launches.setdefault(k, got[k])
     if "4m" in phases:
         got = run("4m", lambda d, r: phase_file_serving(d, r, files))
+        launches.update(got)
+    if "4n" in phases:
+        got = run("4n", phase_int16_serving)
         launches.update(got)
     if "4g" in phases:
         got = run("4g", phase_deferred_serving)

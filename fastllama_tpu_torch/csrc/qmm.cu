@@ -113,10 +113,10 @@
 //     multiple of 16 so that no k = 16 step straddles two groups.
 //
 // The wide mode's pipelined instantiation (qmm_pipe_wide_kernel) takes
-// every wide call (f32 compute) with an int8-held weight (INT8, or INT4
-// that did not pack), T <= 128, gs % 64 == 0 and 16-byte aligned rows: the
-// batched decode step, the single stream with its K1f glue and the verify
-// at f32 compute.  It computes the JAX wide kernel's function (f32 dequant
+// every wide call (f32 compute, or INT16 at any compute dtype) with T <=
+// 128, gs % 64 == 0 and 16-byte aligned rows: the batched decode step, the
+// single stream with its K1f glue and the verify at f32 compute or on an
+// INT16 weight.  It computes the JAX wide kernel's function (f32 dequant
 // and a Precision.HIGHEST dot, qmm.py:62-74) on bf16 tensor cores: the
 // groupdot ring's body, whose B fragments hold the exact integers, with x
 // split once a stage into three bf16 planes, hi = bf16(v), mid = bf16(v -
@@ -130,8 +130,20 @@
 // partial times the scale once a group (with a bf16 scale both products
 // are exact: only the f32 sum order differs).  Its bound is bytes up to
 // T = 128 at three passes (0.059 ms of tensor work a 7B layer at T = 48,
-// 0.0643 ms of bytes at T = 1).  qmm_f32_kernel keeps INT16, T > 128,
-// other group sizes and unaligned rows.
+// 0.0643 ms of bytes at T = 1).
+//   * INT16 (its instantiation of weight bytes WB = 2): each value is
+//     w = 256 hi + lo, hi = w >> 8 its signed high byte, lo = w & 0xFF its
+//     unsigned low byte; bf16 holds lo and 256 hi exactly, and their
+//     products with a bf16 plane of x are exact in f32, so both weight
+//     planes go into the same group partial.  On the little-endian card
+//     the two bytes of an int16 are the two planes: each becomes its exact
+//     float by a byte permute into a magic float and an FADD (the high
+//     byte, its sign bit flipped, in the low mantissa bits of 2^31, whose
+//     unit there is 256), no int-to-float conversion.  A slot's W rows are
+//     2 BN + 16 bytes; a lane's NJ columns are 2 NJ bytes, each k = 16
+//     step builds a lo and a hi B fragment of them, and each x plane's
+//     A fragments multiply both: two passes on bf16 x, six on f32 x.
+// qmm_f32_kernel keeps T > 128, other group sizes and unaligned rows.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
@@ -695,8 +707,9 @@ qmm_bf16_kernel(const XT* __restrict__ x, const int8_t* __restrict__ w,
 
 // Wide path: f32 dequant and f32 FMA.  256 threads, each a 4x4 block of
 // outputs strided by 16 so shared-memory reads do not conflict.  The wide
-// calls that qmm_pipe_wide_kernel does not take: INT16, T > 128, other
-// group sizes, unaligned rows.
+// calls that neither qmm_pipe_wide_kernel nor qmm_wgmma_wide_kernel
+// (qmm_prefill.cu) takes: other group sizes, unaligned rows, an offset
+// residual.
 template <typename XT, typename WT, typename ST>
 __global__ void __launch_bounds__(256)
 qmm_f32_kernel(const XT* __restrict__ x, const WT* __restrict__ w,
@@ -780,9 +793,9 @@ qmm_f32_kernel(const XT* __restrict__ x, const WT* __restrict__ w,
 // mode, not wide, 16-byte aligned, gs a multiple of 64; its groupdot
 // instantiation (qmm_pipe_gd_kernel, the same body with MODE PM_GD: see the
 // groupdot notes at the top) the groupdot calls of that kind, and its wide
-// instantiation (qmm_pipe_wide_kernel, MODE PM_WIDE: the groupdot body
-// over three bf16 planes of x) the wide calls of that kind with an
-// int8-held weight.
+// instantiation (qmm_pipe_wide_kernel, MODE PM_WIDE, or PM_WIDE16 on an
+// int16 weight: the groupdot body over three bf16 planes of x) the wide
+// calls of that kind.
 //
 // A block computes all T rows (one row tile of 16 * MT rows: 16, 48, 64 or
 // 128, the least that holds T) of BN = 8 * NJ * CG output columns over one
@@ -836,7 +849,25 @@ constexpr int PK_NS = 3;
 //     keep PK_NS stages;
 //   QMM_WIDE_PLANES: the planes of f32 x it multiplies; 3 holds f32's
 //     significand, fewer is a diagnostic of what the passes cost (it
-//     misses the reference's accuracy)
+//     misses the reference's accuracy);
+//   QMM_WIDE16_STAGES48, QMM_WIDE16_MIN_BLOCKS48, QMM_WIDE16_SPLIT48: the
+//     same two at INT16, whose W rows take twice the bytes, and whether its
+//     48-row tile multiplies the two weight planes in two passes over x's
+//     planes a k = 16 step (one plane's B fragments live at a time, x's A
+//     fragments loaded twice; 0: one pass, both live): two stages, three
+//     blocks an SM and two passes, which ptxas fits in 168 registers
+//     without a spill, 18 % faster a 7B layer on bf16 x than three stages,
+//     two blocks and one pass on an H100 (PERF.md); the other row tiles
+//     keep PK_NS stages and one pass
+#ifndef QMM_WIDE16_STAGES48
+#define QMM_WIDE16_STAGES48 2
+#endif
+#ifndef QMM_WIDE16_MIN_BLOCKS48
+#define QMM_WIDE16_MIN_BLOCKS48 3
+#endif
+#ifndef QMM_WIDE16_SPLIT48
+#define QMM_WIDE16_SPLIT48 1
+#endif
 #ifndef QMM_WIDE_STAGES48
 #define QMM_WIDE_STAGES48 2
 #endif
@@ -847,12 +878,12 @@ constexpr int PK_NS = 3;
 #define QMM_WIDE_PLANES 3
 #endif
 
-// bytes of one ring slot: W rows at a pitch of bn + 16, the x tile at a
-// pitch of its row + 16, the scale rows (K1p: two)
+// bytes of one ring slot: W rows of wb-byte weights at a pitch of wb bn +
+// 16, the x tile at a pitch of its row + 16, the scale rows (K1p: two)
 __host__ __device__ constexpr int pipe_stage_bytes(bool p4, int s_size,
                                                    int mt, int bn,
-                                                   int x_size) {
-  return (p4 ? 32 : 64) * (bn + 16) + 16 * mt * (PK_X * x_size + 16) +
+                                                   int x_size, int wb = 1) {
+  return (p4 ? 32 : 64) * (wb * bn + 16) + 16 * mt * (PK_X * x_size + 16) +
          (p4 ? 2 : 1) * bn * s_size;
 }
 
@@ -1006,18 +1037,44 @@ __device__ __forceinline__ void add_bf16(float (&v)[N],
   for (int j = 0; j < N; ++j) v[j] = __bfloat162float(e[j]) + v[j];
 }
 
-// the instantiations of the ring's body: standard, groupdot, wide
-enum { PM_STD = 0, PM_GD = 1, PM_WIDE = 2 };
+// the instantiations of the ring's body: standard, groupdot, wide (an
+// int8-held weight), wide on an int16 weight
+enum { PM_STD = 0, PM_GD = 1, PM_WIDE = 2, PM_WIDE16 = 3 };
+
+__host__ __device__ constexpr bool pipe_wide(int mode) {
+  return mode == PM_WIDE || mode == PM_WIDE16;
+}
+// bytes a weight
+__host__ __device__ constexpr int pipe_wb(int mode) {
+  return mode == PM_WIDE16 ? 2 : 1;
+}
 
 // the bf16 x planes of a ring block: three in the wide mode on f32 x, else
 // one (a bf16 value is exact in one)
 __host__ __device__ constexpr int pipe_x_planes(int mode, int x_f32) {
-  return mode == PM_WIDE && x_f32 ? QMM_WIDE_PLANES : 1;
+  return pipe_wide(mode) && x_f32 ? QMM_WIDE_PLANES : 1;
 }
 
 // the ring's depth of an instantiation of MT m-tiles
 __host__ __device__ constexpr int pipe_stages(int mode, int mt) {
-  return mode == PM_WIDE && mt == 3 ? QMM_WIDE_STAGES48 : PK_NS;
+  return mt != 3              ? PK_NS
+         : mode == PM_WIDE    ? QMM_WIDE_STAGES48
+         : mode == PM_WIDE16  ? QMM_WIDE16_STAGES48
+                              : PK_NS;
+}
+
+// INT16's planes (the wide mode's WB = 2): int16 half h (0 the low) of
+// the word v.  Its low byte, unsigned, is the low mantissa byte of 2^23;
+// its high byte, the sign bit flipped, that of 2^31, whose mantissa unit
+// is 256; the bias comes off exactly: lo and 256 hi as exact floats.
+__device__ __forceinline__ float lo16_f(uint32_t v, int h) {
+  return __uint_as_float(__byte_perm(v, 0x4B000000u, 0x7650u | (2 * h))) -
+         8388608.0f;
+}
+__device__ __forceinline__ float hi16_f(uint32_t v, int h) {
+  return __uint_as_float(__byte_perm(v ^ 0x80008000u, 0x4F000000u,
+                                     0x7650u | (2 * h + 1))) -
+         2147516416.0f;
 }
 
 // v (8 f32) as three bf16 planes, hi = bf16(v), mid = bf16(v - hi), lo =
@@ -1049,20 +1106,21 @@ __device__ __forceinline__ void qmm_pipe_body(
     float* __restrict__ partial, int T, int I, int O, int gs,
     int k_per_split, int x_f32, int s_f32, float eps) {
   // the wide mode is the groupdot body over the planes of x
-  constexpr bool GD = MODE != PM_STD, WIDE = MODE == PM_WIDE;
-  static_assert(!(WIDE && P4), "the wide mode takes int8-held weights");
+  constexpr bool GD = MODE != PM_STD, WIDE = pipe_wide(MODE);
+  static_assert(!(WIDE && P4), "the wide mode takes unpacked weights");
   constexpr int NS = pipe_stages(MODE, MT);
   constexpr int NW = CG, NT = NW * 32, BN = 8 * NJ * CG, BMR = 16 * MT;
   constexpr int KS = P4 ? 32 : 64;     // W rows a stage
   constexpr int KSTEPS = KS / 16;      // k = 16 steps a stage (K1p: a plane)
-  constexpr int WP = BN + 16;          // W row pitch in the slot (bytes)
+  constexpr int WB = pipe_wb(MODE);    // bytes a weight
+  constexpr int WP = WB * BN + 16;     // W row pitch in the slot (bytes)
   constexpr int NP = P4 ? 2 : 1;       // planes
   extern __shared__ __align__(128) unsigned char psm[];
   __shared__ float rinv[BMR];
   __shared__ float wsum[NW][BMR];
   const int esz = x_f32 ? 4 : 2, ssz = s_f32 ? 4 : 2;
   const int XP = PK_X * esz + 16;      // x row pitch in the slot (bytes)
-  const int stage = pipe_stage_bytes(P4, ssz, MT, BN, esz);
+  const int stage = pipe_stage_bytes(P4, ssz, MT, BN, esz, WB);
   const bool conv = x_f32 || gain != nullptr;
   __nv_bfloat16* xbuf = reinterpret_cast<__nv_bfloat16*>(psm + NS * stage);
 
@@ -1080,10 +1138,10 @@ __device__ __forceinline__ void qmm_pipe_body(
   // chunks sit in rows wr0, wr0 + WR, ... of the slot, its x chunks in
   // rows xr0, xr0 + XR, ... (under T), its scale chunk (if any) in plane
   // sp's row; a stage only moves the sources on by its k0.
-  constexpr int WC = BN / 16, WR = NT / WC;
-  const int wc = (tid % WC) * 16, wr0 = tid / WC;
-  const bool w_in = n0 + wc < O;
-  const int8_t* wsrc = w + (size_t)wr0 * O + n0 + wc;
+  constexpr int WC = WB * BN / 16, WR = NT / WC;
+  const int wc = (tid % WC) * 16, wr0 = tid / WC;   // wc: a byte offset
+  const bool w_in = n0 + wc / WB < O;
+  const int8_t* wsrc = w + ((size_t)wr0 * O + n0) * WB + wc;
   const int xr0 = tid >> xlg, XR = NT >> xlg;
   const int xc = (tid & ((1 << xlg) - 1)) << (4 - (esz >> 1));
   const char* xsrc =
@@ -1092,12 +1150,12 @@ __device__ __forceinline__ void qmm_pipe_body(
   const int sp = tid / sc, scol = (tid % sc) * 16 / ssz;
   auto copy_stage = [&](int slot, int k0) {
     unsigned char* wsl = psm + slot * stage;
-    const int8_t* wp = wsrc + (size_t)k0 * O;
+    const int8_t* wp = wsrc + (size_t)k0 * O * WB;
 #pragma unroll
     for (int i = 0; i < KS / WR; ++i) {
       const bool in = w_in && k0 + wr0 + i * WR < kend;
       cp_async16(wsl + (wr0 + i * WR) * WP + wc,
-                 in ? wp + (size_t)i * WR * O : w, in ? 16 : 0);
+                 in ? wp + (size_t)i * WR * O * WB : w, in ? 16 : 0);
     }
     // column xc of the x tile: x's k0 + xc, under K1p the high plane's
     // I/2 + k0 + xc - 32 for xc >= 32 (rows from T on stay zero)
@@ -1245,6 +1303,88 @@ __device__ __forceinline__ void qmm_pipe_body(
       // fragments beside the first's: that spilled at 48 and 128 rows
 #pragma unroll(MT == 1 ? NP : 1)
       for (int p = 0; p < NP; ++p) {
+        if constexpr (WB == 2) {
+          // INT16 (the wide mode): a k = 16 step at a time, the lane's lo
+          // and hi B fragments of its NJ columns (column j the int16 half
+          // j & 1 of the row's word j / 2) from the same words; each plane
+          // of x (lo, mid, hi; one on bf16 x) multiplies both (at 48 rows
+          // one after the other, QMM_WIDE16_SPLIT48) into every m-tile's
+          // partial (its products exact in f32), scaled into acc
+          // once a stage as the int8 wide mode's (the scales read after the
+          // k-steps: their registers are not live across the chain)
+          float part[MT][NJ][4];
+#pragma unroll
+          for (int i = 0; i < MT; ++i)
+#pragma unroll
+            for (int j = 0; j < NJ; ++j)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) part[i][j][e] = 0.0f;
+          const __nv_bfloat16* xr =
+              xa + (lane & 15) * xpe + (lane >> 4) * 8;
+          // weight planes a pass over x's planes, passes a k-step
+          constexpr int PP = MT == 3 && QMM_WIDE16_SPLIT48 ? 1 : 2;
+          constexpr int PASSES = 2 / PP;
+#pragma unroll
+          for (int kp = 0; kp < KSTEPS; ++kp) {
+#pragma unroll
+            for (int ps = 0; ps < PASSES; ++ps) {
+              uint32_t v[4][NJ / 2];   // rows r0, r0 + 1, r0 + 8, r0 + 9
+#pragma unroll
+              for (int q = 0; q < 4; ++q) {
+                const int r = 16 * kp + 2 * t4 + (q & 1) + 8 * (q >> 1);
+                const unsigned char* wq = wsl + r * WP + 2 * cb;
+                if constexpr (NJ == 4) {
+                  const uint2 u = *reinterpret_cast<const uint2*>(wq);
+                  v[q][0] = u.x;
+                  v[q][1] = u.y;
+                } else {
+                  v[q][0] = *reinterpret_cast<const uint32_t*>(wq);
+                }
+              }
+              uint32_t b[PP][NJ][2];   // plane ps * PP + u: 0 lo, 1 hi
+#pragma unroll
+              for (int u = 0; u < PP; ++u)
+#pragma unroll
+                for (int j = 0; j < NJ; ++j) {
+                  const int c = j >> 1, h = j & 1;
+#pragma unroll
+                  for (int f = 0; f < 2; ++f)
+                    b[u][j][f] =
+                        ps * PP + u == 0
+                            ? exact_pair(lo16_f(v[2 * f][c], h),
+                                         lo16_f(v[2 * f + 1][c], h))
+                            : exact_pair(hi16_f(v[2 * f][c], h),
+                                         hi16_f(v[2 * f + 1][c], h));
+                }
+              for (int q = pipe_x_planes(MODE, x_f32) - 1; q >= 0; --q) {
+                const __nv_bfloat16* xq = xr + q * BMR * (PK_XB / 2);
+                uint32_t a[MT][4];
+#pragma unroll
+                for (int i = 0; i < MT; ++i)
+                  ldmatrix_x4(a[i], xq + 16 * i * xpe + 16 * kp);
+#pragma unroll
+                for (int i = 0; i < MT; ++i)
+#pragma unroll
+                  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+                    for (int u = 0; u < PP; ++u)
+                      mma_16816_sched(part[i][j], a[i], b[u][j]);
+              }
+            }
+          }
+          float sa[2 * NJ];
+          scales_f<2 * NJ>(sa, ssl + (warp * 8 * NJ + 2 * NJ * t4) * ssz,
+                           s_f32);
+#pragma unroll
+          for (int i = 0; i < MT; ++i)
+#pragma unroll
+            for (int j = 0; j < NJ; ++j)
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                acc[i][j][e] =
+                    fmaf(part[i][j][e], sa[(e & 1) * NJ + j], acc[i][j][e]);
+          continue;
+        }
         float sa[2 * NJ];
         scales_f<2 * NJ>(
             sa, ssl + (p * BN + warp * 8 * NJ + 2 * NJ * t4) * ssz, s_f32);
@@ -1449,21 +1589,28 @@ __global__ void __launch_bounds__(CG * 32, pipe_gd_min_blocks(MT))
 // The wide instantiation's least blocks an SM: as many as its shared
 // memory leaves on f32 x (three x planes beside the ring: 16 rows 4
 // blocks, 48 rows 3 on its two-stage ring, 64 rows 2, 128 rows 1), so
-// that ptxas may give the partials the registers those blocks leave
-__host__ __device__ constexpr int pipe_wide_min_blocks(int mt) {
-  return mt == 1 ? 4 : mt == 8 ? 1 : mt == 3 ? QMM_WIDE_MIN_BLOCKS48 : 2;
+// that ptxas may give the partials the registers those blocks leave; at
+// INT16 (WB = 2) the same but at 48 rows QMM_WIDE16_MIN_BLOCKS48
+__host__ __device__ constexpr int pipe_wide_min_blocks(int mt, int wb) {
+  return mt == 1   ? 4
+         : mt == 8 ? 1
+         : mt == 3 ? (wb == 2 ? QMM_WIDE16_MIN_BLOCKS48 : QMM_WIDE_MIN_BLOCKS48)
+                   : 2;
 }
 
-template <int MT, int CG, int NJ>
-__global__ void __launch_bounds__(CG * 32, pipe_wide_min_blocks(MT))
+// WB: bytes a weight (1 int8-held, 2 INT16)
+template <int MT, int CG, int NJ, int WB>
+__global__ void __launch_bounds__(CG * 32, pipe_wide_min_blocks(MT, WB))
     qmm_pipe_wide_kernel(QMM_PIPE_PARAMS) {
-  qmm_pipe_body<false, MT, CG, NJ, PM_WIDE>(QMM_PIPE_ARGS);
+  qmm_pipe_body<false, MT, CG, NJ, WB == 2 ? PM_WIDE16 : PM_WIDE>(
+      QMM_PIPE_ARGS);
 }
 
 // the __global__ function of the (standard, groupdot or wide) instantiation
 template <bool P4, int MT, int CG, int NJ, int MODE>
 constexpr auto pipe_kernel() {
-  if constexpr (MODE == PM_WIDE) return qmm_pipe_wide_kernel<MT, CG, NJ>;
+  if constexpr (MODE == PM_WIDE16) return qmm_pipe_wide_kernel<MT, CG, NJ, 2>;
+  else if constexpr (MODE == PM_WIDE) return qmm_pipe_wide_kernel<MT, CG, NJ, 1>;
   else if constexpr (MODE == PM_GD) return qmm_pipe_gd_kernel<P4, MT, CG, NJ>;
   else return qmm_pipe_kernel<P4, MT, CG, NJ>;
 }
@@ -1560,7 +1707,8 @@ template <bool P4, int MT, int CG, int NJ, int MODE>
 int pipe_smem(int x_f32, int s_f32, int conv) {
   return pipe_stages(MODE, MT) * pipe_stage_bytes(P4, s_f32 ? 4 : 2, MT,
                                                   8 * NJ * CG,
-                                                  x_f32 ? 4 : 2) +
+                                                  x_f32 ? 4 : 2,
+                                                  pipe_wb(MODE)) +
          (conv ? pipe_x_planes(MODE, x_f32) * 16 * MT * PK_XB : 0);
 }
 
@@ -1634,7 +1782,7 @@ int launch_pipe_t(const void* x, const int8_t* w, const void* s,
 // row tiles of 16, 48, 64 or 128 rows, 4 warps of 4 n-tiles, or 8 of 2 at
 // 128 rows, 128 output columns a block; the groupdot and wide modes have
 // no 4-warp instantiation at 128 rows (pipe_shape gives them 8), the wide
-// mode none on a packed weight
+// modes none on a packed weight
 #define QMM_PIPE_DISPATCH(F, ...)                                             \
   do {                                                                        \
     if (rows == 16 && warps == 4) QMM_PIPE_CALL(F, 1, 4, 4, __VA_ARGS__);     \
@@ -1650,6 +1798,9 @@ int launch_pipe_t(const void* x, const int8_t* w, const void* s,
     if (mode == PM_WIDE)                                                      \
       return packed ? (int)cudaErrorInvalidValue                              \
                     : F<false, MT, CG, NJ, PM_WIDE>(__VA_ARGS__);             \
+    if (mode == PM_WIDE16)                                                    \
+      return packed ? (int)cudaErrorInvalidValue                              \
+                    : F<false, MT, CG, NJ, PM_WIDE16>(__VA_ARGS__);           \
     if (mode == PM_GD)                                                        \
       return packed ? F<true, MT, CG, NJ, PM_GD>(__VA_ARGS__)                 \
                     : F<false, MT, CG, NJ, PM_GD>(__VA_ARGS__);               \
@@ -1700,7 +1851,9 @@ extern "C" int qmm_launch(const void* x, const void* w, const void* s,
 // w, s and res at 16-byte aligned addresses) and gs % 64 == 0.  gain / res
 // as qmm_launch's.  mode: 0 standard; 1 the groupdot instantiation (no
 // gain, no res; rows x warps 128 x 4 refused); 2 the wide one (f32
-// compute; not packed; rows x warps 128 x 4 refused).
+// compute; not packed; rows x warps 128 x 4 refused); 3 the wide one on an
+// int16 weight (w the (I, O) int16 values; INT16 at any compute dtype;
+// rows x warps 128 x 4 refused).
 extern "C" int qmm_pipe_launch(const void* x, const void* w, const void* s,
                                const void* gain, const void* res, float eps,
                                void* out, void* partial, int T, int I, int O,
@@ -1716,9 +1869,9 @@ extern "C" int qmm_pipe_launch(const void* x, const void* w, const void* s,
       misaligned(w) || misaligned(s) || misaligned(res) ||
       (x_dt != DT_F32 && x_dt != DT_BF16) ||
       (s_dt != DT_F32 && s_dt != DT_BF16) ||
-      (mode != PM_STD && mode != PM_GD && mode != PM_WIDE) ||
+      (mode != PM_STD && mode != PM_GD && !pipe_wide(mode)) ||
       (mode == PM_GD && (gain != nullptr || res != nullptr)) ||
-      (mode == PM_WIDE && packed))
+      (pipe_wide(mode) && packed))
     return (int)cudaErrorInvalidValue;
   const int xf = x_dt == DT_F32, sf = s_dt == DT_F32;
   QMM_PIPE_DISPATCH(launch_pipe_t, x, wp, s, g, res, eps, out, part, T, I, O,

@@ -12,8 +12,8 @@
 // with gs a multiple of 64 and 16-byte aligned rows and residual; the loop
 // (qmm_bf16_kernel in qmm.cu) keeps the rest.  Its wide mode
 // (qmm_wgmma_wide_kernel, below the design notes) takes the wide calls of
-// that kind with an int8-held weight; qmm_f32_kernel keeps the other wide
-// calls.
+// that kind (f32 compute, or an INT16 weight); qmm_f32_kernel keeps the
+// other wide calls.
 //
 // It computes what the loop computes (qmm_fused_plain / qmm_p4_plain in
 // ops/kernels/qmm.py); only the f32 sum order differs:
@@ -87,11 +87,11 @@
 //     prefill_reduce_kernel sums the f32 partials in split order after the
 //     residual (deterministic).
 //
-// The wide mode (qmm_wgmma_wide_kernel) takes every wide call (f32 compute)
-// above 128 rows with an int8-held weight (INT8, or INT4 that did not
-// pack), gs % 64 == 0 and 16-byte aligned rows and residual: the batched
-// prefill waves at f32 compute and K1f's glue on a single-stream block of
-// more than 128 tokens at f32 compute.  It computes the JAX wide kernel's
+// The wide mode (qmm_wgmma_wide_kernel) takes every wide call (f32
+// compute, or INT16 at any compute dtype) above 128 rows with gs % 64 == 0
+// and 16-byte aligned rows and residual: the batched prefill waves at f32
+// compute or INT16 and K1f's glue on a single-stream block of more than 128
+// tokens there.  It computes the JAX wide kernel's
 // function (f32 dequant and a Precision.HIGHEST dot, qmm.py:62-74) as the
 // wide ring of qmm.cu does: the A operand holds the exact integers (no
 // scale), x goes in as three bf16 planes, hi = bf16(v), mid = bf16(v - hi),
@@ -122,6 +122,20 @@
 //     has scale-d 0, so a partial needs no zeroing.
 //   * The pre-pass writes x's planes once a call (the norm first when a
 //     gain is given); a bf16 x without the norm is read in place.
+//   * INT16 (WT int16_t): each value is w = 256 hi + lo, hi = w >> 8 its
+//     signed high byte, lo = w & 0xFF its unsigned low byte, both exact
+//     in bf16 (256 hi too), so both weight planes go into the same f32
+//     partial.  A stage's W is two TMA boxes of 64 int16 columns x 64 rows
+//     (128-byte rows, 128-byte swizzle), one a consumer warpgroup.  An
+//     ldmatrix.trans of a k16 step hands lane (g, t4) the int16 pairs of
+//     rows 2 t4, 2 t4 + 1 (and + 8) at its warp's columns g and 8 + g (its
+//     logical rows g and g + 8): each register's two low bytes make a lo
+//     A register and its two high bytes a hi one (a byte permute into a
+//     magic float and an FADD each, the high byte in the low mantissa
+//     bits of 2^31, whose unit is 256).  Each x plane's wgmma runs on the
+//     lo then the hi fragments: two passes on bf16 x, six on f32 x.  The
+//     thread's two columns are 8 apart, so the fold reads two scales and
+//     the epilogue stores single elements.
 //
 // The host builds the three CUtensorMaps a call (cuTensorMapEncodeTiled,
 // reached through cudaGetDriverEntryPoint, so the library needs no -lcuda)
@@ -201,23 +215,25 @@ constexpr int PFW_X_BOX = PFW_ROWS * PF_XK * 2;   // bytes of an x box
 __host__ __device__ constexpr int pfw_planes(bool x_f32) {
   return x_f32 ? 3 : 1;
 }
-// a wide ring slot: the W box, each part's x planes, the scale row (each
+// a wide ring slot: the W box(es) of wb-byte weights (int8 one box of 128
+// columns, int16 two of 64), each part's x planes, the scale row (each
 // piece a multiple of 1024 bytes)
-__host__ __device__ constexpr int pfw_stage_bytes(int planes) {
-  return PFW_KS * PF_COLS + 2 * planes * PFW_X_BOX + PF_S_ROW;
+__host__ __device__ constexpr int pfw_stage_bytes(int planes, int wb = 1) {
+  return wb * PFW_KS * PF_COLS + 2 * planes * PFW_X_BOX + PF_S_ROW;
 }
 // the wide ring's depth: as many stages as fit beside their two barriers
 // and the 1 KB that aligns the ring, up to PF_WIDE_STAGES
-__host__ __device__ constexpr int pfw_stages(int planes) {
-  return (PF_SMEM_BLOCK - 1024) / (pfw_stage_bytes(planes) + 16) <
+__host__ __device__ constexpr int pfw_stages(int planes, int wb = 1) {
+  return (PF_SMEM_BLOCK - 1024) / (pfw_stage_bytes(planes, wb) + 16) <
                  PF_WIDE_STAGES
-             ? (PF_SMEM_BLOCK - 1024) / (pfw_stage_bytes(planes) + 16)
+             ? (PF_SMEM_BLOCK - 1024) / (pfw_stage_bytes(planes, wb) + 16)
              : PF_WIDE_STAGES;
 }
-__host__ __device__ constexpr int pfw_smem(int planes) {
-  return pfw_stages(planes) * pfw_stage_bytes(planes) + 1024;
+__host__ __device__ constexpr int pfw_smem(int planes, int wb = 1) {
+  return pfw_stages(planes, wb) * pfw_stage_bytes(planes, wb) + 1024;
 }
-static_assert(pfw_stages(3) >= 2, "the wide ring needs two stages");
+static_assert(pfw_stages(3) >= 2 && pfw_stages(3, 2) >= 2,
+              "the wide ring needs two stages");
 // the producer's registers cover the consumers' rise: all from 65536
 static_assert(128 * PF_PRODUCER_REGS + 256 * PF_CONSUMER_REGS <= 65536,
               "the warpgroups' registers exceed an SM's");
@@ -467,6 +483,33 @@ __device__ __forceinline__ void deq8_exact(uint32_t (&a)[2][4],
                                        magic8(rx, h + 2) - 8388736.0f);
     }
 }
+// INT16's planes: int16 half h (0 the low) of the word v.  Its low byte,
+// unsigned, is the low mantissa byte of 2^23; its high byte, the sign bit
+// flipped, that of 2^31, whose mantissa unit is 256; the bias comes off
+// exactly: lo and 256 hi as exact floats.
+__device__ __forceinline__ float lo16_f(uint32_t v, int h) {
+  return __uint_as_float(__byte_perm(v, 0x4B000000u, 0x7650u | (2 * h))) -
+         8388608.0f;
+}
+__device__ __forceinline__ float hi16_f(uint32_t v, int h) {
+  return __uint_as_float(__byte_perm(v ^ 0x80008000u, 0x4F000000u,
+                                     0x7650u | (2 * h + 1))) -
+         2147516416.0f;
+}
+// The INT16 wide mode's A fragments of one k16 step from ldmatrix's
+// registers r (register j: the step's rows 2 t4, 2 t4 + 1 of k half j / 2
+// at the column g + 8 (j & 1), the lower k in the low half, which is
+// wgmma's A register j): lo the low bytes, hi 256 times the high bytes,
+// each pair exact in bf16.
+__device__ __forceinline__ void deq16_exact(uint32_t (&lo)[4],
+                                            uint32_t (&hi)[4],
+                                            const uint32_t (&r)[4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    lo[j] = exact_pair(lo16_f(r[j], 0), lo16_f(r[j], 1));
+    hi[j] = exact_pair(hi16_f(r[j], 0), hi16_f(r[j], 1));
+  }
+}
 // K1p: plane p's nibbles, bf16(f32(nibble) * f32(s))
 __device__ __forceinline__ void deq4_ldsm(uint32_t (&a)[2][4],
                                           const uint32_t (&r)[4], int p,
@@ -497,6 +540,14 @@ __device__ __forceinline__ void scales2(float (&v)[2], const unsigned char* p,
                                         __nv_bfloat16) {
   const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
   v[0] = f.x; v[1] = f.y;
+}
+// the scale at p, as f32
+__device__ __forceinline__ float scale1(const unsigned char* p, float) {
+  return *reinterpret_cast<const float*>(p);
+}
+__device__ __forceinline__ float scale1(const unsigned char* p,
+                                        __nv_bfloat16) {
+  return __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(p));
 }
 // two neighbouring outputs of a row at p (x's dtype), after the residual
 __device__ __forceinline__ void store2(float* p, float v0, float v1,
@@ -679,12 +730,14 @@ __global__ void __launch_bounds__(PF_THREADS, 1)
 }
 
 // The wide mode.  XT: x's (and the output's and residual's) dtype, which
-// sets the planes (f32 three, bf16 one); ST: the scales'.  tm_x maps the
-// (T, planes x I) bf16 planes (plane q of row t at columns q I ..), or a
-// bf16 x read in place.  Grid (ceil(O / PF_COLS), ceil(T / PFW_ROWS),
-// splits); PF_THREADS threads; pfw_smem(planes) bytes of dynamic shared
-// memory.  partial non-null: write the split's f32 partials (res unused).
-template <typename XT, typename ST>
+// sets the planes (f32 three, bf16 one); ST: the scales'; WT: the weight's
+// (int8_t, or int16_t: INT16's two planes).  tm_x maps the (T, planes x I)
+// bf16 planes (plane q of row t at columns q I ..), or a bf16 x read in
+// place; tm_w the weight in boxes of 128 (int16: 64) columns x 64 rows.
+// Grid (ceil(O / PF_COLS), ceil(T / PFW_ROWS), splits); PF_THREADS
+// threads; pfw_smem(planes, sizeof(WT)) bytes of dynamic shared memory.
+// partial non-null: write the split's f32 partials (res unused).
+template <typename XT, typename ST, typename WT>
 __global__ void __launch_bounds__(PF_THREADS, 1)
     qmm_wgmma_wide_kernel(const __grid_constant__ CUtensorMap tm_x,
                           const __grid_constant__ CUtensorMap tm_w,
@@ -693,10 +746,12 @@ __global__ void __launch_bounds__(PF_THREADS, 1)
                           float* __restrict__ partial, int T, int I, int O,
                           int gs, int k_per_split) {
   extern __shared__ unsigned char pf_smem_raw[];
-  constexpr int NPL = pfw_planes(sizeof(XT) == 4), NS = pfw_stages(NPL);
+  constexpr int WB = sizeof(WT);       // bytes a weight
+  constexpr int NPL = pfw_planes(sizeof(XT) == 4), NS = pfw_stages(NPL, WB);
   constexpr int KS = PFW_KS, NP = 2;   // W rows, parts a stage
-  constexpr int STAGE = pfw_stage_bytes(NPL);
-  constexpr int XOFF = KS * PF_COLS, SOFF = XOFF + NP * NPL * PFW_X_BOX;
+  constexpr int STAGE = pfw_stage_bytes(NPL, WB);
+  constexpr int WBOX = KS * 128;       // bytes of a W box (128-byte rows)
+  constexpr int XOFF = WB * WBOX, SOFF = XOFF + NP * NPL * PFW_X_BOX;
   __shared__ __align__(8) uint64_t full[NS], empty[NS];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(pf_smem_raw) + 1023) & ~uintptr_t(1023));
@@ -719,7 +774,11 @@ __global__ void __launch_bounds__(PF_THREADS, 1)
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
         PF_PRODUCER_REGS));
     if (warp == 8 && lane == 0) {
-      constexpr uint32_t TX = SOFF + PF_COLS * sizeof(ST);
+      // INT16: the second W box (columns o0 + 64 ..) is not asked for
+      // where it lies wholly past O; its consumer's outputs are not stored
+      const bool box2 = WB == 2 && o0 + 64 < O;
+      const uint32_t TX = SOFF + PF_COLS * sizeof(ST) -
+                          (WB == 2 && !box2 ? WBOX : 0);
       for (int i = 0; i < nst; ++i) {
         const int s = i % NS;
         if (i >= NS) mbar_wait(&empty[s], ((i / NS) - 1) & 1);
@@ -727,6 +786,7 @@ __global__ void __launch_bounds__(PF_THREADS, 1)
         const int kr = kbeg + i * KS;   // the stage's first W row
         mbar_expect_tx(&full[s], TX);
         tma_load(st, &tm_w, &full[s], o0, kr);
+        if (box2) tma_load(st + WBOX, &tm_w, &full[s], o0 + 64, kr);
 #pragma unroll
         for (int p = 0; p < NP; ++p)
 #pragma unroll
@@ -745,6 +805,9 @@ __global__ void __launch_bounds__(PF_THREADS, 1)
       PF_CONSUMER_REGS));
   const int wg = warp / 4, wq = warp % 4, g = lane / 4, t4 = lane % 4;
   const int col = PF_WG_COLS * wg + 16 * wq;
+  // the thread's logical row g + 8 h (its accumulators' column): col + 2 g
+  // + h at int8, col + g + 8 h at int16
+  const int c0 = WB == 2 ? col + g : col + 2 * g, dc = WB == 2 ? 8 : 1;
   float acc[64], pa[64];              // the accumulators, the partial
 #pragma unroll
   for (int j = 0; j < 64; ++j) {
@@ -752,7 +815,7 @@ __global__ void __launch_bounds__(PF_THREADS, 1)
     reg_fence(acc[j]);
     reg_fence(pa[j]);
   }
-  // acc += pt * the scales sv of the thread's columns col + 2 g + h
+  // acc += pt * the scales sv of the thread's columns c0 + dc h
   // (accumulator register 4 j + 2 h + c), once pt's MMAs have retired
   auto fold = [&](float (&pt)[64], const float (&sv)[2]) {
 #pragma unroll
@@ -771,28 +834,48 @@ __global__ void __launch_bounds__(PF_THREADS, 1)
   };
   bool held = false;     // the stage before is held: its MMAs may run
   float sp[2] = {0.0f, 0.0f};   // the scales of the partial to fold
-  uint32_t a[NP][2][4];  // [part][k16 step][register]
+  // [part][k16 step][register]: int8's exact integers, or INT16's lo plane
+  // (a) and hi plane (ah)
+  uint32_t a[NP][2][4], ah[WB == 2 ? NP : 1][2][4];
   // the A fragments of stage st's part p, and their fence
   auto fragments = [&](const unsigned char* st, int p) {
-    uint32_t r[4];
-    const int wr = 32 * p + lane;     // lane l gives the part's W row l
-    ldsm_x4_t(r, st + wr * 128 + (((col >> 4) ^ (wr & 7)) << 4));
-    deq8_exact(a[p], r);
+    if constexpr (WB == 2) {
+      // one ldmatrix a k16 step: lane l gives row 16 ks + 8 (l >> 4) +
+      // (l & 7) of the part at the 16-byte chunk 2 wq + ((l >> 3) & 1) of
+      // its warpgroup's box
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        uint32_t r[4];
+        const int wr = 32 * p + 16 * ks + 8 * (lane >> 4) + (lane & 7);
+        const int ch = 2 * wq + ((lane >> 3) & 1);
+        ldsm_x4_t(r, st + wg * WBOX + wr * 128 + ((ch ^ (wr & 7)) << 4));
+        deq16_exact(a[p][ks], ah[p][ks], r);
+      }
+      reg_fence(ah[p]);
+    } else {
+      uint32_t r[4];
+      const int wr = 32 * p + lane;   // lane l gives the part's W row l
+      ldsm_x4_t(r, st + wr * 128 + (((col >> 4) ^ (wr & 7)) << 4));
+      deq8_exact(a[p], r);
+    }
     reg_fence(a[p]);
     wgmma_fence();
   };
-  // part p's wgmma of stage st into cur, planes lo, mid, hi; fresh: the
-  // first starts the partial (scale-d 0)
+  // part p's wgmma of stage st into cur, planes lo, mid, hi (INT16: each
+  // on the lo then the hi weight plane); fresh: the first starts the
+  // partial (scale-d 0)
   auto mmas = [&](float (&cur)[64], const unsigned char* st, int p,
                   bool fresh) {
 #pragma unroll
     for (int ks = 0; ks < 2; ++ks)
 #pragma unroll
-      for (int q = NPL - 1; q >= 0; --q)
-        wgmma_rs128(cur, a[p][ks],
-                    desc_sw64(st + XOFF + (p * NPL + q) * PFW_X_BOX +
-                              32 * ks),
+      for (int q = NPL - 1; q >= 0; --q) {
+        const uint64_t d =
+            desc_sw64(st + XOFF + (p * NPL + q) * PFW_X_BOX + 32 * ks);
+        wgmma_rs128(cur, a[p][ks], d,
                     fresh && ks == 0 && q == NPL - 1 ? 0 : 1);
+        if constexpr (WB == 2) wgmma_rs128(cur, ah[p][ks], d, 1);
+      }
     wgmma_commit();
   };
   // after part 0's commit and wait: the part before, the stage before's
@@ -818,7 +901,12 @@ __global__ void __launch_bounds__(PF_THREADS, 1)
     }
     fresh = group_end(i);
     if (fresh) {                    // fold after a drain, release
-      scales2(sp, st + SOFF + (col + 2 * g) * sizeof(ST), ST());
+      if constexpr (WB == 2) {
+        sp[0] = scale1(st + SOFF + c0 * sizeof(ST), ST());
+        sp[1] = scale1(st + SOFF + (c0 + 8) * sizeof(ST), ST());
+      } else {
+        scales2(sp, st + SOFF + c0 * sizeof(ST), ST());
+      }
       wgmma_wait<0>();
       fold(pa, sp);
       release(i);
@@ -830,10 +918,10 @@ __global__ void __launch_bounds__(PF_THREADS, 1)
   // every MMA retired before the epilogue reuses the partial's registers
   wgmma_wait<0>();
 
-  // accumulator register 4 j + 2 h + c: the column col + 2 g + h and row
+  // accumulator register 4 j + 2 h + c: the column c0 + dc h and row
   // 8 j + 2 t4 + c of x
-  const int o = o0 + col + 2 * g;
-  if (o < O) {                            // O % 2 == 0: both or none
+  const int o = o0 + c0;
+  if (o0 + col < O) {                     // O % 16 == 0: the warp's 16
 #pragma unroll
     for (int j = 0; j < 16; ++j)
 #pragma unroll
@@ -841,12 +929,23 @@ __global__ void __launch_bounds__(PF_THREADS, 1)
         const int t = t0 + 8 * j + 2 * t4 + c;
         if (t >= T) continue;
         const size_t e = (size_t)t * O + o;
-        if (partial != nullptr)
+        if constexpr (WB == 2) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const size_t eh = e + dc * h;
+            const float v = acc[4 * j + 2 * h + c];
+            if (partial != nullptr)
+              partial[(size_t)blockIdx.z * T * O + eh] = v;
+            else
+              out[eh] = from_f<XT>(res != nullptr ? to_f(res[eh]) + v : v);
+          }
+        } else if (partial != nullptr) {
           store2(partial + (size_t)blockIdx.z * T * O + e, acc[4 * j + c],
                  acc[4 * j + 2 + c], static_cast<const float*>(nullptr));
-        else
+        } else {
           store2(out + e, acc[4 * j + c], acc[4 * j + 2 + c],
                  res != nullptr ? res + e : nullptr);
+        }
       }
   }
 }
@@ -1047,19 +1146,22 @@ int launch_t(const __nv_bfloat16* xsrc, const int8_t* w, const void* s,
   return reduce_splits<XT>(partial, rp, op, T, O, splits, st);
 }
 
-template <typename XT, typename ST>
-int launch_wide_t(const __nv_bfloat16* xsrc, const int8_t* w, const void* s,
+template <typename XT, typename ST, typename WT>
+int launch_wide_t(const __nv_bfloat16* xsrc, const void* w, const void* s,
                   const void* res, void* out, float* partial, int T, int I,
                   int O, int gs, int splits, int k_per_split,
                   cudaStream_t st) {
-  constexpr int npl = pfw_planes(sizeof(XT) == 4);
+  constexpr int npl = pfw_planes(sizeof(XT) == 4), wb = sizeof(WT);
   CUtensorMap tx, tw, ts;
   int e = make_map(&tx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, xsrc,
                    (uint64_t)npl * I, T, (uint64_t)npl * I * 2, PF_XK,
                    PFW_ROWS, CU_TENSOR_MAP_SWIZZLE_64B);
+  // W boxes of 128-byte rows: 128 int8 or 64 int16 columns
   if (e == 0)
-    e = make_map(&tw, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, O, I, (uint64_t)O,
-                 128, PFW_KS, CU_TENSOR_MAP_SWIZZLE_128B);
+    e = make_map(&tw, wb == 2 ? CU_TENSOR_MAP_DATA_TYPE_UINT16
+                              : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                 w, O, I, (uint64_t)O * wb, 128 / wb, PFW_KS,
+                 CU_TENSOR_MAP_SWIZZLE_128B);
   if (e == 0)
     e = make_map(&ts,
                  sizeof(ST) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
@@ -1067,22 +1169,22 @@ int launch_wide_t(const __nv_bfloat16* xsrc, const int8_t* w, const void* s,
                  s, O, I / gs, (uint64_t)O * sizeof(ST), PF_COLS, 1,
                  CU_TENSOR_MAP_SWIZZLE_NONE);
   if (e != 0) return e;
-  constexpr int smem = pfw_smem(npl);
+  constexpr int smem = pfw_smem(npl, wb);
   static bool allowed = false;
-  e = allow_smem(qmm_wgmma_wide_kernel<XT, ST>, smem, allowed);
+  e = allow_smem(qmm_wgmma_wide_kernel<XT, ST, WT>, smem, allowed);
   if (e != 0) return e;
   const dim3 grid((O + PF_COLS - 1) / PF_COLS, (T + PFW_ROWS - 1) / PFW_ROWS,
                   splits);
   const XT* rp = static_cast<const XT*>(res);
   XT* op = static_cast<XT*>(out);
-  qmm_wgmma_wide_kernel<XT, ST><<<grid, PF_THREADS, smem, st>>>(
+  qmm_wgmma_wide_kernel<XT, ST, WT><<<grid, PF_THREADS, smem, st>>>(
       tx, tw, ts, splits > 1 ? nullptr : rp, op,
       splits > 1 ? partial : nullptr, T, I, O, gs, k_per_split);
   return reduce_splits<XT>(partial, rp, op, T, O, splits, st);
 }
 
 // dtype codes shared with ops/kernels/qmm.py
-enum { DT_F32 = 0, DT_BF16 = 1 };
+enum { DT_F32 = 0, DT_BF16 = 1, DT_I8 = 2, DT_I16 = 3 };
 
 bool misaligned(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 != 0;
@@ -1158,8 +1260,8 @@ extern "C" int qmm_prefill_launch(const void* x, const void* w, const void* s,
 }
 
 // The wide mode (qmm_wgmma_wide_kernel): out (T, O) in x's dtype, at f32
-// compute.  x (T, I) f32/bf16; w int8 (I, O) (INT8, or INT4 held in int8);
-// scales (I/gs, O) f32/bf16; gs % 64 == 0; O % 16 == 0, x, w, s and res
+// compute or on an INT16 weight.  x (T, I) f32/bf16; w (I, O) int8 (INT8,
+// or INT4 held in int8; w_dt 2) or int16 (INT16; w_dt 3); scales (I/gs, O) f32/bf16; gs % 64 == 0; O % 16 == 0, x, w, s and res
 // 16-byte aligned.  gain (I,) f32 or null (the rmsnorm prologue with eps),
 // res (T, O) in x's dtype or null (the residual epilogue).  xb: (T, planes
 // x I) bf16 scratch that the pre-pass fills (planes 3 for f32 x, 1 for
@@ -1173,7 +1275,7 @@ extern "C" int qmm_prefill_wide_launch(const void* x, const void* w,
                                        void* partial, void* xb, int T, int I,
                                        int O, int gs, int splits,
                                        int k_per_split, int x_dt, int s_dt,
-                                       void* stream) {
+                                       int w_dt, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool conv = x_dt == DT_F32 || gain != nullptr;
   if (T < 1 || I < 1 || O < 16 || gs < 64 || gs % 64 || O % 16 || I % gs ||
@@ -1182,6 +1284,7 @@ extern "C" int qmm_prefill_wide_launch(const void* x, const void* w,
       (x_dt != DT_F32 && x_dt != DT_BF16) ||
       (s_dt != DT_F32 && s_dt != DT_BF16) || misaligned(x) || misaligned(w) ||
       misaligned(s) || misaligned(res) || misaligned(xb) ||
+      (w_dt != DT_I8 && w_dt != DT_I16) ||
       (conv != (xb != nullptr)) || (splits > 1 && partial == nullptr))
     return (int)cudaErrorInvalidValue;
   const __nv_bfloat16* xsrc = static_cast<const __nv_bfloat16*>(x);
@@ -1192,17 +1295,20 @@ extern "C" int qmm_prefill_wide_launch(const void* x, const void* w,
     if (e != 0) return e;
     xsrc = static_cast<const __nv_bfloat16*>(xb);
   }
-  const int8_t* wp = static_cast<const int8_t*>(w);
   float* part = static_cast<float*>(partial);
-#define PFW_CALL(XT, ST)                                                      \
-  return launch_wide_t<XT, ST>(xsrc, wp, s, res, out, part, T, I, O, gs,     \
-                               splits, k_per_split, st)
+#define PFW_CALL(XT, ST, WT)                                                  \
+  return launch_wide_t<XT, ST, WT>(xsrc, w, s, res, out, part, T, I, O, gs,  \
+                                   splits, k_per_split, st)
+#define PFW_W(XT, ST)                                                         \
+  if (w_dt == DT_I16) PFW_CALL(XT, ST, int16_t);                              \
+  PFW_CALL(XT, ST, int8_t)
   if (x_dt == DT_F32) {
-    if (s_dt == DT_F32) PFW_CALL(float, float);
-    PFW_CALL(float, __nv_bfloat16);
+    if (s_dt == DT_F32) { PFW_W(float, float); }
+    PFW_W(float, __nv_bfloat16);
   }
-  if (s_dt == DT_F32) PFW_CALL(__nv_bfloat16, float);
-  PFW_CALL(__nv_bfloat16, __nv_bfloat16);
+  if (s_dt == DT_F32) { PFW_W(__nv_bfloat16, float); }
+  PFW_W(__nv_bfloat16, __nv_bfloat16);
+#undef PFW_W
 #undef PFW_CALL
 }
 

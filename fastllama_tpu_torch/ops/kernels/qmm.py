@@ -51,12 +51,14 @@ differs.
 
 The wide mode (f32 compute, or INT16; :func:`is_wide`) replaces the JAX
 wide kernel (f32 dequant and a ``Precision.HIGHEST`` dot, qmm.py:62-74).
-Its calls with an int8-held weight (INT8, or INT4 that did not pack), a
-group size that is a multiple of 64, 16-byte aligned rows and a residual,
-if any, at a 16-byte aligned address take one of two kernels that compute
-it on bf16 tensor cores: the exact integers times x split into three bf16
-planes (hi, mid, lo: f32's 24-bit significand; one plane for a bf16 x),
-each group's partial times its f32 scale.  Up to 128 rows the ring's wide
+Its calls with a group size that is a multiple of 64, 16-byte aligned rows
+and a residual, if any, at a 16-byte aligned address take one of two
+kernels that compute it on bf16 tensor cores: the exact integers times x
+split into three bf16 planes (hi, mid, lo: f32's 24-bit significand; one
+plane for a bf16 x), each group's partial times its f32 scale.  An int16
+weight is two exact bf16 planes, ``w = 256 * (w >> 8) + (w & 0xFF)``
+(:func:`int16_planes`), both multiplied into the same partial: two passes
+on bf16 x, six on f32 x.  Up to 128 rows the ring's wide
 instantiation (``qmm_pipe_wide_kernel``, :func:`wide_kernel` ``"pipe"``;
 ``tests/test_torch_wide_pipe.py`` emulates it against the Pallas wide
 kernel); above, the prefill mode's wide kernel (``qmm_wgmma_wide_kernel``
@@ -65,8 +67,8 @@ f32 compute and K1f's glue on a long single-stream block; a pre-pass
 writes the planes once a call, TMA brings them and the raw weight into a
 ring, the exact integers are ``wgmma``'s register A operand;
 :func:`wide_prefill_plan`; ``tests/test_torch_wide_prefill.py``).  The
-rest (INT16, other group sizes, unaligned rows, an offset residual) stays
-on ``qmm_f32_kernel`` (``"f32"``).  A groupdot call that is wide takes
+rest (other group sizes, unaligned rows, an offset residual) stays on
+``qmm_f32_kernel`` (``"f32"``).  A groupdot call that is wide takes
 the same kernel as the standard one.
 
 The prefill mode (``qmm_wgmma_kernel`` in ``csrc/qmm_prefill.cu``, its
@@ -229,6 +231,11 @@ def split_plan(T: int, I: int, O: int, w: QArray, compute_dtype,
 PIPE_MAX_T = 128           # the pipelined mode's largest row count
 PIPE_COLS = 128            # output columns of a pipelined block
 PIPE_ROWS = (16, 48, 64, 128)  # the row tiles
+PIPE_STAGES = 3            # the ring's depth (qmm.cu's PK_NS)
+# the wide ring's depth at 48 rows, by weight bytes (qmm.cu's
+# QMM_WIDE_STAGES48 and QMM_WIDE16_STAGES48)
+WIDE_PIPE_STAGES48 = {1: 2, 2: 2}
+PIPE_X_COLS = 64           # x columns a stage (qmm.cu's PK_X)
 
 
 def qmm_mode(x: torch.Tensor, w: QArray, compute_dtype=torch.bfloat16,
@@ -280,22 +287,31 @@ def groupdot_kernel(x: torch.Tensor, w: QArray,
 def wide_kernel(x: torch.Tensor, w: QArray, compute_dtype=torch.float32,
                 residual=None) -> str:
     """The kernel of a wide call (:func:`qmm_mode` ``"wide"``), for an
-    int8-held weight (INT8, or INT4 that did not pack; INT16 overflows
-    bf16), a group size that is a multiple of 64, 16-byte aligned rows and
-    a ``residual``, if any, at a 16-byte aligned address: ``"pipe"``, the
-    wide instantiation of ``qmm_pipe_kernel``'s ring, for T <= 128;
-    ``"prefill"``, ``qmm_wgmma_wide_kernel``, above (prefill waves, a long
-    K1f block).  Else ``"f32"``, ``qmm_f32_kernel`` (INT16, gs of 16 or
-    32, O = 1000, an offset residual...).  A packed weight has no wide
-    path, and a call that is not wide takes another mode: ValueError."""
+    int8-held weight (INT8, or INT4 that did not pack) or an int16 one
+    (INT16, as two bf16 planes), a group size that is a multiple of 64,
+    16-byte aligned rows and a ``residual``, if any, at a 16-byte aligned
+    address: ``"pipe"``, the wide instantiation of ``qmm_pipe_kernel``'s
+    ring, for T <= 128; ``"prefill"``, ``qmm_wgmma_wide_kernel``, above
+    (prefill waves, a long K1f block).  Else ``"f32"``, ``qmm_f32_kernel``
+    (gs of 16 or 32, O = 1000, an offset residual...).  A packed weight
+    has no wide path, and a call that is not wide takes another mode:
+    ValueError."""
     if w.packed or not is_wide(w, compute_dtype):
         raise ValueError("not a wide call: a packed weight or a non-wide "
                          "compute dtype takes another mode")
-    if (w.data.dtype == torch.int8 and w.group_size % 64 == 0
-            and _vec_ok(x, w)
+    if (w.group_size % 64 == 0 and _vec_ok(x, w)
             and (residual is None or residual.data_ptr() % 16 == 0)):
         return "pipe" if x.shape[0] <= PIPE_MAX_T else "prefill"
     return "f32"
+
+
+def int16_planes(data: torch.Tensor):
+    """The wide kernels' two planes of an int16 weight, ``(hi, lo)`` with
+    ``data == 256 * hi + lo``: ``hi = data >> 8`` (arithmetic shift, the
+    signed high byte) and ``lo = data & 0xFF`` (the unsigned low byte).  Each
+    of ``lo`` and ``256 * hi`` is exact in bf16 (at most 8 significant
+    bits)."""
+    return data >> 8, data & 0xFF
 
 
 def prefill_kernel(x: torch.Tensor, w: QArray,
@@ -401,6 +417,28 @@ def pipe_plan(T: int, I: int, O: int, packed: bool, *, resident: int,
     return PipePlan(rows, warps, PIPE_COLS, splits, kps, kstep)
 
 
+def pipe_smem(rows: int, warps: int, x_f32: bool, s_f32: bool,
+              conv: bool, wide: bool = False, w_bytes: int = 1) -> dict:
+    """The shared memory of a ring block (mirrors ``pipe_smem`` and
+    ``pipe_allow_smem`` in ``csrc/qmm.cu``), unpacked weights: ``stages``
+    slots of ``stage_bytes`` (64 W rows of ``w_bytes``-byte weights at a
+    pitch of ``w_bytes * 128 + 16``, the x tile of ``rows`` rows at its row
+    + 16, the scale row), the bf16 x planes when x is converted (``conv``:
+    f32 x or the norm; three planes in the wide mode on f32 x), ``smem`` in
+    all and the ``static`` arrays beside it.  ``wide``: the wide ring
+    (int8-held or, ``w_bytes=2``, INT16)."""
+    xs, ss = (4 if x_f32 else 2), (4 if s_f32 else 2)
+    stage = 64 * (w_bytes * PIPE_COLS + 16) + rows * (PIPE_X_COLS * xs + 16) \
+        + PIPE_COLS * ss
+    stages = (WIDE_PIPE_STAGES48[w_bytes] if wide and rows == 48
+              else PIPE_STAGES)
+    planes = 3 if wide and x_f32 else 1
+    smem = stages * stage + (planes * rows * (PIPE_X_COLS * 2 + 16)
+                             if conv else 0)
+    return {"stages": stages, "stage_bytes": stage, "smem": smem,
+            "static": 4 * rows * (1 + warps)}
+
+
 def _explicit_split(k_rows: int, kstep: int, splits):
     """(splits, k_per_split) of an explicit split count: a positive int that
     leaves no split empty, else ValueError."""
@@ -449,6 +487,7 @@ class PrefillPlan:
     tx_bytes: int
     x_planes: int = 1
     x_boxes: int = 2
+    w_boxes: int = 1
 
 
 def prefill_plan(T: int, I: int, O: int, packed: bool,
@@ -502,25 +541,27 @@ def _prefill_splits(tiles: int, k_rows: int, kstep: int, splits,
 
 def wide_prefill_plan(T: int, I: int, O: int, x_f32: bool = True,
                       scale_bytes: int = 4, splits=None,
-                      n_sm: int = 132) -> PrefillPlan:
+                      n_sm: int = 132, w_bytes: int = 1) -> PrefillPlan:
     """The launch of the wide mode's prefill kernel
-    (``qmm_wgmma_wide_kernel``) on a (T, I) x (I, O) int8-held product, T >
-    128: 128 columns x 128 rows a block; a stage of 64 W rows holds the W
-    box, two 32-column x boxes a plane of x (three planes for f32 x,
-    ``x_f32``; one for bf16) and the group's scale row (``scale_bytes`` 4
-    f32, 2 bf16); as many stages as fit a block's shared memory, up to 8;
-    the split rule of :func:`prefill_plan`.  Mirrors the constants of
+    (``qmm_wgmma_wide_kernel``) on a (T, I) x (I, O) int8-held product
+    (``w_bytes=2``: int16), T > 128: 128 columns x 128 rows a block; a
+    stage of 64 W rows holds the W box (int16: two boxes of 64 columns, one
+    a consumer warpgroup; 128-byte rows either way), two 32-column x boxes
+    a plane of x (three planes for f32 x, ``x_f32``; one for bf16) and the
+    group's scale row (``scale_bytes`` 4 f32, 2 bf16); as many stages as
+    fit a block's shared memory, up to 8; the split rule of
+    :func:`prefill_plan`.  Mirrors the constants of
     ``csrc/qmm_prefill.cu``."""
     if T <= PIPE_MAX_T:
         raise ValueError(f"the prefill mode takes T > {PIPE_MAX_T}, not {T}")
     kstep, planes = WIDE_PREFILL_KSTEP, 3 if x_f32 else 1
     tiles = -(-O // PREFILL_COLS) * -(-T // WIDE_PREFILL_ROWS)
     splits, kps = _prefill_splits(tiles, I, kstep, splits, n_sm)
-    w_box = (PREFILL_COLS, kstep)
+    w_box = (PREFILL_COLS // w_bytes, kstep)
     x_box = (PREFILL_XK, WIDE_PREFILL_ROWS)
     s_box = (PREFILL_COLS, 1)
     x_boxes = kstep // PREFILL_XK * planes
-    boxes = w_box[0] * w_box[1] + x_boxes * x_box[0] * x_box[1] * 2
+    boxes = w_bytes * PREFILL_COLS * kstep + x_boxes * x_box[0] * x_box[1] * 2
     stage_bytes = boxes + 1024            # the scale row in a 1 KB slot
     stages = min(WIDE_PREFILL_MAX_STAGES,
                  (PREFILL_SMEM_BLOCK - 1024) // (stage_bytes + 16))
@@ -531,7 +572,7 @@ def wide_prefill_plan(T: int, I: int, O: int, x_f32: bool = True,
         stage_bytes=stage_bytes, smem=stages * stage_bytes + 1024,
         static_smem=16 * stages, w_box=w_box, x_box=x_box, s_box=s_box,
         tx_bytes=boxes + s_box[0] * scale_bytes, x_planes=planes,
-        x_boxes=x_boxes)
+        x_boxes=x_boxes, w_boxes=w_bytes)
 
 
 def _vec_ok(x: torch.Tensor, w: QArray) -> bool:
@@ -571,16 +612,24 @@ def _check_args(x: torch.Tensor, w: QArray) -> None:
 
 
 _RESIDENT = {}              # (library, device, launch kind) -> blocks an SM
-# the ring's instantiations (qmm_pipe_launch's mode codes)
-PIPE_STD, PIPE_GD, PIPE_WIDE = 0, 1, 2
+# the ring's instantiations (qmm_pipe_launch's mode codes): standard,
+# groupdot, wide on an int8-held weight, wide on an int16 weight
+PIPE_STD, PIPE_GD, PIPE_WIDE, PIPE_WIDE16 = 0, 1, 2, 3
+
+
+def wide_pipe_mode(w: QArray) -> int:
+    """The wide ring's instantiation for ``w``: ``PIPE_WIDE16`` on an
+    int16 weight, else ``PIPE_WIDE``."""
+    return PIPE_WIDE16 if w.data.dtype == torch.int16 else PIPE_WIDE
 
 
 def _pipe_resident(x: torch.Tensor, w: QArray, rows: int, warps: int,
                    conv: bool, pmode: int = PIPE_STD, lib=None) -> int:
-    """Blocks of the pipelined instantiation (``pmode``: standard, groupdot
-    or wide) an SM of x's card holds at once, asked of the CUDA runtime
-    once a library, device and kind of launch (``lib``: another build of
-    ``qmm.cu``, for the design tools; None the package's)."""
+    """Blocks of the pipelined instantiation (``pmode``: standard, groupdot,
+    wide or wide on int16) an SM of x's card holds at once, asked of the
+    CUDA runtime once a library, device and kind of launch (``lib``:
+    another build of ``qmm.cu``, for the design tools; None the
+    package's)."""
     lib = lib or _build.load("qmm")
     key = (lib._name, x.device.index, w.packed, rows, warps, pmode, x.dtype,
            w.scales.dtype, conv)
@@ -601,8 +650,9 @@ def _launch_pipe(x: torch.Tensor, w: QArray, gain, residual, eps: float,
                  splits, pmode: int = PIPE_STD, lib=None) -> torch.Tensor:
     """The pipelined mode (``pmode``: ``PIPE_GD`` its groupdot
     instantiation, plain form only: no gain, no residual; ``PIPE_WIDE`` its
-    wide one, glue and all, not packed), from ``lib`` (another build of
-    ``qmm.cu``; None the package's)."""
+    wide one, glue and all, not packed; ``PIPE_WIDE16`` the wide one on an
+    int16 weight), from ``lib`` (another build of ``qmm.cu``; None the
+    package's)."""
     lib = lib or _build.load("qmm")
     T, I = x.shape
     O = w.data.shape[1]
@@ -642,7 +692,7 @@ def _launch_prefill(x: torch.Tensor, w: QArray, gain, residual,
     n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
     ssz = w.scales.element_size()
     plan = (wide_prefill_plan(T, I, O, x.dtype == torch.float32, ssz,
-                              splits, n_sm) if wide else
+                              splits, n_sm, w.data.element_size()) if wide else
             prefill_plan(T, I, O, w.packed, ssz, splits, n_sm))
     out = torch.empty((T, O), dtype=x.dtype, device=x.device)
     partial = (torch.empty((plan.splits, T, O), dtype=torch.float32,
@@ -653,15 +703,15 @@ def _launch_prefill(x: torch.Tensor, w: QArray, gain, residual,
     name = "qmm_prefill_wide_launch" if wide else "qmm_prefill_launch"
     fn = getattr(lib, name)
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_float] \
-        + [ctypes.c_void_p] * 3 + [ctypes.c_int] * (8 if wide else 9) \
-        + [ctypes.c_void_p]
+        + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    args = [_build.ptr(x), _build.ptr(w.data), _build.ptr(w.scales),
+    rc = fn(_build.ptr(x), _build.ptr(w.data), _build.ptr(w.scales),
             _build.ptr(gain), _build.ptr(residual), eps, _build.ptr(out),
             _build.ptr(partial), _build.ptr(xb), T, I, O, w.group_size,
             plan.splits, plan.k_per_split, _DT[x.dtype],
-            _DT[w.scales.dtype]]
-    rc = fn(*args, *([] if wide else [int(w.packed)]), _build.stream_of(x))
+            _DT[w.scales.dtype],
+            _DT[w.data.dtype] if wide else int(w.packed),
+            _build.stream_of(x))
     _build.check(rc, name)
     return out
 
@@ -701,7 +751,8 @@ def _launch(x: torch.Tensor, w: QArray, compute_dtype, gain=None,
         return _launch_pipe(x, w, gain, residual, eps, splits,
                             PIPE_GD if gd else PIPE_STD)
     if mode == "wide_pipe":
-        return _launch_pipe(x, w, gain, residual, eps, splits, PIPE_WIDE)
+        return _launch_pipe(x, w, gain, residual, eps, splits,
+                            wide_pipe_mode(w))
     T, I = x.shape
     O = w.data.shape[1]
     wide = is_wide(w, compute_dtype)

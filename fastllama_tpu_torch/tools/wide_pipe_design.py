@@ -6,20 +6,27 @@ Builds ``qmm.cu`` once for each variant of its tuning macros
 and the least blocks an SM at 48 rows;
 ``QMM_WIDE_PLANES``, the planes of f32 x multiplied: fewer than 3 is a
 diagnostic of what the passes cost, which misses the reference's
-accuracy and is not held to it), every ``nvcc`` started together, into
+accuracy and is not held to it; with ``--quant int16`` the INT16
+instantiation's ``QMM_WIDE16_STAGES48``, ``QMM_WIDE16_MIN_BLOCKS48`` and
+``QMM_WIDE16_SPLIT48``, one or two passes over x's planes a k-step at
+48 rows,
+``VARIANTS16``), every ``nvcc`` started together, into
 ``build/wide_pipe_design/<variant>/``, and times the variants at the
-readings of ``chip_smoke.py``'s phase 5 (f32 x and compute, INT8, f32
-scales: one 7B layer's four projections at T=48, 1 and 128, layers
-rotating over 4 so every launch finds its weight cold in L2, and the
-classifier at T=48), in turns, beside the kernel the wrapper runs
-(``build``) and ``qmm_f32_kernel`` on the same calls (``f32_kernel``).
+readings of ``chip_smoke.py``'s phase 5 (INT8: f32 x and compute, f32
+scales; INT16: bf16 x and compute as the engines call it, f32 scales,
+and a reading on f32 x at T=48: one 7B layer's four projections at T=48,
+1 and 128, layers rotating over 4 so every launch finds its weight cold
+in L2, and the classifier at T=48), in turns, beside the kernel the
+wrapper runs (``build``) and ``qmm_f32_kernel`` on the same calls
+(``f32_kernel``).
 Every variant's output but a diagnostic one's is held against the plain
 version (1e-4 x max|ref|) before it is timed (a diagnostic's error is
 recorded), and each build's registers and spills of the wide
 instantiations are reported.
 
 Run on the card:  python3 -m fastllama_tpu_torch.tools.wide_pipe_design
-Options: ``--variants base,ns3`` (default: all of ``VARIANTS``), ``--Ts
+Options: ``--quant int16`` (default int8), ``--variants base,ns3``
+(default: all of ``VARIANTS``, or ``VARIANTS16`` at INT16), ``--Ts
 48,1,128``, ``--iters N`` (timed calls a reading, default 20), ``--out
 FILE`` (the JSON record, also printed on stdout).  Progress goes to
 stderr.
@@ -56,9 +63,30 @@ VARIANTS = {
 }
 
 
+# the INT16 instantiation's macros and variants (the other macros at the
+# source's defaults)
+MACROS16 = ("QMM_WIDE16_STAGES48", "QMM_WIDE16_MIN_BLOCKS48",
+            "QMM_WIDE16_SPLIT48")
+VARIANTS16 = {
+    "w16_base": (2, 3, 1),       # the source's defaults: two passes
+    "w16_ns3_min3": (3, 3, 1),   # three stages, 3 blocks an SM (bf16 x)
+    "w16_ns3_min2": (3, 2, 1),   # three stages, 2 blocks
+    "w16_one_pass": (3, 2, 0),   # both weight planes in one pass
+    "w16_one_pass_ns3_min3": (3, 3, 0),   # (spills 16 bytes)
+    "w16_one_pass_ns2_min3": (2, 3, 0),   # (spills 20 bytes)
+}
+
+
 def diagnostic(name: str) -> bool:
     """A variant that multiplies fewer than three planes of x."""
-    return VARIANTS[name][2] < 3
+    return name in VARIANTS and VARIANTS[name][2] < 3
+
+
+def macro_flags(name: str) -> list:
+    """The ``-D`` flags of a variant of ``VARIANTS`` or ``VARIANTS16``."""
+    pairs = (zip(MACROS, VARIANTS[name]) if name in VARIANTS
+             else zip(MACROS16, VARIANTS16[name]))
+    return [f"-D{m}={v}" for m, v in pairs]
 
 
 # one 7B layer's projections (I, O), and the classifier
@@ -80,8 +108,7 @@ def build_variants(names):
         out = OUT_DIR / name
         out.mkdir(parents=True, exist_ok=True)
         procs[name] = subprocess.Popen(
-            [_build.nvcc(), *_build.NVCC_FLAGS,
-             *(f"-D{m}={v}" for m, v in zip(MACROS, VARIANTS[name])),
+            [_build.nvcc(), *_build.NVCC_FLAGS, *macro_flags(name),
              "-o", str(out / "libqmm.so"), str(SOURCE)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     _build.build()
@@ -123,6 +150,17 @@ def rand_int8(gen, shape, dev) -> QArray:
     return QArray(data, s, QuantType.INT8, 64, group_axis=-2)
 
 
+def rand_int16(gen, shape, dev) -> QArray:
+    """(…, I, O) INT16 weight of random values in [-5792, 5792] and random
+    positive f32 group scales, 64 rows a group."""
+    qf = QuantType.INT16.factor
+    data = torch.empty(shape, dtype=QDTYPE[QuantType.INT16], device=dev)
+    data.random_(-qf, qf + 1, generator=gen)
+    sshape = (*shape[:-2], shape[-2] // 64, shape[-1])
+    s = (torch.rand(sshape, generator=gen, device=dev) + 0.5) * (0.02 / qf)
+    return QArray(data, s, QuantType.INT16, 64, group_axis=-2)
+
+
 def rel(got, want) -> float:
     g, w = got.float(), want.float()
     return float((g - w).abs().max() / w.abs().max())
@@ -130,7 +168,8 @@ def rel(got, want) -> float:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--variants", default=",".join(VARIANTS))
+    ap.add_argument("--quant", choices=("int8", "int16"), default="int8")
+    ap.add_argument("--variants", default=None)
     ap.add_argument("--Ts", default="48,1,128")
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--out", default=None)
@@ -138,34 +177,42 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         log("wide_pipe_design: no CUDA device available")
         return 2
-    names = args.variants.split(",")
+    int16 = args.quant == "int16"
+    names = (args.variants or ",".join(VARIANTS16 if int16
+                                       else VARIANTS)).split(",")
     dev = torch.device("cuda")
     libs = build_variants(names)
-    rec = {"device": torch.cuda.get_device_name(0), "variants": {
-        n: {"macros": dict(zip(MACROS, VARIANTS[n])), "ptxas": r}
-        for n, (_, r) in libs.items()}, "readings": {}}
+    rec = {"device": torch.cuda.get_device_name(0), "quant": args.quant,
+           "variants": {n: {"macros": macro_flags(n), "ptxas": r}
+                        for n, (_, r) in libs.items()}, "readings": {}}
     for n, v in rec["variants"].items():
         log(f"{n}: registers {({k: r for k, (r, _) in v['ptxas'].items()})}")
     gen = torch.Generator(device=dev)
     gen.manual_seed(1515)
     f32, nl = torch.float32, 4
+    rand = rand_int16 if int16 else rand_int8
+    # INT16 at the engines' bf16 compute on bf16 x; INT8 wide at f32
+    xdt = cdt = torch.bfloat16 if int16 else f32
     layer = [0]
 
     def rot():
         layer[0] = (layer[0] + 1) % nl
         return layer[0]
-    ws = {n: rand_int8(gen, (nl, *shape), dev) for n, shape in LAYER.items()}
-    readings = [(f"layer_T{T}", T) for T in
-                (int(t) for t in args.Ts.split(","))] + [("classifier_T48",
-                                                          48)]
-    for key, T in readings:
+    ws = {n: rand(gen, (nl, *shape), dev) for n, shape in LAYER.items()}
+    readings = [(f"layer_T{T}", T, xdt) for T in
+                (int(t) for t in args.Ts.split(","))]
+    readings.append(("classifier_T48", 48, xdt))
+    if int16:
+        readings.append(("layer_T48_f32x", 48, f32))
+    for key, T, xd in readings:
         if key.startswith("classifier"):
-            wc = rand_int8(gen, (1, *CLASSIFIER), dev)
+            wc = rand(gen, (1, *CLASSIFIER), dev)
             calls = {"classifier": (torch.randn(
-                (T, CLASSIFIER[0]), generator=gen, device=dev), wc)}
+                (T, CLASSIFIER[0]), generator=gen, device=dev).to(xd), wc)}
         else:
-            calls = {n: (torch.randn((T, I), generator=gen, device=dev),
-                         ws[n]) for n, (I, _) in LAYER.items()}
+            calls = {n: (torch.randn((T, I), generator=gen,
+                                     device=dev).to(xd), ws[n])
+                     for n, (I, _) in LAYER.items()}
 
         def run(one):
             def f():
@@ -173,22 +220,23 @@ def main(argv=None) -> int:
                 for x, w in calls.values():
                     one(x, w[lyr])
             return f
-        fns = {n: run(lambda x, w, lib=lib: qmm._launch_pipe(
-            x, w, None, None, 1e-5, None, qmm.PIPE_WIDE, lib=lib))
-            for n, (lib, _) in libs.items()}
-        fns["build"] = run(lambda x, w: qmm.qmatmul_pallas(x, w, f32))
-        fns["f32_kernel"] = run(lambda x, w: qmm._launch(x, w, f32,
+        def ring(x, w, lib):
+            return qmm._launch_pipe(x, w, None, None, 1e-5, None,
+                                    qmm.wide_pipe_mode(w), lib=lib)
+        fns = {n: run(lambda x, w, lib=lib: ring(x, w, lib))
+               for n, (lib, _) in libs.items()}
+        fns["build"] = run(lambda x, w: qmm.qmatmul_pallas(x, w, cdt))
+        fns["f32_kernel"] = run(lambda x, w: qmm._launch(x, w, cdt,
                                                         mode="wide"))
-        errs = {}
+        errs, tol = {}, 1e-4 if xd == f32 else 1e-2
         for n in list(libs) + ["build"]:
             lib = libs[n][0] if n in libs else None
             for x, w in calls.values():
-                got = (qmm._launch_pipe(x, w[0], None, None, 1e-5, None,
-                                        qmm.PIPE_WIDE, lib=lib) if lib
-                       else qmm.qmatmul_pallas(x, w[0], f32))
-                e = rel(got, qmm.qmm_plain(x, w[0], f32))
+                got = (ring(x, w[0], lib) if lib
+                       else qmm.qmatmul_pallas(x, w[0], cdt))
+                e = rel(got, qmm.qmm_plain(x, w[0], cdt))
                 errs[n] = max(errs.get(n, 0.0), e)
-            if errs[n] > 1e-4 and not (n in libs and diagnostic(n)):
+            if errs[n] > tol and not (n in libs and diagnostic(n)):
                 raise RuntimeError(f"{key} {n}: error {errs[n]:.3e}")
         ms = in_turns(fns, iters=args.iters)
         rec["readings"][key] = {"ms": ms, "rel_err": errs}

@@ -2,10 +2,10 @@
 instantiation of ``qmm_pipe_kernel`` (``qmm_pipe_wide_kernel``).
 
 On the CPU: which kernel a wide call takes (:func:`wide_kernel`: for an
-int8-held weight, gs % 64 == 0 and aligned rows the ring at T <= 128 and
-the wide prefill kernel above, else ``qmm_f32_kernel``), the three-plane
-split of f32 x (hi + mid + lo == x
-exactly; one plane for bf16 x), and a torch emulation of the ring's
+int8-held or INT16 weight, gs % 64 == 0 and aligned rows the ring at
+T <= 128 and the wide prefill kernel above, else ``qmm_f32_kernel``), the
+three-plane split of f32 x (hi + mid + lo == x exactly; one plane for bf16
+x), and a torch emulation of the ring's
 arithmetic (:func:`wide_emulated`: the planes' products against the
 exact integers in one f32 partial a group, times the group's f32 scale)
 held against JAX's ``qmatmul_pallas`` at ``compute_dtype=float32`` in
@@ -91,8 +91,10 @@ KERNEL_CASES = [
     ("INT8", "float32", 129, 512, 256, 64, "prefill"),
     ("INT8", "float32", 48, 512, 256, 32, "f32"),
     ("INT8", "float32", 48, 512, 1000, 64, "f32"),
-    ("INT16", "float32", 48, 512, 256, 64, "f32"),
-    ("INT16", "bfloat16", 1, 512, 256, 64, "f32"),
+    ("INT16", "float32", 48, 512, 256, 64, "pipe"),
+    ("INT16", "bfloat16", 1, 512, 256, 64, "pipe"),
+    ("INT16", "bfloat16", 48, 512, 256, 32, "f32"),
+    ("INT16", "float32", 1, 512, 1000, 64, "f32"),
 ]
 
 
@@ -347,13 +349,13 @@ def test_wide_ring_vs_plain_on_card(cuda, T, xdt, sdt):
 
 @pytest.mark.gpu
 def test_wide_f32_kernel_cases_leave_the_ring_count_on_card(cuda):
-    """T = 129 at gs 32, gs 32, O = 1000 and INT16 keep
+    """T = 129 at gs 32, gs 32, O = 1000 and INT16 at gs 32 keep
     ``qmm_f32_kernel``: one ``.launches`` each, ``launches_wide_pipe``
     unmoved, each within 1e-4 of its plain twin."""
     rng = np.random.default_rng(21)
     f = tqmm.qmatmul_pallas
     for qname, T, O, gs in (("INT8", 129, 1040, 32), ("INT8", 48, 1040, 32),
-                            ("INT8", 48, 1000, 64), ("INT16", 48, 1040, 64)):
+                            ("INT8", 48, 1000, 64), ("INT16", 48, 1040, 32)):
         _, tw = _weights(rng, (1024, O), qname, gs=gs)
         tw = tw.to(cuda)
         x = torch.randn((T, 1024), device=cuda)
