@@ -12,18 +12,21 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
 
 1. the card and toolchain; build every CUDA kernel from ``csrc/`` (nvcc
    version and ``-Xptxas -v`` printed; the instantiations of the groupdot
-   ring and the wide ring of K1, of the split-row modes of K2 (non-fresh;
-   fresh and stats) and K2s and of K2b's split-TF32 mode must not spill,
-   and their registers are recorded; with ``--regs-against`` another
-   tree's flash_decode.cu is built beside them and its kernels, the split
-   kernels of K2 and K2s among them, must keep its registers, and another
-   tree's qmm.cu, whose ``qmm_pipe_kernel`` and ``qmm_pipe_gd_kernel``
-   instantiations must keep its registers, and another tree's
-   qmm_prefill.cu, whose ``qmm_wgmma_kernel`` instantiations must keep
-   its registers; ``qmm_prefill.cu``'s ``qmm_wgmma_kernel`` and
-   ``qmm_wgmma_wide_kernel`` must not spill, ptxas must not have
-   serialized their wgmma, and its library's SASS must hold ``HGMMA``
-   where the toolkit has ``cuobjdump``);
+   ring and the wide ring of K1 and of their G32 instantiations (group
+   sizes off 64: ``qmm_pipe_g32_kernel``, ``qmm_pipe_wide_g32_kernel``),
+   of the split-row modes of K2 (non-fresh; fresh and stats) and K2s and
+   of K2b's split-TF32 mode must not spill, and their registers are
+   recorded; with ``--regs-against`` another tree's flash_decode.cu is
+   built beside them and its kernels, the split kernels of K2 and K2s
+   among them, must keep its registers, and another tree's qmm.cu, whose
+   ``qmm_pipe_kernel``, ``qmm_pipe_gd_kernel``, ``qmm_pipe_wide_kernel``,
+   ``qmm_bf16_kernel`` and ``qmm_f32_kernel`` instantiations must keep
+   its registers, and another tree's qmm_prefill.cu, whose
+   ``qmm_wgmma_kernel`` and ``qmm_wgmma_wide_kernel`` instantiations must
+   keep its registers; ``qmm_prefill.cu``'s ``qmm_wgmma_kernel`` and
+   ``qmm_wgmma_wide_kernel`` and their G32 kernels must not spill, ptxas
+   must not have serialized their wgmma, and its library's SASS must hold
+   ``HGMMA`` where the toolkit has ``cuobjdump``);
 2. each kernel against its plain PyTorch version on the card, at the
    shapes of the LLaMA2-7B serving paths: the batched path's kernels (K2
    with fresh rows, every call in its split-row mode, then that mode with
@@ -72,9 +75,13 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    200, 256, 1024, 2048}, INT8 with f32 and bf16 scales and packed INT4
    (hidden 11264) with f32 scales on bf16 and f32 x, bare and with the
    norm gain, the residual and both, each wrapper call one launch on its
-   ``launches_prefill`` and none on ``launches_pipe`` (2n), the K1
-   mode a GGUF ``Q8_0`` file reaches (2o): the loop at group size 32 at
-   the 7B projections, T in {1, 48, 2048}, bare and with the glue, and
+   ``launches_prefill`` and none on ``launches_pipe`` (2n), K1 at group
+   sizes 32 (a GGUF ``Q8_0`` file's) and 96 on the G32 instantiations
+   (2o): the ring and the prefill kernel at bf16 compute, T in {1, 48,
+   128, 129, 2048}, and the wide ring and the wide prefill kernel
+   (int8-held at f32 compute, INT16), at the 7B projections (I cut to a
+   multiple of 192 at gs 96), bare and with the glue, each call one
+   launch on its mode's count, and
    K1 on INT16 weights (2p): the wide ring's INT16 instantiation (T in
    {1, 16, 48, 64, 128}) and the wide prefill kernel's (T in {129, 512,
    2048}) at wqkv's and w2's shapes with the planes' edge values, bf16
@@ -122,7 +129,9 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    GGUF leaves to what its ``Q8_0`` bytes encode, group size 32), the
    card's ``build_params`` bit-equal to the CPU's, the prefill logits
    within ``TOL_F32`` and 24 greedy tokens equal to an engine on the
-   in-memory parameters;
+   in-memory parameters; the GGUF engine's K1 launches, and a 200-token
+   prefill on its parameters, all on the wide mode's G32 kernels (the
+   wide ring and the wide prefill kernel), none on ``qmm_f32_kernel``;
 4. the batched serving path at full width: ``BatchedEngine`` over 7B /
    INT8 / fused QKV and gate|up / int8 KV / B=48 / S=512, 32 layers,
    synthetic weights made on the card; 48 requests of a 43-token prompt
@@ -203,10 +212,13 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    time (while the kernels build), served through ``Engine.load`` on
    4b's measurement and ``BatchedEngine.load`` on 4's (every K1/K1f
    launch on the ring or the prefill mode, the launch counts equal to
-   4/4b's, which must run with it); a 4-layer GGUF ``Q8_0`` file (group size 32: every K1 launch
-   on the loop) and a 4-layer fp32 llama2c file loaded with qtype INT16
-   (every K1 launch on the wide ring or the wide prefill kernel, none on
-   ``qmm_f32_kernel``) through both entry points on the same traffic; the seconds to write and to load, tok/s, ms a step,
+   4/4b's, which must run with it); a 4-layer GGUF ``Q8_0`` file (group
+   size 32: every K1 launch on the ring's or the prefill mode's G32
+   instantiation, none on the loop) and a 4-layer fp32 llama2c file
+   loaded with qtype INT16 (every K1 launch on the wide ring or the wide
+   prefill kernel, none on ``qmm_f32_kernel``) through both entry points
+   on the same traffic; the seconds to write and to load, tok/s, ms a
+   step,
    memory and profiles; then the CLI as subprocesses (``-m benchmark`` on
    the 32-layer file; ``gen --spec``, ``serve``, ``serve --spec``,
    ``serve --prefix-cache``, ``chat`` on stdin, ``-e``/``-d`` and
@@ -221,6 +233,13 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    block's 128 K1f launches) on the wide prefill kernel, none on
    ``qmm_f32_kernel``; tok/s, ms a step, the traced device ms a step and
    idle share, memory;
+4o. INT8 at group size 32 (a GGUF ``Q8_0`` model's) at full depth: 7B /
+   32 layers from ``random_params_int`` at gs 32, fused once, at bf16
+   compute through phase 4's ``BatchedEngine`` (f32 scales) and phase
+   4b's ``Engine`` (bf16 scales, its 200-token block): every K1 launch
+   with T <= 128 on the ring's G32 instantiation and every one above on
+   the prefill mode's, none on the loop; tok/s, ms a step, the traced
+   device ms a step and idle share, memory;
 4g. deferred KV on phase 4's engine and traffic at decode chunk 16
    (every chunk deferred, every K2 launch with stats in the split-row
    mode) against plain chunks, in turns;
@@ -268,12 +287,14 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    split-row mode, the tiled kernel, the plain version and SDPA in turns
    at phase 4c's reading, B=32, pos 107, T in {2, 4, 8}, and at B=4,
    S=2048, pos 2040, the split mode also at 1, 2 and 4 splits; the modes a
-   loaded model reaches (4m, 4n): K1 and K1f on the loop at group size 32
-   and at INT16 on the wide ring (T in {1, 48}) and the wide prefill
-   kernel (T = 2048), a 7B layer, in turns with ``torch.matmul`` on
-   pre-dequantized weights and the plain version, at INT16 also with
-   ``qmm_f32_kernel`` on the same calls, which the new kernels must
-   beat).
+   loaded model reaches (3h, 4m, 4n, 4o): K1 and K1f at group size 32 on
+   the G32 instantiations at bf16 compute (in turns with the loop they
+   replace) and at f32 compute (the wide ones, in turns with
+   ``qmm_f32_kernel``), and at INT16 (gs 64, and gs 32 for K1) on the
+   wide kernels (in turns with ``qmm_f32_kernel``), the ring at T in {1,
+   48} and the prefill kernels at T = 2048, a 7B layer, also in turns
+   with ``torch.matmul`` on pre-dequantized weights and the plain
+   version; every new kernel must beat the kernel it replaces).
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Details go to
@@ -434,14 +455,18 @@ def check_no_spill(build_log: str, kernel: str):
 
 def check_prefill_build(build_log: str):
     """Phase 1 for ``qmm_prefill.cu``: no ``qmm_wgmma_kernel`` or
-    ``qmm_wgmma_wide_kernel`` instantiation spills, ptxas left their wgmma
+    ``qmm_wgmma_wide_kernel`` instantiation, nor one of their G32 kernels
+    (``qmm_wgmma_g32_kernel``, ``qmm_wgmma_wide_g32_kernel``), spills,
+    ptxas left their wgmma
     asynchronous (no C75xx performance note in the source's log), and the
     library's SASS holds ``HGMMA`` (where the toolkit has ``cuobjdump``).
     Returns the registers and the HGMMA count."""
     import shutil
     from fastllama_tpu_torch.ops.kernels import _build
     regs = check_no_spill(build_log, "qmm_wgmma_kernel")
-    regs.update(check_no_spill(build_log, "qmm_wgmma_wide_kernel"))
+    for kernel in ("qmm_wgmma_wide_kernel", "qmm_wgmma_g32_kernel",
+                   "qmm_wgmma_wide_g32_kernel"):
+        regs.update(check_no_spill(build_log, kernel))
     ours = build_log.split("== qmm_prefill.cu (rc")[1].split("\n== ")[0]
     notes = [t.strip() for t in ours.splitlines() if "(C75" in t]
     check(not notes, f"qmm_prefill.cu: ptxas performance notes {notes}")
@@ -486,8 +511,11 @@ def check_regs_against(ref, src, rec, build_log):
     instantiations of ``flash_decode_split_kernel`` and
     ``flash_spec_split_kernel`` with the same registers as this build, and
     so every kernel of this build's flash_decode.cu; of qmm.cu the same
-    instantiations of ``qmm_pipe_kernel`` and ``qmm_pipe_gd_kernel`` with
-    the same registers; of qmm_prefill.cu those of ``qmm_wgmma_kernel``."""
+    instantiations of ``qmm_pipe_kernel``, ``qmm_pipe_gd_kernel``,
+    ``qmm_pipe_wide_kernel``, ``qmm_bf16_kernel`` and ``qmm_f32_kernel``
+    with the same registers; of qmm_prefill.cu those of
+    ``qmm_wgmma_kernel`` and ``qmm_wgmma_wide_kernel`` (the G32 kernels
+    are this build's own)."""
     text = ref.communicate()[0]
     check(ref.returncode == 0, f"nvcc failed for {src}:\n{text}")
     rec.setdefault("regs_against", []).append(src)
@@ -495,8 +523,11 @@ def check_regs_against(ref, src, rec, build_log):
     if base in ("qmm.cu", "qmm_prefill.cu"):
         ours = build_log.split(f"== {base} (rc")[1].split("\n== ")[0]
         mine, theirs = entry_regs(ours), entry_regs(text)
-        for kernel in (("qmm_pipe_kernel", "qmm_pipe_gd_kernel")
-                       if base == "qmm.cu" else ("qmm_wgmma_kernel",)):
+        for kernel in (("qmm_pipe_kernel", "qmm_pipe_gd_kernel",
+                        "qmm_pipe_wide_kernel", "qmm_bf16_kernel",
+                        "qmm_f32_kernel")
+                       if base == "qmm.cu" else
+                       ("qmm_wgmma_kernel", "qmm_wgmma_wide_kernel")):
             a, b = ({k: v for k, v in regs.items() if kernel + "I" in k}
                     for regs in (mine, theirs))
             check(a == b and len(a) > 0,
@@ -695,48 +726,94 @@ def phase_kernels(dev, rec):
     rec["max_abs_err"] = errs
 
 
+def g32_proj(name: str, gs: int):
+    """A 7B projection's (I, O) at group size ``gs``: at 96, which divides
+    neither 4096 nor 11008, I cut to a multiple of 192 (4032, 10944: whole
+    groups and whole 64-row stages)."""
+    I, O = PROJ_7B[name]
+    return (I - I % 192 if gs == 96 else I), O
+
+
 def check_loaded_modes(dev, gen, errs):
-    """Phase 2o: the K1 mode a loaded GGUF ``Q8_0`` file reaches, against
-    its plain version at the four 7B projections, bf16 x and compute: the
-    loop (``qmm_bf16_kernel``) at group size 32, K1 with f32 scales at T
-    in {1, 48, 2048} and K1f with the glue (bf16 scales) at T in {1, 48}.
-    Every call must take that kernel (``qmm._kernel``); bf16 outputs
-    within ``TOL_BF16``.  (INT16: :func:`check_int16`.)"""
+    """Phase 2o: K1 at a group size off a multiple of 64 (GGUF ``Q8_0``'s
+    32; 96, where a group ends halfway through a 64-row stage) on the G32
+    instantiations, against ``qmm_fused_plain`` at the four 7B
+    projections (:func:`g32_proj`): INT8 at bf16 compute on bf16 x, K1
+    (f32 scales) and K1f with the glue (bf16 scales: the norm on wqkv and
+    w13, the residual on wo and w2), T in {1, 48, 128, 129, 2048}, on the
+    ring (``qmm_pipe_g32_kernel``, ``launches_pipe``) and the prefill
+    kernel (``qmm_wgmma_g32_kernel``, ``launches_prefill``); the wide mode
+    (f32 scales) on an int8-held weight at f32 compute on f32 x and on
+    INT16 (bf16 x at bf16 compute, f32 x at f32), K1 at T in {1, 48, 129,
+    2048} and K1f with the glue at 48 and 2048, on the wide ring
+    (``launches_wide_pipe``) and the wide prefill kernel
+    (``launches_wide_prefill``).  Every call must take that kernel
+    (``qmm._kernel``) and move its count by one; bf16 outputs within
+    ``TOL_BF16``, f32 within ``TOL_F32``.  (INT16 at gs 64:
+    :func:`check_int16`.)"""
     import torch
     from fastllama_tpu_torch.config import QuantType
     from fastllama_tpu_torch.ops.kernels import qmm
-    log("phase 2o: K1 on the loop at group size 32, 7B projections, "
-        "against the plain version")
+    log("phase 2o: K1 at group sizes 32 and 96 on the G32 instantiations "
+        "(ring, prefill, wide ring, wide prefill), 7B projections, against "
+        "the plain version")
     bf16, f32 = torch.bfloat16, torch.float32
-    for qt, gs, sdt, kernel, suffix, glues in (
-            (QuantType.INT8, 32, f32, "loop", "gs32", (False,)),
-            (QuantType.INT8, 32, bf16, "loop", "gs32", (True,))):
-        for n, (I, O) in ((n, PROJ_7B[n]) for n in ("wqkv", "wo", "w13",
-                                                    "w2")):
-            w = rand_qarray(gen, (2, I, O), qt, dev, sdt, gs=gs)
-            for glue, T in ((g, T) for g in glues
-                            for T in ((1, 48) if g else (1, 48, 2048))):
-                x = torch.randn((T, I), generator=gen, device=dev).to(bf16)
-                kw = {}
-                if glue and n in ("wqkv", "w13"):
-                    kw["norm_gain"] = torch.rand((I,), generator=gen,
-                                                 device=dev) + 0.5
-                elif glue:
-                    kw["residual"] = torch.randn((T, O), generator=gen,
-                                                 device=dev).to(bf16)
-                check(qmm._kernel(x, w[1], bf16, False, kw.get("residual"))
-                      == kernel, f"2o {n} T={T}: not on {kernel}")
-                name = ("qmatmul_pallas_indexed_fused_" if kw
-                        else "qmatmul_pallas_indexed_") + suffix
-                fn = (qmm.qmatmul_pallas_indexed_fused if kw
-                      else qmm.qmatmul_pallas_indexed)
-                got = fn(x, w, 1, bf16, **kw)
-                want = qmm.qmm_fused_plain(x, w[1], bf16, **kw)
-                e = compare(f"{name} {n} T={T} {qt.name} gs {gs} "
-                            f"{str(sdt)[6:]} scales", got, want, TOL_BF16)
-                errs[name] = max(errs.get(name, 0.0), e)
-            del w
-    torch.cuda.empty_cache()
+    norm = {"wqkv": True, "wo": False, "w13": True, "w2": False}
+    n_calls = 0
+    for gs in (32, 96):
+        for n in ("wqkv", "wo", "w13", "w2"):
+            I, O = g32_proj(n, gs)
+            for qt, sdt, xdt, cdt, glue, Ts in (
+                    (QuantType.INT8, f32, bf16, bf16, False,
+                     (1, 48, 128, 129, 2048)),
+                    (QuantType.INT8, bf16, bf16, bf16, True,
+                     (1, 48, 128, 129, 2048)),
+                    (QuantType.INT8, f32, f32, f32, False, (1, 48, 129, 2048)),
+                    (QuantType.INT8, f32, f32, f32, True, (48, 2048)),
+                    (QuantType.INT16, f32, bf16, bf16, False,
+                     (1, 48, 129, 2048)),
+                    (QuantType.INT16, f32, f32, f32, True, (48, 2048))):
+                w = rand_qarray(gen, (2, I, O), qt, dev, sdt, gs=gs)
+                wide = qmm.is_wide(w, cdt)
+                for T in Ts:
+                    x = torch.randn((T, I), generator=gen,
+                                    device=dev).to(xdt)
+                    kw = {}
+                    if glue and norm[n]:
+                        kw["norm_gain"] = torch.rand((I,), generator=gen,
+                                                     device=dev) + 0.5
+                    elif glue:
+                        kw["residual"] = torch.randn(
+                            (T, O), generator=gen, device=dev).to(xdt)
+                    kernel = (("wide_" if wide else "")
+                              + ("pipe" if T <= 128 else "prefill"))
+                    check(qmm._kernel(x, w[1], cdt, False,
+                                      kw.get("residual")) == kernel
+                          and qmm.g32(w), f"2o {n} T={T} gs {gs}: not on "
+                                          f"the G32 {kernel} kernel")
+                    fn = (qmm.qmatmul_pallas_indexed_fused if kw
+                          else qmm.qmatmul_pallas_indexed)
+                    n0 = getattr(fn, "launches_" + kernel)
+                    got = fn(x, w, 1, cdt, **kw)
+                    check(getattr(fn, "launches_" + kernel) == n0 + 1,
+                          f"2o {n} T={T} gs {gs}: not one launch on "
+                          f"{fn.__name__}.launches_{kernel}")
+                    want = qmm.qmm_fused_plain(x, w[1], cdt, **kw)
+                    name = (fn.__name__ + ("_wide" if wide else "")
+                            + "_gs32" + ("_prefill" if T > 128 else ""))
+                    e = compare(
+                        f"{name} {n} ({I}x{O}) T={T} {qt.name} gs {gs} "
+                        f"{str(sdt)[6:]} scales {str(xdt)[6:]} x "
+                        f"{str(cdt)[6:]} compute", got, want,
+                        TOL_F32 if xdt == f32 else TOL_BF16, quiet=True)
+                    errs[name] = max(errs.get(name, 0.0), e)
+                    n_calls += 1
+                del w
+            torch.cuda.empty_cache()
+    log(f"  ok 2o: {n_calls} calls within tolerance, each one launch on "
+        f"its G32 kernel; largest abs error "
+        + ", ".join(f"{k} {v:.3e}" for k, v in sorted(errs.items())
+                    if "gs32" in k))
 
 
 def rand_int16_edges(gen, shape, dev, scale_dtype):
@@ -2978,6 +3055,12 @@ KERNELS = ("qmatmul_pallas", "qmatmul_pallas_indexed",
            "qmatmul_pallas_indexed_wide_prefill",
            "qmatmul_pallas_indexed_fused_wide_prefill",
            "qmatmul_pallas_indexed_gs32", "qmatmul_pallas_indexed_fused_gs32",
+           "qmatmul_pallas_indexed_gs32_prefill",
+           "qmatmul_pallas_indexed_fused_gs32_prefill",
+           "qmatmul_pallas_indexed_wide_gs32",
+           "qmatmul_pallas_indexed_fused_wide_gs32",
+           "qmatmul_pallas_indexed_wide_gs32_prefill",
+           "qmatmul_pallas_indexed_fused_wide_gs32_prefill",
            "qmatmul_pallas_indexed_int16",
            "qmatmul_pallas_indexed_fused_int16",
            "qmatmul_pallas_indexed_int16_prefill",
@@ -3385,13 +3468,15 @@ def k2_rows(rows, per):
 
 def k1_rows(rows, per):
     """Device ms of the K1 family in a profile's rows, divided by ``per``
-    (steps or rounds): the pipelined kernel, the loop, the wide mode's ring,
-    its prefill kernel and ``qmm_f32_kernel``, and the split-K reduce
-    pass."""
+    (steps or rounds): the pipelined kernel and its G32 instantiation, the
+    loop, the wide mode's ring (and its G32 instantiation), its prefill
+    kernel and ``qmm_f32_kernel``, and the split-K reduce pass."""
     return {mode: sum(us for us, _, k in rows if name in k) / 1e3 / per
             for mode, name in (("pipe", "qmm_pipe_kernel"),
+                               ("pipe_g32", "qmm_pipe_g32_kernel"),
                                ("loop", "qmm_bf16_kernel"),
                                ("wide_pipe", "qmm_pipe_wide_kernel"),
+                               ("wide_pipe_g32", "qmm_pipe_wide_g32_kernel"),
                                ("wide_prefill", "qmm_wgmma_wide_kernel"),
                                ("wide_f32", "qmm_f32_kernel"),
                                ("reduce", "splitk_reduce_kernel"))}
@@ -3702,6 +3787,74 @@ def phase_int16_serving(dev, rec):
             "qmatmul_pallas_indexed_fused_int16":
             ls["qmatmul_pallas_indexed_fused_wide_pipe"],
             "qmatmul_pallas_indexed_fused_int16_prefill": nb}
+
+
+def phase_gs32_serving(dev, rec):
+    """Phase 4o: INT8 at group size 32 (a GGUF ``Q8_0`` model's) at full
+    depth, 7B / 32 layers from ``random_params_int`` at group size 32
+    (6.8 GB of int8, 0.8 GB of f32 scales), QKV and gate|up fused once and
+    shared by two engines at bf16 compute, with 4m's GGUF engines' scale
+    dtypes: phase 4's ``BatchedEngine`` (f32 scales, int8 KV, B=48, S=512,
+    48 requests of the 43-token prompt, 128 new tokens, decode chunk 64)
+    and phase 4b's ``Engine`` (bf16 scales, "auto"; bf16 KV, S=512, the
+    same prompt, 128 new tokens in chunks of 64, then its 200-token
+    ``ChatSession`` block).  Every K1 launch with T <= 128 on the ring's
+    G32 instantiation and every one above on the prefill mode's, none on
+    the loop (:func:`check_all_pipe`; the prefill waves' 256 and the
+    block's 128 K1f launches); tok/s, ms a step, the traced device ms a
+    step and idle share, max memory.  Returns the gs-32 launches of the
+    kernels line."""
+    import torch
+    from fastllama_tpu_torch.config import EngineConfig, QuantType
+    from fastllama_tpu_torch.loaders.tokenizer import Tokenizer
+    from fastllama_tpu_torch.models.llama import (fuse_params,
+                                                  random_params_int)
+    from fastllama_tpu_torch.ops.kernels import qmm
+    from fastllama_tpu_torch.runtime.batching import BatchedEngine
+    from fastllama_tpu_torch.runtime.engine import Engine
+    log("phase 4o: serving 7B INT8 at group size 32 fused at 32 layers "
+        "(bf16 compute): B=48 int8 KV f32 scales, then one stream bf16 KV "
+        "bf16 scales")
+    cfg = cfg_7b().replace(quant_type=QuantType.INT8, group_size=32)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = fuse_params(cfg, random_params_int(cfg, seed=SEED, device=dev))
+    check(params.wq.group_size == 32 and qmm.g32(params.wq)
+          and params.wq.scales.dtype == torch.float32,
+          "4o: the parameters are not INT8 at group size 32, f32 scales")
+    weights_gb = sum(q.data.numel() * q.data.element_size()
+                     + q.scales.numel() * q.scales.element_size()
+                     for q in params.quantized().values()) / 1e9
+    out = rec["gs32_serving"] = {"weights_gb": weights_gb}
+    log(f"  INT8 gs 32 weights and scales: {weights_gb:.2f} GB")
+    beng = BatchedEngine(cfg, params, Tokenizer().finalize(),
+                         EngineConfig(max_seq_len=512, max_batch_size=48,
+                                      kv_dtype="int8", fuse_weights=False),
+                         decode_chunk=64, device=dev)
+    out["batched"], lb = serve_batched(beng, BATCHED_PATH, t0)
+    n = lb["qmatmul_pallas_indexed_prefill"]
+    check(n == 256, f"4o batched: {n} prefill launches, not 256")
+    del beng
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    eng = Engine(cfg, params, Tokenizer().finalize(),
+                 EngineConfig(max_seq_len=512, kv_dtype="bfloat16",
+                              fuse_weights=False, scale_dtype="auto"),
+                 device=dev)
+    check(eng.params.wq.scales.dtype == torch.bfloat16,
+          "4o: scale_dtype 'auto' at INT8 is not bf16")
+    out["single"], ls, _ = serve_single(eng, SINGLE_PATH, t0)
+    key = "qmatmul_pallas_indexed_fused_prefill"
+    out["single"]["long_block"], nb = feed_block(eng, cfg, check_all_pipe,
+                                                 key)
+    out["card"] = smi_line()
+    del eng, params
+    torch.cuda.empty_cache()
+    return {"qmatmul_pallas_indexed_gs32": lb["qmatmul_pallas_indexed_pipe"],
+            "qmatmul_pallas_indexed_gs32_prefill": n,
+            "qmatmul_pallas_indexed_fused_gs32":
+            ls["qmatmul_pallas_indexed_fused_pipe"],
+            "qmatmul_pallas_indexed_fused_gs32_prefill": nb}
 
 
 # the INT4 parameter set of phases 4d and 4e: made once and shared, as
@@ -4615,7 +4768,7 @@ def phase_timing(dev, rec):
     time_wide(dev, gen, res)
     time_wide_prefill(dev, gen, res)
     time_prefill(dev, gen, res)
-    time_loaded_modes(dev, gen, res)
+    rec["loaded_modes"] = time_loaded_modes(dev, gen, res)
     for k, v in res.items():
         loop = f"loop {v['loop_ms']:.4f}, " if "loop_ms" in v else ""
         log(f"  {k}: {v['ms']:.4f} ms ({loop}plain {v['plain_ms']:.4f}, "
@@ -6404,7 +6557,9 @@ def phase_loader_parity(dev, rec):
     its ``Q8_0`` bytes encode), the card's build bit-equal to the CPU's
     (the JAX package's quantization, held on the CPU by the tests); the
     prefill logits within ``TOL_F32`` and 24 greedy tokens equal to an
-    engine on the in-memory parameters."""
+    engine on the in-memory parameters.  The GGUF engine (group size 32)
+    runs on the wide mode's G32 kernels (:func:`gguf_wide_run`).  Returns
+    the launches of the kernels line."""
     import shutil
     import tempfile
 
@@ -6447,6 +6602,7 @@ def phase_loader_parity(dev, rec):
         return lg.float(), toks
     d = tempfile.mkdtemp(prefix="chip_smoke_3h_")
     out = {"free_gb": shutil.disk_usage(d).free / 1e9}
+    launches = {}
     log(f"  files under {d}: {out['free_gb']:.1f} GB free")
     refs, runs = {"deint": ref}, {}
     try:
@@ -6502,7 +6658,10 @@ def phase_loader_parity(dev, rec):
                 mem = Engine(eng.config, refs[kind], tok, ec, device=dev)
                 runs[kind] = run(mem)
                 del mem
-            lg, toks = run(eng)
+            if kind == "gguf":
+                lg, toks = gguf_wide_run(eng, run, tok, ec, dev, launches)
+            else:
+                lg, toks = run(eng)
             err = compare(f"{label}: Engine.load's prefill logits against "
                           f"the in-memory engine's", lg, runs[kind][0],
                           TOL_F32)
@@ -6525,11 +6684,47 @@ def phase_loader_parity(dev, rec):
     rec["loader_parity"] = out
     del ref, refs
     torch.cuda.empty_cache()
+    return launches
+
+
+def gguf_wide_run(eng, run, tok, ec, dev, launches):
+    """3h's GGUF ``Q8_0`` engine (group size 32, f32 compute) on the wide
+    mode's G32 kernels: its ``run`` (the 43-token prefill and 24 greedy
+    tokens) and, on an engine of the same loaded parameters at 512 cache
+    rows, a 200-token prefill (256 rows), with the counts zeroed before and
+    read after (at pos 0 and at pos 1, where the layer glue runs K1f);
+    every K1 launch on the wide ring (T <= 128) or the wide prefill
+    kernel, none on ``qmm_f32_kernel`` (:func:`check_all_wide`), K1 and
+    K1f on the prefill kernel both.
+    Puts the launches of the kernels line into ``launches``; returns
+    ``run``'s result."""
+    import dataclasses
+
+    from fastllama_tpu_torch.runtime.engine import Engine
+    zero_launches()
+    with ModeTally() as tally:
+        got = run(eng)
+        long = Engine(eng.config.replace(max_seq_len=512), eng.params, tok,
+                      dataclasses.replace(ec, max_seq_len=512), device=dev)
+        for pos in (0, 1):         # at pos 1 the layer glue runs K1f
+            long._prefill(list(range(3, 203)), long._bucket(200),
+                          long.new_cache(), pos)
+        del long
+    got_l = read_launches()
+    check_all_wide(got_l, tally, "3h gguf_q8_0 at f32 compute (gs 32)")
+    check(all(got_l[k + "_wide_prefill"] > 0 for k in (
+        "qmatmul_pallas_indexed", "qmatmul_pallas_indexed_fused")),
+          "3h gguf_q8_0: K1 or K1f never on the wide prefill kernel")
+    for k in ("qmatmul_pallas_indexed", "qmatmul_pallas_indexed_fused"):
+        launches[k + "_wide_gs32"] = got_l[k + "_wide_pipe"]
+        launches[k + "_wide_gs32_prefill"] = got_l[k + "_wide_prefill"]
+    return got
 
 
 # the kernels of a loaded model that no random-weight phase before 4m
-# reaches: K1 and K1f on the loop at group size 32 (a GGUF Q8_0 file); at
-# INT16 (an fp32 file loaded with qtype INT16) the wide kernels
+# reaches: K1 and K1f on the G32 instantiations of the ring and the prefill
+# mode at group size 32 (a GGUF Q8_0 file); at INT16 (an fp32 file loaded
+# with qtype INT16) the wide kernels
 LOADED_SINGLE_PATH = ("qmatmul_pallas", "qmatmul_pallas_indexed_fused",
                       "flash_decode_single")
 LOADED_BATCHED_PATH = ("qmatmul_pallas", "qmatmul_pallas_indexed",
@@ -6537,25 +6732,6 @@ LOADED_BATCHED_PATH = ("qmatmul_pallas", "qmatmul_pallas_indexed",
                        "decode_write", "prefill_write")
 K1_WRAPPERS = ("qmatmul_pallas", "qmatmul_pallas_indexed",
                "qmatmul_pallas_indexed_fused")
-
-
-def check_all_loop(launches, tally, label):
-    """Every K1 launch of a run on the loop (``qmm_bf16_kernel``; a group
-    size of 32): the tally holds that kernel alone, and its count equals
-    the wrappers' ``launches`` less their ring and prefill modes'.
-    Returns the launches above 128 rows."""
-    total = sum(launches[k] for k in K1_WRAPPERS)
-    rest = total - sum(launches[k + s] for k in K1_WRAPPERS
-                       for s in ("_pipe", "_prefill"))
-    n = sum(tally.counts.values())
-    check({m for m, _ in tally.counts} == {"loop"},
-          f"{label}: K1 launches outside the loop: {tally.record()}")
-    check(n == rest == total > 0,
-          f"{label}: {n} launches of the loop in the tally, {rest} of "
-          f"{total} on the wrappers outside their other modes")
-    log(f"  ok {label}: all {total} K1 launches on the loop; by mode "
-        f"{tally.record()}")
-    return sum(c for (m, small), c in tally.counts.items() if not small)
 
 
 class FileSet:
@@ -6730,8 +6906,10 @@ def phase_file_serving(dev, rec, files):
     and its 200-token ``ChatSession`` block) and through
     ``BatchedEngine.load`` on phase 4's (B=48): every K1/K1f launch on the
     ring or the prefill mode, the launch counts equal to 4/4b's (which
-    must run before it); then the 4-layer GGUF ``Q8_0`` file (group size 32: every K1
-    launch on the loop) and the 4-layer fp32 llama2c file loaded with
+    must run before it); then the 4-layer GGUF ``Q8_0`` file (group size
+    32: every K1 launch on the ring's or the prefill mode's G32
+    instantiation, none on the loop: :func:`check_all_pipe`) and the
+    4-layer fp32 llama2c file loaded with
     qtype INT16 (every K1 launch on the wide ring or the wide prefill
     kernel, none on ``qmm_f32_kernel``: :func:`check_all_wide`) through
     both load entry points on the same traffic; then the CLI
@@ -6805,7 +6983,7 @@ def phase_file_serving(dev, rec, files):
 
     for label, name, tokp, ft, qt, k1, suffix in (
             ("GGUF Q8_0", "gguf4", "", FileType.UNKNOWN, None,
-             check_all_loop, "gs32"),
+             check_all_pipe, "gs32"),
             ("llama2c fp32 at INT16", "llama2c4",
              files.paths["llama2c4.tok"], FileType.LLAMA2C, QuantType.INT16,
              check_all_wide, "int16")):
@@ -6833,12 +7011,13 @@ def phase_file_serving(dev, rec, files):
                                     k1_check=k1)
         del beng
         torch.cuda.empty_cache()
-        # INT16's launches for the kernels line: 4n's, at full depth
+        # the launches for the kernels line: at gs 32 these, unless 4o
+        # gives them at full depth; INT16's are 4n's
         if suffix == "gs32":
-            launches["qmatmul_pallas_indexed_gs32"] = \
-                lb["qmatmul_pallas_indexed"]
-            launches["qmatmul_pallas_indexed_fused_gs32"] = \
-                ls["qmatmul_pallas_indexed_fused"]
+            for k, got in (("qmatmul_pallas_indexed", lb),
+                           ("qmatmul_pallas_indexed_fused", ls)):
+                launches[k + "_gs32"] = got[k + "_pipe"]
+                launches[k + "_gs32_prefill"] = got[k + "_prefill"]
         out[name] = {"single": single, "batched": batched,
                      "engine_load_s": l1, "batched_load_s": lb_s,
                      "write_s": files.rec[name]["write_s"]}
@@ -6847,24 +7026,28 @@ def phase_file_serving(dev, rec, files):
 
 
 def time_loaded_modes(dev, gen, res):
-    """The two K1 modes a loaded model puts on a path, at a 7B layer (the
-    four projections, layers rotating over 4 so L2 stays cold), T in {1,
-    48, 2048}: the loop (``qmm_bf16_kernel``) at group size 32, K1 (f32
-    scales, the batched path's) and K1f with its glue (bf16 scales, the
-    single stream's: the norm on wqkv and w13, the residual on wo and w2),
-    in turns with ``torch.matmul`` on pre-dequantized bf16 weights and the
-    plain version (T <= 48); and INT16 weights (group size 64, f32 scales,
-    bf16 x as the engines give it at bf16 compute) on the wide ring (T <=
-    48) and the wide prefill kernel (T = 2048), K1 and K1f with its glue,
-    in turns with ``qmm_f32_kernel`` on the same calls (``_launch(...,
-    mode="wide")``, INT16's kernel before these, ``f32_kernel_ms``, which
-    the new kernels must beat), ``torch.matmul`` on f32 weights
-    (``allow_tf32`` off) and the plain version (T <= 48; at T = 2048 the
-    plain version is timed alone, twice).  Bound: bytes over 3.35 TB/s
-    against operations over 989 TFLOP/s, the bf16 tensor cores: once for
-    the loop, twice at INT16, whose weight is hi * 256 + lo with both
-    parts exact in bf16 (the f32 cores' figure, operations over 67
-    TFLOP/s, stands beside it as ``f32_core_bound_ms``)."""
+    """The K1 modes a loaded model puts on a path, at a 7B layer (the four
+    projections, layers rotating over 4 so L2 stays cold), T in {1, 48,
+    2048}, bf16 x unless said: at group size 32 (GGUF ``Q8_0``) the G32
+    instantiations of the ring (T <= 48) and the prefill mode (T = 2048),
+    K1 (f32 scales, the batched path's) and K1f with its glue (bf16
+    scales, the single stream's: the norm on wqkv and w13, the residual on
+    wo and w2), in turns with the loop they replace (``_launch(...,
+    mode="loop")``, ``qmm_bf16_kernel``: ``loop_ms``), ``torch.matmul`` on
+    pre-dequantized bf16 weights and the plain version (T <= 48; at T =
+    2048 the plain version is timed alone, twice); the same calls at f32
+    compute on f32 x (the wide mode's G32 instantiations: int8-held
+    weights, the wide ring and the wide prefill kernel) and INT16 weights
+    at group sizes 64 and 32 (bf16 compute, the engines'), each in turns
+    with ``qmm_f32_kernel`` on the same calls (``_launch(...,
+    mode="wide")``: ``f32_kernel_ms``), ``torch.matmul`` on f32 weights and
+    f32 x (``allow_tf32`` off) and the plain version.  Every new kernel must
+    beat the kernel it replaces.  Bound: bytes over 3.35 TB/s against
+    operations over 989 TFLOP/s, the bf16 tensor cores: one pass at bf16
+    compute, three on f32 x (its three bf16 planes), two at INT16 (hi *
+    256 + lo, both exact in bf16); the f32 cores' figure (operations over
+    67 TFLOP/s) stands beside the wide ones as ``f32_core_bound_ms``.
+    Returns every row, by label."""
     import torch
     import torch.nn.functional as F
     from fastllama_tpu_torch.config import QuantType
@@ -6887,30 +7070,39 @@ def time_loaded_modes(dev, gen, res):
                 one(n, lyr)
         return run
     rows = {}
-    for mode, qt, gs, sdt, glue in (
-            ("loop", QuantType.INT8, 32, f32, False),
-            ("loop", QuantType.INT8, 32, bf16, True),
-            ("int16", QuantType.INT16, 64, f32, False),
-            ("int16", QuantType.INT16, 64, f32, True)):
+    # (row label, qtype, gs, scales, glue, compute and x dtype, bf16
+    # passes, the kernel it replaces: _launch's mode)
+    for mode, qt, gs, sdt, glue, cdt, passes, old in (
+            ("gs32", QuantType.INT8, 32, f32, False, bf16, 1, "loop"),
+            ("gs32", QuantType.INT8, 32, bf16, True, bf16, 1, "loop"),
+            ("wide gs32", QuantType.INT8, 32, f32, False, f32, 3, "wide"),
+            ("wide gs32", QuantType.INT8, 32, bf16, True, f32, 3, "wide"),
+            ("INT16", QuantType.INT16, 64, f32, False, bf16, 2, "wide"),
+            ("INT16", QuantType.INT16, 64, f32, True, bf16, 2, "wide"),
+            ("INT16 gs32", QuantType.INT16, 32, f32, False, bf16, 2,
+             "wide")):
         ws = {n: rand_qarray(gen, (nl, *PROJ_7B[n]), qt, dev, sdt, gs=gs)
               for n in names}
-        ldt = bf16 if mode == "loop" else f32
+        wide = qmm.is_wide(ws["wo"], cdt)
+        ldt = f32 if wide else bf16
         wds = {n: dequantize(ws[n], ldt) for n in names}
         ssz = 4 if sdt == f32 else 2
         wb = 1 if qt == QuantType.INT8 else 2
+        xs_b = 4 if cdt == f32 else 2
+        old_key = "loop_ms" if old == "loop" else "f32_kernel_ms"
         for T in (1, 48, 2048):
             xs = {n: torch.randn((T, PROJ_7B[n][0]), generator=gen,
-                                 device=dev).to(bf16) for n in names}
+                                 device=dev).to(cdt) for n in names}
             kws = {n: (dict(norm_gain=torch.rand(
                 (PROJ_7B[n][0],), generator=gen, device=dev) + 0.5)
                 if norm[n] else dict(residual=torch.randn(
-                    (T, PROJ_7B[n][1]), generator=gen, device=dev).to(bf16)))
+                    (T, PROJ_7B[n][1]), generator=gen, device=dev).to(cdt)))
                 if glue else {} for n in names}
-            want = ("loop" if mode == "loop" else
-                    "wide_pipe" if T <= 128 else "wide_prefill")
-            check(all(qmm._kernel(xs[n], ws[n][0], bf16, False,
+            want = (("wide_" if wide else "")
+                    + ("pipe" if T <= 128 else "prefill"))
+            check(all(qmm._kernel(xs[n], ws[n][0], cdt, False,
                                   kws[n].get("residual")) == want
-                      for n in names),
+                      and qmm.g32(ws[n]) == (gs == 32) for n in names),
                   f"{mode} rows at T={T}: another K1 kernel")
 
             def l_one(n, lyr):
@@ -6926,74 +7118,70 @@ def time_loaded_modes(dev, gen, res):
             fns = {"ms": per_layer(lambda n, lyr: (
                        qmm.qmatmul_pallas_indexed_fused if glue
                        else qmm.qmatmul_pallas_indexed)(
-                           xs[n], ws[n], lyr, bf16, **kws[n])),
+                           xs[n], ws[n], lyr, cdt, **kws[n])),
+                   old_key: per_layer(lambda n, lyr: qmm._launch(
+                       xs[n], ws[n][lyr], cdt, kws[n].get("norm_gain"),
+                       kws[n].get("residual"), mode=old)),
                    "library_ms": per_layer(l_one)}
-            if mode == "int16":
-                fns["f32_kernel_ms"] = per_layer(lambda n, lyr: qmm._launch(
-                    xs[n], ws[n][lyr], bf16, kws[n].get("norm_gain"),
-                    kws[n].get("residual"), mode="wide"))
             if T <= 48:
                 fns["plain_ms"] = per_layer(
                     lambda n, lyr: qmm.qmm_fused_plain(
-                        xs[n], ws[n][lyr], bf16, **kws[n]))
+                        xs[n], ws[n][lyr], cdt, **kws[n]))
             got = in_turns(fns, iters=20 if T <= 48 else 5)
             if "plain_ms" not in got:
                 got["plain_ms"] = time_ms(per_layer(
                     lambda n, lyr: qmm.qmm_fused_plain(
-                        xs[n], ws[n][lyr], bf16, **kws[n])), iters=2,
+                        xs[n], ws[n][lyr], cdt, **kws[n])), iters=2,
                     warmup=1)
             shapes = [PROJ_7B[n] for n in names]
-            nbytes = sum(T * I * 2 + I * O * wb + I // gs * O * ssz
-                         + T * O * 2 for I, O in shapes)
+            nbytes = sum(T * I * xs_b + I * O * wb + I // gs * O * ssz
+                         + T * O * xs_b for I, O in shapes)
             if glue:
-                nbytes += sum((I * 4 if norm[n] else T * O * 2)
+                nbytes += sum((I * 4 if norm[n] else T * O * xs_b)
                               for n, (I, O) in zip(names, shapes))
             flops = sum(2 * T * I * O for I, O in shapes)
-            # an int16 weight is hi * 256 + lo, each exact in bf16: two
-            # passes on the bf16 tensor cores
-            bm, by = bound_ms(nbytes, flops * (1 if mode == "loop" else 2),
-                              BF16_FLOP_S)
-            label = (f"{'K1f glue' if glue else 'K1'} "
-                     f"{'gs32 loop' if mode == 'loop' else 'INT16'} T={T}")
-            core = ({} if mode == "loop" else dict(
-                f32_core_bound_ms=bound_ms(nbytes, flops, F32_FLOP_S)[0]))
+            bm, by = bound_ms(nbytes, flops * passes, BF16_FLOP_S)
+            label = f"{'K1f glue' if glue else 'K1'} {mode} T={T}"
+            core = (dict(f32_core_bound_ms=bound_ms(nbytes, flops,
+                                                    F32_FLOP_S)[0])
+                    if wide else {})
             rows[label] = dict(
                 **got, bound_ms=bm, bound_by=by, bytes=nbytes, flops=flops,
-                **core,
+                bf16_passes=passes, **core,
                 library_call=(
                     ("torch rms_norm then torch.matmul or torch.addmm"
                      if glue else "torch.matmul per projection")
-                    + (" on pre-dequantized bf16 weights" if mode == "loop"
-                       else " on pre-dequantized f32 weights, f32 x "
-                            "(allow_tf32 off)")),
+                    + (" on pre-dequantized f32 weights, f32 x "
+                       "(allow_tf32 off)" if wide else
+                       " on pre-dequantized bf16 weights")),
+                replaces=("qmm_bf16_kernel (the loop)" if old == "loop"
+                          else "qmm_f32_kernel"),
                 shape=f"T={T}, one layer (wqkv 4096x12288, wo 4096x4096, "
                       f"w13 4096x22016, w2 11008x4096), {qt.name} gs {gs}, "
-                      f"{str(sdt)[6:]} scales, bf16 x and compute"
-                      + (", K1f glue" if glue else ""))
-            log(f"  {label}: {got['ms']:.4f} ms (library "
-                f"{got['library_ms']:.4f}, plain {got['plain_ms']:.4f}, "
-                f"bound {bm:.4f} by {by}"
-                + (f"; qmm_f32_kernel {got['f32_kernel_ms']:.4f}, f32 cores "
-                   f"{core['f32_core_bound_ms']:.4f})" if core else ")"))
-            if core:
-                check(got["ms"] < got["f32_kernel_ms"],
-                      f"{label}: {got['ms']:.4f} ms, not faster than "
-                      f"qmm_f32_kernel's {got['f32_kernel_ms']:.4f}")
+                      f"{str(sdt)[6:]} scales, {str(cdt)[6:]} x and "
+                      f"compute" + (", K1f glue" if glue else ""))
+            log(f"  {label}: {got['ms']:.4f} ms ({rows[label]['replaces']} "
+                f"{got[old_key]:.4f}, library {got['library_ms']:.4f}, "
+                f"plain {got['plain_ms']:.4f}, bound {bm:.4f} by {by}"
+                + (f", f32 cores {core['f32_core_bound_ms']:.4f})" if core
+                   else ")"))
+            check(got["ms"] < got[old_key],
+                  f"{label}: {got['ms']:.4f} ms, not faster than "
+                  f"{rows[label]['replaces']}'s {got[old_key]:.4f}")
         del ws, wds
         torch.cuda.empty_cache()
-    res["qmatmul_pallas_indexed_gs32"] = dict(
-        rows["K1 gs32 loop T=48"], T1=rows["K1 gs32 loop T=1"],
-        T2048=rows["K1 gs32 loop T=2048"])
-    res["qmatmul_pallas_indexed_fused_gs32"] = dict(
-        rows["K1f glue gs32 loop T=1"], T48=rows["K1f glue gs32 loop T=48"],
-        T2048=rows["K1f glue gs32 loop T=2048"])
-    res["qmatmul_pallas_indexed_int16"] = dict(
-        rows["K1 INT16 T=48"], T1=rows["K1 INT16 T=1"])
-    res["qmatmul_pallas_indexed_fused_int16"] = dict(
-        rows["K1f glue INT16 T=1"], T48=rows["K1f glue INT16 T=48"])
-    res["qmatmul_pallas_indexed_int16_prefill"] = rows["K1 INT16 T=2048"]
-    res["qmatmul_pallas_indexed_fused_int16_prefill"] = \
-        rows["K1f glue INT16 T=2048"]
+    for kind in ("gs32", "wide gs32", "INT16"):
+        suffix = {"gs32": "_gs32", "wide gs32": "_wide_gs32",
+                  "INT16": "_int16"}[kind]
+        res["qmatmul_pallas_indexed" + suffix] = dict(
+            rows[f"K1 {kind} T=48"], T1=rows[f"K1 {kind} T=1"])
+        res["qmatmul_pallas_indexed_fused" + suffix] = dict(
+            rows[f"K1f glue {kind} T=1"], T48=rows[f"K1f glue {kind} T=48"])
+        res["qmatmul_pallas_indexed" + suffix + "_prefill"] = \
+            rows[f"K1 {kind} T=2048"]
+        res["qmatmul_pallas_indexed_fused" + suffix + "_prefill"] = \
+            rows[f"K1f glue {kind} T=2048"]
+    return rows
 
 
 SOURCES = {
@@ -7070,23 +7258,26 @@ SOURCES.update({k + "_wide_prefill": (
     "qmatmul_pallas_indexed_fused")})
 
 
-# the modes a loaded model puts on a path (phase 4m): K1 and K1f on the
-# loop at group size 32 (GGUF Q8_0), the same source and TPU functions as
-# their wrappers'; at INT16 (4m, 4n) the wide ring's INT16 instantiation
-# (qmm.cu) and above 128 rows the wide prefill kernel's (qmm_prefill.cu)
+# the modes a loaded model puts on a path (phases 3h, 4m, 4n, 4o): K1 and
+# K1f at group size 32 (GGUF Q8_0) on the G32 instantiations of the ring
+# (qmm.cu) and, above 128 rows, of the prefill mode (qmm_prefill.cu), at
+# bf16 compute and in the wide mode (f32 compute); at INT16 the wide ring's
+# INT16 instantiation and the wide prefill kernel's; the TPU functions of
+# their wrappers
 SOURCES.update({k + s: SOURCES[k] for k in (
     "qmatmul_pallas_indexed", "qmatmul_pallas_indexed_fused")
-    for s in ("_gs32", "_int16")})
-SOURCES.update({k + "_int16_prefill": (
+    for s in ("_gs32", "_wide_gs32", "_int16")})
+SOURCES.update({k + s + "_prefill": (
     "fastllama_tpu_torch/csrc/qmm_prefill.cu", SOURCES[k][1]) for k in (
-    "qmatmul_pallas_indexed", "qmatmul_pallas_indexed_fused")})
+    "qmatmul_pallas_indexed", "qmatmul_pallas_indexed_fused")
+    for s in ("_gs32", "_wide_gs32", "_int16")})
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
                     default="1,2,3,3d,3e,3f,3g,3h,4,4b,4c,4d,4e,4f,4i,"
-                            "4j,4k,4l,4m,4n,4g,4h,5",
+                            "4j,4k,4l,4m,4n,4o,4g,4h,5",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--regs-against", metavar="CU", action="append",
                     default=[],
@@ -7095,8 +7286,10 @@ def main() -> int:
                          "commit's; may repeat), built beside the kernels "
                          "with the same flags: phase 1 then requires the "
                          "registers of every instantiation of the split "
-                         "kernels of K2 and K2s, of qmm_pipe_kernel and "
-                         "qmm_pipe_gd_kernel, or of qmm_wgmma_kernel, to "
+                         "kernels of K2 and K2s, of qmm_pipe_kernel, "
+                         "qmm_pipe_gd_kernel, qmm_pipe_wide_kernel, "
+                         "qmm_bf16_kernel and qmm_f32_kernel, or of "
+                         "qmm_wgmma_kernel and qmm_wgmma_wide_kernel, to "
                          "be equal in both")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -7157,6 +7350,11 @@ def run_phases(args, phases, dev, rec, files) -> int:
                                                 "qmm_pipe_gd_kernel")
     rec["wide_ring_ptxas"] = check_no_spill(_build.build_log(),
                                             "qmm_pipe_wide_kernel")
+    # the G32 instantiations (gs a multiple of 32, not of 64)
+    rec["g32_ring_ptxas"] = check_no_spill(_build.build_log(),
+                                           "qmm_pipe_g32_kernel")
+    rec["g32_wide_ring_ptxas"] = check_no_spill(_build.build_log(),
+                                                "qmm_pipe_wide_g32_kernel")
     rec["spec_split_ptxas"] = check_no_spill(_build.build_log(),
                                              "flash_spec_split_kernel")
     rec["decode_split_ptxas"] = check_no_spill(_build.build_log(),
@@ -7204,7 +7402,7 @@ def run_phases(args, phases, dev, rec, files) -> int:
     if "3g" in phases:
         run("3g", phase_single_spec_parity)
     if "3h" in phases:
-        run("3h", phase_loader_parity)
+        launches.update(run("3h", phase_loader_parity))
     if "4" in phases:
         got = run("4", phase_serving)
         launches.update({k: got[k] for k in BATCHED_PATH})
@@ -7269,6 +7467,9 @@ def run_phases(args, phases, dev, rec, files) -> int:
         launches.update(got)
     if "4n" in phases:
         got = run("4n", phase_int16_serving)
+        launches.update(got)
+    if "4o" in phases:
+        got = run("4o", phase_gs32_serving)
         launches.update(got)
     if "4g" in phases:
         got = run("4g", phase_deferred_serving)

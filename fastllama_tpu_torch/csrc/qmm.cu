@@ -37,15 +37,18 @@
 // 2048) are bound by tensor-core operations.  Two kernels serve it:
 //   * qmm_pipe_kernel, the pipelined mode (below, after qmm_f32_kernel),
 //     takes every standard-mode call that is not wide, is 16-byte aligned,
-//     has gs % 64 == 0 and T <= 128: the batched decode step, the single
-//     stream with its K1f glue and the speculative verify.  A cp.async
-//     ring of raw weight stages in shared memory, dequantized straight
-//     into mma.sync fragments.  Its groupdot instantiation,
-//     qmm_pipe_gd_kernel, takes the groupdot calls of the same kind;
-//   * qmm_bf16_kernel, the loop, takes the rest: prefill waves (T > 128),
-//     other group sizes (the groupdot mode's too) and (with the element
-//     path) unaligned rows.  It tiles 64x64 outputs per block and walks K in
-//     stages of 64 rows: each thread loads its part of the next stage
+//     has gs % 64 == 0 (an unpacked weight: gs % 32 == 0, the G32
+//     instantiation qmm_pipe_g32_kernel below gs % 64) and T <= 128: the
+//     batched decode step, the single stream with its K1f glue and the
+//     speculative verify.  A cp.async ring of raw weight stages in shared
+//     memory, dequantized straight into mma.sync fragments.  Its groupdot
+//     instantiation, qmm_pipe_gd_kernel, takes the groupdot calls of the
+//     same kind at gs % 64 == 0;
+//   * qmm_bf16_kernel, the loop, takes the rest: prefill waves (T > 128)
+//     that qmm_prefill.cu does not take, other group sizes (16, 80; the
+//     groupdot mode's off 64) and (with the element path) unaligned rows.
+//     It tiles 64x64 outputs per block and walks K in stages of 64 rows:
+//     each thread loads its part of the next stage
 //     (16-byte vector loads of W, x and the group scales) into registers
 //     while the warps multiply the current stage from shared memory with
 //     WMMA.  No TMA and no wgmma yet: prefill's loop is later work.
@@ -114,12 +117,13 @@
 //
 // The wide mode's pipelined instantiation (qmm_pipe_wide_kernel) takes
 // every wide call (f32 compute, or INT16 at any compute dtype) with T <=
-// 128, gs % 64 == 0 and 16-byte aligned rows: the batched decode step, the
-// single stream with its K1f glue and the verify at f32 compute or on an
-// INT16 weight.  It computes the JAX wide kernel's function (f32 dequant
-// and a Precision.HIGHEST dot, qmm.py:62-74) on bf16 tensor cores: the
-// groupdot ring's body, whose B fragments hold the exact integers, with x
-// split once a stage into three bf16 planes, hi = bf16(v), mid = bf16(v -
+// 128, gs % 32 == 0 (below gs % 64 its G32 instantiation,
+// qmm_pipe_wide_g32_kernel) and 16-byte aligned rows: the batched decode
+// step, the single stream with its K1f glue and the verify at f32 compute
+// or on an INT16 weight.  It computes the JAX wide kernel's function (f32
+// dequant and a Precision.HIGHEST dot, qmm.py:62-74) on bf16 tensor cores:
+// the groupdot ring's body, whose B fragments hold the exact integers, with
+// x split once a stage into three bf16 planes, hi = bf16(v), mid = bf16(v -
 // hi), lo = bf16(v - hi - mid), which together hold f32's 24-bit
 // significand.  Every m-tile's partial takes the planes' products in turn
 // (lo, mid, then hi) against the same B fragments, and the lane's f32
@@ -143,7 +147,20 @@
 //     2 BN + 16 bytes; a lane's NJ columns are 2 NJ bytes, each k = 16
 //     step builds a lo and a hi B fragment of them, and each x plane's
 //     A fragments multiply both: two passes on bf16 x, six on f32 x.
-// qmm_f32_kernel keeps T > 128, other group sizes and unaligned rows.
+// qmm_f32_kernel keeps the wide calls off gs % 32 == 0 (16, 80), unaligned
+// rows and an offset residual (qmm_prefill.cu takes those above 128 rows).
+//
+// The G32 instantiations (qmm_pipe_g32_kernel, qmm_pipe_wide_g32_kernel;
+// gs a multiple of 32 and not of 64, GGUF Q8_0's 32 and 96, unpacked
+// weights): a stage's 64 rows are two 32-row halves (k = 16 steps 0-1 and
+// 2-3), each in one group, and the stage holds a scale row a half, k0 / gs
+// and (k0 + 32) / gs, the second in the 16-byte pads that end the slot's W
+// rows (free bytes: the slot, the ring and the blocks an SM stay those of
+// gs 64).  The standard mode dequantizes steps 2-3 with the second row
+// (the same bf16(bf16(w) * bf16(s)) rounding); the wide mode scales the
+// exact-integer partial into the accumulators twice a stage, after steps
+// 0-1 by the first row and after 2-3 by the second.  The gs-64 kernels
+// keep their code: the flag is a template argument of the body.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
@@ -790,7 +807,8 @@ qmm_f32_kernel(const XT* __restrict__ x, const WT* __restrict__ w,
 
 // ---------------------------------------------------------------------------
 // The pipelined mode (qmm_pipe_kernel): K1 and K1p at T <= 128, standard
-// mode, not wide, 16-byte aligned, gs a multiple of 64; its groupdot
+// mode, not wide, 16-byte aligned, gs a multiple of 64 (its G32
+// instantiations: an unpacked weight at gs a multiple of 32); its groupdot
 // instantiation (qmm_pipe_gd_kernel, the same body with MODE PM_GD: see the
 // groupdot notes at the top) the groupdot calls of that kind, and its wide
 // instantiation (qmm_pipe_wide_kernel, MODE PM_WIDE, or PM_WIDE16 on an
@@ -801,10 +819,12 @@ qmm_f32_kernel(const XT* __restrict__ x, const WT* __restrict__ w,
 // 128, the least that holds T) of BN = 8 * NJ * CG output columns over one
 // split of K.  Its stages (64 logical K rows: 64 W
 // rows, or K1p's 32 packed rows holding two planes, one group each since
-// gs % 64 == 0) sit in a ring of PK_NS slots in dynamic shared memory, each
-// slot the raw weight bytes, the x tile as stored (T rows x 64 columns; K1p:
-// the low plane's 32 columns, then the high plane's) and the stage's
-// BN-wide row of group scales (K1p: one a plane), all moved by 16-byte
+// gs % 64 == 0; G32: each 32-row half in one group) sit in a ring of PK_NS
+// slots in dynamic shared memory, each slot the raw weight bytes, the x
+// tile as stored (T rows x 64 columns; K1p: the low plane's 32 columns,
+// then the high plane's) and the stage's BN-wide row of group scales (K1p:
+// one a plane; G32: one a half, the second in the W rows' pads), all moved
+// by 16-byte
 // cp.async with zero fill past the edges; the x rows from T to the tile's
 // end are zeroed once.  PK_NS - 1 stages are in flight while one is
 // multiplied: one barrier a stage (two when x has to be converted first).
@@ -878,8 +898,10 @@ constexpr int PK_NS = 3;
 #define QMM_WIDE_PLANES 3
 #endif
 
+
 // bytes of one ring slot: W rows of wb-byte weights at a pitch of wb bn +
-// 16, the x tile at a pitch of its row + 16, the scale rows (K1p: two)
+// 16, the x tile at a pitch of its row + 16, the scale rows (K1p: two; the
+// G32 instantiations' second row lives in the W rows' 16-byte pads)
 __host__ __device__ constexpr int pipe_stage_bytes(bool p4, int s_size,
                                                    int mt, int bn,
                                                    int x_size, int wb = 1) {
@@ -992,6 +1014,25 @@ __device__ __forceinline__ void scales_f(float (&d)[N], const unsigned char* p,
     for (int j = 0; j < N; ++j) d[j] = __bfloat162float(b[j]);
   }
 }
+// The G32 instantiations' second scale row, held in the 16-byte pads that
+// end the slot's W rows (its chunk q in the pad of W row q; wbn the W
+// row's bytes, wp its pitch): N (2, 4 or 8) neighbouring scales as f32
+// from column c, read in pieces that each lie in one pad (c a multiple of
+// N, so at most 16 bytes a piece)
+template <int N>
+__device__ __forceinline__ void pad_scales(float (&d)[N],
+                                           const unsigned char* wsl, int wp,
+                                           int wbn, int c, int ssz) {
+  constexpr int H = N > 4 ? N / 2 : N;
+#pragma unroll
+  for (int q = 0; q < N / H; ++q) {
+    const int off = (c + q * H) * ssz;
+    float v[H];
+    scales_f<H>(v, wsl + (off >> 4) * wp + wbn + (off & 15), ssz == 4);
+#pragma unroll
+    for (int j = 0; j < H; ++j) d[q * H + j] = v[j];
+  }
+}
 // N (4 or 8) f32 at p
 template <int N>
 __device__ __forceinline__ void store_f32(float* p, const float (&v)[N]) {
@@ -1040,6 +1081,9 @@ __device__ __forceinline__ void add_bf16(float (&v)[N],
 // the instantiations of the ring's body: standard, groupdot, wide (an
 // int8-held weight), wide on an int16 weight
 enum { PM_STD = 0, PM_GD = 1, PM_WIDE = 2, PM_WIDE16 = 3 };
+// the launch functions' mode flag of the G32 instantiations (a scale row a
+// 32-row half of a stage), or'ed into PM_STD, PM_WIDE or PM_WIDE16
+constexpr int PM_G32 = 4;
 
 __host__ __device__ constexpr bool pipe_wide(int mode) {
   return mode == PM_WIDE || mode == PM_WIDE16;
@@ -1098,7 +1142,10 @@ __device__ __forceinline__ void split3_store(__nv_bfloat16* dst, int plane,
   }
 }
 
-template <bool P4, int MT, int CG, int NJ, int MODE>
+// G32: a group size that is a multiple of 32 (not of 64): each 32-row half
+// of a stage lies in one group, and the stage holds a scale row a half
+// (unpacked weights; the standard and wide modes)
+template <bool P4, int MT, int CG, int NJ, int MODE, bool G32 = false>
 __device__ __forceinline__ void qmm_pipe_body(
     const void* __restrict__ xv, const int8_t* __restrict__ w,
     const unsigned char* __restrict__ s, const float* __restrict__ gain,
@@ -1108,6 +1155,8 @@ __device__ __forceinline__ void qmm_pipe_body(
   // the wide mode is the groupdot body over the planes of x
   constexpr bool GD = MODE != PM_STD, WIDE = pipe_wide(MODE);
   static_assert(!(WIDE && P4), "the wide mode takes unpacked weights");
+  static_assert(!(G32 && (P4 || MODE == PM_GD)),
+                "two scale rows a stage: unpacked, standard or wide");
   constexpr int NS = pipe_stages(MODE, MT);
   constexpr int NW = CG, NT = NW * 32, BN = 8 * NJ * CG, BMR = 16 * MT;
   constexpr int KS = P4 ? 32 : 64;     // W rows a stage
@@ -1164,8 +1213,19 @@ __device__ __forceinline__ void qmm_pipe_body(
     const char* xp = xsrc + (size_t)k0 * esz;
     for (int r = xr0; r < T; r += XR, xp += (size_t)XR * I * esz)
       cp_async16(xsl + r * XP + xc * esz, xin ? xp : xb, xin ? 16 : 0);
-    // the stage's scale row (K1p: the low plane's, then the high plane's)
-    if (sp < NP) {
+    // the stage's scale row (K1p: the low plane's, then the high plane's;
+    // G32: the first half's, then the second's into the pads that end W
+    // rows 0, 1, ..., a 16-byte chunk a pad; zero past I)
+    if constexpr (G32) {
+      if (sp < 2) {
+        const int kh = k0 + 32 * sp;
+        const bool in = n0 + scol < O && kh < I;
+        cp_async16(sp == 0 ? xsl + BMR * XP + scol * ssz
+                           : wsl + (tid % sc) * WP + WB * BN,
+                   in ? s + ((size_t)(kh / gs) * O + n0 + scol) * ssz : s,
+                   in ? 16 : 0);
+      }
+    } else if (sp < NP) {
       const size_t row = (size_t)((sp * Ih + k0) / gs);
       const bool in = n0 + scol < O;
       cp_async16(xsl + BMR * XP + (sp * BN + scol) * ssz,
@@ -1311,78 +1371,111 @@ __device__ __forceinline__ void qmm_pipe_body(
           // one after the other, QMM_WIDE16_SPLIT48) into every m-tile's
           // partial (its products exact in f32), scaled into acc
           // once a stage as the int8 wide mode's (the scales read after the
-          // k-steps: their registers are not live across the chain)
-          float part[MT][NJ][4];
-#pragma unroll
-          for (int i = 0; i < MT; ++i)
-#pragma unroll
-            for (int j = 0; j < NJ; ++j)
-#pragma unroll
-              for (int e = 0; e < 4; ++e) part[i][j][e] = 0.0f;
+          // k-steps: their registers are not live across the chain).
+          // G32: scaled after each half's k-steps by its own row; at 64
+          // and 128 rows the m-tiles in groups of two (MTG), each a pass
+          // over the stage with a partial of its own (its B fragments
+          // built again a group): with every m-tile's partial, or groups
+          // of four, the second fold a stage left 255 registers short
+          // (ptxas spilled 4-12 bytes on an H100 build)
+          constexpr int MTG = G32 && MT >= 4 ? 2 : MT, MG = MT / MTG;
           const __nv_bfloat16* xr =
               xa + (lane & 15) * xpe + (lane >> 4) * 8;
           // weight planes a pass over x's planes, passes a k-step
           constexpr int PP = MT == 3 && QMM_WIDE16_SPLIT48 ? 1 : 2;
           constexpr int PASSES = 2 / PP;
 #pragma unroll
-          for (int kp = 0; kp < KSTEPS; ++kp) {
+          for (int mg = 0; mg < MG; ++mg) {
+            float part[MTG][NJ][4];
 #pragma unroll
-            for (int ps = 0; ps < PASSES; ++ps) {
-              uint32_t v[4][NJ / 2];   // rows r0, r0 + 1, r0 + 8, r0 + 9
+            for (int i = 0; i < MTG; ++i)
 #pragma unroll
-              for (int q = 0; q < 4; ++q) {
-                const int r = 16 * kp + 2 * t4 + (q & 1) + 8 * (q >> 1);
-                const unsigned char* wq = wsl + r * WP + 2 * cb;
-                if constexpr (NJ == 4) {
-                  const uint2 u = *reinterpret_cast<const uint2*>(wq);
-                  v[q][0] = u.x;
-                  v[q][1] = u.y;
-                } else {
-                  v[q][0] = *reinterpret_cast<const uint32_t*>(wq);
+              for (int j = 0; j < NJ; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) part[i][j][e] = 0.0f;
+            // acc += part times the lane's columns' scales: the stage's
+            // row, or at G32 the second half's (last_half), in the W rows'
+            // pads
+            auto fold = [&](bool last_half) {
+              float sa[2 * NJ];
+              if (G32 && last_half)
+                pad_scales<2 * NJ>(sa, wsl, WP, WB * BN,
+                                   warp * 8 * NJ + 2 * NJ * t4, ssz);
+              else
+                scales_f<2 * NJ>(
+                    sa, ssl + (warp * 8 * NJ + 2 * NJ * t4) * ssz, s_f32);
+#pragma unroll
+              for (int i = 0; i < MTG; ++i)
+#pragma unroll
+                for (int j = 0; j < NJ; ++j)
+#pragma unroll
+                  for (int e = 0; e < 4; ++e)
+                    acc[mg * MTG + i][j][e] =
+                        fmaf(part[i][j][e], sa[(e & 1) * NJ + j],
+                             acc[mg * MTG + i][j][e]);
+            };
+#pragma unroll
+            for (int kp = 0; kp < KSTEPS; ++kp) {
+#pragma unroll
+              for (int ps = 0; ps < PASSES; ++ps) {
+                uint32_t v[4][NJ / 2];   // rows r0, r0 + 1, r0 + 8, r0 + 9
+#pragma unroll
+                for (int q = 0; q < 4; ++q) {
+                  const int r = 16 * kp + 2 * t4 + (q & 1) + 8 * (q >> 1);
+                  const unsigned char* wq = wsl + r * WP + 2 * cb;
+                  if constexpr (NJ == 4) {
+                    const uint2 u = *reinterpret_cast<const uint2*>(wq);
+                    v[q][0] = u.x;
+                    v[q][1] = u.y;
+                  } else {
+                    v[q][0] = *reinterpret_cast<const uint32_t*>(wq);
+                  }
+                }
+                uint32_t b[PP][NJ][2];   // plane ps * PP + u: 0 lo, 1 hi
+#pragma unroll
+                for (int u = 0; u < PP; ++u)
+#pragma unroll
+                  for (int j = 0; j < NJ; ++j) {
+                    const int c = j >> 1, h = j & 1;
+#pragma unroll
+                    for (int f = 0; f < 2; ++f)
+                      b[u][j][f] =
+                          ps * PP + u == 0
+                              ? exact_pair(lo16_f(v[2 * f][c], h),
+                                           lo16_f(v[2 * f + 1][c], h))
+                              : exact_pair(hi16_f(v[2 * f][c], h),
+                                           hi16_f(v[2 * f + 1][c], h));
+                  }
+                for (int q = pipe_x_planes(MODE, x_f32) - 1; q >= 0; --q) {
+                  const __nv_bfloat16* xq = xr + q * BMR * (PK_XB / 2);
+                  uint32_t a[MTG][4];
+#pragma unroll
+                  for (int i = 0; i < MTG; ++i)
+                    ldmatrix_x4(a[i],
+                                xq + 16 * (mg * MTG + i) * xpe + 16 * kp);
+#pragma unroll
+                  for (int i = 0; i < MTG; ++i)
+#pragma unroll
+                    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+                      for (int u = 0; u < PP; ++u)
+                        mma_16816_sched(part[i][j], a[i], b[u][j]);
                 }
               }
-              uint32_t b[PP][NJ][2];   // plane ps * PP + u: 0 lo, 1 hi
+              if (G32 && kp == KSTEPS / 2 - 1) {
+                // the first half's group ends: its partial scaled into
+                // acc by the first scale row, then started again
+                fold(false);
 #pragma unroll
-              for (int u = 0; u < PP; ++u)
-#pragma unroll
-                for (int j = 0; j < NJ; ++j) {
-                  const int c = j >> 1, h = j & 1;
-#pragma unroll
-                  for (int f = 0; f < 2; ++f)
-                    b[u][j][f] =
-                        ps * PP + u == 0
-                            ? exact_pair(lo16_f(v[2 * f][c], h),
-                                         lo16_f(v[2 * f + 1][c], h))
-                            : exact_pair(hi16_f(v[2 * f][c], h),
-                                         hi16_f(v[2 * f + 1][c], h));
-                }
-              for (int q = pipe_x_planes(MODE, x_f32) - 1; q >= 0; --q) {
-                const __nv_bfloat16* xq = xr + q * BMR * (PK_XB / 2);
-                uint32_t a[MT][4];
-#pragma unroll
-                for (int i = 0; i < MT; ++i)
-                  ldmatrix_x4(a[i], xq + 16 * i * xpe + 16 * kp);
-#pragma unroll
-                for (int i = 0; i < MT; ++i)
+                for (int i = 0; i < MTG; ++i)
 #pragma unroll
                   for (int j = 0; j < NJ; ++j)
 #pragma unroll
-                    for (int u = 0; u < PP; ++u)
-                      mma_16816_sched(part[i][j], a[i], b[u][j]);
+                    for (int e = 0; e < 4; ++e) part[i][j][e] = 0.0f;
               }
             }
+            fold(true);
           }
-          float sa[2 * NJ];
-          scales_f<2 * NJ>(sa, ssl + (warp * 8 * NJ + 2 * NJ * t4) * ssz,
-                           s_f32);
-#pragma unroll
-          for (int i = 0; i < MT; ++i)
-#pragma unroll
-            for (int j = 0; j < NJ; ++j)
-#pragma unroll
-              for (int e = 0; e < 4; ++e)
-                acc[i][j][e] =
-                    fmaf(part[i][j][e], sa[(e & 1) * NJ + j], acc[i][j][e]);
           continue;
         }
         float sa[2 * NJ];
@@ -1421,37 +1514,46 @@ __device__ __forceinline__ void qmm_pipe_body(
           // every m-tile's partial at once: the planes' products against
           // the same B fragments, the smallest plane first (lo, mid, hi;
           // one plane on bf16 x), in MT x NJ chains (one m-tile's partial
-          // at a time, as groupdot keeps them, read even on an H100)
-          float part[MT][NJ][4];
+          // at a time, as groupdot keeps them, read even on an H100).
+          // G32: a partial a 32-row half (its k-steps 0-1, then 2-3), each
+          // scaled by its own scale row
+          constexpr int NH = G32 ? 2 : 1, KH = KSTEPS / NH;
 #pragma unroll
-          for (int i = 0; i < MT; ++i)
+          for (int hf = 0; hf < NH; ++hf) {
+            float part[MT][NJ][4];
 #pragma unroll
-            for (int j = 0; j < NJ; ++j)
+            for (int i = 0; i < MT; ++i)
 #pragma unroll
-              for (int e = 0; e < 4; ++e) part[i][j][e] = 0.0f;
-          for (int q = pipe_x_planes(MODE, x_f32) - 1; q >= 0; --q) {
-            const __nv_bfloat16* xq = xr + q * BMR * (PK_XB / 2);
+              for (int j = 0; j < NJ; ++j)
 #pragma unroll
-            for (int kp = 0; kp < KSTEPS; ++kp) {
-              uint32_t a[MT][4];
+                for (int e = 0; e < 4; ++e) part[i][j][e] = 0.0f;
+            for (int q = pipe_x_planes(MODE, x_f32) - 1; q >= 0; --q) {
+              const __nv_bfloat16* xq = xr + q * BMR * (PK_XB / 2);
 #pragma unroll
-              for (int i = 0; i < MT; ++i)
-                ldmatrix_x4(a[i], xq + 16 * i * xpe + 16 * kp);
+              for (int kp = hf * KH; kp < (hf + 1) * KH; ++kp) {
+                uint32_t a[MT][4];
 #pragma unroll
-              for (int i = 0; i < MT; ++i)
+                for (int i = 0; i < MT; ++i)
+                  ldmatrix_x4(a[i], xq + 16 * i * xpe + 16 * kp);
 #pragma unroll
-                for (int j = 0; j < NJ; ++j)
-                  mma_16816_sched(part[i][j], a[i], b[kp][j]);
+                for (int i = 0; i < MT; ++i)
+#pragma unroll
+                  for (int j = 0; j < NJ; ++j)
+                    mma_16816_sched(part[i][j], a[i], b[kp][j]);
+              }
             }
+            if (hf == 1)                 // the second half's scale row
+              pad_scales<2 * NJ>(sa, wsl, WP, WB * BN,
+                                 warp * 8 * NJ + 2 * NJ * t4, ssz);
+#pragma unroll
+            for (int i = 0; i < MT; ++i)
+#pragma unroll
+              for (int j = 0; j < NJ; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e)
+                  acc[i][j][e] =
+                      fmaf(part[i][j][e], sa[(e & 1) * NJ + j], acc[i][j][e]);
           }
-#pragma unroll
-          for (int i = 0; i < MT; ++i)
-#pragma unroll
-            for (int j = 0; j < NJ; ++j)
-#pragma unroll
-              for (int e = 0; e < 4; ++e)
-                acc[i][j][e] =
-                    fmaf(part[i][j][e], sa[(e & 1) * NJ + j], acc[i][j][e]);
           continue;
         }
 #pragma unroll
@@ -1477,16 +1579,20 @@ __device__ __forceinline__ void qmm_pipe_body(
       }
       continue;
     }
-    // the stage's scales of the lane's NJ columns, by plane
-    float sf[NP][NJ];
+    // the stage's scales of the lane's NJ columns, by plane (G32: by
+    // half, the second from the W rows' pads; INT8 rounds them to bf16)
+    float sf[P4 || G32 ? 2 : 1][NJ];
 #pragma unroll
     for (int p = 0; p < NP; ++p)
       scales_f<NJ>(sf[p], ssl + (p * BN + cb) * ssz, s_f32);
-    __nv_bfloat162 sb[NJ];
+    if constexpr (G32) pad_scales<NJ>(sf[1], wsl, WP, WB * BN, cb, ssz);
+    __nv_bfloat162 sb[G32 ? 2 : 1][NJ];
     if constexpr (!P4) {
 #pragma unroll
-      for (int j = 0; j < NJ; ++j)
-        sb[j] = __floats2bfloat162_rn(sf[0][j], sf[0][j]);
+      for (int h = 0; h < (G32 ? 2 : 1); ++h)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+          sb[h][j] = __floats2bfloat162_rn(sf[h][j], sf[h][j]);
     }
 #pragma unroll
     for (int kp = 0; kp < KSTEPS; ++kp) {
@@ -1509,8 +1615,11 @@ __device__ __forceinline__ void qmm_pipe_body(
         } else {
 #pragma unroll
           for (int j = 0; j < NJ; ++j) {
-            b[j][0] = bf16_mul2(exact_pair(byte_f(w0, j), byte_f(w1, j)), sb[j]);
-            b[j][1] = bf16_mul2(exact_pair(byte_f(w8, j), byte_f(w9, j)), sb[j]);
+            // the half's scales: k-steps 0-1 the first row, 2-3 (G32) the
+            // second
+            const __nv_bfloat162 sh = sb[G32 && kp >= KSTEPS / 2][j];
+            b[j][0] = bf16_mul2(exact_pair(byte_f(w0, j), byte_f(w1, j)), sh);
+            b[j][1] = bf16_mul2(exact_pair(byte_f(w8, j), byte_f(w9, j)), sh);
           }
         }
         const __nv_bfloat16* xr =
@@ -1606,10 +1715,39 @@ __global__ void __launch_bounds__(CG * 32, pipe_wide_min_blocks(MT, WB))
       QMM_PIPE_ARGS);
 }
 
-// the __global__ function of the (standard, groupdot or wide) instantiation
-template <bool P4, int MT, int CG, int NJ, int MODE>
+// The G32 instantiations (a group size that is a multiple of 32 and not of
+// 64, such as GGUF Q8_0's 32): the standard and the wide mode with a scale
+// row a 32-row half of a stage, kernels of their own so that the gs-64
+// instantiations keep their code
+template <int MT, int CG, int NJ>
+__global__ void __launch_bounds__(CG * 32)
+    qmm_pipe_g32_kernel(QMM_PIPE_PARAMS) {
+  qmm_pipe_body<false, MT, CG, NJ, PM_STD, true>(QMM_PIPE_ARGS);
+}
+// the G32 wide instantiation's least blocks an SM: the wide ones', but 2 at
+// 48 rows, whose second fold a stage does not fit in the 168 registers of 3
+// (ptxas spilled 32-72 bytes there on an H100 build; 222-238 registers at
+// 2)
+__host__ __device__ constexpr int pipe_wide_g32_min_blocks(int mt, int wb) {
+  return mt == 3 ? 2 : pipe_wide_min_blocks(mt, wb);
+}
+template <int MT, int CG, int NJ, int WB>
+__global__ void __launch_bounds__(CG * 32, pipe_wide_g32_min_blocks(MT, WB))
+    qmm_pipe_wide_g32_kernel(QMM_PIPE_PARAMS) {
+  qmm_pipe_body<false, MT, CG, NJ, WB == 2 ? PM_WIDE16 : PM_WIDE, true>(
+      QMM_PIPE_ARGS);
+}
+
+// the __global__ function of the (standard, groupdot or wide; G32)
+// instantiation
+template <bool P4, int MT, int CG, int NJ, int MODE, bool G32 = false>
 constexpr auto pipe_kernel() {
-  if constexpr (MODE == PM_WIDE16) return qmm_pipe_wide_kernel<MT, CG, NJ, 2>;
+  if constexpr (G32 && MODE == PM_WIDE16)
+    return qmm_pipe_wide_g32_kernel<MT, CG, NJ, 2>;
+  else if constexpr (G32 && MODE == PM_WIDE)
+    return qmm_pipe_wide_g32_kernel<MT, CG, NJ, 1>;
+  else if constexpr (G32) return qmm_pipe_g32_kernel<MT, CG, NJ>;
+  else if constexpr (MODE == PM_WIDE16) return qmm_pipe_wide_kernel<MT, CG, NJ, 2>;
   else if constexpr (MODE == PM_WIDE) return qmm_pipe_wide_kernel<MT, CG, NJ, 1>;
   else if constexpr (MODE == PM_GD) return qmm_pipe_gd_kernel<P4, MT, CG, NJ>;
   else return qmm_pipe_kernel<P4, MT, CG, NJ>;
@@ -1703,7 +1841,7 @@ int launch_typed(const void* x, const void* w, const void* s,
 
 // A pipelined block's dynamic shared memory: the ring, and the bf16 x
 // planes (pipe_x_planes) when x is f32 or the norm prologue runs (conv)
-template <bool P4, int MT, int CG, int NJ, int MODE>
+template <bool P4, int MT, int CG, int NJ, int MODE, bool G32>
 int pipe_smem(int x_f32, int s_f32, int conv) {
   return pipe_stages(MODE, MT) * pipe_stage_bytes(P4, s_f32 ? 4 : 2, MT,
                                                   8 * NJ * CG,
@@ -1713,7 +1851,7 @@ int pipe_smem(int x_f32, int s_f32, int conv) {
 }
 
 // Lets the instantiation launch with smem bytes of dynamic shared memory.
-template <bool P4, int MT, int CG, int NJ, int MODE>
+template <bool P4, int MT, int CG, int NJ, int MODE, bool G32>
 int pipe_allow_smem(int smem) {
   // the kernel's static arrays (rinv, wsum) share the block's budget
   const int stat = (int)sizeof(float) * 16 * MT * (1 + CG);
@@ -1724,7 +1862,7 @@ int pipe_allow_smem(int smem) {
   static int allowed = 0;
   if (smem > allowed) {
     const cudaError_t e = cudaFuncSetAttribute(
-        pipe_kernel<P4, MT, CG, NJ, MODE>(),
+        pipe_kernel<P4, MT, CG, NJ, MODE, G32>(),
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) {
       cudaGetLastError();              // not left for the next launch
@@ -1737,28 +1875,28 @@ int pipe_allow_smem(int smem) {
 
 // The blocks of the instantiation that one SM holds at once, by the
 // runtime's occupancy count (registers, shared memory, threads).
-template <bool P4, int MT, int CG, int NJ, int MODE>
+template <bool P4, int MT, int CG, int NJ, int MODE, bool G32>
 int pipe_resident_t(int x_f32, int s_f32, int conv, int* blocks) {
-  const int smem = pipe_smem<P4, MT, CG, NJ, MODE>(x_f32, s_f32, conv);
-  const int e = pipe_allow_smem<P4, MT, CG, NJ, MODE>(smem);
+  const int smem = pipe_smem<P4, MT, CG, NJ, MODE, G32>(x_f32, s_f32, conv);
+  const int e = pipe_allow_smem<P4, MT, CG, NJ, MODE, G32>(smem);
   if (e != 0) return e;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, pipe_kernel<P4, MT, CG, NJ, MODE>(), CG * 32, smem);
+      blocks, pipe_kernel<P4, MT, CG, NJ, MODE, G32>(), CG * 32, smem);
 }
 
-template <bool P4, int MT, int CG, int NJ, int MODE>
+template <bool P4, int MT, int CG, int NJ, int MODE, bool G32>
 int launch_pipe_t(const void* x, const int8_t* w, const void* s,
                   const float* gain, const void* res, float eps, void* out,
                   float* partial, int T, int I, int O, int gs, int splits,
                   int k_per_split, int x_f32, int s_f32, cudaStream_t st) {
   constexpr int BN = 8 * NJ * CG;
-  const int smem = pipe_smem<P4, MT, CG, NJ, MODE>(x_f32, s_f32,
-                                                   x_f32 || gain != nullptr);
-  const int e = pipe_allow_smem<P4, MT, CG, NJ, MODE>(smem);
+  const int smem = pipe_smem<P4, MT, CG, NJ, MODE, G32>(
+      x_f32, s_f32, x_f32 || gain != nullptr);
+  const int e = pipe_allow_smem<P4, MT, CG, NJ, MODE, G32>(smem);
   if (e != 0) return e;
   const dim3 grid((O + BN - 1) / BN, splits);
   // the residual is added once: by the reduce pass when K is split
-  const auto kernel = pipe_kernel<P4, MT, CG, NJ, MODE>();
+  const auto kernel = pipe_kernel<P4, MT, CG, NJ, MODE, G32>();
   kernel<<<grid, CG * 32, smem, st>>>(
       x, w, static_cast<const unsigned char*>(s), gain,
       splits > 1 ? nullptr : res, out, splits > 1 ? partial : nullptr, T, I,
@@ -1778,11 +1916,12 @@ int launch_pipe_t(const void* x, const int8_t* w, const void* s,
   return (int)cudaGetLastError();
 }
 
-// Calls F's template on the instantiation of (packed, rows, warps, mode):
-// row tiles of 16, 48, 64 or 128 rows, 4 warps of 4 n-tiles, or 8 of 2 at
-// 128 rows, 128 output columns a block; the groupdot and wide modes have
-// no 4-warp instantiation at 128 rows (pipe_shape gives them 8), the wide
-// modes none on a packed weight
+// Calls F's template on the instantiation of (packed, rows, warps, mode,
+// g32): row tiles of 16, 48, 64 or 128 rows, 4 warps of 4 n-tiles, or 8 of
+// 2 at 128 rows, 128 output columns a block; the groupdot and wide modes
+// have no 4-warp instantiation at 128 rows (pipe_shape gives them 8), the
+// wide modes none on a packed weight, the G32 ones (g32) none on a packed
+// weight or in the groupdot mode
 #define QMM_PIPE_DISPATCH(F, ...)                                             \
   do {                                                                        \
     if (rows == 16 && warps == 4) QMM_PIPE_CALL(F, 1, 4, 4, __VA_ARGS__);     \
@@ -1795,20 +1934,30 @@ int launch_pipe_t(const void* x, const int8_t* w, const void* s,
   } while (0)
 #define QMM_PIPE_CALL(F, MT, CG, NJ, ...)                                     \
   do {                                                                        \
+    if (g32 && (packed || mode == PM_GD)) return (int)cudaErrorInvalidValue;  \
+    if (g32 && mode == PM_WIDE)                                               \
+      return F<false, MT, CG, NJ, PM_WIDE, true>(__VA_ARGS__);                \
+    if (g32 && mode == PM_WIDE16)                                             \
+      return F<false, MT, CG, NJ, PM_WIDE16, true>(__VA_ARGS__);              \
     if (mode == PM_WIDE)                                                      \
       return packed ? (int)cudaErrorInvalidValue                              \
-                    : F<false, MT, CG, NJ, PM_WIDE>(__VA_ARGS__);             \
+                    : F<false, MT, CG, NJ, PM_WIDE, false>(__VA_ARGS__);      \
     if (mode == PM_WIDE16)                                                    \
       return packed ? (int)cudaErrorInvalidValue                              \
-                    : F<false, MT, CG, NJ, PM_WIDE16>(__VA_ARGS__);           \
+                    : F<false, MT, CG, NJ, PM_WIDE16, false>(__VA_ARGS__);    \
     if (mode == PM_GD)                                                        \
-      return packed ? F<true, MT, CG, NJ, PM_GD>(__VA_ARGS__)                 \
-                    : F<false, MT, CG, NJ, PM_GD>(__VA_ARGS__);               \
+      return packed ? F<true, MT, CG, NJ, PM_GD, false>(__VA_ARGS__)          \
+                    : F<false, MT, CG, NJ, PM_GD, false>(__VA_ARGS__);        \
     QMM_PIPE_CALL_STD(F, MT, CG, NJ, __VA_ARGS__);                            \
   } while (0)
 #define QMM_PIPE_CALL_STD(F, MT, CG, NJ, ...)                                 \
-  return packed ? F<true, MT, CG, NJ, PM_STD>(__VA_ARGS__)                    \
-                : F<false, MT, CG, NJ, PM_STD>(__VA_ARGS__)
+  do {                                                                        \
+    if (g32)                                                                  \
+      return packed ? (int)cudaErrorInvalidValue                              \
+                    : F<false, MT, CG, NJ, PM_STD, true>(__VA_ARGS__);        \
+    return packed ? F<true, MT, CG, NJ, PM_STD, false>(__VA_ARGS__)           \
+                  : F<false, MT, CG, NJ, PM_STD, false>(__VA_ARGS__);         \
+  } while (0)
 
 bool misaligned(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 != 0;
@@ -1848,12 +1997,14 @@ extern "C" int qmm_launch(const void* x, const void* w, const void* s,
 // rows), a multiple of 64 (K1p: 32); partial: splits*T*O f32 scratch when
 // splits > 1.  x f32/bf16, scales f32/bf16, w int8 (packed: the (I/2, O)
 // split-half bytes); rows 16-byte aligned (O % 16, I % 8, K1p I % 16; x,
-// w, s and res at 16-byte aligned addresses) and gs % 64 == 0.  gain / res
-// as qmm_launch's.  mode: 0 standard; 1 the groupdot instantiation (no
-// gain, no res; rows x warps 128 x 4 refused); 2 the wide one (f32
-// compute; not packed; rows x warps 128 x 4 refused); 3 the wide one on an
-// int16 weight (w the (I, O) int16 values; INT16 at any compute dtype;
-// rows x warps 128 x 4 refused).
+// w, s and res at 16-byte aligned addresses) and gs % 64 == 0, or with
+// the flag PM_G32 (4) gs % 32 == 0.  gain / res as qmm_launch's.  mode: 0
+// standard; 1 the groupdot instantiation (no gain, no res; rows x warps
+// 128 x 4 refused); 2 the wide one (f32 compute; not packed; rows x warps
+// 128 x 4 refused); 3 the wide one on an int16 weight (w the (I, O) int16
+// values; INT16 at any compute dtype; rows x warps 128 x 4 refused); 0, 2
+// or 3 or'ed with PM_G32 their G32 instantiation (a scale row a 32-row
+// half; not packed).
 extern "C" int qmm_pipe_launch(const void* x, const void* w, const void* s,
                                const void* gain, const void* res, float eps,
                                void* out, void* partial, int T, int I, int O,
@@ -1864,7 +2015,10 @@ extern "C" int qmm_pipe_launch(const void* x, const void* w, const void* s,
   const int8_t* wp = static_cast<const int8_t*>(w);
   const float* g = static_cast<const float*>(gain);
   float* part = static_cast<float*>(partial);
-  if (T < 1 || T > rows || gs % 64 || O % 16 || I % (packed ? 16 : 8) ||
+  const bool g32 = (mode & PM_G32) != 0;
+  mode &= ~PM_G32;
+  if (T < 1 || T > rows || gs < 32 || gs % (g32 ? 32 : 64) || O % 16 ||
+      I % (packed ? 16 : 8) || (g32 && (packed || mode == PM_GD)) ||
       splits < 1 || k_per_split % (packed ? 32 : 64) || misaligned(x) ||
       misaligned(w) || misaligned(s) || misaligned(res) ||
       (x_dt != DT_F32 && x_dt != DT_BF16) ||
@@ -1879,11 +2033,13 @@ extern "C" int qmm_pipe_launch(const void* x, const void* w, const void* s,
 }
 
 // *blocks: how many blocks of the pipelined instantiation (packed, rows,
-// warps, mode as qmm_pipe_launch's) for x_dt, s_dt and conv (f32 x or the
-// norm prologue) one SM of the current device holds at once; the host's
-// split rule reads it.
+// warps, mode as qmm_pipe_launch's, PM_G32 too) for x_dt, s_dt and conv
+// (f32 x or the norm prologue) one SM of the current device holds at once;
+// the host's split rule reads it.
 extern "C" int qmm_pipe_resident(int packed, int rows, int warps, int mode,
                                  int x_dt, int s_dt, int conv, int* blocks) {
+  const bool g32 = (mode & PM_G32) != 0;
+  mode &= ~PM_G32;
   if ((x_dt != DT_F32 && x_dt != DT_BF16) || (s_dt != DT_F32 && s_dt != DT_BF16))
     return (int)cudaErrorInvalidValue;
   QMM_PIPE_DISPATCH(pipe_resident_t, x_dt == DT_F32, s_dt == DT_F32, conv,

@@ -9,11 +9,12 @@
 // (up to 2048 rows), the prefix cache's whole prefills and K1f's glue on a
 // single-stream block of more than 128 tokens.  It takes every such call
 // that is not wide (bf16 compute, or a packed weight at any compute dtype)
-// with gs a multiple of 64 and 16-byte aligned rows and residual; the loop
-// (qmm_bf16_kernel in qmm.cu) keeps the rest.  Its wide mode
-// (qmm_wgmma_wide_kernel, below the design notes) takes the wide calls of
-// that kind (f32 compute, or an INT16 weight); qmm_f32_kernel keeps the
-// other wide calls.
+// with gs a multiple of 64 (an unpacked weight: of 32, with I % 64 == 0;
+// below gs % 64 its G32 kernel, qmm_wgmma_g32_kernel) and 16-byte aligned
+// rows and residual; the loop (qmm_bf16_kernel in qmm.cu) keeps the rest.
+// Its wide mode (qmm_wgmma_wide_kernel, below the design notes) takes the
+// wide calls of that kind (f32 compute, or an INT16 weight); qmm_f32_kernel
+// keeps the other wide calls.
 //
 // It computes what the loop computes (qmm_fused_plain / qmm_p4_plain in
 // ops/kernels/qmm.py); only the f32 sum order differs:
@@ -53,7 +54,9 @@
 //     two planes of 256 rows x 32 columns (two TMA boxes, 64-byte swizzle:
 //     K1 columns k0 and k0 + 32, K1p k0 and I/2 + k0, matching the nibble
 //     planes) and the stage's scale row(s) (a TMA box of 128, one a plane
-//     for K1p; gs % 64 == 0 puts each plane in one group).  pf_stages
+//     for K1p; gs % 64 == 0 puts each plane in one group; the G32 kernel
+//     takes one a 32-row part, (k0 + 32) / gs the second, and part 1's
+//     FFMA offset comes from it).  pf_stages
 //     stages ring in dynamic shared memory; each completes on a full
 //     barrier with expect_tx (a box that runs off T or O still counts its
 //     bytes: TMA zero-fills it), and the eight consumer warps release it on
@@ -88,7 +91,8 @@
 //     residual (deterministic).
 //
 // The wide mode (qmm_wgmma_wide_kernel) takes every wide call (f32
-// compute, or INT16 at any compute dtype) above 128 rows with gs % 64 == 0
+// compute, or INT16 at any compute dtype) above 128 rows with gs % 32 == 0
+// (I % 64 == 0; below gs % 64 its G32 kernel, qmm_wgmma_wide_g32_kernel)
 // and 16-byte aligned rows and residual: the batched prefill waves at f32
 // compute or INT16 and K1f's glue on a single-stream block of more than 128
 // tokens there.  It computes the JAX wide kernel's
@@ -119,7 +123,11 @@
 //     wait_group 0: a drain of the warpgroup's MMAs once a group, which
 //     the other consumer warpgroup's MMAs fill (two partials used in
 //     turn were slower: a design call, PERF.md).  A group's first wgmma
-//     has scale-d 0, so a partial needs no zeroing.
+//     has scale-d 0, so a partial needs no zeroing.  The G32 kernel (gs
+//     32, 96: each 32-row part in one group, a scale row a part) folds the
+//     partial after every part's drain, the next part's fragments built
+//     while the part's MMAs run (PF_WIDE_G32_PARTIALS; two partials, one a
+//     part folded after one drain a stage, are the other design, PERF.md).
 //   * The pre-pass writes x's planes once a call (the norm first when a
 //     gain is given); a bf16 x without the norm is read in place.
 //   * INT16 (WT int16_t): each value is w = 256 hi + lo, hi = w >> 8 its
@@ -174,10 +182,17 @@ constexpr int PF_XK = 32;           // x columns a plane (64-byte rows)
 #ifndef PF_SETMAXNREG
 #define PF_SETMAXNREG 1
 #endif
-// The wide mode's tuning macro (the same tool): PF_WIDE_STAGES, the most
-// stages its ring takes (it takes as many as fit, up to this).
+// The wide mode's tuning macros (the same tool): PF_WIDE_STAGES, the most
+// stages its ring takes (it takes as many as fit, up to this);
+// PF_WIDE_G32_PARTIALS, how its G32 kernel keeps a stage's two parts'
+// partials: 1 one partial, folded after a drain at the end of each part
+// (the next part's fragments built while the part's MMAs run), 2 one a part,
+// both folded after the stage's one drain (64 more registers a thread).
 #ifndef PF_WIDE_STAGES
 #define PF_WIDE_STAGES 8
+#endif
+#ifndef PF_WIDE_G32_PARTIALS
+#define PF_WIDE_G32_PARTIALS 1
 #endif
 constexpr int PF_ROWS = 256;        // rows of x a block (the wgmma N)
 constexpr int PF_WG_COLS = 64;      // output columns a consumer warpgroup
@@ -216,23 +231,28 @@ __host__ __device__ constexpr int pfw_planes(bool x_f32) {
   return x_f32 ? 3 : 1;
 }
 // a wide ring slot: the W box(es) of wb-byte weights (int8 one box of 128
-// columns, int16 two of 64), each part's x planes, the scale row (each
-// piece a multiple of 1024 bytes)
-__host__ __device__ constexpr int pfw_stage_bytes(int planes, int wb = 1) {
-  return wb * PFW_KS * PF_COLS + 2 * planes * PFW_X_BOX + PF_S_ROW;
+// columns, int16 two of 64), each part's x planes, the scale row (g32: one
+// a 32-row part; each piece a multiple of 1024 bytes)
+__host__ __device__ constexpr int pfw_stage_bytes(int planes, int wb = 1,
+                                                  bool g32 = false) {
+  return wb * PFW_KS * PF_COLS + 2 * planes * PFW_X_BOX +
+         (g32 ? 2 : 1) * PF_S_ROW;
 }
 // the wide ring's depth: as many stages as fit beside their two barriers
 // and the 1 KB that aligns the ring, up to PF_WIDE_STAGES
-__host__ __device__ constexpr int pfw_stages(int planes, int wb = 1) {
-  return (PF_SMEM_BLOCK - 1024) / (pfw_stage_bytes(planes, wb) + 16) <
+__host__ __device__ constexpr int pfw_stages(int planes, int wb = 1,
+                                             bool g32 = false) {
+  return (PF_SMEM_BLOCK - 1024) / (pfw_stage_bytes(planes, wb, g32) + 16) <
                  PF_WIDE_STAGES
-             ? (PF_SMEM_BLOCK - 1024) / (pfw_stage_bytes(planes, wb) + 16)
+             ? (PF_SMEM_BLOCK - 1024) / (pfw_stage_bytes(planes, wb, g32) + 16)
              : PF_WIDE_STAGES;
 }
-__host__ __device__ constexpr int pfw_smem(int planes, int wb = 1) {
-  return pfw_stages(planes, wb) * pfw_stage_bytes(planes, wb) + 1024;
+__host__ __device__ constexpr int pfw_smem(int planes, int wb = 1,
+                                           bool g32 = false) {
+  return pfw_stages(planes, wb, g32) * pfw_stage_bytes(planes, wb, g32) +
+         1024;
 }
-static_assert(pfw_stages(3) >= 2 && pfw_stages(3, 2) >= 2,
+static_assert(pfw_stages(3, 1, true) >= 2 && pfw_stages(3, 2, true) >= 2,
               "the wide ring needs two stages");
 // the producer's registers cover the consumers' rise: all from 65536
 static_assert(128 * PF_PRODUCER_REGS + 256 * PF_CONSUMER_REGS <= 65536,
@@ -568,18 +588,19 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float v0, float v1,
 }
 
 // P4: K1p (W the (I/2, O) split-half bytes; k_per_split in packed rows).
-// XT: x's (and the output's and residual's) dtype; ST: the scales'.
+// XT: x's (and the output's and residual's) dtype; ST: the scales'.  G32:
+// an unpacked weight at gs % 32 == 0 (the G32 kernel): each 32-row part of
+// a stage lies in one group and reads its own scale row.
 // Grid (ceil(O / PF_COLS), ceil(T / PF_ROWS), splits); PF_THREADS threads;
 // pf_smem(P4) bytes of dynamic shared memory.  partial non-null: write the
 // split's f32 partials (res unused).
-template <bool P4, typename XT, typename ST>
-__global__ void __launch_bounds__(PF_THREADS, 1)
-    qmm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
-                     const __grid_constant__ CUtensorMap tm_w,
-                     const __grid_constant__ CUtensorMap tm_s,
-                     const XT* __restrict__ res, XT* __restrict__ out,
-                     float* __restrict__ partial, int T, int I, int O, int gs,
-                     int k_per_split) {
+template <bool P4, typename XT, typename ST, bool G32>
+__device__ __forceinline__ void wgmma_body(
+    const CUtensorMap& tm_x, const CUtensorMap& tm_w, const CUtensorMap& tm_s,
+    const XT* __restrict__ res, XT* __restrict__ out,
+    float* __restrict__ partial, int T, int I, int O, int gs,
+    int k_per_split) {
+  static_assert(!(P4 && G32), "the G32 kernel takes unpacked weights");
   extern __shared__ unsigned char pf_smem_raw[];
   constexpr int NS = pf_stages(P4);
   __shared__ __align__(8) uint64_t full[NS], empty[NS];
@@ -611,7 +632,7 @@ __global__ void __launch_bounds__(PF_THREADS, 1)
 #endif
     if (warp == 8 && lane == 0) {
       constexpr uint32_t TX =
-          XOFF + 2 * PF_X_PLANE + (P4 ? 2 : 1) * PF_COLS * sizeof(ST);
+          XOFF + 2 * PF_X_PLANE + (P4 || G32 ? 2 : 1) * PF_COLS * sizeof(ST);
       for (int i = 0; i < nst; ++i) {
         const int s = i % NS;
         if (i >= NS) mbar_wait(&empty[s], ((i / NS) - 1) & 1);
@@ -625,6 +646,8 @@ __global__ void __launch_bounds__(PF_THREADS, 1)
         tma_load(st + SOFF, &tm_s, &full[s], o0, kr / gs);
         if (P4)
           tma_load(st + SOFF + PF_S_ROW, &tm_s, &full[s], o0, (I / 2 + kr) / gs);
+        if (G32)                        // the second part's scale row
+          tma_load(st + SOFF + PF_S_ROW, &tm_s, &full[s], o0, (kr + PF_XK) / gs);
       }
     }
     return;
@@ -662,10 +685,11 @@ __global__ void __launch_bounds__(PF_THREADS, 1)
       ldsm_x4_t(r, st + kr * 128 + (((col >> 4) ^ (kr & 7)) << 4));
     };
     // the thread's columns col + 2 g + h: their scales (a bf16 rounding
-    // first for INT8; the same for both k16 steps) and INT8's FFMA offsets
-    float sb[2][2][2], cb[2][2];
+    // first for INT8; the same for both k16 steps; K1p one a plane, G32 one
+    // a part) and INT8's FFMA offsets
+    float sb[2][2][2], cb[G32 ? 2 : 1][2][2];
 #pragma unroll
-    for (int pl = 0; pl < (P4 ? 2 : 1); ++pl) {
+    for (int pl = 0; pl < (P4 || G32 ? 2 : 1); ++pl) {
       scales2(sb[pl][0], st + SOFF + pl * PF_S_ROW + (col + 2 * g) *
                                                          sizeof(ST), ST());
       sb[pl][1][0] = sb[pl][0][0];
@@ -676,12 +700,15 @@ __global__ void __launch_bounds__(PF_THREADS, 1)
       ldsm_part(r4, 0);
     } else {
 #pragma unroll
-      for (int e = 0; e < 2; ++e)
+      for (int pl = 0; pl < (G32 ? 2 : 1); ++pl)
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          sb[0][e][h] = __bfloat162float(__float2bfloat16_rn(sb[0][e][h]));
-          cb[e][h] = -8388736.0f * sb[0][e][h];
-        }
+        for (int e = 0; e < 2; ++e)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            sb[pl][e][h] =
+                __bfloat162float(__float2bfloat16_rn(sb[pl][e][h]));
+            cb[pl][e][h] = -8388736.0f * sb[pl][e][h];
+          }
     }
 #pragma unroll
     for (int p = 0; p < 2; ++p) {
@@ -690,7 +717,7 @@ __global__ void __launch_bounds__(PF_THREADS, 1)
       } else {
         uint32_t r[4];
         ldsm_part(r, 32 * p);
-        deq8_ldsm(a[p], r, sb[0], cb);
+        deq8_ldsm(a[p], r, sb[G32 ? p : 0], cb[G32 ? p : 0]);
       }
       reg_fence(a[p]);
       wgmma_fence();
@@ -729,6 +756,32 @@ __global__ void __launch_bounds__(PF_THREADS, 1)
   }
 }
 
+template <bool P4, typename XT, typename ST>
+__global__ void __launch_bounds__(PF_THREADS, 1)
+    qmm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
+                     const __grid_constant__ CUtensorMap tm_w,
+                     const __grid_constant__ CUtensorMap tm_s,
+                     const XT* __restrict__ res, XT* __restrict__ out,
+                     float* __restrict__ partial, int T, int I, int O, int gs,
+                     int k_per_split) {
+  wgmma_body<P4, XT, ST, false>(tm_x, tm_w, tm_s, res, out, partial, T, I, O,
+                                gs, k_per_split);
+}
+// The G32 kernel: gs a multiple of 32 and not of 64 (GGUF Q8_0's 32), an
+// unpacked weight; a kernel of its own, so that the gs-64 ones keep their
+// code
+template <typename XT, typename ST>
+__global__ void __launch_bounds__(PF_THREADS, 1)
+    qmm_wgmma_g32_kernel(const __grid_constant__ CUtensorMap tm_x,
+                         const __grid_constant__ CUtensorMap tm_w,
+                         const __grid_constant__ CUtensorMap tm_s,
+                         const XT* __restrict__ res, XT* __restrict__ out,
+                         float* __restrict__ partial, int T, int I, int O,
+                         int gs, int k_per_split) {
+  wgmma_body<false, XT, ST, true>(tm_x, tm_w, tm_s, res, out, partial, T, I,
+                                  O, gs, k_per_split);
+}
+
 // The wide mode.  XT: x's (and the output's and residual's) dtype, which
 // sets the planes (f32 three, bf16 one); ST: the scales'; WT: the weight's
 // (int8_t, or int16_t: INT16's two planes).  tm_x maps the (T, planes x I)
@@ -737,19 +790,20 @@ __global__ void __launch_bounds__(PF_THREADS, 1)
 // Grid (ceil(O / PF_COLS), ceil(T / PFW_ROWS), splits); PF_THREADS
 // threads; pfw_smem(planes, sizeof(WT)) bytes of dynamic shared memory.
 // partial non-null: write the split's f32 partials (res unused).
-template <typename XT, typename ST, typename WT>
-__global__ void __launch_bounds__(PF_THREADS, 1)
-    qmm_wgmma_wide_kernel(const __grid_constant__ CUtensorMap tm_x,
-                          const __grid_constant__ CUtensorMap tm_w,
-                          const __grid_constant__ CUtensorMap tm_s,
-                          const XT* __restrict__ res, XT* __restrict__ out,
-                          float* __restrict__ partial, int T, int I, int O,
-                          int gs, int k_per_split) {
+// G32: gs % 32 == 0 (the G32 kernel), a scale row a 32-row part, each
+// part's partial folded apart.
+template <typename XT, typename ST, typename WT, bool G32>
+__device__ __forceinline__ void wgmma_wide_body(
+    const CUtensorMap& tm_x, const CUtensorMap& tm_w, const CUtensorMap& tm_s,
+    const XT* __restrict__ res, XT* __restrict__ out,
+    float* __restrict__ partial, int T, int I, int O, int gs,
+    int k_per_split) {
   extern __shared__ unsigned char pf_smem_raw[];
   constexpr int WB = sizeof(WT);       // bytes a weight
-  constexpr int NPL = pfw_planes(sizeof(XT) == 4), NS = pfw_stages(NPL, WB);
+  constexpr int NPL = pfw_planes(sizeof(XT) == 4),
+                NS = pfw_stages(NPL, WB, G32);
   constexpr int KS = PFW_KS, NP = 2;   // W rows, parts a stage
-  constexpr int STAGE = pfw_stage_bytes(NPL, WB);
+  constexpr int STAGE = pfw_stage_bytes(NPL, WB, G32);
   constexpr int WBOX = KS * 128;       // bytes of a W box (128-byte rows)
   constexpr int XOFF = WB * WBOX, SOFF = XOFF + NP * NPL * PFW_X_BOX;
   __shared__ __align__(8) uint64_t full[NS], empty[NS];
@@ -777,7 +831,7 @@ __global__ void __launch_bounds__(PF_THREADS, 1)
       // INT16: the second W box (columns o0 + 64 ..) is not asked for
       // where it lies wholly past O; its consumer's outputs are not stored
       const bool box2 = WB == 2 && o0 + 64 < O;
-      const uint32_t TX = SOFF + PF_COLS * sizeof(ST) -
+      const uint32_t TX = SOFF + (G32 ? 2 : 1) * PF_COLS * sizeof(ST) -
                           (WB == 2 && !box2 ? WBOX : 0);
       for (int i = 0; i < nst; ++i) {
         const int s = i % NS;
@@ -794,6 +848,9 @@ __global__ void __launch_bounds__(PF_THREADS, 1)
             tma_load(st + XOFF + (p * NPL + q) * PFW_X_BOX, &tm_x, &full[s],
                      q * I + kr + PF_XK * p, t0);
         tma_load(st + SOFF, &tm_s, &full[s], o0, kr / gs);
+        if (G32)                        // the second part's scale row
+          tma_load(st + SOFF + PF_S_ROW, &tm_s, &full[s], o0,
+                   (kr + PF_XK) / gs);
       }
     }
     return;
@@ -887,31 +944,89 @@ __global__ void __launch_bounds__(PF_THREADS, 1)
   const auto group_end = [&](int i) {
     return (kbeg + i * KS + KS) % gs == 0 || i == nst - 1;
   };
-  bool fresh = true;   // the next MMA starts the partial
-  for (int i = 0; i < nst; ++i) {
-    const int s = i % NS;
-    mbar_wait(&full[s], (i / NS) & 1);
-    const unsigned char* st = smem + s * STAGE;
-#pragma unroll
-    for (int p = 0; p < NP; ++p) {
-      fragments(st, p);
-      mmas(pa, st, p, fresh && p == 0);
-      wgmma_wait<1>();
-      if (p == 0) retire_before(i);
+  // the scales of stage st's part p (its own scale row at G32) into v
+  auto part_scales = [&](float (&v)[2], const unsigned char* st, int p) {
+    const unsigned char* sr = st + SOFF + p * PF_S_ROW;
+    if constexpr (WB == 2) {
+      v[0] = scale1(sr + c0 * sizeof(ST), ST());
+      v[1] = scale1(sr + (c0 + 8) * sizeof(ST), ST());
+    } else {
+      scales2(v, sr + c0 * sizeof(ST), ST());
     }
-    fresh = group_end(i);
-    if (fresh) {                    // fold after a drain, release
-      if constexpr (WB == 2) {
-        sp[0] = scale1(st + SOFF + c0 * sizeof(ST), ST());
-        sp[1] = scale1(st + SOFF + (c0 + 8) * sizeof(ST), ST());
-      } else {
-        scales2(sp, st + SOFF + c0 * sizeof(ST), ST());
-      }
+  };
+  if constexpr (G32) {
+#if PF_WIDE_G32_PARTIALS == 2
+    // a partial a part (pa, pb), both folded after the stage's one drain
+    float pb[64], sq[2];
+#pragma unroll
+    for (int j = 0; j < 64; ++j) {
+      pb[j] = 0.0f;
+      reg_fence(pb[j]);
+    }
+    for (int i = 0; i < nst; ++i) {
+      const int s = i % NS;
+      mbar_wait(&full[s], (i / NS) & 1);
+      const unsigned char* st = smem + s * STAGE;
+      fragments(st, 0);
+      mmas(pa, st, 0, true);
+      fragments(st, 1);
+      mmas(pb, st, 1, true);
+      part_scales(sp, st, 0);
+      part_scales(sq, st, 1);
       wgmma_wait<0>();
       fold(pa, sp);
+      fold(pb, sq);
       release(i);
-    } else {
-      held = true;
+    }
+#else
+    // each part's partial folded after a drain (every part lies in one
+    // group), the next part's fragments built while its MMAs run
+    if (nst > 0) {
+      mbar_wait(&full[0], 0);
+      fragments(smem, 0);
+    }
+    for (int i = 0; i < nst; ++i) {
+      const unsigned char* st = smem + (i % NS) * STAGE;
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        wgmma_fence();                // after the last fold's reads of pa
+        mmas(pa, st, p, true);
+        part_scales(sp, st, p);
+        if (p == 0) {
+          fragments(st, 1);
+        } else if (i + 1 < nst) {
+          const int s1 = (i + 1) % NS;
+          mbar_wait(&full[s1], ((i + 1) / NS) & 1);
+          fragments(smem + s1 * STAGE, 0);
+        }
+        wgmma_wait<0>();
+        fold(pa, sp);
+      }
+      release(i);
+    }
+#endif
+  } else {
+    bool fresh = true;   // the next MMA starts the partial
+    for (int i = 0; i < nst; ++i) {
+      const int s = i % NS;
+      mbar_wait(&full[s], (i / NS) & 1);
+      const unsigned char* st = smem + s * STAGE;
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        fragments(st, p);
+        mmas(pa, st, p, fresh && p == 0);
+        wgmma_wait<1>();
+        if (p == 0) retire_before(i);
+      }
+      fresh = group_end(i);
+      if (fresh) {                    // fold after a drain, release
+        part_scales(sp, st, 0);
+        wgmma_wait<0>();
+        fold(pa, sp);
+        release(i);
+      } else {
+        held = true;
+      }
     }
   }
   // the last stage folded after a drain; said again so that ptxas sees
@@ -948,6 +1063,31 @@ __global__ void __launch_bounds__(PF_THREADS, 1)
         }
       }
   }
+}
+
+template <typename XT, typename ST, typename WT>
+__global__ void __launch_bounds__(PF_THREADS, 1)
+    qmm_wgmma_wide_kernel(const __grid_constant__ CUtensorMap tm_x,
+                          const __grid_constant__ CUtensorMap tm_w,
+                          const __grid_constant__ CUtensorMap tm_s,
+                          const XT* __restrict__ res, XT* __restrict__ out,
+                          float* __restrict__ partial, int T, int I, int O,
+                          int gs, int k_per_split) {
+  wgmma_wide_body<XT, ST, WT, false>(tm_x, tm_w, tm_s, res, out, partial, T,
+                                     I, O, gs, k_per_split);
+}
+// The wide mode's G32 kernel (gs a multiple of 32 and not of 64)
+template <typename XT, typename ST, typename WT>
+__global__ void __launch_bounds__(PF_THREADS, 1)
+    qmm_wgmma_wide_g32_kernel(const __grid_constant__ CUtensorMap tm_x,
+                              const __grid_constant__ CUtensorMap tm_w,
+                              const __grid_constant__ CUtensorMap tm_s,
+                              const XT* __restrict__ res,
+                              XT* __restrict__ out,
+                              float* __restrict__ partial, int T, int I,
+                              int O, int gs, int k_per_split) {
+  wgmma_wide_body<XT, ST, WT, true>(tm_x, tm_w, tm_s, res, out, partial, T,
+                                    I, O, gs, k_per_split);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -1112,7 +1252,8 @@ int reduce_splits(const float* partial, const XT* res, XT* out, int T, int O,
   return (int)cudaGetLastError();
 }
 
-template <bool P4, typename XT, typename ST>
+// G32: the G32 kernel (an unpacked weight at gs % 32 == 0)
+template <bool P4, typename XT, typename ST, bool G32>
 int launch_t(const __nv_bfloat16* xsrc, const int8_t* w, const void* s,
              const void* res, void* out, float* partial, int T, int I, int O,
              int gs, int splits, int k_per_split, cudaStream_t st) {
@@ -1133,20 +1274,24 @@ int launch_t(const __nv_bfloat16* xsrc, const int8_t* w, const void* s,
   if (e != 0) return e;
   constexpr int smem = pf_smem(P4);
   static bool allowed = false;
-  e = allow_smem(qmm_wgmma_kernel<P4, XT, ST>, smem, allowed);
+  const auto kernel = [] {
+    if constexpr (G32) return qmm_wgmma_g32_kernel<XT, ST>;
+    else return qmm_wgmma_kernel<P4, XT, ST>;
+  }();
+  e = allow_smem(kernel, smem, allowed);
   if (e != 0) return e;
   const dim3 grid((O + PF_COLS - 1) / PF_COLS, (T + PF_ROWS - 1) / PF_ROWS,
                   splits);
   const XT* rp = static_cast<const XT*>(res);
   XT* op = static_cast<XT*>(out);
   // the residual is added once: by the reduce pass when K is split
-  qmm_wgmma_kernel<P4, XT, ST><<<grid, PF_THREADS, smem, st>>>(
+  kernel<<<grid, PF_THREADS, smem, st>>>(
       tx, tw, ts, splits > 1 ? nullptr : rp, op,
       splits > 1 ? partial : nullptr, T, I, O, gs, k_per_split);
   return reduce_splits<XT>(partial, rp, op, T, O, splits, st);
 }
 
-template <typename XT, typename ST, typename WT>
+template <typename XT, typename ST, typename WT, bool G32>
 int launch_wide_t(const __nv_bfloat16* xsrc, const void* w, const void* s,
                   const void* res, void* out, float* partial, int T, int I,
                   int O, int gs, int splits, int k_per_split,
@@ -1169,15 +1314,19 @@ int launch_wide_t(const __nv_bfloat16* xsrc, const void* w, const void* s,
                  s, O, I / gs, (uint64_t)O * sizeof(ST), PF_COLS, 1,
                  CU_TENSOR_MAP_SWIZZLE_NONE);
   if (e != 0) return e;
-  constexpr int smem = pfw_smem(npl, wb);
+  constexpr int smem = pfw_smem(npl, wb, G32);
   static bool allowed = false;
-  e = allow_smem(qmm_wgmma_wide_kernel<XT, ST, WT>, smem, allowed);
+  const auto kernel = [] {
+    if constexpr (G32) return qmm_wgmma_wide_g32_kernel<XT, ST, WT>;
+    else return qmm_wgmma_wide_kernel<XT, ST, WT>;
+  }();
+  e = allow_smem(kernel, smem, allowed);
   if (e != 0) return e;
   const dim3 grid((O + PF_COLS - 1) / PF_COLS, (T + PFW_ROWS - 1) / PFW_ROWS,
                   splits);
   const XT* rp = static_cast<const XT*>(res);
   XT* op = static_cast<XT*>(out);
-  qmm_wgmma_wide_kernel<XT, ST, WT><<<grid, PF_THREADS, smem, st>>>(
+  kernel<<<grid, PF_THREADS, smem, st>>>(
       tx, tw, ts, splits > 1 ? nullptr : rp, op,
       splits > 1 ? partial : nullptr, T, I, O, gs, k_per_split);
   return reduce_splits<XT>(partial, rp, op, T, O, splits, st);
@@ -1207,8 +1356,10 @@ int prepass(const void* x, int x_dt, const float* gain, float eps,
 
 // The prefill mode (qmm_wgmma_kernel): out (T, O) in x's dtype.  x (T, I)
 // f32/bf16; w int8 (I, O), or packed (I/2, O) split-half bytes; scales
-// (I/gs, O) f32/bf16; gs % 64 == 0 (packed: (I/2) % gs == 0); O % 16 == 0,
-// I % 8 == 0 (packed I % 16), x, w, s and res 16-byte aligned.  gain (I,)
+// (I/gs, O) f32/bf16; gs % 64 == 0 (packed: (I/2) % gs == 0), or for an
+// unpacked weight gs % 32 == 0 and I % 64 == 0 (below gs % 64 the G32
+// kernel); O % 16 == 0, I % 8 == 0 (packed I % 16), x, w, s and res 16-byte
+// aligned.  gain (I,)
 // f32 or null (the rmsnorm prologue with eps), res (T, O) in x's dtype or
 // null (the residual epilogue).  xb: (T, I) bf16 scratch that the pre-pass
 // fills, required when x is f32 or gain is given, else null (bf16 x is
@@ -1225,8 +1376,9 @@ extern "C" int qmm_prefill_launch(const void* x, const void* w, const void* s,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int k_rows = packed ? I / 2 : I, ks = pf_ks(packed != 0);
   const bool conv = x_dt == DT_F32 || gain != nullptr;
-  if (T < 1 || I < 1 || O < 16 || gs < 64 || gs % 64 || O % 16 ||
-      I % (packed ? 16 : 8) || k_rows % gs ||
+  const bool g32 = !packed && gs % 64 != 0;
+  if (T < 1 || I < 1 || O < 16 || gs < 32 || gs % (packed ? 64 : 32) ||
+      O % 16 || I % (packed ? 16 : 8) || k_rows % gs || k_rows % ks ||
       splits < 1 || k_per_split < ks || k_per_split % ks ||
       (long long)(splits - 1) * k_per_split >= k_rows ||
       (x_dt != DT_F32 && x_dt != DT_BF16) ||
@@ -1244,8 +1396,11 @@ extern "C" int qmm_prefill_launch(const void* x, const void* w, const void* s,
   const int8_t* wp = static_cast<const int8_t*>(w);
   float* part = static_cast<float*>(partial);
 #define PF_CALL(P, XT, ST)                                                    \
-  return launch_t<P, XT, ST>(xsrc, wp, s, res, out, part, T, I, O, gs,        \
-                             splits, k_per_split, st)
+  return g32 ? launch_t<false, XT, ST, true>(xsrc, wp, s, res, out, part, T,  \
+                                             I, O, gs, splits, k_per_split,  \
+                                             st)                             \
+             : launch_t<P, XT, ST, false>(xsrc, wp, s, res, out, part, T, I,  \
+                                          O, gs, splits, k_per_split, st)
 #define PF_S(P, XT)                                                           \
   if (s_dt == DT_F32) PF_CALL(P, XT, float);                                  \
   else PF_CALL(P, XT, __nv_bfloat16)
@@ -1261,8 +1416,9 @@ extern "C" int qmm_prefill_launch(const void* x, const void* w, const void* s,
 
 // The wide mode (qmm_wgmma_wide_kernel): out (T, O) in x's dtype, at f32
 // compute or on an INT16 weight.  x (T, I) f32/bf16; w (I, O) int8 (INT8,
-// or INT4 held in int8; w_dt 2) or int16 (INT16; w_dt 3); scales (I/gs, O) f32/bf16; gs % 64 == 0; O % 16 == 0, x, w, s and res
-// 16-byte aligned.  gain (I,) f32 or null (the rmsnorm prologue with eps),
+// or INT4 held in int8; w_dt 2) or int16 (INT16; w_dt 3); scales (I/gs, O)
+// f32/bf16; gs % 64 == 0, or gs % 32 == 0 and I % 64 == 0 (below gs % 64
+// the G32 kernel); O % 16 == 0, x, w, s and res 16-byte aligned.  gain (I,) f32 or null (the rmsnorm prologue with eps),
 // res (T, O) in x's dtype or null (the residual epilogue).  xb: (T, planes
 // x I) bf16 scratch that the pre-pass fills (planes 3 for f32 x, 1 for
 // bf16), required when x is f32 or gain is given, else null (bf16 x is read
@@ -1278,7 +1434,9 @@ extern "C" int qmm_prefill_wide_launch(const void* x, const void* w,
                                        int w_dt, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool conv = x_dt == DT_F32 || gain != nullptr;
-  if (T < 1 || I < 1 || O < 16 || gs < 64 || gs % 64 || O % 16 || I % gs ||
+  const bool g32 = gs % 64 != 0;
+  if (T < 1 || I < 1 || O < 16 || gs < 32 || gs % 32 || O % 16 || I % gs ||
+      I % PFW_KS ||
       splits < 1 || k_per_split < PFW_KS || k_per_split % PFW_KS ||
       (long long)(splits - 1) * k_per_split >= I ||
       (x_dt != DT_F32 && x_dt != DT_BF16) ||
@@ -1297,8 +1455,12 @@ extern "C" int qmm_prefill_wide_launch(const void* x, const void* w,
   }
   float* part = static_cast<float*>(partial);
 #define PFW_CALL(XT, ST, WT)                                                  \
-  return launch_wide_t<XT, ST, WT>(xsrc, w, s, res, out, part, T, I, O, gs,  \
-                                   splits, k_per_split, st)
+  return g32 ? launch_wide_t<XT, ST, WT, true>(xsrc, w, s, res, out, part, T, \
+                                               I, O, gs, splits,             \
+                                               k_per_split, st)              \
+             : launch_wide_t<XT, ST, WT, false>(xsrc, w, s, res, out, part,  \
+                                                T, I, O, gs, splits,         \
+                                                k_per_split, st)
 #define PFW_W(XT, ST)                                                         \
   if (w_dt == DT_I16) PFW_CALL(XT, ST, int16_t);                              \
   PFW_CALL(XT, ST, int8_t)

@@ -39,21 +39,26 @@ leaves a split empty raises, as JAX raises on non-dividing tiles.
 
 The pipelined mode (``qmm_pipe_kernel``) takes every standard-mode call
 of K1 and K1p that is not wide, 16-byte aligned, has a group size that is
-a multiple of 64 and T <= 128 rows: the batched decode step, the single
-stream with its K1f glue and the speculative verify.  Its groupdot
-instantiation (``qmm_pipe_gd_kernel``) takes the groupdot calls of that
-kind (:func:`groupdot_kernel`).  The unaligned element path, other group
-sizes and T > 128 (prefill waves) stay on ``qmm_bf16_kernel``'s loop,
-groupdot or not.  :func:`qmm_mode` says which a call takes and
-:func:`pipe_plan` gives the pipelined launch's row tile, warps and split-K
-count.  It computes what the loop computes; only the f32 sum order
-differs.
+a multiple of 64 (an unpacked weight: of 32, :func:`pipe_gs_ok`) and T <=
+128 rows: the batched decode step, the single stream with its K1f glue
+and the speculative verify.  Below a multiple of 64 (GGUF ``Q8_0``'s 32)
+it takes its G32 instantiation (``qmm_pipe_g32_kernel``, :func:`g32`): a
+scale row a 32-row half of a stage.  Its groupdot instantiation
+(``qmm_pipe_gd_kernel``) takes the groupdot calls of that kind at a
+multiple of 64 (:func:`groupdot_kernel`).  The unaligned element path,
+other group sizes (16, 80) and the T > 128 calls that the prefill mode
+does not take stay on ``qmm_bf16_kernel``'s loop, groupdot or not.
+:func:`qmm_mode` says which a call takes and :func:`pipe_plan` gives the
+pipelined launch's row tile, warps and split-K count.  It computes what
+the loop computes; only the f32 sum order differs.
 
 The wide mode (f32 compute, or INT16; :func:`is_wide`) replaces the JAX
 wide kernel (f32 dequant and a ``Precision.HIGHEST`` dot, qmm.py:62-74).
-Its calls with a group size that is a multiple of 64, 16-byte aligned rows
+Its calls with a group size that is a multiple of 32, 16-byte aligned rows
 and a residual, if any, at a 16-byte aligned address take one of two
-kernels that compute it on bf16 tensor cores: the exact integers times x
+kernels (each with a G32 instantiation below a multiple of 64, whose
+32-row halves of a stage take a partial and a scale row each) that
+compute it on bf16 tensor cores: the exact integers times x
 split into three bf16 planes (hi, mid, lo: f32's 24-bit significand; one
 plane for a bf16 x), each group's partial times its f32 scale.  An int16
 weight is two exact bf16 planes, ``w = 256 * (w >> 8) + (w & 0xFF)``
@@ -74,10 +79,12 @@ the same kernel as the standard one.
 The prefill mode (``qmm_wgmma_kernel`` in ``csrc/qmm_prefill.cu``, its
 own library) takes the calls above 128 rows that would otherwise take the
 loop: not wide, an int8-held or packed weight, a group size that is a
-multiple of 64, 16-byte aligned rows and residual (:func:`prefill_kernel`
-``"prefill"``).  These are the prefill waves (``prefill_many`` on up to
-2048 rows, INT8 and INT4) and K1f's glue on a single-stream block of more
-than 128 tokens.  TMA brings the raw weight and x into a ring of stages,
+multiple of 64 (an unpacked weight: of 32 with I a multiple of 64; below
+64 ``qmm_wgmma_g32_kernel``), 16-byte aligned rows and residual
+(:func:`prefill_kernel` ``"prefill"``).  These are the prefill waves
+(``prefill_many`` on up to 2048 rows, INT8 and INT4) and K1f's glue on a
+single-stream block of more than 128 tokens.  TMA brings the raw weight
+and x into a ring of stages,
 each thread dequantizes its weight bytes into ``wgmma``'s register A
 operand (the product is computed transposed) and x is the B operand in
 shared memory; a pre-pass writes bf16 x once a call where x is f32 or the
@@ -246,24 +253,42 @@ def qmm_mode(x: torch.Tensor, w: QArray, compute_dtype=torch.bfloat16,
     the wide ring, the wide prefill kernel or ``qmm_f32_kernel`` by
     :func:`wide_kernel`),
     ``"scalar"`` (rows not 16-byte aligned: the loop's element path),
-    ``"pipe"`` (the pipelined mode: T <= 128, a group size that is a
-    multiple of 64, so that a stage holds one group, and a ``residual``,
-    if any, at a 16-byte aligned address, since its epilogue reads the
-    residual by vectors) or
+    ``"pipe"`` (the pipelined mode: T <= 128, a group size of
+    :func:`pipe_gs_ok`, so that a stage (or each 32-row half of it) holds
+    one group, and a ``residual``, if any, at a 16-byte aligned address,
+    since its epilogue reads the residual by vectors) or
     ``"loop"`` (the rest: prefill waves, other group sizes, an offset
     residual; :func:`prefill_kernel` sends those above 128 rows with a
-    group size that is a multiple of 64 and an aligned residual to the
-    prefill mode, the others to ``qmm_bf16_kernel``'s vector loop)."""
+    group size of :func:`pipe_gs_ok`, I a multiple of 64 and an aligned
+    residual to the prefill mode, the others to ``qmm_bf16_kernel``'s
+    vector loop)."""
     if groupdot and (w.packed or not is_wide(w, compute_dtype)):
         return "groupdot"
     if is_wide(w, compute_dtype):
         return "wide"
     if not _vec_ok(x, w):
         return "scalar"
-    if x.shape[0] <= PIPE_MAX_T and w.group_size % 64 == 0 and (
+    if x.shape[0] <= PIPE_MAX_T and pipe_gs_ok(w) and (
             residual is None or residual.data_ptr() % 16 == 0):
         return "pipe"
     return "loop"
+
+
+def pipe_gs_ok(w: QArray) -> bool:
+    """The group sizes of the ring's and the prefill mode's standard and
+    wide kernels: a multiple of 64 (a stage's 64 rows, or K1p's plane, in
+    one group), or for an unpacked weight of 32 (each 32-row half of a
+    stage in one group: the G32 instantiations, :func:`g32`)."""
+    return w.group_size % (64 if w.packed else 32) == 0
+
+
+def g32(w: QArray) -> bool:
+    """Whether a call on ``w`` that the ring or the prefill mode takes
+    runs their G32 instantiation (an unpacked weight at a group size that
+    is a multiple of 32 and not of 64, such as GGUF ``Q8_0``'s 32: a scale
+    row a 32-row half of a stage, each half's own partial in the wide
+    mode)."""
+    return not w.packed and w.group_size % 64 != 0
 
 
 def groupdot_kernel(x: torch.Tensor, w: QArray,
@@ -288,20 +313,24 @@ def wide_kernel(x: torch.Tensor, w: QArray, compute_dtype=torch.float32,
                 residual=None) -> str:
     """The kernel of a wide call (:func:`qmm_mode` ``"wide"``), for an
     int8-held weight (INT8, or INT4 that did not pack) or an int16 one
-    (INT16, as two bf16 planes), a group size that is a multiple of 64,
-    16-byte aligned rows and a ``residual``, if any, at a 16-byte aligned
-    address: ``"pipe"``, the wide instantiation of ``qmm_pipe_kernel``'s
-    ring, for T <= 128; ``"prefill"``, ``qmm_wgmma_wide_kernel``, above
-    (prefill waves, a long K1f block).  Else ``"f32"``, ``qmm_f32_kernel``
-    (gs of 16 or 32, O = 1000, an offset residual...).  A packed weight
-    has no wide path, and a call that is not wide takes another mode:
-    ValueError."""
+    (INT16, as two bf16 planes), a group size that is a multiple of 32
+    (below 64 the kernels' G32 instantiations, :func:`g32`), 16-byte
+    aligned rows and a ``residual``, if any, at a 16-byte aligned address:
+    ``"pipe"``, the wide instantiation of ``qmm_pipe_kernel``'s ring, for
+    T <= 128; ``"prefill"``, ``qmm_wgmma_wide_kernel``, above (prefill
+    waves, a long K1f block) where I is a multiple of 64 (its stages).
+    Else ``"f32"``, ``qmm_f32_kernel`` (gs of 16 or 80, O = 1000, an offset
+    residual...).  A packed weight has no wide path, and a call that is not
+    wide takes another mode: ValueError."""
     if w.packed or not is_wide(w, compute_dtype):
         raise ValueError("not a wide call: a packed weight or a non-wide "
                          "compute dtype takes another mode")
-    if (w.group_size % 64 == 0 and _vec_ok(x, w)
+    if (pipe_gs_ok(w) and _vec_ok(x, w)
             and (residual is None or residual.data_ptr() % 16 == 0)):
-        return "pipe" if x.shape[0] <= PIPE_MAX_T else "prefill"
+        if x.shape[0] <= PIPE_MAX_T:
+            return "pipe"
+        if x.shape[1] % 64 == 0:
+            return "prefill"
     return "f32"
 
 
@@ -318,10 +347,11 @@ def prefill_kernel(x: torch.Tensor, w: QArray,
                    compute_dtype=torch.bfloat16, residual=None) -> str:
     """The kernel of a call that :func:`qmm_mode` calls ``"loop"``:
     ``"prefill"``, the ``wgmma`` prefill mode, for T > 128, a group size
-    that is a multiple of 64 (a stage's plane lies in one group) and a
-    ``residual``, if any, at a 16-byte aligned address (its epilogue reads
-    it by vectors); else ``"loop"``, ``qmm_bf16_kernel`` (group sizes of
-    16, 32, 80..., an offset residual, T <= 128 off the ring).  A call that
+    of :func:`pipe_gs_ok` (a stage's plane, or each 32-row half, lies in
+    one group), I a multiple of 64 (its stages) and a ``residual``, if
+    any, at a 16-byte aligned address (its epilogue reads it by vectors);
+    else ``"loop"``, ``qmm_bf16_kernel`` (group sizes of 16, 80..., an
+    offset residual, T <= 128 off the ring).  A call that
     :func:`qmm_mode` sends elsewhere: ValueError."""
     mode = qmm_mode(x, w, compute_dtype, False, residual)
     if mode != "loop":
@@ -332,8 +362,9 @@ def prefill_kernel(x: torch.Tensor, w: QArray,
 def _loop_kernel(x: torch.Tensor, w: QArray, residual) -> str:
     """:func:`prefill_kernel`'s choice for a call :func:`qmm_mode` calls
     ``"loop"`` (unchecked)."""
-    if x.shape[0] > PIPE_MAX_T and w.group_size % 64 == 0 and (
-            residual is None or residual.data_ptr() % 16 == 0):
+    if (x.shape[0] > PIPE_MAX_T and pipe_gs_ok(w)
+            and x.shape[1] % 64 == 0
+            and (residual is None or residual.data_ptr() % 16 == 0)):
         return "prefill"
     return "loop"
 
@@ -426,7 +457,9 @@ def pipe_smem(rows: int, warps: int, x_f32: bool, s_f32: bool,
     + 16, the scale row), the bf16 x planes when x is converted (``conv``:
     f32 x or the norm; three planes in the wide mode on f32 x), ``smem`` in
     all and the ``static`` arrays beside it.  ``wide``: the wide ring
-    (int8-held or, ``w_bytes=2``, INT16)."""
+    (int8-held or, ``w_bytes=2``, INT16).  The G32 instantiations
+    (:func:`g32`) take the same: their second scale row a stage sits in
+    the 16-byte pads that end the first W rows (:func:`g32_pad_offset`)."""
     xs, ss = (4 if x_f32 else 2), (4 if s_f32 else 2)
     stage = 64 * (w_bytes * PIPE_COLS + 16) + rows * (PIPE_X_COLS * xs + 16) \
         + PIPE_COLS * ss
@@ -437,6 +470,16 @@ def pipe_smem(rows: int, warps: int, x_f32: bool, s_f32: bool,
                              if conv else 0)
     return {"stages": stages, "stage_bytes": stage, "smem": smem,
             "static": 4 * rows * (1 + warps)}
+
+
+def g32_pad_offset(col: int, scale_bytes: int, w_bytes: int = 1) -> int:
+    """The byte offset in a ring slot of column ``col``'s scale in a G32
+    stage's second scale row (``pad_scales`` and ``copy_stage`` in
+    ``csrc/qmm.cu``): its 16-byte chunk q of the row sits in the pad after
+    W row q (rows of ``w_bytes * 128`` bytes at a pitch 16 bytes more)."""
+    off = col * scale_bytes
+    return (off // 16) * (w_bytes * PIPE_COLS + 16) + w_bytes * PIPE_COLS \
+        + off % 16
 
 
 def _explicit_split(k_rows: int, kstep: int, splits):
@@ -492,9 +535,11 @@ class PrefillPlan:
 
 def prefill_plan(T: int, I: int, O: int, packed: bool,
                  scale_bytes: int = 4, splits=None,
-                 n_sm: int = 132) -> PrefillPlan:
+                 n_sm: int = 132, g32: bool = False) -> PrefillPlan:
     """The prefill launch of a (T, I) x (I, O) product, T > 128, with
-    ``scale_bytes`` (4 f32, 2 bf16) scales.  ``splits=None``: one split when
+    ``scale_bytes`` (4 f32, 2 bf16) scales; ``g32``: the G32 kernel (a
+    scale row a 32-row part of a stage, in the slot K1p's second plane
+    takes).  ``splits=None``: one split when
     the output tiles alone give the ``n_sm`` SMs a block each; else as many
     splits as leave a block an SM, rounded down, each at least 4 stages, up
     to 16 (the narrow projections at T = 256).  An explicit count must
@@ -514,7 +559,7 @@ def prefill_plan(T: int, I: int, O: int, packed: bool,
     # slots
     boxes = w_box[0] * w_box[1] + 2 * x_box[0] * x_box[1] * 2
     stage_bytes = boxes + 2 * 1024
-    tx = boxes + (2 if packed else 1) * s_box[0] * scale_bytes
+    tx = boxes + (2 if packed or g32 else 1) * s_box[0] * scale_bytes
     return PrefillPlan(
         rows=PREFILL_ROWS, cols=PREFILL_COLS,
         grid=(-(-O // PREFILL_COLS), -(-T // PREFILL_ROWS), splits),
@@ -541,15 +586,17 @@ def _prefill_splits(tiles: int, k_rows: int, kstep: int, splits,
 
 def wide_prefill_plan(T: int, I: int, O: int, x_f32: bool = True,
                       scale_bytes: int = 4, splits=None,
-                      n_sm: int = 132, w_bytes: int = 1) -> PrefillPlan:
+                      n_sm: int = 132, w_bytes: int = 1,
+                      g32: bool = False) -> PrefillPlan:
     """The launch of the wide mode's prefill kernel
     (``qmm_wgmma_wide_kernel``) on a (T, I) x (I, O) int8-held product
     (``w_bytes=2``: int16), T > 128: 128 columns x 128 rows a block; a
     stage of 64 W rows holds the W box (int16: two boxes of 64 columns, one
     a consumer warpgroup; 128-byte rows either way), two 32-column x boxes
     a plane of x (three planes for f32 x, ``x_f32``; one for bf16) and the
-    group's scale row (``scale_bytes`` 4 f32, 2 bf16); as many stages as
-    fit a block's shared memory, up to 8; the split rule of
+    group's scale row (``scale_bytes`` 4 f32, 2 bf16; ``g32``, the G32
+    kernel: a scale row a 32-row part, in a second 1 KB slot); as many
+    stages as fit a block's shared memory, up to 8; the split rule of
     :func:`prefill_plan`.  Mirrors the constants of
     ``csrc/qmm_prefill.cu``."""
     if T <= PIPE_MAX_T:
@@ -562,7 +609,8 @@ def wide_prefill_plan(T: int, I: int, O: int, x_f32: bool = True,
     s_box = (PREFILL_COLS, 1)
     x_boxes = kstep // PREFILL_XK * planes
     boxes = w_bytes * PREFILL_COLS * kstep + x_boxes * x_box[0] * x_box[1] * 2
-    stage_bytes = boxes + 1024            # the scale row in a 1 KB slot
+    srows = 2 if g32 else 1
+    stage_bytes = boxes + srows * 1024    # the scale row(s), 1 KB slots
     stages = min(WIDE_PREFILL_MAX_STAGES,
                  (PREFILL_SMEM_BLOCK - 1024) // (stage_bytes + 16))
     return PrefillPlan(
@@ -571,7 +619,7 @@ def wide_prefill_plan(T: int, I: int, O: int, x_f32: bool = True,
         splits=splits, k_per_split=kps, kstep=kstep, stages=stages,
         stage_bytes=stage_bytes, smem=stages * stage_bytes + 1024,
         static_smem=16 * stages, w_box=w_box, x_box=x_box, s_box=s_box,
-        tx_bytes=boxes + s_box[0] * scale_bytes, x_planes=planes,
+        tx_bytes=boxes + srows * s_box[0] * scale_bytes, x_planes=planes,
         x_boxes=x_boxes, w_boxes=w_bytes)
 
 
@@ -613,8 +661,10 @@ def _check_args(x: torch.Tensor, w: QArray) -> None:
 
 _RESIDENT = {}              # (library, device, launch kind) -> blocks an SM
 # the ring's instantiations (qmm_pipe_launch's mode codes): standard,
-# groupdot, wide on an int8-held weight, wide on an int16 weight
+# groupdot, wide on an int8-held weight, wide on an int16 weight; PIPE_G32
+# or'ed into the standard or a wide code: its G32 instantiation (:func:`g32`)
 PIPE_STD, PIPE_GD, PIPE_WIDE, PIPE_WIDE16 = 0, 1, 2, 3
+PIPE_G32 = 4
 
 
 def wide_pipe_mode(w: QArray) -> int:
@@ -651,18 +701,22 @@ def _launch_pipe(x: torch.Tensor, w: QArray, gain, residual, eps: float,
     """The pipelined mode (``pmode``: ``PIPE_GD`` its groupdot
     instantiation, plain form only: no gain, no residual; ``PIPE_WIDE`` its
     wide one, glue and all, not packed; ``PIPE_WIDE16`` the wide one on an
-    int16 weight), from ``lib`` (another build of ``qmm.cu``; None the
-    package's)."""
+    int16 weight; the standard and wide ones take their G32 instantiation,
+    ``PIPE_G32``, where :func:`g32` says so), from ``lib`` (another build
+    of ``qmm.cu``; None the package's)."""
     lib = lib or _build.load("qmm")
     T, I = x.shape
     O = w.data.shape[1]
     n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
-    rows, warps = pipe_shape(T, I, O, pmode != PIPE_STD)
+    gd_body = pmode != PIPE_STD      # the groupdot or the wide body
+    rows, warps = pipe_shape(T, I, O, gd_body)
+    if pmode != PIPE_GD and g32(w):
+        pmode |= PIPE_G32
     resident = _pipe_resident(x, w, rows, warps,
                               x.dtype == torch.float32 or gain is not None,
                               pmode, lib)
     plan = pipe_plan(T, I, O, w.packed, resident=resident, splits=splits,
-                     n_sm=n_sm, groupdot=pmode != PIPE_STD)
+                     n_sm=n_sm, groupdot=gd_body)
     out = torch.empty((T, O), dtype=x.dtype, device=x.device)
     partial = (torch.empty((plan.splits, T, O), dtype=torch.float32,
                            device=x.device) if plan.splits > 1 else None)
@@ -692,8 +746,9 @@ def _launch_prefill(x: torch.Tensor, w: QArray, gain, residual,
     n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
     ssz = w.scales.element_size()
     plan = (wide_prefill_plan(T, I, O, x.dtype == torch.float32, ssz,
-                              splits, n_sm, w.data.element_size()) if wide else
-            prefill_plan(T, I, O, w.packed, ssz, splits, n_sm))
+                              splits, n_sm, w.data.element_size(), g32(w))
+            if wide else
+            prefill_plan(T, I, O, w.packed, ssz, splits, n_sm, g32(w)))
     out = torch.empty((T, O), dtype=x.dtype, device=x.device)
     partial = (torch.empty((plan.splits, T, O), dtype=torch.float32,
                            device=x.device) if plan.splits > 1 else None)

@@ -20,10 +20,11 @@ the plain version (1e-2 x max|ref|) before it is timed, and each
 build's registers, spills and ptxas performance notes are reported.
 
 The wide variants (``WIDE_VARIANTS``: ``PF_WIDE_STAGES``, the most
-stages its ring takes) are timed at the wide readings
-(the same layer at f32 compute, f32 x and scales, T = 2048, 512 and 256,
-64 rows a group, and T = 512 and 2048 at 128 rows a group: half the
-folds)
+stages its ring takes; ``G32_VARIANTS``: ``PF_WIDE_G32_PARTIALS``, how the
+G32 kernel keeps a stage's two parts' partials) are timed at the wide
+readings (the same layer at f32 compute, f32 x and scales, T = 2048, 512
+and 256, 64 rows a group, T = 512 and 2048 at 128 rows a group: half the
+folds, and at 32 rows a group: the G32 kernel, a fold a 32-row part)
 beside the wrapper's kernel (``build``), ``qmm_f32_kernel`` on the same
 calls (``f32_kernel``) and ``torch.matmul`` on pre-dequantized f32
 weights (``library``; ``allow_tf32`` off), each held to 1e-4 x max|ref|
@@ -31,8 +32,8 @@ first.  A bf16 reading times the bf16 variants named in ``--variants``, a
 wide reading the wide ones.
 
 Run on the card:  python3 -m fastllama_tpu_torch.tools.prefill_design
-Options: ``--variants base,ns4,wbase`` (default: all of ``VARIANTS`` and
-``WIDE_VARIANTS``), ``--readings int8_T2048,wide_T512`` (default: all of
+Options: ``--variants base,ns4,wbase`` (default: all of ``VARIANTS``,
+``WIDE_VARIANTS`` and ``G32_VARIANTS``), ``--readings int8_T2048,wide_T512`` (default: all of
 ``READINGS`` and ``WIDE_READINGS``),
 ``--iters N`` (timed calls a reading, default 10), ``--out FILE`` (the
 JSON record, also printed on stdout).  Progress goes to stderr.
@@ -75,6 +76,14 @@ WIDE_VARIANTS = {
     "wbase": (8,),                     # the source's default (3 stages)
     "wns2": (2,),                      # two stages
 }
+# the wide mode's G32 kernel (gs 32, 96): name -> PF_WIDE_G32_PARTIALS, how
+# it keeps a stage's two 32-row parts' partials (timed at the wide
+# readings too)
+G32_VARIANTS = {
+    "g32one": (1,),                    # the source's default: one, folded
+                                       # after each part's drain
+    "g32two": (2,),                    # one a part, one drain a stage
+}
 # name -> (packed, T)
 READINGS = {"int8_T2048": (False, 2048), "int4_T2048": (True, 2048),
             "int8_T512": (False, 512), "int8_T256": (False, 256),
@@ -82,7 +91,8 @@ READINGS = {"int8_T2048": (False, 2048), "int4_T2048": (True, 2048),
 # name -> (T, group size), at f32 compute (INT8, f32 x and scales)
 WIDE_READINGS = {"wide_T2048": (2048, 64), "wide_T512": (512, 64),
                  "wide_T256": (256, 64), "wide_T512_gs128": (512, 128),
-                 "wide_T2048_gs128": (2048, 128)}
+                 "wide_T2048_gs128": (2048, 128),
+                 "wide_T2048_gs32": (2048, 32), "wide_T512_gs32": (512, 32)}
 LAYER = {"wqkv": (4096, 12288), "wo": (4096, 4096), "w13": (4096, 22016),
          "w2": (11008, 4096)}
 INT4_HIDDEN = {11008: 11264, 22016: 22528}
@@ -104,6 +114,8 @@ def macros(name: str):
     if name in WIDE_VARIANTS:
         return [f"-D{m}={v}" for m, v in zip(WIDE_MACROS,
                                               WIDE_VARIANTS[name])]
+    if name in G32_VARIANTS:
+        return [f"-DPF_WIDE_G32_PARTIALS={G32_VARIANTS[name][0]}"]
     return [f"-D{m}={v}" for m, v in zip(MACROS, VARIANTS[name])]
 
 
@@ -133,19 +145,21 @@ def build_variants(names):
 def ptxas_report(text: str) -> dict:
     """{template arguments: (registers, spill line)} of the
     ``qmm_wgmma_kernel`` instantiations of a ``-Xptxas -v`` log (those of
-    ``qmm_wgmma_wide_kernel`` keyed ``wide:<arguments>``), and its
+    ``qmm_wgmma_wide_kernel`` keyed ``wide:<arguments>``, the G32 kernels'
+    ``g32_<arguments>`` and ``wide:g32_<arguments>``), and its
     performance notes (``notes``: ptxas's C75xx lines, such as wgmma
     serialized)."""
     lines = text.splitlines()
     out = {}
     for i, line in enumerate(lines):
         m = re.search(r"Compiling entry function '\S*qmm_wgmma_(wide_)?"
-                      r"kernelI(\S*?)EEv", line)
+                      r"(g32_)?kernelI(\S*?)EEv", line)
         if m:
             near = lines[i + 1:i + 6]
             used = next(t for t in near if "registers" in t)
             spill = next((t for t in near if "spill" in t), "")
-            out[("wide:" if m.group(1) else "") + m.group(2)] = (
+            out[("wide:" if m.group(1) else "") + (m.group(2) or "")
+                + m.group(3)] = (
                 int(re.search(r"Used (\d+) registers", used).group(1)),
                 spill.strip())
     out["notes"] = [t.strip() for t in lines if "(C75" in t]
@@ -177,7 +191,8 @@ def rel(got, want) -> float:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--variants",
-                    default=",".join([*VARIANTS, *WIDE_VARIANTS]))
+                    default=",".join([*VARIANTS, *WIDE_VARIANTS,
+                                      *G32_VARIANTS]))
     ap.add_argument("--readings",
                     default=",".join([*READINGS, *WIDE_READINGS]))
     ap.add_argument("--iters", type=int, default=10)
@@ -214,7 +229,8 @@ def main(argv=None) -> int:
             name = key if key not in rec["readings"] else f"{key}#{i}"
             rec["readings"][name] = r = wide_reading(
                 *WIDE_READINGS[key], {n: lib for n, (lib, _) in libs.items()
-                                      if n in WIDE_VARIANTS}, gen, rot,
+                                      if n in WIDE_VARIANTS
+                                      or n in G32_VARIANTS}, gen, rot,
                 args.iters)
             log(f"{name}: " + ", ".join(f"{n} {t:.4f}"
                                         for n, t in r["ms"].items()))

@@ -258,8 +258,10 @@ KERNEL_CASES = [
     (128, 256, 128, False, "wide_pipe"),
     (129, 256, 128, False, "wide_prefill"),
     (2048, 256, 128, False, "wide_prefill"),
-    (1, 256, 32, False, "wide"),
-    (2048, 256, 32, False, "wide"),
+    (1, 256, 16, False, "wide"),
+    (2048, 256, 16, False, "wide"),
+    (1, 256, 32, False, "wide_pipe"),
+    (2048, 256, 32, False, "wide_prefill"),
     (48, 200, 64, False, "wide"),
     (2048, 200, 64, False, "wide"),
     (48, 256, 64, True, "wide"),
@@ -269,9 +271,10 @@ KERNEL_CASES = [
 
 @pytest.mark.parametrize("T,O,gs,offset,want", KERNEL_CASES)
 def test_kernel_table(T, O, gs, offset, want):
-    """INT16 is wide at any compute dtype: gs 64 and 128 with aligned rows
-    and residual take the wide ring up to 128 rows and the wide prefill
-    kernel above; gs 32, O off 16 columns (200) and an offset residual keep
+    """INT16 is wide at any compute dtype: gs 32, 64 and 128 with aligned
+    rows and residual take the wide ring up to 128 rows and the wide
+    prefill kernel above; gs 16, O off 16 columns (200) and an offset
+    residual keep
     ``qmm_f32_kernel`` (``"wide"``); groupdot takes the same kernel."""
     _, w = _weights(np.random.default_rng(T + O + gs), (512, O), "INT16",
                     gs=gs)

@@ -65,7 +65,8 @@ MODE_CASES = [
     ("INT8", "bfloat16", False, 128, 256, 64, "pipe"),
     ("INT8", "bfloat16", False, 129, 256, 64, "loop"),
     ("INT8", "bfloat16", False, 48, 256, 128, "pipe"),
-    ("INT8", "bfloat16", False, 48, 256, 32, "loop"),
+    ("INT8", "bfloat16", False, 48, 256, 16, "loop"),
+    ("INT8", "bfloat16", False, 48, 256, 32, "pipe"),
     ("INT8", "bfloat16", False, 1, 256, 16, "loop"),
     ("INT8", "bfloat16", False, 48, 200, 64, "scalar"),
     ("INT8", "bfloat16", True, 48, 256, 64, "groupdot"),
@@ -419,7 +420,7 @@ def test_offset_residual_keeps_the_loop_on_card(cuda, kind, xdt):
 @pytest.mark.gpu
 def test_prefill_and_other_modes_keep_the_loop_on_card(cuda):
     """T > 128, groupdot, the wide path, unaligned rows and a group size
-    off a multiple of 64 leave ``.launches_pipe`` unmoved."""
+    off a multiple of 32 leave ``.launches_pipe`` unmoved."""
     rng = np.random.default_rng(3)
     _, tw = _weight(rng, (1024, 512), "INT8")
     tw = tw.to(cuda)
@@ -431,7 +432,7 @@ def test_prefill_and_other_modes_keep_the_loop_on_card(cuda):
         f(x, tw, **kw)
     xs = torch.randn(1025, device=cuda).to(torch.bfloat16)[1:].view(1, 1024)
     f(xs, tw)
-    _, t32 = _weight(rng, (1024, 512), "INT8", gs=32)
+    _, t32 = _weight(rng, (1024, 512), "INT8", gs=16)
     f(xs.clone(), t32.to(cuda))
     torch.cuda.synchronize()
     assert f.launches_pipe == n0

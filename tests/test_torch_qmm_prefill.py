@@ -70,12 +70,14 @@ def _close(got: torch.Tensor, want, tol: float):
 def _expected(kind: str, T: int, gs: int) -> str:
     """The kernel the table expects: the ring up to 128 rows, the prefill
     mode above (at f32 compute the wide ring and the wide prefill kernel),
-    both for gs a multiple of 64 and aligned operands."""
-    big, g64 = T > tqmm.PIPE_MAX_T, gs % 64 == 0
+    both for gs a multiple of 64 and aligned operands, and on an unpacked
+    weight for gs a multiple of 32 (the G32 instantiations)."""
+    big, g64, g32 = T > tqmm.PIPE_MAX_T, gs % 64 == 0, gs % 32 == 0
     if kind in ("int8", "int4p"):
-        return ("prefill" if big else "pipe") if g64 else "loop"
+        ok = g32 if kind == "int8" else g64
+        return ("prefill" if big else "pipe") if ok else "loop"
     if kind == "wide":
-        return ("wide_prefill" if big else "wide_pipe") if g64 else "wide"
+        return ("wide_prefill" if big else "wide_pipe") if g32 else "wide"
     if kind == "groupdot":
         return "pipe" if g64 and not big else "loop"
     if kind == "o1000":
@@ -85,14 +87,14 @@ def _expected(kind: str, T: int, gs: int) -> str:
 
 @pytest.mark.parametrize("kind", ["int8", "int4p", "wide", "groupdot",
                                   "o1000", "offset_residual"])
-@pytest.mark.parametrize("gs", [32, 64, 128])
+@pytest.mark.parametrize("gs", [16, 32, 64, 128])
 @pytest.mark.parametrize("T", [128, 129, 2048])
 def test_kernel_table(T, gs, kind):
     """``qmm._kernel``'s choice (the mode a wrapper launches) from dtypes,
     shapes and alignment only: ``qmm_mode`` keeps ``"loop"`` for every
     call above 128 rows that is not wide, groupdot or unaligned, and
-    :func:`prefill_kernel` sends those with gs % 64 == 0 and an aligned
-    residual to the prefill mode."""
+    :func:`prefill_kernel` sends those with gs % 64 == 0 (unpacked: gs %
+    32 == 0) and an aligned residual to the prefill mode."""
     O = 1000 if kind == "o1000" else 256
     _, w = _weight(np.random.default_rng(T + gs), (512, O),
                    "INT4P" if kind == "int4p" else "INT8", gs=gs)
@@ -459,12 +461,12 @@ def test_prefill_7b_widths_on_card(cuda, name, kind):
 
 @pytest.mark.gpu
 def test_other_calls_leave_the_prefill_count_on_card(cuda):
-    """T = 128 (the ring), gs = 32, groupdot, the wide path, unaligned rows
+    """T = 128 (the ring), gs = 16, groupdot, the wide path, unaligned rows
     and an offset residual leave ``launches_prefill`` unmoved; the loop
     forced on a prefill call (``mode="loop"``) is uncounted and agrees."""
     rng = np.random.default_rng(21)
     tw = _card_weight(rng, (1024, 512), "INT8", "float32", cuda)
-    _, t32 = _weight(rng, (1024, 512), "INT8", gs=32)
+    _, t32 = _weight(rng, (1024, 512), "INT8", gs=16)
     t32 = t32.to(cuda)
     f = tqmm.qmatmul_pallas
     n0 = f.launches_prefill

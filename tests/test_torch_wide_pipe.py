@@ -89,11 +89,13 @@ KERNEL_CASES = [
     ("INT4", "float32", 128, 512, 256, 64, "pipe"),
     ("INT8", "float32", 48, 512, 256, 128, "pipe"),
     ("INT8", "float32", 129, 512, 256, 64, "prefill"),
-    ("INT8", "float32", 48, 512, 256, 32, "f32"),
+    ("INT8", "float32", 48, 512, 256, 16, "f32"),
+    ("INT8", "float32", 48, 512, 256, 32, "pipe"),
     ("INT8", "float32", 48, 512, 1000, 64, "f32"),
     ("INT16", "float32", 48, 512, 256, 64, "pipe"),
     ("INT16", "bfloat16", 1, 512, 256, 64, "pipe"),
-    ("INT16", "bfloat16", 48, 512, 256, 32, "f32"),
+    ("INT16", "bfloat16", 48, 512, 256, 16, "f32"),
+    ("INT16", "bfloat16", 48, 512, 256, 32, "pipe"),
     ("INT16", "float32", 1, 512, 1000, 64, "f32"),
 ]
 
@@ -349,13 +351,13 @@ def test_wide_ring_vs_plain_on_card(cuda, T, xdt, sdt):
 
 @pytest.mark.gpu
 def test_wide_f32_kernel_cases_leave_the_ring_count_on_card(cuda):
-    """T = 129 at gs 32, gs 32, O = 1000 and INT16 at gs 32 keep
+    """T = 129 at gs 16, gs 16, O = 1000 and INT16 at gs 16 keep
     ``qmm_f32_kernel``: one ``.launches`` each, ``launches_wide_pipe``
     unmoved, each within 1e-4 of its plain twin."""
     rng = np.random.default_rng(21)
     f = tqmm.qmatmul_pallas
-    for qname, T, O, gs in (("INT8", 129, 1040, 32), ("INT8", 48, 1040, 32),
-                            ("INT8", 48, 1000, 64), ("INT16", 48, 1040, 32)):
+    for qname, T, O, gs in (("INT8", 129, 1040, 16), ("INT8", 48, 1040, 16),
+                            ("INT8", 48, 1000, 64), ("INT16", 48, 1040, 16)):
         _, tw = _weights(rng, (1024, O), qname, gs=gs)
         tw = tw.to(cuda)
         x = torch.randn((T, 1024), device=cuda)

@@ -134,10 +134,12 @@ KERNEL_CASES = [
     ("INT8", 2048, 256, 128, False, "wide_prefill"),
     ("INT4", 129, 256, 64, False, "wide_prefill"),
     ("INT4", 2048, 256, 128, False, "wide_prefill"),
-    ("INT8", 129, 256, 32, False, "wide"),
+    ("INT8", 129, 256, 16, False, "wide"),
+    ("INT8", 129, 256, 32, False, "wide_prefill"),
     ("INT8", 2048, 1000, 64, False, "wide"),
     ("INT16", 129, 256, 64, False, "wide_prefill"),
-    ("INT16", 129, 256, 32, False, "wide"),
+    ("INT16", 129, 256, 16, False, "wide"),
+    ("INT16", 129, 256, 32, False, "wide_prefill"),
     ("INT16", 2048, 1000, 64, False, "wide"),
     ("INT8", 256, 256, 64, True, "wide"),
     ("INT8", 128, 256, 64, False, "wide_pipe"),
@@ -489,16 +491,16 @@ def test_plane_probe_on_card(cuda, T, sdt):
 
 @pytest.mark.gpu
 def test_other_wide_calls_leave_the_count_on_card(cuda):
-    """T = 128 (the wide ring), gs 32, O = 1000, INT16 at gs 32 and an
+    """T = 128 (the wide ring), gs 16, O = 1000, INT16 at gs 16 and an
     offset residual leave ``launches_wide_prefill`` unmoved; ``mode="wide"``
     forces ``qmm_f32_kernel`` on a wide prefill call, uncounted, and
     agrees within 1e-4."""
     rng = np.random.default_rng(5)
     f = tqmm.qmatmul_pallas
     n0 = f.launches_wide_prefill
-    for qname, T, O, gs in (("INT8", 128, 1040, 64), ("INT8", 300, 1040, 32),
+    for qname, T, O, gs in (("INT8", 128, 1040, 64), ("INT8", 300, 1040, 16),
                             ("INT8", 300, 1000, 64),
-                            ("INT16", 300, 1040, 32)):
+                            ("INT16", 300, 1040, 16)):
         _, tw = _weights(rng, (1024, O), qname, gs=gs)
         f(torch.randn((T, 1024), device=cuda), tw.to(cuda), F32)
     _, ws = _weights(rng, (2, 1024, 512), "INT8")
