@@ -220,10 +220,12 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    on the same traffic; the seconds to write and to load, tok/s, ms a
    step,
    memory and profiles; then the CLI as subprocesses (``-m benchmark`` on
-   the 32-layer file; ``gen --spec``, ``serve``, ``serve --spec``,
-   ``serve --prefix-cache``, ``chat`` on stdin, ``-e``/``-d`` and
-   ``--profile-dir`` on a 4-layer FLM file), each exiting 0 with its
-   output checked, and ``--mesh`` exiting non-zero;
+   the 32-layer file alone; ``serve``, ``serve --spec``, ``serve
+   --prefix-cache``, ``gen --spec``, ``chat`` on stdin, ``-e``/``-d`` and
+   ``--profile-dir`` at once, on a 4-layer FLM file), each exiting 0 with
+   its output checked, ``--mesh model=2`` in
+   one process exiting 2 (a mesh larger than the world) and
+   ``--multihost`` 2 (not ported);
 4n. INT16 at full depth: 7B / INT16 / 32 layers from
    ``random_params_int`` (13.5 GB of weights, f32 scales), fused once,
    at bf16 compute through phase 4's ``BatchedEngine`` (int8 KV, B=48,
@@ -240,9 +242,9 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    with T <= 128 on the ring's G32 instantiation and every one above on
    the prefill mode's, none on the loop; tok/s, ms a step, the traced
    device ms a step and idle share, memory;
-4g. deferred KV on phase 4's engine and traffic at decode chunk 16
-   (every chunk deferred, every K2 launch with stats in the split-row
-   mode) against plain chunks, in turns;
+4g. deferred KV on phase 4's engine and traffic, 16 layers deep, at
+   decode chunk 16 (every chunk deferred, every K2 launch with stats in
+   the split-row mode) against plain chunks, in turns;
 4h. the measurement path through the port's tools: the bandwidth probe
    (``tools/hbm_peak.py``, 128/512/1024 MB), then ``tools/qmm_sweep.py``
    at the 7B decode shapes, T=1 and 48, INT8 and INT4, auto split,
@@ -294,7 +296,36 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    wide kernels (in turns with ``qmm_f32_kernel``), the ring at T in {1,
    48} and the prefill kernels at T = 2048, a 7B layer, also in turns
    with ``torch.matmul`` on pre-dequantized weights and the plain
-   version; every new kernel must beat the kernel it replaces).
+   version; every new kernel must beat the kernel it replaces);
+6. the perplexity tool (``tools/eval_ppl.py``) at 7B, 32 layers: fp32
+   weights made on the card from one seed, built at INT8, INT16 and fp32,
+   f32 compute: ``evaluate`` (window 512) over 2048 seeded token ids at
+   INT8 and the first 512 at INT16 and fp32; at INT8 ``evaluate_decode``
+   (B = 4, chunk 64) with an f32 KV cache within 1e-3 of it in log
+   perplexity, and with an int8 KV cache; every K1 launch on the wide
+   ring or its prefill kernel;
+6b. the mesh path in this process (``mesh="model=1"``, ``spmd_kernels``,
+   an NCCL group of one rank) on one set of 32-layer weights: phase 4's
+   ``BatchedEngine`` (the batched steps given the mesh) and 4b's
+   ``Engine`` (a one-rank mesh keeps the one-card path), and 4c's
+   ``SpecBatchedEngine`` at 4 layers, each held to the same engine
+   without a mesh (logits within 1e-2 of max|ref| at bf16), then a short
+   counted run of each (16 new tokens; 33 speculative), every K1 launch
+   on the ring or the prefill kernel; device ms a step beside 4's and
+   4b's;
+6c. two spawned ranks on the one card (each given ``cuda:0`` and gloo:
+   NCCL refuses two ranks on one GPU): a probe of gloo's collectives on
+   CUDA tensors, then ``model=2`` and ``data=2`` on the 4-layer 7B FLM
+   INT8 file loaded by each rank on the mesh (``BatchedEngine.load``:
+   its shard alone; host and card memory of the load), int8 KV, B=8:
+   greedy tokens at f32 equal to one rank's engine, the bf16 prefill's
+   int8 cache of the first layer within one quantum beyond the bf16 bar
+   of one rank's (every layer recorded, beside one card's fused engine
+   against its unfused one), one decode step's logits within 1e-2 at
+   bf16, per rank the launches by
+   mode, device ms a step and peak memory (no scaling: one card).  A
+   rank that fails fails the run.  The launches of 6, 6b and 6c are added
+   to each kernel's count in the kernels line.
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Details go to
@@ -4446,20 +4477,26 @@ def serve_prefix(dev, rec, kv):
     return launches
 
 
+# 4g's depth: cut from 32 to keep the whole run inside its time limit
+# (the deferred and plain passes compare within the phase)
+DEFERRED_LAYERS = 16
+
+
 def phase_deferred_serving(dev, rec):
-    """Phase 4g: deferred KV at full width — phase 4's engine and traffic
-    (48 requests of ``list(range(1, 44))``, 128 new tokens, greedy) at
-    decode chunk 16, where every chunk runs deferred (2 <= K <= 32), and
-    the same engine with plain chunks, in turns plain, deferred, deferred,
-    plain.  The counters are zeroed just before each measured pass."""
+    """Phase 4g: deferred KV at full width, ``DEFERRED_LAYERS`` deep —
+    phase 4's engine and traffic (48 requests of ``list(range(1, 44))``,
+    128 new tokens, greedy) at decode chunk 16, where every chunk runs
+    deferred (2 <= K <= 32), and the same engine with plain chunks, in
+    turns plain, deferred, deferred, plain.  The counters are zeroed just
+    before each measured pass."""
     import torch
     from fastllama_tpu_torch.config import EngineConfig
     from fastllama_tpu_torch.loaders.tokenizer import Tokenizer
     from fastllama_tpu_torch.models.llama import random_params_int
     from fastllama_tpu_torch.runtime.batching import BatchedEngine
     log("phase 4g: deferred KV serving 7B INT8 fused, int8 KV, B=48, S=512, "
-        "32 layers, decode chunk 16, against plain chunks")
-    cfg = cfg_7b()
+        f"{DEFERRED_LAYERS} layers, decode chunk 16, against plain chunks")
+    cfg = cfg_7b(DEFERRED_LAYERS)
     B, n_new = 48, 128
     prompt = list(range(1, 44))
     params = random_params_int(cfg, seed=SEED, device=dev)
@@ -6735,18 +6772,23 @@ K1_WRAPPERS = ("qmatmul_pallas", "qmatmul_pallas_indexed",
 
 
 class FileSet:
-    """Phase 4m's checkpoint files, written by the port's writers under
-    ``tempfile.gettempdir()`` on a thread started before the kernels build
-    (the card is idle then): a 32-layer and a 4-layer FLM INT8 file
+    """Phase 4m's and 6c's checkpoint files, written by the port's writers
+    under ``tempfile.gettempdir()`` on a thread started before the kernels
+    build (the card is idle then): a 32-layer and a 4-layer FLM INT8 file
     (``write_flm`` on fp32 layers drawn on the card from a seed, one layer
     at a time), a 4-layer GGUF ``Q8_0`` file and a 4-layer fp32 llama2c
-    file with its tokenizer, all at 7B width.  ``join`` waits and re-raises
-    a writer's error; ``remove`` deletes the files."""
+    file with its tokenizer, all at 7B width; ``names`` picks some of
+    them.  ``join`` waits and re-raises a writer's error; ``remove``
+    deletes the files."""
 
-    def __init__(self, dev):
+    JOBS = [("flm32", 32, "flm"), ("flm4", 4, "flm"), ("gguf4", 4, "gguf"),
+            ("llama2c4", 4, "llama2c")]
+
+    def __init__(self, dev, names=None):
         import tempfile
         import threading
         self.dev = dev
+        self.jobs = [j for j in self.JOBS if names is None or j[0] in names]
         self.dir = tempfile.mkdtemp(prefix="chip_smoke_4m_")
         self.paths, self.rec, self.err = {}, {}, None
         self.thread = threading.Thread(target=self._run, daemon=True)
@@ -6766,13 +6808,12 @@ class FileSet:
         from fastllama_tpu_torch.tools.synthetic import tiny_tokenizer
         free = shutil.disk_usage(self.dir).free
         self.rec["dir"], self.rec["free_gb"] = self.dir, free / 1e9
-        log(f"  phase 4m files under {self.dir}: {free / 1e9:.1f} GB free")
-        check(free > 16e9, f"{self.dir}: {free / 1e9:.1f} GB free, phase 4m "
-                           f"writes about 15 GB")
+        need = 15e9 if len(self.jobs) > 1 else 2e9
+        log(f"  checkpoint files under {self.dir}: {free / 1e9:.1f} GB free")
+        check(free > need + 1e9, f"{self.dir}: {free / 1e9:.1f} GB free, "
+                                 f"the files take about {need / 1e9:.0f} GB")
         tok = tiny_tokenizer(32000)
-        jobs = [("flm32", 32, "flm"), ("flm4", 4, "flm"),
-                ("gguf4", 4, "gguf"), ("llama2c4", 4, "llama2c")]
-        for name, n_layers, kind in jobs:
+        for name, n_layers, kind in self.jobs:
             cfg = cfg_7b(n_layers)
             w = seeded_weights(cfg, SEED + 40, self.dev)
             p = os.path.join(self.dir, name)
@@ -6807,16 +6848,10 @@ class FileSet:
         shutil.rmtree(self.dir, ignore_errors=True)
 
 
-def run_cli(args, label, stdin=None, timeout=600, rc=0):
-    """``python3 -m fastllama_tpu_torch.cli`` as a subprocess from the
-    checkout's root; its exit code must be ``rc`` (0: success; None: any
-    non-zero).  Returns (stdout, stderr, seconds)."""
-    t0 = time.perf_counter()
-    r = subprocess.run([sys.executable, "-m", "fastllama_tpu_torch.cli",
-                        *args], input=stdin, capture_output=True, text=True,
-                       timeout=timeout,
-                       cwd=os.path.dirname(os.path.abspath(__file__)))
-    sec = time.perf_counter() - t0
+CLI = [sys.executable, "-m", "fastllama_tpu_torch.cli"]
+
+
+def _cli_result(r, label, sec, rc):
     ok = r.returncode == rc if rc is not None else r.returncode != 0
     check(ok, f"CLI {label}: exit code {r.returncode}; stderr "
               f"{r.stderr[-2000:]!r}")
@@ -6824,11 +6859,56 @@ def run_cli(args, label, stdin=None, timeout=600, rc=0):
     return r.stdout, r.stderr, sec
 
 
+def run_cli(args, label, stdin=None, timeout=600, rc=0):
+    """``python3 -m fastllama_tpu_torch.cli`` as a subprocess from the
+    checkout's root; its exit code must be ``rc`` (0: success; None: any
+    non-zero).  Returns (stdout, stderr, seconds)."""
+    t0 = time.perf_counter()
+    r = subprocess.run(CLI + list(args), input=stdin, capture_output=True,
+                       text=True, timeout=timeout,
+                       cwd=os.path.dirname(os.path.abspath(__file__)))
+    return _cli_result(r, label, time.perf_counter() - t0, rc)
+
+
+def run_clis(jobs, timeout=600):
+    """Several CLI runs at once, each a subprocess as :func:`run_cli`
+    starts it: ``jobs`` of (args, label, stdin, rc), the runs whose output
+    is checked and whose speed is not read.  Returns their (stdout,
+    stderr, seconds) in order; stops every one it started."""
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = []
+    try:
+        for args, label, stdin, rc in jobs:
+            procs.append(subprocess.Popen(
+                CLI + list(args), stdin=subprocess.PIPE,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                cwd=root))
+        out = []
+        for p, (args, label, stdin, rc) in zip(procs, jobs):
+            left = max(1.0, timeout - (time.perf_counter() - t0))
+            so, se = p.communicate(stdin or "", timeout=left)
+            out.append(_cli_result(
+                subprocess.CompletedProcess(args, p.returncode, so, se),
+                label, time.perf_counter() - t0, rc))
+        return out
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
 def phase_cli(files, rec):
     """Phase 4m's CLI runs, each a subprocess that loads its file again:
-    ``-m benchmark`` on the 32-layer FLM file, the rest on the 4-layer
-    one; every run must exit 0 with its output checked, ``--mesh`` must
-    exit non-zero with the not-ported message."""
+    ``-m benchmark`` on the 32-layer FLM file alone (its speed is
+    recorded), then at once, on the 4-layer one, ``chat`` on stdin,
+    ``gen --spec``, ``-e``/``-d``, ``--profile-dir``, ``--mesh model=2``,
+    ``--multihost``, ``serve``, ``serve --spec`` and ``serve
+    --prefix-cache``, whose outputs are checked (nine processes share the
+    card: their speeds are not readings).  Every run must exit 0 with its
+    output checked, ``--mesh model=2`` in one process 2 naming the two
+    counts and ``--multihost`` 2 with the not-ported message."""
     import re
     f32, f4 = files.paths["flm32"], files.paths["flm4"]
     out = {}
@@ -6842,12 +6922,6 @@ def phase_cli(files, rec):
                             output_speed_tps=float(
                                 stats["output_speed"].rstrip("tps")))
     log(f"  CLI benchmark: {stats}")
-    so, se, sec = run_cli(["-c", f4, "-m", "gen", "--spec", "-t", "0", "-n",
-                           "32", "-i", "the cat and the cat and the cat",
-                           "--detail"], "gen --spec")
-    check("output:" in so and "spec acceptance" in se,
-          f"CLI gen --spec: no output or acceptance line: {so[-500:]!r}")
-    out["gen_spec_s"] = sec
     prompts = os.path.join(files.dir, "prompts.txt")
     with open(prompts, "w") as f:
         f.write("\n".join(f"the story of the {w} and the dog"
@@ -6858,45 +6932,55 @@ def phase_cli(files, rec):
         f.write("\n".join("the story of the cat and the dog and the boy " * 3
                           + w for w in ("a", "the", "on", "in", "to", "of",
                                         "he", "it")) + "\n")
-    for label, extra, pf in (("serve", [], prompts),
-                             ("serve --spec", ["--spec"], prompts),
-                             ("serve --prefix-cache", ["--prefix-cache"],
-                              shared)):
-        so, se, sec = run_cli(["-c", f4, "-m", "serve", "--batch", "8",
-                               "-n", "32", "-t", "0", "--prompts-file", pf]
-                              + extra, label)
-        m = re.search(r"served (\d+) requests \| aggregate decode "
-                      r"([0-9.]+) tok/s", se)
-        check(m is not None and m.group(1) == "8"
-              and so.count(" tokens=") == 8, f"CLI {label}: {se[-500:]!r}")
-        out[label] = {"aggregate_decode_tok_s": float(m.group(2)),
-                      "seconds": sec}
-        log(f"  CLI {label}: 8 requests, aggregate decode "
-            f"{m.group(2)} tok/s")
-    so, _, sec = run_cli(["-c", f4, "-m", "chat", "-n", "16", "-t", "0"],
-                         "chat", stdin="the cat\nand the dog\n")
-    check(so.count("bot> ") == 2, f"CLI chat: {so[-500:]!r}")
-    out["chat_s"] = sec
     # -e and -d in one run: the file's tokenizer read here gives the ids
     from fastllama_tpu_torch.loaders.registry import load_model
     text = "the story of the cat and the dog"
     ids = load_model(f4, tokenizer_only=True).tokenizer.encode(text)
-    so, _, _ = run_cli(["-c", f4, "-e", text, "-d",
-                        ",".join(map(str, ids[1:]))], "-e/-d")
-    got = re.search(r"tokens\((\d+)\): \[(.*)\]", so)
-    check(got is not None and [int(i) for i in got.group(2).split(", ")]
-          == ids and so.split("text:", 1)[-1].strip() == text,
-          f"CLI -e/-d: {so!r}, want the ids {ids} and the text back")
     prof = os.path.join(files.dir, "prof")
-    so, se, sec = run_cli(["-c", f4, "-n", "16", "-t", "0", "-i", text,
-                           "--profile-dir", prof], "--profile-dir")
+    serve = ["-c", f4, "-m", "serve", "--batch", "8", "-n", "32", "-t", "0",
+             "--prompts-file"]
+    # one process: a world of one rank, which a two-rank mesh outgrows
+    t0 = time.perf_counter()
+    (chat, _, _), (spec_o, spec_e, _), (ed, _, _), _, (_, mesh_e, _), \
+        (_, mh_e, _), *served = run_clis([
+            (["-c", f4, "-m", "chat", "-n", "16", "-t", "0"], "chat",
+             "the cat\nand the dog\n", 0),
+            (["-c", f4, "-m", "gen", "--spec", "-t", "0", "-n", "32", "-i",
+              "the cat and the cat and the cat", "--detail"], "gen --spec",
+             None, 0),
+            (["-c", f4, "-e", text, "-d", ",".join(map(str, ids[1:]))],
+             "-e/-d", None, 0),
+            (["-c", f4, "-n", "16", "-t", "0", "-i", text, "--profile-dir",
+              prof], "--profile-dir", None, 0),
+            (["-c", f4, "--mesh", "model=2"], "--mesh", None, 2),
+            (["-c", f4, "-m", "serve", "--multihost"], "--multihost", None,
+             2),
+            (serve + [prompts], "serve", None, 0),
+            (serve + [prompts, "--spec"], "serve --spec", None, 0),
+            (serve + [shared, "--prefix-cache"], "serve --prefix-cache",
+             None, 0)])
+    out["concurrent_runs_s"] = time.perf_counter() - t0
+    for label, (so, se, _) in zip(("serve", "serve --spec",
+                                   "serve --prefix-cache"), served):
+        m = re.search(r"served (\d+) requests \| aggregate decode "
+                      r"([0-9.]+) tok/s", se)
+        check(m is not None and m.group(1) == "8"
+              and so.count(" tokens=") == 8, f"CLI {label}: {se[-500:]!r}")
+    check(chat.count("bot> ") == 2, f"CLI chat: {chat[-500:]!r}")
+    check("output:" in spec_o and "spec acceptance" in spec_e,
+          f"CLI gen --spec: no output or acceptance line: {spec_o[-500:]!r}")
+    got = re.search(r"tokens\((\d+)\): \[(.*)\]", ed)
+    check(got is not None and [int(i) for i in got.group(2).split(", ")]
+          == ids and ed.split("text:", 1)[-1].strip() == text,
+          f"CLI -e/-d: {ed!r}, want the ids {ids} and the text back")
     with open(os.path.join(prof, "trace.json")) as f:
         trace = f.read()
     check("qmm_pipe_kernel" in trace,
           "CLI --profile-dir: the trace names no qmm_pipe_kernel")
     out["profile_trace_bytes"] = len(trace)
-    _, se, _ = run_cli(["-c", f4, "--mesh", "model=2"], "--mesh", rc=None)
-    check("not ported" in se, f"CLI --mesh: {se[-300:]!r}")
+    check("needs 2 devices, have 1" in mesh_e,
+          f"CLI --mesh: {mesh_e[-300:]!r}")
+    check("not ported" in mh_e, f"CLI --multihost: {mh_e[-300:]!r}")
     rec["file_serving"]["cli"] = out
 
 
@@ -7184,6 +7268,582 @@ def time_loaded_modes(dev, gen, res):
     return rows
 
 
+# -- phases 6, 6b and 6c: perplexity, and serving on a mesh of ranks -------
+
+PPL_TOKENS = 2048
+PPL_TOKENS_SHORT = 512        # INT16 and fp32: one window
+EVAL_PATH = ("qmatmul_pallas", "qmatmul_pallas_indexed",
+             "qmatmul_pallas_indexed_fused", "flash_decode_batched",
+             "decode_write", "qmatmul_pallas_wide_pipe",
+             "qmatmul_pallas_indexed_wide_pipe",
+             "qmatmul_pallas_wide_prefill",
+             "qmatmul_pallas_indexed_fused_wide_prefill")
+
+
+def phase_eval(dev, rec):
+    """Phase 6: ``tools/eval_ppl`` on 7B, 32 layers, fp32 weights made on
+    the card from one seed and built (``build_params``) at INT8, INT16 and
+    fp32, f32 compute and scales: ``evaluate`` (window 512) over 2048
+    seeded token ids at INT8 and the first 512 at INT16 and fp32; at INT8
+    also ``evaluate_decode`` (B = 4, chunk 64) with an f32 KV cache,
+    within 1e-3 of ``evaluate`` in log perplexity (the JAX tool's bar),
+    and with an int8 KV cache (recorded).
+    Every K1 launch on the wide ring or its prefill kernel.  Returns the
+    launches."""
+    import torch
+    from fastllama_tpu_torch.config import EngineConfig, QuantType
+    from fastllama_tpu_torch.loaders.tokenizer import Tokenizer
+    from fastllama_tpu_torch.models.llama import build_params
+    from fastllama_tpu_torch.runtime.batching import BatchedEngine
+    from fastllama_tpu_torch.runtime.engine import Engine
+    from fastllama_tpu_torch.tools.eval_ppl import evaluate, evaluate_decode
+    log("phase 6: perplexity, 7B, 32 layers, one seed at INT8 (2048 token "
+        "ids), INT16 and fp32 (512), f32 compute")
+    cfg = cfg_7b().replace(quant_type=QuantType.NONE, name="")
+    w = seeded_weights(cfg, SEED + 60, dev)
+    raw = {k: (v.stack(cfg.n_layers) if isinstance(v, SeededLayers) else v)
+           for k, v in w.items()}
+    del w
+    ids = torch.randint(1, cfg.vocab_size, (PPL_TOKENS,),
+                        generator=torch.Generator().manual_seed(SEED + 61)
+                        ).tolist()
+    tok = Tokenizer().finalize()
+    ec = EngineConfig(max_seq_len=512, compute_dtype="float32",
+                      kv_dtype="float32", scale_dtype="float32")
+    out = {"tokens": PPL_TOKENS, "window": 512, "card": smi_line()}
+    zero_launches()
+    with ModeTally() as tally:
+        for name, qt in (("int8", QuantType.INT8), ("int16", QuantType.INT16),
+                         ("f32", QuantType.NONE)):
+            t0 = time.perf_counter()
+            cq = cfg.replace(quant_type=qt)
+            params = build_params(cq, raw, qt, device=dev)
+            if qt == QuantType.NONE:
+                del raw
+            torch.cuda.synchronize()
+            row = {"build_s": time.perf_counter() - t0}
+            eng = Engine(cq, params, tok, ec, device=dev)
+            t0 = time.perf_counter()
+            n = PPL_TOKENS if qt == QuantType.INT8 else PPL_TOKENS_SHORT
+            ppl = evaluate(eng, ids[:n], 512)
+            row.update(ppl=ppl, tokens=n,
+                       evaluate_s=time.perf_counter() - t0)
+            check(math.isfinite(ppl) and ppl > 1, f"{name}: ppl {ppl}")
+            del eng
+            if qt == QuantType.INT8:
+                for kv in ("float32", "int8"):
+                    be = BatchedEngine(cq, params, tok, dataclasses.replace(
+                        ec, kv_dtype=kv, max_batch_size=4), device=dev)
+                    t0 = time.perf_counter()
+                    row[f"decode_ppl_{kv}_kv"] = evaluate_decode(be, ids, 0,
+                                                                 64)
+                    row[f"decode_{kv}_kv_s"] = time.perf_counter() - t0
+                    del be
+                d = abs(math.log(row["decode_ppl_float32_kv"])
+                        - math.log(ppl))
+                row["delta_log_ppl_decode_f32_kv"] = d
+                check(d <= 1e-3, f"INT8: evaluate_decode (f32 KV) "
+                                 f"{row['decode_ppl_float32_kv']} against "
+                                 f"evaluate {ppl}: |d log ppl| {d:.3e}")
+            out[name] = row
+            log(f"  {name}: {row}")
+            del params
+            torch.cuda.empty_cache()
+    launches = read_launches()
+    check_all_wide(launches, tally, "perplexity")
+    for k in EVAL_PATH:
+        check(launches[k] > 0, f"kernel {k} was not launched by the "
+                               f"perplexity tool")
+    out["launches"] = launches
+    out["k1_modes"] = tally.record()
+    rec["eval"] = out
+    return launches
+
+
+def _spec_logits(eng, prompts):
+    """One admission of ``prompts`` and one verify of each prompt's first
+    four tokens on a SpecBatchedEngine's own verify step: its logits (B,
+    4, V).  The rows are fixed tokens, not the sampled first ones: at
+    bf16 a greedy argmax may part between two engines within tolerance."""
+    import torch
+    from fastllama_tpu_torch.models.batched import spec_decode_step
+    for p in prompts:
+        eng.submit(p, max_new_tokens=8, temperature=0.0, stop_tokens=())
+    eng._admit_pending()
+    dev = eng.device
+    batch = torch.tensor([prompts[b][:4] for b in range(eng.B)],
+                         device=dev)
+    pos = torch.as_tensor(eng.pos, device=dev)
+    kb = eng.kernels
+    return spec_decode_step(eng.config, eng.params, batch, pos, eng.cache,
+                            mm=kb.mm, mm_idx=kb.mm_idx,
+                            attn_sbidx=kb.attn_sbidx,
+                            spec_writer=kb.spec_writer,
+                            compute_dtype=eng._cdt, mesh=eng.mesh,
+                            data_sharded=True)[0]
+
+
+def _admit(eng, prompts):
+    for p in prompts:
+        eng.submit(p, max_new_tokens=8, temperature=0.0, stop_tokens=())
+    eng._admit_pending()
+
+
+def _cache_block(eng, cache):
+    """This rank's block of a one-rank engine's whole slot cache: (k, v,
+    k scales, v scales) views (the whole cache for an engine without a
+    mesh)."""
+    from fastllama_tpu_torch.parallel.sharding import (local_slices,
+                                                       slot_cache_sharding)
+    if eng.mesh is None:
+        return cache.k, cache.v, cache.k_scale, cache.v_scale
+    p5, p4 = slot_cache_sharding(eng.config, eng.mesh, eng.B)
+    return tuple(None if t is None else
+                 t[local_slices((p5 if t.ndim == 5 else p4).mesh, t.shape,
+                                (p5 if t.ndim == 5 else p4).spec)]
+                 for t in (cache.k, cache.v, cache.k_scale, cache.v_scale))
+
+
+def _decode_logits(eng, prompts, cache_from=None, admit=True):
+    """One admission of ``prompts`` (unless ``admit`` is False: done
+    already) and one decode step of every slot on the engine's own step,
+    fed each prompt's first token (not the sampled one: at bf16 a greedy
+    argmax may part between two engines within tolerance): its logits (B,
+    V).  ``cache_from`` (a one-rank engine's whole slot cache after the
+    same admission) replaces the engine's block of the cache first, so
+    that two engines' steps compare on the same cache contents (at an
+    int8 cache a prefill row one rounding apart may quantize one step
+    apart)."""
+    import torch
+    if admit:
+        _admit(eng, prompts)
+    if cache_from is not None:
+        c = eng.cache
+        for mine, theirs in zip((c.k, c.v, c.k_scale, c.v_scale),
+                                _cache_block(eng, cache_from)):
+            if mine is not None:
+                mine.copy_(theirs)
+    dev = eng.device
+    tok = torch.tensor([p[0] for p in prompts], device=dev)
+    return eng.decode(tok, torch.as_tensor(eng.pos, device=dev),
+                      eng.cache)[0]
+
+
+def _cache_quanta(eng, cache_from, n_rows):
+    """The largest difference, layer by layer, between the engine's int8
+    cache and its block of ``cache_from`` over rows [0, n_rows) of every
+    slot and head, K and V, dequantized, in quanta: |q·s - q'·s'| /
+    max(s, s'), the step between two int8 values at the row's larger
+    scale."""
+    c = eng.cache
+    k, v, ks, vs = _cache_block(eng, cache_from)
+    worst = None
+    for q, s, q1, s1 in ((c.k, c.k_scale, k, ks), (c.v, c.v_scale, v, vs)):
+        s, s1 = s[..., :n_rows, None], s1[..., :n_rows, None]
+        d = (q[..., :n_rows, :].float() * s
+             - q1[..., :n_rows, :].float() * s1).abs() / s.maximum(s1)
+        by_layer = d.reshape(d.shape[0], -1).amax(dim=1)
+        worst = by_layer if worst is None else worst.maximum(by_layer)
+    return worst.tolist()
+
+
+def phase_mesh_one(dev, rec):
+    """Phase 6b: the mesh path in this process, ``mesh="model=1"`` with
+    ``spmd_kernels`` on an NCCL group of one rank, at 7B, 32 layers, on
+    one set of weights: phase 4's ``BatchedEngine`` (the batched steps
+    given the mesh) and 4b's ``Engine`` (a one-rank mesh keeps the
+    one-card path, as JAX's does), and 4c's ``SpecBatchedEngine`` at 4
+    layers, each held to the same engine without a mesh (logits within
+    1e-2·max|ref| at bf16); then a short counted run of each (16 new
+    tokens; 33 for the speculative one) with its launches, every K1
+    launch on the ring or the prefill kernel, and a traced decode chunk
+    for device ms a step beside 4's and 4b's."""
+    import torch
+    from fastllama_tpu_torch.config import EngineConfig
+    from fastllama_tpu_torch.loaders.tokenizer import Tokenizer
+    from fastllama_tpu_torch.models.llama import random_params_int
+    from fastllama_tpu_torch.parallel import distributed
+    from fastllama_tpu_torch.runtime.batching import BatchedEngine
+    from fastllama_tpu_torch.runtime.engine import Engine
+    from fastllama_tpu_torch.runtime.spec_batching import SpecBatchedEngine
+    log("phase 6b: mesh model=1 on an NCCL group of one rank: 4's "
+        "BatchedEngine, 4b's Engine (32 layers), 4c's SpecBatchedEngine "
+        "(4 layers)")
+    distributed.initialize(f"tcp://localhost:{distributed.free_port()}", 1,
+                           0, backend=ONE_RANK_BACKEND, device=RANK_DEVICE)
+    out = {"card": smi_line()}
+    launches = {}
+
+    def add(got, keys):
+        for k in keys:
+            launches[k] = launches.get(k, 0) + got[k]
+    try:
+        tok = Tokenizer().finalize()
+        cfg = cfg_7b()
+        prompt = list(range(1, 44))
+        t0 = time.perf_counter()
+        params = random_params_int(cfg, seed=SEED, device=dev)
+        ec = EngineConfig(max_seq_len=512, max_batch_size=48,
+                          kv_dtype="int8")
+        mesh = dict(mesh="model=1", spmd_kernels=True)
+        want = _decode_logits(BatchedEngine(cfg, params, tok, ec,
+                                            decode_chunk=64, device=dev),
+                              [prompt] * 48)
+        eng = BatchedEngine(cfg, params, tok, dataclasses.replace(ec, **mesh),
+                            decode_chunk=64, device=dev)
+        check(eng.mesh is not None and eng.mesh.device_mesh is not None,
+              "the engine has no mesh")
+        out["batched_logits_err"] = compare(
+            "6b BatchedEngine on model=1, one decode step",
+            _decode_logits(eng, [prompt] * 48), want, TOL_BF16)
+        eng.run()
+        del want
+        torch.cuda.empty_cache()
+        out["batched"], got = serve_batched(eng, BATCHED_PATH, t0, n_new=16)
+        add(got, BATCHED_PATH)
+        del eng
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        ec = EngineConfig(max_seq_len=512, kv_dtype="bfloat16")
+        ref = Engine(cfg, params, tok, ec, device=dev)
+        eng = Engine(cfg, params, tok, dataclasses.replace(ec, **mesh),
+                     device=dev)
+        check(eng.mesh is not None and not eng._spmd,
+              "a one-rank mesh left the one-card path")
+        del params
+        out["single_logits_err"] = compare(
+            "6b Engine on model=1, the prompt's logits",
+            eng._prefill(prompt, 64, eng.new_cache(), 0),
+            ref._prefill(prompt, 64, ref.new_cache(), 0), TOL_BF16)
+        del ref
+        torch.cuda.empty_cache()
+        out["single"], got, _ = serve_single(eng, SINGLE_PATH, t0, n_new=16,
+                                             chunk=16)
+        add(got, SINGLE_PATH)
+        del eng
+        torch.cuda.empty_cache()
+
+        cfg4 = cfg_7b(4)
+        params = random_params_int(cfg4, seed=SEED, device=dev)
+        ec = EngineConfig(max_seq_len=512, kv_dtype="int8",
+                          max_batch_size=32, fuse_weights=False)
+        sprompt = ([7, 121, 3088, 59] * 11)[:43]
+        kw = dict(decode_chunk=64, width=4, rounds_per_chunk=32, device=dev)
+        want = _spec_logits(SpecBatchedEngine(cfg4, params, tok, ec, **kw),
+                            [sprompt] * 32)
+        eng = SpecBatchedEngine(cfg4, params, tok,
+                                dataclasses.replace(ec, **mesh), **kw)
+        del params
+        out["spec_logits_err"] = compare(
+            "6b SpecBatchedEngine on model=1, one verify",
+            _spec_logits(eng, [sprompt] * 32), want, TOL_BF16)
+        del want
+        eng.run()
+        eng.stats = type(eng.stats)()
+        eng.spec_drafted = eng.spec_accepted = 0
+        eng.arm_chunks.clear()
+        zero_launches()
+        with ModeTally() as tally:
+            reqs = eng.generate_all([sprompt] * 32, max_new_tokens=33,
+                                    temperature=0.0, stop_tokens=())
+            torch.cuda.synchronize()
+        got = read_launches()
+        check_all_pipe(got, tally, "6b speculative serving")
+        check(all(len(r.output_tokens) == 33 for r in reqs),
+              "6b: a speculative request did not get its tokens")
+        for k in SPEC_PATH:
+            check(got[k] > 0, f"6b: kernel {k} was not launched on the "
+                              f"speculative path")
+        out["spec"] = {"aggregate_decode_tok_s": eng.stats.aggregate_tps,
+                       "acceptance": eng.acceptance,
+                       "chunks_by_arm": dict(eng.arm_chunks),
+                       "launches": got, "k1_modes": tally.record()}
+        log(f"  6b spec (4 layers): {eng.stats.aggregate_tps:.2f} tok/s, "
+            f"acceptance {eng.acceptance:.3f}, arms {dict(eng.arm_chunks)}")
+        add(got, SPEC_PATH)
+        del eng
+        torch.cuda.empty_cache()
+    finally:
+        distributed.shutdown()
+    for label, key in (("batched", "serving"), ("single", "single_serving")):
+        ours = out[label]["profile"]["device_busy_ms_per_step"]
+        theirs = rec.get(key, {}).get("profile", {}).get(
+            "device_busy_ms_per_step")
+        out[label]["device_ms_per_step_without_mesh"] = theirs
+        log(f"  6b {label}: device {ours:.3f} ms a step on model=1, "
+            f"{theirs} without a mesh (phase "
+            f"{'4' if label == 'batched' else '4b'})")
+    rec["mesh_one"] = out
+    return launches
+
+
+MESH_PROMPTS = [list(range(1 + i, 44 + i)) for i in range(8)]
+# 6c: both ranks on the one card, over gloo (NCCL refuses two ranks on one
+# GPU); 6b: one rank over NCCL
+RANK_DEVICE = "cuda:0"
+RANKS_BACKEND = "gloo"
+ONE_RANK_BACKEND = "nccl"
+# 6c's int8 cache after the bf16 prefill against one rank's, in its first
+# layer (the same inputs on both: the embedding, the column-parallel K/V
+# projections, rope, the cache writes): the bf16 bar on the rows
+# (TOL_BF16 of a row's largest value, 127 quanta) and one quantum for
+# the int8 rounding.  Deeper layers' inputs part at bf16 as two one-card
+# engines' do (fused against unfused weights: recorded beside them)
+CACHE_QUANTA = 1 + 127 * TOL_BF16
+
+
+def _gloo_probe():
+    """gloo's collectives on CUDA tensors on this rank: (all-reduce,
+    all-gather and broadcast results by dtype, the wall ms of one
+    all-reduce of a 48-row activation by dtype; both ranks on the one
+    card, gloo moves CUDA tensors through the host)."""
+    import torch
+    import torch.distributed as dist
+    from fastllama_tpu_torch.parallel.sharding import make_mesh
+    rank = dist.get_rank()
+    g = make_mesh("model=2").group("model")
+    res = {}
+    for dt in (torch.float32, torch.bfloat16):
+        t = torch.full((4,), rank + 1.0, dtype=dt, device=RANK_DEVICE)
+        parts = [torch.empty_like(t) for _ in range(2)]
+        dist.all_gather(parts, t, group=g)
+        dist.all_reduce(t, group=g)
+        b = torch.full((4,), rank + 7.0, dtype=dt, device=RANK_DEVICE)
+        dist.broadcast(b, src=0, group=g)
+        res[str(dt)] = (t.tolist(), [p.tolist() for p in parts], b.tolist())
+    ms = {}
+    for dt in (torch.bfloat16, torch.float32):
+        x = torch.ones((48, 4096), dtype=dt, device=RANK_DEVICE)
+        for it in range(25):
+            if it == 5:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            dist.all_reduce(x, group=g)
+        torch.cuda.synchronize()
+        ms[str(dt)] = (time.perf_counter() - t0) / 20 * 1e3
+    return res, ms
+
+
+def _host_gb():
+    """(this process's resident set now, its peak so far or None where
+    ``/proc/self/status`` has no VmHWM), GB (``getrusage``'s peak would
+    carry the parent's through the spawn's fork and exec)."""
+    with open("/proc/self/statm") as f:
+        rss = int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+    peak = None
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmHWM:"):
+                peak = int(line.split()[1]) * 1024 / 1e9
+    return rss / 1e9, peak
+
+
+def _mesh_rank(rank, path):
+    """Phase 6c on one rank: the gloo probe, then on ``model=2`` and on
+    ``data=2`` the 4-layer 7B FLM INT8 file at ``path`` through
+    ``BatchedEngine.load(..., mesh=...)`` (int8 KV, B=8, 8 prompts of 43
+    tokens), the rank's host and card memory around the load; greedy
+    tokens at f32 compute (rank 0 also those of one rank's engine,
+    loaded without a mesh); at bf16 the int8 cache after the prefill (and
+    one card's fused engine's against its unfused one) and one decode
+    step's logits against one rank's engine, the decode on that engine's
+    cache; then the serving run at bf16 with the launch
+    counters zeroed just before (K1's modes tallied), its tok/s, peak
+    memory and a traced chunk."""
+    import torch
+    from fastllama_tpu_torch.config import EngineConfig
+    from fastllama_tpu_torch.runtime.batching import BatchedEngine
+    dev = torch.device(RANK_DEVICE)
+    out = {"probe": _gloo_probe()}
+    for mesh in ("model=2", "data=2"):
+        row = {}
+        ec = EngineConfig(max_seq_len=512, max_batch_size=8,
+                          kv_dtype="int8", compute_dtype="float32",
+                          mesh=mesh)
+        bf = dataclasses.replace(ec, compute_dtype="bfloat16")
+        # one rank's engine, unfused as the mesh engine is: the
+        # comparisons isolate the mesh
+        one = dict(mesh="", fuse_weights=False)
+
+        def load(e):
+            return BatchedEngine.load(path, engine_config=e,
+                                      decode_chunk=16, device=dev)
+
+        def gen(e):
+            return [r.output_tokens for r in e.generate_all(
+                MESH_PROMPTS, max_new_tokens=16, temperature=0.0,
+                stop_tokens=())]
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        rss0, _ = _host_gb()
+        t0 = time.perf_counter()
+        eng = load(bf)
+        torch.cuda.synchronize()
+        rss1, peak = _host_gb()
+        row.update(
+            load_s=time.perf_counter() - t0,
+            load_card_peak_gb=(torch.cuda.max_memory_allocated() - base)
+            / 1e9,
+            host_rss_before_load_gb=rss0, host_rss_after_load_gb=rss1,
+            host_peak_rss_gb=peak,
+            weight_shard_gb=sum(
+                t.numel() * t.element_size() for f in dataclasses.fields(
+                    eng.params) for t in _leaf_tensors(
+                        getattr(eng.params, f.name))) / 1e9,
+            wq_shape=tuple(eng.params.wq.data.shape))
+        with ModeTally() as tally:
+            zero_launches()
+            row["tokens_f32"] = gen(load(ec))
+            f32_launches = read_launches()
+        check_all_wide(f32_launches, tally, f"6c {mesh} rank {rank} f32")
+        if rank == 0:
+            row["tokens_f32_one_rank"] = gen(load(
+                dataclasses.replace(ec, **one)))
+        one_eng = load(dataclasses.replace(bf, **one))
+        _admit(one_eng, MESH_PROMPTS)
+        _admit(eng, MESH_PROMPTS)
+        row["cache_quanta"] = _cache_quanta(eng, one_eng.cache, 43)
+        # one card against itself: fused weights, the same prompts
+        fused = load(dataclasses.replace(bf, mesh=""))
+        _admit(fused, MESH_PROMPTS)
+        row["cache_quanta_one_card_fused"] = _cache_quanta(
+            fused, one_eng.cache, 43)
+        del fused
+        ref = _decode_logits(one_eng, MESH_PROMPTS, admit=False)
+        lg = _decode_logits(eng, MESH_PROMPTS, cache_from=one_eng.cache,
+                            admit=False)
+        if rank == 0:
+            row["logits_bf16_err"] = float((lg - ref).abs().max()
+                                           / ref.abs().max())
+        del one_eng, ref, lg
+        eng.run()
+        eng.generate_all(MESH_PROMPTS, max_new_tokens=3, temperature=0.0,
+                         stop_tokens=())
+        eng.stats = type(eng.stats)()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        with ModeTally() as tally:
+            reqs = eng.generate_all(MESH_PROMPTS, max_new_tokens=32,
+                                    temperature=0.0, stop_tokens=())
+            torch.cuda.synchronize()
+        launches = read_launches()
+        check_all_pipe(launches, tally, f"6c {mesh} rank {rank} bf16")
+        check(all(len(r.output_tokens) == 32 for r in reqs),
+              f"6c {mesh}: a request did not get its tokens")
+        steps = launches["decode_write"]
+        st = eng.stats
+        row.update(
+            tokens_bf16=[r.output_tokens for r in reqs],
+            aggregate_decode_tok_s=st.aggregate_tps,
+            ms_per_decode_step=st.decode_s / max(steps, 1) * 1e3,
+            decode_steps=steps,
+            max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+            cache_shape=tuple(eng.cache.k.shape), launches=launches,
+            k1_modes=tally.record(),
+            profile=profile_decode(eng, MESH_PROMPTS[0],
+                                   st.decode_s / max(steps, 1) * 1e3,
+                                   n_steps=8))
+        out[mesh] = row
+        del eng
+        torch.cuda.empty_cache()
+    return out
+
+
+def _leaf_tensors(v):
+    if v is None:
+        return []
+    return [v.data, v.scales] if hasattr(v, "scales") else [v]
+
+
+def phase_mesh_two(dev, rec, files):
+    """Phase 6c: two ranks on the one card (NCCL refuses two ranks on one
+    GPU; each rank is given ``cuda:0`` and the gloo backend), spawned by
+    ``parallel.distributed.run_ranks``: a probe of gloo's collectives on
+    CUDA tensors, then ``model=2`` and ``data=2`` on the 4-layer 7B FLM
+    INT8 file (phase 4m's), loaded by each rank with the mesh (its shard
+    alone), int8 KV: greedy tokens at f32 compute equal to one rank's
+    engine on the same file; at bf16 the first layer's int8 cache after
+    the prefill within ``CACHE_QUANTA`` of one rank's (every layer's
+    recorded beside one card's fused engine against its unfused one) and
+    one decode step's logits within 1e-2·max|ref|; per rank the host and card memory of the load,
+    the launches by mode (every K1 launch on the ring or the prefill
+    kernel at bf16, the wide kernels at f32), device ms a step and peak
+    memory.  A rank that fails fails the phase.  Both ranks share one
+    card: no scaling is measured here."""
+    from fastllama_tpu_torch.parallel import distributed
+    log("phase 6c: two gloo ranks on the one card, model=2 and data=2, "
+        "the 4-layer 7B FLM INT8 file loaded on a mesh, int8 KV")
+    try:
+        ranks = distributed.run_ranks(
+            _mesh_rank, 2, files.paths["flm4"], device=RANK_DEVICE,
+            backend=RANKS_BACKEND, timeout=600)
+    except Exception as e:              # a rank raised, died or hung
+        raise Failed(f"6c: a rank failed: {e}") from e
+    for r, row in enumerate(ranks):
+        for dt, (red, gat, bc) in row["probe"][0].items():
+            check(red == [3.0] * 4 and gat == [[1.0] * 4, [2.0] * 4]
+                  and bc == [7.0] * 4,
+                  f"gloo on CUDA tensors, rank {r} {dt}: {row['probe'][0]}")
+    ms = [row["probe"][1] for row in ranks]
+    log(f"  ok gloo all_reduce, all_gather, broadcast on CUDA tensors "
+        f"(f32, bf16) on both ranks; one all-reduce of 48x4096, ms by "
+        f"rank: {ms}")
+    out = {"card": smi_line(), "all_reduce_48x4096_ms": ms}
+    launches = {}
+    for mesh in ("model=2", "data=2"):
+        r0, r1 = ranks[0][mesh], ranks[1][mesh]
+        for r, row in enumerate((r0, r1)):
+            for k, v in row["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+            fused_q = row["cache_quanta_one_card_fused"]
+            log(f"  6c {mesh} rank {r}: load {row['load_s']:.2f} s, card "
+                f"+{row['load_card_peak_gb']:.3f} GB at peak, host RSS "
+                f"{row['host_rss_before_load_gb']:.3f} -> "
+                f"{row['host_rss_after_load_gb']:.3f} GB (peak "
+                f"{row['host_peak_rss_gb']}), weight shard "
+                f"{row['weight_shard_gb']:.3f} GB, wq {row['wq_shape']}; "
+                f"cache quanta from one rank's by layer "
+                f"{[round(q, 3) for q in row['cache_quanta']]} (one card "
+                f"fused against unfused "
+                f"{[round(q, 3) for q in fused_q]}); "
+                f"{row['aggregate_decode_tok_s']:.2f} tok/s, "
+                f"{row['ms_per_decode_step']:.3f} ms a step, device "
+                f"{row['profile']['device_busy_ms_per_step']:.3f} ms a step "
+                f"(idle {row['profile']['device_idle_share']:.3f}), peak "
+                f"{row['max_memory_allocated_gb']:.3f} GB, cache "
+                f"{row['cache_shape']}, K1 {row['k1_modes']}")
+        log(f"  6c {mesh}: bf16 logits {r0['logits_bf16_err']:.3e} of "
+            f"max|ref| from one rank's")
+        check(r0["tokens_f32"] == r1["tokens_f32"]
+              == r0["tokens_f32_one_rank"],
+              f"6c {mesh}: greedy tokens at f32 differ from one rank's")
+        check(r0["tokens_bf16"] == r1["tokens_bf16"],
+              f"6c {mesh}: the ranks emitted different tokens")
+        check(r0["logits_bf16_err"] <= TOL_BF16,
+              f"6c {mesh}: bf16 logits {r0['logits_bf16_err']:.3e} of "
+              f"max|ref| from one rank's")
+        for r, row in enumerate((r0, r1)):
+            check(row["cache_quanta"][0] <= CACHE_QUANTA,
+                  f"6c {mesh} rank {r}: the bf16 prefill's int8 cache of "
+                  f"layer 0 is {row['cache_quanta'][0]:.3f} quanta from one "
+                  f"rank's (bar {CACHE_QUANTA})")
+        out[mesh] = {"ranks": [r0, r1], "logits_bf16_err":
+                     r0["logits_bf16_err"]}
+        log(f"  ok 6c {mesh}: f32 tokens equal one rank's, bf16 logits "
+            f"{r0['logits_bf16_err']:.3e} of max|ref|, layer 0's cache "
+            f"within {max(r0['cache_quanta'][0], r1['cache_quanta'][0]):.3f}"
+            f" quanta")
+    for k in BATCHED_PATH:
+        check(launches[k] > 0, f"6c: kernel {k} was not launched")
+    rec["mesh_two"] = out
+    return launches
+
+
 SOURCES = {
     "qmatmul_pallas": ("fastllama_tpu_torch/csrc/qmm.cu",
                        "fastllama_tpu/ops/pallas/qmm.py:251"),
@@ -7277,7 +7937,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
                     default="1,2,3,3d,3e,3f,3g,3h,4,4b,4c,4d,4e,4f,4i,"
-                            "4j,4k,4l,4m,4n,4o,4g,4h,5",
+                            "4j,4k,4l,4m,4n,4o,4g,4h,6,6b,6c,5",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--regs-against", metavar="CU", action="append",
                     default=[],
@@ -7321,8 +7981,10 @@ def main() -> int:
     nv = _build.nvcc_version()
     rec["nvcc"] = nv.splitlines()[-1]
     log(nv)
-    # phase 4m's files are written while nvcc builds (the card is idle)
-    files = FileSet(dev) if "4m" in phases else None
+    # phase 4m's and 6c's files are written while nvcc builds (the card
+    # is idle)
+    files = (FileSet(dev) if "4m" in phases
+             else FileSet(dev, ("flm4",)) if "6c" in phases else None)
     try:
         return run_phases(args, phases, dev, rec, files)
     finally:
@@ -7346,6 +8008,10 @@ def run_phases(args, phases, dev, rec, files) -> int:
     rec["build_s"] = time.perf_counter() - t0
     log(f"phase 1: kernels built in {rec['build_s']:.1f} s")
     log(_build.build_log())
+    import re
+    rec["build_sources_s"] = {k: float(v) for k, v in re.findall(
+        r"== (\S+) \(rc \d+, ([0-9.]+) s\)", _build.build_log())}
+    log(f"  nvcc seconds by source: {rec['build_sources_s']}")
     rec["groupdot_ring_ptxas"] = check_no_spill(_build.build_log(),
                                                 "qmm_pipe_gd_kernel")
     rec["wide_ring_ptxas"] = check_no_spill(_build.build_log(),
@@ -7369,7 +8035,7 @@ def run_phases(args, phases, dev, rec, files) -> int:
     if files is not None:
         t0 = time.perf_counter()
         files.join()
-        log(f"phase 4m's files written ({time.perf_counter() - t0:.1f} s "
+        log(f"checkpoint files written ({time.perf_counter() - t0:.1f} s "
             f"waited after the build)")
 
     t_start = time.perf_counter()
@@ -7481,6 +8147,13 @@ def run_phases(args, phases, dev, rec, files) -> int:
         for k in ("qmatmul_pallas_groupdot", "qmatmul_pallas_groupdot_p4",
                   "qmatmul_pallas_groupdot_pipe"):
             launches[k] = got[k]
+    # the perplexity tool's and the mesh paths' launches are added to
+    # each kernel's count (6c: both ranks')
+    for label, fn in (("6", phase_eval), ("6b", phase_mesh_one),
+                      ("6c", lambda d, r: phase_mesh_two(d, r, files))):
+        if label in phases:
+            for k, v in run(label, fn).items():
+                launches[k] = launches.get(k, 0) + v
     if "5" in phases:
         run("5", phase_timing)
     rec["phases_s"] = time.perf_counter() - t_start

@@ -14,15 +14,23 @@ batched speculation, ``--prefix-cache``, ``--qos-chunk``,
 
 ``--device`` (default ``cuda``) names where the engines run; ``--device
 cpu`` runs the plain PyTorch versions on the host.  Nothing falls back to
-the CPU on its own.  ``--mesh``, ``--spmd-kernels`` and ``--multihost``
-(multi-device serving) are not ported: they exit with status 2 and the
-engines' message.
+the CPU on its own.  ``--mesh model=N`` (``--spmd-kernels`` takes the same
+per-rank path) serves on a mesh of ranks, one process a rank under
+torchrun: each rank joins the process group from torchrun's variables,
+runs on ``cuda:{LOCAL_RANK}`` (or ``--device cpu``), and only rank 0
+writes the output.  A mesh larger than the world exits with status 2 and
+the error's text.  ``--multihost`` (per-host admission across processes,
+``runtime/multihost.py``) is not ported: status 2.
 
 Usage: python -m fastllama_tpu_torch.cli -c model.flm -m benchmark
+       torchrun --nproc-per-node 2 -m fastllama_tpu_torch.cli -c model.flm \
+           -m serve --mesh model=2 --prompts-file prompts.txt
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 import sys
 import time
 
@@ -61,8 +69,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=128391297)
     p.add_argument("--max-seq-len", type=int, default=1024,
                    help="context clamp (the C++ engine clamps to 1024)")
-    p.add_argument("--mesh", default="", help="mesh spec, e.g. 'model=8' "
-                   "(multi-device serving: not ported yet)")
+    p.add_argument("--mesh", default="", help="mesh spec, e.g. 'model=8' or "
+                   "'data=2,model=4': serve on that many ranks (one "
+                   "process a rank, under torchrun)")
     p.add_argument("--decode-chunk", type=int, default=32,
                    help="tokens generated per device dispatch")
     p.add_argument("--kv-dtype", default="float32",
@@ -79,9 +88,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="disable the hand-written kernels (the plain "
                         "PyTorch versions on the card)")
     p.add_argument("--spmd-kernels", action="store_true",
-                   help="multi-device kernels per shard (not ported yet)")
+                   help="with --mesh: the kernels per shard (the port's one "
+                        "mesh path either way)")
     p.add_argument("--multihost", action="store_true",
-                   help="--mode serve across processes (not ported yet)")
+                   help="--mode serve with per-host admission across "
+                        "processes (not ported yet)")
     p.add_argument("-e", "--encode", default="", help="encode text to tokens")
     p.add_argument("-d", "--decode", default="", help="decode ids (comma-sep)")
     p.add_argument("--detail", action="store_true")
@@ -245,15 +256,56 @@ def chat_loop(eng, args) -> int:
         print()
 
 
+def join_mesh(args):
+    """With ``--mesh``: join the process group (torchrun's variables; a
+    no-op without them), check the mesh against the world and set
+    ``args.device`` to the rank's.  Returns (rank, whether this call
+    joined the group); (0, False) off a mesh.  Raises ValueError for a
+    mesh the world cannot hold."""
+    if not args.mesh:
+        return 0, False
+    from fastllama_tpu_torch.parallel import distributed
+    from fastllama_tpu_torch.parallel.sharding import make_mesh
+    joined = not distributed.is_initialized()
+    dev = distributed.initialize(
+        device=None if args.device == "cuda" else args.device)
+    joined = joined and distributed.is_initialized()
+    try:
+        mesh = make_mesh(args.mesh)
+    except ValueError:
+        if joined:
+            distributed.shutdown()
+        raise
+    if dev is not None:
+        args.device = str(dev)
+    return mesh.rank, joined
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    for flag, on in (("--mesh", args.mesh),
-                     ("--spmd-kernels", args.spmd_kernels),
-                     ("--multihost", args.multihost)):
-        if on:
-            print(f"error: {flag}: EngineConfig.mesh is not ported yet "
-                  f"(multi-device serving)", file=sys.stderr)
-            return 2
+    if args.multihost:
+        print("error: --multihost: multi-host serving (per-host admission, "
+              "runtime/multihost.py) is not ported yet", file=sys.stderr)
+        return 2
+    try:
+        rank, joined = join_mesh(args)
+    except ValueError as e:
+        print(f"error: --mesh {args.mesh}: {e}", file=sys.stderr)
+        return 2
+    try:
+        if rank == 0:
+            return run(args)
+        # every rank serves in lockstep; rank 0 alone writes the output
+        with open(os.devnull, "w") as null, \
+                contextlib.redirect_stdout(null):
+            return run(args)
+    finally:
+        if joined:
+            from fastllama_tpu_torch.parallel import distributed
+            distributed.shutdown()
+
+
+def run(args) -> int:
     if args.encode or args.decode:
         if not args.checkpoint:
             print("error: -e/-d need -c/--checkpoint (the tokenizer lives "

@@ -126,8 +126,13 @@ class EngineConfig:
     scale_dtype: str = "auto"
     deferred_kv: bool = False
     qos_chunk: int = 0
-    mesh: str = ""                      # not ported yet: raises
-    spmd_kernels: bool = False          # not ported yet: raises
+    # a mesh of ranks, e.g. "model=8" or "data=2,model=4" (empty: one
+    # card): every rank keeps its shards and runs the per-rank steps of
+    # parallel/spmd_step.py.  spmd_kernels asks for the same path with a
+    # mesh (the port has no second, auto-partitioned one) and for nothing
+    # without one, as in the JAX package
+    mesh: str = ""
+    spmd_kernels: bool = False
     pallas_interpret: bool = False      # TPU-only: raises in the port
 
 

@@ -15,6 +15,7 @@ registry normalizes conventions.
 """
 from __future__ import annotations
 
+import os
 import struct
 from typing import Tuple
 
@@ -56,11 +57,18 @@ def load_llama2c(ckpt_path: str, tokenizer_path: str = "",
         if tokenizer_only:
             return cfg, {}, tok
 
+        size = os.fstat(f.fileno()).st_size
+        at = [28]
+
         def rd(*shape):
+            # a read-only map of the file: the pages a caller slices are
+            # read, and processes sharing the file share them
             n = int(np.prod(shape))
-            arr = np.fromfile(f, dtype="<f4", count=n)
-            if arr.size != n:
+            if at[0] + 4 * n > size:
                 raise ValueError(f"truncated llama2.c file {ckpt_path}")
+            arr = np.memmap(ckpt_path, dtype="<f4", mode="r",
+                            offset=at[0], shape=(n,))
+            at[0] += 4 * n
             return arr.reshape(shape)
 
         w = {}

@@ -11,7 +11,9 @@ into device parameters:
 3. stack per-layer tensors and build a ``LlamaParams`` on the device
    (``models.llama.build_params``).
 
-Multi-device loading (``EngineConfig.mesh``) is not ported and raises.
+With ``EngineConfig.mesh`` the FFN hidden size is padded for the 'model'
+axis and each rank builds its own shard of the parameters alone, on its
+device.
 """
 from __future__ import annotations
 
@@ -69,7 +71,10 @@ class LoadedModel:
     file_type: FileType
 
     def build(self, qtype: Optional[QuantType] = None,
-              device=None) -> LlamaParams:
+              device=None, mesh=None) -> LlamaParams:
+        """The parameters on ``device``; on a ``mesh``, this rank's shard
+        of them alone (``parallel.sharding.shard_raw``: each leaf sliced
+        before it goes to the device and is quantized there)."""
         qt = qtype if qtype is not None else self.config.quant_type
         if qt == QuantType.INT4 and self.config.hidden_dim % 512:
             # zero-pad hidden_dim to a 512 multiple so the FFN down
@@ -78,7 +83,11 @@ class LoadedModel:
             self.config = pad_hidden_for_sharding(
                 self.config, self.weights,
                 512 // self.config.group_size)
-        return build_params(self.config, self.weights, qtype, device)
+        raw = self.weights
+        if mesh is not None:
+            from fastllama_tpu_torch.parallel.sharding import shard_raw
+            raw = shard_raw(self.config, mesh, raw)
+        return build_params(self.config, raw, qtype, device)
 
 
 def _deinterleave(weights: dict, head_size: int) -> None:
@@ -104,11 +113,18 @@ def resolve_and_build(ckpt_path: str, tokenizer_path: str,
     effective quant type (the user's request for an fp32 file; a
     pre-quantized FLM or GGUF file keeps its own) and build the parameters
     on ``device`` (``None``: the card).  Returns (config, params,
-    tokenizer).  ``engine_config.mesh`` (multi-device loading) is not
-    ported: NotImplementedError, before the file is read."""
+    tokenizer).
+
+    With ``engine_config.mesh`` the mesh is checked first (one larger than
+    the world raises ValueError before the file is read), the FFN hidden
+    size is padded for the 'model' axis (``registry.py:114-123``), and the
+    parameters are this rank's shard, built on the rank's device: each
+    leaf is sliced on the host and only the slice goes to the device and
+    is quantized there.  The engines take them with ``sharded=True``."""
+    mesh = None
     if engine_config is not None and engine_config.mesh:
-        raise NotImplementedError(
-            "EngineConfig.mesh is not ported yet (multi-device serving)")
+        from fastllama_tpu_torch.runtime.batching import open_mesh
+        mesh, device = open_mesh(engine_config, device)
     device = resolve_device(device)     # no card: raise before reading
     m = load_model(ckpt_path, tokenizer_path, file_type)
     cfg = m.config
@@ -117,7 +133,12 @@ def resolve_and_build(ckpt_path: str, tokenizer_path: str,
     elif m.file_type in (FileType.FLM, FileType.GGUF) \
             and cfg.quant_type != QuantType.NONE:
         qtype = cfg.quant_type          # pre-quantized file wins
-    params = m.build(qtype, device)
+    if mesh is not None:
+        from fastllama_tpu_torch.parallel.sharding import MODEL_AXIS
+        cfg = pad_hidden_for_sharding(cfg, m.weights,
+                                      mesh.shape[MODEL_AXIS])
+        m.config = cfg
+    params = m.build(qtype, device, mesh)
     # build() may pad hidden_dim (INT4 packing alignment)
     cfg = cfg.replace(hidden_dim=m.config.hidden_dim)
     return cfg, params, m.tokenizer

@@ -18,6 +18,10 @@
 * :func:`spec_decode_step` — D tokens for every slot (pending + drafts)
   in one forward, the batched speculative verify.
 
+On a mesh of ranks (``mesh``, ``parallel/``) the prefill, decode, verify
+and tail steps run per rank on its shards; ``parallel/spmd_step.py`` holds
+the collectives they add.
+
 Cache writes are deferred out of the layer loop, as in the JAX package:
 attention reads cache rows [0, pos[b]) strictly plus the fresh row, and
 every layer's new rows land after the loop in one writer call.  The port
@@ -39,6 +43,10 @@ from fastllama_tpu_torch.ops.attention import (gqa_attention,
 from fastllama_tpu_torch.ops.norms import rmsnorm, swiglu
 from fastllama_tpu_torch.ops.qmatmul import qmatmul
 from fastllama_tpu_torch.ops.rope import apply_rope_half, rope_tables
+from fastllama_tpu_torch.parallel.sharding import DATA_AXIS, MODEL_AXIS
+from fastllama_tpu_torch.parallel.spmd_step import (
+    _check_dims, classify, embed, gather_slots, local_heads, owned,
+    row_parallel, slot_range, sum_rows)
 from fastllama_tpu_torch.quant.groupquant import dequantize_rows, quantize_rows
 
 
@@ -89,14 +97,14 @@ def _split_qkv(cfg: ModelConfig, params: LlamaParams, proj, h, l):
     return proj(h, params.wq, l), proj(h, params.wk, l), proj(h, params.wv, l)
 
 
-def _ffn(cfg: ModelConfig, params: LlamaParams, proj, h, l):
-    hdim = cfg.hidden_dim
+def _ffn_hidden(cfg: ModelConfig, params: LlamaParams, proj, h, l):
+    """swiglu(h·w1, h·w3): the FFN's hidden rows (gate|up fused or
+    separate)."""
     if params.w3 is None:                      # fused gate|up
         g13 = proj(h, params.w1, l)
-        hd = swiglu(g13[:, :hdim], g13[:, hdim:])
-    else:
-        hd = swiglu(proj(h, params.w1, l), proj(h, params.w3, l))
-    return proj(hd, params.w2, l)
+        hdim = cfg.hidden_dim
+        return swiglu(g13[:, :hdim], g13[:, hdim:])
+    return swiglu(proj(h, params.w1, l), proj(h, params.w3, l))
 
 
 def _make_proj(mm: Callable, mm_idx: Optional[Callable]):
@@ -108,11 +116,13 @@ def _make_proj(mm: Callable, mm_idx: Optional[Callable]):
 
 
 def _decode_layer_qkv(cfg: ModelConfig, params: LlamaParams, proj,
-                      x, l, attn_norm_l, cos, sin):
+                      x, l, attn_norm_l, cos, sin, mesh=None):
     """Decode-layer front half: norm -> QKV -> per-head reshape -> rope.
-    x (B, dim); returns q (B, H, hs), k/v (B, n_kv, hs)."""
+    x (B, dim); returns q (B, H, hs), k/v (B, n_kv, hs), this rank's
+    heads on a ``mesh``."""
     B = x.shape[0]
-    hs, n_heads, n_kv = cfg.head_size, cfg.n_heads, cfg.n_kv_heads
+    hs = cfg.head_size
+    n_heads, n_kv = local_heads(cfg, mesh)
     h = rmsnorm(x, attn_norm_l, cfg.norm_eps)
     q, k, v = _split_qkv(cfg, params, proj, h, l)
     q = apply_rope_half(q.reshape(B, n_heads, hs), cos[:, None], sin[:, None])
@@ -120,13 +130,16 @@ def _decode_layer_qkv(cfg: ModelConfig, params: LlamaParams, proj,
     return q, k, v.reshape(B, n_kv, hs)
 
 
-def _decode_layer_tail(cfg: ModelConfig, params: LlamaParams, proj,
-                       x, o, l, ffn_norm_l):
-    """Decode-layer back half: output projection + residual, then the FFN
-    block.  o (B, H*hs)."""
-    x = x + proj(o, params.wo, l)
-    h = rmsnorm(x, ffn_norm_l, cfg.norm_eps)
-    return x + _ffn(cfg, params, proj, h, l)
+def _layer_tail(cfg: ModelConfig, params: LlamaParams, proj, x, o, l,
+                mesh=None):
+    """A layer's back half: the output projection and its residual, then
+    the FFN block and its residual.  o (rows, H*hs).  On a ``mesh`` wo
+    and w2 are row parallel, their partials summed over 'model'
+    (``spmd_step.row_parallel``)."""
+    x = row_parallel(mesh, proj, x, o, params.wo, l)
+    h = rmsnorm(x, params.ffn_norm[l], cfg.norm_eps)
+    return row_parallel(mesh, proj, x, _ffn_hidden(cfg, params, proj, h, l),
+                        params.w2, l)
 
 
 def _write_slot(cache: BatchedKVCache, ks: torch.Tensor, vs: torch.Tensor,
@@ -168,20 +181,41 @@ def prefill_many(cfg: ModelConfig, params: LlamaParams,
                  mm: Callable = qmatmul,
                  mm_idx: Optional[Callable] = None,
                  slot_writer: Optional[Callable] = None,
-                 compute_dtype=torch.float32
+                 compute_dtype=torch.float32, mesh=None,
+                 data_sharded: bool = False
                  ) -> Tuple[torch.Tensor, BatchedKVCache]:
     """Prefill N prompts into N slots in one pass.
 
     tokens (N, T) at positions [0, T); lengths (N,); slots (N,) int32.
     Matmuls see an (N*T, dim) activation; attention is block-diagonal.
     Duplicate slot ids (N padded by repeating a request) write identical
-    rows.  Returns (last-valid-token logits (N, vocab) f32, cache)."""
+    rows.  On a ``mesh`` (``parallel/spmd_step.py``) the layers run over
+    this rank's heads; with ``data_sharded`` the slots are global and a
+    data shard prefills the prompts whose slots it holds (none: no layer
+    runs on its data line).  Returns (last-valid-token logits (N, vocab)
+    f32, cache)."""
     N, T = tokens.shape
-    hs, n_heads, n_kv = cfg.head_size, cfg.n_heads, cfg.n_kv_heads
+    hs = cfg.head_size
+    n_heads, n_kv = local_heads(cfg, mesh)
     proj = _make_proj(mm, mm_idx)
     dev = tokens.device
+    sharded = mesh is not None and data_sharded \
+        and mesh.shape[DATA_AXIS] > 1
+    if mesh is not None:
+        Bl = cache.k.shape[1]
+        _check_dims(cfg, mesh, Bl * mesh.shape[DATA_AXIS] if data_sharded
+                    else N, data_sharded)
+    if sharded:
+        idx, local = owned(mesh, slots.tolist(), Bl)
+        V = mesh.shape[MODEL_AXIS] * params.classifier.shape[-1]
+        if not idx:
+            return sum_rows(mesh, N, idx, None, V, dev), cache
+        sel = torch.as_tensor(idx, device=dev)
+        tokens, lengths = tokens[sel], lengths.to(dev)[sel]
+        slots = torch.as_tensor(local, dtype=torch.int32, device=dev)
+    Nl = tokens.shape[0]
 
-    x = embed_tokens(params.embedding, tokens.reshape(N * T), compute_dtype)
+    x = embed(mesh, params.embedding, tokens.reshape(Nl * T), compute_dtype)
     cos, sin = rope_tables(cfg, torch.arange(T, device=dev), compute_dtype)
     kv_dtype = cache.k.dtype if not cache.quantized else compute_dtype
 
@@ -189,18 +223,16 @@ def prefill_many(cfg: ModelConfig, params: LlamaParams,
     for l in range(cfg.n_layers):
         h = rmsnorm(x, params.attn_norm[l], cfg.norm_eps)
         q, k, v = _split_qkv(cfg, params, proj, h, l)
-        q = q.reshape(N, T, n_heads, hs).transpose(1, 2)
-        k = k.reshape(N, T, n_kv, hs).transpose(1, 2)
-        v = v.reshape(N, T, n_kv, hs).transpose(1, 2)
+        q = q.reshape(Nl, T, n_heads, hs).transpose(1, 2)
+        k = k.reshape(Nl, T, n_kv, hs).transpose(1, 2)
+        v = v.reshape(Nl, T, n_kv, hs).transpose(1, 2)
         q = apply_rope_half(q, cos, sin)
         k = apply_rope_half(k, cos, sin)
 
         o = gqa_attention(q, k, v, 0)             # each prompt over itself
-        o = o.transpose(1, 2).reshape(N * T, n_heads * hs)
-        x = x + proj(o, params.wo, l)
-
-        h = rmsnorm(x, params.ffn_norm[l], cfg.norm_eps)
-        x = x + _ffn(cfg, params, proj, h, l)
+        x = _layer_tail(cfg, params, proj, x,
+                        o.transpose(1, 2).reshape(Nl * T, n_heads * hs), l,
+                        mesh)
         ks.append(k.to(kv_dtype))
         vs.append(v.to(kv_dtype))
     ks = torch.stack(ks)                          # (L, N, n_kv, T, hs)
@@ -215,13 +247,15 @@ def prefill_many(cfg: ModelConfig, params: LlamaParams,
             slot_writer(cache, ks.to(cache.k.dtype), vs.to(cache.v.dtype),
                         None, None, slots)
     else:
-        for n in range(N):
+        for n in range(Nl):
             _write_slot(cache, ks[:, n], vs[:, n], int(slots[n]))
 
-    x = rmsnorm(x, params.out_norm, cfg.norm_eps).reshape(N, T, -1)
-    rows = x[torch.arange(N, device=dev), lengths.to(dev, torch.long) - 1]
-    logits = mm(rows, params.classifier)                   # (N, V)
-    return logits.to(torch.float32), cache
+    x = x.reshape(Nl, T, -1)
+    rows = x[torch.arange(Nl, device=dev), lengths.to(dev, torch.long) - 1]
+    logits = classify(cfg, mesh, params, rows, mm)         # (N, V)
+    if sharded:
+        logits = sum_rows(mesh, N, idx, logits, logits.shape[-1], dev)
+    return logits, cache
 
 
 def prefill_into_slot(cfg: ModelConfig, params: LlamaParams,
@@ -250,12 +284,14 @@ def prefill_into_slot_at(cfg: ModelConfig, params: LlamaParams,
                          mm_idx: Optional[Callable] = None,
                          attn_tail: Optional[Callable] = None,
                          slot_writer: Optional[Callable] = None,
-                         compute_dtype=torch.float32
+                         compute_dtype=torch.float32, mesh=None,
+                         data_sharded: bool = False
                          ) -> Tuple[torch.Tensor, BatchedKVCache]:
     """Mid-sequence slot prefill (``batched.py:241-324``): ``tokens`` (T,)
     at positions [start, start+T) of slot ``slot``, attending the slot's
     existing rows [0, start) plus the block's own causal K/V — the tail
-    prefill behind the prefix cache.
+    prefill behind the prefix cache, and the single-stream engine's block
+    at pos > 0 on a mesh.
 
     ``attn_tail(q, cache, slot, l, start, k, v)`` (K2b) reads the cache
     rows in place and takes the block's raw K/V; without it the fallback
@@ -264,15 +300,27 @@ def prefill_into_slot_at(cfg: ModelConfig, params: LlamaParams,
     host ints.  Rows >= length are padding, written and masked later.
     The rows land at [start, start+T) after the layer loop, through
     ``slot_writer(cache, kq, vq, ks, vs, slots, starts)`` (K3) or the plain
-    scatter; the caller keeps start + T <= S.  Returns (last-valid-token
-    logits (vocab,) f32, cache)."""
+    scatter; the caller keeps start + T <= S.  On a ``mesh`` the layers
+    run over this rank's heads; with ``data_sharded`` ``slot`` is global
+    and only the data shard holding it runs the block.  Returns
+    (last-valid-token logits (vocab,) f32, cache)."""
     from fastllama_tpu_torch.ops.kernels.kv_write import prefill_write_plain
     T = tokens.shape[0]
-    hs, n_heads, n_kv = cfg.head_size, cfg.n_heads, cfg.n_kv_heads
+    hs = cfg.head_size
+    n_heads, n_kv = local_heads(cfg, mesh)
     proj = _make_proj(mm, mm_idx)
     dev = tokens.device
+    sharded = mesh is not None and data_sharded \
+        and mesh.shape[DATA_AXIS] > 1
+    if sharded:
+        Bl = cache.k.shape[1]
+        idx, local = owned(mesh, [slot], Bl)
+        V = mesh.shape[MODEL_AXIS] * params.classifier.shape[-1]
+        if not idx:
+            return sum_rows(mesh, 1, idx, None, V, dev)[0], cache
+        slot = local[0]
 
-    x = embed_tokens(params.embedding, tokens, compute_dtype)       # (T, dim)
+    x = embed(mesh, params.embedding, tokens, compute_dtype)      # (T, dim)
     cos, sin = rope_tables(cfg, start + torch.arange(T, device=dev),
                            compute_dtype)
     ks, vs = [], []
@@ -291,10 +339,8 @@ def prefill_into_slot_at(cfg: ModelConfig, params: LlamaParams,
             kk[:, start:start + T] = k
             vv[:, start:start + T] = v
             o = gqa_attention(q, kk, vv, start)
-        x = x + proj(o.transpose(0, 1).reshape(T, n_heads * hs), params.wo,
-                     l)
-        h = rmsnorm(x, params.ffn_norm[l], cfg.norm_eps)
-        x = x + _ffn(cfg, params, proj, h, l)
+        x = _layer_tail(cfg, params, proj, x,
+                        o.transpose(0, 1).reshape(T, n_heads * hs), l, mesh)
         ks.append(k)
         vs.append(v)
     ks = torch.stack(ks)[:, None]                 # (L, 1, n_kv, T, hs)
@@ -312,20 +358,43 @@ def prefill_into_slot_at(cfg: ModelConfig, params: LlamaParams,
     (slot_writer or prefill_write_plain)(cache, kq, vq, ksc, vsc, slots,
                                          starts)
 
-    x = rmsnorm(x, params.out_norm, cfg.norm_eps)
-    logits = mm(x[length - 1:length], params.classifier)
-    return logits[0].to(torch.float32), cache
+    logits = classify(cfg, mesh, params, x[length - 1:length], mm)
+    if sharded:
+        logits = sum_rows(mesh, 1, [0], logits, logits.shape[-1], dev)
+    return logits[0], cache
 
 
 def copy_slot_prefix(cache: BatchedKVCache, src: int, dst: int,
-                     n_rows: int) -> BatchedKVCache:
+                     n_rows: int, mesh=None,
+                     data_sharded: bool = False) -> BatchedKVCache:
     """Slot ``dst`` rows [0, n_rows) := slot ``src`` rows [0, n_rows), all
     layers and heads, scales included (``batched.py:327-349``; JAX
     computes it in jnp, outside any kernel).  Plain indexed copies, in
-    place; returns ``cache``."""
+    place; returns ``cache``.  On a ``mesh`` with ``data_sharded`` the
+    slots are global: across data shards the donor's shard broadcasts the
+    rows over its 'data' line and the receiving shard writes them."""
+    if mesh is None or not data_sharded or mesh.shape[DATA_AXIS] == 1:
+        for t in (cache.k, cache.v, cache.k_scale, cache.v_scale):
+            if t is not None:
+                t[:, dst, :, :n_rows] = t[:, src, :, :n_rows]
+        return cache
+    import torch.distributed as dist
+    Bl = cache.k.shape[1]
+    d = mesh.index(DATA_AXIS)
+    s_shard, d_shard = src // Bl, dst // Bl
+    if s_shard == d_shard:
+        if d == s_shard:
+            copy_slot_prefix(cache, src - d * Bl, dst - d * Bl, n_rows)
+        return cache
+    root = mesh.global_rank(**{DATA_AXIS: s_shard})
     for t in (cache.k, cache.v, cache.k_scale, cache.v_scale):
-        if t is not None:
-            t[:, dst, :, :n_rows] = t[:, src, :, :n_rows]
+        if t is None:
+            continue
+        buf = (t[:, src - d * Bl, :, :n_rows].contiguous() if d == s_shard
+               else torch.empty_like(t[:, 0, :, :n_rows]))
+        dist.broadcast(buf, src=root, group=mesh.group(DATA_AXIS))
+        if d == d_shard:
+            t[:, dst - d * Bl, :, :n_rows] = buf
     return cache
 
 
@@ -335,34 +404,42 @@ def decode_step(cfg: ModelConfig, params: LlamaParams, tokens: torch.Tensor,
                 mm_idx: Optional[Callable] = None,
                 attn_bidx: Optional[Callable] = None,
                 kv_writer: Optional[Callable] = None,
-                compute_dtype=torch.float32
+                compute_dtype=torch.float32, mesh=None,
+                data_sharded: bool = False
                 ) -> Tuple[torch.Tensor, BatchedKVCache]:
     """One decode token for every slot: tokens (B,) at per-slot positions
     pos (B,) int32.  Returns (logits (B, vocab) f32, cache).
 
     ``attn_bidx(q, cache, pos, l, k_new, v_new)`` is the batched
     layer-indexed decode attention over the stacked cache; without it the
-    fallback dequantizes layer ``l`` and runs the plain attention."""
+    fallback dequantizes layer ``l`` and runs the plain attention.  On a
+    ``mesh`` the step runs over this rank's heads and, with
+    ``data_sharded``, its data shard's slots; the logits are every
+    slot's."""
+    if mesh is not None:
+        _check_dims(cfg, mesh, tokens.shape[0], data_sharded)
+        rows = slot_range(mesh, tokens.shape[0], data_sharded)
+        tokens, pos = tokens[rows], pos[rows]
     B = tokens.shape[0]
-    hs, n_heads = cfg.head_size, cfg.n_heads
+    hs = cfg.head_size
+    n_heads = local_heads(cfg, mesh)[0]
     proj = _make_proj(mm, mm_idx)
 
-    x = embed_tokens(params.embedding, tokens, compute_dtype)       # (B, dim)
+    x = embed(mesh, params.embedding, tokens, compute_dtype)        # (B, dim)
     cos, sin = rope_tables(cfg, pos, compute_dtype)                 # (B, hs/2)
 
     ks, vs = [], []
     for l in range(cfg.n_layers):
         q, k, v = _decode_layer_qkv(cfg, params, proj, x, l,
-                                    params.attn_norm[l], cos, sin)
+                                    params.attn_norm[l], cos, sin, mesh)
         if attn_bidx is not None:
             o = attn_bidx(q, cache, pos, l, k, v)                   # (B, H, hs)
         else:
             ck_l, cv_l = _layer_slices(cache, l, compute_dtype)
             o = gqa_attention_decode_batched(q, ck_l[:B], cv_l[:B], k, v,
                                              pos)
-        x = _decode_layer_tail(cfg, params, proj, x,
-                               o.reshape(B, n_heads * hs), l,
-                               params.ffn_norm[l])
+        x = _layer_tail(cfg, params, proj, x, o.reshape(B, n_heads * hs), l,
+                        mesh)
         ks.append(k)
         vs.append(v)
     ks = torch.stack(ks)                          # (L, B, n_kv, hs)
@@ -386,9 +463,8 @@ def decode_step(cfg: ModelConfig, params: LlamaParams, tokens: torch.Tensor,
                 cache.k_scale[:, b, :, p] = ks2[:, b]
                 cache.v_scale[:, b, :, p] = vs2[:, b]
 
-    x = rmsnorm(x, params.out_norm, cfg.norm_eps)
-    logits = mm(x, params.classifier)                               # (B, V)
-    return logits.to(torch.float32), cache
+    logits = classify(cfg, mesh, params, x, mm)                     # (B, V)
+    return gather_slots(mesh, logits, data_sharded), cache
 
 
 def make_staged(cfg: ModelConfig, cache: BatchedKVCache, B: int, K: int):
@@ -482,9 +558,8 @@ def decode_step_deferred(cfg: ModelConfig, params: LlamaParams,
         w1 = l1[..., None] * torch.exp(m1e - mx)
         w2 = torch.exp(m2 - mx)                 # 0 when no row is staged
         o = (o1 * w1 + acc2 * w2) / (w1 + l2 * w2)
-        x = _decode_layer_tail(cfg, params, proj, x,
-                               o.reshape(B, n_heads * hs).to(compute_dtype),
-                               l, params.ffn_norm[l])
+        x = _layer_tail(cfg, params, proj, x,
+                        o.reshape(B, n_heads * hs).to(compute_dtype), l)
 
         if quant:
             kq, ksc = quantize_rows(k)
@@ -509,7 +584,8 @@ def spec_decode_step(cfg: ModelConfig, params: LlamaParams,
                      mm_idx: Optional[Callable] = None,
                      attn_sbidx: Optional[Callable] = None,
                      spec_writer: Optional[Callable] = None,
-                     compute_dtype=torch.float32
+                     compute_dtype=torch.float32, mesh=None,
+                     data_sharded: bool = False
                      ) -> Tuple[torch.Tensor, BatchedKVCache]:
     """Batched speculative verify: D tokens for every slot in one forward
     (``batched.py:429-538``).
@@ -529,15 +605,23 @@ def spec_decode_step(cfg: ModelConfig, params: LlamaParams,
     ``attn_sbidx(q, cache, pos, l, k, v, k_self=, v_self=)`` is the verify
     attention over the stacked cache; without it the plain
     ``gqa_attention_spec_batched`` reads the dequantized layer slices.
-    Without ``spec_writer`` the rows land through the plain scatter."""
+    Without ``spec_writer`` the rows land through the plain scatter.  On a
+    ``mesh`` the verify runs over this rank's heads and, with
+    ``data_sharded``, its data shard's slots; the logits are every
+    slot's."""
     from fastllama_tpu_torch.ops.attention import gqa_attention_spec_batched
     from fastllama_tpu_torch.ops.kernels.kv_write import spec_write_plain
+    if mesh is not None:
+        _check_dims(cfg, mesh, tokens.shape[0], data_sharded)
+        rows = slot_range(mesh, tokens.shape[0], data_sharded)
+        tokens, pos = tokens[rows], pos[rows]
     B, D = tokens.shape
-    hs, n_heads, n_kv = cfg.head_size, cfg.n_heads, cfg.n_kv_heads
+    hs = cfg.head_size
+    n_heads, n_kv = local_heads(cfg, mesh)
     proj = _make_proj(mm, mm_idx)
     dev = tokens.device
 
-    x = embed_tokens(params.embedding, tokens.reshape(B * D), compute_dtype)
+    x = embed(mesh, params.embedding, tokens.reshape(B * D), compute_dtype)
     positions = pos[:, None] + torch.arange(D, dtype=pos.dtype, device=dev)
     cos, sin = rope_tables(cfg, positions.reshape(-1), compute_dtype)
     cos = cos.reshape(B, 1, D, -1)
@@ -571,11 +655,9 @@ def spec_decode_step(cfg: ModelConfig, params: LlamaParams,
             ck_l, cv_l = _layer_slices(cache, l, compute_dtype)
             o = gqa_attention_spec_batched(q, ck_l[:B], cv_l[:B], k, v, pos,
                                            k_self=k_self, v_self=v_self)
-        o = o.transpose(1, 2).reshape(B * D, n_heads * hs)
-        x = x + proj(o, params.wo, l)
-
-        h = rmsnorm(x, params.ffn_norm[l], cfg.norm_eps)
-        x = x + _ffn(cfg, params, proj, h, l)
+        x = _layer_tail(cfg, params, proj, x,
+                        o.transpose(1, 2).reshape(B * D, n_heads * hs), l,
+                        mesh)
 
     stacked = [torch.stack(t).contiguous()
                for t in zip(*outs)]             # (L, B, n_kv, D, ...)
@@ -586,6 +668,5 @@ def spec_decode_step(cfg: ModelConfig, params: LlamaParams,
         ks2 = vs2 = None
     (spec_writer or spec_write_plain)(cache, kq, vq, ks2, vs2, pos)
 
-    x = rmsnorm(x, params.out_norm, cfg.norm_eps)
-    logits = mm(x, params.classifier)                      # (B*D, V)
-    return logits.reshape(B, D, -1).to(torch.float32), cache
+    logits = classify(cfg, mesh, params, x, mm).reshape(B, D, -1)
+    return gather_slots(mesh, logits, data_sharded), cache

@@ -401,8 +401,9 @@ def build_params(cfg: ModelConfig, raw: Mapping[str, Any],
     """Assemble parameters from a loader's numpy dict (checkpoint layout:
     projections ``(…, out, in)``, groups along ``in``).
 
-    ``raw`` values are fp32 arrays, or ``(data, scales)`` pairs for
-    pre-quantized tensors (FLM and GGUF files store integers).  fp32
+    ``raw`` values are fp32 arrays (or tensors on any device), or ``(data,
+    scales)`` pairs for pre-quantized tensors (FLM and GGUF files store
+    integers).  fp32
     weights are quantized here to ``qtype`` (quantize on load); every
     projection is transposed to the ``(in, out)`` layout with its groups
     on axis -2, INT4 ones nibble-packed where :func:`pack_supported` says;
@@ -416,14 +417,17 @@ def build_params(cfg: ModelConfig, raw: Mapping[str, Any],
     for f in dataclasses.fields(LlamaParams):
         v = raw[f.name]
         if f.name in _NORM_FIELDS:
-            out[f.name] = host_tensor(np.asarray(v, dtype=np.float32), dev)
+            out[f.name] = (v.to(dev, torch.float32, copy=True)
+                           if isinstance(v, torch.Tensor) else
+                           host_tensor(np.asarray(v, dtype=np.float32), dev))
             continue
         transpose = f.name != "embedding"
         if isinstance(v, tuple):
             data = host_tensor(v[0], dev)
             scales = host_tensor(np.asarray(v[1], dtype=np.float32), dev)
         else:
-            w = host_tensor(np.asarray(v, dtype=np.float32), dev)
+            w = (v.to(dev, torch.float32) if isinstance(v, torch.Tensor)
+                 else host_tensor(np.asarray(v, dtype=np.float32), dev))
             if qtype == QuantType.NONE:
                 out[f.name] = (w.transpose(-1, -2).contiguous() if transpose
                                else w)

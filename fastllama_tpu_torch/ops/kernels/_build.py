@@ -19,6 +19,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from pathlib import Path
 from typing import Dict
 
@@ -74,14 +75,24 @@ def build() -> Path:
             BUILD_ROOT.mkdir(parents=True, exist_ok=True)
             tmp = Path(tempfile.mkdtemp(prefix="tmp-", dir=BUILD_ROOT))
             cc = nvcc()
-            procs = [(s, subprocess.Popen(
-                [cc, *NVCC_FLAGS, "-o", str(tmp / f"lib{s.stem}.so"), str(s)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-                for s in srcs]
+            t0 = time.perf_counter()
+            procs = []
+            for s in srcs:
+                with open(tmp / f"{s.stem}.log", "w") as log_f:
+                    procs.append((s, subprocess.Popen(
+                        [cc, *NVCC_FLAGS, "-o", str(tmp / f"lib{s.stem}.so"),
+                         str(s)], stdout=log_f, stderr=subprocess.STDOUT)))
+            secs = {}
+            while len(secs) < len(procs):       # each source's seconds
+                for s, p in procs:
+                    if s not in secs and p.poll() is not None:
+                        secs[s] = time.perf_counter() - t0
+                time.sleep(0.05)
             logs, failed = [], []
             for s, p in procs:
-                text = p.communicate()[0]
-                logs.append(f"== {s.name} (rc {p.returncode})\n{text}")
+                text = (tmp / f"{s.stem}.log").read_text()
+                logs.append(f"== {s.name} (rc {p.returncode}, "
+                            f"{secs[s]:.1f} s)\n{text}")
                 if p.returncode != 0:
                     failed.append(s.name)
             (tmp / "build.log").write_text("\n".join(logs))

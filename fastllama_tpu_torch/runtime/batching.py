@@ -27,8 +27,21 @@ Slot-state invariants (host mirrors device exactly):
 The KV cache is updated in place (the JAX engine donates its buffers to
 the same effect).  Weights are INT8, INT16 or INT4 (split-half packed
 where it packs, through K1p; int8-held otherwise; mixed layouts stay
-unfused).  Not ported yet, and refused with NotImplementedError when asked
-for: ``mesh`` / ``spmd_kernels`` and ``FASTLLAMA_PIPELINE=1``.
+unfused).
+
+``EngineConfig.mesh`` ('data=2,model=4', with or without ``spmd_kernels``)
+serves on a mesh of ranks (``parallel/``): every rank runs this scheduler
+on the same submissions, in lockstep, and keeps its shard of the weights
+and its block of the cache (B/dp slots, n_kv/mp heads).  Every step of
+``models/batched.py`` runs per rank, given the mesh, with the same
+kernels (``parallel/spmd_step.py`` holds the collectives it adds); the
+logits are gathered, so every rank samples all B slots with the same
+per-slot generators and emits the same tokens.  A deadline's expiry is
+rank 0's on every rank.  The JAX package has a second mesh path (GSPMD
+over plain jnp, its default); the port has this one.  On more than one
+rank the weights stay unfused and deferred KV is off, as in JAX.  Not
+ported yet, and refused with NotImplementedError when asked for:
+``FASTLLAMA_PIPELINE=1``.
 """
 from __future__ import annotations
 
@@ -117,15 +130,26 @@ class BatchStats:
 
 
 def _refuse_unported(ec: EngineConfig) -> None:
-    unported = {
-        "mesh": "multi-device serving",
-        "spmd_kernels": "multi-device serving",
-        "pallas_interpret": "TPU interpret mode has no counterpart",
-    }
-    for field, why in unported.items():
-        if getattr(ec, field):
-            raise NotImplementedError(
-                f"EngineConfig.{field} is not ported yet ({why})")
+    if ec.pallas_interpret:
+        raise NotImplementedError("EngineConfig.pallas_interpret is not "
+                                  "ported (TPU interpret mode has no "
+                                  "counterpart)")
+
+
+def open_mesh(ec: EngineConfig, device):
+    """(mesh, the rank's device) for ``ec.mesh``, or (None, the device)
+    without one.  ``device=None`` on a mesh is the device
+    ``parallel.distributed.initialize`` gave the rank (the card without a
+    process group).  ``spmd_kernels`` alone asks for no mesh, as in the
+    JAX package."""
+    if not ec.mesh:
+        return None, resolve_device(device)
+    from fastllama_tpu_torch.parallel.distributed import rank_device
+    from fastllama_tpu_torch.parallel.sharding import make_mesh
+    mesh = make_mesh(ec.mesh)
+    if device is None:
+        device = rank_device()
+    return mesh, resolve_device(device)
 
 
 def _fold_seed(seed: int, req_id: int) -> int:
@@ -138,20 +162,36 @@ class BatchedEngine:
     """Continuous-batching engine over ``max_batch_size`` KV-cache slots.
 
     ``device=None`` means ``"cuda"``; without a card it raises unless
-    ``device="cpu"`` is passed."""
+    ``device="cpu"`` is passed.  ``sharded``: on a mesh, ``params`` are
+    this rank's shard already (the load entry points build them so)."""
 
     def __init__(self, config: ModelConfig, params: LlamaParams,
                  tokenizer: Tokenizer,
                  engine_config: Optional[EngineConfig] = None,
-                 decode_chunk: int = DEFAULT_CHUNK, device=None):
+                 decode_chunk: int = DEFAULT_CHUNK, device=None, *,
+                 sharded: bool = False):
         ec = engine_config or EngineConfig()
         _refuse_unported(ec)
         if ec.max_seq_len:
             config = config.replace(max_seq_len=min(config.max_seq_len,
                                                     ec.max_seq_len))
         config.validate()
-        self.device = resolve_device(device)
-        params = params.to(self.device)
+        self.B = max(1, ec.max_batch_size)
+        self.mesh, self.device = open_mesh(ec, device)
+        if self.mesh is not None:
+            from fastllama_tpu_torch.parallel.sharding import shard_params
+            from fastllama_tpu_torch.parallel.spmd_step import _check_dims
+            _check_dims(config, self.mesh, self.B, True)
+            if not sharded:
+                params = shard_params(config, self.mesh, params,
+                                      self.device)
+            if self.mesh.size > 1:
+                # the concatenated layouts straddle the shard boundaries;
+                # deferred KV stays off on the mesh path (batching.py:196)
+                ec = dataclasses.replace(ec, fuse_weights=False,
+                                         deferred_kv=False)
+        else:
+            params = params.to(self.device)
         if ec.fuse_weights and not ec.parity_mode:
             try:
                 params = fuse_params(config, params)
@@ -161,7 +201,6 @@ class BatchedEngine:
         if scale_dt != "float32" and not ec.parity_mode:
             params = compress_scales(params, torch_dtype(scale_dt))
         self.config = config
-        self.B = max(1, ec.max_batch_size)
         self.params = params
         self.tokenizer = tokenizer
         self.ec = ec
@@ -172,8 +211,7 @@ class BatchedEngine:
         from fastllama_tpu_torch.runtime.kernels import select_kernels
         self.kernels = select_kernels(self.device, ec, self._cdt)
 
-        self.cache = BatchedKVCache.create(config, self.B, dtype=self.kv_dtype,
-                                           device=self.device)
+        self.cache = self.new_cache()
         # per-slot noise generators (reseeded per request at admission)
         self._gens = []
         for b in range(self.B):
@@ -203,7 +241,7 @@ class BatchedEngine:
         self._prefix_enabled = bool(ec.prefix_cache)
         # deferred staged-KV chunks: K2 with stats on (flash attention and
         # the kernels), as JAX gates them (batching.py:193-209)
-        self._deferred_ok = bool(ec.deferred_kv
+        self._deferred_ok = bool(ec.deferred_kv and self.mesh is None
                                  and self.kernels.attn_stats is not None)
         self.deferred_chunks = 0
 
@@ -220,9 +258,31 @@ class BatchedEngine:
             ckpt_path, tokenizer_path, file_type or FileType.UNKNOWN, qtype,
             engine_config, device)
         return BatchedEngine(cfg, params, tok, engine_config, decode_chunk,
-                             device)
+                             device, sharded=bool(engine_config
+                                                  and engine_config.mesh))
 
     # -- compute ---------------------------------------------------------------
+
+    def new_cache(self) -> BatchedKVCache:
+        """An empty slot cache: on a mesh, this rank's block of it."""
+        if self.mesh is None:
+            return BatchedKVCache.create(self.config, self.B,
+                                         dtype=self.kv_dtype,
+                                         device=self.device)
+        from fastllama_tpu_torch.parallel.sharding import new_slot_cache
+        return new_slot_cache(self.config, self.mesh, self.B, self.kv_dtype,
+                              self.device)
+
+    def decode(self, tok: torch.Tensor, pos: torch.Tensor,
+               cache: BatchedKVCache):
+        """One decode step of every slot on ``cache`` (the engine's own, or
+        one of the same shape): (logits (B, vocab) f32, cache)."""
+        kb = self.kernels
+        return decode_step(
+            self.config, self.params, tok, pos, cache, mm=kb.mm,
+            mm_idx=kb.mm_idx, attn_bidx=kb.attn_bidx,
+            kv_writer=kb.kv_writer, compute_dtype=self._cdt, mesh=self.mesh,
+            data_sharded=True)
 
     def _bucket(self, n: int) -> int:
         for b in self.ec.prefill_buckets:
@@ -242,12 +302,13 @@ class BatchedEngine:
         """One admission wave on the device; returns first tokens (host)."""
         kb = self.kernels
         dev = self.device
+        args = (torch.as_tensor(toks_np, device=dev),
+                torch.as_tensor(lens, device=dev),
+                torch.as_tensor(slots_np, device=dev), self.cache)
         logits, self.cache = prefill_many(
-            self.config, self.params, torch.as_tensor(toks_np, device=dev),
-            torch.as_tensor(lens, device=dev),
-            torch.as_tensor(slots_np, device=dev), self.cache,
-            mm=kb.mm, mm_idx=kb.mm_idx, slot_writer=kb.slot_writer,
-            compute_dtype=self._cdt)
+            self.config, self.params, *args, mm=kb.mm, mm_idx=kb.mm_idx,
+            slot_writer=kb.slot_writer, compute_dtype=self._cdt,
+            mesh=self.mesh, data_sharded=True)
         gens = []
         if not np.all(temps <= 0.0):
             for s in seeds:         # the first draw uses the request's seed
@@ -282,10 +343,7 @@ class BatchedEngine:
                     self.cache, mm=kb.mm, mm_idx=kb.mm_idx,
                     attn_stats=kb.attn_stats, compute_dtype=self._cdt)
             else:
-                logits, self.cache = decode_step(
-                    self.config, self.params, tok, pos, self.cache,
-                    mm=kb.mm, mm_idx=kb.mm_idx, attn_bidx=kb.attn_bidx,
-                    kv_writer=kb.kv_writer, compute_dtype=self._cdt)
+                logits, self.cache = self.decode(tok, pos, self.cache)
                 pos = torch.clamp(pos + 1, max=self.S - 1)
             if greedy_only:
                 tok = sampling.greedy(logits)
@@ -335,9 +393,15 @@ class BatchedEngine:
         priority class (stable: FIFO within a class)."""
         if any(r.deadline_s > 0 for r in self.queue):
             now = time.perf_counter()
+            late = {r.id for r in self.queue
+                    if r.deadline_s > 0 and now - r.submit_s > r.deadline_s}
+            if self.mesh is not None:
+                # a clock's reading: every rank takes rank 0's
+                from fastllama_tpu_torch.parallel.distributed import agree
+                late = agree(late)
             kept = deque()
             for r in self.queue:
-                if r.deadline_s > 0 and now - r.submit_s > r.deadline_s:
+                if r.id in late:
                     r.rejected = r.done = True
                     r.finish_s = now
                     self.stats.rejected += 1
@@ -465,12 +529,14 @@ class BatchedEngine:
         tail = req.prompt_tokens[plen:]
         padded = np.zeros(self._bucket(len(tail)), np.int64)
         padded[:len(tail)] = tail
-        copy_slot_prefix(self.cache, donor, slot, plen)
+        toks = torch.as_tensor(padded, device=dev)
+        copy_slot_prefix(self.cache, donor, slot, plen, self.mesh,
+                         data_sharded=True)
         logits, self.cache = prefill_into_slot_at(
-            self.config, self.params, torch.as_tensor(padded, device=dev),
-            len(tail), slot, plen, self.cache, mm=kb.mm, mm_idx=kb.mm_idx,
-            attn_tail=kb.attn_tail, slot_writer=kb.slot_writer,
-            compute_dtype=self._cdt)
+            self.config, self.params, toks, len(tail), slot, plen,
+            self.cache, mm=kb.mm, mm_idx=kb.mm_idx, attn_tail=kb.attn_tail,
+            slot_writer=kb.slot_writer, compute_dtype=self._cdt,
+            mesh=self.mesh, data_sharded=True)
         # the first draw uses the request's own seed, as a prefill's does
         gens = []
         if req.temperature > 0.0:

@@ -19,9 +19,14 @@ plain ``.cpu()`` of chunk k's tokens would wait for chunk k+1 too.
 
 The cache is updated in place (JAX donates its buffers to the same effect).
 Weights are INT8, INT16 or INT4 (split-half packed where it packs, through
-K1p; int8-held otherwise; mixed layouts stay unfused).  ``mesh``,
-``spmd_kernels`` and ``pallas_interpret`` are not ported and raise.
-:meth:`Engine.load` builds an engine on a checkpoint file.
+K1p; int8-held otherwise; mixed layouts stay unfused).  On a mesh of more
+than one rank (``EngineConfig.mesh``) every block and step runs per rank
+through ``models/batched.py``'s steps given the mesh, on its shards and
+its block of the cache (a one-slot view), as the JAX engine does under
+``spmd_kernels`` (``engine.py:111-112``); a one-rank mesh takes the path
+above.
+``pallas_interpret`` is not ported and raises.  :meth:`Engine.load`
+builds an engine on a checkpoint file.
 """
 from __future__ import annotations
 
@@ -36,16 +41,19 @@ import torch
 
 from fastllama_tpu_torch.config import (EngineConfig, ModelConfig,
                                         resolve_scale_dtype)
-from fastllama_tpu_torch.device import resolve_device, torch_dtype
+from fastllama_tpu_torch.device import torch_dtype
 from fastllama_tpu_torch.loaders.tokenizer import StreamDecoder, Tokenizer
-from fastllama_tpu_torch.models.batched import (BatchedKVCache,
-                                                prefill_into_slot)
+from fastllama_tpu_torch.models.batched import (BatchedKVCache, decode_step,
+                                                prefill_into_slot,
+                                                prefill_into_slot_at,
+                                                prefill_many)
 from fastllama_tpu_torch.models.llama import (KVCache, LlamaParams,
                                               forward, fuse_params)
 from fastllama_tpu_torch.ops import sampling
 from fastllama_tpu_torch.ops.attention import gqa_attention
 from fastllama_tpu_torch.ops.qmatmul import qmatmul_parity
 from fastllama_tpu_torch.quant.groupquant import compress_scales
+from fastllama_tpu_torch.runtime.batching import open_mesh
 from fastllama_tpu_torch.runtime.kernels import KernelBundle, select_kernels
 from fastllama_tpu_torch.runtime.sampler import HostSampler
 
@@ -81,23 +89,39 @@ def _pipe_depth() -> int:
 class Engine:
     """Single-stream generation over INT8/INT16/INT4 LLaMA weights and an
     f32 or bf16 KV cache.  ``device=None`` means ``"cuda"``; without a card it
-    raises unless ``device="cpu"`` is passed."""
+    raises unless ``device="cpu"`` is passed.  ``sharded``: on a mesh,
+    ``params`` are this rank's shard already (as :meth:`load` builds
+    them)."""
 
     def __init__(self, config: ModelConfig, params: LlamaParams,
                  tokenizer: Tokenizer,
-                 engine_config: Optional[EngineConfig] = None, device=None):
+                 engine_config: Optional[EngineConfig] = None, device=None,
+                 *, sharded: bool = False):
         ec = engine_config or EngineConfig()
-        for field in ("mesh", "spmd_kernels", "pallas_interpret"):
-            if getattr(ec, field):
-                raise NotImplementedError(
-                    f"EngineConfig.{field} is not ported yet (multi-device "
-                    f"serving; TPU interpret mode has no counterpart)")
+        if ec.pallas_interpret:
+            raise NotImplementedError(
+                "EngineConfig.pallas_interpret is not ported (TPU "
+                "interpret mode has no counterpart)")
         if ec.max_seq_len:
             config = config.replace(max_seq_len=min(config.max_seq_len,
                                                     ec.max_seq_len))
         config.validate()
-        self.device = resolve_device(device)
-        params = params.to(self.device)
+        self.mesh, self.device = open_mesh(ec, device)
+        # the per-rank path only on a mesh of more than one rank
+        # (engine.py:111-112)
+        self._spmd = self.mesh is not None and self.mesh.size > 1
+        if self.mesh is not None:
+            from fastllama_tpu_torch.parallel.sharding import shard_params
+            if self._spmd:
+                from fastllama_tpu_torch.parallel.spmd_step import \
+                    _check_dims
+                _check_dims(config, self.mesh, 1, False)
+                ec = dataclasses.replace(ec, fuse_weights=False)
+            if not sharded:
+                params = shard_params(config, self.mesh, params,
+                                      self.device)
+        else:
+            params = params.to(self.device)
         if ec.fuse_weights and not ec.parity_mode:
             try:
                 params = fuse_params(config, params)
@@ -107,7 +131,7 @@ class Engine:
         # rule: its jnp fallback dequantizes in f32, where the storage
         # rounding would show; so does the port's plain path on the CPU)
         kernels_live = (ec.use_pallas and not ec.parity_mode
-                        and self.device.type == "cuda")
+                        and self.device.type == "cuda" and not self._spmd)
         scale_dt = resolve_scale_dtype(ec, config, batched=False,
                                        pallas_live=kernels_live)
         if scale_dt != "float32" and not ec.parity_mode:
@@ -142,7 +166,8 @@ class Engine:
         cfg, params, tok = resolve_and_build(
             ckpt_path, tokenizer_path, file_type or FileType.UNKNOWN, qtype,
             engine_config, device)
-        return Engine(cfg, params, tok, engine_config, device)
+        return Engine(cfg, params, tok, engine_config, device,
+                      sharded=bool(engine_config and engine_config.mesh))
 
     # -- compute ---------------------------------------------------------------
 
@@ -153,6 +178,11 @@ class Engine:
         return self.config.max_seq_len
 
     def new_cache(self) -> KVCache:
+        """An empty cache: on a mesh, this rank's block of it."""
+        if self.mesh is not None:
+            from fastllama_tpu_torch.parallel.sharding import new_cache
+            return new_cache(self.config, self.mesh, self.kv_dtype,
+                             self.device)
         return KVCache.create(self.config, dtype=self.kv_dtype,
                               device=self.device)
 
@@ -162,6 +192,30 @@ class Engine:
                        mm=kb.mm, attn=kb.attn, mm_idx=kb.mm_idx,
                        attn_idx=kb.attn_idx, compute_dtype=self._cdt, **kw)
 
+    @staticmethod
+    def _slot_view(cache: KVCache) -> BatchedKVCache:
+        """The cache as a one-slot BatchedKVCache (a view)."""
+        L, n_kv, S, hs = cache.k.shape
+        return BatchedKVCache(cache.k.view(L, 1, n_kv, S, hs),
+                              cache.v.view(L, 1, n_kv, S, hs))
+
+    def _step(self, tok: torch.Tensor, pos: int, cache: KVCache,
+              positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One decode token (tok (1,)) at ``pos``: its logits (1, vocab)
+        f32.  On a mesh, the per-rank decode step on a one-slot view."""
+        if not self._spmd:
+            lg, _ = self._forward(tok, pos, cache, positions=positions)
+            return lg
+        if positions is None:
+            positions = torch.tensor([pos], dtype=torch.int32,
+                                     device=self.device)
+        kb = self.kernels
+        lg, _ = decode_step(
+            self.config, self.params, tok, positions, self._slot_view(cache),
+            mm=kb.mm, mm_idx=kb.mm_idx, attn_bidx=kb.attn_bidx,
+            kv_writer=kb.kv_writer, compute_dtype=self._cdt, mesh=self.mesh)
+        return lg
+
     def _prefill(self, tokens: Sequence[int], bucket: int, cache: KVCache,
                  pos: int) -> torch.Tensor:
         """One padded block of ``bucket`` rows at ``pos``: fresh at pos 0
@@ -170,6 +224,8 @@ class Engine:
         padded = np.zeros(bucket, np.int64)
         padded[:len(tokens)] = tokens
         toks = torch.as_tensor(padded, device=self.device)
+        if self._spmd:
+            return self._spmd_prefill(toks, len(tokens), cache, pos)
         if pos == 0:
             L, n_kv, S, hs = cache.k.shape
             bc = BatchedKVCache(cache.k.view(L, 1, n_kv, S, hs),
@@ -183,6 +239,26 @@ class Engine:
                                   last_index=len(tokens) - 1)
         return logits[0]
 
+    def _spmd_prefill(self, toks: torch.Tensor, n: int, cache: KVCache,
+                      pos: int) -> torch.Tensor:
+        """A padded block on a mesh: the per-rank fresh prefill at pos 0,
+        else the per-rank tail (K2b over the rows before it)."""
+        kb = self.kernels
+        kw = dict(mm=kb.mm, mm_idx=kb.mm_idx, slot_writer=kb.slot_writer,
+                  compute_dtype=self._cdt, mesh=self.mesh)
+        bc = self._slot_view(cache)
+        if pos == 0:
+            dev = self.device
+            logits, _ = prefill_many(
+                self.config, self.params, toks[None],
+                torch.tensor([n], device=dev),
+                torch.zeros(1, dtype=torch.int32, device=dev), bc, **kw)
+            return logits[0]
+        logits, _ = prefill_into_slot_at(
+            self.config, self.params, toks, n, 0, pos, bc,
+            attn_tail=kb.attn_tail, **kw)
+        return logits
+
     def _decode_chunk(self, cache: KVCache, token: torch.Tensor, pos0: int,
                       n: int, temperature: float, topp: float,
                       gen: torch.Generator) -> torch.Tensor:
@@ -194,8 +270,7 @@ class Engine:
         toks = torch.empty(n, dtype=torch.long, device=self.device)
         tok = token.reshape(1)
         for k in range(n):
-            lg, _ = self._forward(tok, pos0 + k, cache,
-                                  positions=positions[k:k + 1])
+            lg = self._step(tok, pos0 + k, cache, positions[k:k + 1])
             tok = sampling.sample(lg[0], gen, temperature, topp).reshape(1)
             toks[k] = tok[0]
         return toks
@@ -296,8 +371,8 @@ class Engine:
         if host_sampling:
             tok = first
             while len(out) < max_new_tokens:
-                lg, _ = self._forward(
-                    torch.tensor([tok], device=self.device), pos, cache)
+                lg = self._step(torch.tensor([tok], device=self.device),
+                                pos, cache)
                 pos += 1
                 tok = host.sample(lg[0].cpu().numpy(), temperature, topp)
                 if not emit(tok) or tok in stop_set:

@@ -14,8 +14,10 @@ stay on the device, and one fetch of (tokens, accepted counts, pending)
 ends the chunk.  Near the context limit (no full D-row block fits) and
 whenever the :class:`SpecAutoTuner` measures plain chunks as faster, the
 engine runs the parent's plain chunks.  The kernels are K2s
-(``flash_spec_batched``) and K3 as ``spec_write``; ``mesh`` and
-``spmd_kernels`` stay refused by the parent.  The prefix cache and
+(``flash_spec_batched``) and K3 as ``spec_write``.  On a mesh (the
+parent's ``EngineConfig.mesh``) every rank drafts all slots and verifies
+its own through ``spec_decode_step`` given the mesh; the tuner's
+arm is rank 0's on every rank.  The prefix cache and
 deferred KV come from the parent: a slot admitted by a prefix hit gets its
 history like any other newly admitted slot, and the plain chunks take the
 deferred path under the parent's gate (as JAX's ``spec_batching.py:452``).
@@ -241,9 +243,10 @@ class SpecBatchedEngine(BatchedEngine):
                  engine_config: Optional[EngineConfig] = None,
                  decode_chunk: int = DEFAULT_CHUNK,
                  width: int = 4, ngram: int = 3, rounds_per_chunk: int = 8,
-                 spec_auto: bool = True, device=None):
+                 spec_auto: bool = True, device=None, *,
+                 sharded: bool = False):
         super().__init__(config, params, tokenizer, engine_config,
-                         decode_chunk, device)
+                         decode_chunk, device, sharded=sharded)
         if width < 2:
             raise ValueError("speculation needs width >= 2")
         self.width = width
@@ -283,7 +286,9 @@ class SpecBatchedEngine(BatchedEngine):
             engine_config, device)
         return SpecBatchedEngine(cfg, params, tok, engine_config,
                                  decode_chunk, width, ngram,
-                                 rounds_per_chunk, spec_auto, device)
+                                 rounds_per_chunk, spec_auto, device,
+                                 sharded=bool(engine_config
+                                              and engine_config.mesh))
 
     def _spec_chunk(self, D: int, greedy: bool) -> Callable:
         cfg, kb, cdt, n = self.config, self.kernels, self._cdt, self.ngram
@@ -291,10 +296,13 @@ class SpecBatchedEngine(BatchedEngine):
         def verify(pending, pos, hist):
             ys = ngram_draft_batched(hist, pos + 1, n, D)           # (B, D)
             batch = torch.cat([pending[:, None], ys[:, :D - 1]], dim=1)
+            # on a mesh every rank verifies its own slots on its shards
+            # (spec_batching.py:359-366); drafting above is replicated
             lg, self.cache = spec_decode_step(
                 cfg, self.params, batch, pos, self.cache, mm=kb.mm,
                 mm_idx=kb.mm_idx, attn_sbidx=kb.attn_sbidx,
-                spec_writer=kb.spec_writer, compute_dtype=cdt)
+                spec_writer=kb.spec_writer, compute_dtype=cdt,
+                mesh=self.mesh, data_sharded=True)
             return ys, lg
 
         return build_spec_chunk(verify, D, greedy)
@@ -361,6 +369,10 @@ class SpecBatchedEngine(BatchedEngine):
         use_spec = R >= 1
         if use_spec and self._tuner is not None:
             arm = self._tuner.choose()
+            if self.mesh is not None:
+                # the tuner reads a clock: every rank takes rank 0's arm
+                from fastllama_tpu_torch.parallel.distributed import agree
+                arm = agree(arm)
             use_spec = arm != 0
             if use_spec and arm not in (1, D) and plan_R(arm) >= 1:
                 # the chosen width, if its block fits the room

@@ -145,6 +145,10 @@ class SpeculativeEngine:
                  width: int = 8, ngram: int = 3, rounds_per_call: int = 8):
         if width < 2:
             raise ValueError("speculation needs width >= 2")
+        if engine._spmd or (draft is not None and draft._spmd):
+            raise NotImplementedError(
+                "single-stream speculation on a mesh of ranks is not "
+                "ported (the batched SpecBatchedEngine serves on one)")
         if draft is not None:
             if draft.config.vocab_size != engine.config.vocab_size:
                 raise ValueError("draft vocab must match the target's")

@@ -6,4 +6,5 @@ decode shapes), with ``timing``, the port's one device timer, and
 ``fresh_split_design`` (K2's fresh and stats split mode built with other
 tuning constants and timed in turns: the design calls behind its
 defaults), and ``block_tf32_design`` (the same for K2b's split-TF32
-mode)."""
+mode); ``eval_ppl`` measures perplexity through the engines' own paths
+(the accuracy gate across bit widths)."""

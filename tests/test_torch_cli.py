@@ -172,12 +172,16 @@ def test_gen_spec_debug_and_profile(ckpt, capsys):
 
 
 def test_unported_flags_exit_nonzero(ckpt, capsys):
+    """A mesh larger than the world exits 2 with the error's text (no
+    process group: one rank); ``--multihost`` is not ported: 2."""
     base, _ = ckpt
-    for extra in (["--mesh", "model=2"], ["--spmd-kernels"],
-                  ["--multihost", "-m", "serve"]):
+    for extra, text in ((["--mesh", "model=2"], "needs 2 devices, have 1"),
+                        (["--spmd-kernels", "--mesh", "data=2"],
+                         "needs 2 devices, have 1"),
+                        (["--multihost", "-m", "serve"], "not ported")):
         rc, _, err = run(cli.main, base + extra + ["--device", "cpu"],
                          capsys)
-        assert rc != 0 and "not ported" in err
+        assert rc == 2 and text in err
     rc, _, err = run(cli.main, ["-i", "x"], capsys)
     assert rc == 2 and "checkpoint" in err
 

@@ -196,17 +196,25 @@ def test_chat_session_overflow_guard(sides):
 
 
 def test_engine_refusals(sides):
+    """The errors that stand: a mesh larger than the world (ValueError
+    naming both counts, with no process group, before any file is read),
+    TPU interpret mode, an int8 single-stream cache; ``spmd_kernels``
+    alone asks for no mesh, as in the JAX engine."""
     je, te = sides
     tc = te.config
-    for option in (dict(mesh="model=2"), dict(spmd_kernels=True),
-                   dict(pallas_interpret=True)):
-        with pytest.raises(NotImplementedError):
+    for option, err in ((dict(mesh="model=2"), ValueError),
+                        (dict(mesh="data=2", spmd_kernels=True), ValueError),
+                        (dict(pallas_interpret=True), NotImplementedError)):
+        with pytest.raises(err):
             Engine(tc, te.raw_params, te.tokenizer,
                    tcfg.EngineConfig(**option), device="cpu")
+    assert Engine(tc, te.raw_params, te.tokenizer,
+                  tcfg.EngineConfig(spmd_kernels=True),
+                  device="cpu").mesh is None
     with pytest.raises(NotImplementedError):
         Engine(tc, te.raw_params, te.tokenizer,
                tcfg.EngineConfig(kv_dtype="int8"), device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="needs 2 devices, have 1"):
         Engine.load("ckpt", "tok",
                     engine_config=tcfg.EngineConfig(mesh="model=2"))
     if not torch.cuda.is_available():

@@ -119,15 +119,18 @@ def test_spec_load_matches_jax(files):
 
 def test_load_refusals_and_device_rule(files):
     path, tok, ft, qt = files["llama2c"]
+    # a mesh larger than the world: ValueError naming both counts, before
+    # the file is read (a missing path would raise another error)
     mesh = tcfg.EngineConfig(mesh="model=2")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        Engine.load(path, tok, FileType[ft], engine_config=mesh,
+    gone = path + ".missing"
+    with pytest.raises(ValueError, match="needs 2 devices, have 1"):
+        Engine.load(gone, tok, FileType[ft], engine_config=mesh,
                     device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        BatchedEngine.load(path, tok, FileType[ft], engine_config=mesh,
+    with pytest.raises(ValueError, match="needs 2 devices, have 1"):
+        BatchedEngine.load(gone, tok, FileType[ft], engine_config=mesh,
                            device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        SpecBatchedEngine.load_spec(path, tok, FileType[ft],
+    with pytest.raises(ValueError, match="needs 2 devices, have 1"):
+        SpecBatchedEngine.load_spec(gone, tok, FileType[ft],
                                     engine_config=mesh, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -49,8 +49,9 @@ def test_port_imports_no_jax():
                 "tools.qmm_sweep", "tools.synthetic", "tools.convert",
                 "loaders.registry", "loaders.flm", "loaders.gguf",
                 "loaders.hf", "loaders.llama2c", "loaders.native",
-                "parallel.sharding", "utils.profiling", "utils.debug",
-                "utils.logging", "cli"):
+                "parallel.sharding", "parallel.distributed",
+                "parallel.spmd_step", "tools.eval_ppl", "utils.profiling",
+                "utils.debug", "utils.logging", "cli"):
         assert "fastllama_tpu_torch." + mod in walked
 
 
@@ -116,26 +117,33 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu():
         qmm.qmatmul_pallas(x.to("meta"), w.to("meta"))
 
 
-@pytest.mark.parametrize("option", [
-    dict(mesh="model=2"), dict(spmd_kernels=True),
-    dict(pallas_interpret=True)])
-def test_unported_options_raise(option):
+@pytest.mark.parametrize("option,err", [
+    (dict(mesh="model=2"), ValueError),
+    (dict(mesh="data=2", spmd_kernels=True), ValueError),
+    (dict(pallas_interpret=True), NotImplementedError)],
+    ids=["option0", "option1", "option2"])
+def test_unported_options_raise(option, err):
+    """A mesh larger than the world (one rank without a process group)
+    raises ValueError naming both counts; TPU interpret mode is not
+    ported."""
     params = tl.random_params_int(CFG, seed=0, device="cpu")
     for engine in (BatchedEngine, SpecBatchedEngine):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(err) as e:
             engine(CFG, params, Tokenizer().finalize(),
                    tcfg.EngineConfig(max_batch_size=2, **option),
                    device="cpu")
+        if err is ValueError:
+            assert "devices, have 1" in str(e.value)
 
 
 def test_unported_entry_points_raise(monkeypatch):
-    """Multi-device loading (a mesh) and dispatch-ahead decode stay
-    refused; the mesh before any file is read."""
+    """A mesh larger than the world raises before any file is read;
+    dispatch-ahead decode stays refused."""
     params = tl.random_params_int(CFG, seed=0, device="cpu")
     mesh = tcfg.EngineConfig(max_batch_size=2, mesh="model=2")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="needs 2 devices, have 1"):
         BatchedEngine.load("ckpt", "tok", engine_config=mesh)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="needs 2 devices, have 1"):
         SpecBatchedEngine.load_spec("ckpt", "tok", engine_config=mesh)
     eng = BatchedEngine(CFG, params, Tokenizer().finalize(),
                         tcfg.EngineConfig(max_batch_size=2), device="cpu")
