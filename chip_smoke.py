@@ -18,7 +18,10 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    of K2b's split-TF32 mode must not spill, and their registers are
    recorded; with ``--regs-against`` another tree's flash_decode.cu is
    built beside them and its kernels, the split kernels of K2 and K2s
-   among them, must keep its registers, and another tree's qmm.cu, whose
+   among them, must keep its registers (in this tree the kernels of that
+   one source are in three: flash_decode.cu, flash_decode_split.cu and
+   flash_block_tc.cu, each its own nvcc; a tree of either layout may be
+   the other), the nvcc seconds of each source are recorded, and another tree's qmm.cu, whose
    ``qmm_pipe_kernel``, ``qmm_pipe_gd_kernel``, ``qmm_pipe_wide_kernel``,
    ``qmm_bf16_kernel`` and ``qmm_f32_kernel`` instantiations must keep
    its registers, and another tree's qmm_prefill.cu, whose
@@ -223,9 +226,9 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    the 32-layer file alone; ``serve``, ``serve --spec``, ``serve
    --prefix-cache``, ``gen --spec``, ``chat`` on stdin, ``-e``/``-d`` and
    ``--profile-dir`` at once, on a 4-layer FLM file), each exiting 0 with
-   its output checked, ``--mesh model=2`` in
-   one process exiting 2 (a mesh larger than the world) and
-   ``--multihost`` 2 (not ported);
+   its output checked, ``--mesh model=2`` and ``serve --multihost
+   --mesh data=2`` in one process exiting 2 (a mesh larger than the
+   world);
 4n. INT16 at full depth: 7B / INT16 / 32 layers from
    ``random_params_int`` (13.5 GB of weights, f32 scales), fused once,
    at bf16 compute through phase 4's ``BatchedEngine`` (int8 KV, B=48,
@@ -324,8 +327,21 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    against its unfused one), one decode step's logits within 1e-2 at
    bf16, per rank the launches by
    mode, device ms a step and peak memory (no scaling: one card).  A
-   rank that fails fails the run.  The launches of 6, 6b and 6c are added
-   to each kernel's count in the kernels line.
+   rank that fails fails the run;
+6d. multi-host serving, in 6c's two rank processes after its ``data=2``
+   run, on the weights its f32 engine loaded (``data=2``: a host a rank,
+   4 slots a host, int8 KV, host d given 6c's prompts 4d..4d+3):
+   ``MultiHostEngine`` at f32, its tokens by host equal to 6c's one-rank
+   engine's, then a prefix hit on each host's own donor; ``global_stats``
+   equal on both ranks, each request counted once;
+   ``MultiHostSpecEngine`` (width 2) at f32, its tokens equal to one
+   rank's, drafting on both hosts; one 16-token counted run at bf16 (ms
+   a step, the traced device ms a step, launches by mode, peak memory a
+   rank); then the CLI's ``serve --multihost --mesh data=2`` on the same
+   file as two spawned ranks joining from torchrun's variables (gloo on
+   the one card): exit 0, each host's completions and the ``fleet:``
+   line.  The launches of 6, 6b, 6c and 6d are added to each kernel's
+   count in the kernels line.
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Details go to
@@ -535,21 +551,52 @@ def entry_regs(text: str):
     return regs
 
 
+# the sources that hold, by kernel family, what was one flash_decode.cu
+FLASH_DECODE_FAMILY = ("flash_decode.cu", "flash_decode_split.cu",
+                       "flash_block_tc.cu")
+
+
+class RefBuild:
+    """An ``--regs-against`` nvcc process, read to its end by a thread so
+    that its seconds (from the build's start, beside it) are its own."""
+
+    def __init__(self, cmd, t0):
+        import threading
+        self.proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True)
+        self.thread = threading.Thread(target=self._wait, args=(t0,))
+        self.thread.start()
+
+    def _wait(self, t0):
+        self.text = self.proc.communicate()[0]
+        self.returncode = self.proc.returncode
+        self.seconds = time.perf_counter() - t0
+
+    def join(self):
+        self.thread.join()
+
+
 def check_regs_against(ref, src, rec, build_log):
     """Phase 1 with ``--regs-against``: the reference build ``ref`` (an
     nvcc process on another tree's flash_decode.cu, qmm.cu or
     qmm_prefill.cu).  Of flash_decode.cu it must hold the same
     instantiations of ``flash_decode_split_kernel`` and
     ``flash_spec_split_kernel`` with the same registers as this build, and
-    so every kernel of this build's flash_decode.cu; of qmm.cu the same
+    so every kernel of this build's FLASH_DECODE_FAMILY (the kernels of
+    one flash_decode.cu before it was split by family; a reference that
+    is one source of a split tree holds its own kernels only, and is
+    held to those); of qmm.cu the same
     instantiations of ``qmm_pipe_kernel``, ``qmm_pipe_gd_kernel``,
     ``qmm_pipe_wide_kernel``, ``qmm_bf16_kernel`` and ``qmm_f32_kernel``
     with the same registers; of qmm_prefill.cu those of
     ``qmm_wgmma_kernel`` and ``qmm_wgmma_wide_kernel`` (the G32 kernels
     are this build's own)."""
-    text = ref.communicate()[0]
+    ref.join()
+    text = ref.text
     check(ref.returncode == 0, f"nvcc failed for {src}:\n{text}")
     rec.setdefault("regs_against", []).append(src)
+    rec.setdefault("regs_against_nvcc_s", {})[src] = ref.seconds
+    log(f"  {src}: {ref.seconds:.1f} s of nvcc, beside this build's")
     base = os.path.basename(src)
     if base in ("qmm.cu", "qmm_prefill.cu"):
         ours = build_log.split(f"== {base} (rc")[1].split("\n== ")[0]
@@ -569,6 +616,8 @@ def check_regs_against(ref, src, rec, build_log):
         return
     for key, kernel in (("decode_split_ptxas", "flash_decode_split_kernel"),
                         ("spec_split_ptxas", "flash_spec_split_kernel")):
+        if kernel not in text:          # a split tree's tiled source
+            continue
         theirs = check_no_spill(text, kernel)
         diff = {k: (rec[key].get(k), v) for k, v in theirs.items()
                 if rec[key].get(k) != v}
@@ -576,13 +625,20 @@ def check_regs_against(ref, src, rec, build_log):
               f"{kernel}: registers (this build, {src}) differ: {diff}")
         log(f"  ok {kernel}: the {len(theirs)} instantiations keep the "
             f"registers of {src}")
-    ours = build_log.split("== flash_decode.cu (rc")[1].split("\n== ")[0]
-    mine, theirs = entry_regs(ours), entry_regs(text)
-    check(mine == theirs, f"flash_decode.cu: kernels or registers differ "
-                          f"from {src}: "
-                          f"{set(mine.items()) ^ set(theirs.items())}")
-    log(f"  ok flash_decode.cu: all {len(mine)} kernels keep the registers "
-        f"of {src}")
+    mine = {}
+    for base in FLASH_DECODE_FAMILY:
+        if f"== {base} (rc" in build_log:
+            mine.update(entry_regs(
+                build_log.split(f"== {base} (rc")[1].split("\n== ")[0]))
+    theirs = entry_regs(text)
+    if not ("split_kernel" in text and "flash_block_tc_kernel" in text):
+        # one source of a split tree: its kernels only
+        mine = {k: v for k, v in mine.items() if k in theirs}
+    check(mine == theirs and len(theirs) > 0,
+          f"{'+'.join(FLASH_DECODE_FAMILY)}: kernels or registers differ "
+          f"from {src}: {set(mine.items()) ^ set(theirs.items())}")
+    log(f"  ok {'+'.join(FLASH_DECODE_FAMILY)}: all {len(mine)} kernels "
+        f"keep the registers of {src}")
 
 
 # -- phase 2: kernels against plain versions --------------------------------
@@ -6953,8 +7009,8 @@ def phase_cli(files, rec):
             (["-c", f4, "-n", "16", "-t", "0", "-i", text, "--profile-dir",
               prof], "--profile-dir", None, 0),
             (["-c", f4, "--mesh", "model=2"], "--mesh", None, 2),
-            (["-c", f4, "-m", "serve", "--multihost"], "--multihost", None,
-             2),
+            (["-c", f4, "-m", "serve", "--multihost", "--mesh", "data=2"],
+             "--multihost", None, 2),
             (serve + [prompts], "serve", None, 0),
             (serve + [prompts, "--spec"], "serve --spec", None, 0),
             (serve + [shared, "--prefix-cache"], "serve --prefix-cache",
@@ -6980,7 +7036,8 @@ def phase_cli(files, rec):
     out["profile_trace_bytes"] = len(trace)
     check("needs 2 devices, have 1" in mesh_e,
           f"CLI --mesh: {mesh_e[-300:]!r}")
-    check("not ported" in mh_e, f"CLI --multihost: {mh_e[-300:]!r}")
+    check("needs 2 devices, have 1" in mh_e,
+          f"CLI --multihost: {mh_e[-300:]!r}")
     rec["file_serving"]["cli"] = out
 
 
@@ -7639,8 +7696,10 @@ def _host_gb():
     return rss / 1e9, peak
 
 
-def _mesh_rank(rank, path):
-    """Phase 6c on one rank: the gloo probe, then on ``model=2`` and on
+def _mesh_rank(rank, path, with_6d=False):
+    """Phase 6c on one rank (and, ``with_6d``, phase 6d after it on the
+    weights of 6c's ``data=2`` f32 engine): the gloo probe, then on
+    ``model=2`` and on
     ``data=2`` the 4-layer 7B FLM INT8 file at ``path`` through
     ``BatchedEngine.load(..., mesh=...)`` (int8 KV, B=8, 8 prompts of 43
     tokens), the rank's host and card memory around the load; greedy
@@ -7696,9 +7755,13 @@ def _mesh_rank(rank, path):
             wq_shape=tuple(eng.params.wq.data.shape))
         with ModeTally() as tally:
             zero_launches()
-            row["tokens_f32"] = gen(load(ec))
+            f32_eng = load(ec)
+            row["tokens_f32"] = gen(f32_eng)
             f32_launches = read_launches()
         check_all_wide(f32_launches, tally, f"6c {mesh} rank {rank} f32")
+        if mesh == "data=2" and with_6d:
+            weights = (f32_eng.config, f32_eng.params, f32_eng.tokenizer)
+        del f32_eng
         if rank == 0:
             row["tokens_f32_one_rank"] = gen(load(
                 dataclasses.replace(ec, **one)))
@@ -7751,7 +7814,133 @@ def _mesh_rank(rank, path):
         out[mesh] = row
         del eng
         torch.cuda.empty_cache()
+    if with_6d:
+        out["6d"] = _multihost_rank(rank, *weights)
     return out
+
+
+def _multihost_rank(rank, cfg, params, tok):
+    """Phase 6d on one rank of ``data=2`` (a host a rank), on 6c's f32
+    weights: ``MultiHostEngine`` at f32 on the host's prompts
+    (``MESH_PROMPTS[4d:4d+4]``, 4 slots, int8 KV, the prefix cache on),
+    then a donor and a prefix hit on it; the fleet's stats;
+    ``MultiHostSpecEngine`` (width 2) at f32 on the same prompts; one
+    16-token counted run at bf16 (ms a step, launches by mode, peak
+    memory, a traced chunk).  Each run's launches with the counters
+    zeroed just before it; returns them summed beside the readings."""
+    import torch
+    from fastllama_tpu_torch.config import EngineConfig
+    from fastllama_tpu_torch.parallel.sharding import make_mesh
+    from fastllama_tpu_torch.runtime.multihost import MultiHostEngine
+    from fastllama_tpu_torch.runtime.spec_multihost import \
+        MultiHostSpecEngine
+    t_start = time.perf_counter()
+    dev = torch.device(RANK_DEVICE)
+    mesh = make_mesh("data=2")
+    ec = EngineConfig(max_seq_len=512, max_batch_size=4, kv_dtype="int8",
+                      compute_dtype="float32", mesh="data=2",
+                      prefix_cache=True)
+    row, launches = {}, {}
+
+    def add(got):
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+
+    def serve(e, prompts, n):
+        return [r.output_tokens for r in e.generate_all(
+            prompts, max_new_tokens=n, temperature=0.0, stop_tokens=())]
+    eng = MultiHostEngine(cfg, params, tok, ec, 16, mesh, dev, sharded=True)
+    d = eng.host
+    prompts = MESH_PROMPTS[4 * d:4 * d + 4]
+    with ModeTally() as tally:
+        zero_launches()
+        row["tokens_f32"] = serve(eng, prompts, 16)
+        # a donor live past its first chunk, then a prompt sharing its
+        # first 32 tokens: a hit on this host's own donor
+        donor = eng.submit(prompts[0], max_new_tokens=24, temperature=0.0,
+                           stop_tokens=())
+        eng.step()
+        hit = eng.submit(prompts[0][:32] + [7, 8, 9], max_new_tokens=8,
+                         temperature=0.0, stop_tokens=())
+        eng.run()
+        got = read_launches()
+    check(donor.done and hit.done and len(hit.output_tokens) == 8,
+          f"6d rank {rank}: the donor or the hit did not complete")
+    check_all_wide(got, tally, f"6d rank {rank} f32")
+    add(got)
+    row.update(hits=eng.stats.prefix_hits,
+               hit_rows=eng.stats.prefix_rows_reused,
+               completed=eng.stats.completed,
+               global_stats=dataclasses.asdict(eng.global_stats()),
+               host=d)
+    del eng
+    spec = MultiHostSpecEngine(cfg, params, tok,
+                               dataclasses.replace(ec, prefix_cache=False),
+                               16, mesh, width=2, rounds_per_chunk=8,
+                               spec_auto=False, device=dev, sharded=True)
+    with ModeTally() as tally:
+        zero_launches()
+        row["spec_tokens_f32"] = serve(spec, prompts, 16)
+        got = read_launches()
+    check_all_wide(got, tally, f"6d rank {rank} spec f32")
+    add(got)
+    row.update(spec_drafted=spec.spec_drafted,
+               spec_acceptance=spec.acceptance,
+               spec_arms=dict(spec.arm_chunks))
+    del spec
+    eng = MultiHostEngine(cfg, params, tok,
+                          dataclasses.replace(ec, compute_dtype="bfloat16",
+                                              prefix_cache=False),
+                          16, mesh, dev, sharded=True)
+    serve(eng, prompts, 3)                  # warm
+    eng.stats = type(eng.stats)()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with ModeTally() as tally:
+        zero_launches()
+        row["tokens_bf16"] = serve(eng, prompts, 16)
+        torch.cuda.synchronize()
+        got = read_launches()
+    check_all_pipe(got, tally, f"6d rank {rank} bf16")
+    check(all(len(t) == 16 for t in row["tokens_bf16"]),
+          f"6d rank {rank}: a bf16 request did not get its tokens")
+    add(got)
+    steps = got["decode_write"]
+    st = eng.stats
+    row.update(
+        aggregate_decode_tok_s=st.aggregate_tps,
+        ms_per_decode_step=st.decode_s / max(steps, 1) * 1e3,
+        decode_steps=steps,
+        max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+        cache_shape=tuple(eng.cache.k.shape), launches_bf16=got,
+        k1_modes=tally.record(),
+        profile=profile_decode(eng, prompts[0],
+                               st.decode_s / max(steps, 1) * 1e3,
+                               n_steps=8))
+    del eng
+    torch.cuda.empty_cache()
+    row["launches"] = launches
+    row["seconds"] = time.perf_counter() - t_start
+    return row
+
+
+def _multihost_cli_rank(rank, path, pf):
+    """Phase 6d's CLI on one rank, as torchrun starts it: the rank joins
+    from torchrun's variables (gloo on the one card, as 6c's ranks), then
+    ``serve --multihost --mesh data=2`` in this process; (rc, stdout,
+    stderr)."""
+    import io
+    from fastllama_tpu_torch import cli
+    from fastllama_tpu_torch.parallel import distributed
+    distributed.initialize(backend=RANKS_BACKEND, device=RANK_DEVICE)
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(["-c", path, "-m", "serve", "--multihost", "--mesh",
+                       "data=2", "--batch", "4", "--prompts-file", pf, "-n",
+                       "8", "-t", "0", "--max-seq-len", "512", "--kv-dtype",
+                       "int8", "--device", RANK_DEVICE])
+    return rc, out.getvalue(), err.getvalue()
 
 
 def _leaf_tensors(v):
@@ -7760,7 +7949,7 @@ def _leaf_tensors(v):
     return [v.data, v.scales] if hasattr(v, "scales") else [v]
 
 
-def phase_mesh_two(dev, rec, files):
+def phase_mesh_two(dev, rec, files, with_6d=False):
     """Phase 6c: two ranks on the one card (NCCL refuses two ranks on one
     GPU; each rank is given ``cuda:0`` and the gloo backend), spawned by
     ``parallel.distributed.run_ranks``: a probe of gloo's collectives on
@@ -7780,7 +7969,7 @@ def phase_mesh_two(dev, rec, files):
         "the 4-layer 7B FLM INT8 file loaded on a mesh, int8 KV")
     try:
         ranks = distributed.run_ranks(
-            _mesh_rank, 2, files.paths["flm4"], device=RANK_DEVICE,
+            _mesh_rank, 2, files.paths["flm4"], with_6d, device=RANK_DEVICE,
             backend=RANKS_BACKEND, timeout=600)
     except Exception as e:              # a rank raised, died or hung
         raise Failed(f"6c: a rank failed: {e}") from e
@@ -7841,6 +8030,85 @@ def phase_mesh_two(dev, rec, files):
     for k in BATCHED_PATH:
         check(launches[k] > 0, f"6c: kernel {k} was not launched")
     rec["mesh_two"] = out
+    if with_6d:
+        # 6d runs in 6c's ranks: 6c's seconds hold 6d's
+        t1 = time.perf_counter()
+        got = phase_multihost(ranks, files, rec)
+        rec["phase_s"]["6d"] = (time.perf_counter() - t1 + max(
+            row["6d"]["seconds"] for row in ranks))
+        log(f"  phase 6d took {rec['phase_s']['6d']:.1f} s (in 6c's ranks "
+            f"and its CLI; counted in 6c's seconds too)")
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+    return launches
+
+
+def phase_multihost(ranks, files, rec):
+    """Phase 6d's checks on what 6c's ranks returned, then its CLI run.
+    Returns both ranks' launches summed."""
+    from fastllama_tpu_torch.parallel import distributed
+    r0, r1 = (r["6d"] for r in ranks)
+    one = ranks[0]["data=2"]["tokens_f32_one_rank"]
+    launches = {}
+    for r, row in enumerate((r0, r1)):
+        for k, v in row["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        check(row["host"] == r, f"6d: rank {r} is host {row['host']}")
+        check(row["hits"] >= 1, f"6d host {r}: no prefix hit on its donor")
+        check(row["spec_drafted"] > 0, f"6d host {r}: the spec engine "
+                                       f"drafted nothing")
+        log(f"  6d host {r}: {row['hits']} prefix hit(s), "
+            f"{row['hit_rows']} rows reused; spec acceptance "
+            f"{row['spec_acceptance']:.3f}, arms {row['spec_arms']}; bf16 "
+            f"{row['aggregate_decode_tok_s']:.2f} tok/s, "
+            f"{row['ms_per_decode_step']:.3f} ms a step, device "
+            f"{row['profile']['device_busy_ms_per_step']:.3f} ms a step "
+            f"(idle {row['profile']['device_idle_share']:.3f}), peak "
+            f"{row['max_memory_allocated_gb']:.3f} GB, cache "
+            f"{row['cache_shape']}, K1 {row['k1_modes']}; "
+            f"{row['seconds']:.1f} s in the rank")
+    check(r0["tokens_f32"] + r1["tokens_f32"] == one,
+          "6d: MultiHostEngine's f32 tokens by host differ from one rank's")
+    check(r0["spec_tokens_f32"] + r1["spec_tokens_f32"] == one,
+          "6d: MultiHostSpecEngine's f32 tokens differ from one rank's")
+    g = r0["global_stats"]
+    check(g == r1["global_stats"], f"6d: global_stats differ between the "
+                                   f"ranks: {g} / {r1['global_stats']}")
+    check(g["completed"] == r0["completed"] + r1["completed"] == 12
+          and g["prefix_hits"] == r0["hits"] + r1["hits"],
+          f"6d: global_stats {g} against the hosts' own "
+          f"{r0['completed']} + {r1['completed']} requests")
+    log(f"  ok 6d: f32 tokens of both engines by host equal one rank's; "
+        f"global_stats equal on both ranks, {g['completed']} requests, "
+        f"{g['prefix_hits']} hits")
+    # the CLI: every line a host's share (d::2), completions by host
+    pf = os.path.join(os.path.dirname(files.paths["flm4"]),
+                      "multihost_prompts.txt")
+    with open(pf, "w") as f:
+        f.write("the cat sat on the mat\nonce upon a time\n"
+                "a big dog ran home\nhello there world\n")
+    t0 = time.perf_counter()
+    try:
+        clis = distributed.run_ranks(_multihost_cli_rank, 2,
+                                     files.paths["flm4"], pf, join=False,
+                                     timeout=300)
+    except Exception as e:              # a rank raised, died or hung
+        raise Failed(f"6d: a CLI rank failed: {e}") from e
+    for r, (rc, so, se) in enumerate(clis):
+        check(rc == 0 and so.count(" tokens=") == 2
+              and "fleet: 4 requests" in se,
+              f"6d CLI host {r}: rc {rc}, stdout {so[-400:]!r}, stderr "
+              f"{se[-400:]!r}")
+    log(f"  ok 6d CLI: serve --multihost --mesh data=2 on two ranks, rc 0, "
+        f"2 completions a host, the fleet line on each "
+        f"({time.perf_counter() - t0:.1f} s)")
+    rec["multihost"] = {"card": smi_line(), "ranks": [r0, r1],
+                        "cli_s": time.perf_counter() - t0,
+                        "cli_fleet": [se.strip().splitlines()[-1]
+                                      for _, _, se in clis]}
+    for k in BATCHED_PATH + ("flash_block_attend_tf32",
+                             "flash_spec_batched_split", "spec_write"):
+        check(launches.get(k, 0) > 0, f"6d: kernel {k} was not launched")
     return launches
 
 
@@ -7877,7 +8145,7 @@ SOURCES = {
                                   "fastllama_tpu/ops/pallas/qmm.py:601"),
     "qmatmul_pallas_indexed_fused_p4": ("fastllama_tpu_torch/csrc/qmm.cu",
                                         "fastllama_tpu/ops/pallas/qmm.py:601"),
-    "flash_block_attend": ("fastllama_tpu_torch/csrc/flash_decode.cu",
+    "flash_block_attend": ("fastllama_tpu_torch/csrc/flash_block_tc.cu",
                            "fastllama_tpu/ops/pallas/flash_decode.py:426"),
     "flash_decode_batched_stats": (
         "fastllama_tpu_torch/csrc/flash_decode_fresh.cu",
@@ -7890,11 +8158,14 @@ SOURCES = {
         "fastllama_tpu_torch/csrc/flash_block_tf32.cu",
         "fastllama_tpu/ops/pallas/flash_decode.py:426"),
 }
-# the split-row modes of K2 and K2s: the same source and TPU function as
-# their wrapper's (flash_decode_batched's: the fresh and stats split mode,
-# which its main paths run)
-SOURCES.update({k + "_split": SOURCES[k] for k in SPLIT_WRAPPERS
-                + ("flash_spec_batched", "flash_decode_batched_stats")})
+# the split-row modes of K2 and K2s: their source, the TPU function of
+# their wrapper (flash_decode_batched's: the fresh and stats split mode,
+# which its main paths run, in its wrapper's source)
+SOURCES.update({k + "_split": ("fastllama_tpu_torch/csrc/flash_decode_split.cu",
+                               SOURCES[k][1])
+                for k in SPLIT_WRAPPERS + ("flash_spec_batched",)})
+SOURCES.update({k + "_split": SOURCES[k] for k in (
+    "flash_decode_batched", "flash_decode_batched_stats")})
 # the pipelined mode of K1 and K1p (INT8 and packed alike): K1's wrappers;
 # the groupdot mode's ring, K1's groupdot function; the wide mode's ring,
 # K1's wrappers (the JAX wide branch, _qmm_chunk's, runs in each)
@@ -7937,7 +8208,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
                     default="1,2,3,3d,3e,3f,3g,3h,4,4b,4c,4d,4e,4f,4i,"
-                            "4j,4k,4l,4m,4n,4o,4g,4h,6,6b,6c,5",
+                            "4j,4k,4l,4m,4n,4o,4g,4h,6,6b,6c,6d,5",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--regs-against", metavar="CU", action="append",
                     default=[],
@@ -7956,6 +8227,9 @@ def main() -> int:
     if "4m" in phases and not {"4", "4b"} <= phases:
         ap.error("phase 4m holds its launch counts to phases 4 and 4b's: "
                  "run those with it (--phases ...,4,4b,4m)")
+    if "6d" in phases and "6c" not in phases:
+        ap.error("phase 6d runs in phase 6c's rank processes: run 6c with "
+                 "it (--phases ...,6c,6d)")
 
     import torch
     if not torch.cuda.is_available():
@@ -8000,10 +8274,10 @@ def run_phases(args, phases, dev, rec, files) -> int:
     for src in args.regs_against:
         os.makedirs(os.path.join("build", "regs_against"), exist_ok=True)
         stem = os.path.splitext(os.path.basename(src))[0]
-        refs.append((src, subprocess.Popen(
+        refs.append((src, RefBuild(
             [_build.nvcc(), *_build.NVCC_FLAGS, "-o",
              os.path.join("build", "regs_against", f"lib{stem}.so"), src],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+            t0)))
     _build.build()
     rec["build_s"] = time.perf_counter() - t0
     log(f"phase 1: kernels built in {rec['build_s']:.1f} s")
@@ -8150,7 +8424,8 @@ def run_phases(args, phases, dev, rec, files) -> int:
     # the perplexity tool's and the mesh paths' launches are added to
     # each kernel's count (6c: both ranks')
     for label, fn in (("6", phase_eval), ("6b", phase_mesh_one),
-                      ("6c", lambda d, r: phase_mesh_two(d, r, files))):
+                      ("6c", lambda d, r: phase_mesh_two(
+                          d, r, files, "6d" in phases))):
         if label in phases:
             for k, v in run(label, fn).items():
                 launches[k] = launches.get(k, 0) + v

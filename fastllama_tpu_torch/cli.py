@@ -19,12 +19,18 @@ per-rank path) serves on a mesh of ranks, one process a rank under
 torchrun: each rank joins the process group from torchrun's variables,
 runs on ``cuda:{LOCAL_RANK}`` (or ``--device cpu``), and only rank 0
 writes the output.  A mesh larger than the world exits with status 2 and
-the error's text.  ``--multihost`` (per-host admission across processes,
-``runtime/multihost.py``) is not ported: status 2.
+the error's text.  ``-m serve --multihost`` (with or without ``--spec``)
+serves per-host admission across the hosts of the mesh
+(``runtime/multihost.py``): a host is a data coordinate, by default the
+ranks of one machine (``data = WORLD_SIZE / LOCAL_WORLD_SIZE``); host d
+serves the prompts ``d::hosts`` of the list, its model-0 rank writes that
+host's completions, and every host prints the fleet's ``fleet:`` line.
 
 Usage: python -m fastllama_tpu_torch.cli -c model.flm -m benchmark
        torchrun --nproc-per-node 2 -m fastllama_tpu_torch.cli -c model.flm \
            -m serve --mesh model=2 --prompts-file prompts.txt
+       torchrun --nnodes 2 --nproc-per-node 4 ... -m fastllama_tpu_torch.cli \
+           -c model.flm -m serve --multihost --prompts-file prompts.txt
 """
 from __future__ import annotations
 
@@ -91,8 +97,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="with --mesh: the kernels per shard (the port's one "
                         "mesh path either way)")
     p.add_argument("--multihost", action="store_true",
-                   help="--mode serve with per-host admission across "
-                        "processes (not ported yet)")
+                   help="--mode serve with per-host admission across the "
+                        "hosts of the mesh (a host: a data coordinate; "
+                        "default mesh: one host a machine under torchrun)")
     p.add_argument("-e", "--encode", default="", help="encode text to tokens")
     p.add_argument("-d", "--decode", default="", help="decode ids (comma-sep)")
     p.add_argument("--detail", action="store_true")
@@ -151,8 +158,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 def serve_mode(args) -> int:
     """Continuous-batching batch job: read prompts (file or stdin), serve
-    them through BatchedEngine slots (SpecBatchedEngine with --spec),
-    print completions + aggregate stats."""
+    them through BatchedEngine slots (SpecBatchedEngine with --spec, the
+    multi-host engines with --multihost), print completions + aggregate
+    stats."""
     ec = EngineConfig(max_seq_len=args.max_seq_len, kv_dtype=args.kv_dtype,
                       use_pallas=not args.no_pallas, mesh=args.mesh,
                       max_batch_size=args.batch,
@@ -161,9 +169,25 @@ def serve_mode(args) -> int:
                       qos_chunk=args.qos_chunk,
                       scale_dtype=args.scale_dtype)
     # serve-mode auto default: 4 = the tuner's width-arm headroom
-    # ({2, 4} + plain; spec_batching.SpecAutoTuner)
-    spec_width = args.spec_width or 4
-    if args.spec:
+    # ({2, 4} + plain; spec_batching.SpecAutoTuner); the lockstep fleet
+    # keeps a static width (its vote is spec or plain), 2
+    spec_width = args.spec_width or (2 if args.multihost else 4)
+    if args.multihost and args.spec:
+        from fastllama_tpu_torch.runtime.spec_multihost import \
+            MultiHostSpecEngine
+        eng = MultiHostSpecEngine.load_spec(
+            args.checkpoint, args.tokenizer, FileType.parse(args.file_type),
+            QuantType.parse(args.quant), ec, decode_chunk=args.decode_chunk,
+            width=spec_width, rounds_per_chunk=args.spec_rounds,
+            device=args.device)
+    elif args.multihost:
+        from fastllama_tpu_torch.runtime.multihost import MultiHostEngine
+        eng = MultiHostEngine.load(args.checkpoint, args.tokenizer,
+                                   FileType.parse(args.file_type),
+                                   QuantType.parse(args.quant), ec,
+                                   decode_chunk=args.decode_chunk,
+                                   device=args.device)
+    elif args.spec:
         # batched speculation: per-slot n-gram drafts verified D rows at a
         # time inside the decode chunks (runtime/spec_batching.py)
         from fastllama_tpu_torch.runtime.spec_batching import \
@@ -193,7 +217,11 @@ def serve_mode(args) -> int:
             prompts.append((text, int(pr), float(dl)))
     else:
         prompts = [(ln, args.priority, args.deadline) for ln in lines]
-    if not prompts:
+    if args.multihost:
+        # each host serves its share of the list, round-robin by host (a
+        # shared file on every host serves distinct rows)
+        prompts = prompts[eng.host::eng.n_hosts]
+    elif not prompts:
         print("no prompts", file=sys.stderr)
         return 2
     reqs = [eng.submit(pr, max_new_tokens=args.max_new_tokens,
@@ -212,6 +240,12 @@ def serve_mode(args) -> int:
           f"{stats.aggregate_tps:.1f} tok/s | {stats.total_output_tokens} "
           f"tokens in {stats.decode_s:.2f}s (+{stats.prefill_s:.2f}s prefill)",
           file=sys.stderr)
+    if args.multihost:
+        g = eng.global_stats()
+        if eng.lead:
+            print(f"fleet: {g.completed} requests | aggregate decode "
+                  f"{g.aggregate_tps:.1f} tok/s across hosts",
+                  file=sys.stderr)
     return 0
 
 
@@ -257,20 +291,26 @@ def chat_loop(eng, args) -> int:
 
 
 def join_mesh(args):
-    """With ``--mesh``: join the process group (torchrun's variables; a
-    no-op without them), check the mesh against the world and set
-    ``args.device`` to the rank's.  Returns (rank, whether this call
-    joined the group); (0, False) off a mesh.  Raises ValueError for a
-    mesh the world cannot hold."""
-    if not args.mesh:
-        return 0, False
+    """With ``--mesh`` or ``-m serve --multihost``: join the process group
+    (torchrun's variables; a no-op without them), check the mesh against
+    the world (``--multihost`` without ``--mesh``: one host a machine,
+    set in ``args.mesh``) and set ``args.device`` to the rank's.  Returns
+    (whether this rank writes the output: rank 0, or with ``--multihost``
+    each host's model-0 rank; whether this call joined the group); (True,
+    False) off a mesh.  Raises ValueError for a mesh the world cannot
+    hold."""
+    multihost = args.multihost and args.mode == "serve"
+    if not (args.mesh or multihost):
+        return True, False
     from fastllama_tpu_torch.parallel import distributed
-    from fastllama_tpu_torch.parallel.sharding import make_mesh
+    from fastllama_tpu_torch.parallel.sharding import MODEL_AXIS, make_mesh
     joined = not distributed.is_initialized()
     dev = distributed.initialize(
         device=None if args.device == "cuda" else args.device)
     joined = joined and distributed.is_initialized()
     try:
+        if not args.mesh:
+            args.mesh = distributed.default_mesh_spec()
         mesh = make_mesh(args.mesh)
     except ValueError:
         if joined:
@@ -278,24 +318,21 @@ def join_mesh(args):
         raise
     if dev is not None:
         args.device = str(dev)
-    return mesh.rank, joined
+    writer = mesh.index(MODEL_AXIS) == 0 if multihost else mesh.rank == 0
+    return writer, joined
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.multihost:
-        print("error: --multihost: multi-host serving (per-host admission, "
-              "runtime/multihost.py) is not ported yet", file=sys.stderr)
-        return 2
     try:
-        rank, joined = join_mesh(args)
+        writer, joined = join_mesh(args)
     except ValueError as e:
         print(f"error: --mesh {args.mesh}: {e}", file=sys.stderr)
         return 2
     try:
-        if rank == 0:
+        if writer:
             return run(args)
-        # every rank serves in lockstep; rank 0 alone writes the output
+        # every rank serves in lockstep; the writers alone write the output
         with open(os.devnull, "w") as null, \
                 contextlib.redirect_stdout(null):
             return run(args)

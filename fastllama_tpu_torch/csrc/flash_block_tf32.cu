@@ -1,5 +1,5 @@
 // K2b, split-TF32 mode: the prefix cache's block-attend on Hopper's tensor
-// cores for the calls its TC mode (flash_decode.cu: flash_block_tc_kernel,
+// cores for the calls its TC mode (flash_block_tc.cu: flash_block_tc_kernel,
 // bf16 q over an int8 or bf16 cache) does not take: f32 q over any cache,
 // bf16 q over an f32 cache (the default f32 KV cache of both packages at
 // bf16 compute), and bf16 q over a bf16 or int8 cache at a head size off

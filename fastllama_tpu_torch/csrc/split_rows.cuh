@@ -1,6 +1,6 @@
-// The split-row body that K2's split-row modes (flash_decode.cu:
+// The split-row body that K2's split-row modes (flash_decode_split.cu:
 // flash_decode_split_kernel; flash_decode_fresh.cu:
-// flash_decode_fresh_split_kernel) and K2s's (flash_decode.cu:
+// flash_decode_fresh_split_kernel) and K2s's (flash_decode_split.cu:
 // flash_spec_split_kernel) share, with its loads, conversions and merge.
 // The design notes are with the kernels.
 #pragma once

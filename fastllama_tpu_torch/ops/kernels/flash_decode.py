@@ -1,6 +1,11 @@
 """K2: bounded flash-decode attention (``csrc/flash_decode.cu``), its
 speculative-verify (K2s) and block-attend (K2b) modes, and their plain
-versions.
+versions.  The sources go by kernel family, one ``nvcc`` and library each:
+the tiled kernels and K2b's f32 mode in ``csrc/flash_decode.cu``, the
+split-row kernels of K2 and K2s in ``csrc/flash_decode_split.cu``, K2's
+fresh and stats split mode in ``csrc/flash_decode_fresh.cu``, K2b's
+tensor-core modes in ``csrc/flash_block_tc.cu`` and
+``csrc/flash_block_tf32.cu``.
 
 Replaces ``flash_decode_batched`` (fastllama_tpu/ops/pallas/
 flash_decode.py:203) in its two modes:
@@ -28,7 +33,7 @@ other calls.
 The same kernel serves ``ops/kernels/attention.py``.  K2s
 (:func:`flash_spec_batched`, replacing flash_decode.py:700) is its
 speculative-verify mode: T query rows per slot over rows [0, pos[b]) plus
-a causal fresh block, in the same source; a call with hgs * T <= 8 query
+a causal fresh block; a call with hgs * T <= 8 query
 rows a (slot, kv head) and hs a multiple of 16 takes its split-row mode
 (``spec_mode``, ``flash_spec_split_kernel``), counted also in
 ``.launches_split``.  K2b
@@ -316,7 +321,7 @@ def _split_launch(q, ck, cv, pos, layer, k_scale, v_scale, nsplit=None,
         return _fresh_split_launch(q, ck, cv, pos, layer, k_scale, v_scale,
                                    k_new, v_new, stats, nsplit, min_chunk,
                                    nw, out, acc, ml, ticket, lib)
-    fn = _build.load("flash_decode").flash_decode_split_launch
+    fn = _build.load("flash_decode_split").flash_decode_split_launch
     fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 \
         + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -641,7 +646,7 @@ def _spec_split_launch(q, ck, cv, pos, layer, k_scale, v_scale, k_new,
     if nsplit > 1:
         acc, ml, ticket = _split_workspace(q.device, B * n_kv,
                                            B * n_kv * nsplit * rp, hs)
-    fn = _build.load("flash_decode").flash_spec_split_launch
+    fn = _build.load("flash_decode_split").flash_spec_split_launch
     fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 11 \
         + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -875,7 +880,7 @@ def _block_launch(mode, q, ck, cv, slot, layer, start, k_scale, v_scale,
     out = torch.empty_like(q)
     dts = [_DT[q.dtype], _DT[ck.dtype]]
     if mode == "tc":        # bf16 q: the cache's dtype code only
-        fn, dts = _build.load("flash_decode").flash_block_tc_launch, dts[1:]
+        fn, dts = _build.load("flash_block_tc").flash_block_tc_launch, dts[1:]
     elif mode == "tf32":
         fn = (lib or _build.load("flash_block_tf32")).flash_block_tf32_launch
     else:

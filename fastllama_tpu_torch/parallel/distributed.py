@@ -4,7 +4,10 @@
 One process a rank, every rank running the same program: the engines take
 the same decisions on the same submissions, in lockstep, and the only
 traffic between ranks is the collectives of ``parallel/spmd_step.py`` (and
-:func:`agree` for the few scheduler choices that read a clock).  Failure
+:func:`agree` for the few scheduler choices that read a clock).  The
+multi-host engines (``runtime/multihost.py``) add host-side control data,
+the plan vectors, the run flag and the stats, gathered over
+:func:`control_group` by :func:`allgather_rows`.  Failure
 is initialize-or-die, as in the JAX package, with one difference: where
 JAX keeps going single-process when its runtime refuses to start, the
 port raises.
@@ -25,6 +28,7 @@ from __future__ import annotations
 import os
 from typing import Optional, Union
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -32,6 +36,7 @@ from fastllama_tpu_torch.device import resolve_device
 from fastllama_tpu_torch.utils.logging import log_info
 
 _rank_device: Optional[torch.device] = None
+_control = None
 
 
 def is_initialized() -> bool:
@@ -110,22 +115,72 @@ def rank_device() -> Optional[torch.device]:
 
 def shutdown() -> None:
     """Leave the process group (a no-op outside one)."""
-    global _rank_device
+    global _rank_device, _control
     if is_initialized():
         dist.destroy_process_group()
     _rank_device = None
+    _control = None
 
 
-def agree(value):
-    """Rank 0's ``value`` on every rank of the world (a picklable object;
-    identity outside a multi-rank group).  The engines take a scheduler
+def agree(value, group=None):
+    """The ``value`` of the first rank of ``group`` (None: the world) on
+    every rank of it (a picklable object; identity outside a multi-rank
+    group and on a group of one rank).  The engines take a scheduler
     choice that reads a clock (a deadline, the speculative tuner's arm)
-    through it, so that every rank takes the same."""
+    through it, so that every rank takes the same; the multi-host engines
+    over a host's 'model' group, whose first rank is the host's lead."""
     if not is_multiprocess():
         return value
+    src = 0
+    if group is not None:
+        if dist.get_world_size(group) == 1:
+            return value
+        src = dist.get_global_rank(group, 0)
     box = [value]
-    dist.broadcast_object_list(box, src=0)
+    dist.broadcast_object_list(box, src=src, group=group)
     return box[0]
+
+
+def control_group():
+    """A gloo group over every rank of the world, for host-side control
+    data (the multi-host engines' plans, run flag and stats): CPU
+    tensors, so that under NCCL a plan costs no device sync and no copy.
+    The world group itself where its backend is gloo; otherwise a group
+    made on first use, which every rank reaches in the same order (the
+    engines' constructors)."""
+    global _control
+    if _control is None:
+        _control = (dist.group.WORLD if dist.get_backend() == "gloo"
+                    else dist.new_group(backend="gloo"))
+    return _control
+
+
+def allgather_rows(row: np.ndarray) -> np.ndarray:
+    """Every rank's ``row`` (a 1-D numpy array of one length and dtype on
+    every rank) in rank order, (world, n), gathered over
+    :func:`control_group`; ``row[None]`` outside a multi-rank group."""
+    row = np.ascontiguousarray(row)
+    if not is_multiprocess():
+        return row[None].copy()
+    t = torch.from_numpy(row)
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, t, group=control_group())
+    return torch.stack(parts).numpy()
+
+
+def default_mesh_spec() -> str:
+    """The multi-host layout of the world: 'data=H,model=M' with M =
+    ``LOCAL_WORLD_SIZE`` (torchrun's ranks on this machine: one process a
+    card) and H = ``WORLD_SIZE`` / M, a host a machine, as the JAX
+    package's data = process count, model = local device count
+    (``multihost.py:293-296``).  Without ``LOCAL_WORLD_SIZE`` every rank
+    is on one host."""
+    world = dist.get_world_size() if is_initialized() else 1
+    local = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+    if local < 1 or world % local:
+        raise ValueError(f"LOCAL_WORLD_SIZE {local} does not divide the "
+                         f"world of {world} ranks")
+    return f"data={world // local},model={local}"
 
 
 def global_mesh(spec: str = ""):
@@ -154,8 +209,8 @@ def _spawned(rank, fn, world, port, outdir, args, join, device, backend):
     else:
         # torchrun's variables, for an entry point that joins by itself
         os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
-                          LOCAL_RANK=str(rank), MASTER_ADDR="localhost",
-                          MASTER_PORT=str(port))
+                          LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
+                          MASTER_ADDR="localhost", MASTER_PORT=str(port))
     try:
         out = fn(rank, *args)
     finally:

@@ -127,6 +127,20 @@ def make_mesh(spec: str = "", world_size: Optional[int] = None,
                 (shape[DATA_AXIS], shape[MODEL_AXIS]), rank, device_mesh)
 
 
+def host_mesh(mesh: Mesh) -> Mesh:
+    """This rank's view of its own host on a multi-host ``mesh`` (a host
+    is a data coordinate): 'data' of size 1 and the rank's 'model' line,
+    whose process group is this rank's 'model' group of ``mesh``.  The
+    multi-host engines run ``models/batched.py``'s steps on it, so that no
+    collective of a step crosses hosts."""
+    mp = mesh.shape[MODEL_AXIS]
+    sub_mesh = None
+    if mesh.device_mesh is not None and mp > 1:
+        sub_mesh = mesh.device_mesh[MODEL_AXIS]
+    return Mesh((DATA_AXIS, MODEL_AXIS), (1, mp), mesh.index(MODEL_AXIS),
+                sub_mesh)
+
+
 def gqa_submesh(mesh: Mesh, n_kv_heads: int) -> Mesh:
     """The mesh with its 'model' axis split into ('kv', 'rep') for GQA
     over-sharding (model > n_kv_heads): a KV head lives on the ``rep =

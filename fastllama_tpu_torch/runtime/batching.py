@@ -177,7 +177,7 @@ class BatchedEngine:
                                                     ec.max_seq_len))
         config.validate()
         self.B = max(1, ec.max_batch_size)
-        self.mesh, self.device = open_mesh(ec, device)
+        self.mesh, self.device = self._open_mesh(ec, device)
         if self.mesh is not None:
             from fastllama_tpu_torch.parallel.sharding import shard_params
             from fastllama_tpu_torch.parallel.spmd_step import _check_dims
@@ -260,6 +260,10 @@ class BatchedEngine:
         return BatchedEngine(cfg, params, tok, engine_config, decode_chunk,
                              device, sharded=bool(engine_config
                                                   and engine_config.mesh))
+
+    def _open_mesh(self, ec: EngineConfig, device):
+        """(the mesh the steps run on, the rank's device)."""
+        return open_mesh(ec, device)
 
     # -- compute ---------------------------------------------------------------
 
@@ -388,17 +392,25 @@ class BatchedEngine:
         self.queue.append(req)
         return req
 
+    def _late(self) -> set:
+        """The ids of queued requests past their deadline: a clock's
+        reading, so on a mesh every rank takes rank 0's."""
+        if not any(r.deadline_s > 0 for r in self.queue):
+            return set()
+        now = time.perf_counter()
+        late = {r.id for r in self.queue
+                if r.deadline_s > 0 and now - r.submit_s > r.deadline_s}
+        if self.mesh is not None:
+            from fastllama_tpu_torch.parallel.distributed import agree
+            late = agree(late)
+        return late
+
     def _qos_queue_pass(self) -> None:
         """Deadline-expire queued requests, then order the queue by
         priority class (stable: FIFO within a class)."""
-        if any(r.deadline_s > 0 for r in self.queue):
+        late = self._late()
+        if late:
             now = time.perf_counter()
-            late = {r.id for r in self.queue
-                    if r.deadline_s > 0 and now - r.submit_s > r.deadline_s}
-            if self.mesh is not None:
-                # a clock's reading: every rank takes rank 0's
-                from fastllama_tpu_torch.parallel.distributed import agree
-                late = agree(late)
             kept = deque()
             for r in self.queue:
                 if r.id in late:
@@ -483,39 +495,43 @@ class BatchedEngine:
             for i in range(0, len(grp), per):
                 waves.append((bucket, grp[i:i + per]))
         for bucket, grp in waves:
-            t0 = time.perf_counter()
-            N = len(grp)
-            Np = 1 << (N - 1).bit_length()
-            grp_p = grp + [grp[-1]] * (Np - N)
-            toks_np = np.zeros((Np, bucket), np.int64)
-            lens = np.zeros(Np, np.int64)
-            slots_np = np.zeros(Np, np.int32)
-            temps = np.zeros(Np, np.float32)
-            topps = np.ones(Np, np.float32)
-            seeds = np.zeros(Np, np.int64)
-            for i, (req, slot) in enumerate(grp_p):
-                toks_np[i, :len(req.prompt_tokens)] = req.prompt_tokens
-                lens[i] = len(req.prompt_tokens)
-                slots_np[i] = slot
-                temps[i] = req.temperature
-                topps[i] = req.topp
-                seeds[i] = req.seed
-            firsts = self._prefill(toks_np, lens, slots_np, temps, topps,
-                                   seeds)
-            for req, slot in grp:
-                self._gens[slot].manual_seed(_fold_seed(req.seed, req.id))
-            self.stats.prefill_s += time.perf_counter() - t0
-            for i, (req, slot) in enumerate(grp):
-                self.slot_req[slot] = req
-                self.pos[slot] = lens[i]
-                self.temps[slot] = req.temperature
-                self.topps[slot] = req.topp
-                self.pending[slot] = int(firsts[i])
-                req._prev_token = req.prompt_tokens[-1]
-                self.stats.total_prompt_tokens += int(lens[i])
-                if self._prefix_enabled:
-                    self._prefix_register(slot, req.prompt_tokens)
-                self._emit(slot, int(firsts[i]), from_decode=False)
+            self._run_wave(bucket, grp)
+
+    def _run_wave(self, bucket: int, grp) -> None:
+        """One admission wave: the (request, slot) pairs of ``grp``, whose
+        prompts fit ``bucket``, prefilled in one call and admitted."""
+        t0 = time.perf_counter()
+        N = len(grp)
+        Np = 1 << (N - 1).bit_length()
+        grp_p = grp + [grp[-1]] * (Np - N)
+        toks_np = np.zeros((Np, bucket), np.int64)
+        lens = np.zeros(Np, np.int64)
+        slots_np = np.zeros(Np, np.int32)
+        temps = np.zeros(Np, np.float32)
+        topps = np.ones(Np, np.float32)
+        seeds = np.zeros(Np, np.int64)
+        for i, (req, slot) in enumerate(grp_p):
+            toks_np[i, :len(req.prompt_tokens)] = req.prompt_tokens
+            lens[i] = len(req.prompt_tokens)
+            slots_np[i] = slot
+            temps[i] = req.temperature
+            topps[i] = req.topp
+            seeds[i] = req.seed
+        firsts = self._prefill(toks_np, lens, slots_np, temps, topps, seeds)
+        for req, slot in grp:
+            self._gens[slot].manual_seed(_fold_seed(req.seed, req.id))
+        self.stats.prefill_s += time.perf_counter() - t0
+        for i, (req, slot) in enumerate(grp):
+            self.slot_req[slot] = req
+            self.pos[slot] = lens[i]
+            self.temps[slot] = req.temperature
+            self.topps[slot] = req.topp
+            self.pending[slot] = int(firsts[i])
+            req._prev_token = req.prompt_tokens[-1]
+            self.stats.total_prompt_tokens += int(lens[i])
+            if self._prefix_enabled:
+                self._prefix_register(slot, req.prompt_tokens)
+            self._emit(slot, int(firsts[i]), from_decode=False)
 
     def _admit_prefix_hit(self, req: Request, slot: int, donor: int,
                           plen: int) -> None:
@@ -650,11 +666,11 @@ class BatchedEngine:
         self._plain_chunk(live)
         return bool(self.queue) or bool(self._live_slots())
 
-    def _plain_chunk(self, live) -> float:
-        """Plan, run and apply one decode chunk; returns its seconds (from
-        the first launch to the chunk's one fetch), which are also added
-        to ``stats.decode_s``."""
-        K, greedy_only = self._plan_chunk(live)
+    def _plain_chunk(self, live, plan=None) -> float:
+        """Plan (unless ``plan`` gives (K, greedy_only)), run and apply one
+        decode chunk; returns its seconds (from the first launch to the
+        chunk's one fetch), which are also added to ``stats.decode_s``."""
+        K, greedy_only = plan or self._plan_chunk(live)
         t0 = time.perf_counter()
         toks_np = self._dispatch_chunk(K, greedy_only).cpu().numpy()
         dt = time.perf_counter() - t0

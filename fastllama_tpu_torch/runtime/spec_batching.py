@@ -391,11 +391,22 @@ class SpecBatchedEngine(BatchedEngine):
             self._io_dirty = True
             return bool(self.queue) or bool(self._live_slots())
 
+        tok0 = self.stats.decode_tokens
+        dt = self._run_spec_chunk(live, D, R, greedy)
+        if self._tuner is not None:
+            # recorded under the width that ran; the chunk's seconds end at
+            # its one fetch
+            self._tuner.record(D, self.stats.decode_tokens - tok0, dt)
+        return bool(self.queue) or bool(self._live_slots())
+
+    def _run_spec_chunk(self, live, D: int, R: int, greedy: bool) -> float:
+        """One chunk of R speculative rounds at width D over every slot,
+        its tokens emitted for the ``live`` slots; returns its seconds
+        (from the first launch to the one fetch), also added to
+        ``stats.decode_s``."""
         if self._hist_stale:
             self._resync_history()
             self._hist_stale = False
-
-        tok0 = self.stats.decode_tokens
         t0 = time.perf_counter()
         dev = self.device
         if self._io_dirty or self._pend_dev is None:
@@ -444,11 +455,7 @@ class SpecBatchedEngine(BatchedEngine):
             self._pend_dev, self._pos_dev = pend_dev, pos_dev
             self._io_dirty = False
         self.arm_chunks[D] += 1
-        if self._tuner is not None:
-            # recorded under the width that ran; the chunk's seconds end at
-            # its one fetch
-            self._tuner.record(D, self.stats.decode_tokens - tok0, dt)
-        return bool(self.queue) or bool(self._live_slots())
+        return dt
 
     @property
     def acceptance(self) -> float:

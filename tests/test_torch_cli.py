@@ -5,7 +5,7 @@
 and text; ``serve`` (plain, ``--spec``, ``--prefix-cache``) the JAX CLI's
 completions at f32 compute; ``serve`` with QoS lines, ``gen --spec`` and
 ``--draft``, ``--debug`` and ``--profile-dir`` run to rc 0 with their
-output checked; ``--mesh`` exits non-zero.
+output checked; a ``--mesh`` larger than the world exits non-zero.
 ``tools/convert`` writes the JAX converter's bytes; ``utils/`` prints the
 JAX package's lines."""
 import functools
@@ -173,12 +173,13 @@ def test_gen_spec_debug_and_profile(ckpt, capsys):
 
 def test_unported_flags_exit_nonzero(ckpt, capsys):
     """A mesh larger than the world exits 2 with the error's text (no
-    process group: one rank); ``--multihost`` is not ported: 2."""
+    process group: one rank), with ``--multihost`` too."""
     base, _ = ckpt
     for extra, text in ((["--mesh", "model=2"], "needs 2 devices, have 1"),
                         (["--spmd-kernels", "--mesh", "data=2"],
                          "needs 2 devices, have 1"),
-                        (["--multihost", "-m", "serve"], "not ported")):
+                        (["--multihost", "-m", "serve", "--mesh", "data=2"],
+                         "needs 2 devices, have 1")):
         rc, _, err = run(cli.main, base + extra + ["--device", "cpu"],
                          capsys)
         assert rc == 2 and text in err
