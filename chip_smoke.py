@@ -32,9 +32,11 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    ``HGMMA`` where the toolkit has ``cuobjdump``);
 2. each kernel against its plain PyTorch version on the card, at the
    shapes of the LLaMA2-7B serving paths: the batched path's kernels (K2
-   with fresh rows, every call in its split-row mode, then that mode with
-   and without stats at B=48 and pos 0, 107, 511 and mixed, at B=12 and 1
-   over S=2048, also at 2-16 forced splits: 2b), then
+   with fresh rows over int8, bf16 and f32 caches, also at a ``model=2``
+   rank's one slot of 16 heads, every call in its split-row mode, then
+   that mode with and without stats at B=48 and pos 0, 107, 511 and
+   mixed, at B=12 and 1 over S=2048, also at 2-16 forced splits: 2b; K3's
+   writers, bit-equal, f32 at a rank's heads too: 2c), then
    K1f (the matmul with the rmsnorm prologue / residual epilogue) at the
    single-stream decode shapes, K2's non-fresh mode at B=1 through its
    three wrappers and per slot through ``flash_decode_batched`` and
@@ -45,7 +47,9 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    attention, at B=32 and T in {2, 4, 8} through its wrapper (the
    split-row mode, one ``launches_split`` a call), the tiled kernel and
    the split mode at 2, 3, 8 and 16 splits on the same inputs, and at B=1
-   and 4 over S=2048 (2f), ``spec_write`` (2g),
+   and 4 over S=2048, over int8, bf16 and f32 caches, and the
+   single-stream verify on a ``model=2`` rank (B=1, 16 heads) (2f),
+   ``spec_write`` (2g, f32 at a rank's heads too),
    K1p, the packed INT4 matmul, at the 7B INT4 shapes (2h), K2b, the
    prefix cache's block-attend, at T up to 496 over a B=48 cache, at
    GQA hgs = 8 and at ragged T and start, in its tensor-core mode (bf16 q
@@ -148,6 +152,14 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    4f).  Then one 16-step decode chunk is
    traced with ``torch.profiler`` (device time by kernel, the K1 family's
    and K2's a step, the device's idle share);
+4p. dispatch-ahead decode (``FASTLLAMA_PIPELINE=1``) on phase 4's engine
+   at decode chunk 16, 48 requests of its prompt and 64 new tokens: the
+   sequential and the pipelined run in eight balanced turns, tokens equal
+   in every run, three chunks dispatched ahead a pipelined run; each
+   run's tok/s and its wall a step split into launching, emitting and
+   the rest; the first pipelined run's launches by mode; no host sync
+   inside a chunk queued ahead; device ms a step traced in each mode on
+   its own traffic (two 8-step chunks);
 4b. the single-stream serving path at full width (bench.py's
    ``bench_single`` shape): ``Engine`` over 7B / INT8 / QKV and gate|up
    fused once / bf16 scales ("auto") / bf16 KV / S=512, the 43-token
@@ -210,12 +222,13 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    held to plain greedy by ``same_greedy``'s tie rule (bf16 compute);
    tok/s, acceptance, rounds, memory and launches a round; then one chunk
    of 8 rounds of each traced (device ms and ops a round, idle share);
-4m. serving from files at 7B width: a 32-layer FLM INT8 file written by
+4m. serving from files at 7B width: a 16-layer FLM INT8 file written by
    the port's ``write_flm`` from fp32 layers drawn on the card one at a
    time (while the kernels build), served through ``Engine.load`` on
    4b's measurement and ``BatchedEngine.load`` on 4's (every K1/K1f
    launch on the ring or the prefill mode, the launch counts equal to
-   4/4b's, which must run with it); a 4-layer GGUF ``Q8_0`` file (group
+   4/4b's with the per-layer ones halved, which must run with it); a
+   4-layer GGUF ``Q8_0`` file (group
    size 32: every K1 launch on the ring's or the prefill mode's G32
    instantiation, none on the loop) and a 4-layer fp32 llama2c file
    loaded with qtype INT16 (every K1 launch on the wide ring or the wide
@@ -340,8 +353,18 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    rank); then the CLI's ``serve --multihost --mesh data=2`` on the same
    file as two spawned ranks joining from torchrun's variables (gloo on
    the one card): exit 0, each host's completions and the ``fleet:``
-   line.  The launches of 6, 6b, 6c and 6d are added to each kernel's
-   count in the kernels line.
+   line;
+6e. the single-stream ``SpeculativeEngine`` (width 4) on ``model=2``, in
+   6c's two rank processes on the 4-layer FLM file: the n-gram drafter
+   and a 2-layer draft (``truncate_params``) at f32, their tokens equal
+   to one rank's engine's on both ranks; then at bf16 compute over the
+   engine's default f32 cache and over a bf16 cache, each: one verify's
+   logits as close to the f32 verify's as one rank's engine's (plus
+   1e-2·max|ref|; the f32 verify's within 1e-4 of one rank's), a 32-token
+   counted run (ms a round, launches a round by kernel, K2s's split mode
+   and ``spec_write`` required, peak memory a rank, tokens equal on both
+   ranks) and a traced chunk (device ms a round, idle share).  The launches of 6, 6b, 6c, 6d and
+   6e are added to each kernel's count in the kernels line.
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Details go to
@@ -687,13 +710,20 @@ def phase_kernels(dev, rec):
 
     log("phase 2b: K2 flash decode vs plain")
     S = 512
-    for label, H, n_kv, hs in (("7b", 32, 32, 128), ("tinyllama", 32, 4, 64)):
-        B, L = 48, 2
+    # the last: a draft step of the single-stream engine on model=2 (one
+    # slot, 16 heads a rank, its f32 or bf16 cache)
+    for label, B, H, n_kv, hs in (("7b", 48, 32, 32, 128),
+                                  ("tinyllama", 48, 32, 4, 64),
+                                  ("7b model=2 rank B=1", 1, 16, 16, 128)):
+        L = 2
         pos = torch.randint(0, S, (B,), generator=gen, device=dev,
                             dtype=torch.int32)
-        pos[:8] = torch.tensor([0, 1, 255, 256, 511, 63, 64, 0],
-                               dtype=torch.int32, device=dev)
-        for cache_dt in (torch.int8, torch.bfloat16):
+        if B > 1:
+            pos[:8] = torch.tensor([0, 1, 255, 256, 511, 63, 64, 0],
+                                   dtype=torch.int32, device=dev)
+        else:
+            pos[0] = 300
+        for cache_dt in (torch.int8, torch.bfloat16, torch.float32):
             shape = (L, B, n_kv, S, hs)
             if cache_dt == torch.int8:
                 ck = torch.empty(shape, dtype=torch.int8, device=dev)
@@ -737,9 +767,16 @@ def phase_kernels(dev, rec):
 
     log("phase 2c: K3 KV row scatter vs plain (bit-equal)")
     from fastllama_tpu_torch.models.batched import BatchedKVCache
-    cfg = cfg_7b()
-    L, B, n_kv, hs = cfg.n_layers, 48, cfg.n_kv_heads, cfg.head_size
-    for kv_dt in (torch.int8, torch.bfloat16):
+    # the f32 cache at a model=2 rank's 16 heads, 4 layers deep (the
+    # single-stream engine's default kv_dtype on a mesh), at B=32 and at
+    # its one slot
+    rank = cfg_7b(4).replace(dim=2048, n_heads=16, n_kv_heads=16)
+    for kv_dt, cfg, B in ((torch.int8, cfg_7b(), 48),
+                          (torch.bfloat16, cfg_7b(), 48),
+                          (torch.float32, rank, 32),
+                          (torch.float32, rank, 1)):
+        L, n_kv, hs = cfg.n_layers, cfg.n_kv_heads, cfg.head_size
+        tag = f"{str(kv_dt)[6:]} B={B} kv={n_kv}"
         base = BatchedKVCache.create(cfg, B, dtype=kv_dt, device=dev)
 
         def fresh(*shape):
@@ -761,8 +798,9 @@ def phase_kernels(dev, rec):
         ks, vs = scales(L, B, n_kv), scales(L, B, n_kv)
         pos = torch.randint(0, cfg.max_seq_len, (B,), generator=gen,
                             device=dev, dtype=torch.int32)
-        pos[:3] = torch.tensor([0, cfg.max_seq_len - 1, 31], device=dev,
-                               dtype=torch.int32)
+        if B > 1:
+            pos[:3] = torch.tensor([0, cfg.max_seq_len - 1, 31],
+                                   device=dev, dtype=torch.int32)
         a, b = clone(base), clone(base)
         kw.decode_write(a, kq, vq, ks, vs, pos)
         kw.decode_write_plain(b, kq, vq, ks, vs, pos)
@@ -770,18 +808,19 @@ def phase_kernels(dev, rec):
         for x, y in zip((a.k, a.v, a.k_scale, a.v_scale),
                         (b.k, b.v, b.k_scale, b.v_scale)):
             check(x is None or torch.equal(x, y),
-                  f"decode_write {kv_dt}: caches differ")
-        log(f"  ok decode_write cache={str(kv_dt)[6:]} bit-equal")
-        for N, T in ((32, 64), (4, 43)):
+                  f"decode_write {tag}: caches differ")
+        log(f"  ok decode_write cache={tag} bit-equal")
+        for N, T in ((32, 64), (4, 43)) if B > 1 else ((1, 43),):
             slots = torch.randperm(B, generator=gen, device=dev)[:N].to(
                 torch.int32)
             kq, vq = fresh(L, N, n_kv, T, hs), fresh(L, N, n_kv, T, hs)
             ks, vs = scales(L, N, n_kv, T), scales(L, N, n_kv, T)
-            # duplicate slots carry identical rows (admission padding)
-            slots[-1] = slots[-2]
-            for t in (kq, vq, ks, vs):
-                if t is not None:
-                    t[:, -1] = t[:, -2]
+            if N > 1:
+                # duplicate slots carry identical rows (admission padding)
+                slots[-1] = slots[-2]
+                for t in (kq, vq, ks, vs):
+                    if t is not None:
+                        t[:, -1] = t[:, -2]
             a, b = clone(base), clone(base)
             kw.prefill_write(a, kq, vq, ks, vs, slots)
             kw.prefill_write_plain(b, kq, vq, ks, vs, slots)
@@ -789,9 +828,9 @@ def phase_kernels(dev, rec):
             for x, y in zip((a.k, a.v, a.k_scale, a.v_scale),
                             (b.k, b.v, b.k_scale, b.v_scale)):
                 check(x is None or torch.equal(x, y),
-                      f"prefill_write {kv_dt} N={N} T={T}: caches differ")
-            log(f"  ok prefill_write cache={str(kv_dt)[6:]} N={N} T={T} "
-                f"(duplicate slots) bit-equal")
+                      f"prefill_write {tag} N={N} T={T}: caches differ")
+            log(f"  ok prefill_write cache={tag} N={N} T={T}"
+                + (" (duplicate slots)" if N > 1 else "") + " bit-equal")
         del a, b, base
     torch.cuda.empty_cache()
     check_fused(dev, gen, errs)
@@ -1179,19 +1218,22 @@ def check_split(dev, gen, errs):
 
 def check_spec(dev, gen, errs):
     """K2s at the 7B verify shapes: B=32, 32 heads of 128, S=512, T in
-    {2, 4, 8}; an int8 cache with the exact diagonal (k_self/v_self) and a
-    bf16 cache without; positions 0, across a 64-row tile and S - T; f32
-    and bf16 q.  Each call through the wrapper (the split-row mode, one
-    ``launches_split``), then the tiled kernel and the split mode at 2, 3,
-    8 and 16 splits of at least 16 rows on the same inputs; then B=1 and
-    B=4 at S=2048, pos up to S - T, at the default split count."""
+    {2, 4, 8}; an int8 cache with the exact diagonal (k_self/v_self), and
+    bf16 and f32 caches without; positions 0, across a 64-row tile and
+    S - T; f32 and bf16 q.  Each call through the wrapper (the split-row
+    mode, one ``launches_split``), then the tiled kernel and the split
+    mode at 2, 3, 8 and 16 splits of at least 16 rows on the same inputs;
+    then B=1 and B=4 at S=2048, pos up to S - T, at the default split
+    count; then the single-stream verify on a ``model=2`` rank: B=1, 16
+    heads, S=512."""
     import torch
     from fastllama_tpu_torch.ops.kernels import flash_decode as fd
     from fastllama_tpu_torch.quant.groupquant import (dequantize_rows,
                                                       quantize_rows)
     log("phase 2f: K2s speculative-verify attention vs plain (7B, B=32 at "
-        "S=512, B=1 and 4 at S=2048), split-row mode and tiled kernel")
-    H, n_kv, hs, L = 32, 32, 128, 2
+        "S=512, B=1 and 4 at S=2048, B=1 at a model=2 rank's 16 heads), "
+        "split-row mode and tiled kernel")
+    hs, L = 128, 2
     n = 0
 
     def note(e, split=True):
@@ -1220,9 +1262,11 @@ def check_spec(dev, gen, errs):
                              quiet=True))
                 n += 1
 
-    for B, S in ((32, 512), (1, 2048), (4, 2048)):
+    for B, S, H in ((32, 512, 32), (1, 2048, 32), (4, 2048, 32),
+                    (1, 512, 16)):
+        n_kv = H
         shape = (L, B, n_kv, S, hs)
-        for cache_dt in (torch.int8, torch.bfloat16):
+        for cache_dt in (torch.int8, torch.bfloat16, torch.float32):
             if cache_dt == torch.int8:
                 ck = torch.empty(shape, dtype=torch.int8, device=dev)
                 cv = torch.empty(shape, dtype=torch.int8, device=dev)
@@ -1257,8 +1301,8 @@ def check_spec(dev, gen, errs):
                         kw = (ke, ve)
                     else:
                         kn, vn, kw = ke, ve, (None, None)
-                    run(f"B={B} S={S} cache={str(cache_dt)[6:]} T={T} "
-                        f"q={str(qdt)[6:]}"
+                    run(f"B={B} S={S} H={H} cache={str(cache_dt)[6:]} "
+                        f"T={T} q={str(qdt)[6:]}"
                         + (" exact_diag" if kw[0] is not None else ""),
                         (q, ck, cv, pos, 1, ks, vs, kn, vn) + kw, tol)
             del ck, cv
@@ -1270,17 +1314,24 @@ def check_spec(dev, gen, errs):
 
 def check_spec_write(dev, gen, errs):
     """spec_write (K3 with slots = arange(B), starts = pos, T = D) against
-    its plain version on the 7B cache of 32 layers at B=32, bit-equal:
-    int8 with scales and bf16; D in {2, 4, 8}; positions across a 32-row
-    boundary and at S - D."""
+    its plain version, bit-equal: on the 7B cache of 32 layers at B=32,
+    int8 with scales and bf16; on an f32 cache at a ``model=2`` rank's 16
+    heads, 4 layers deep (the single-stream engine's default on a mesh),
+    at B=32 and at its one slot; D in {2, 4, 8}; positions across a
+    32-row boundary and at S - D."""
     import torch
     from fastllama_tpu_torch.models.batched import BatchedKVCache
     from fastllama_tpu_torch.ops.kernels import kv_write as kw
-    log("phase 2g: spec_write vs plain (bit-equal, 7B cache, B=32)")
-    cfg = cfg_7b()
-    L, B, n_kv, hs, S = (cfg.n_layers, 32, cfg.n_kv_heads, cfg.head_size,
-                         cfg.max_seq_len)
-    for kv_dt in (torch.int8, torch.bfloat16):
+    log("phase 2g: spec_write vs plain (bit-equal, 7B cache, B=32; f32 "
+        "at a model=2 rank's heads, B=32 and 1)")
+    rank = cfg_7b(4).replace(dim=2048, n_heads=16, n_kv_heads=16)
+    for kv_dt, cfg, B in ((torch.int8, cfg_7b(), 32),
+                          (torch.bfloat16, cfg_7b(), 32),
+                          (torch.float32, rank, 32),
+                          (torch.float32, rank, 1)):
+        L, n_kv, hs, S = (cfg.n_layers, cfg.n_kv_heads, cfg.head_size,
+                          cfg.max_seq_len)
+        tag = f"{str(kv_dt)[6:]} B={B} kv={n_kv}"
         a = BatchedKVCache.create(cfg, B, dtype=kv_dt, device=dev)
         b = BatchedKVCache.create(cfg, B, dtype=kv_dt, device=dev)
         for D in (2, 4, 8):
@@ -1298,16 +1349,17 @@ def check_spec_write(dev, gen, errs):
                 ks = vs = None
             pos = torch.randint(0, S - D + 1, (B,), generator=gen,
                                 device=dev, dtype=torch.int32)
-            pos[:4] = torch.tensor([0, 31, 32 - D // 2, S - D],
-                                   dtype=torch.int32, device=dev)
+            if B > 1:
+                pos[:4] = torch.tensor([0, 31, 32 - D // 2, S - D],
+                                       dtype=torch.int32, device=dev)
             kw.spec_write(a, kq, vq, ks, vs, pos)
             kw.spec_write_plain(b, kq, vq, ks, vs, pos)
             torch.cuda.synchronize()
             for x, y in zip((a.k, a.v, a.k_scale, a.v_scale),
                             (b.k, b.v, b.k_scale, b.v_scale)):
                 check(x is None or torch.equal(x, y),
-                      f"spec_write {kv_dt} D={D}: caches differ")
-            log(f"  ok spec_write cache={str(kv_dt)[6:]} D={D} bit-equal")
+                      f"spec_write {tag} D={D}: caches differ")
+            log(f"  ok spec_write cache={tag} D={D} bit-equal")
         del a, b
     torch.cuda.empty_cache()
 
@@ -3289,7 +3341,8 @@ def profile_decode(eng, prompt, step_ms, n_steps=16):
     return out
 
 
-def phase_serving(dev, rec):
+def phase_serving(dev, rec, with_4p=False):
+    """Phase 4 (and, ``with_4p``, phase 4p after it on its engine)."""
     import torch
     from fastllama_tpu_torch.config import EngineConfig
     from fastllama_tpu_torch.loaders.tokenizer import Tokenizer
@@ -3311,8 +3364,225 @@ def phase_serving(dev, rec):
     check(launches["qmatmul_pallas_indexed_prefill"] == 256,
           f"batched serving: {launches['qmatmul_pallas_indexed_prefill']} "
           f"prefill launches, not 256")
+    if with_4p:
+        # 4's seconds hold 4p's
+        t1 = time.perf_counter()
+        got = phase_pipelined(eng, rec)
+        rec["phase_s"]["4p"] = time.perf_counter() - t1
+        log(f"  phase 4p took {rec['phase_s']['4p']:.1f} s (on phase 4's "
+            f"engine; counted in 4's seconds too)")
+        launches = {k: launches[k] + got.get(k, 0) for k in launches}
     del eng
     torch.cuda.empty_cache()
+    return launches
+
+
+# phase 4m's FLM INT8 file: its depth (cut from 32 to keep the whole run
+# inside its time limit)
+FLM_DEPTH = 16
+
+# phase 4p: a shortened copy of phase 4's traffic at decode chunk 16: 64
+# new tokens, one dispatch-ahead stretch of three chunks, then a 15-step
+# chunk
+PIPE_NEW, PIPE_CHUNK = 64, 16
+
+
+def phase_pipelined(eng, rec):
+    """Phase 4p: phase 4's engine (7B INT8 fused, int8 KV, B=48, S=512,
+    32 layers) at decode chunk 16 on a shortened copy of 4's traffic (48
+    requests of its 43-token prompt, 64 new tokens, greedy): the
+    sequential run and the run under ``FASTLLAMA_PIPELINE=1`` in eight
+    balanced turns (s p p s p s s p), tokens equal in every run; each
+    run's tok/s and ms a step, split into the host's seconds inside
+    ``_dispatch_chunk`` (launching), inside ``_apply_chunk`` (emitting)
+    and the rest (waiting on the card, uploads), and each mode's median
+    and quartiles; ``pipelined_chunks`` (3 a pipelined run, 0 a
+    sequential one), the launches of the first
+    pipelined run with the counters zeroed just before (K1 by mode, K2 in
+    its split mode).  Then no host sync inside a chunk queued ahead
+    (``torch.cuda.set_sync_debug_mode``), and device ms a step traced in
+    each mode on this traffic (two 8-step chunks: two steps, and a
+    stretch) with the idle share against each mode's untraced ms a
+    step."""
+    import traceback
+    import warnings
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    log(f"phase 4p: phase 4's engine under FASTLLAMA_PIPELINE=1 against its "
+        f"sequential run, B=48, {PIPE_NEW} new tokens, decode chunk "
+        f"{PIPE_CHUNK}, in turns")
+    chunk0 = eng.decode_chunk
+    eng.decode_chunk = PIPE_CHUNK
+    prompt = list(range(1, 44))
+    B = eng.B
+    prior = os.environ.get("FASTLLAMA_PIPELINE")
+    out = {"card": smi_line(), "runs": []}
+    tokens = None
+    # host seconds inside the engine's launch and emit methods, by run
+    host_s = {}
+
+    def timed(name, fn):
+        def call(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                host_s[name] += time.perf_counter() - t
+        return call
+
+    eng._dispatch_chunk = timed("launch", eng._dispatch_chunk)
+    eng._apply_chunk = timed("emit", eng._apply_chunk)
+    try:
+        for i, pipe in enumerate(("0", "1", "1", "0", "1", "0", "0", "1")):
+            os.environ["FASTLLAMA_PIPELINE"] = pipe
+            eng.stats = type(eng.stats)()
+            eng.pipelined_chunks = 0
+            zero_launches()
+            host_s.update(launch=0.0, emit=0.0)
+            t0 = time.perf_counter()
+            with ModeTally() as tally:
+                reqs = eng.generate_all([prompt] * B,
+                                        max_new_tokens=PIPE_NEW,
+                                        temperature=0.0, stop_tokens=())
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if i == 1:                  # the first pipelined run's counts
+                launches, counted = read_launches(), tally
+            got = [r.output_tokens for r in reqs]
+            check(all(len(t) == PIPE_NEW for t in got),
+                  f"4p: a request did not get its {PIPE_NEW} tokens")
+            if tokens is None:
+                tokens = got
+            check(got == tokens, f"4p run {len(out['runs'])} "
+                                 f"(FASTLLAMA_PIPELINE={pipe}): tokens "
+                                 f"differ from the first sequential run's")
+            check(eng.pipelined_chunks == (3 if pipe == "1" else 0),
+                  f"4p: {eng.pipelined_chunks} chunks dispatched ahead "
+                  f"with FASTLLAMA_PIPELINE={pipe}")
+            st = eng.stats
+            steps = PIPE_NEW - 1
+            run = {"pipeline": pipe == "1",
+                   "pipelined_chunks": eng.pipelined_chunks,
+                   "aggregate_decode_tok_s": st.aggregate_tps,
+                   "decode_s": st.decode_s, "wall_s": wall,
+                   "ms_per_decode_step": st.decode_s / steps * 1e3,
+                   "wall_ms_per_step": wall / steps * 1e3,
+                   "launch_ms_per_step": host_s["launch"] / steps * 1e3,
+                   "emit_ms_per_step": host_s["emit"] / steps * 1e3}
+            run["rest_ms_per_step"] = (run["wall_ms_per_step"]
+                                       - run["launch_ms_per_step"]
+                                       - run["emit_ms_per_step"])
+            out["runs"].append(run)
+            log(f"  run {len(out['runs'])} FASTLLAMA_PIPELINE={pipe}: "
+                f"{st.aggregate_tps:.2f} tok/s, "
+                f"{run['ms_per_decode_step']:.3f} ms a step (wall "
+                f"{run['wall_ms_per_step']:.3f}: launching "
+                f"{run['launch_ms_per_step']:.3f}, emitting "
+                f"{run['emit_ms_per_step']:.3f}, the rest "
+                f"{run['rest_ms_per_step']:.3f}), "
+                f"{eng.pipelined_chunks} chunks dispatched ahead")
+        for mode in (False, True):
+            tps = [r["aggregate_decode_tok_s"] for r in out["runs"]
+                   if r["pipeline"] == mode]
+            q1, med, q3 = np.percentile(tps, [25, 50, 75])
+            out["pipelined_tok_s" if mode else "sequential_tok_s"] = {
+                "median": med, "q1": q1, "q3": q3}
+            log(f"  {'pipelined' if mode else 'sequential'}: median "
+                f"{med:.2f} tok/s (quartiles {q1:.2f}, {q3:.2f})")
+        check_all_pipe(launches, counted, "4p pipelined")
+        check(launches["flash_decode_batched_split"]
+              == launches["flash_decode_batched"] > 0,
+              f"4p: {launches['flash_decode_batched_split']} of "
+              f"{launches['flash_decode_batched']} K2 launches split")
+        for k in BATCHED_PATH:
+            check(launches[k] > 0, f"4p: kernel {k} was not launched")
+        out["launches"] = {k: v for k, v in launches.items() if v}
+        out["k1_modes"] = counted.record()
+
+        # no host sync inside a chunk queued ahead: its inputs are device
+        # tensors (a synchronizing call raises in the debug mode "error")
+        os.environ["FASTLLAMA_PIPELINE"] = "0"
+        for _ in range(B):
+            eng.submit(prompt, max_new_tokens=PIPE_CHUNK + 1,
+                       temperature=0.0, stop_tokens=())
+        eng._admit_pending()
+        io = eng._device_io()
+        torch.cuda.synchronize()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")       # "a prototype"
+            torch.cuda.set_sync_debug_mode("error")
+        sync = None
+        try:
+            eng._dispatch_chunk(PIPE_CHUNK, True, io)
+        except RuntimeError as e:
+            sync = (str(e)[:120], [
+                f"{f.filename.split('/')[-1]}:{f.lineno} {f.line}"
+                for f in traceback.extract_tb(e.__traceback__)
+                if "fastllama_tpu_torch" in f.filename][-3:])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        eng.run()       # the same steps again, from the host's positions
+        check(sync is None, f"4p: a chunk queued ahead synchronized with "
+                            f"the host: {sync}")
+        log("  ok no host sync inside a chunk queued ahead")
+
+        # device ms a step in each mode on this traffic: two 8-step
+        # chunks, as two steps and as one stretch
+        eng.decode_chunk = 8
+        traced = {}
+        for mode in ("sequential", "pipelined"):
+            for _ in range(B):
+                eng.submit(prompt, max_new_tokens=17, temperature=0.0,
+                           stop_tokens=())
+            eng._admit_pending()
+            n0 = eng.pipelined_chunks
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                if mode == "pipelined":
+                    eng._pipelined_stretch()
+                else:
+                    eng.step()
+                    eng.step()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            rows = device_rows(prof)
+            busy = sum(r[0] for r in rows) / 1e3 / 16
+            ran = eng.pipelined_chunks - n0
+            check(ran == (2 if mode == "pipelined" else 0)
+                  and all(r is None for r in eng.slot_req),
+                  f"4p: the traced {mode} chunks did not finish the "
+                  f"requests ({ran} dispatched ahead)")
+            traced[mode] = {"steps": 16, "device_busy_ms_per_step": busy,
+                            "device_ops_per_step":
+                                sum(r[1] for r in rows) / 16,
+                            "traced_wall_ms": wall_ms,
+                            "device_idle_share_traced":
+                                1.0 - busy * 16 / wall_ms,
+                            "k1_ms_per_step": k1_rows(rows, 16)}
+        for mode, t in traced.items():
+            ms = [r["ms_per_decode_step"] for r in out["runs"]
+                  if r["pipeline"] == (mode == "pipelined")]
+            t["device_idle_share"] = (1.0 - t["device_busy_ms_per_step"]
+                                      * len(ms) / sum(ms))
+            log(f"  {mode}: device {t['device_busy_ms_per_step']:.3f} ms a "
+                f"step ({t['device_ops_per_step']:.1f} ops), idle share "
+                f"{t['device_idle_share']:.3f} against "
+                f"{sum(ms) / len(ms):.3f} ms a step untraced (traced "
+                f"{t['device_idle_share_traced']:.3f})")
+        out["profile"] = traced
+    finally:
+        del eng._dispatch_chunk, eng._apply_chunk
+        eng.decode_chunk = chunk0
+        if prior is None:
+            os.environ.pop("FASTLLAMA_PIPELINE", None)
+        else:
+            os.environ["FASTLLAMA_PIPELINE"] = prior
+    rec["pipelined"] = out
     return launches
 
 
@@ -6837,7 +7107,8 @@ class FileSet:
     them.  ``join`` waits and re-raises a writer's error; ``remove``
     deletes the files."""
 
-    JOBS = [("flm32", 32, "flm"), ("flm4", 4, "flm"), ("gguf4", 4, "gguf"),
+    JOBS = [("flm16", FLM_DEPTH, "flm"), ("flm4", 4, "flm"),
+            ("gguf4", 4, "gguf"),
             ("llama2c4", 4, "llama2c")]
 
     def __init__(self, dev, names=None):
@@ -6957,7 +7228,7 @@ def run_clis(jobs, timeout=600):
 
 def phase_cli(files, rec):
     """Phase 4m's CLI runs, each a subprocess that loads its file again:
-    ``-m benchmark`` on the 32-layer FLM file alone (its speed is
+    ``-m benchmark`` on the 16-layer FLM file alone (its speed is
     recorded), then at once, on the 4-layer one, ``chat`` on stdin,
     ``gen --spec``, ``-e``/``-d``, ``--profile-dir``, ``--mesh model=2``,
     ``--multihost``, ``serve``, ``serve --spec`` and ``serve
@@ -6966,10 +7237,10 @@ def phase_cli(files, rec):
     output checked, ``--mesh model=2`` in one process 2 naming the two
     counts and ``--multihost`` 2 with the not-ported message."""
     import re
-    f32, f4 = files.paths["flm32"], files.paths["flm4"]
+    f16, f4 = files.paths["flm16"], files.paths["flm4"]
     out = {}
-    so, _, sec = run_cli(["-c", f32, "-m", "benchmark", "-t", "0", "-n",
-                          "64", "--rounds", "2"], "benchmark (32 layers)")
+    so, _, sec = run_cli(["-c", f16, "-m", "benchmark", "-t", "0", "-n",
+                          "64", "--rounds", "2"], "benchmark (16 layers)")
     stats = dict(kv.split(":", 1) for kv in so.strip().splitlines()[-1]
                  .split("\t"))
     check(0 < float(stats.get("output_size", 0)) <= 64
@@ -7042,11 +7313,13 @@ def phase_cli(files, rec):
 
 
 def phase_file_serving(dev, rec, files):
-    """Phase 4m: serving from files at 7B width.  The 32-layer FLM INT8
-    file through ``Engine.load`` on phase 4b's traffic (its measured run
-    and its 200-token ``ChatSession`` block) and through
+    """Phase 4m: serving from files at 7B width.  The 16-layer FLM INT8
+    file (``FLM_DEPTH``; cut from 32 to keep the whole run in its time)
+    through ``Engine.load`` on phase 4b's traffic (its measured
+    run and its 200-token ``ChatSession`` block) and through
     ``BatchedEngine.load`` on phase 4's (B=48): every K1/K1f launch on the
-    ring or the prefill mode, the launch counts equal to 4/4b's (which
+    ring or the prefill mode, the launch counts equal to 4/4b's at 32
+    layers with each per-layer count scaled to the file's depth (which
     must run before it); then the 4-layer GGUF ``Q8_0`` file (group size
     32: every K1 launch on the ring's or the prefill mode's G32
     instantiation, none on the loop: :func:`check_all_pipe`) and the
@@ -7062,7 +7335,8 @@ def phase_file_serving(dev, rec, files):
     from fastllama_tpu_torch.loaders.registry import FileType
     from fastllama_tpu_torch.runtime.batching import BatchedEngine
     from fastllama_tpu_torch.runtime.engine import Engine
-    log("phase 4m: serving from files at 7B width (FLM INT8 32 layers; "
+    log(f"phase 4m: serving from files at 7B width (FLM INT8 {FLM_DEPTH} "
+        "layers; "
         "GGUF Q8_0 and llama2c fp32 at INT16 on the wide kernels, 4 "
         "layers; the CLI)")
     out = rec["file_serving"] = {"files": files.rec}
@@ -7078,20 +7352,27 @@ def phase_file_serving(dev, rec, files):
         keys = [k for k in want if k.startswith(("qmatmul", "flash_decode",
                                                  "decode_write",
                                                  "prefill_write"))]
+        # a launch a layer (the layer-indexed K1 forms, K2) scales with
+        # the depth; the classifier's and the writers' (all layers in one
+        # launch) do not
+        want = {k: (want[k] * FLM_DEPTH // 32
+                    if k.startswith(("qmatmul_pallas_indexed",
+                                     "flash_decode")) else want[k])
+                for k in keys}
         diff = {k: (got[k], want[k]) for k in keys if got[k] != want[k]}
         check(not diff, f"{label}: launch counts differ from the random-"
                         f"weight phase's: {diff}")
         log(f"  ok {label}: launch counts equal to phase {key}'s")
 
-    path = files.paths["flm32"]
+    path = files.paths["flm16"]
     t0 = time.perf_counter()
     eng = Engine.load(path, engine_config=ec1, device=dev)
     torch.cuda.synchronize()
     load1 = time.perf_counter() - t0
-    check(eng.config.n_layers == 32 and eng.params.wq.scales.dtype
-          == torch.bfloat16, "the 32-layer FLM engine: wrong depth or "
-                             "scales")
-    log(f"  Engine.load of the 32-layer FLM INT8 file: {load1:.2f} s")
+    check(eng.config.n_layers == FLM_DEPTH and eng.params.wq.scales.dtype
+          == torch.bfloat16, "the FLM engine: wrong depth or scales")
+    log(f"  Engine.load of the {FLM_DEPTH}-layer FLM INT8 file: "
+        f"{load1:.2f} s")
     single, ls, _ = serve_single(eng, SINGLE_PATH, t0)
     # 4b's counts take its 200-token ChatSession block in too
     key = "qmatmul_pallas_indexed_fused_prefill"
@@ -7105,21 +7386,23 @@ def phase_file_serving(dev, rec, files):
                               device=dev)
     torch.cuda.synchronize()
     loadb = time.perf_counter() - t0
-    log(f"  BatchedEngine.load of the 32-layer FLM INT8 file: {loadb:.2f} s")
+    log(f"  BatchedEngine.load of the {FLM_DEPTH}-layer FLM INT8 file: "
+        f"{loadb:.2f} s")
     batched, lb = serve_batched(beng, BATCHED_PATH, t0)
-    check(lb["qmatmul_pallas_indexed_prefill"] == 256,
+    check(lb["qmatmul_pallas_indexed_prefill"] == 8 * FLM_DEPTH,
           f"FLM batched serving: {lb['qmatmul_pallas_indexed_prefill']} "
-          f"prefill launches, not 256")
+          f"prefill launches, not {8 * FLM_DEPTH}")
     same_counts("FLM batched", lb, "serving")
     del beng
     torch.cuda.empty_cache()
-    write_load = files.rec["flm32"]["write_s"] + load1 + loadb
-    out["flm_int8_32"] = {"single": single, "batched": batched,
-                          "engine_load_s": load1, "batched_load_s": loadb,
-                          "write_s": files.rec["flm32"]["write_s"],
-                          "write_and_load_s": write_load}
-    log(f"  the 32-layer FLM file: written in "
-        f"{files.rec['flm32']['write_s']:.2f} s, loaded in {load1:.2f} + "
+    write_load = files.rec["flm16"]["write_s"] + load1 + loadb
+    out["flm_int8"] = {"layers": FLM_DEPTH, "single": single,
+                       "batched": batched, "engine_load_s": load1,
+                       "batched_load_s": loadb,
+                       "write_s": files.rec["flm16"]["write_s"],
+                       "write_and_load_s": write_load}
+    log(f"  the {FLM_DEPTH}-layer FLM file: written in "
+        f"{files.rec['flm16']['write_s']:.2f} s, loaded in {load1:.2f} + "
         f"{loadb:.2f} s ({write_load:.1f} s in all)")
 
     for label, name, tokp, ft, qt, k1, suffix in (
@@ -7510,8 +7793,9 @@ def phase_mesh_one(dev, rec):
     one set of weights: phase 4's ``BatchedEngine`` (the batched steps
     given the mesh) and 4b's ``Engine`` (a one-rank mesh keeps the
     one-card path, as JAX's does), and 4c's ``SpecBatchedEngine`` at 4
-    layers, each held to the same engine without a mesh (logits within
-    1e-2·max|ref| at bf16); then a short counted run of each (16 new
+    layers (its arm pinned to speculation), each held to the same engine
+    without a mesh (logits within 1e-2·max|ref| at bf16); then a short
+    counted run of each (16 new
     tokens; 33 for the speculative one) with its launches, every K1
     launch on the ring or the prefill kernel, and a traced decode chunk
     for device ms a step beside 4's and 4b's."""
@@ -7586,7 +7870,10 @@ def phase_mesh_one(dev, rec):
         ec = EngineConfig(max_seq_len=512, kv_dtype="int8",
                           max_batch_size=32, fuse_weights=False)
         sprompt = ([7, 121, 3088, 59] * 11)[:43]
-        kw = dict(decode_chunk=64, width=4, rounds_per_chunk=32, device=dev)
+        # the arm pinned to speculation: the counted run takes the
+        # speculative path whatever the warm-up measured
+        kw = dict(decode_chunk=64, width=4, rounds_per_chunk=32,
+                  spec_auto=False, device=dev)
         want = _spec_logits(SpecBatchedEngine(cfg4, params, tok, ec, **kw),
                             [sprompt] * 32)
         eng = SpecBatchedEngine(cfg4, params, tok,
@@ -7696,7 +7983,7 @@ def _host_gb():
     return rss / 1e9, peak
 
 
-def _mesh_rank(rank, path, with_6d=False):
+def _mesh_rank(rank, path, with_6d=False, with_6e=False):
     """Phase 6c on one rank (and, ``with_6d``, phase 6d after it on the
     weights of 6c's ``data=2`` f32 engine): the gloo probe, then on
     ``model=2`` and on
@@ -7816,7 +8103,225 @@ def _mesh_rank(rank, path, with_6d=False):
         torch.cuda.empty_cache()
     if with_6d:
         out["6d"] = _multihost_rank(rank, *weights)
+    if with_6e:
+        out["6e"] = _spec_mesh_rank(rank, path)
     return out
+
+
+# phase 6e: tools/spec_bench.py's loop prompt, the tokens a run, and one
+# verify block after the prompt (the loop's next four)
+SPEC_MESH_PROMPT = ([7, 121, 3088, 59] * 11)[:43]
+SPEC_MESH_NEW = 32
+SPEC_MESH_VERIFY = [59, 7, 121, 3088]
+
+
+def _verify_logits(eng):
+    """An engine's logits (4, V) of one verify of ``SPEC_MESH_VERIFY``
+    after ``SPEC_MESH_PROMPT`` on a fresh cache, as a numpy array (a rank
+    returns it to the parent)."""
+    import torch
+    prompt, dev = SPEC_MESH_PROMPT, eng.device
+    cache = eng.new_cache()
+    eng._prefill(prompt, eng._bucket(len(prompt)), cache, 0)
+    positions = torch.arange(len(prompt), len(prompt) + 4,
+                             dtype=torch.int32, device=dev)
+    lg = eng._verify(torch.tensor(SPEC_MESH_VERIFY, dtype=torch.int32,
+                                  device=dev), positions, cache)
+    return lg.float().cpu().numpy()
+
+
+def _spec_mesh_rank(rank, path):
+    """Phase 6e on one rank of ``model=2``: the single-stream
+    ``SpeculativeEngine`` (width 4) over ``Engine.load(path, mesh=...)``
+    (the 4-layer 7B FLM INT8 file, f32 scales): greedy
+    tokens at f32 compute and an f32 cache with the n-gram drafter and
+    with a ``truncate_params(..., 2)`` draft on the same mesh (rank 0
+    also one rank's engine without a mesh: its speculative and plain
+    greedy tokens), and one verify's logits at f32 (rank 0 also one
+    rank's engine's, unfused as the mesh engine is); then at bf16 compute
+    over the engine's default f32 cache and over a bf16 cache, each: one
+    verify's logits (rank 0 also one rank's engine's), a 32-token
+    counted run, the counters zeroed just before (ms a round, its
+    launches by mode, peak memory), and two chunks of 4 rounds for
+    device ms a round and the idle share.  Returns the readings and the
+    launches of the counted runs."""
+    import torch
+    from fastllama_tpu_torch.config import EngineConfig
+    from fastllama_tpu_torch.models.llama import truncate_params
+    from fastllama_tpu_torch.runtime.engine import Engine
+    from fastllama_tpu_torch.runtime.speculative import SpeculativeEngine
+    t_start = time.perf_counter()
+    dev = torch.device(RANK_DEVICE)
+    # f32 scales on both sides (one card's "auto" would narrow them)
+    ec = EngineConfig(max_seq_len=512, compute_dtype="float32",
+                      kv_dtype="float32", scale_dtype="float32",
+                      mesh="model=2")
+    kw = dict(max_new_tokens=SPEC_MESH_NEW, temperature=0.0,
+              stop_tokens=())
+    prompt = SPEC_MESH_PROMPT
+    row, launches = {}, {}
+
+    def add(got):
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+    eng = Engine.load(path, engine_config=ec, device=dev)
+    cfg_d, params_d = truncate_params(eng.config, eng.params, 2)
+    draft = Engine(cfg_d, params_d, eng.tokenizer, ec, dev, sharded=True)
+    with ModeTally() as tally:
+        zero_launches()
+        for name, d in (("ngram", None), ("draft", draft)):
+            toks, st = SpeculativeEngine(eng, d, width=4).generate(prompt,
+                                                                   **kw)
+            row[f"tokens_f32_{name}"] = toks
+            row[f"acceptance_f32_{name}"] = st.acceptance
+        got = read_launches()
+    check_all_wide(got, tally, f"6e rank {rank} f32")
+    add(got)
+    row["verify_f32"] = _verify_logits(eng)
+    del eng, draft, params_d
+    if rank == 0:
+        one = Engine.load(path, engine_config=dataclasses.replace(
+            ec, mesh="", fuse_weights=False), device=dev)
+        row["verify_one_rank_f32"] = _verify_logits(one)
+        row["tokens_f32_one_rank"] = SpeculativeEngine(
+            one, None, width=4).generate(prompt, **kw)[0]
+        row["plain_f32_one_rank"] = one.generate(prompt, decode_chunk=32,
+                                                 **kw)[0]
+        del one
+    torch.cuda.empty_cache()
+
+    # bf16 compute over the default f32 cache, then over a bf16 one
+    for kv in ("float32", "bfloat16"):
+        ec_b = dataclasses.replace(ec, compute_dtype="bfloat16",
+                                   kv_dtype=kv)
+        if rank == 0:
+            one = Engine.load(path, engine_config=dataclasses.replace(
+                ec_b, mesh="", fuse_weights=False), device=dev)
+            row[f"verify_one_rank_{kv}"] = _verify_logits(one)
+            del one
+            torch.cuda.empty_cache()
+        eng = Engine.load(path, engine_config=ec_b, device=dev)
+        row[f"verify_{kv}"] = _verify_logits(eng)
+        spec = SpeculativeEngine(eng, None, width=4)
+        spec.generate(prompt, max_new_tokens=8, temperature=0.0,
+                      stop_tokens=())                        # warm
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with ModeTally() as tally:
+            zero_launches()
+            toks, st = spec.generate(prompt, **kw)
+            torch.cuda.synchronize()
+            got = read_launches()
+        label = f"6e rank {rank} bf16 over {kv} cache"
+        check_all_pipe(got, tally, label)
+        check(got["flash_spec_batched_split"] == got["flash_spec_batched"]
+              > 0 and got["spec_write"] > 0,
+              f"{label}: K2s {got['flash_spec_batched_split']} of "
+              f"{got['flash_spec_batched']} launches split, spec_write "
+              f"{got['spec_write']}")
+        add(got)
+        row[f"bf16_{kv}_cache"] = dict(
+            tokens=toks, rounds=st.rounds, acceptance=st.acceptance,
+            decode_tok_s=st.decode_tps,
+            ms_per_round=st.decode_s / max(st.rounds, 1) * 1e3,
+            max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+            launches=got, k1_modes=tally.record(),
+            launches_per_round={k: got[k] / max(st.rounds, 1) for k in (
+                "qmatmul_pallas", "qmatmul_pallas_indexed",
+                "flash_spec_batched", "spec_write") if got.get(k)},
+            profile=profile_spec_single(spec, prompt, rounds=4))
+        del spec, eng
+        torch.cuda.empty_cache()
+    row["launches"] = launches
+    row["seconds"] = time.perf_counter() - t_start
+    return row
+
+
+def phase_spec_mesh(ranks, rec):
+    """Phase 6e's checks on what 6c's ranks returned: f32 greedy tokens
+    of both drafters on both ranks equal to one rank's engine's, and the
+    f32 verify's logits within TOL_F32·max|ref| of one rank's; at bf16
+    compute over the f32 and the bf16 cache, the tokens equal on both
+    ranks, and each rank's verify logits no further from the f32
+    verify's than one rank's engine's bf16 logits are, plus
+    TOL_BF16·max|ref|.  The f32 verify is the reference: at 7B width
+    each bf16 path lies ≈ 1.8e-2·max|ref| from it, so two bf16 paths
+    that round at different places (K1f's prologue, the all-reduce, the
+    vocabulary-sharded classifier) part by more than TOL_BF16 from each
+    other; that parting is logged.  Returns both ranks' launches
+    summed."""
+    import torch
+    r0, r1 = (r["6e"] for r in ranks)
+    one = r0["tokens_f32_one_rank"]
+    launches = {}
+    for r, row in enumerate((r0, r1)):
+        for k, v in row["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        for name in ("ngram", "draft"):
+            check(row[f"tokens_f32_{name}"] == one,
+                  f"6e rank {r}: f32 tokens with the {name} drafter differ "
+                  f"from one rank's engine's")
+        log(f"  6e rank {r}: f32 acceptance n-gram "
+            f"{row['acceptance_f32_ngram']:.3f}, draft "
+            f"{row['acceptance_f32_draft']:.3f}; "
+            f"{row['seconds']:.1f} s in the rank")
+    check(one == r0["plain_f32_one_rank"],
+          "6e: one rank's speculative tokens differ from its plain greedy")
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+    # the f32 verify's logits: the reference of the bf16 ones
+    ref = torch.from_numpy(r0.pop("verify_one_rank_f32"))
+    f32 = {r: torch.from_numpy(row.pop("verify_f32"))
+           for r, row in enumerate((r0, r1))}
+    for r in (0, 1):
+        rec_f32 = rel(f32[r], ref)
+        log(f"  6e rank {r} verify logits at f32 against one rank's: "
+            f"{rec_f32:.3e} of max|ref|")
+        check(rec_f32 <= TOL_F32, f"6e rank {r}: f32 verify logits "
+                                  f"{rec_f32:.3e} of max|ref| from one "
+                                  f"rank's")
+        (r0, r1)[r]["verify_f32_rel_err"] = rec_f32
+    for kv in ("float32", "bfloat16"):
+        want = torch.from_numpy(r0.pop(f"verify_one_rank_{kv}"))
+        one_vs_f32 = rel(want, ref)
+        for r, row in enumerate((r0, r1)):
+            got = torch.from_numpy(row.pop(f"verify_{kv}"))
+            b = row[f"bf16_{kv}_cache"]
+            b["verify_logits_rel_err"] = rel(got, want)
+            b["verify_logits_f32_rel_err"] = rel(got, ref)
+            b["one_rank_f32_rel_err"] = one_vs_f32
+            log(f"  6e rank {r} bf16 over {kv} cache: verify logits "
+                f"{b['verify_logits_rel_err']:.3e} of max|ref| from one "
+                f"rank's; from the f32 verify's: this rank "
+                f"{b['verify_logits_f32_rel_err']:.3e}, one rank's "
+                f"{one_vs_f32:.3e}")
+            check(b["verify_logits_f32_rel_err"] <= one_vs_f32 + TOL_BF16,
+                  f"6e rank {r} bf16 over {kv} cache: verify logits "
+                  f"{b['verify_logits_f32_rel_err']:.3e} of max|ref| from "
+                  f"the f32 verify's, one rank's {one_vs_f32:.3e} + "
+                  f"{TOL_BF16}")
+            log(f"  6e rank {r} bf16 over {kv} cache: "
+                f"{b['ms_per_round']:.3f} ms a round over {b['rounds']} "
+                f"rounds ({b['decode_tok_s']:.2f} tok/s, acceptance "
+                f"{b['acceptance']:.3f}), device "
+                f"{b['profile']['device_busy_ms_per_round']:.3f} ms a round "
+                f"(idle {b['profile']['device_idle_share']:.3f}), peak "
+                f"{b['max_memory_allocated_gb']:.3f} GB; launches a round "
+                f"{b['launches_per_round']}; K1 {b['k1_modes']}")
+        check(r0[f"bf16_{kv}_cache"]["tokens"]
+              == r1[f"bf16_{kv}_cache"]["tokens"],
+              f"6e: the ranks emitted different tokens at bf16 over the "
+              f"{kv} cache")
+    log(f"  ok 6e: f32 tokens of both drafters on both ranks equal one "
+        f"rank's engine's ({len(one)} tokens), f32 verify logits within "
+        f"{TOL_F32} of one rank's; at bf16 over the f32 and the bf16 "
+        f"cache the verify logits as close to the f32 verify's as one "
+        f"rank's (+ {TOL_BF16}) and the tokens equal on both ranks; K2s "
+        f"split and spec_write launched on each")
+    rec["spec_mesh"] = {"card": smi_line(), "ranks": [r0, r1]}
+    return launches
 
 
 def _multihost_rank(rank, cfg, params, tok):
@@ -7949,7 +8454,7 @@ def _leaf_tensors(v):
     return [v.data, v.scales] if hasattr(v, "scales") else [v]
 
 
-def phase_mesh_two(dev, rec, files, with_6d=False):
+def phase_mesh_two(dev, rec, files, with_6d=False, with_6e=False):
     """Phase 6c: two ranks on the one card (NCCL refuses two ranks on one
     GPU; each rank is given ``cuda:0`` and the gloo backend), spawned by
     ``parallel.distributed.run_ranks``: a probe of gloo's collectives on
@@ -7969,8 +8474,8 @@ def phase_mesh_two(dev, rec, files, with_6d=False):
         "the 4-layer 7B FLM INT8 file loaded on a mesh, int8 KV")
     try:
         ranks = distributed.run_ranks(
-            _mesh_rank, 2, files.paths["flm4"], with_6d, device=RANK_DEVICE,
-            backend=RANKS_BACKEND, timeout=600)
+            _mesh_rank, 2, files.paths["flm4"], with_6d, with_6e,
+            device=RANK_DEVICE, backend=RANKS_BACKEND, timeout=600)
     except Exception as e:              # a rank raised, died or hung
         raise Failed(f"6c: a rank failed: {e}") from e
     for r, row in enumerate(ranks):
@@ -8040,6 +8545,13 @@ def phase_mesh_two(dev, rec, files, with_6d=False):
             f"and its CLI; counted in 6c's seconds too)")
         for k, v in got.items():
             launches[k] = launches.get(k, 0) + v
+    if with_6e:
+        # 6e runs in 6c's ranks: 6c's seconds hold 6e's
+        rec["phase_s"]["6e"] = max(row["6e"]["seconds"] for row in ranks)
+        for k, v in phase_spec_mesh(ranks, rec).items():
+            launches[k] = launches.get(k, 0) + v
+        log(f"  phase 6e took {rec['phase_s']['6e']:.1f} s in the ranks "
+            f"(counted in 6c's seconds too)")
     return launches
 
 
@@ -8207,8 +8719,8 @@ SOURCES.update({k + s + "_prefill": (
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="1,2,3,3d,3e,3f,3g,3h,4,4b,4c,4d,4e,4f,4i,"
-                            "4j,4k,4l,4m,4n,4o,4g,4h,6,6b,6c,6d,5",
+                    default="1,2,3,3d,3e,3f,3g,3h,4,4p,4b,4c,4d,4e,4f,"
+                            "4i,4j,4k,4l,4m,4n,4o,4g,4h,6,6b,6c,6d,6e,5",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--regs-against", metavar="CU", action="append",
                     default=[],
@@ -8227,6 +8739,12 @@ def main() -> int:
     if "4m" in phases and not {"4", "4b"} <= phases:
         ap.error("phase 4m holds its launch counts to phases 4 and 4b's: "
                  "run those with it (--phases ...,4,4b,4m)")
+    if "4p" in phases and "4" not in phases:
+        ap.error("phase 4p runs on phase 4's engine: run 4 with it "
+                 "(--phases ...,4,4p)")
+    if "6e" in phases and "6c" not in phases:
+        ap.error("phase 6e runs in phase 6c's rank processes: run 6c with "
+                 "it (--phases ...,6c,6e)")
     if "6d" in phases and "6c" not in phases:
         ap.error("phase 6d runs in phase 6c's rank processes: run 6c with "
                  "it (--phases ...,6c,6d)")
@@ -8344,7 +8862,7 @@ def run_phases(args, phases, dev, rec, files) -> int:
     if "3h" in phases:
         launches.update(run("3h", phase_loader_parity))
     if "4" in phases:
-        got = run("4", phase_serving)
+        got = run("4", lambda d, r: phase_serving(d, r, "4p" in phases))
         launches.update({k: got[k] for k in BATCHED_PATH})
         # no engine path calls the unindexed wrapper above 128 rows (as in
         # JAX): its prefill count is this run's, 0
@@ -8425,7 +8943,7 @@ def run_phases(args, phases, dev, rec, files) -> int:
     # each kernel's count (6c: both ranks')
     for label, fn in (("6", phase_eval), ("6b", phase_mesh_one),
                       ("6c", lambda d, r: phase_mesh_two(
-                          d, r, files, "6d" in phases))):
+                          d, r, files, "6d" in phases, "6e" in phases))):
         if label in phases:
             for k, v in run(label, fn).items():
                 launches[k] = launches.get(k, 0) + v

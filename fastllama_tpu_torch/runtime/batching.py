@@ -39,9 +39,15 @@ logits are gathered, so every rank samples all B slots with the same
 per-slot generators and emits the same tokens.  A deadline's expiry is
 rank 0's on every rank.  The JAX package has a second mesh path (GSPMD
 over plain jnp, its default); the port has this one.  On more than one
-rank the weights stay unfused and deferred KV is off, as in JAX.  Not
-ported yet, and refused with NotImplementedError when asked for:
-``FASTLLAMA_PIPELINE=1``.
+rank the weights stay unfused and deferred KV is off, as in JAX.
+
+``FASTLLAMA_PIPELINE=1`` turns on dispatch-ahead decode
+(:meth:`BatchedEngine._pipelined_stretch`, ``batching.py:848-923``):
+while the schedule is sure (nothing queued, every live slot has at least
+two full chunks of budget and room) chunk k+1 is queued from chunk k's
+last token row, still on the device, before the host reads chunk k.
+Its decisions come from tokens and budgets only, so on a mesh every rank
+takes the same ones.
 """
 from __future__ import annotations
 
@@ -70,6 +76,7 @@ from fastllama_tpu_torch.quant.groupquant import compress_scales
 
 DEFAULT_CHUNK = 16
 _ROWS_CAP = 2048      # prefill rows (N * bucket) per admission wave
+PIPE = 2              # chunks in flight in a dispatch-ahead stretch
 
 
 @dataclasses.dataclass
@@ -150,6 +157,19 @@ def open_mesh(ec: EngineConfig, device):
     if device is None:
         device = rank_device()
     return mesh, resolve_device(device)
+
+
+def to_host(t: torch.Tensor):
+    """Queue the copy of a device tensor to pinned host memory and mark it
+    with an event: (host tensor, event or None).  The host waits on the
+    event, not on the whole stream, so later launches stay queued."""
+    if t.device.type != "cuda":
+        return t.clone(), None
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    ev = torch.cuda.Event()
+    ev.record()
+    return host, ev
 
 
 def _fold_seed(seed: int, req_id: int) -> int:
@@ -244,6 +264,8 @@ class BatchedEngine:
         self._deferred_ok = bool(ec.deferred_kv and self.mesh is None
                                  and self.kernels.attn_stats is not None)
         self.deferred_chunks = 0
+        # chunks run by dispatch-ahead stretches (FASTLLAMA_PIPELINE=1)
+        self.pipelined_chunks = 0
 
     @staticmethod
     def load(ckpt_path: str, tokenizer_path: str = "",
@@ -321,9 +343,18 @@ class BatchedEngine:
                 gens.append(g)
         return self._sample(logits, gens, temps, topps).cpu().numpy()
 
-    def _dispatch_chunk(self, K: int, greedy_only: bool) -> torch.Tensor:
+    def _device_io(self):
+        """(pending, pos, temps, topps) of every slot, uploaded."""
+        return tuple(torch.as_tensor(a, device=self.device) for a in
+                     (self.pending, self.pos, self.temps, self.topps))
+
+    def _dispatch_chunk(self, K: int, greedy_only: bool,
+                        io=None) -> torch.Tensor:
         """K decode steps for every slot; returns the (K, B) token tensor
-        on the device (no host sync inside the chunk).  With
+        on the device (no host sync inside the chunk).  ``io``: the
+        chunk's (pending, pos, temps, topps) as device tensors (a
+        dispatch-ahead stretch passes the previous chunk's last token row
+        and positions); None uploads the host's.  With
         ``deferred_kv`` a chunk of 2 <= K <= 32 steps (``batching.py:794``;
         past 32 the staged re-reads outgrow the one landing, and 1 step
         has nothing to amortize) stages its rows at the fixed chunk-start
@@ -332,10 +363,7 @@ class BatchedEngine:
         ``_gens`` in the same order."""
         kb = self.kernels
         dev = self.device
-        tok = torch.as_tensor(self.pending, device=dev)
-        pos = torch.as_tensor(self.pos, device=dev)
-        temps = torch.as_tensor(self.temps, device=dev)
-        topps = torch.as_tensor(self.topps, device=dev)
+        tok, pos, temps, topps = io if io is not None else self._device_io()
         toks = torch.empty((K, self.B), dtype=torch.long, device=dev)
         deferred = self._deferred_ok and 2 <= K <= 32
         if deferred:
@@ -678,14 +706,70 @@ class BatchedEngine:
         self._apply_chunk(toks_np, K, live)
         return dt
 
+    def _pipelined_stretch(self) -> None:
+        """Dispatch-ahead decode (``FASTLLAMA_PIPELINE=1``,
+        ``batching.py:848-923``) while the schedule is sure: nothing
+        queued, K a full ``decode_chunk``, and every live slot's budget
+        and the cache's room hold at least two chunks.  Chunk k+1 starts
+        from chunk k's last token row and positions on the device, so it
+        is queued before the host reads chunk k (its tokens come back
+        through pinned memory and an event, :func:`to_host`); the host
+        waits only on the oldest chunk.  A slot's lane depends on nothing
+        but its own tokens and generator, so every live slot's tokens are
+        those of sequential chunks: a slot that stops mid-stretch only
+        wastes its lanes in the chunk in flight, and idle slots' lanes
+        (their positions advance K a chunk, as JAX's do) are discarded.
+        Once a request completes no chunk more is dispatched; the chunk
+        in flight drains."""
+        if self.queue:
+            return
+        live = self._live_slots()
+        if not live:
+            return
+        K, greedy_only = self._plan_chunk(live)
+        if K < self.decode_chunk:
+            return                                  # tail: plain steps
+        budget = min(self.slot_req[b].max_new_tokens
+                     - len(self.slot_req[b].output_tokens) for b in live)
+        room = self.S - 1 - int(self.pos.max())
+        n_chunks = min(budget, room) // K
+        if n_chunks < 2:
+            return
+        t0 = time.perf_counter()
+        tok, pos, temps, topps = self._device_io()
+        inflight = deque()
+        dispatched = 0
+        completed = self.stats.completed
+        stop = False
+        while inflight or (dispatched < n_chunks and not stop):
+            while len(inflight) < PIPE and dispatched < n_chunks \
+                    and not stop:
+                toks = self._dispatch_chunk(K, greedy_only,
+                                            (tok, pos, temps, topps))
+                tok = toks[K - 1]
+                pos = torch.clamp(pos + K, max=self.S - 1)
+                inflight.append(to_host(toks))
+                dispatched += 1
+                self.pipelined_chunks += 1
+            host, ev = inflight.popleft()
+            if ev is not None:
+                ev.synchronize()
+            self._apply_chunk(host.numpy(), K, self._live_slots())
+            # a request finished: its slot goes back to admission
+            stop = self.stats.completed != completed
+        self.stats.decode_s += time.perf_counter() - t0
+
     def run(self) -> BatchStats:
-        """Drain the queue to completion."""
-        if os.environ.get("FASTLLAMA_PIPELINE", "0") == "1":
-            raise NotImplementedError("FASTLLAMA_PIPELINE=1 (dispatch-ahead "
-                                      "decode) is not ported yet")
-        while self.step():
-            pass
-        return self.stats
+        """Drain the queue to completion.  ``FASTLLAMA_PIPELINE=1``: each
+        turn admits, runs a dispatch-ahead stretch where the schedule is
+        sure, then a step (``batching.py:912-923``)."""
+        pipe = os.environ.get("FASTLLAMA_PIPELINE", "0") == "1"
+        while True:
+            if pipe:
+                self._admit_pending()
+                self._pipelined_stretch()
+            if not self.step():
+                return self.stats
 
     def generate_all(self, prompts: Sequence, **kw) -> List[Request]:
         """Convenience: submit prompts, run to completion, return requests."""

@@ -23,8 +23,8 @@ K1p; int8-held otherwise; mixed layouts stay unfused).  On a mesh of more
 than one rank (``EngineConfig.mesh``) every block and step runs per rank
 through ``models/batched.py``'s steps given the mesh, on its shards and
 its block of the cache (a one-slot view), as the JAX engine does under
-``spmd_kernels`` (``engine.py:111-112``); a one-rank mesh takes the path
-above.
+``spmd_kernels`` (``engine.py:111-112``), the speculative verify
+(:meth:`Engine._verify`) too; a one-rank mesh takes the path above.
 ``pallas_interpret`` is not ported and raises.  :meth:`Engine.load`
 builds an engine on a checkpoint file.
 """
@@ -46,14 +46,15 @@ from fastllama_tpu_torch.loaders.tokenizer import StreamDecoder, Tokenizer
 from fastllama_tpu_torch.models.batched import (BatchedKVCache, decode_step,
                                                 prefill_into_slot,
                                                 prefill_into_slot_at,
-                                                prefill_many)
+                                                prefill_many,
+                                                spec_decode_step)
 from fastllama_tpu_torch.models.llama import (KVCache, LlamaParams,
                                               forward, fuse_params)
 from fastllama_tpu_torch.ops import sampling
 from fastllama_tpu_torch.ops.attention import gqa_attention
 from fastllama_tpu_torch.ops.qmatmul import qmatmul_parity
 from fastllama_tpu_torch.quant.groupquant import compress_scales
-from fastllama_tpu_torch.runtime.batching import open_mesh
+from fastllama_tpu_torch.runtime.batching import open_mesh, to_host
 from fastllama_tpu_torch.runtime.kernels import KernelBundle, select_kernels
 from fastllama_tpu_torch.runtime.sampler import HostSampler
 
@@ -216,6 +217,25 @@ class Engine:
             kv_writer=kb.kv_writer, compute_dtype=self._cdt, mesh=self.mesh)
         return lg
 
+    def _verify(self, batch: torch.Tensor, positions: torch.Tensor,
+                cache: KVCache) -> torch.Tensor:
+        """The speculative verify: ``batch`` (D,) at the consecutive device
+        ``positions`` (D,), its D rows written; their logits (D, vocab)
+        f32.  Off a mesh ``forward`` at device positions; on one the
+        per-rank verify step (``models/batched.spec_decode_step``: K2s and
+        ``spec_write``) on a one-slot view, which attends before it
+        writes."""
+        if not self._spmd:
+            lg, _ = self._forward(batch, None, cache, positions=positions)
+            return lg
+        kb = self.kernels
+        lg, _ = spec_decode_step(
+            self.config, self.params, batch[None], positions[:1],
+            self._slot_view(cache), mm=kb.mm, mm_idx=kb.mm_idx,
+            attn_sbidx=kb.attn_sbidx, spec_writer=kb.spec_writer,
+            compute_dtype=self._cdt, mesh=self.mesh)
+        return lg[0]
+
     def _prefill(self, tokens: Sequence[int], bucket: int, cache: KVCache,
                  pos: int) -> torch.Tensor:
         """One padded block of ``bucket`` rows at ``pos``: fresh at pos 0
@@ -279,17 +299,6 @@ class Engine:
         gen = torch.Generator(device=self.device)
         gen.manual_seed(int(seed))
         return gen
-
-    def _to_host(self, toks: torch.Tensor):
-        """Queue the copy of a chunk's tokens to pinned host memory and
-        mark it with an event; returns (host tensor, event or None)."""
-        if self.device.type != "cuda":
-            return toks.clone(), None
-        host = torch.empty(toks.shape, dtype=toks.dtype, pin_memory=True)
-        host.copy_(toks, non_blocking=True)
-        ev = torch.cuda.Event()
-        ev.record()
-        return host, ev
 
     # -- generation ------------------------------------------------------------
 
@@ -393,7 +402,7 @@ class Engine:
                                               temperature, topp, gen)
                     tok = toks[n - 1]
                     planned += n
-                    inflight.append(self._to_host(toks))
+                    inflight.append(to_host(toks))
                 if not inflight:
                     break
                 toks_host, ev = inflight.popleft()

@@ -58,7 +58,6 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
-import os
 import time
 from collections import deque
 from typing import Optional, Sequence
@@ -340,10 +339,10 @@ class MultiHostEngine(BatchedEngine):
         return self._plain_chunk(live, (K, greedy))
 
     def run(self) -> BatchStats:
-        """Drain every host's queue (steps while any host has work)."""
-        if os.environ.get("FASTLLAMA_PIPELINE", "0") == "1":
-            raise NotImplementedError("FASTLLAMA_PIPELINE=1 (dispatch-ahead "
-                                      "decode) is not ported yet")
+        """Drain every host's queue (steps while any host has work).
+        ``FASTLLAMA_PIPELINE`` is not read, as JAX's ``run`` does not
+        (``multihost.py:900-907``): the lockstep rounds run as without
+        it."""
         while True:
             more = self.step()
             flags = distributed.allgather_rows(

@@ -335,14 +335,31 @@ class SpecBatchedEngine(BatchedEngine):
                 rows[i, :len(toks)] = toks
             self._set_history(live, rows)
 
-    def step(self) -> bool:
+    def _admit_pending(self) -> None:
+        """Admit as the parent does, then seed the admitted slots' device
+        histories (``run`` under ``FASTLLAMA_PIPELINE=1`` admits outside
+        :meth:`step` too)."""
         before = [r is not None for r in self.slot_req]
-        self._admit_pending()
+        super()._admit_pending()
         newly = [b for b, r in enumerate(self.slot_req)
                  if r is not None and not before[b]]
         if newly:
             self._write_history(newly)
             self._io_dirty = True
+
+    def _pipelined_stretch(self) -> None:
+        """The parent's stretch of plain chunks (JAX's engine inherits it
+        the same way); plain chunks keep neither the history nor the
+        device pending/pos, so both are rebuilt before the next spec
+        chunk, as after :meth:`step`'s own plain chunks."""
+        ran = self.pipelined_chunks
+        super()._pipelined_stretch()
+        if self.pipelined_chunks != ran:
+            self._hist_stale = True
+            self._io_dirty = True
+
+    def step(self) -> bool:
+        self._admit_pending()
 
         live = self._live_slots()
         if not live:

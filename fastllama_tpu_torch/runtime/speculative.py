@@ -28,13 +28,22 @@ A chunk of R rounds is a Python loop that never reads the device: the
 pending token, the position and the token history stay device tensors, and
 ``forward`` writes the cache rows at device positions (``pos=None``).  Two
 chunks are in flight: each chunk's (R, D) tokens and (R,) accepted counts
-are copied to pinned host memory behind a CUDA event, as
-``Engine._to_host`` does, and chunk k+1 is queued before chunk k is read.
+are copied to pinned host memory behind a CUDA event
+(``batching.to_host``), and chunk k+1 is queued before chunk k is read.
 The host keeps a lower bound of the position and sizes each chunk so that
 every block it may write fits ``max_seq_len`` (the room rule); where no
 D-row block fits, plain decode steps finish the generation.  The JAX
 package's TPU-only ``s_bound`` bucket has no counterpart: K2 reads the
 position on the device.
+
+On a mesh of ranks (``EngineConfig.mesh``; the draft on the same mesh)
+every step runs per rank through ``Engine``'s mesh path: the draft's
+steps through ``Engine._step`` (``models/batched.decode_step``), the
+verify through ``Engine._verify`` (``spec_decode_step``: K2s and
+``spec_write`` on the rank's heads).  The logits are gathered over the
+whole vocabulary and every rank seeds the same generator, so every rank
+drafts, accepts and samples the same tokens, as the JAX engine's one
+program does on its mesh.
 """
 from __future__ import annotations
 
@@ -48,6 +57,7 @@ import torch
 
 from fastllama_tpu_torch.loaders.tokenizer import StreamDecoder
 from fastllama_tpu_torch.ops import sampling
+from fastllama_tpu_torch.runtime.batching import to_host
 from fastllama_tpu_torch.runtime.engine import Engine, GenerationStats
 from fastllama_tpu_torch.runtime.spec_batching import (_accepted,
                                                        ngram_draft_batched)
@@ -145,16 +155,18 @@ class SpeculativeEngine:
                  width: int = 8, ngram: int = 3, rounds_per_call: int = 8):
         if width < 2:
             raise ValueError("speculation needs width >= 2")
-        if engine._spmd or (draft is not None and draft._spmd):
-            raise NotImplementedError(
-                "single-stream speculation on a mesh of ranks is not "
-                "ported (the batched SpecBatchedEngine serves on one)")
         if draft is not None:
             if draft.config.vocab_size != engine.config.vocab_size:
                 raise ValueError("draft vocab must match the target's")
             if draft.device != engine.device:
                 raise ValueError(f"draft on {draft.device}, target on "
                                  f"{engine.device}")
+            # a one-rank mesh runs the one-card path: it pairs with none
+            meshes = [e.mesh.shape if e._spmd else None
+                      for e in (draft, engine)]
+            if meshes[0] != meshes[1]:
+                raise ValueError(f"draft on mesh {meshes[0]}, target on "
+                                 f"{meshes[1]}")
         self.engine = engine
         self.draft = draft
         self.width = width
@@ -170,8 +182,7 @@ class SpeculativeEngine:
         dr, D = self.draft, self.width
         tok, ys, qs = st.pending, [], []
         for k in range(D):
-            lg, _ = dr._forward(tok, None, st.dcache,
-                                positions=positions[k:k + 1])
+            lg = dr._step(tok, None, st.dcache, positions[k:k + 1])
             if noise is None:
                 tok = torch.argmax(lg, dim=-1)
             else:
@@ -208,7 +219,7 @@ class SpeculativeEngine:
                                      D)[0]
             q_rows = None
         batch = torch.cat([st.pending, ys[:D - 1]])
-        lg, _ = eng._forward(batch, None, st.tcache, positions=positions)
+        lg = eng._verify(batch, positions, st.tcache)
         if sampled:
             if q_rows is None:                  # n-gram: q is one-hot
                 q_rows = torch.zeros((D, V), dtype=torch.float32, device=dev
@@ -343,7 +354,7 @@ class SpeculativeEngine:
                 return False
             rows = self._chunk(st, min(R, r_fit, r_need), sampled,
                                temperature, topp, gen)
-            inflight.append(eng._to_host(rows))
+            inflight.append(to_host(rows))
             return True
 
         def consume() -> None:
@@ -379,8 +390,8 @@ class SpeculativeEngine:
         tok = None if stop else int(st.pending)
         while tok is not None and len(out) < max_new_tokens \
                 and pos_lb < cfg.max_seq_len:
-            lg, _ = eng._forward(torch.tensor([tok], device=dev), pos_lb,
-                                 st.tcache)
+            lg = eng._step(torch.tensor([tok], device=dev), pos_lb,
+                           st.tcache)
             tok = int(sampling.sample(lg[0], gen, temperature, topp))
             pos_lb += 1
             if not emit(tok) or tok in stop_set:

@@ -136,18 +136,11 @@ def test_unported_options_raise(option, err):
             assert "devices, have 1" in str(e.value)
 
 
-def test_unported_entry_points_raise(monkeypatch):
-    """A mesh larger than the world raises before any file is read;
-    dispatch-ahead decode stays refused."""
-    params = tl.random_params_int(CFG, seed=0, device="cpu")
+def test_unported_entry_points_raise():
+    """The load entry points refuse a mesh larger than the world before
+    any file is read."""
     mesh = tcfg.EngineConfig(max_batch_size=2, mesh="model=2")
     with pytest.raises(ValueError, match="needs 2 devices, have 1"):
         BatchedEngine.load("ckpt", "tok", engine_config=mesh)
     with pytest.raises(ValueError, match="needs 2 devices, have 1"):
         SpecBatchedEngine.load_spec("ckpt", "tok", engine_config=mesh)
-    eng = BatchedEngine(CFG, params, Tokenizer().finalize(),
-                        tcfg.EngineConfig(max_batch_size=2), device="cpu")
-    eng.submit([5, 6], max_new_tokens=2)
-    monkeypatch.setenv("FASTLLAMA_PIPELINE", "1")
-    with pytest.raises(NotImplementedError):
-        eng.run()
